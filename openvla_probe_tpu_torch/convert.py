@@ -1,0 +1,228 @@
+"""The bridge for weights and configs between the JAX package and the port.
+
+* `vlm_param_spec(cfg)` is the port's parameter layout: the JAX package's
+  pytree layout (scan-stacked ``[L, ...]`` layer leaves, ``[O, K]`` weights),
+  each leaf with its shape, dtype and initial distribution.
+* `params_from_jax(tree, cfg)` takes the JAX package's parameter pytree as
+  numpy arrays and returns the port's parameters, raising on any leaf it does
+  not consume and on any leaf it is missing.
+* `init_params(cfg, generator, device)` makes random weights of the same
+  distributions as the JAX package's init functions, directly on the device.
+* `config_from_jax(cfg)` reads a JAX-package config object (its dataclass
+  fields, duck-typed) into the port's config class of the same name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .device import DeviceLike, resolve_device
+from .models import llama, vit, vla, vlm
+
+
+class Leaf(NamedTuple):
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    init: str             # normal | zeros | ones | const | uniform
+    arg: float = 0.0      # normal: std; const: value; uniform: bound
+
+
+# --- parameter layout ----------------------------------------------------------------
+
+def vit_param_spec(cfg: vit.ViTConfig) -> Dict[str, Any]:
+    D, F, L, P, dt = cfg.hidden_size, cfg.mlp_dim, cfg.num_layers, cfg.patch_size, cfg.dtype
+
+    def nrm(*shape):
+        return Leaf(shape, dt, "normal", 0.02)
+
+    n_pos = cfg.num_patches + (0 if (cfg.no_embed_class or not cfg.use_cls_token) else 1)
+    blocks = {
+        "norm1_scale": Leaf((L, D), dt, "ones"),
+        "norm1_bias": Leaf((L, D), dt, "zeros"),
+        "qkv_w": nrm(L, 3 * D, D),
+        "qkv_b": Leaf((L, 3 * D), dt, "zeros"),
+        "proj_w": nrm(L, D, D),
+        "proj_b": Leaf((L, D), dt, "zeros"),
+        "norm2_scale": Leaf((L, D), dt, "ones"),
+        "norm2_bias": Leaf((L, D), dt, "zeros"),
+        "fc1_w": nrm(L, F, D),
+        "fc1_b": Leaf((L, F), dt, "zeros"),
+        "fc2_w": nrm(L, D, F),
+        "fc2_b": Leaf((L, D), dt, "zeros"),
+    }
+    if cfg.use_layerscale:
+        blocks["ls1"] = Leaf((L, D), dt, "const", 1e-5)
+        blocks["ls2"] = Leaf((L, D), dt, "const", 1e-5)
+    spec: Dict[str, Any] = {
+        "patch_embed": {"weight": nrm(D, 3 * P * P)},
+        "pos_embed": nrm(1, n_pos, D),
+        "blocks": blocks,
+    }
+    if cfg.patch_bias:
+        spec["patch_embed"]["bias"] = Leaf((D,), dt, "zeros")
+    if cfg.use_cls_token:
+        spec["cls_token"] = nrm(1, 1, D)
+    if cfg.num_register_tokens:
+        spec["reg_token"] = nrm(1, cfg.num_register_tokens, D)
+    if cfg.pre_norm:
+        spec["norm_pre_scale"] = Leaf((D,), dt, "ones")
+        spec["norm_pre_bias"] = Leaf((D,), dt, "zeros")
+    return spec
+
+
+def projector_param_spec(arch: str, vision_dim: int, llm_dim: int, dtype: torch.dtype) -> Dict[str, Any]:
+    """torch nn.Linear default init: U(-1/sqrt(in), 1/sqrt(in)) for w and b."""
+
+    def lin(out_dim, in_dim):
+        bound = 1.0 / np.sqrt(in_dim)
+        return {"w": Leaf((out_dim, in_dim), dtype, "uniform", bound),
+                "b": Leaf((out_dim,), dtype, "uniform", bound)}
+
+    if arch == "linear":
+        return {"fc1": lin(llm_dim, vision_dim)}
+    if arch.endswith("fused-gelu-mlp"):
+        mid = vision_dim * 4
+        return {"fc1": lin(mid, vision_dim), "fc2": lin(llm_dim, mid), "fc3": lin(llm_dim, llm_dim)}
+    if arch.endswith("gelu-mlp"):
+        return {"fc1": lin(llm_dim, vision_dim), "fc2": lin(llm_dim, llm_dim)}
+    raise ValueError(f"Projector arch `{arch}` is not supported!")
+
+
+def llama_param_spec(cfg: llama.LlamaConfig) -> Dict[str, Any]:
+    D, F, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_hidden_layers
+    H, Hkv, Dh, dt = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim, cfg.dtype
+
+    def nrm(*shape):
+        return Leaf(shape, dt, "normal", 0.02)
+
+    return {
+        "embed_tokens": nrm(V, D),
+        "layers": {
+            "q_proj": nrm(L, H * Dh, D),
+            "k_proj": nrm(L, Hkv * Dh, D),
+            "v_proj": nrm(L, Hkv * Dh, D),
+            "o_proj": nrm(L, D, H * Dh),
+            "input_layernorm": Leaf((L, D), dt, "ones"),
+            "post_attention_layernorm": Leaf((L, D), dt, "ones"),
+            "gate_proj": nrm(L, F, D),
+            "up_proj": nrm(L, F, D),
+            "down_proj": nrm(L, D, F),
+        },
+        "norm": Leaf((D,), dt, "ones"),
+        "lm_head": nrm(V, D),
+    }
+
+
+def vlm_param_spec(cfg: vlm.VLMConfig) -> Dict[str, Any]:
+    return {
+        "vision": {name: vit_param_spec(v) for name, v in zip(cfg.vision_names, cfg.vision)},
+        "projector": projector_param_spec(cfg.projector_arch, cfg.vision_dim,
+                                          cfg.llm.hidden_size, cfg.llm.dtype),
+        "llm": llama_param_spec(cfg.llm),
+    }
+
+
+# --- JAX pytree (numpy) -> port --------------------------------------------------------
+
+def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    arr = np.array(arr, copy=True, order="C")   # own, writable host copy
+    if arr.dtype.name == "bfloat16":   # ml_dtypes bfloat16: reinterpret the bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def _convert(tree: Any, spec: Any, path: str, device: torch.device) -> Any:
+    if isinstance(spec, Leaf):
+        if isinstance(tree, dict):
+            raise NotImplementedError(
+                f"{path}: a {sorted(tree)} leaf (quantized or LoRA-wrapped weight) is not "
+                "ported yet: ROADMAP Queue 1 items 6, 7, 10 and 13")
+        arr = np.asarray(tree)
+        if tuple(arr.shape) != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {arr.shape}, expected {spec.shape}")
+        return _to_tensor(arr, device)
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: expected a subtree with keys {sorted(spec)}, got {type(tree)}")
+    missing = sorted(set(spec) - set(tree))
+    extra = sorted(set(tree) - set(spec))
+    if missing:
+        raise KeyError(f"{path or '<root>'}: missing leaves {missing}")
+    if extra:
+        raise KeyError(f"{path or '<root>'}: leaves the port does not consume {extra}")
+    return {k: _convert(tree[k], spec[k], f"{path}/{k}", device) for k in spec}
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: vlm.VLMConfig,
+                    device: DeviceLike = "cuda") -> Dict[str, Any]:
+    """The JAX package's VLM parameter pytree (numpy leaves, scan-stacked
+    layers) -> the port's parameters on `device`, dtypes kept."""
+    return _convert(tree, vlm_param_spec(cfg), "", resolve_device(device))
+
+
+# --- random init on the device ---------------------------------------------------------
+
+def _init_leaf(leaf: Leaf, generator: torch.Generator, device: torch.device,
+               dtype: Optional[torch.dtype]) -> torch.Tensor:
+    dt = dtype or leaf.dtype
+    if leaf.init == "normal":
+        x = torch.randn(leaf.shape, generator=generator, device=device, dtype=torch.float32)
+        return (x * leaf.arg).to(dt)
+    if leaf.init == "uniform":
+        x = torch.rand(leaf.shape, generator=generator, device=device, dtype=torch.float32)
+        return (x * (2 * leaf.arg) - leaf.arg).to(dt)
+    fill = {"zeros": 0.0, "ones": 1.0, "const": leaf.arg}[leaf.init]
+    return torch.full(leaf.shape, fill, dtype=dt, device=device)
+
+
+def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLike = "cuda",
+                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Random VLM weights made on `device` (normal(0.02) weights, zero biases,
+    unit norms, 1e-5 LayerScale, nn.Linear-uniform projector), in each
+    module's config dtype unless `dtype` is given. `generator` must live on
+    `device`."""
+    dev = resolve_device(device)
+
+    def walk(spec):
+        if isinstance(spec, Leaf):
+            return _init_leaf(spec, generator, dev, dtype)
+        return {k: walk(v) for k, v in spec.items()}
+
+    return walk(vlm_param_spec(cfg))
+
+
+# --- configs ------------------------------------------------------------------------------
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.name in override:
+            out[f.name] = override[f.name]
+        elif f.name == "dtype":
+            out[f.name] = _DTYPES[np.dtype(getattr(obj, f.name)).name]
+        else:
+            out[f.name] = getattr(obj, f.name)
+    return out
+
+
+def config_from_jax(cfg: Any) -> Any:
+    """A JAX-package VLMConfig / VLAServingConfig -> the port's. Raises on the
+    turbo numerics (bf16 scores or RoPE), which the port does not run."""
+    if hasattr(cfg, "vlm"):   # VLAServingConfig
+        return vla.VLAServingConfig(**_fields(cfg, vla.VLAServingConfig, vlm=config_from_jax(cfg.vlm)))
+    for sub in (cfg.llm, *cfg.vision):
+        for knob in ("attn_scores_dtype", "rope_dtype"):
+            if hasattr(sub, knob) and np.dtype(getattr(sub, knob)).name != "float32":
+                raise NotImplementedError(f"{knob}={getattr(sub, knob)}: only the parity "
+                                          "numerics (fp32) are ported")
+    if getattr(cfg.llm, "moe_experts", 0):
+        raise NotImplementedError("MoE trunks are not ported yet: ROADMAP Queue 1 item 15")
+    llm = llama.LlamaConfig(**_fields(cfg.llm, llama.LlamaConfig))
+    vision = tuple(vit.ViTConfig(**_fields(v, vit.ViTConfig)) for v in cfg.vision)
+    return vlm.VLMConfig(**_fields(cfg, vlm.VLMConfig, llm=llm, vision=vision))

@@ -1,0 +1,163 @@
+"""OpenVLA serving path: preprocess -> prefill -> greedy decode -> action
+(counterpart of ``openvla_probe_tpu/models/vla.py``).
+
+    pixels -> dual ViT -> projector -> [BOS | patches | prompt] prefill into a
+    stacked KV cache -> greedy decode of `action_dim` tokens -> 256-bin
+    de-tokenize -> q01/q99 un-normalize
+
+Prompts are right-padded to `prompt_pad_len`. Decoded tokens are written at
+cache slots after the pad region (slot0 + t) with their true RoPE positions
+(mm_len + t), and pad slots are masked out of attention, so results do not
+depend on the pad length. Argmax runs over the full LLM vocab at every step.
+
+Only the parity tier is ported: bf16 weights, fp32 softmax and RoPE, the
+stacked-cache decode. Other tiers and options raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..ops.image import ImageTransformConfig, apply_image_transform
+from ..ops.linear import matmul_t
+from ..vla.action_tokenizer import ActionCodec
+from . import llama, vlm
+
+Params = Dict[str, Any]
+
+EMPTY_TOKEN_ID = 29871  # Llama sentencepiece "▁"; the reference's forced prompt suffix
+
+
+@dataclasses.dataclass(frozen=True)
+class VLAServingConfig:
+    """Serving configuration. Only tier="parity" with the stacked-cache decode
+    (no split prefill, no flat cache) is ported; every other value raises."""
+
+    vlm: vlm.VLMConfig
+    action_dim: int = 7
+    prompt_pad_len: int = 48
+    codec_vocab_size: int = 32000  # text vocab minus the 64-row pad round-up
+    tier: str = "parity"
+    decode_impl: str = "stacked"
+    split_prefill: bool = False
+    flat_cache: bool = False
+
+    def __post_init__(self):
+        if (self.tier, self.decode_impl, self.split_prefill, self.flat_cache) != (
+                "parity", "stacked", False, False):
+            raise NotImplementedError(
+                "only tier='parity' with decode_impl='stacked' (split_prefill=False, "
+                "flat_cache=False) is ported; the turbo/int8, nibble and frozen-KV tiers "
+                "are ROADMAP Queue 1 items 6, 7 and 10")
+
+    @property
+    def prefill_len(self) -> int:
+        return 1 + self.vlm.num_patches + self.prompt_pad_len - 1  # BOS + patches + prompt[1:]
+
+    @property
+    def cache_len(self) -> int:
+        return self.prefill_len + self.action_dim
+
+
+@torch.no_grad()
+def predict_action_core(
+    params: Params,
+    cfg: VLAServingConfig,
+    pixel_values,                 # [B, 3K, S, S] preprocessed
+    input_ids,                    # [B, P] right-padded, starts with BOS, ends (at prompt_len-1) with 29871
+    prompt_len,                   # [B] true prompt lengths (incl. BOS and 29871)
+    q01,                          # [B, A] or [A]
+    q99,
+    action_mask,                  # [B, A] or [A] bool; False dims pass through
+    return_first_logits: bool = False,
+    device: DeviceLike = "cuda",
+) -> Dict[str, torch.Tensor]:
+    dev = resolve_device(device)
+    c = cfg.vlm
+    pixel_values = torch.as_tensor(pixel_values, device=dev)
+    input_ids = torch.as_tensor(input_ids, device=dev).long()
+    prompt_len = torch.as_tensor(prompt_len, device=dev).long()
+    B, P = input_ids.shape
+    N = c.num_patches
+    A = cfg.action_dim
+    codec = ActionCodec(vocab_size=cfg.codec_vocab_size)
+
+    # --- multimodal prefill into the stacked S-slot cache -------------------------
+    prompt_mask = (torch.arange(P, device=dev)[None, :] < prompt_len[:, None]).int()
+    mm = vlm.build_multimodal_inputs(params, c, input_ids, prompt_mask, pixel_values)
+    embeds, mm_mask = mm["inputs_embeds"], mm["attn_mask"]
+    T = embeds.shape[1]
+    mm_len = 1 + N + (prompt_len - 1)                                  # [B] true length
+    positions = torch.arange(T, device=dev).expand(B, T)
+
+    S = cfg.cache_len
+    cache = llama.KVCache.zeros(c.llm, B, S, dtype=c.llm.dtype, device=dev)
+    attn_mask_S = torch.nn.functional.pad(mm_mask, (0, S - T))
+    out = llama.forward(
+        params["llm"], c.llm, embeds, attn_mask_S, positions,
+        cache=cache, cache_index=0, compute_logits=False,
+        static_zero_offset=True,   # prefill: the flash kernel may engage
+    )
+
+    # hidden state at the last REAL token -> lm_head -> first generated token
+    last_hidden = out["last_hidden_state"][torch.arange(B, device=dev), mm_len - 1]
+    last_logits = matmul_t(last_hidden, params["llm"]["lm_head"]).float()
+    first_tok = last_logits.argmax(-1)
+    margins = [llama.top2_margin(last_logits, first_tok)]
+
+    # --- greedy decode of the remaining A-1 tokens ---------------------------------
+    slot0 = T
+    slots = torch.arange(S, device=dev)[None, :]
+    toks = [first_tok]
+    tok = first_tok
+    for t in range(A - 1):
+        e = llama.embed_tokens(params["llm"], tok[:, None])            # [B, 1, D]
+        pos = (mm_len + t)[:, None]                                     # true RoPE position
+        valid = (slots < mm_len[:, None]) | ((slots >= slot0) & (slots <= slot0 + t))
+        step_out = llama.forward(params["llm"], c.llm, e, valid.int(), pos,
+                                 cache=cache, cache_index=slot0 + t)
+        lg = step_out["logits"][:, -1]
+        tok = lg.argmax(-1)
+        toks.append(tok)
+        margins.append(llama.top2_margin(lg, tok))
+    action_tokens = torch.stack(toks, dim=1).int()                     # [B, A]
+
+    # --- de-tokenize + un-normalize --------------------------------------------------
+    norm_actions = codec.decode(action_tokens)
+    actions = codec.unnormalize(norm_actions, q01, q99, action_mask)
+    result = {
+        "actions": actions,
+        "action_tokens": action_tokens,
+        "normalized_actions": norm_actions,
+        "logit_margins": torch.stack(margins, dim=1),   # top1 - top2 per token
+    }
+    if return_first_logits:
+        result["first_logits"] = last_logits
+    return result
+
+
+@torch.no_grad()
+def predict_action_from_image(
+    params: Params,
+    cfg: VLAServingConfig,
+    image_u8,                     # [B, H, W, 3] uint8
+    image_cfg: ImageTransformConfig,
+    input_ids,
+    prompt_len,
+    q01,
+    q99,
+    action_mask,
+    return_first_logits: bool = False,
+    device: DeviceLike = "cuda",
+) -> Dict[str, torch.Tensor]:
+    """Raw-uint8 entry: image transform, then `predict_action_core`, on `device`."""
+    dev = resolve_device(device)
+    pixels = apply_image_transform(torch.as_tensor(image_u8, device=dev), image_cfg)
+    return predict_action_core(
+        params, cfg, pixels.to(cfg.vlm.llm.dtype), input_ids, prompt_len, q01, q99,
+        action_mask, return_first_logits, device=dev,
+    )

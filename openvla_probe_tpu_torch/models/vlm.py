@@ -1,0 +1,88 @@
+"""Prismatic VLM: dual-ViT vision + projector + Llama (counterpart of ``openvla_probe_tpu/models/vlm.py``).
+
+Vision features are each backbone's second-to-last-block patch tokens,
+concatenated on the channel axis; projected patches are spliced in after the
+BOS token.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
+from . import llama, projector, vit
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class VLMConfig:
+    llm: llama.LlamaConfig
+    vision: Tuple[vit.ViTConfig, ...]
+    vision_names: Tuple[str, ...] = ("dino", "siglip")
+    arch_specifier: str = "no-align+fused-gelu-mlp"
+    feature_layer_index: int = -2
+
+    @property
+    def vision_dim(self) -> int:
+        return sum(v.hidden_size for v in self.vision)
+
+    @property
+    def num_patches(self) -> int:
+        return self.vision[0].num_patches
+
+    @property
+    def projector_arch(self) -> str:
+        return self.arch_specifier.split("+")[-1]
+
+    @staticmethod
+    def openvla_7b() -> "VLMConfig":
+        """prism-dinosiglip-224px+7b: DINOv2 ViT-L/14-reg + SigLIP so400m + Llama-2-7B."""
+        return VLMConfig(
+            llm=llama.LlamaConfig.llama2_7b(),
+            vision=(vit.ViTConfig.dinov2_vit_l(dtype=torch.bfloat16),
+                    vit.ViTConfig.siglip_so400m(dtype=torch.bfloat16)),
+        )
+
+    @staticmethod
+    def tiny(**kw) -> "VLMConfig":
+        d = dict(
+            llm=llama.LlamaConfig.tiny(),
+            vision=(vit.ViTConfig.tiny(num_register_tokens=2, no_embed_class=True, use_layerscale=True),
+                    vit.ViTConfig.tiny(use_cls_token=False, act="gelu_tanh")),
+        )
+        d.update(kw)
+        return VLMConfig(**d)
+
+
+def vision_features(params: Params, cfg: VLMConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+    """Channel-stacked [B, 3*K, S, S] -> concatenated patch features [B, N, sum(D_k)]."""
+    feats = []
+    for i, (name, vcfg) in enumerate(zip(cfg.vision_names, cfg.vision)):
+        px = pixel_values[:, 3 * i:3 * (i + 1)]
+        feats.append(vit.forward_features(params["vision"][name], vcfg, px, cfg.feature_layer_index))
+    return torch.cat(feats, dim=-1)
+
+
+def project_patches(params: Params, cfg: VLMConfig, patch_features: torch.Tensor) -> torch.Tensor:
+    return projector.forward(params["projector"], cfg.projector_arch, patch_features)
+
+
+def build_multimodal_inputs(
+    params: Params,
+    cfg: VLMConfig,
+    input_ids: torch.Tensor,        # [B, T]
+    attn_mask: torch.Tensor,        # [B, T]
+    pixel_values: torch.Tensor,     # [B, 3K, S, S]
+) -> Dict[str, torch.Tensor]:
+    """Splice projected patches after BOS: [BOS | patches | rest]."""
+    patches = project_patches(params, cfg, vision_features(params, cfg, pixel_values))
+    patches = patches.to(cfg.llm.dtype)
+    embeds = llama.embed_tokens(params["llm"], input_ids)   # Llama trunk only (no Phi)
+    B, N = patches.shape[:2]
+    mm_embeds = torch.cat([embeds[:, :1], patches, embeds[:, 1:]], dim=1)
+    patch_valid = torch.ones((B, N), dtype=attn_mask.dtype, device=attn_mask.device)
+    mm_mask = torch.cat([attn_mask[:, :1], patch_valid, attn_mask[:, 1:]], dim=1)
+    return {"inputs_embeds": mm_embeds, "attn_mask": mm_mask, "patches": patches}

@@ -1,0 +1,225 @@
+"""Attention for the Llama prefill, the ViT towers and the decode steps.
+
+Counterpart of ``openvla_probe_tpu/ops/attention.py`` (the two one-shot
+Pallas kernels) and of the XLA attention the JAX package decodes with
+(``models/llama.py::attention`` at Tq = 1). Each public function
+is a wrapper that launches a hand-written CUDA kernel (``csrc/*.cu``) for a
+CUDA tensor, and takes the plain PyTorch version beside it only for a tensor
+that lies on the CPU. There is no fallback on the card: a CUDA input the
+kernel does not take raises. Each wrapper counts its kernel launches in
+``KERNEL_LAUNCHES`` so a run can show that the main path went through them.
+
+Layouts are the JAX package's: q/k/v ``[B, T, H, Dh]`` (K/V heads already
+repeated), ``kv_valid`` ``[B, Tk]`` with 1 = attend.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from . import _build
+
+NEG_INF = -2.3819763e38
+ONESHOT_MAX_TK = 1024   # the one-shot kernel holds whole fp32 score rows (<= 128 KB / 32 rows)
+MAX_HEAD_DIM = 128
+
+KERNEL_LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "vit_attention": 0, "decode_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+
+
+def _scale(dh: int) -> float:
+    # the JAX kernels multiply by the float32 rounding of 1/sqrt(Dh)
+    return float(np.float32(1.0 / np.sqrt(dh)))
+
+
+# --- plain PyTorch versions ----------------------------------------------------
+
+
+def flash_attention_plain(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
+    """The one-shot prefill kernel's function in plain PyTorch.
+
+    s = (q . k in fp32) * scale; masked scores = NEG_INF; p = exp(s - m);
+    P cast to the input dtype for PV with fp32 accumulation;
+    out = pv / max(l, 1e-30). A row with every key masked has p = 1 on each
+    of the Tk keys, so its output is the mean of V."""
+    B, Tq, H, Dh = q.shape
+    Tk = k.shape[1]
+    qh = q.permute(0, 2, 1, 3).float()
+    kh = k.permute(0, 2, 1, 3).float()
+    vh = v.permute(0, 2, 1, 3).float()
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * _scale(Dh)          # [B, H, Tq, Tk]
+    ok = (kv_valid > 0)[:, None, None, :]
+    if causal:
+        qi = torch.arange(Tq, device=q.device)[:, None] + offset
+        ki = torch.arange(Tk, device=q.device)[None, :]
+        ok = ok & (ki <= qi)
+    s = s.masked_fill(~ok, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.matmul(p.to(v.dtype).float(), vh)
+    out = (pv / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out.permute(0, 2, 1, 3)
+
+
+def vit_flash_attention_plain(q, k, v):
+    """The ViT tower kernel's function in plain PyTorch: q upcast and scaled
+    before an fp32 dot, fp32 P, fp32 PV, cast to the input dtype."""
+    Dh = q.shape[-1]
+    qh = q.permute(0, 2, 1, 3).float() * _scale(Dh)
+    kh = k.permute(0, 2, 1, 3).float()
+    vh = v.permute(0, 2, 1, 3).float()
+    s = torch.matmul(qh, kh.transpose(-1, -2))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (torch.matmul(p, vh) / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out.permute(0, 2, 1, 3)
+
+
+def attention_plain(q, k, v, mask):
+    """Masked softmax(q kᵀ) v, the JAX package's XLA branch: fp32 scores plus
+    the additive fp32 mask [B, 1, Tq, Tk], fp32 softmax, probs cast to the
+    input dtype, PV with fp32 accumulation."""
+    scale = _scale(q.shape[-1])
+    scores = torch.matmul(q.permute(0, 2, 1, 3).float(), k.permute(0, 2, 3, 1).float())
+    scores = scores * scale + mask
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.matmul(probs.float(), v.permute(0, 2, 1, 3).float())   # [B, H, Tq, Dh]
+    return out.to(q.dtype).permute(0, 2, 1, 3)
+
+
+def decode_attention_plain(q, k, v, kv_valid, offset: int):
+    """`attention_plain` for one query at absolute position `offset`: keys c
+    with kv_valid[b, c] > 0 and c <= offset are attended."""
+    ok = (kv_valid > 0) & (torch.arange(k.shape[1], device=k.device) <= offset)[None]
+    zero = torch.zeros((), dtype=torch.float32, device=k.device)
+    return attention_plain(q, k, v, torch.where(ok, zero, NEG_INF)[:, None, None, :])
+
+
+# --- kernel wrappers -------------------------------------------------------------
+
+
+def _check_head_slab(name: str, t: torch.Tensor, shape) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if t.stride(-1) != 1 or t.stride(-2) != t.shape[-1]:
+        raise ValueError(f"{name}: the [H, Dh] slab of each token must be contiguous "
+                         f"(strides {t.stride()})")
+
+
+def _check_cuda_inputs(kernel: str, q, k, v) -> None:
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError(f"{kernel}: q/k/v on different devices")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{kernel}: q/k/v dtypes differ ({q.dtype}, {t.dtype})")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{kernel}: the CUDA kernel takes bf16 or fp32, got {q.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"{kernel}: head dim {q.shape[-1]} > {MAX_HEAD_DIM}")
+
+
+def _stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def flash_attention(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
+    """Causal + key-validity masked softmax(q kᵀ / sqrt(Dh)) v, one-shot path.
+
+    q [B, Tq, H, Dh]; k/v [B, Tk, H, Dh]; kv_valid [B, Tk]. Returns
+    [B, Tq, H, Dh] in q's dtype. Tk > 1024 needs the blockwise kernel, which
+    is not ported yet (ROADMAP Queue 2, row 2), and raises."""
+    B, Tq, H, Dh = q.shape
+    Tk = k.shape[1]
+    if Tk > ONESHOT_MAX_TK:
+        raise NotImplementedError(
+            f"flash_attention with Tk={Tk} > {ONESHOT_MAX_TK} needs the blockwise "
+            "kernel (_flash_kernel), ROADMAP Queue 2 row 2: not ported yet")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_valid, offset, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_cuda_inputs("flash_prefill", q, k, v)
+    _check_head_slab("q", q, (B, Tq, H, Dh))
+    _check_head_slab("k", k, (B, Tk, H, Dh))
+    _check_head_slab("v", v, (B, Tk, H, Dh))
+    if tuple(kv_valid.shape) != (B, Tk) or kv_valid.device != q.device:
+        raise ValueError(f"kv_valid must be [{B}, {Tk}] on {q.device}, "
+                         f"got {tuple(kv_valid.shape)} on {kv_valid.device}")
+    valid = kv_valid.to(torch.int32).contiguous()
+    out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
+    err = _build.launcher("flash_prefill")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
+        B, H, Tq, Tk, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), _scale(Dh), int(offset), int(bool(causal)),
+        int(q.dtype == torch.bfloat16), _stream_ptr(q.device))
+    _build.check(err, "flash_prefill")
+    KERNEL_LAUNCHES["flash_prefill"] += 1
+    return out
+
+
+def vit_flash_attention(q, k, v):
+    """Full (unmasked) bidirectional attention for the ViT towers.
+
+    q/k/v [B, N, H, Dh] (each token's [H, Dh] slab contiguous; batch and token
+    strides free, so slices of one fused qkv product are read in place).
+    Returns [B, N, H, Dh] in q's dtype."""
+    B, N, H, Dh = q.shape
+    if N > ONESHOT_MAX_TK:
+        raise NotImplementedError(f"vit_flash_attention with N={N} > {ONESHOT_MAX_TK}")
+    if q.device.type == "cpu":
+        return vit_flash_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"vit_flash_attention: unsupported device {q.device}")
+    _check_cuda_inputs("vit_attention", q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_head_slab(name, t, (B, N, H, Dh))
+    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
+    err = _build.launcher("vit_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, N, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), _scale(Dh), int(q.dtype == torch.bfloat16),
+        _stream_ptr(q.device))
+    _build.check(err, "vit_attention")
+    KERNEL_LAUNCHES["vit_attention"] += 1
+    return out
+
+
+def decode_attention(q, k, v, kv_valid, offset: int):
+    """One decode query per (batch, head) over the stacked cache.
+
+    q [B, 1, H, Dh]; k/v [B, S, H, Dh] (one layer of the cache, heads already
+    repeated); kv_valid [B, S]; the query sits at position `offset`. Returns
+    [B, 1, H, Dh] in q's dtype, the function of `decode_attention_plain`."""
+    B, Tq, H, Dh = q.shape
+    S = k.shape[1]
+    if Tq != 1:
+        raise ValueError(f"decode_attention takes one query per row, got Tq={Tq}")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k, v, kv_valid, offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    _check_cuda_inputs("decode_attention", q, k, v)
+    _check_head_slab("q", q, (B, 1, H, Dh))
+    _check_head_slab("k", k, (B, S, H, Dh))
+    _check_head_slab("v", v, (B, S, H, Dh))
+    if tuple(kv_valid.shape) != (B, S) or kv_valid.device != q.device:
+        raise ValueError(f"kv_valid must be [{B}, {S}] on {q.device}, "
+                         f"got {tuple(kv_valid.shape)} on {kv_valid.device}")
+    valid = kv_valid.to(torch.int32).contiguous()
+    out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
+    err = _build.launcher("decode_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
+        B, H, S, Dh, q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        _scale(Dh), int(offset), int(q.dtype == torch.bfloat16), _stream_ptr(q.device))
+    _build.check(err, "decode_attention")
+    KERNEL_LAUNCHES["decode_attention"] += 1
+    return out

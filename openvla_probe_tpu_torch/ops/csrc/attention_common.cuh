@@ -1,0 +1,255 @@
+// One-shot row-softmax attention shared by the prefill and ViT-tower kernels.
+//
+// One CTA owns (batch b, head h, a block of kBlockQ query rows) and keeps the
+// WHOLE fp32 score row of each of its queries in shared memory (Tk <= 1024),
+// exactly as the TPU's one-shot kernels keep the whole score tile in VMEM:
+//
+//   phase 1  s[r][c] = q_r . k_c in fp32 over staged K tiles, then the scale
+//            and the mask (masked scores become the finite NEG_INF)
+//   phase 2  per row: m = max s, p = expf(s - m), l = sum p (fp32 p); the
+//            row is overwritten with p as the PV operand
+//   phase 3  o[r] = sum_c p[r][c] * v_c in fp32 over staged V tiles,
+//            out = o / max(l, 1e-30) cast to the input type
+//
+// No online rescaling: the numerics are the one-shot kernel's, only the
+// order of the fp32 sums differs. Products are scalar fp32 FMAs (bf16 inputs
+// are upcast exactly, so a bf16 x bf16 product is exact in fp32, as on the
+// MXU); the ViT kernel's dot is full fp32 by definition, so neither kernel may
+// use TF32 tensor cores. Making these tensor-core kernels (mma.sync / wgmma
+// with TMA-fed K/V rings) is later work; the layout below is what a first,
+// simple kernel needs to be right on every shape the path gives it:
+//
+//   * inputs are [B, T, H, Dh] with arbitrary batch/token strides and a
+//     contiguous head slab (stride Dh for heads, 1 for Dh), so the ViT's
+//     q/k/v slices of one [B*N, 3D] qkv product are read in place;
+//   * K/V tiles are staged with a row pitch of Dh + 4 floats, which makes the
+//     phase-1 float4 column reads conflict-free for Dh = 64, 72 and 128;
+//   * the head dims of the path (64, 72, 128) are compile-time constants
+//     (no runtime division in the staging loops, float4 shared-memory reads
+//     in the score loop); any other Dh <= 128 takes the runtime-Dh instance;
+//   * Dh <= 128 (phase 3 keeps 4 x 4 fp32 accumulators per thread).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ovla {
+
+constexpr float kNegInf = -2.3819763e38f;  // XLA's finite mask value
+constexpr int kBlockQ = 32;                // query rows per CTA
+constexpr int kBlockK = 64;                // keys per staged K/V tile
+constexpr int kThreads = 256;
+constexpr int kMaxDh = 128;
+constexpr int kMaxTk = 1024;
+constexpr int kPitchPad = 4;               // K/V tile row pitch = Dh + 4 floats
+
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;                 // contiguous [B, Tq, H, Dh]
+  const int32_t* kv_valid; // [B, Tk] (1 = attend) or nullptr
+  int B, H, Tq, Tk, Dh;
+  long long q_sb, q_st, k_sb, k_st, v_sb, v_st;  // element strides: batch, token
+  float scale;
+  int offset;              // absolute position of query 0 (causal rule)
+  int causal;
+};
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+}
+
+__host__ __device__ inline size_t attention_smem_bytes(int Tk, int Dh) {
+  return sizeof(float) *
+         (size_t(kBlockQ) * Dh + size_t(kBlockQ) * Tk + size_t(kBlockK) * (Dh + kPitchPad) +
+          kBlockQ);
+}
+
+// Stage rows [k0, k0 + kBlockK) of one head of K or V as fp32, zero past Tk.
+template <typename T>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src, long long st, int k0,
+                                           int Tk, int Dh) {
+  for (int i = threadIdx.x; i < kBlockK * Dh; i += kThreads) {
+    const int r = i / Dh, d = i - r * Dh, t = k0 + r;
+    dst[r * (Dh + kPitchPad) + d] = t < Tk ? to_f32(src[t * st + d]) : 0.f;
+  }
+}
+
+// kScaleQFirst: q is scaled in fp32 before the dot (ViT kernel); otherwise the
+// fp32 dot is scaled (prefill kernel). kRoundP: P is rounded to the input type
+// before PV (prefill kernel: bf16 P, fp32 accumulation). kDh: the head dim
+// as a compile-time constant, or 0 to read it from the arguments.
+template <typename T, bool kScaleQFirst, bool kRoundP, int kDh>
+__global__ void __launch_bounds__(kThreads) attention_rows_kernel(AttnArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int Tk = a.Tk, Dh = kDh > 0 ? kDh : a.Dh, KP = Dh + kPitchPad;
+  float* q_s = smem;                       // [kBlockQ][Dh]
+  float* s_s = q_s + kBlockQ * Dh;         // [kBlockQ][Tk]: scores, then P
+  float* kv_s = s_s + kBlockQ * Tk;        // [kBlockK][KP]
+  float* l_s = kv_s + kBlockK * KP;        // [kBlockQ]
+
+  const int q0 = blockIdx.x * kBlockQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * Dh;
+  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + h * Dh;
+  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + h * Dh;
+  const int32_t* valid = a.kv_valid ? a.kv_valid + (long long)b * Tk : nullptr;
+
+  for (int i = tid; i < kBlockQ * Dh; i += kThreads) {
+    const int r = i / Dh, d = i - r * Dh, t = q0 + r;
+    float x = t < a.Tq ? to_f32(Q[t * a.q_st + d]) : 0.f;
+    if (kScaleQFirst) x *= a.scale;
+    q_s[i] = x;
+  }
+
+  // phase 1: thread (ty, tx) owns rows {ty, ty + 16} x keys {tx + 16 j}
+  {
+    const int ty = tid / 16, tx = tid % 16;
+    for (int k0 = 0; k0 < Tk; k0 += kBlockK) {
+      __syncthreads();  // q_s written / previous tile consumed
+      stage_tile(kv_s, K, a.k_st, k0, Tk, Dh);
+      __syncthreads();
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const float* qa = q_s + ty * Dh;
+      const float* qb = q_s + (ty + 16) * Dh;
+      if constexpr (kDh > 0 && kDh % 4 == 0) {
+#pragma unroll 2
+        for (int d = 0; d < kDh; d += 4) {
+          const float4 xa = *reinterpret_cast<const float4*>(qa + d);
+          const float4 xb = *reinterpret_cast<const float4*>(qb + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 kk = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * j) * KP + d);
+            acc[0][j] += xa.x * kk.x;
+            acc[0][j] += xa.y * kk.y;
+            acc[0][j] += xa.z * kk.z;
+            acc[0][j] += xa.w * kk.w;
+            acc[1][j] += xb.x * kk.x;
+            acc[1][j] += xb.y * kk.y;
+            acc[1][j] += xb.z * kk.z;
+            acc[1][j] += xb.w * kk.w;
+          }
+        }
+      } else {
+        for (int d = 0; d < Dh; ++d) {
+          const float xa = qa[d], xb = qb[d];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float kk = kv_s[(tx + 16 * j) * KP + d];
+            acc[0][j] += xa * kk;
+            acc[1][j] += xb * kk;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = k0 + tx + 16 * j;
+          if (c < Tk) {
+            const float s = kScaleQFirst ? acc[i][j] : acc[i][j] * a.scale;
+            bool ok = valid ? valid[c] > 0 : true;
+            if (a.causal) ok = ok && (c <= q0 + r + a.offset);
+            s_s[r * Tk + c] = ok ? s : kNegInf;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 2: one warp per row; a fully masked row has m = NEG_INF and
+  // p = exp(0) = 1 on every key, so its output is the mean of V
+  {
+    const int warp = tid / 32, lane = tid % 32;
+    for (int r = warp; r < kBlockQ; r += kThreads / 32) {
+      float* row = s_s + r * Tk;
+      float m = kNegInf;
+      for (int c = lane; c < Tk; c += 32) m = fmaxf(m, row[c]);
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, w));
+      float l = 0.f;
+      for (int c = lane; c < Tk; c += 32) {
+        const float p = expf(row[c] - m);
+        l += p;
+        row[c] = kRoundP ? to_f32(from_f32<T>(p)) : p;
+      }
+#pragma unroll
+      for (int w = 16; w > 0; w >>= 1) l += __shfl_xor_sync(0xffffffffu, l, w);
+      if (lane == 0) l_s[r] = l;
+    }
+  }
+
+  // phase 3: thread (py, px) owns rows {py + 8 i} x columns {px + 32 j}
+  const int py = tid / 32, px = tid % 32;
+  float o[4][4] = {};
+  for (int k0 = 0; k0 < Tk; k0 += kBlockK) {
+    __syncthreads();  // P rows final / previous tile consumed
+    stage_tile(kv_s, V, a.v_st, k0, Tk, Dh);
+    __syncthreads();
+    const int kn = min(kBlockK, Tk - k0);
+    for (int kk = 0; kk < kn; ++kk) {
+      float vv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = px + 32 * j;
+        vv[j] = d < Dh ? kv_s[kk * KP + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = s_s[(py + 8 * i) * Tk + k0 + kk];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[i][j] += p * vv[j];
+      }
+    }
+  }
+
+  T* O = static_cast<T*>(a.o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = py + 8 * i, t = q0 + r;
+    if (t >= a.Tq) continue;
+    const float den = fmaxf(l_s[r], 1e-30f);
+    T* orow = O + ((long long)b * a.Tq + t) * a.H * Dh + h * Dh;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = px + 32 * j;
+      if (d < Dh) orow[d] = from_f32<T>(o[i][j] / den);
+    }
+  }
+}
+
+// Launch on `stream`; returns the launch's cudaError_t (0 on success).
+template <typename T, bool kScaleQFirst, bool kRoundP, int kDh = 0>
+int launch_attention_rows(const AttnArgs& a, cudaStream_t stream) {
+  if (a.Dh < 1 || a.Dh > kMaxDh || a.Tk < 1 || a.Tk > kMaxTk || a.Tq < 1 ||
+      (kDh > 0 && a.Dh != kDh))
+    return int(cudaErrorInvalidValue);
+  auto kernel = attention_rows_kernel<T, kScaleQFirst, kRoundP, kDh>;
+  const size_t smem = attention_smem_bytes(a.Tk, a.Dh);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.H, a.B);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+}  // namespace ovla

@@ -1,0 +1,144 @@
+// decode_attention: one query per (batch, head) over the stacked KV cache, for
+// the greedy decode steps.
+//
+// Replaces no Pallas kernel: on the parity tier the JAX package decodes with
+// XLA attention (openvla_probe_tpu/models/llama.py:225-229, reached with
+// Tq = 1). Semantics of that branch kept exactly:
+//   s_c = (q . k_c in fp32) * scale + mask_c, mask_c = 0 where kv_valid[b, c] > 0
+//   and c <= offset, else the finite NEG_INF; p = softmax(s) in fp32
+//   (exp(s - m) / l); p cast to the input type (bf16); out = sum_c p_c v_c in
+//   fp32, cast to the input type.
+//
+// Bound on the H100 at the OpenVLA-7B decode shape (B=24, q [24, 1, 32, 128],
+// k/v [24, 295, 32, 128] bf16): 116 MB of K/V per layer (35 us at 3.35 TB/s)
+// against 58 MFLOP, so it is bytes-bound. The plain PyTorch version upcasts
+// and re-lays out the whole cache in fp32 per layer and step (~5x the bytes).
+// Here one block of 128 threads per (b, h) reads each K row and each V row
+// once, coalesced (a warp per key for q . k, a thread per head dim for PV),
+// and keeps scores and probabilities in shared memory.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ovla {
+
+constexpr int kDecThreads = 128;
+constexpr int kDecMaxS = 4096;
+constexpr float kDecNegInf = -2.3819763e38f;
+
+__device__ __forceinline__ float dec_f32(float x) { return x; }
+__device__ __forceinline__ float dec_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T dec_cast(float x);
+template <>
+__device__ __forceinline__ float dec_cast<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 dec_cast<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+struct DecodeArgs {
+  const void* q;           // [B, 1, H, Dh]: batch stride q_sb, head slab contiguous
+  const void* k;           // [B, S, H, Dh]
+  const void* v;
+  void* o;                 // contiguous [B, 1, H, Dh]
+  const int32_t* kv_valid; // [B, S]
+  int B, H, S, Dh;
+  long long q_sb, k_sb, k_st, v_sb, v_st;
+  float scale;
+  int offset;              // absolute position of the query (causal rule)
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(DecodeArgs a) {
+  extern __shared__ float dsmem[];
+  const int S = a.S, Dh = a.Dh;
+  float* q_s = dsmem;        // [Dh]
+  float* p_s = q_s + Dh;     // [S]: scores, then probabilities
+  float* red = p_s + S;      // [kDecThreads / 32]
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int kWarps = kDecThreads / 32;
+  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * Dh;
+  const T* K = static_cast<const T*>(a.k) + b * a.k_sb + h * Dh;
+  const T* V = static_cast<const T*>(a.v) + b * a.v_sb + h * Dh;
+  const int32_t* valid = a.kv_valid + (long long)b * S;
+
+  for (int d = tid; d < Dh; d += kDecThreads) q_s[d] = dec_f32(Q[d]);
+  __syncthreads();
+
+  // scores: a warp per key, lanes across the head dim
+  for (int c = warp; c < S; c += kWarps) {
+    const T* krow = K + c * a.k_st;
+    float dot = 0.f;
+    for (int d = lane; d < Dh; d += 32) dot += q_s[d] * dec_f32(krow[d]);
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, w);
+    if (lane == 0) {
+      const bool ok = valid[c] > 0 && c <= a.offset;
+      p_s[c] = dot * a.scale + (ok ? 0.f : kDecNegInf);
+    }
+  }
+  __syncthreads();
+
+  // block max, then exp and block sum
+  float m = kDecNegInf;
+  for (int c = tid; c < S; c += kDecThreads) m = fmaxf(m, p_s[c]);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, w));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+  for (int i = 1; i < kWarps; ++i) m = fmaxf(m, red[i]);
+  __syncthreads();   // every thread has read red before it is reused
+  float l = 0.f;
+  for (int c = tid; c < S; c += kDecThreads) {
+    const float e = expf(p_s[c] - m);
+    p_s[c] = e;
+    l += e;
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) l += __shfl_xor_sync(0xffffffffu, l, w);
+  if (lane == 0) red[warp] = l;
+  __syncthreads();
+  l = 0.f;
+  for (int i = 0; i < kWarps; ++i) l += red[i];
+  for (int c = tid; c < S; c += kDecThreads) p_s[c] = dec_f32(dec_cast<T>(p_s[c] / l));
+  __syncthreads();
+
+  // PV: a thread per head-dim column, V rows read coalesced
+  T* O = static_cast<T*>(a.o) + ((long long)b * a.H + h) * Dh;
+  for (int d = tid; d < Dh; d += kDecThreads) {
+    float acc = 0.f;
+    for (int c = 0; c < S; ++c) acc += p_s[c] * dec_f32(V[c * a.v_st + d]);
+    O[d] = dec_cast<T>(acc);
+  }
+}
+
+template <typename T>
+int launch_decode_attention(const DecodeArgs& a, cudaStream_t stream) {
+  if (a.S < 1 || a.S > kDecMaxS || a.Dh < 1 || a.B < 1 || a.H < 1)
+    return int(cudaErrorInvalidValue);
+  auto kernel = decode_attention_kernel<T>;
+  const size_t smem = sizeof(float) * (a.Dh + a.S + kDecThreads / 32);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3(a.H, a.B), kDecThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+}  // namespace ovla
+
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int ovla_decode_attention(const void* q, const void* k, const void* v, void* o,
+                                     const int32_t* kv_valid, int B, int H, int S, int Dh,
+                                     long long q_sb, long long k_sb, long long k_st,
+                                     long long v_sb, long long v_st, float scale, int offset,
+                                     int is_bf16, void* stream) {
+  ovla::DecodeArgs a{q, k, v, o, kv_valid, B, H, S, Dh, q_sb, k_sb, k_st, v_sb, v_st,
+                     scale, offset};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? ovla::launch_decode_attention<__nv_bfloat16>(a, s)
+                 : ovla::launch_decode_attention<float>(a, s);
+}

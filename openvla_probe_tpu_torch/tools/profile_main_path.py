@@ -1,0 +1,142 @@
+"""Where the time of one OpenVLA-7B parity-tier call goes, on one CUDA card.
+
+    python -m openvla_probe_tpu_torch.tools.profile_main_path [--batch 24] [--calls 3]
+
+Drives the same call as chip_smoke.py (random bf16 weights from a seeded
+generator, 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
+
+  stages   device time of each stage of predict_action_from_image, each stage
+           run alone through the port's own functions (CUDA events, median)
+  kernels  torch.profiler device time per call, summed by kernel name and by
+           class (GEMM, the port's attention kernels, elementwise / other),
+           beside the host-clock time of the profiled calls; the difference
+           is the share of the call the device sits idle
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from .. import convert
+from ..models import llama, vit, vla, vlm
+from ..ops.image import ImageTransformConfig, apply_image_transform
+
+
+def _median_ms(fn, reps: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "ovla::" in n:
+        return "port attention kernels"
+    if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")):
+        return "GEMM (cuBLAS)"
+    return "elementwise / reduction / copy"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=24)
+    ap.add_argument("--calls", type=int, default=3)
+    args = ap.parse_args()
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    cfg = vla.VLAServingConfig(vlm=vlm.VLMConfig.openvla_7b(), prompt_pad_len=32)
+    c = cfg.vlm
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = convert.init_params(c, g, device=dev)
+    B, P = args.batch, cfg.prompt_pad_len
+    image = torch.randint(0, 256, (B, 256, 256, 3), generator=g, device=dev, dtype=torch.uint8)
+    ids = torch.randint(1000, 20000, (B, P), generator=g, device=dev)
+    ids[:, 0] = 1
+    ids[:, 25] = vla.EMPTY_TOKEN_ID
+    ids[:, 26:] = 0
+    plen = torch.full((B,), 26, device=dev)
+    q01, q99 = -torch.ones(7, device=dev), torch.ones(7, device=dev)
+    mask = torch.tensor([True] * 6 + [False], device=dev)
+    img_cfg = ImageTransformConfig.dinosiglip_224()
+
+    def call():
+        return vla.predict_action_from_image(params, cfg, image, img_cfg, ids, plen, q01, q99,
+                                             mask, device=dev)
+
+    # --- stages, each run alone on the port's functions --------------------------
+    pixels = apply_image_transform(image, img_cfg).to(c.llm.dtype)
+    feats = vlm.vision_features(params, c, pixels)
+    prompt_mask = (torch.arange(P, device=dev)[None] < plen[:, None]).int()
+    mm = vlm.build_multimodal_inputs(params, c, ids, prompt_mask, pixels)
+    T, S = mm["inputs_embeds"].shape[1], cfg.cache_len
+    mask_S = torch.nn.functional.pad(mm["attn_mask"], (0, S - T))
+    pos = torch.arange(T, device=dev).expand(B, T)
+    cache = llama.KVCache.zeros(c.llm, B, S, device=dev)
+    e = llama.embed_tokens(params["llm"], ids[:, :1])
+    step_valid = (torch.arange(S, device=dev)[None] <= T).int().expand(B, S)
+    step_pos = torch.full((B, 1), T, device=dev)
+    reps = max(3, args.calls)
+    with torch.no_grad():
+        stages = {
+            "image_transform": _median_ms(lambda: apply_image_transform(image, img_cfg), reps),
+            **{f"tower_{name}": _median_ms(lambda i=i, name=name: vit.forward_features(
+                params["vision"][name], c.vision[i], pixels[:, 3 * i:3 * i + 3]), reps)
+               for i, name in enumerate(c.vision_names)},
+            "projector": _median_ms(lambda: vlm.project_patches(params, c, feats), reps),
+            "llm_prefill": _median_ms(lambda: llama.forward(
+                params["llm"], c.llm, mm["inputs_embeds"], mask_S, pos, cache=cache,
+                cache_index=0, compute_logits=False, static_zero_offset=True), reps),
+            "llm_decode_step": _median_ms(lambda: llama.forward(
+                params["llm"], c.llm, e, step_valid, step_pos, cache=cache, cache_index=T), reps),
+            "whole_call": _median_ms(call, reps),
+        }
+    print(json.dumps({"card": card, "batch": B, "stages_ms": stages}), flush=True)
+
+    # --- device time by kernel over `calls` whole calls -----------------------------
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.calls):
+            call()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / args.calls
+    by_name, by_class = defaultdict(float), defaultdict(float)
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        # count device-side kernel rows only: aten:: rows repeat their kernels'
+        # time, and "Command Buffer Full" is a tracer marker, not a kernel
+        if (dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.key.startswith("aten::") or ev.key == "Command Buffer Full"):
+            continue
+        by_name[ev.key] += dev_us / 1e3 / args.calls
+        by_class[_kernel_class(ev.key)] += dev_us / 1e3 / args.calls
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
+    device_ms = sum(by_class.values())
+    print(json.dumps({"card": card, "batch": B, "device_ms_per_call_by_class": dict(by_class),
+                      "device_ms_per_call_total": device_ms,
+                      "host_ms_per_profiled_call": host_ms,
+                      "device_idle_share": 1.0 - device_ms / host_ms,
+                      "top_kernels_ms_per_call": [[k[:140], v] for k, v in top]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,153 @@
+"""The weight/config bridge and the port's package boundary.
+
+params_from_jax must consume exactly the JAX pytree (raising on a missing or
+an unconsumed leaf), init_params must make the JAX layout with the JAX init
+distributions, and the port must import neither JAX nor the JAX package."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openvla_probe_tpu.models import vla as jvla
+from openvla_probe_tpu.models import vlm as jvlm
+from openvla_probe_tpu_torch import convert
+from openvla_probe_tpu_torch.device import resolve_device
+from openvla_probe_tpu_torch.models import vlm as tvlm
+from openvla_probe_tpu_torch.ops.linear import matmul_t
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "openvla_probe_tpu", "transformers", "timm", "PIL", "flax")
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = jvlm.VLMConfig.tiny()
+    params = jax.tree.map(np.asarray, jvlm.init_params(cfg, jax.random.key(0)))
+    return cfg, convert.config_from_jax(cfg), params
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def test_params_from_jax_copies_every_leaf(tiny):
+    _, tcfg, params = tiny
+    got = _flat(convert.params_from_jax(params, tcfg, device="cpu"))
+    want = _flat(params)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
+
+
+def test_params_from_jax_keeps_bf16_bits():
+    cfg = jvlm.VLMConfig.tiny()
+    cfg = jvlm.VLMConfig(llm=jvlm.llama.LlamaConfig.tiny(dtype=jnp.bfloat16), vision=cfg.vision)
+    params = jax.tree.map(np.asarray, jvlm.init_params(cfg, jax.random.key(1)))
+    got = convert.params_from_jax(params, convert.config_from_jax(cfg), device="cpu")
+    w = got["llm"]["layers"]["q_proj"]
+    assert w.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        w.float().numpy(), np.asarray(params["llm"]["layers"]["q_proj"]).astype(np.float32))
+
+
+@pytest.mark.parametrize("edit,err", [
+    (lambda p: p["llm"]["layers"].pop("up_proj"), KeyError),            # missing leaf
+    (lambda p: p["llm"].update(extra=np.zeros(3)), KeyError),          # unconsumed leaf
+    (lambda p: p["vision"]["dino"]["patch_embed"].update(              # quantized leaf
+        weight={"q": np.zeros(1), "s": np.zeros(1)}), NotImplementedError),
+    (lambda p: p["llm"].update(norm=np.zeros(3, np.float32)), ValueError),  # wrong shape
+])
+def test_params_from_jax_rejects(tiny, edit, err):
+    _, tcfg, params = tiny
+    tree = jax.tree.map(lambda a: a, params)   # fresh dict structure
+    edit(tree)
+    with pytest.raises(err):
+        convert.params_from_jax(tree, tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["tiny", "openvla_7b"])
+def test_param_layout_matches_jax_init(name):
+    """The port's layout (shapes, dtypes) is the JAX init's, at full width too
+    (shapes only: nothing is materialized)."""
+    jcfg = getattr(jvlm.VLMConfig, name)()
+    shapes = _flat(jax.eval_shape(lambda k: jvlm.init_params(jcfg, k), jax.random.key(0)))
+    spec = _flat(convert.vlm_param_spec(convert.config_from_jax(jcfg)))
+    assert spec.keys() == shapes.keys()
+    for k, s in shapes.items():
+        assert spec[k].shape == tuple(s.shape), k
+        assert str(spec[k].dtype).removeprefix("torch.") == np.dtype(s.dtype).name, k
+
+
+def test_init_params_distributions(tiny):
+    _, tcfg, params = tiny
+    g = torch.Generator().manual_seed(0)
+    got = _flat(convert.init_params(tcfg, g, device="cpu"))
+    assert got.keys() == _flat(params).keys()
+    q = got["/llm/layers/q_proj"]
+    assert abs(q.std().item() - 0.02) < 2e-3 and abs(q.mean().item()) < 1e-3
+    assert torch.all(got["/vision/dino/blocks/ls1"] == 1e-5)
+    assert torch.all(got["/llm/layers/input_layernorm"] == 1)
+    assert torch.all(got["/vision/siglip/blocks/qkv_b"] == 0)
+    w = got["/projector/fc2/w"]                       # U(-1/sqrt(in), 1/sqrt(in))
+    bound = 1 / np.sqrt(w.shape[1])
+    assert w.abs().max().item() <= bound and w.abs().max().item() > 0.9 * bound
+
+
+def test_config_from_jax():
+    serving = jvla.VLAServingConfig(vlm=jvlm.VLMConfig.openvla_7b(), prompt_pad_len=32)
+    t = convert.config_from_jax(serving)
+    assert t.vlm == tvlm.VLMConfig.openvla_7b()
+    assert (t.prompt_pad_len, t.prefill_len, t.cache_len) == (32, 288, 295)
+    with pytest.raises(NotImplementedError):
+        convert.config_from_jax(jvlm.VLMConfig.openvla_7b().turbo())
+
+
+def test_matmul_t_float_only():
+    x, w = torch.randn(3, 4), torch.randn(5, 4)
+    torch.testing.assert_close(matmul_t(x, w), x @ w.T)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        matmul_t(x, {"q": w.to(torch.int8), "s": torch.ones(5)})
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        matmul_t(x, {"base": w, "A": w, "B": w})
+
+
+def test_resolve_device(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+
+
+def _port_sources():
+    return sorted((ROOT / "openvla_probe_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys; import openvla_probe_tpu_torch.models.vla, openvla_probe_tpu_torch.convert; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
