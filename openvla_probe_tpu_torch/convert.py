@@ -1,13 +1,19 @@
 """The bridge for weights and configs between the JAX package and the port.
 
-* `vlm_param_spec(cfg)` is the port's parameter layout: the JAX package's
-  pytree layout (scan-stacked ``[L, ...]`` layer leaves, ``[O, K]`` weights),
-  each leaf with its shape, dtype and initial distribution.
-* `params_from_jax(tree, cfg)` takes the JAX package's parameter pytree as
-  numpy arrays and returns the port's parameters, raising on any leaf it does
-  not consume and on any leaf it is missing.
-* `init_params(cfg, generator, device)` makes random weights of the same
-  distributions as the JAX package's init functions, directly on the device.
+* `vlm_param_spec(cfg, quant_suffixes)` is the port's parameter layout: the
+  JAX package's pytree layout (scan-stacked ``[L, ...]`` layer leaves,
+  ``[O, K]`` weights), each leaf with its shape, dtype and initial
+  distribution; the weights named in `quant_suffixes` are per-channel int8
+  leaves ``{"q": int8 [..., O, K], "s": f32 [..., O]}`` (the layout of the JAX
+  package's ``quantize_params(..., bits=8)``).
+* `params_from_jax(tree, cfg, quant_suffixes=...)` takes the JAX package's
+  parameter pytree as numpy arrays and returns the port's parameters, raising
+  on any leaf it does not consume and on any leaf it is missing.
+* `init_params(cfg, generator, device, quant_suffixes=...)` makes random
+  weights of the same distributions as the JAX package's init functions,
+  directly on the device; a quantized weight is made in its float dtype one
+  layer at a time and quantized with the port's `quantize_weight`, so the
+  float stack never exists whole.
 * `config_from_jax(cfg)` reads a JAX-package config object (its dataclass
   fields, duck-typed) into the port's config class of the same name.
 """
@@ -22,12 +28,13 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models import llama, vit, vla, vlm
+from .ops.linear import quantize_weight
 
 
 class Leaf(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
-    init: str             # normal | zeros | ones | const | uniform
+    init: str             # normal | zeros | ones | const | uniform | scale (int8 scales)
     arg: float = 0.0      # normal: std; const: value; uniform: bound
 
 
@@ -117,13 +124,31 @@ def llama_param_spec(cfg: llama.LlamaConfig) -> Dict[str, Any]:
     }
 
 
-def vlm_param_spec(cfg: vlm.VLMConfig) -> Dict[str, Any]:
-    return {
+def vlm_param_spec(cfg: vlm.VLMConfig, quant_suffixes: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    spec = {
         "vision": {name: vit_param_spec(v) for name, v in zip(cfg.vision_names, cfg.vision)},
         "projector": projector_param_spec(cfg.projector_arch, cfg.vision_dim,
                                           cfg.llm.hidden_size, cfg.llm.dtype),
         "llm": llama_param_spec(cfg.llm),
     }
+    return _quantized_spec(spec, quant_suffixes)
+
+
+def _quantized(name: str, leaf: Leaf, quant_suffixes: Tuple[str, ...]) -> bool:
+    return name in quant_suffixes and len(leaf.shape) >= 2
+
+
+def _quantized_spec(spec: Dict[str, Any], quant_suffixes: Tuple[str, ...]) -> Dict[str, Any]:
+    out = {}
+    for name, leaf in spec.items():
+        if isinstance(leaf, dict):
+            out[name] = _quantized_spec(leaf, quant_suffixes)
+        elif _quantized(name, leaf, quant_suffixes):
+            out[name] = {"q": Leaf(leaf.shape, torch.int8, leaf.init, leaf.arg),
+                         "s": Leaf(leaf.shape[:-1], torch.float32, "scale")}
+        else:
+            out[name] = leaf
+    return out
 
 
 # --- JAX pytree (numpy) -> port --------------------------------------------------------
@@ -139,11 +164,14 @@ def _convert(tree: Any, spec: Any, path: str, device: torch.device) -> Any:
     if isinstance(spec, Leaf):
         if isinstance(tree, dict):
             raise NotImplementedError(
-                f"{path}: a {sorted(tree)} leaf (quantized or LoRA-wrapped weight) is not "
-                "ported yet: ROADMAP Queue 1 items 6, 7, 10 and 13")
+                f"{path}: a {sorted(tree)} leaf where the layout has a float weight (name it "
+                "in quant_suffixes for a per-channel int8 leaf; grouped-int4, mix, nibble "
+                "and LoRA-wrapped leaves are not ported yet: ROADMAP Queue 1 items 7, 10, 13)")
         arr = np.asarray(tree)
         if tuple(arr.shape) != tuple(spec.shape):
             raise ValueError(f"{path}: shape {arr.shape}, expected {spec.shape}")
+        if (spec.dtype == torch.int8) != (arr.dtype == np.int8):
+            raise TypeError(f"{path}: dtype {arr.dtype}, expected {spec.dtype}")
         return _to_tensor(arr, device)
     if not isinstance(tree, dict):
         raise ValueError(f"{path}: expected a subtree with keys {sorted(spec)}, got {type(tree)}")
@@ -156,11 +184,12 @@ def _convert(tree: Any, spec: Any, path: str, device: torch.device) -> Any:
     return {k: _convert(tree[k], spec[k], f"{path}/{k}", device) for k in spec}
 
 
-def params_from_jax(tree: Dict[str, Any], cfg: vlm.VLMConfig,
-                    device: DeviceLike = "cuda") -> Dict[str, Any]:
+def params_from_jax(tree: Dict[str, Any], cfg: vlm.VLMConfig, device: DeviceLike = "cuda",
+                    quant_suffixes: Tuple[str, ...] = ()) -> Dict[str, Any]:
     """The JAX package's VLM parameter pytree (numpy leaves, scan-stacked
-    layers) -> the port's parameters on `device`, dtypes kept."""
-    return _convert(tree, vlm_param_spec(cfg), "", resolve_device(device))
+    layers; the weights named in `quant_suffixes` as its int8 {q, s} leaves)
+    -> the port's parameters on `device`, dtypes kept."""
+    return _convert(tree, vlm_param_spec(cfg, quant_suffixes), "", resolve_device(device))
 
 
 # --- random init on the device ---------------------------------------------------------
@@ -178,18 +207,39 @@ def _init_leaf(leaf: Leaf, generator: torch.Generator, device: torch.device,
     return torch.full(leaf.shape, fill, dtype=dt, device=device)
 
 
+def _init_quantized(leaf: Leaf, generator: torch.Generator, device: torch.device,
+                    dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
+    """Per-channel int8 {q, s} of a random float leaf, made and quantized one
+    [O, K] slice at a time (the peak is one float slice, not the stack)."""
+    *lead, O, K = leaf.shape
+    q = torch.empty(leaf.shape, dtype=torch.int8, device=device)
+    s = torch.empty((*lead, O), dtype=torch.float32, device=device)
+    for idx in np.ndindex(*lead):
+        w = quantize_weight(_init_leaf(leaf._replace(shape=(O, K)), generator, device, dtype))
+        q[idx], s[idx] = w["q"], w["s"]
+    return {"q": q, "s": s}
+
+
 def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLike = "cuda",
-                dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                dtype: Optional[torch.dtype] = None,
+                quant_suffixes: Tuple[str, ...] = ()) -> Dict[str, Any]:
     """Random VLM weights made on `device` (normal(0.02) weights, zero biases,
     unit norms, 1e-5 LayerScale, nn.Linear-uniform projector), in each
-    module's config dtype unless `dtype` is given. `generator` must live on
-    `device`."""
+    module's config dtype unless `dtype` is given; the weights named in
+    `quant_suffixes` are quantized to per-channel int8 from that float value.
+    `generator` must live on `device`."""
     dev = resolve_device(device)
 
     def walk(spec):
-        if isinstance(spec, Leaf):
-            return _init_leaf(spec, generator, dev, dtype)
-        return {k: walk(v) for k, v in spec.items()}
+        out = {}
+        for name, leaf in spec.items():
+            if isinstance(leaf, dict):
+                out[name] = walk(leaf)
+            elif _quantized(name, leaf, quant_suffixes):
+                out[name] = _init_quantized(leaf, generator, dev, dtype)
+            else:
+                out[name] = _init_leaf(leaf, generator, dev, dtype)
+        return out
 
     return walk(vlm_param_spec(cfg))
 
@@ -197,6 +247,7 @@ def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLi
 # --- configs ------------------------------------------------------------------------------
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+_DTYPE_FIELDS = ("dtype", "attn_scores_dtype", "rope_dtype")
 
 
 def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
@@ -204,7 +255,7 @@ def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
     for f in dataclasses.fields(cls):
         if f.name in override:
             out[f.name] = override[f.name]
-        elif f.name == "dtype":
+        elif f.name in _DTYPE_FIELDS:
             out[f.name] = _DTYPES[np.dtype(getattr(obj, f.name)).name]
         else:
             out[f.name] = getattr(obj, f.name)
@@ -212,15 +263,11 @@ def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
 
 
 def config_from_jax(cfg: Any) -> Any:
-    """A JAX-package VLMConfig / VLAServingConfig -> the port's. Raises on the
-    turbo numerics (bf16 scores or RoPE), which the port does not run."""
+    """A JAX-package VLMConfig / VLAServingConfig -> the port's (the turbo
+    numerics' bf16 scores and RoPE included). Raises on what the port does
+    not run (MoE trunks; serving tiers other than parity and pallas)."""
     if hasattr(cfg, "vlm"):   # VLAServingConfig
         return vla.VLAServingConfig(**_fields(cfg, vla.VLAServingConfig, vlm=config_from_jax(cfg.vlm)))
-    for sub in (cfg.llm, *cfg.vision):
-        for knob in ("attn_scores_dtype", "rope_dtype"):
-            if hasattr(sub, knob) and np.dtype(getattr(sub, knob)).name != "float32":
-                raise NotImplementedError(f"{knob}={getattr(sub, knob)}: only the parity "
-                                          "numerics (fp32) are ported")
     if getattr(cfg.llm, "moe_experts", 0):
         raise NotImplementedError("MoE trunks are not ported yet: ROADMAP Queue 1 item 15")
     llm = llama.LlamaConfig(**_fields(cfg.llm, llama.LlamaConfig))

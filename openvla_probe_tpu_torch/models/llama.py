@@ -1,24 +1,34 @@
 """Llama-2 decoder for the port (counterpart of ``openvla_probe_tpu/models/llama.py``).
 
-Parity numerics only: bf16 weights, RMSNorm with fp32 variance (cast to the
-input dtype before the weight multiply), fp32 RoPE in the HF rotate_half
-convention, fp32 scores and softmax, SwiGLU with silu in fp32. Weights are
-layer-stacked ``[L, ...]`` as in the JAX package; a Python loop over the
-layers takes the place of its ``lax.scan``. The KV cache is the 5-D stacked
-``[L, B, S, Hkv, Dh]`` pair, written in place (the JAX package writes it with
-dynamic_update_slice on the scan carry).
+RMSNorm with fp32 variance (cast to the input dtype before the weight
+multiply), RoPE in the HF rotate_half convention rotated in `rope_dtype`,
+scores in `attn_scores_dtype` with an fp32 softmax, SwiGLU with silu in fp32:
+fp32 RoPE and scores are the parity numerics, bf16 the turbo ones. Weights
+are layer-stacked ``[L, ...]`` as in the JAX package (bf16, or per-channel
+int8 leaves through ``matmul_t``); a Python loop over the layers takes the
+place of its ``lax.scan``. Two cache layouts:
+
+* the 5-D stacked ``[L, B, S, Hkv, Dh]`` pair of the stacked decode (`forward`
+  with a `KVCache`), written in place (the JAX package writes it with
+  dynamic_update_slice on the scan carry);
+* the frozen-KV split decode (`prefill`, `decode_step`, `greedy_decode`): the
+  prefill writes each layer's post-RoPE K/V in place into one preallocated
+  ``[L, B, T, Hkv, Dh]`` pair (the JAX package emits them through scan ys),
+  and each decode step attends [frozen prefill K/V | generated K/V] with one
+  joint softmax, the generated K/V written in place into ``[L, B, A, Hkv, Dh]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, attention_plain, decode_attention, flash_attention
-from ..ops.linear import matmul_t
+from ..ops.decode_attention import decode_flash_attention
+from ..ops.linear import index_layer, matmul_t
 
 Params = Dict[str, Any]
 
@@ -37,6 +47,8 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    attn_scores_dtype: torch.dtype = torch.float32   # bf16 = turbo
+    rope_dtype: torch.dtype = torch.float32          # bf16 = turbo (HF's own rotation dtype)
 
     @property
     def head_dim(self) -> int:
@@ -98,12 +110,13 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
-def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q/k: [B, T, H, Dh]; cos/sin: [B, T, Dh] fp32 tables; rotation in fp32."""
-    cos = cos[:, :, None, :]
-    sin = sin[:, :, None, :]
-    qf, kf = q.float(), k.float()
+def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               compute_dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q/k: [B, T, H, Dh]; cos/sin: [B, T, Dh] fp32 tables; rotation in
+    `compute_dtype` (fp32 = parity; bf16 = turbo: tables and q/k cast first)."""
+    cos = cos.to(compute_dtype)[:, :, None, :]
+    sin = sin.to(compute_dtype)[:, :, None, :]
+    qf, kf = q.to(compute_dtype), k.to(compute_dtype)
     q_out = qf * cos + _rotate_half(qf) * sin
     k_out = kf * cos + _rotate_half(kf) * sin
     return q_out.to(q.dtype), k_out.to(k.dtype)
@@ -120,16 +133,18 @@ def attention(
     k: torch.Tensor,         # [B, Tk, Hkv, Dh]
     v: torch.Tensor,         # [B, Tk, Hkv, Dh]
     mask: torch.Tensor,      # [B, 1, Tq, Tk] additive fp32 (0 / NEG_INF)
+    scores_dtype: torch.dtype = torch.float32,
     kv_valid: Optional[torch.Tensor] = None,   # [B, Tk] key validity (1 = attend)
     offset: int = 0,         # absolute position of query 0
 ) -> torch.Tensor:
-    """Masked softmax(q kᵀ) v with fp32 scores and softmax.
+    """Masked softmax(q kᵀ) v with an fp32 softmax.
 
     With a key-validity row, prefill-sized calls (Tq >= 64, offset 0) take the
     flash kernel and decode calls (Tq = 1) the decode kernel, both masking
-    causal + padding themselves. Other calls take the plain branch: fp32
-    scores + the additive mask, fp32 softmax, probs cast to the input dtype,
-    PV with fp32 accumulation (the decode kernel's function too)."""
+    causal + padding themselves with fp32 scores. Other calls take the plain
+    branch: scores in `scores_dtype` + the additive mask, fp32 softmax, probs
+    cast to the input dtype, PV with fp32 accumulation (at fp32 scores, the
+    decode kernel's function too)."""
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
@@ -137,7 +152,7 @@ def attention(
         return flash_attention(q, k, v, kv_valid, offset=0)
     if kv_valid is not None and q.shape[1] == 1:
         return decode_attention(q, k, v, kv_valid, offset)
-    return attention_plain(q, k, v, mask)
+    return attention_plain(q, k, v, mask, scores_dtype)
 
 
 def make_causal_mask(attn_mask: torch.Tensor, tq: int, tk: int, offset: int = 0) -> torch.Tensor:
@@ -152,37 +167,34 @@ def make_causal_mask(attn_mask: torch.Tensor, tq: int, tk: int, offset: int = 0)
 
 # --- layer + model ------------------------------------------------------------------
 
+Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
 def _layer_forward(
     cfg: LlamaConfig,
     lp: Params,               # single-layer params
     x: torch.Tensor,          # [B, T, D]
-    mask: torch.Tensor,       # [B, 1, T, Tk]
     cos: torch.Tensor,
     sin: torch.Tensor,
-    cache_ref: Optional[Tuple[torch.Tensor, torch.Tensor, int, int]] = None,
-    kv_valid: Optional[torch.Tensor] = None,
+    attend: Attend,           # (q [B,T,H,Dh], k, v [B,T,Hkv,Dh] post-RoPE) -> [B,T,H,Dh]
 ) -> torch.Tensor:
-    """cache_ref = (k_all [L, B, S, Hkv, Dh], v_all, layer_idx, cache_index): the
-    new tokens' K/V are written into the stacked cache in place and attention
-    reads the layer's whole S-slot cache."""
+    """One decoder block. `attend` stores the new tokens' K/V where the
+    caller's cache layout wants them and attends over that layer's keys."""
     B, T, D = x.shape
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     h = rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
     q = matmul_t(h, lp["q_proj"]).reshape(B, T, H, Dh)
     k = matmul_t(h, lp["k_proj"]).reshape(B, T, Hkv, Dh)
     v = matmul_t(h, lp["v_proj"]).reshape(B, T, Hkv, Dh)
-    q, k = apply_rope(q, k, cos, sin)
-    if cache_ref is not None:
-        k_all, v_all, li, ci = cache_ref
-        k_all[li, :, ci:ci + T] = k
-        v_all[li, :, ci:ci + T] = v
-        k, v = k_all[li], v_all[li]
-    attn = attention(q, k, v, mask, kv_valid=kv_valid,
-                     offset=0 if cache_ref is None else cache_ref[3]).reshape(B, T, D)
-    x = x + matmul_t(attn, lp["o_proj"])
+    q, k = apply_rope(q, k, cos, sin, cfg.rope_dtype)
+    x = x + matmul_t(attend(q, k, v).reshape(B, T, D), lp["o_proj"])
     h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
     gate = F.silu(matmul_t(h, lp["gate_proj"]).float()).to(h.dtype)
     return x + matmul_t(gate * matmul_t(h, lp["up_proj"]), lp["down_proj"])
+
+
+def _layer(params: Params, li: int) -> Params:
+    return index_layer(params["layers"], li)
 
 
 def forward(
@@ -202,32 +214,134 @@ def forward(
     x = inputs_embeds
     offset = 0 if cache is None else int(cache_index)
     mask = make_causal_mask(attn_mask, T, attn_mask.shape[1], offset=offset)
-    cos, sin = rope_tables(cfg, positions)
-    layers = params["layers"]
-
-    def layer(li: int) -> Params:
-        return {name: leaf[li] for name, leaf in layers.items()}
-
-    out: Dict[str, Any] = {}
-    if cache is not None:
-        # a cached PREFILL (T > 1) at a known zero offset may take the flash
-        # kernel and a decode step (T = 1) the decode kernel: causal-by-slot +
-        # the padded validity row are their rule. Other calls (short prefills
-        # at a nonzero offset) take the plain branch.
-        kv_valid = attn_mask if ((static_zero_offset and T > 1) or T == 1) else None
-        for li in range(cfg.num_hidden_layers):
-            x = _layer_forward(cfg, layer(li), x, mask, cos, sin,
-                               (cache.k, cache.v, li, offset), kv_valid)
-        out["cache"] = cache
-    else:
+    # cast once per call, not per layer (apply_rope's own cast is then a no-op)
+    cos, sin = (t.to(cfg.rope_dtype) for t in rope_tables(cfg, positions))
+    # a cached PREFILL (T > 1) at a known zero offset may take the flash kernel
+    # and a decode step (T = 1) the decode kernel: causal-by-slot + the padded
+    # validity row are their rule. Other cached calls (short prefills at a
+    # nonzero offset) take the plain branch.
+    if cache is None:
         kv_valid = attn_mask[:, :T]
-        for li in range(cfg.num_hidden_layers):
-            x = _layer_forward(cfg, layer(li), x, mask, cos, sin, None, kv_valid)
+    else:
+        kv_valid = attn_mask if ((static_zero_offset and T > 1) or T == 1) else None
+
+    def attend_layer(li: int) -> Attend:
+        def attend(q, k, v):
+            if cache is not None:
+                cache.k[li, :, offset:offset + T] = k
+                cache.v[li, :, offset:offset + T] = v
+                k, v = cache.k[li], cache.v[li]
+            return attention(q, k, v, mask, cfg.attn_scores_dtype, kv_valid, offset)
+        return attend
+
+    for li in range(cfg.num_hidden_layers):
+        x = _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    out["last_hidden_state"] = x
+    out: Dict[str, Any] = {"last_hidden_state": x}
+    if cache is not None:
+        out["cache"] = cache
     if compute_logits:
         out["logits"] = matmul_t(x, params["lm_head"]).float()
     return out
+
+
+# --- frozen-KV split decode (the `pallas` serving tier) ----------------------------
+
+
+class PrefillKV(NamedTuple):
+    """Frozen prefill K/V, [n_layers, B, T, n_kv_heads, head_dim] each."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def prefill(
+    params: Params,
+    cfg: LlamaConfig,
+    inputs_embeds: torch.Tensor,          # [B, T, D]
+    attn_mask: torch.Tensor,              # [B, T] (1 = real token)
+    positions: torch.Tensor,              # [B, T]
+) -> Dict[str, Any]:
+    """Self-attention prefill that also returns every layer's post-RoPE K/V
+    for the split decode: the same math as `forward` without a cache, each
+    layer's K/V written in place into one preallocated [L, B, T, Hkv, Dh] pair."""
+    B, T, _ = inputs_embeds.shape
+    shape = (cfg.num_hidden_layers, B, T, cfg.num_key_value_heads, cfg.head_dim)
+    kv = PrefillKV(torch.empty(shape, dtype=inputs_embeds.dtype, device=inputs_embeds.device),
+                   torch.empty(shape, dtype=inputs_embeds.dtype, device=inputs_embeds.device))
+    out = forward(params, cfg, inputs_embeds, attn_mask, positions, cache=KVCache(kv.k, kv.v),
+                  cache_index=0, compute_logits=False, static_zero_offset=True)
+    return {"last_hidden_state": out["last_hidden_state"], "kv": kv}
+
+
+def _split_attention(q, kp, vp, kd, vd, pre_valid, dec_valid) -> torch.Tensor:
+    """softmax([q·Kp | q·Kd]) @ [Vp; Vd], one joint softmax over both segments
+    (the decode kernel, which the JAX package runs under its kernel gate)."""
+    n_rep = q.shape[2] // kp.shape[2]
+    kp, vp, kd, vd = (_repeat_kv(t, n_rep) for t in (kp, vp, kd, vd))
+    return decode_flash_attention(q, kp, vp, kd, vd, pre_valid, dec_valid)
+
+
+def decode_step(
+    params: Params,
+    cfg: LlamaConfig,
+    x: torch.Tensor,            # [B, 1, D] current-token embedding
+    positions: torch.Tensor,    # [B, 1] absolute position of the token
+    kv_pre: PrefillKV,
+    pre_mask: torch.Tensor,     # [B, T] prefill validity (1 = attend)
+    dec_k: torch.Tensor,        # [L, B, A, Hkv, Dh] generated-token K buffer (updated in place)
+    dec_v: torch.Tensor,
+    t: int,                     # decode-step index (this token's slot)
+) -> torch.Tensor:
+    """One greedy decode step (the JAX package's unrolled form). Returns the
+    final-normed last hidden state [B, D]."""
+    B, A = x.shape[0], dec_k.shape[2]
+    # cast once per call, not per layer (apply_rope's own cast is then a no-op)
+    cos, sin = (t.to(cfg.rope_dtype) for t in rope_tables(cfg, positions))
+    dec_valid = (torch.arange(A, device=x.device) <= t).int()[None].expand(B, A).contiguous()
+
+    def attend_layer(li: int) -> Attend:
+        def attend(q, k, v):
+            dec_k[li, :, t] = k[:, 0]
+            dec_v[li, :, t] = v[:, 0]
+            return _split_attention(q, kv_pre.k[li], kv_pre.v[li], dec_k[li], dec_v[li],
+                                    pre_mask, dec_valid)
+        return attend
+
+    for li in range(cfg.num_hidden_layers):
+        x = _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
+    return rms_norm(x, params["norm"], cfg.rms_norm_eps)[:, 0]
+
+
+def greedy_decode(
+    params: Params,
+    cfg: LlamaConfig,
+    kv_pre: PrefillKV,
+    pre_mask: torch.Tensor,     # [B, T] prefill validity
+    first_token: torch.Tensor,  # [B] (from the prefill logits)
+    start_pos: torch.Tensor,    # [B] absolute position of first_token
+    n_steps: int,               # number of ADDITIONAL tokens to generate
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy-decode `n_steps` tokens after `first_token`. Returns (tokens
+    [B, n_steps], top1 - top2 logit margins [B, n_steps])."""
+    B = first_token.shape[0]
+    dev = first_token.device
+    if n_steps == 0:
+        return (torch.zeros((B, 0), dtype=torch.long, device=dev),
+                torch.zeros((B, 0), dtype=torch.float32, device=dev))
+    shape = (cfg.num_hidden_layers, B, n_steps, cfg.num_key_value_heads, cfg.head_dim)
+    dec_k = torch.zeros(shape, dtype=kv_pre.k.dtype, device=dev)
+    dec_v = torch.zeros(shape, dtype=kv_pre.k.dtype, device=dev)
+    toks, margins, tok = [], [], first_token
+    for t in range(n_steps):
+        e = embed_tokens(params, tok[:, None])
+        hidden = decode_step(params, cfg, e, (start_pos + t)[:, None], kv_pre, pre_mask,
+                             dec_k, dec_v, t)
+        logits = matmul_t(hidden, params["lm_head"]).float()
+        tok = logits.argmax(-1)
+        toks.append(tok)
+        margins.append(top2_margin(logits, tok))
+    return torch.stack(toks, dim=1), torch.stack(margins, dim=1)
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:

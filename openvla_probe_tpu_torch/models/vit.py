@@ -5,7 +5,10 @@ timm parameter layout (fused qkv, LayerScale gamma vectors, token order
 the blocks. Features are the patch tokens of the second-to-last block, no
 final norm, prefix tokens dropped (the reference's get_intermediate_layers(-2)
 contract). Attention is the tower kernel (``ops.attention.vit_flash_attention``)
-on every device, as the JAX package runs it under its kernel gate.
+on every device, as the JAX package runs it under its kernel gate; so is a
+block whose linears are per-channel int8 (the turbo weights): LN1 + qkv, proj
++ LayerScale + residual, and the whole MLP half each run as one fused w8a8
+kernel (``ops.vit_mlp``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import vit_flash_attention
-from ..ops.linear import matmul_t
+from ..ops.linear import index_layer, is_int8_per_channel, matmul_t
+from ..ops.vit_mlp import fused_ln_w8a8, fused_mlp_residual
 
 Params = Dict[str, Any]
 
@@ -39,6 +43,7 @@ class ViTConfig:
     act: str = "gelu"                # gelu | gelu_tanh | quick_gelu
     layer_norm_eps: float = 1e-6
     dtype: torch.dtype = torch.float32
+    attn_scores_dtype: torch.dtype = torch.float32  # bf16 = turbo (the tower kernel's scores are fp32)
 
     @property
     def grid(self) -> int:
@@ -122,19 +127,37 @@ def embed_patches(params: Params, cfg: ViTConfig, pixels: torch.Tensor) -> torch
 
 
 def _block(cfg: ViTConfig, bp: Params, x: torch.Tensor, B: int, N: int) -> torch.Tensor:
-    """One transformer block over flat [B*N, D] activations (float weights)."""
+    """One transformer block over flat [B*N, D] activations. Per-channel int8
+    qkv + proj leaves take `fused_ln_w8a8` and int8 fc1 + fc2 leaves take
+    `fused_mlp_residual` (the JAX package's routes under its kernel gate);
+    float leaves the unfused chain."""
     H, Dh = cfg.num_heads, cfg.head_dim
     D = x.shape[-1]
-    h = layer_norm(x, bp["norm1_scale"], bp["norm1_bias"], cfg.layer_norm_eps)
-    qkv = matmul_t(h, bp["qkv_w"]) + bp["qkv_b"]          # [B*N, 3D]
+    eps = cfg.layer_norm_eps
+    fused_linears = is_int8_per_channel(bp["qkv_w"]) and is_int8_per_channel(bp["proj_w"])
+    if fused_linears:
+        qkv = fused_ln_w8a8(x, bp["qkv_w"], bp["qkv_b"],
+                            ln=(bp["norm1_scale"], bp["norm1_bias"]), eps=eps)
+    else:
+        h = layer_norm(x, bp["norm1_scale"], bp["norm1_bias"], eps)
+        qkv = matmul_t(h, bp["qkv_w"]) + bp["qkv_b"]      # [B*N, 3D]
     # q/k/v stay strided views of qkv: the kernel reads them in place
     q, k, v = (t.reshape(B, N, H, Dh) for t in qkv.split(D, dim=-1))
     attn = vit_flash_attention(q, k, v).reshape(B * N, D)
-    attn = matmul_t(attn, bp["proj_w"]) + bp["proj_b"]
-    if cfg.use_layerscale:
-        attn = attn * bp["ls1"]
-    x = x + attn
-    h = layer_norm(x, bp["norm2_scale"], bp["norm2_bias"], cfg.layer_norm_eps)
+    if fused_linears:
+        x = fused_ln_w8a8(attn, bp["proj_w"], bp["proj_b"], res=x,
+                          ls=bp["ls1"] if cfg.use_layerscale else None)
+    else:
+        attn = matmul_t(attn, bp["proj_w"]) + bp["proj_b"]
+        if cfg.use_layerscale:
+            attn = attn * bp["ls1"]
+        x = x + attn
+    if is_int8_per_channel(bp["fc1_w"]) and is_int8_per_channel(bp["fc2_w"]):
+        ls2 = bp["ls2"] if cfg.use_layerscale else torch.ones((D,), dtype=x.dtype, device=x.device)
+        return fused_mlp_residual(x, bp["norm2_scale"], bp["norm2_bias"], bp["fc1_w"],
+                                  bp["fc1_b"], bp["fc2_w"], bp["fc2_b"], ls2, eps=eps,
+                                  act=cfg.act)
+    h = layer_norm(x, bp["norm2_scale"], bp["norm2_bias"], eps)
     h = _act(matmul_t(h, bp["fc1_w"]) + bp["fc1_b"], cfg.act)
     h = matmul_t(h, bp["fc2_w"]) + bp["fc2_b"]
     if cfg.use_layerscale:
@@ -183,5 +206,5 @@ def forward_features(
     blocks = params["blocks"]
     x2 = x.reshape(B * N, D)
     for li in range(layer_index % cfg.num_layers + 1):
-        x2 = _block(cfg, {name: leaf[li] for name, leaf in blocks.items()}, x2, B, N)
+        x2 = _block(cfg, index_layer(blocks, li), x2, B, N)
     return x2.reshape(B, N, D)[:, cfg.num_prefix_tokens:, :]

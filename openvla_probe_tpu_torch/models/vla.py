@@ -10,8 +10,16 @@ cache slots after the pad region (slot0 + t) with their true RoPE positions
 (mm_len + t), and pad slots are masked out of attention, so results do not
 depend on the pad length. Argmax runs over the full LLM vocab at every step.
 
-Only the parity tier is ported: bf16 weights, fp32 softmax and RoPE, the
-stacked-cache decode. Other tiers and options raise NotImplementedError.
+Two serving tiers are ported (`VLAServingConfig.for_tier`):
+
+* ``parity``: bf16 weights, fp32 scores and RoPE, the stacked-cache decode;
+* ``pallas``: per-channel int8 weights (``ops.linear.quantize_params`` with
+  ``TURBO_QUANT_SUFFIXES``), `VLMConfig.turbo` numerics, the frozen-KV split
+  decode. The weight leaves and the config pick the kernels: int8 linears
+  take ``wi8_matmul``, int8 tower blocks the fused w8a8 kernels, the decode
+  the split-attention kernel.
+
+Other tiers and options raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,10 +40,18 @@ Params = Dict[str, Any]
 EMPTY_TOKEN_ID = 29871  # Llama sentencepiece "▁"; the reference's forced prompt suffix
 
 
+_PORTED_TIERS = {
+    # (tier, decode_impl, split_prefill, flat_cache, kv_int8)
+    ("parity", "stacked", False, False, False),
+    ("pallas", "frozen_kv", False, False, False),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class VLAServingConfig:
-    """Serving configuration. Only tier="parity" with the stacked-cache decode
-    (no split prefill, no flat cache) is ported; every other value raises."""
+    """Serving configuration. Ported: tier="parity" with the stacked-cache
+    decode and tier="pallas" with the frozen-KV decode (no split prefill, no
+    flat cache, no int8 KV); every other value raises. Build with `for_tier`."""
 
     vlm: vlm.VLMConfig
     action_dim: int = 7
@@ -45,14 +61,25 @@ class VLAServingConfig:
     decode_impl: str = "stacked"
     split_prefill: bool = False
     flat_cache: bool = False
+    kv_int8: bool = False
 
     def __post_init__(self):
-        if (self.tier, self.decode_impl, self.split_prefill, self.flat_cache) != (
-                "parity", "stacked", False, False):
+        knobs = (self.tier, self.decode_impl, self.split_prefill, self.flat_cache, self.kv_int8)
+        if knobs not in _PORTED_TIERS:
             raise NotImplementedError(
-                "only tier='parity' with decode_impl='stacked' (split_prefill=False, "
-                "flat_cache=False) is ported; the turbo/int8, nibble and frozen-KV tiers "
-                "are ROADMAP Queue 1 items 6, 7 and 10")
+                f"(tier, decode_impl, split_prefill, flat_cache, kv_int8) = {knobs}: only "
+                "tier='parity' with decode_impl='stacked' and tier='pallas' with "
+                "decode_impl='frozen_kv' are ported; turbo (XLA w8a8), nibble, turbo_kv8 "
+                "and pallas_kv8 are ROADMAP Queue 1 items 6, 7 and 10")
+
+    @classmethod
+    def for_tier(cls, vlm_cfg: vlm.VLMConfig, tier: str = "parity", **kw) -> "VLAServingConfig":
+        """One constructor per ported serving tier (the JAX package's `for_tier`)."""
+        if tier == "parity":
+            return cls(vlm=vlm_cfg, tier=tier, **kw)
+        if tier == "pallas":
+            return cls(vlm=vlm_cfg.turbo(), tier=tier, decode_impl="frozen_kv", **kw)
+        raise NotImplementedError(f"serving tier {tier!r} is not ported (ROADMAP Queue 1)")
 
     @property
     def prefill_len(self) -> int:
@@ -86,7 +113,7 @@ def predict_action_core(
     A = cfg.action_dim
     codec = ActionCodec(vocab_size=cfg.codec_vocab_size)
 
-    # --- multimodal prefill into the stacked S-slot cache -------------------------
+    # --- multimodal prefill --------------------------------------------------------
     prompt_mask = (torch.arange(P, device=dev)[None, :] < prompt_len[:, None]).int()
     mm = vlm.build_multimodal_inputs(params, c, input_ids, prompt_mask, pixel_values)
     embeds, mm_mask = mm["inputs_embeds"], mm["attn_mask"]
@@ -94,14 +121,19 @@ def predict_action_core(
     mm_len = 1 + N + (prompt_len - 1)                                  # [B] true length
     positions = torch.arange(T, device=dev).expand(B, T)
 
-    S = cfg.cache_len
-    cache = llama.KVCache.zeros(c.llm, B, S, dtype=c.llm.dtype, device=dev)
-    attn_mask_S = torch.nn.functional.pad(mm_mask, (0, S - T))
-    out = llama.forward(
-        params["llm"], c.llm, embeds, attn_mask_S, positions,
-        cache=cache, cache_index=0, compute_logits=False,
-        static_zero_offset=True,   # prefill: the flash kernel may engage
-    )
+    frozen_kv = cfg.decode_impl == "frozen_kv"
+    if frozen_kv:
+        # prefill writes each layer's K/V into the frozen [L, B, T, Hkv, Dh] pair
+        out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions)
+    else:
+        S = cfg.cache_len
+        cache = llama.KVCache.zeros(c.llm, B, S, dtype=c.llm.dtype, device=dev)
+        attn_mask_S = torch.nn.functional.pad(mm_mask, (0, S - T))
+        out = llama.forward(
+            params["llm"], c.llm, embeds, attn_mask_S, positions,
+            cache=cache, cache_index=0, compute_logits=False,
+            static_zero_offset=True,   # prefill: the flash kernel may engage
+        )
 
     # hidden state at the last REAL token -> lm_head -> first generated token
     last_hidden = out["last_hidden_state"][torch.arange(B, device=dev), mm_len - 1]
@@ -110,21 +142,27 @@ def predict_action_core(
     margins = [llama.top2_margin(last_logits, first_tok)]
 
     # --- greedy decode of the remaining A-1 tokens ---------------------------------
-    slot0 = T
-    slots = torch.arange(S, device=dev)[None, :]
-    toks = [first_tok]
-    tok = first_tok
-    for t in range(A - 1):
-        e = llama.embed_tokens(params["llm"], tok[:, None])            # [B, 1, D]
-        pos = (mm_len + t)[:, None]                                     # true RoPE position
-        valid = (slots < mm_len[:, None]) | ((slots >= slot0) & (slots <= slot0 + t))
-        step_out = llama.forward(params["llm"], c.llm, e, valid.int(), pos,
-                                 cache=cache, cache_index=slot0 + t)
-        lg = step_out["logits"][:, -1]
-        tok = lg.argmax(-1)
-        toks.append(tok)
-        margins.append(llama.top2_margin(lg, tok))
-    action_tokens = torch.stack(toks, dim=1).int()                     # [B, A]
+    if frozen_kv:
+        toks, step_margins = llama.greedy_decode(params["llm"], c.llm, out["kv"], mm_mask,
+                                                 first_tok, mm_len, A - 1)
+        action_tokens = torch.cat([first_tok[:, None], toks], dim=1).int()   # [B, A]
+        margins.extend(step_margins.unbind(1))
+    else:
+        slot0 = T
+        slots = torch.arange(S, device=dev)[None, :]
+        toks = [first_tok]
+        tok = first_tok
+        for t in range(A - 1):
+            e = llama.embed_tokens(params["llm"], tok[:, None])        # [B, 1, D]
+            pos = (mm_len + t)[:, None]                                 # true RoPE position
+            valid = (slots < mm_len[:, None]) | ((slots >= slot0) & (slots <= slot0 + t))
+            step_out = llama.forward(params["llm"], c.llm, e, valid.int(), pos,
+                                     cache=cache, cache_index=slot0 + t)
+            lg = step_out["logits"][:, -1]
+            tok = lg.argmax(-1)
+            toks.append(tok)
+            margins.append(llama.top2_margin(lg, tok))
+        action_tokens = torch.stack(toks, dim=1).int()                 # [B, A]
 
     # --- de-tokenize + un-normalize --------------------------------------------------
     norm_actions = codec.decode(action_tokens)

@@ -46,6 +46,20 @@ class VLMConfig:
                     vit.ViTConfig.siglip_so400m(dtype=torch.bfloat16)),
         )
 
+    def turbo(self) -> "VLMConfig":
+        """The turbo serving numerics: bf16 attention scores in trunk and
+        towers, bf16 RoPE, and tanh-approximated GELU where a tower specifies
+        exact erf GELU (the JAX package's single definition)."""
+        return dataclasses.replace(
+            self,
+            llm=dataclasses.replace(self.llm, attn_scores_dtype=torch.bfloat16,
+                                    rope_dtype=torch.bfloat16),
+            vision=tuple(
+                dataclasses.replace(v, attn_scores_dtype=torch.bfloat16,
+                                    act="gelu_tanh" if v.act == "gelu" else v.act)
+                for v in self.vision),
+        )
+
     @staticmethod
     def tiny(**kw) -> "VLMConfig":
         d = dict(

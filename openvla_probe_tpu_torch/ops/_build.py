@@ -1,13 +1,17 @@
 """Build and load the port's CUDA kernels (``ops/csrc/*.cu``) for Hopper.
 
-Each source exports a plain C launcher and is compiled by its own ``nvcc``
-into ``openvla_probe_tpu_torch/_build/lib<name>.so`` (git-ignored), all
+Each source exports plain C launchers and is compiled by its own ``nvcc``
+into ``openvla_probe_tpu_torch/_build/lib<source>.so`` (git-ignored), all
 sources at once, for ``sm_90a``; the libraries are loaded with ``ctypes``.
 Sources that include PyTorch's headers take minutes per build, a plain C
 interface a few seconds, and every fresh machine builds anew.
 
 The build happens at the first CUDA launch of any kernel (nothing is built or
 loaded at import), so running the port on a card builds everything it needs.
+
+``KERNEL_LAUNCHES`` is the one launch registry: every wrapper adds one to its
+kernel's count where it launches it, and nowhere else, so a run can show that
+the main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -38,13 +42,45 @@ KERNELS = {
         "decode_attention.cu", "ovla_decode_attention",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _F, _I, _I, _P],
     ),
+    "wi8_matmul": (
+        "wi8_matmul.cu", "ovla_wi8_matmul",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "fused_ln_w8a8": (
+        "vit_mlp.cu", "ovla_fused_ln_w8a8",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _P],
+    ),
+    "fused_mlp_residual": (
+        "vit_mlp.cu", "ovla_fused_mlp_residual",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P, _I, _P],
+    ),
+    "decode_split_attention": (
+        "decode_split_attention.cu", "ovla_decode_split_attention",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    ),
 }
+KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}   # source -> loaded library
 build_report: Dict[str, object] = {}   # seconds and nvcc/ptxas output of the last build
+
+
+def reset_launch_counts() -> None:
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
+
+
+def stream_ptr(t) -> int:
+    """PyTorch's current CUDA stream on tensor `t`'s device, as the launchers
+    take it (the raw getter: ``torch.cuda.current_stream`` costs ~7 us of host
+    time per call, more than a decode-sized kernel)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _nvcc() -> str:
@@ -57,16 +93,17 @@ def _nvcc() -> str:
 
 def build_all() -> Dict[str, Path]:
     """Compile every kernel source concurrently (one nvcc each); raise with the
-    compiler's output if any fails. Returns name -> library path."""
+    compiler's output if any fails. Returns source -> library path."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs, libs = {}, {}
-    for name, (src, _, _) in KERNELS.items():
-        lib = BUILD_DIR / f"lib{name}.so"
-        tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
-        libs[name] = (lib, tmp)
-        procs[name] = subprocess.Popen(
+    for src in sorted({src for src, _, _ in KERNELS.values()}):
+        stem = Path(src).stem
+        lib = BUILD_DIR / f"lib{stem}.so"
+        tmp = BUILD_DIR / f"lib{stem}.{os.getpid()}.tmp.so"
+        libs[src] = (lib, tmp)
+        procs[src] = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     logs, failed = {}, []
@@ -80,26 +117,31 @@ def build_all() -> Dict[str, Path]:
     for lib, tmp in libs.values():
         os.replace(tmp, lib)
     build_report.update(seconds=time.perf_counter() - t0, logs=logs)
-    return {name: lib for name, (lib, _) in libs.items()}
+    return {src: lib for src, (lib, _) in libs.items()}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, building all kernels on first use."""
     with _lock:
         if not _loaded:
-            for n, path in build_all().items():
-                lib = ctypes.CDLL(str(path))
-                _, sym, argtypes = KERNELS[n]
-                fn = getattr(lib, sym)
+            for src, path in build_all().items():
+                _loaded[src] = ctypes.CDLL(str(path))
+            for src, sym, argtypes in KERNELS.values():
+                fn = getattr(_loaded[src], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-                _loaded[n] = lib
-        return _loaded[name]
+        return _loaded[KERNELS[name][0]]
+
+
+_launchers: Dict[str, object] = {}
 
 
 def launcher(name: str):
     """The C launcher of kernel `name` (argtypes declared)."""
-    return getattr(load(name), KERNELS[name][1])
+    fn = _launchers.get(name)
+    if fn is None:
+        fn = _launchers[name] = getattr(load(name), KERNELS[name][1])
+    return fn
 
 
 def check(err: int, name: str) -> None:

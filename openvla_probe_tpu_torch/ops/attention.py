@@ -6,8 +6,9 @@ Pallas kernels) and of the XLA attention the JAX package decodes with
 is a wrapper that launches a hand-written CUDA kernel (``csrc/*.cu``) for a
 CUDA tensor, and takes the plain PyTorch version beside it only for a tensor
 that lies on the CPU. There is no fallback on the card: a CUDA input the
-kernel does not take raises. Each wrapper counts its kernel launches in
-``KERNEL_LAUNCHES`` so a run can show that the main path went through them.
+kernel does not take raises. Each wrapper counts its kernel launches in the
+package's one registry, ``_build.KERNEL_LAUNCHES`` (re-exported here), so a
+run can show that the main path went through them.
 
 Layouts are the JAX package's: q/k/v ``[B, T, H, Dh]`` (K/V heads already
 repeated), ``kv_valid`` ``[B, Tk]`` with 1 = attend.
@@ -15,24 +16,15 @@ repeated), ``kv_valid`` ``[B, Tk]`` with 1 = attend.
 
 from __future__ import annotations
 
-from typing import Dict
-
 import numpy as np
 import torch
 
 from . import _build
+from ._build import KERNEL_LAUNCHES, reset_launch_counts  # noqa: F401  (re-exported)
 
 NEG_INF = -2.3819763e38
 ONESHOT_MAX_TK = 1024   # the one-shot kernel holds whole fp32 score rows (<= 128 KB / 32 rows)
 MAX_HEAD_DIM = 128
-
-KERNEL_LAUNCHES: Dict[str, int] = {"flash_prefill": 0, "vit_attention": 0, "decode_attention": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
-
 
 def _scale(dh: int) -> float:
     # the JAX kernels multiply by the float32 rounding of 1/sqrt(Dh)
@@ -84,13 +76,15 @@ def vit_flash_attention_plain(q, k, v):
     return out.permute(0, 2, 1, 3)
 
 
-def attention_plain(q, k, v, mask):
-    """Masked softmax(q kᵀ) v, the JAX package's XLA branch: fp32 scores plus
-    the additive fp32 mask [B, 1, Tq, Tk], fp32 softmax, probs cast to the
-    input dtype, PV with fp32 accumulation."""
+def attention_plain(q, k, v, mask, scores_dtype=torch.float32):
+    """Masked softmax(q kᵀ) v, the JAX package's XLA branch: scores in
+    `scores_dtype` (fp32 = parity, bf16 = turbo) plus the additive mask
+    [B, 1, Tq, Tk], fp32 softmax, probs cast to the input dtype, PV with fp32
+    accumulation."""
     scale = _scale(q.shape[-1])
     scores = torch.matmul(q.permute(0, 2, 1, 3).float(), k.permute(0, 2, 3, 1).float())
-    scores = scores * scale + mask
+    scores = scores.to(scores_dtype)
+    scores = (scores * scale + mask.to(scores_dtype)).to(scores_dtype)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.matmul(probs.float(), v.permute(0, 2, 1, 3).float())   # [B, H, Tq, Dh]
     return out.to(q.dtype).permute(0, 2, 1, 3)
@@ -127,10 +121,6 @@ def _check_cuda_inputs(kernel: str, q, k, v) -> None:
         raise ValueError(f"{kernel}: head dim {q.shape[-1]} > {MAX_HEAD_DIM}")
 
 
-def _stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def flash_attention(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
     """Causal + key-validity masked softmax(q kᵀ / sqrt(Dh)) v, one-shot path.
 
@@ -160,7 +150,7 @@ def flash_attention(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
         B, H, Tq, Tk, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), _scale(Dh), int(offset), int(bool(causal)),
-        int(q.dtype == torch.bfloat16), _stream_ptr(q.device))
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(err, "flash_prefill")
     KERNEL_LAUNCHES["flash_prefill"] += 1
     return out
@@ -187,7 +177,7 @@ def vit_flash_attention(q, k, v):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, N, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), _scale(Dh), int(q.dtype == torch.bfloat16),
-        _stream_ptr(q.device))
+        _build.stream_ptr(q))
     _build.check(err, "vit_attention")
     KERNEL_LAUNCHES["vit_attention"] += 1
     return out
@@ -219,7 +209,7 @@ def decode_attention(q, k, v, kv_valid, offset: int):
     err = _build.launcher("decode_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
         B, H, S, Dh, q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        _scale(Dh), int(offset), int(q.dtype == torch.bfloat16), _stream_ptr(q.device))
+        _scale(Dh), int(offset), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(err, "decode_attention")
     KERNEL_LAUNCHES["decode_attention"] += 1
     return out

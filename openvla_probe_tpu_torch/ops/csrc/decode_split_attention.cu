@@ -1,0 +1,199 @@
+// decode_split_attention: one decode query per (batch, head) over the frozen
+// prefill K/V and the generated-token K/V, with one joint softmax.
+//
+// Replaces the TPU kernel openvla_probe_tpu/ops/decode_attention.py::_decode_kernel
+// (through decode_flash_attention; caller models/llama.py::_split_attention on
+// the frozen-KV decode of the `pallas` tier). Semantics kept exactly:
+//   q' = float(q) * scale; s_c = q' . k_c in fp32 over the T prefill keys then
+//   the A generated keys; s_c = NEG_INF (finite) where the key's validity is 0;
+//   m = one max over both segments; p_c = expf(s_c - m) in fp32 and never
+//   rounded; out = (sum_c p_c v_c in fp32) / max(sum_c p_c, 1e-30), cast to
+//   the input type. (The stacked-decode kernel, decode_attention.cu, rounds P
+//   to bf16 like XLA; this one must not.)
+//
+// Bound on the H100 at the OpenVLA-7B decode shape (B = 24, q [24, 1, 32, 128],
+// kp/vp [24, 288, 32, 128], kd/vd [24, 6, 32, 128] bf16): 115 MB of K/V per
+// launch (34 us at 3.35 TB/s) against 58 MFLOP, so it is bytes-bound.
+//
+// Design. One block of 128 threads per (b, h) reads every K row and every V
+// row once, in place from the [B, T, H, Dh] views of the stacked buffers (the
+// TPU wrapper's transposes to [B*H, T, Dh] are a VMEM layout matter and are
+// not copied). Scores and probabilities stay in shared memory. At Dh = 128
+// with bf16 a warp reads a whole key row with one 8-byte load per lane, and
+// the four warps split the keys of P·V (each lane 4 head dims), summed across
+// warps in a fixed order at the end; other head dims and fp32 take a scalar
+// path (a warp per key, a thread per head dim).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ovla {
+
+constexpr int kDsThreads = 128;
+constexpr int kDsWarps = kDsThreads / 32;
+constexpr int kDsMaxKeys = 4096;
+constexpr float kDsNegInf = -2.3819763e38f;
+
+__device__ __forceinline__ float ds_f32(float x) { return x; }
+__device__ __forceinline__ float ds_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T ds_cast(float x);
+template <>
+__device__ __forceinline__ float ds_cast<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 ds_cast<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+struct SplitArgs {
+  const void* q;     // [B, 1, H, Dh], batch stride q_sb
+  const void* kp;    // [B, T, H, Dh]
+  const void* vp;
+  const void* kd;    // [B, A, H, Dh]
+  const void* vd;
+  const int32_t* pre_valid;   // [B, T]
+  const int32_t* dec_valid;   // [B, A]
+  void* o;           // contiguous [B, 1, H, Dh]
+  int B, H, T, A, Dh;
+  long long q_sb, kp_sb, kp_st, vp_sb, vp_st, kd_sb, kd_st, vd_sb, vd_st;
+  float scale;
+};
+
+// 4 consecutive bf16 -> fp32 (one 8-byte load)
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&f)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  f[0] = __low2float(a);
+  f[1] = __high2float(a);
+  f[2] = __low2float(b);
+  f[3] = __high2float(b);
+}
+
+template <typename T, bool kVec128>
+__global__ void __launch_bounds__(kDsThreads) decode_split_kernel(SplitArgs a) {
+  extern __shared__ float ds_smem[];
+  const int S = a.T + a.A, Dh = a.Dh;
+  float* q_s = ds_smem;                 // [Dh]
+  float* p_s = q_s + Dh;                // [S]: scores, then probabilities
+  float* red = p_s + S;                 // [kDsWarps]
+  float* part = red + kDsWarps;         // [kDsWarps][Dh]: per-warp P·V partial sums
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * Dh;
+  const T* KP = static_cast<const T*>(a.kp) + b * a.kp_sb + h * Dh;
+  const T* VP = static_cast<const T*>(a.vp) + b * a.vp_sb + h * Dh;
+  const T* KD = static_cast<const T*>(a.kd) + b * a.kd_sb + h * Dh;
+  const T* VD = static_cast<const T*>(a.vd) + b * a.vd_sb + h * Dh;
+  const int32_t* pv = a.pre_valid + (long long)b * a.T;
+  const int32_t* dv = a.dec_valid + (long long)b * a.A;
+
+  for (int d = tid; d < Dh; d += kDsThreads) q_s[d] = ds_f32(Q[d]) * a.scale;
+  __syncthreads();
+
+  // scores: a warp per key, [prefill keys | generated keys]
+  for (int c = warp; c < S; c += kDsWarps) {
+    const bool pre = c < a.T;
+    const T* krow = pre ? KP + c * a.kp_st : KD + (c - a.T) * a.kd_st;
+    float dot = 0.f;
+    if constexpr (kVec128) {
+      float kf[4];
+      ld4(reinterpret_cast<const __nv_bfloat16*>(krow) + 4 * lane, kf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dot += q_s[4 * lane + j] * kf[j];
+    } else {
+      for (int d = lane; d < Dh; d += 32) dot += q_s[d] * ds_f32(krow[d]);
+    }
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, w);
+    if (lane == 0) p_s[c] = (pre ? pv[c] : dv[c - a.T]) > 0 ? dot : kDsNegInf;
+  }
+  __syncthreads();
+
+  // one max over both segments, then p = expf(s - m) and its sum, all fp32
+  float m = kDsNegInf;
+  for (int c = tid; c < S; c += kDsThreads) m = fmaxf(m, p_s[c]);
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, w));
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+  for (int i = 1; i < kDsWarps; ++i) m = fmaxf(m, red[i]);
+  __syncthreads();   // every thread has read red before it is reused
+  float l = 0.f;
+  for (int c = tid; c < S; c += kDsThreads) {
+    const float e = expf(p_s[c] - m);
+    p_s[c] = e;
+    l += e;
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) l += __shfl_xor_sync(0xffffffffu, l, w);
+  if (lane == 0) red[warp] = l;
+  __syncthreads();
+  l = 0.f;
+  for (int i = 0; i < kDsWarps; ++i) l += red[i];
+  const float den = fmaxf(l, 1e-30f);
+
+  T* O = static_cast<T*>(a.o) + ((long long)b * a.H + h) * Dh;
+  if constexpr (kVec128) {
+    // warp w sums keys w, w + 4, ...; lane owns head dims 4 lane .. 4 lane + 3
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c = warp; c < S; c += kDsWarps) {
+      const T* vrow = c < a.T ? VP + c * a.vp_st : VD + (c - a.T) * a.vd_st;
+      float vf[4];
+      ld4(reinterpret_cast<const __nv_bfloat16*>(vrow) + 4 * lane, vf);
+      const float p = p_s[c];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] += p * vf[j];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) part[warp * Dh + 4 * lane + j] = acc[j];
+    __syncthreads();
+    for (int d = tid; d < Dh; d += kDsThreads) {
+      float o = 0.f;
+      for (int w = 0; w < kDsWarps; ++w) o += part[w * Dh + d];
+      O[d] = ds_cast<T>(o / den);
+    }
+  } else {
+    for (int d = tid; d < Dh; d += kDsThreads) {
+      float acc = 0.f;
+      for (int c = 0; c < a.T; ++c) acc += p_s[c] * ds_f32(VP[c * a.vp_st + d]);
+      for (int c = 0; c < a.A; ++c) acc += p_s[a.T + c] * ds_f32(VD[c * a.vd_st + d]);
+      O[d] = ds_cast<T>(acc / den);
+    }
+  }
+}
+
+template <typename T, bool kVec128>
+int launch_decode_split(const SplitArgs& a, cudaStream_t stream) {
+  auto kernel = decode_split_kernel<T, kVec128>;
+  const size_t smem = sizeof(float) * (a.Dh + a.T + a.A + kDsWarps + kDsWarps * a.Dh);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3(a.H, a.B), kDsThreads, smem, stream>>>(a);
+  return int(cudaGetLastError());
+}
+
+}  // namespace ovla
+
+// Returns the launch's cudaError_t (0 on success). Each token's [H, Dh] slab
+// contiguous; strides in elements.
+extern "C" int ovla_decode_split_attention(
+    const void* q, const void* kp, const void* vp, const void* kd, const void* vd,
+    const int32_t* pre_valid, const int32_t* dec_valid, void* o, int B, int H, int T, int A,
+    int Dh, long long q_sb, long long kp_sb, long long kp_st, long long vp_sb, long long vp_st,
+    long long kd_sb, long long kd_st, long long vd_sb, long long vd_st, float scale, int is_bf16,
+    void* stream) {
+  if (B < 1 || H < 1 || T < 1 || A < 1 || Dh < 1 || Dh > 128 || T + A > ovla::kDsMaxKeys)
+    return int(cudaErrorInvalidValue);
+  ovla::SplitArgs a{q, kp, vp, kd, vd, pre_valid, dec_valid, o, B, H, T, A, Dh,
+                    q_sb, kp_sb, kp_st, vp_sb, vp_st, kd_sb, kd_st, vd_sb, vd_st, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto aligned8 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; };
+  const bool vec = is_bf16 && Dh == 128 && aligned8(kp) && aligned8(vp) && aligned8(kd) &&
+                   aligned8(vd) && (kp_sb | kp_st | vp_sb | vp_st | kd_sb | kd_st | vd_sb | vd_st) % 4 == 0;
+  if (vec) return ovla::launch_decode_split<__nv_bfloat16, true>(a, s);
+  if (is_bf16) return ovla::launch_decode_split<__nv_bfloat16, false>(a, s);
+  return ovla::launch_decode_split<float, false>(a, s);
+}

@@ -1,14 +1,15 @@
-"""Where the time of one OpenVLA-7B parity-tier call goes, on one CUDA card.
+"""Where the time of one OpenVLA-7B serving call goes, on one CUDA card.
 
-    python -m openvla_probe_tpu_torch.tools.profile_main_path [--batch 24] [--calls 3]
+    python -m openvla_probe_tpu_torch.tools.profile_main_path [--tier parity|pallas] [--batch 24] [--calls 3]
 
-Drives the same call as chip_smoke.py (random bf16 weights from a seeded
-generator, 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
+Drives the same call as chip_smoke.py (random weights from a seeded
+generator: bf16 for the parity tier, int8 TURBO_QUANT_SUFFIXES leaves for the
+pallas tier; 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
 
   stages   device time of each stage of predict_action_from_image, each stage
            run alone through the port's own functions (CUDA events, median)
   kernels  torch.profiler device time per call, summed by kernel name and by
-           class (GEMM, the port's attention kernels, elementwise / other),
+           class (cuBLAS GEMM, the port's kernels, elementwise / other),
            beside the host-clock time of the profiled calls; the difference
            is the share of the call the device sits idle
 """
@@ -28,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from .. import convert
 from ..models import llama, vit, vla, vlm
 from ..ops.image import ImageTransformConfig, apply_image_transform
+from ..ops.linear import TURBO_QUANT_SUFFIXES
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -46,7 +48,7 @@ def _median_ms(fn, reps: int) -> float:
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "ovla::" in n:
-        return "port attention kernels"
+        return "port kernels (ops/csrc)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")):
         return "GEMM (cuBLAS)"
     return "elementwise / reduction / copy"
@@ -54,16 +56,18 @@ def _kernel_class(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tier", choices=("parity", "pallas"), default="parity")
     ap.add_argument("--batch", type=int, default=24)
     ap.add_argument("--calls", type=int, default=3)
     args = ap.parse_args()
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    cfg = vla.VLAServingConfig(vlm=vlm.VLMConfig.openvla_7b(), prompt_pad_len=32)
+    cfg = vla.VLAServingConfig.for_tier(vlm.VLMConfig.openvla_7b(), args.tier, prompt_pad_len=32)
     c = cfg.vlm
     g = torch.Generator(device=dev).manual_seed(0)
-    params = convert.init_params(c, g, device=dev)
+    params = convert.init_params(c, g, device=dev, quant_suffixes=(
+        TURBO_QUANT_SUFFIXES if args.tier == "pallas" else ()))
     B, P = args.batch, cfg.prompt_pad_len
     image = torch.randint(0, 256, (B, 256, 256, 3), generator=g, device=dev, dtype=torch.uint8)
     ids = torch.randint(1000, 20000, (B, P), generator=g, device=dev)
@@ -85,13 +89,37 @@ def main() -> None:
     prompt_mask = (torch.arange(P, device=dev)[None] < plen[:, None]).int()
     mm = vlm.build_multimodal_inputs(params, c, ids, prompt_mask, pixels)
     T, S = mm["inputs_embeds"].shape[1], cfg.cache_len
-    mask_S = torch.nn.functional.pad(mm["attn_mask"], (0, S - T))
     pos = torch.arange(T, device=dev).expand(B, T)
-    cache = llama.KVCache.zeros(c.llm, B, S, device=dev)
     e = llama.embed_tokens(params["llm"], ids[:, :1])
-    step_valid = (torch.arange(S, device=dev)[None] <= T).int().expand(B, S)
     step_pos = torch.full((B, 1), T, device=dev)
     reps = max(3, args.calls)
+    if args.tier == "parity":
+        mask_S = torch.nn.functional.pad(mm["attn_mask"], (0, S - T))
+        cache = llama.KVCache.zeros(c.llm, B, S, device=dev)
+        step_valid = (torch.arange(S, device=dev)[None] <= T).int().expand(B, S)
+
+        def prefill():
+            return llama.forward(params["llm"], c.llm, mm["inputs_embeds"], mask_S, pos,
+                                 cache=cache, cache_index=0, compute_logits=False,
+                                 static_zero_offset=True)
+
+        def decode_step():
+            return llama.forward(params["llm"], c.llm, e, step_valid, step_pos, cache=cache,
+                                 cache_index=T)
+    else:
+        with torch.no_grad():
+            kv = llama.prefill(params["llm"], c.llm, mm["inputs_embeds"], mm["attn_mask"], pos)["kv"]
+        dec_shape = (c.llm.num_hidden_layers, B, cfg.action_dim - 1, c.llm.num_key_value_heads,
+                     c.llm.head_dim)
+        dec_k, dec_v = (torch.zeros(dec_shape, dtype=kv.k.dtype, device=dev) for _ in range(2))
+
+        def prefill():
+            return llama.prefill(params["llm"], c.llm, mm["inputs_embeds"], mm["attn_mask"], pos)
+
+        def decode_step():
+            return llama.decode_step(params["llm"], c.llm, e, step_pos, kv, mm["attn_mask"],
+                                     dec_k, dec_v, 0)
+
     with torch.no_grad():
         stages = {
             "image_transform": _median_ms(lambda: apply_image_transform(image, img_cfg), reps),
@@ -99,14 +127,11 @@ def main() -> None:
                 params["vision"][name], c.vision[i], pixels[:, 3 * i:3 * i + 3]), reps)
                for i, name in enumerate(c.vision_names)},
             "projector": _median_ms(lambda: vlm.project_patches(params, c, feats), reps),
-            "llm_prefill": _median_ms(lambda: llama.forward(
-                params["llm"], c.llm, mm["inputs_embeds"], mask_S, pos, cache=cache,
-                cache_index=0, compute_logits=False, static_zero_offset=True), reps),
-            "llm_decode_step": _median_ms(lambda: llama.forward(
-                params["llm"], c.llm, e, step_valid, step_pos, cache=cache, cache_index=T), reps),
+            "llm_prefill": _median_ms(prefill, reps),
+            "llm_decode_step": _median_ms(decode_step, reps),
             "whole_call": _median_ms(call, reps),
         }
-    print(json.dumps({"card": card, "batch": B, "stages_ms": stages}), flush=True)
+    print(json.dumps({"card": card, "tier": args.tier, "batch": B, "stages_ms": stages}), flush=True)
 
     # --- device time by kernel over `calls` whole calls -----------------------------
     call()
@@ -131,7 +156,8 @@ def main() -> None:
         by_class[_kernel_class(ev.key)] += dev_us / 1e3 / args.calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
     device_ms = sum(by_class.values())
-    print(json.dumps({"card": card, "batch": B, "device_ms_per_call_by_class": dict(by_class),
+    print(json.dumps({"card": card, "tier": args.tier, "batch": B,
+                      "device_ms_per_call_by_class": dict(by_class),
                       "device_ms_per_call_total": device_ms,
                       "host_ms_per_profiled_call": host_ms,
                       "device_idle_share": 1.0 - device_ms / host_ms,

@@ -110,15 +110,26 @@ def test_config_from_jax():
     t = convert.config_from_jax(serving)
     assert t.vlm == tvlm.VLMConfig.openvla_7b()
     assert (t.prompt_pad_len, t.prefill_len, t.cache_len) == (32, 288, 295)
+    # the turbo numerics now carry over; a MoE trunk still raises
+    assert convert.config_from_jax(jvlm.VLMConfig.openvla_7b().turbo()) == \
+        tvlm.VLMConfig.openvla_7b().turbo()
+    moe = jvlm.VLMConfig.tiny()
+    moe = jvlm.VLMConfig(llm=jvlm.llama.LlamaConfig.tiny(moe_experts=4), vision=moe.vision)
     with pytest.raises(NotImplementedError):
-        convert.config_from_jax(jvlm.VLMConfig.openvla_7b().turbo())
+        convert.config_from_jax(moe)
 
 
 def test_matmul_t_float_only():
+    """Float and per-channel int8 leaves multiply; grouped-int4, nibble and
+    LoRA leaves still raise."""
     x, w = torch.randn(3, 4), torch.randn(5, 4)
     torch.testing.assert_close(matmul_t(x, w), x @ w.T)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        matmul_t(x, {"q": w.to(torch.int8), "s": torch.ones(5)})
+    q = torch.randint(-127, 128, (5, 4), dtype=torch.int8)
+    torch.testing.assert_close(matmul_t(x, {"q": q, "s": torch.ones(5)}), x @ q.float().T)
+    with pytest.raises(NotImplementedError, match="Queue 1"):      # grouped int4 codes
+        matmul_t(x, {"q": q.reshape(1, 5, 4), "s": torch.ones(5, 1)})
+    with pytest.raises(NotImplementedError, match="Queue 1"):      # nibble planes
+        matmul_t(x, {"hi": q, "lo": q, "s": torch.ones(5)})
     with pytest.raises(NotImplementedError, match="Queue 1"):
         matmul_t(x, {"base": w, "A": w, "B": w})
 

@@ -5,14 +5,24 @@ neither JAX nor the JAX package, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 
 Tolerances: fp32 inputs 1e-5 (the same fp32 sums in another order); bf16
-inputs 2e-2 compared in fp32 (about 2 bf16 ulps at |x| <= 1).
+inputs 2e-2 compared in fp32 (about 2 bf16 ulps at |x| <= 1). The int8
+kernels: wi8_matmul 1e-2 (exact products, fp32 sums in another order, then
+one bf16 rounding); the fused w8a8 kernels' activation codes within one
+step of the plain version's (the fp32 LayerNorm sums run in another order)
+and their outputs bit-equal to the plain version's on the kernels' own codes
+(equal codes give equal int32 sums and the same epilogue); without a
+LayerNorm, bit-equal to the plain version.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import attention as tattn
+from openvla_probe_tpu_torch.ops import decode_attention as tdec
+from openvla_probe_tpu_torch.ops import linear as tlin
+from openvla_probe_tpu_torch.ops import vit_mlp as tmlp
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +100,109 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 8), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="kv_valid"):
         tattn.flash_attention(q, q, q, torch.ones((1, 9), device=cuda))
+
+
+def _codes(seed, shape, device):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.integers(-127, 128, shape).astype(np.int8)).to(device)
+
+
+def _int8_leaf(seed, n, k, device):
+    """Per-channel int8 weights quantized from N(0, 0.02), as the tiers make them."""
+    return tlin.quantize_weight(_rand(seed, (n, k), torch.float32, device) * 0.02)
+
+
+def _count(name, fn):
+    before = _build.KERNEL_LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.KERNEL_LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("M,K,N", [
+    (24, 4096, 4096),       # a decode step's product (small-M tiles)
+    (24, 4096, 32064),      # lm_head: N = 64 * 501
+    (6264, 1152, 1000),     # M and N past the 128-row / 128-column tiles
+    (100, 80, 136),         # M > 64 with K past one 64-deep stage
+    (5, 48, 40),            # K not a multiple of the 32 / 256 staging depth
+])
+def test_wi8_kernel_matches_plain(cuda, dtype, tol, M, K, N):
+    x = _rand(7, (M, K), dtype, cuda)
+    q = _codes(8, (N, K), cuda)
+    s = _rand(9, (N,), torch.float32, cuda).abs() * 1e-3 + 1e-4
+    got = _count("wi8_matmul", lambda: tlin.wi8_matmul(x, q, s))
+    want = tlin.wi8_matmul_plain(x, q, s)
+    assert got.dtype == dtype and got.shape == (M, N)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,form", [
+    (6264, 1024, 3072, "ln"),       # DINOv2 qkv entry
+    (6264, 1024, 1024, "res_ls"),   # DINOv2 proj exit
+    (6144, 1152, 1152, "res"),      # SigLIP proj exit
+    (37, 48, 80, "ln"),
+])
+def test_fused_ln_w8a8_kernel_matches_plain(cuda, dtype, M, K, N, form):
+    x = _rand(10, (M, K), dtype, cuda)
+    w = _int8_leaf(11, N, K, cuda)
+    b = _rand(12, (N,), dtype, cuda) * 0.1
+    kw = {}
+    if form == "ln":
+        kw["ln"] = (1 + 0.1 * _rand(13, (K,), dtype, cuda), 0.1 * _rand(14, (K,), dtype, cuda))
+    else:
+        kw["res"] = _rand(15, (M, N), dtype, cuda)
+        if form == "res_ls":
+            kw["ls"] = _rand(16, (N,), dtype, cuda)
+    got, _ = _count("fused_ln_w8a8", lambda: tmlp.compare_ln_w8a8(x, w, b, **kw))
+    want = tmlp.fused_ln_w8a8_plain(x, w, b, **kw)
+    assert got.dtype == dtype and got.shape == (M, N)
+    if form != "ln":
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,M,D,F,act,layerscale", [
+    (torch.bfloat16, 6264, 1024, 4096, "gelu_tanh", True),    # DINOv2 (turbo act), LayerScale
+    (torch.bfloat16, 6144, 1152, 4304, "gelu_tanh", False),   # SigLIP: F = 16 * 269
+    (torch.bfloat16, 37, 32, 80, "gelu", True),
+    (torch.float32, 37, 32, 80, "gelu", True),    # fp32 (the tiny towers): F of a few hundred at most
+])
+def test_fused_mlp_kernel_matches_plain(cuda, dtype, M, D, F, act, layerscale):
+    x = _rand(17, (M, D), dtype, cuda)
+    ln_s, ln_b = 1 + 0.1 * _rand(18, (D,), dtype, cuda), 0.1 * _rand(19, (D,), dtype, cuda)
+    fc1, fc2 = _int8_leaf(20, F, D, cuda), _int8_leaf(21, D, F, cuda)
+    b1, b2 = 0.1 * _rand(22, (F,), dtype, cuda), 0.1 * _rand(23, (D,), dtype, cuda)
+    ls2 = _rand(24, (D,), dtype, cuda) if layerscale else torch.ones(D, dtype=dtype, device=cuda)
+    args = (x, ln_s, ln_b, fc1, b1, fc2, b2, ls2)
+    got, _ = _count("fused_mlp_residual", lambda: tmlp.compare_mlp_residual(*args, act=act))
+    assert got.dtype == dtype and got.shape == (M, D)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,A,H,dh", [(3, 288, 6, 4, 128), (2, 21, 6, 3, 16)])
+def test_decode_split_kernel_matches_plain(cuda, dtype, tol, B, T, A, H, dh):
+    q = _rand(25, (B, 1, H, dh), dtype, cuda)
+    kp, vp = _rand(26, (2, B, T, H, dh), dtype, cuda), _rand(27, (2, B, T, H, dh), dtype, cuda)
+    kd, vd = _rand(28, (2, B, A, H, dh), dtype, cuda), _rand(29, (2, B, A, H, dh), dtype, cuda)
+    pre = torch.ones((B, T), dtype=torch.int32, device=cuda)
+    pre[0, T - 7:] = 0                      # a right-padded prompt
+    dec = torch.zeros((B, A), dtype=torch.int32, device=cuda)
+    dec[:, :3] = 1                          # decode step 2
+    args = (q, kp[1], vp[1], kd[1], vd[1], pre, dec)   # one layer of the stacked buffers
+    got = _count("decode_split_attention", lambda: tdec.decode_flash_attention(*args))
+    want = tdec.decode_flash_attention_plain(*args)
+    assert got.dtype == dtype and got.shape == (B, 1, H, dh)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_int8_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
+    x = torch.zeros((4, 40), dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros((8, 40), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tlin.wi8_matmul(x, q, torch.ones(8, device=cuda))
+    x = torch.zeros((4, 32), dtype=torch.float16, device=cuda)
+    w = {"q": torch.zeros((8, 32), dtype=torch.int8, device=cuda), "s": torch.ones(8, device=cuda)}
+    with pytest.raises(TypeError):
+        tmlp.fused_ln_w8a8(x, w, torch.zeros(8, dtype=torch.float16, device=cuda))
