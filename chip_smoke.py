@@ -3,24 +3,31 @@
 
     python3 chip_smoke.py
 
-Two serving paths, each at full OpenVLA-7B width through the normal entry
-`predict_action_from_image`: the parity tier (bf16 weights, stacked-cache
-decode) and the pallas tier (int8 TURBO_QUANT_SUFFIXES weights, turbo
-numerics, frozen-KV split decode). Phases, one output line each:
+Four serving paths, each at full OpenVLA-7B width through the normal entry
+`predict_action_from_image`:
+  parity       bf16 weights, stacked-cache decode
+  pallas       int8 TURBO_QUANT_SUFFIXES weights, turbo numerics, frozen-KV
+               split decode
+  pallas_kv8   the same int8 weights (built once for both), the int8 stacked
+               cache and its fused-dequant decode
+  pallas_int4  the pallas tier over grouped-int4 weights (bits=4, group 128;
+               SigLIP's fc2 int8), frozen-KV split decode
+Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
               all started together (set-up time)
   3. kernels  each kernel against its plain PyTorch version at the 7B main-path
               shapes (B=24), with kernel / plain / library times: flash_prefill,
               vit_attention, decode_attention (parity path), wi8_matmul,
-              fused_ln_w8a8, fused_mlp_residual, decode_split_attention (pallas)
+              fused_ln_w8a8, fused_mlp_residual, decode_split_attention (pallas),
+              stacked_decode_attention_i8 (pallas_kv8), w4a8_matmul (pallas_int4)
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package)
   5. main     each path once with every launch count set to 0 just before and
-              read just after (exact per-kernel counts asserted), then p50
-              latency and calls/s over timed calls; random weights from a
-              seeded generator on the card, 256x256 uint8 images,
-              prompt_pad_len=32, A=7
+              read just after (exact per-kernel counts asserted, and the
+              requant route's torch._int_mm calls), then p50 latency and
+              calls/s over timed calls; random weights from a seeded generator
+              on the card, 256x256 uint8 images, prompt_pad_len=32, A=7
 then a JSON line of per-kernel figures and a last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero; with
 no CUDA card it exits 1 before printing any result.
@@ -40,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from openvla_probe_tpu_torch import convert
-from openvla_probe_tpu_torch.models import vla, vlm
+from openvla_probe_tpu_torch.models import llama, vit, vla, vlm
 from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import attention as attn
 from openvla_probe_tpu_torch.ops import decode_attention as dattn
@@ -393,6 +400,112 @@ def check_decode_split_attention(dev, g):
                     qt, kt, vt, attn_mask=sdpa_mask), lib_sets)))
 
 
+def check_stacked_decode_i8(dev, g):
+    """Row 5 at the 7B decode shape: q [24, 1, 32, 128] bf16 over one layer of
+    the int8 stacked cache, kq/vq [2, 24, 320, 4096] int8, ks/vs [2, 24, 320,
+    32] fp32 (S = 295 rounded up to 32s), padded prompts, decode step 3; timed
+    alternating the two layers (63 MB each, past L2). Within 2e-2 of the plain
+    version (bf16 outputs). Library: SDPA on K/V dequantized to bf16
+    beforehand (it leaves out the dequantization and rounds P to bf16)."""
+    B, T, S, H, Dh, slot = BATCH, T_PREFILL, 320, 32, 128, T_PREFILL + 3
+    kq, vq = (torch.randint(-127, 128, (2, B, S, H * Dh), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((2, B, S, H), generator=g, device=dev) * 0.02 + 1e-3 for _ in range(2))
+    q = torch.randn((B, 1, H, Dh), generator=g, device=dev).bfloat16()
+    mm_len = torch.randint(T - 12, T + 1, (B,), generator=g, device=dev)
+    slots = torch.arange(S, device=dev)[None]
+    valid = ((slots < mm_len[:, None]) | ((slots >= T) & (slots <= slot))).int()
+    sets = [(q, kq, ks, vq, vs, valid, li) for li in (1, 0)]
+    got = dattn.stacked_decode_attention_i8(*sets[0])
+    torch.cuda.synchronize()
+    want = dattn.stacked_decode_attention_i8_plain(*sets[0])
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+    def dequant(c, sc, li):
+        return (c[li].reshape(B, S, H, Dh).float() * sc[li][..., None]).bfloat16().transpose(1, 2)
+
+    mask = (valid > 0)[:, None, None, :]
+    lib_sets = [(q.transpose(1, 2), dequant(kq, ks, li), dequant(vq, vs, li)) for li in (1, 0)]
+    b, by = bound_ms(_nbytes(q, kq[1], vq[1], ks[1], vs[1], valid, got), 4 * B * H * S * Dh, "fp32")
+    return dict(name="stacked_decode_attention_i8", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/stacked_decode_i8.cu",
+                replaces="openvla_probe_tpu/ops/decode_attention.py:112",
+                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                ms=cuda_ms(rotating(dattn.stacked_decode_attention_i8, sets)),
+                plain_ms=cuda_ms(rotating(dattn.stacked_decode_attention_i8_plain, sets)),
+                bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(rotating(lambda qt, kt, vt: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask), lib_sets)))
+
+
+def check_w4a8_matmul(dev, g):
+    """Row 8 at every (M, K, N) the pallas_int4 path gives it: the towers'
+    int4 linears (DINOv2 M = 24 x 261 = 6264, SigLIP qkv/proj M = 6144), the
+    Llama prefill M = 6912 and decode M = 24; bf16 x, random int4 codes in
+    [-7, 7] packed, fp32 group scales. Bit-equal to the plain version (the same
+    activation codes, exact integer sums, the same fold order and roundings).
+    Library: cuBLAS bf16 x @ w_bf16ᵀ on weights dequantized beforehand (it
+    leaves out the activation quantization and the group fold, and streams
+    4x the weight bytes)."""
+    M_pre, M_dec, A1 = BATCH * T_PREFILL, BATCH, ACTION_DIM - 1
+    M_dino, M_sig = BATCH * 261, BATCH * 256
+    per_call = {(M_dino, 1024, 3072): 23, (M_dino, 1024, 1024): 23, (M_dino, 1024, 4096): 23,
+                (M_dino, 4096, 1024): 23, (M_sig, 1152, 3456): 26, (M_sig, 1152, 1152): 26,
+                (M_pre, 4096, 4096): 4 * LAYERS, (M_pre, 4096, 11008): 2 * LAYERS,
+                (M_pre, 11008, 4096): LAYERS, (M_dec, 4096, 4096): 4 * LAYERS * A1,
+                (M_dec, 4096, 11008): 2 * LAYERS * A1, (M_dec, 11008, 4096): LAYERS * A1}
+    by_shape = {}
+    for (M, K, N) in per_call:
+        G = K // lin.GROUP_SIZE
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = []
+        for _ in range(copies_past_l2(N * K // 2)):
+            codes = torch.randint(-7, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
+                                  dtype=torch.int8)
+            s = torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
+            sets.append((x, lin.pack_int4(codes), s))
+        got = lin.w4a8_matmul(*sets[0])
+        torch.cuda.synchronize()
+        want = lin.w4a8_matmul_plain(*sets[0])
+        assert torch.equal(got, want), f"{M}x{K}x{N}: not bit-equal to the plain version"
+        w_bf16 = [(x, lin.dequantize_weight({"q": q, "s": s})) for x, q, s in sets]
+        b, by = bound_ms(_nbytes(x, sets[0][1], sets[0][2], got), 2 * M * N * K, "int8")
+        by_shape[f"{M}x{K}x{N}"] = dict(
+            launches_per_call=per_call[(M, K, N)], max_abs_err=0.0,
+            ms=cuda_ms(rotating(lin.w4a8_matmul, sets)),
+            plain_ms=cuda_ms(rotating(lin.w4a8_matmul_plain, sets), reps=3, warmup=1),
+            library_ms=cuda_ms(rotating(lambda a, w: a @ w.t(), w_bf16)),
+            bound_ms=b, bound_by=by)
+        del sets, w_bf16, got, want
+    mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    return dict(name="w4a8_matmul", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/w4a8_matmul.cu",
+                replaces="openvla_probe_tpu/ops/linear.py:573", by_shape=by_shape, **mix)
+
+
+def check_w8a8_requant(dev, g):
+    """The requant route of the pallas_int4 path (not a kernel of the port: the
+    JAX package runs it in XLA): per call, grouped int4 -> int8 codes, then
+    torch._int_mm, at its two 7B shapes: lm_head (24 x 4096 x 32064, 7 calls)
+    and SigLIP's fc1 (6144 x 1152 x 4304, 26 calls). Equal to the plain version
+    (float64 integer sums) on the CPU side's arithmetic."""
+    rows = {}
+    for (M, K, N), n in {(BATCH, 4096, 32064): ACTION_DIM, (BATCH * 256, 1152, 4304): 26}.items():
+        G = K // lin.GROUP_SIZE
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        codes = torch.randint(-7, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
+                              dtype=torch.int8)
+        q, s = lin.pack_int4(codes), torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
+        got = lin.w4a8_dot_requant(x, q, s)
+        q8, s8 = lin.requant_int4_to_int8(q, s)
+        want = lin.w8a8_dot_plain(x, q8, s8)
+        assert torch.equal(got, want), f"{M}x{K}x{N}: requant route differs from its plain version"
+        rows[f"{M}x{K}x{N}"] = dict(calls_per_call=n,
+                                    ms=cuda_ms(lambda: lin.w4a8_dot_requant(x, q, s)),
+                                    int_mm_ms=cuda_ms(lambda: lin.w8a8_dot(x, q8, s8)))
+    return rows
+
+
 def _inputs(cfg: vla.VLAServingConfig, batch: int, hw: int, g, dev):
     """uint8 images and right-padded prompts [BOS, tokens..., 29871]."""
     P = cfg.prompt_pad_len
@@ -410,30 +523,64 @@ def _inputs(cfg: vla.VLAServingConfig, batch: int, hw: int, g, dev):
     return image, ids, plen, q01, q99, mask
 
 
-# the kernels each path must launch (every other count must stay 0)
-PATH_KERNELS = {
-    "parity": ("flash_prefill", "vit_attention", "decode_attention"),
-    "pallas": ("flash_prefill", "vit_attention", "fused_ln_w8a8", "fused_mlp_residual",
-               "wi8_matmul", "decode_split_attention"),
+# path -> (serving tier, weight bits or None for bf16, the kernels it must
+# launch: every other count must stay 0)
+PATHS = {
+    "parity": ("parity", None, ("flash_prefill", "vit_attention", "decode_attention")),
+    "pallas": ("pallas", 8, ("flash_prefill", "vit_attention", "fused_ln_w8a8",
+                             "fused_mlp_residual", "wi8_matmul", "decode_split_attention")),
+    "pallas_kv8": ("pallas_kv8", 8, ("flash_prefill", "vit_attention", "fused_ln_w8a8",
+                                     "fused_mlp_residual", "wi8_matmul",
+                                     "stacked_decode_attention_i8")),
+    "pallas_int4": ("pallas", 4, ("flash_prefill", "vit_attention", "wi8_matmul",
+                                  "decode_split_attention", "w4a8_matmul")),
 }
+# the path whose slice ported each kernel (its launches go into the kernels line)
+PORTED_ON = {"flash_prefill": "parity", "vit_attention": "parity", "decode_attention": "parity",
+             "stacked_decode_attention_i8": "pallas_kv8", "w4a8_matmul": "pallas_int4"}
 
 
-def _serving(tier: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
-    return vla.VLAServingConfig.for_tier(vlm_cfg, tier, **kw)
+def _serving(path: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
+    return vla.VLAServingConfig.for_tier(vlm_cfg, PATHS[path][0], **kw)
 
 
-def _quant_suffixes(tier: str):
-    return lin.TURBO_QUANT_SUFFIXES if tier == "pallas" else ()
+def _init(path: str, vlm_cfg: vlm.VLMConfig, g, dev):
+    bits = PATHS[path][1]
+    return convert.init_params(vlm_cfg, g, device=dev, bits=bits or 8,
+                               quant_suffixes=lin.TURBO_QUANT_SUFFIXES if bits else ())
 
 
-def check_tiny_path(dev, tier: str):
+def _tiny_vlm(path: str) -> vlm.VLMConfig:
+    """VLMConfig.tiny(), or for int4 weights a tiny config whose in-dims are
+    multiples of 128 so that the w4a8 kernel runs: two-layer Llama of width
+    128, vocab 400 (lm_head takes the requant route), towers of width 128 with
+    mlp dims 256 and 208 (SigLIP's fc1 requant, fc2 int8)."""
+    if PATHS[path][1] != 4:
+        return vlm.VLMConfig.tiny()
+    return vlm.VLMConfig.tiny(
+        llm=llama.LlamaConfig.tiny(vocab_size=400, hidden_size=128, intermediate_size=256,
+                                   num_hidden_layers=2, num_attention_heads=2,
+                                   num_key_value_heads=2),
+        vision=(vit.ViTConfig.tiny(hidden_size=128, num_heads=2, mlp_dim=256,
+                                   num_register_tokens=2, no_embed_class=True,
+                                   use_layerscale=True),
+                vit.ViTConfig.tiny(hidden_size=128, num_heads=2, mlp_dim=208,
+                                   use_cls_token=False, act="gelu_tanh")))
+
+
+# first-logit tolerance of a tiny path, card vs CPU: parity 1e-4; quantized
+# weights 1e-3 (an activation code at a rounding tie may land one step apart
+# between the two LayerNorm sums)
+TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3}
+
+
+def check_tiny_path(dev, path: str):
     """The whole path at tiny fp32 size (T = 68 >= 64, so the flash kernel
     runs) on the card vs the CPU run of the plain versions: equal tokens,
-    close logits (parity 1e-4; pallas 1e-3, where an activation code at a
-    rounding tie may land one step apart between the two LayerNorm sums)."""
-    cfg = _serving(tier, vlm.VLMConfig.tiny(), prompt_pad_len=64, codec_vocab_size=512)
-    params = convert.init_params(cfg.vlm, torch.Generator().manual_seed(1), device="cpu",
-                                 quant_suffixes=_quant_suffixes(tier))
+    close logits (TINY_TOL)."""
+    tvlm = _tiny_vlm(path)
+    cfg = _serving(path, tvlm, prompt_pad_len=64, codec_vocab_size=tvlm.llm.vocab_size)
+    params = _init(path, cfg.vlm, torch.Generator().manual_seed(1), "cpu")
     img_cfg = ImageTransformConfig(specs=(
         BackboneTransformSpec((28, 28), "bicubic", (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
         BackboneTransformSpec((28, 28), "bicubic", (0.5, 0.5, 0.5), (0.5, 0.5, 0.5))))
@@ -447,11 +594,12 @@ def check_tiny_path(dev, tier: str):
                                         return_first_logits=True, device=dev)
     torch.cuda.synchronize()
     launched = {k for k, n in _build.KERNEL_LAUNCHES.items() if n}
-    assert launched == set(PATH_KERNELS[tier]), _build.KERNEL_LAUNCHES
+    assert launched == set(PATHS[path][2]), _build.KERNEL_LAUNCHES
     assert torch.equal(out["action_tokens"].cpu(), ref["action_tokens"])
     err = (out["first_logits"].cpu() - ref["first_logits"]).abs().max().item()
-    assert err < (1e-4 if tier == "parity" else 1e-3), err
-    return dict(tier=tier, tokens_equal=True, first_logits_max_abs_err=err)
+    assert err < TINY_TOL[PATHS[path][1]], err
+    return dict(path=path, tokens_equal=True, first_logits_max_abs_err=err,
+                library_calls=dict(_build.LIBRARY_CALLS))
 
 
 def _to(tree, dev):
@@ -460,29 +608,63 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _expected_launches(cfg: vla.VLAServingConfig) -> dict:
+def _linear_route(leaf) -> str:
+    """The kernel (or library call) matmul_t takes for a quantized leaf's layout."""
+    if leaf["q"].dtype == torch.int8:
+        return "wi8_matmul"
+    return "w4a8_matmul" if lin.takes_w4a8_kernel(leaf) else "w8a8_dot"
+
+
+def _expected_launches(path: str, cfg: vla.VLAServingConfig):
+    """Exact per-kernel launches and library calls of one call, from the
+    weight layout (convert.vlm_param_spec) and the routes of the port."""
     L, A1 = cfg.vlm.llm.num_hidden_layers, cfg.action_dim - 1
+    bits = PATHS[path][1]
+    kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
+    library = dict.fromkeys(_build.LIBRARY_CALLS, 0)
+
+    def add(route, n):
+        (library if route in library else kernels)[route] += n
+
     blocks = sum(v.num_layers - 1 for v in cfg.vlm.vision)       # 23 + 26 tower blocks run
-    expect = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
-    expect.update(flash_prefill=L, vit_attention=blocks)
-    if cfg.tier == "parity":
-        expect["decode_attention"] = L * A1                          # 32 x 6
-    else:
-        expect.update(fused_ln_w8a8=2 * blocks, fused_mlp_residual=blocks,
-                      # 7 linears per layer at prefill and each step, lm_head 1 + A1 times
-                      wi8_matmul=7 * L + 1 + A1 * (7 * L + 1),
-                      decode_split_attention=L * A1)
-    return expect
+    kernels.update(flash_prefill=L, vit_attention=blocks)
+    kernels[{"parity": "decode_attention", "pallas": "decode_split_attention",
+             "pallas_kv8": "stacked_decode_attention_i8"}[cfg.tier]] = L * A1
+    if bits is None:
+        return kernels, library
+    spec = convert.vlm_param_spec(cfg.vlm, lin.TURBO_QUANT_SUFFIXES, bits)
+    for name, v in zip(cfg.vlm.vision_names, cfg.vlm.vision):
+        b, n = spec["vision"][name]["blocks"], v.num_layers - 1
+        for pair, fused, calls in ((("qkv_w", "proj_w"), "fused_ln_w8a8", 2),
+                                   (("fc1_w", "fc2_w"), "fused_mlp_residual", 1)):
+            if all(_linear_route(b[w]) == "wi8_matmul" for w in pair):
+                add(fused, calls * n)
+            else:
+                for w in pair:
+                    add(_linear_route(b[w]), n)
+    # 7 linears per layer at prefill and at each step; lm_head 1 + A1 times
+    for w in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"):
+        add(_linear_route(spec["llm"]["layers"][w]), L * (1 + A1))
+    add(_linear_route(spec["llm"]["lm_head"]), 1 + A1)
+    return kernels, library
 
 
-def run_main_path(dev, tier: str):
-    cfg = _serving(tier, vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
+def run_main_path(dev, path: str, weights: dict):
+    """`weights` caches the last built weights by their bits, so that paths
+    sharing weights build them once."""
+    cfg = _serving(path, vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
                    prompt_pad_len=PROMPT_PAD)
     g = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    params = convert.init_params(cfg.vlm, g, device=dev, quant_suffixes=_quant_suffixes(tier))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    bits = PATHS[path][1]
+    init_s = 0.0
+    if bits not in weights:
+        weights.clear()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        weights[bits] = _init(path, cfg.vlm, g, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+    params = weights[bits]
     torch.cuda.reset_peak_memory_stats()   # the serving peak, not the init's transients
     n_params = sum(t.numel() for t in _leaves(params))
     param_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
@@ -499,9 +681,10 @@ def run_main_path(dev, tier: str):
     t0 = time.perf_counter()
     out = call()
     first_s = time.perf_counter() - t0
-    launches = dict(_build.KERNEL_LAUNCHES)
-    expect = _expected_launches(cfg)
-    assert launches == expect, (tier, launches, expect)
+    launches, library = dict(_build.KERNEL_LAUNCHES), dict(_build.LIBRARY_CALLS)
+    expect, expect_library = _expected_launches(path, cfg)
+    assert launches == expect, (path, launches, expect)
+    assert library == expect_library, (path, library, expect_library)
 
     toks, actions, logits = out["action_tokens"], out["actions"], out["first_logits"]
     assert toks.shape == (BATCH, ACTION_DIM), toks.shape
@@ -518,7 +701,8 @@ def run_main_path(dev, tier: str):
         assert _build.KERNEL_LAUNCHES == expect, _build.KERNEL_LAUNCHES
     p50 = statistics.median(times)
     return launches, dict(
-        tier=tier, params=n_params, param_gb=param_gb, init_s=init_s, first_call_s=first_s,
+        path=path, tier=cfg.tier, weight_bits=bits, library_calls_per_call=library,
+        params=n_params, param_gb=param_gb, init_s=init_s, first_call_s=first_s,
         p50_ms=p50 * 1e3, calls_per_s=BATCH / p50, call_ms=[t * 1e3 for t in times],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         first_tokens=toks[0].tolist())
@@ -552,23 +736,24 @@ def main() -> int:
     kernels = [check_flash_prefill(dev, g), check_vit_attention(dev, g),
                check_decode_attention(dev, g), check_wi8_matmul(dev, g),
                check_fused_ln_w8a8(dev, g), check_fused_mlp_residual(dev, g),
-               check_decode_split_attention(dev, g)]
+               check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
+               check_w4a8_matmul(dev, g)]
     log("kernels", card=card, results=kernels)
+    log("requant_route", card=card, shapes=check_w8a8_requant(dev, g))
 
-    for tier in PATH_KERNELS:
-        log("tiny", **check_tiny_path(dev, tier))
+    for path in PATHS:
+        log("tiny", **check_tiny_path(dev, path))
 
-    launches = {}
-    for tier in PATH_KERNELS:
-        launches[tier], main_stats = run_main_path(dev, tier)
-        log("main", card=card, batch=BATCH, launches_per_call=launches[tier], **main_stats)
+    launches, weights = {}, {}
+    for path in PATHS:   # pallas and pallas_kv8 share one build of the int8 weights
+        launches[path], main_stats = run_main_path(dev, path, weights)
+        log("main", card=card, batch=BATCH, launches_per_call=launches[path], **main_stats)
         torch.cuda.empty_cache()
+    weights.clear()
 
-    # each kernel's launches: from the main path whose slice ported it (the
-    # parity path for the first three, the pallas path for the rest)
+    # each kernel's launches: from the main path whose slice ported it
     for k in kernels:
-        tier = "parity" if k["name"] in PATH_KERNELS["parity"] else "pallas"
-        k["launches"] = launches[tier][k["name"]]
+        k["launches"] = launches[PORTED_ON.get(k["name"], "pallas")][k["name"]]
         assert k["launches"] > 0, k["name"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

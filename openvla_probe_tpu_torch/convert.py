@@ -1,19 +1,23 @@
 """The bridge for weights and configs between the JAX package and the port.
 
-* `vlm_param_spec(cfg, quant_suffixes)` is the port's parameter layout: the
-  JAX package's pytree layout (scan-stacked ``[L, ...]`` layer leaves,
+* `vlm_param_spec(cfg, quant_suffixes, bits)` is the port's parameter layout:
+  the JAX package's pytree layout (scan-stacked ``[L, ...]`` layer leaves,
   ``[O, K]`` weights), each leaf with its shape, dtype and initial
-  distribution; the weights named in `quant_suffixes` are per-channel int8
-  leaves ``{"q": int8 [..., O, K], "s": f32 [..., O]}`` (the layout of the JAX
-  package's ``quantize_params(..., bits=8)``).
-* `params_from_jax(tree, cfg, quant_suffixes=...)` takes the JAX package's
-  parameter pytree as numpy arrays and returns the port's parameters, raising
-  on any leaf it does not consume and on any leaf it is missing.
-* `init_params(cfg, generator, device, quant_suffixes=...)` makes random
-  weights of the same distributions as the JAX package's init functions,
-  directly on the device; a quantized weight is made in its float dtype one
-  layer at a time and quantized with the port's `quantize_weight`, so the
-  float stack never exists whole.
+  distribution; the weights named in `quant_suffixes` are quantized leaves as
+  the JAX package's ``quantize_params(..., bits)`` makes them: bits=8
+  per-channel int8 ``{"q": int8 [..., O, K], "s": f32 [..., O]}``; bits=4
+  grouped int4 ``{"q": uint8 [..., G, O, gsz/2], "s": f32 [..., O, G]}`` in
+  the port's packed layout (``ops/linear.py``), int8 where K has no group.
+* `params_from_jax(tree, cfg, quant_suffixes=..., bits=...)` takes the JAX
+  package's parameter pytree as numpy arrays (grouped-int4 codes as its s4
+  arrays or its ``emit_codes=True`` int8 codes, packed here) and returns the
+  port's parameters, raising on any leaf it does not consume and on any leaf
+  it is missing.
+* `init_params(cfg, generator, device, quant_suffixes=..., bits=...)` makes
+  random weights of the same distributions as the JAX package's init
+  functions, directly on the device; a quantized weight is made in its float
+  dtype one ``[O, K]`` slice at a time and quantized with the port's
+  `quantize_leaf`, so the float stack never exists whole.
 * `config_from_jax(cfg)` reads a JAX-package config object (its dataclass
   fields, duck-typed) into the port's config class of the same name.
 """
@@ -28,7 +32,7 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models import llama, vit, vla, vlm
-from .ops.linear import quantize_weight
+from .ops.linear import int4_group_size, pack_int4, quantize_leaf
 
 
 class Leaf(NamedTuple):
@@ -124,28 +128,44 @@ def llama_param_spec(cfg: llama.LlamaConfig) -> Dict[str, Any]:
     }
 
 
-def vlm_param_spec(cfg: vlm.VLMConfig, quant_suffixes: Tuple[str, ...] = ()) -> Dict[str, Any]:
+def vlm_param_spec(cfg: vlm.VLMConfig, quant_suffixes: Tuple[str, ...] = (),
+                   bits: int = 8) -> Dict[str, Any]:
     spec = {
         "vision": {name: vit_param_spec(v) for name, v in zip(cfg.vision_names, cfg.vision)},
         "projector": projector_param_spec(cfg.projector_arch, cfg.vision_dim,
                                           cfg.llm.hidden_size, cfg.llm.dtype),
         "llm": llama_param_spec(cfg.llm),
     }
-    return _quantized_spec(spec, quant_suffixes)
+    return _quantized_spec(spec, quant_suffixes, bits)
 
 
 def _quantized(name: str, leaf: Leaf, quant_suffixes: Tuple[str, ...]) -> bool:
     return name in quant_suffixes and len(leaf.shape) >= 2
 
 
-def _quantized_spec(spec: Dict[str, Any], quant_suffixes: Tuple[str, ...]) -> Dict[str, Any]:
+def _quant_leaf(leaf: Leaf, bits: int) -> Dict[str, Leaf]:
+    """The {q, s} layout `quantize_leaf` gives a float leaf."""
+    if bits not in (4, 8):
+        raise NotImplementedError(f"bits={bits!r}: only 8 (per-channel int8) and 4 (grouped "
+                                  "int4) are ported; mix and nibble are ROADMAP Queue 1 items "
+                                  "7 and 10")
+    *lead, O, K = leaf.shape
+    gsz = int4_group_size(K)
+    if bits == 4 and gsz:
+        return {"q": Leaf((*lead, K // gsz, O, gsz // 2), torch.uint8, leaf.init, leaf.arg),
+                "s": Leaf((*lead, O, K // gsz), torch.float32, "scale")}
+    return {"q": Leaf(leaf.shape, torch.int8, leaf.init, leaf.arg),
+            "s": Leaf(leaf.shape[:-1], torch.float32, "scale")}
+
+
+def _quantized_spec(spec: Dict[str, Any], quant_suffixes: Tuple[str, ...],
+                    bits: int) -> Dict[str, Any]:
     out = {}
     for name, leaf in spec.items():
         if isinstance(leaf, dict):
-            out[name] = _quantized_spec(leaf, quant_suffixes)
+            out[name] = _quantized_spec(leaf, quant_suffixes, bits)
         elif _quantized(name, leaf, quant_suffixes):
-            out[name] = {"q": Leaf(leaf.shape, torch.int8, leaf.init, leaf.arg),
-                         "s": Leaf(leaf.shape[:-1], torch.float32, "scale")}
+            out[name] = _quant_leaf(leaf, bits)
         else:
             out[name] = leaf
     return out
@@ -160,17 +180,33 @@ def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
+def _packed_int4(arr: np.ndarray, spec: Leaf, path: str, device: torch.device) -> torch.Tensor:
+    """The JAX package's grouped-int4 codes [..., G, O, gsz] (s4, or int8 from
+    emit_codes=True) -> the port's packed uint8 [..., G, O, gsz/2]."""
+    want = (*spec.shape[:-1], 2 * spec.shape[-1])
+    if tuple(arr.shape) != want:
+        raise ValueError(f"{path}: shape {arr.shape}, expected int4 codes {want}")
+    if arr.dtype.name not in ("int4", "int8"):
+        raise TypeError(f"{path}: dtype {arr.dtype}, expected int4 codes (int4 or int8)")
+    codes = np.array(arr, dtype=np.int8)   # an own, writable copy
+    if codes.size and (codes.min() < -8 or codes.max() > 7):
+        raise ValueError(f"{path}: int4 codes outside [-8, 7]")
+    return pack_int4(torch.from_numpy(codes)).to(device)
+
+
 def _convert(tree: Any, spec: Any, path: str, device: torch.device) -> Any:
     if isinstance(spec, Leaf):
         if isinstance(tree, dict):
             raise NotImplementedError(
                 f"{path}: a {sorted(tree)} leaf where the layout has a float weight (name it "
-                "in quant_suffixes for a per-channel int8 leaf; grouped-int4, mix, nibble "
-                "and LoRA-wrapped leaves are not ported yet: ROADMAP Queue 1 items 7, 10, 13)")
+                "in quant_suffixes for a quantized leaf; mix, nibble and LoRA-wrapped leaves "
+                "are not ported yet: ROADMAP Queue 1 items 7, 10, 13)")
         arr = np.asarray(tree)
+        if spec.dtype == torch.uint8:
+            return _packed_int4(arr, spec, path, device)
         if tuple(arr.shape) != tuple(spec.shape):
             raise ValueError(f"{path}: shape {arr.shape}, expected {spec.shape}")
-        if (spec.dtype == torch.int8) != (arr.dtype == np.int8):
+        if (spec.dtype == torch.int8) != (arr.dtype == np.int8) or arr.dtype.name == "int4":
             raise TypeError(f"{path}: dtype {arr.dtype}, expected {spec.dtype}")
         return _to_tensor(arr, device)
     if not isinstance(tree, dict):
@@ -185,11 +221,12 @@ def _convert(tree: Any, spec: Any, path: str, device: torch.device) -> Any:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: vlm.VLMConfig, device: DeviceLike = "cuda",
-                    quant_suffixes: Tuple[str, ...] = ()) -> Dict[str, Any]:
+                    quant_suffixes: Tuple[str, ...] = (), bits: int = 8) -> Dict[str, Any]:
     """The JAX package's VLM parameter pytree (numpy leaves, scan-stacked
-    layers; the weights named in `quant_suffixes` as its int8 {q, s} leaves)
-    -> the port's parameters on `device`, dtypes kept."""
-    return _convert(tree, vlm_param_spec(cfg, quant_suffixes), "", resolve_device(device))
+    layers; the weights named in `quant_suffixes` as its `quantize_params(...,
+    bits)` {q, s} leaves) -> the port's parameters on `device`, dtypes kept,
+    int4 codes packed."""
+    return _convert(tree, vlm_param_spec(cfg, quant_suffixes, bits), "", resolve_device(device))
 
 
 # --- random init on the device ---------------------------------------------------------
@@ -208,26 +245,27 @@ def _init_leaf(leaf: Leaf, generator: torch.Generator, device: torch.device,
 
 
 def _init_quantized(leaf: Leaf, generator: torch.Generator, device: torch.device,
-                    dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
-    """Per-channel int8 {q, s} of a random float leaf, made and quantized one
+                    dtype: Optional[torch.dtype], bits: int) -> Dict[str, torch.Tensor]:
+    """The quantized {q, s} of a random float leaf, made and quantized one
     [O, K] slice at a time (the peak is one float slice, not the stack)."""
     *lead, O, K = leaf.shape
-    q = torch.empty(leaf.shape, dtype=torch.int8, device=device)
-    s = torch.empty((*lead, O), dtype=torch.float32, device=device)
+    out = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+           for k, v in _quant_leaf(leaf, bits).items()}
     for idx in np.ndindex(*lead):
-        w = quantize_weight(_init_leaf(leaf._replace(shape=(O, K)), generator, device, dtype))
-        q[idx], s[idx] = w["q"], w["s"]
-    return {"q": q, "s": s}
+        w = quantize_leaf(_init_leaf(leaf._replace(shape=(O, K)), generator, device, dtype), bits)
+        for k in out:
+            out[k][idx] = w[k]
+    return out
 
 
 def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLike = "cuda",
                 dtype: Optional[torch.dtype] = None,
-                quant_suffixes: Tuple[str, ...] = ()) -> Dict[str, Any]:
+                quant_suffixes: Tuple[str, ...] = (), bits: int = 8) -> Dict[str, Any]:
     """Random VLM weights made on `device` (normal(0.02) weights, zero biases,
     unit norms, 1e-5 LayerScale, nn.Linear-uniform projector), in each
     module's config dtype unless `dtype` is given; the weights named in
-    `quant_suffixes` are quantized to per-channel int8 from that float value.
-    `generator` must live on `device`."""
+    `quant_suffixes` are quantized from that float value (bits=8 per-channel
+    int8, bits=4 grouped int4). `generator` must live on `device`."""
     dev = resolve_device(device)
 
     def walk(spec):
@@ -236,7 +274,7 @@ def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLi
             if isinstance(leaf, dict):
                 out[name] = walk(leaf)
             elif _quantized(name, leaf, quant_suffixes):
-                out[name] = _init_quantized(leaf, generator, dev, dtype)
+                out[name] = _init_quantized(leaf, generator, dev, dtype, bits)
             else:
                 out[name] = _init_leaf(leaf, generator, dev, dtype)
         return out
@@ -265,7 +303,8 @@ def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
 def config_from_jax(cfg: Any) -> Any:
     """A JAX-package VLMConfig / VLAServingConfig -> the port's (the turbo
     numerics' bf16 scores and RoPE included). Raises on what the port does
-    not run (MoE trunks; serving tiers other than parity and pallas)."""
+    not run (MoE trunks; serving tiers other than parity, pallas and
+    pallas_kv8)."""
     if hasattr(cfg, "vlm"):   # VLAServingConfig
         return vla.VLAServingConfig(**_fields(cfg, vla.VLAServingConfig, vlm=config_from_jax(cfg.vlm)))
     if getattr(cfg.llm, "moe_experts", 0):

@@ -6,7 +6,7 @@ scores in `attn_scores_dtype` with an fp32 softmax, SwiGLU with silu in fp32:
 fp32 RoPE and scores are the parity numerics, bf16 the turbo ones. Weights
 are layer-stacked ``[L, ...]`` as in the JAX package (bf16, or per-channel
 int8 leaves through ``matmul_t``); a Python loop over the layers takes the
-place of its ``lax.scan``. Two cache layouts:
+place of its ``lax.scan``. Three cache layouts:
 
 * the 5-D stacked ``[L, B, S, Hkv, Dh]`` pair of the stacked decode (`forward`
   with a `KVCache`), written in place (the JAX package writes it with
@@ -15,7 +15,13 @@ place of its ``lax.scan``. Two cache layouts:
   prefill writes each layer's post-RoPE K/V in place into one preallocated
   ``[L, B, T, Hkv, Dh]`` pair (the JAX package emits them through scan ys),
   and each decode step attends [frozen prefill K/V | generated K/V] with one
-  joint softmax, the generated K/V written in place into ``[L, B, A, Hkv, Dh]``.
+  joint softmax, the generated K/V written in place into ``[L, B, A, Hkv, Dh]``;
+* the int8 flat stacked cache of the `pallas_kv8` tier (`KVCacheQ`,
+  `quantize_prefill_to_stacked`, `decode_step_stacked_i8`): int8
+  ``[L, B, S, Hkv·Dh]`` codes with fp32 ``[L, B, S, Hkv]`` per-(slot, head)
+  absmax scales, filled from the prefill K/V one layer at a time; each decode
+  step quantizes its token's K/V into slot ``slot0 + t`` in place and attends
+  the whole cache with the fused-dequant kernel.
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, attention_plain, decode_attention, flash_attention
-from ..ops.decode_attention import decode_flash_attention
-from ..ops.linear import index_layer, matmul_t
+from ..ops.decode_attention import decode_flash_attention, stacked_decode_attention_i8
+from ..ops.linear import div127, index_layer, matmul_t
 
 Params = Dict[str, Any]
 
@@ -342,6 +348,93 @@ def greedy_decode(
         toks.append(tok)
         margins.append(top2_margin(logits, tok))
     return torch.stack(toks, dim=1), torch.stack(margins, dim=1)
+
+
+# --- int8 flat stacked cache (the `pallas_kv8` serving tier) ------------------------
+
+
+class KVCacheQ(NamedTuple):
+    """int8 stacked KV cache, flat head-minor layout: kq/vq int8
+    [L, B, S, Hkv·Dh], ks/vs fp32 [L, B, S, Hkv] per-(slot, head) absmax scales,
+    the JAX package's four arrays. The port keeps K and V in one buffer each
+    for codes ([2, L, B, S, Hkv·Dh]) and scales ([2, L, B, S, Hkv]), so that a
+    decode step quantizes and writes its token's K and V in one pass (the
+    decode steps are bound by the host's launches). Generated tokens are
+    quantized into the same cache (one segment, one softmax)."""
+
+    codes: torch.Tensor
+    scales: torch.Tensor
+
+    @property
+    def kq(self) -> torch.Tensor:
+        return self.codes[0]
+
+    @property
+    def vq(self) -> torch.Tensor:
+        return self.codes[1]
+
+    @property
+    def ks(self) -> torch.Tensor:
+        return self.scales[0]
+
+    @property
+    def vs(self) -> torch.Tensor:
+        return self.scales[1]
+
+
+def _quant_heads(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., H, Dh] -> (int8 [..., H·Dh] flat, fp32 scales [..., H]):
+    s = max(max|x|, 1e-8) / 127 (the clamp before the division), codes
+    clip(round(x / s), -127, 127)."""
+    xf = x.float()
+    s = div127(torch.clamp(xf.abs().amax(dim=-1), min=1e-8))
+    qi = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return qi.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]), s
+
+
+def quantize_prefill_to_stacked(kv: PrefillKV, s_slots: int) -> KVCacheQ:
+    """Prefill K/V [L, B, T, Hkv, Dh] -> int8 stacked cache with `s_slots`
+    slots, quantized one layer at a time into a preallocated pair (the JAX
+    package pads the whole tensor and quantizes it at once: the same values,
+    but its fp32 transient would be 4 GB per K at 7B). Slots past T hold the
+    codes and scales of zeros (scale 1e-8 / 127) and stay masked."""
+    L, B, T, Hkv, Dh = kv.k.shape
+    dev = kv.k.device
+    pad_scale = div127(torch.full((), 1e-8, dtype=torch.float32, device=dev))
+    cq = KVCacheQ(torch.zeros((2, L, B, s_slots, Hkv * Dh), dtype=torch.int8, device=dev),
+                  pad_scale.expand(2, L, B, s_slots, Hkv).clone())
+    for li in range(L):
+        for i, x in enumerate((kv.k[li], kv.v[li])):
+            cq.codes[i, li, :, :T], cq.scales[i, li, :, :T] = _quant_heads(x)
+    return cq
+
+
+def decode_step_stacked_i8(
+    params: Params,
+    cfg: LlamaConfig,
+    x: torch.Tensor,            # [B, 1, D] current-token embedding
+    positions: torch.Tensor,    # [B, 1] absolute position of the token
+    cq: KVCacheQ,               # updated in place
+    valid: torch.Tensor,        # [B, S] slot validity for this step (self included)
+    slot: int,                  # cache slot of this token
+) -> torch.Tensor:
+    """One greedy decode step over the int8 stacked cache: each layer
+    quantizes the new token's K/V into slot `slot` of layer `li` in place,
+    then attends the whole cache through the fused-dequant kernel. Returns the
+    final-normed last hidden state [B, D]."""
+    # cast once per call, not per layer (apply_rope's own cast is then a no-op)
+    cos, sin = (t.to(cfg.rope_dtype) for t in rope_tables(cfg, positions))
+
+    def attend_layer(li: int) -> Attend:
+        def attend(q, k, v):
+            codes, scales = _quant_heads(torch.stack([k[:, 0], v[:, 0]]))   # K and V at once
+            cq.codes[:, li, :, slot], cq.scales[:, li, :, slot] = codes, scales
+            return stacked_decode_attention_i8(q, cq.kq, cq.ks, cq.vq, cq.vs, valid, li)
+        return attend
+
+    for li in range(cfg.num_hidden_layers):
+        x = _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
+    return rms_norm(x, params["norm"], cfg.rms_norm_eps)[:, 0]
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:

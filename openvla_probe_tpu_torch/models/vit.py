@@ -8,7 +8,9 @@ contract). Attention is the tower kernel (``ops.attention.vit_flash_attention``)
 on every device, as the JAX package runs it under its kernel gate; so is a
 block whose linears are per-channel int8 (the turbo weights): LN1 + qkv, proj
 + LayerScale + residual, and the whole MLP half each run as one fused w8a8
-kernel (``ops.vit_mlp``).
+kernel (``ops.vit_mlp``). Grouped-int4 linears (bits=4 weights) stand the fused
+kernels down, as in the JAX package, and go through ``matmul_t``: an MLP half
+with an int4 fc1 and an int8 fc2 (SigLIP's ungroupable mlp dim) runs unfused.
 """
 
 from __future__ import annotations
@@ -130,7 +132,7 @@ def _block(cfg: ViTConfig, bp: Params, x: torch.Tensor, B: int, N: int) -> torch
     """One transformer block over flat [B*N, D] activations. Per-channel int8
     qkv + proj leaves take `fused_ln_w8a8` and int8 fc1 + fc2 leaves take
     `fused_mlp_residual` (the JAX package's routes under its kernel gate);
-    float leaves the unfused chain."""
+    float and grouped-int4 leaves the unfused chain through `matmul_t`."""
     H, Dh = cfg.num_heads, cfg.head_dim
     D = x.shape[-1]
     eps = cfg.layer_norm_eps

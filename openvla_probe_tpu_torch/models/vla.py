@@ -10,14 +10,21 @@ cache slots after the pad region (slot0 + t) with their true RoPE positions
 (mm_len + t), and pad slots are masked out of attention, so results do not
 depend on the pad length. Argmax runs over the full LLM vocab at every step.
 
-Two serving tiers are ported (`VLAServingConfig.for_tier`):
+Three serving tiers are ported (`VLAServingConfig.for_tier`):
 
 * ``parity``: bf16 weights, fp32 scores and RoPE, the stacked-cache decode;
-* ``pallas``: per-channel int8 weights (``ops.linear.quantize_params`` with
-  ``TURBO_QUANT_SUFFIXES``), `VLMConfig.turbo` numerics, the frozen-KV split
-  decode. The weight leaves and the config pick the kernels: int8 linears
-  take ``wi8_matmul``, int8 tower blocks the fused w8a8 kernels, the decode
-  the split-attention kernel.
+* ``pallas``: `VLMConfig.turbo` numerics, the frozen-KV split decode, over
+  quantized weights (``ops.linear.quantize_params`` with
+  ``TURBO_QUANT_SUFFIXES``): per-channel int8 (bits=8) or grouped int4
+  (bits=4, int8 where an in-dim has no group);
+* ``pallas_kv8``: turbo numerics and int8 weights, the prefill's K/V
+  quantized into an int8 stacked cache that every decode step attends
+  through the fused-dequant kernel.
+
+The weight leaves and the config pick the kernels: int8 linears take
+``wi8_matmul``, grouped-int4 linears ``w4a8_matmul`` (or the requant route),
+int8 tower blocks the fused w8a8 kernels, the frozen-KV decode the
+split-attention kernel, the int8-cache decode ``stacked_decode_attention_i8``.
 
 Other tiers and options raise NotImplementedError.
 """
@@ -44,14 +51,16 @@ _PORTED_TIERS = {
     # (tier, decode_impl, split_prefill, flat_cache, kv_int8)
     ("parity", "stacked", False, False, False),
     ("pallas", "frozen_kv", False, False, False),
+    ("pallas_kv8", "stacked_kv8", False, False, False),
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class VLAServingConfig:
     """Serving configuration. Ported: tier="parity" with the stacked-cache
-    decode and tier="pallas" with the frozen-KV decode (no split prefill, no
-    flat cache, no int8 KV); every other value raises. Build with `for_tier`."""
+    decode, tier="pallas" with the frozen-KV decode and tier="pallas_kv8" with
+    the int8 stacked-cache decode (no split prefill, no flat cache, no int8
+    frozen KV); every other value raises. Build with `for_tier`."""
 
     vlm: vlm.VLMConfig
     action_dim: int = 7
@@ -68,9 +77,10 @@ class VLAServingConfig:
         if knobs not in _PORTED_TIERS:
             raise NotImplementedError(
                 f"(tier, decode_impl, split_prefill, flat_cache, kv_int8) = {knobs}: only "
-                "tier='parity' with decode_impl='stacked' and tier='pallas' with "
-                "decode_impl='frozen_kv' are ported; turbo (XLA w8a8), nibble, turbo_kv8 "
-                "and pallas_kv8 are ROADMAP Queue 1 items 6, 7 and 10")
+                "tier='parity' with decode_impl='stacked', tier='pallas' with "
+                "decode_impl='frozen_kv' and tier='pallas_kv8' with decode_impl="
+                "'stacked_kv8' are ported; turbo (XLA w8a8), nibble and turbo_kv8 are "
+                "ROADMAP Queue 1 items 6, 7 and 10")
 
     @classmethod
     def for_tier(cls, vlm_cfg: vlm.VLMConfig, tier: str = "parity", **kw) -> "VLAServingConfig":
@@ -79,6 +89,8 @@ class VLAServingConfig:
             return cls(vlm=vlm_cfg, tier=tier, **kw)
         if tier == "pallas":
             return cls(vlm=vlm_cfg.turbo(), tier=tier, decode_impl="frozen_kv", **kw)
+        if tier == "pallas_kv8":
+            return cls(vlm=vlm_cfg.turbo(), tier=tier, decode_impl="stacked_kv8", **kw)
         raise NotImplementedError(f"serving tier {tier!r} is not ported (ROADMAP Queue 1)")
 
     @property
@@ -122,9 +134,16 @@ def predict_action_core(
     positions = torch.arange(T, device=dev).expand(B, T)
 
     frozen_kv = cfg.decode_impl == "frozen_kv"
+    stacked8 = cfg.decode_impl == "stacked_kv8"
     if frozen_kv:
         # prefill writes each layer's K/V into the frozen [L, B, T, Hkv, Dh] pair
         out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions)
+    elif stacked8:
+        # prefill K/V (Tk = T), then quantized layer by layer into the int8
+        # stacked cache; S int8-tile aligned (32) as in the JAX package
+        out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions)
+        S = -(-cfg.cache_len // 32) * 32
+        cache = llama.quantize_prefill_to_stacked(out.pop("kv"), S)
     else:
         S = cfg.cache_len
         cache = llama.KVCache.zeros(c.llm, B, S, dtype=c.llm.dtype, device=dev)
@@ -156,9 +175,14 @@ def predict_action_core(
             e = llama.embed_tokens(params["llm"], tok[:, None])        # [B, 1, D]
             pos = (mm_len + t)[:, None]                                 # true RoPE position
             valid = (slots < mm_len[:, None]) | ((slots >= slot0) & (slots <= slot0 + t))
-            step_out = llama.forward(params["llm"], c.llm, e, valid.int(), pos,
-                                     cache=cache, cache_index=slot0 + t)
-            lg = step_out["logits"][:, -1]
+            if stacked8:
+                hidden = llama.decode_step_stacked_i8(params["llm"], c.llm, e, pos, cache,
+                                                      valid.int(), slot0 + t)
+                lg = matmul_t(hidden, params["llm"]["lm_head"]).float()
+            else:
+                step_out = llama.forward(params["llm"], c.llm, e, valid.int(), pos,
+                                         cache=cache, cache_index=slot0 + t)
+                lg = step_out["logits"][:, -1]
             tok = lg.argmax(-1)
             toks.append(tok)
             margins.append(llama.top2_margin(lg, tok))

@@ -59,8 +59,19 @@ KERNELS = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
     ),
+    "w4a8_matmul": (
+        "w4a8_matmul.cu", "ovla_w4a8_matmul",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "stacked_decode_attention_i8": (
+        "stacked_decode_i8.cu", "ovla_stacked_decode_i8",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
 }
 KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# library calls on a path that are not kernels of the port (the requant
+# route's torch._int_mm), counted beside the launches and reset with them
+LIBRARY_CALLS: Dict[str, int] = {"w8a8_dot": 0}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -70,8 +81,9 @@ build_report: Dict[str, object] = {}   # seconds and nvcc/ptxas output of the la
 
 
 def reset_launch_counts() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
+    for counts in (KERNEL_LAUNCHES, LIBRARY_CALLS):
+        for name in counts:
+            counts[name] = 0
 
 
 def stream_ptr(t) -> int:

@@ -17,7 +17,7 @@ activation in fp32, cast back.
 Each wrapper launches its CUDA kernel (``csrc/vit_mlp.cu``) for a CUDA tensor
 and takes the plain PyTorch version beside it only for a CPU tensor. The plain
 versions compute the integer accumulators exactly through float64 products
-of the codes (|acc| <= 127² · K < 2⁵³; fp32 would round past 2²⁴).
+of the codes (``ops.linear.int8_dot``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .linear import div127
+from .linear import int8_dot, quantize_rows
 
 ACTS = ("gelu", "gelu_tanh", "quick_gelu")
 
@@ -48,18 +48,6 @@ def _layer_norm_f32(x, scale, bias, eps: float) -> torch.Tensor:
     mean = xf.mean(-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     return (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
-
-
-def quantize_rows(hf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 [M, K] -> (int8 codes [M, K], fp32 scales [M, 1])."""
-    sx = torch.clamp(div127(hf.abs().amax(dim=-1, keepdim=True)), min=1e-8)
-    return torch.clamp(torch.round(hf / sx), -127, 127).to(torch.int8), sx
-
-
-def int8_dot(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Exact integer accumulators codes [M, K] · q [N, K]ᵀ, as fp32 (the
-    int32 -> fp32 conversion's rounding)."""
-    return torch.matmul(codes.double(), q.double().t()).float()
 
 
 def _w8a8_codes(codes, sx, w, b, dt) -> torch.Tensor:

@@ -1,13 +1,17 @@
 """Where the time of one OpenVLA-7B serving call goes, on one CUDA card.
 
-    python -m openvla_probe_tpu_torch.tools.profile_main_path [--tier parity|pallas] [--batch 24] [--calls 3]
+    python -m openvla_probe_tpu_torch.tools.profile_main_path [--tier parity|pallas|pallas_kv8]
+        [--weights int8|int4] [--batch 24] [--calls 3]
 
 Drives the same call as chip_smoke.py (random weights from a seeded
-generator: bf16 for the parity tier, int8 TURBO_QUANT_SUFFIXES leaves for the
-pallas tier; 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
+generator: bf16 for the parity tier, TURBO_QUANT_SUFFIXES leaves for the
+others, per-channel int8 or, with --weights int4 on the pallas tier, grouped
+int4; 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
 
   stages   device time of each stage of predict_action_from_image, each stage
-           run alone through the port's own functions (CUDA events, median)
+           run alone through the port's own functions (CUDA events, median);
+           pallas_kv8 splits its prefill into the trunk and the layer-by-layer
+           quantization into the int8 stacked cache
   kernels  torch.profiler device time per call, summed by kernel name and by
            class (cuBLAS GEMM, the port's kernels, elementwise / other),
            beside the host-clock time of the profiled calls; the difference
@@ -47,7 +51,7 @@ def _median_ms(fn, reps: int) -> float:
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "ovla::" in n:
+    if n.startswith("void ovla") or "ovla::" in n or "ovla_" in n:
         return "port kernels (ops/csrc)"
     if any(s in n for s in ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")):
         return "GEMM (cuBLAS)"
@@ -56,7 +60,9 @@ def _kernel_class(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tier", choices=("parity", "pallas"), default="parity")
+    ap.add_argument("--tier", choices=("parity", "pallas", "pallas_kv8"), default="parity")
+    ap.add_argument("--weights", choices=("int8", "int4"), default="int8",
+                    help="quantized tiers: per-channel int8 or grouped int4 (pallas only)")
     ap.add_argument("--batch", type=int, default=24)
     ap.add_argument("--calls", type=int, default=3)
     args = ap.parse_args()
@@ -66,8 +72,10 @@ def main() -> None:
     cfg = vla.VLAServingConfig.for_tier(vlm.VLMConfig.openvla_7b(), args.tier, prompt_pad_len=32)
     c = cfg.vlm
     g = torch.Generator(device=dev).manual_seed(0)
-    params = convert.init_params(c, g, device=dev, quant_suffixes=(
-        TURBO_QUANT_SUFFIXES if args.tier == "pallas" else ()))
+    if args.weights == "int4" and args.tier != "pallas":
+        ap.error("--weights int4 serves through the pallas tier")
+    params = convert.init_params(c, g, device=dev, bits=4 if args.weights == "int4" else 8,
+                                 quant_suffixes=TURBO_QUANT_SUFFIXES if args.tier != "parity" else ())
     B, P = args.batch, cfg.prompt_pad_len
     image = torch.randint(0, 256, (B, 256, 256, 3), generator=g, device=dev, dtype=torch.uint8)
     ids = torch.randint(1000, 20000, (B, P), generator=g, device=dev)
@@ -93,6 +101,7 @@ def main() -> None:
     e = llama.embed_tokens(params["llm"], ids[:, :1])
     step_pos = torch.full((B, 1), T, device=dev)
     reps = max(3, args.calls)
+    extra = {}
     if args.tier == "parity":
         mask_S = torch.nn.functional.pad(mm["attn_mask"], (0, S - T))
         cache = llama.KVCache.zeros(c.llm, B, S, device=dev)
@@ -106,6 +115,20 @@ def main() -> None:
         def decode_step():
             return llama.forward(params["llm"], c.llm, e, step_valid, step_pos, cache=cache,
                                  cache_index=T)
+    elif args.tier == "pallas_kv8":
+        S8 = -(-S // 32) * 32
+        with torch.no_grad():
+            kv = llama.prefill(params["llm"], c.llm, mm["inputs_embeds"], mm["attn_mask"], pos)["kv"]
+            cq = llama.quantize_prefill_to_stacked(kv, S8)
+        step_valid = (torch.arange(S8, device=dev)[None] <= T).int().expand(B, S8).contiguous()
+
+        def prefill():
+            return llama.prefill(params["llm"], c.llm, mm["inputs_embeds"], mm["attn_mask"], pos)
+
+        def decode_step():
+            return llama.decode_step_stacked_i8(params["llm"], c.llm, e, step_pos, cq, step_valid, T)
+
+        extra["kv8_cache_quantize"] = lambda: llama.quantize_prefill_to_stacked(kv, S8)
     else:
         with torch.no_grad():
             kv = llama.prefill(params["llm"], c.llm, mm["inputs_embeds"], mm["attn_mask"], pos)["kv"]
@@ -128,10 +151,12 @@ def main() -> None:
                for i, name in enumerate(c.vision_names)},
             "projector": _median_ms(lambda: vlm.project_patches(params, c, feats), reps),
             "llm_prefill": _median_ms(prefill, reps),
+            **{name: _median_ms(fn, reps) for name, fn in extra.items()},
             "llm_decode_step": _median_ms(decode_step, reps),
             "whole_call": _median_ms(call, reps),
         }
-    print(json.dumps({"card": card, "tier": args.tier, "batch": B, "stages_ms": stages}), flush=True)
+    print(json.dumps({"card": card, "tier": args.tier, "weights": args.weights, "batch": B,
+                      "stages_ms": stages}), flush=True)
 
     # --- device time by kernel over `calls` whole calls -----------------------------
     call()
@@ -156,7 +181,7 @@ def main() -> None:
         by_class[_kernel_class(ev.key)] += dev_us / 1e3 / args.calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
     device_ms = sum(by_class.values())
-    print(json.dumps({"card": card, "tier": args.tier, "batch": B,
+    print(json.dumps({"card": card, "tier": args.tier, "weights": args.weights, "batch": B,
                       "device_ms_per_call_by_class": dict(by_class),
                       "device_ms_per_call_total": device_ms,
                       "host_ms_per_profiled_call": host_ms,

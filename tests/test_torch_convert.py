@@ -120,14 +120,14 @@ def test_config_from_jax():
 
 
 def test_matmul_t_float_only():
-    """Float and per-channel int8 leaves multiply; grouped-int4, nibble and
-    LoRA leaves still raise."""
+    """Float and per-channel int8 leaves multiply; mix, nibble and LoRA
+    leaves still raise."""
     x, w = torch.randn(3, 4), torch.randn(5, 4)
     torch.testing.assert_close(matmul_t(x, w), x @ w.T)
     q = torch.randint(-127, 128, (5, 4), dtype=torch.int8)
     torch.testing.assert_close(matmul_t(x, {"q": q, "s": torch.ones(5)}), x @ q.float().T)
-    with pytest.raises(NotImplementedError, match="Queue 1"):      # grouped int4 codes
-        matmul_t(x, {"q": q.reshape(1, 5, 4), "s": torch.ones(5, 1)})
+    with pytest.raises(NotImplementedError, match="Queue 1"):      # mix: int8 + grouped int4
+        matmul_t(x, {"q": q, "s": torch.ones(5), "q4": q.reshape(1, 5, 4), "s4": torch.ones(5, 1)})
     with pytest.raises(NotImplementedError, match="Queue 1"):      # nibble planes
         matmul_t(x, {"hi": q, "lo": q, "s": torch.ones(5)})
     with pytest.raises(NotImplementedError, match="Queue 1"):

@@ -11,7 +11,10 @@ one bf16 rounding); the fused w8a8 kernels' activation codes within one
 step of the plain version's (the fp32 LayerNorm sums run in another order)
 and their outputs bit-equal to the plain version's on the kernels' own codes
 (equal codes give equal int32 sums and the same epilogue); without a
-LayerNorm, bit-equal to the plain version.
+LayerNorm, bit-equal to the plain version. w4a8_matmul: bit-equal to its
+plain version (the same activation codes, exact integer sums, the same fold
+order and roundings). stacked_decode_attention_i8: fp32 1e-5, bf16 2e-2, as
+the other attention kernels.
 """
 
 import numpy as np
@@ -206,3 +209,64 @@ def test_int8_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     w = {"q": torch.zeros((8, 32), dtype=torch.int8, device=cuda), "s": torch.ones(8, device=cuda)}
     with pytest.raises(TypeError):
         tmlp.fused_ln_w8a8(x, w, torch.zeros(8, dtype=torch.float16, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,gsz", [
+    (5, 256, 128, 128),         # small M, two groups
+    (24, 4096, 4096, 128),      # a decode step's product: 32 groups
+    (24, 512, 384, 256),        # two 256-wide groups (two chunks per group)
+    (100, 384, 256, 128),       # M > 64 past one 128-row tile
+    (6264, 1024, 1024, 128),    # DINOv2 proj: M past the last tile
+])
+def test_w4a8_kernel_bit_equal_to_plain(cuda, dtype, M, K, N, gsz):
+    x = _rand(30, (M, K), dtype, cuda)
+    w = tlin.quantize_weight_int4(_rand(31, (N, K), torch.float32, cuda) * 0.02, group_size=gsz)
+    got = _count("w4a8_matmul", lambda: tlin.w4a8_matmul(x, w["q"], w["s"]))
+    want = tlin.w4a8_matmul_plain(x, w["q"], w["s"])
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,S,H,Hkv,dh", [
+    (3, 320, 4, 4, 128),   # the 7B slot count and head dim
+    (2, 40, 4, 2, 16),     # GQA n_rep = 2, tiny heads
+    (2, 100, 8, 1, 64),    # n_rep = 8
+    (1, 33, 2, 2, 32),
+])
+def test_stacked_decode_kernel_matches_plain(cuda, dtype, tol, B, S, H, Hkv, dh):
+    L, li = 3, 1
+    r = np.random.default_rng(32)
+    kq, vq = (torch.from_numpy(r.integers(-127, 128, (L, B, S, Hkv * dh)).astype(np.int8)).to(cuda)
+              for _ in range(2))
+    ks, vs = (torch.from_numpy(r.uniform(1e-3, 2e-2, (L, B, S, Hkv)).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    q = _rand(33, (B, 1, H, dh), dtype, cuda)
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    valid[0, S // 2:S - 3] = 0             # a padded prompt before the generated slots
+    args = (q, kq, ks, vq, vs, valid, li)
+    got = _count("stacked_decode_attention_i8", lambda: tdec.stacked_decode_attention_i8(*args))
+    want = tdec.stacked_decode_attention_i8_plain(*args)
+    assert got.dtype == dtype and got.shape == (B, 1, H, dh)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_new_kernels_fail_loudly_on_bad_shapes(cuda):
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device=cuda)
+    w = tlin.quantize_weight_int4(torch.ones((200, 256), device=cuda))
+    with pytest.raises(ValueError, match="multiples of 128"):      # N = 200
+        tlin.w4a8_matmul(x, w["q"], w["s"])
+    # the launcher itself refuses what the wrapper would not pass, and the
+    # wrapper's check turns its error code into an exception
+    scratch = torch.empty((4, 256), dtype=torch.int8, device=cuda)
+    err = _build.launcher("w4a8_matmul")(
+        x.data_ptr(), w["q"].data_ptr(), w["s"].data_ptr(), x.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr(), 4, 200, 256, 128, 1, _build.stream_ptr(x))
+    with pytest.raises(RuntimeError, match="w4a8_matmul"):
+        _build.check(err, "w4a8_matmul")
+    q = torch.zeros((2, 1, 2, 72), dtype=torch.bfloat16, device=cuda)
+    kq = torch.zeros((1, 2, 8, 144), dtype=torch.int8, device=cuda)
+    ks = torch.ones((1, 2, 8, 2), device=cuda)
+    with pytest.raises(ValueError, match="head dim 72"):
+        tdec.stacked_decode_attention_i8(q, kq, ks, kq, ks, torch.ones((2, 8), device=cuda), 0)

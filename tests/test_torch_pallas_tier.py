@@ -154,8 +154,14 @@ def test_other_knobs_raise(models, kw):
 
 @pytest.mark.parametrize("tier", ["turbo", "turbo_kv8", "pallas_kv8"])
 def test_unported_for_tier_raises(tier):
+    """turbo and turbo_kv8 are not ported; pallas_kv8 is, but only with its
+    own decode (the tier and decode_impl='stacked_kv8' imply each other)."""
     with pytest.raises(NotImplementedError, match=tier):
-        tvla.VLAServingConfig.for_tier(tvlm.VLMConfig.tiny(), tier)
+        if tier == "pallas_kv8":
+            tvla.VLAServingConfig(vlm=tvlm.VLMConfig.tiny().turbo(), tier=tier,
+                                  decode_impl="frozen_kv")
+        else:
+            tvla.VLAServingConfig.for_tier(tvlm.VLMConfig.tiny(), tier)
 
 
 def test_prefill_and_greedy_decode_match_jax(models):

@@ -106,7 +106,7 @@ def test_quantize_params_turbo_bit_identical(tiny_params):
 
 def test_quantize_params_other_bits_raise():
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        tlin.quantize_params({"q_proj": torch.zeros(2, 2)}, bits=4)
+        tlin.quantize_params({"q_proj": torch.zeros(2, 2)}, bits="mix")
 
 
 @pytest.mark.parametrize("name", ["tiny", "openvla_7b"])
