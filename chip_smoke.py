@@ -3,31 +3,38 @@
 
     python3 chip_smoke.py
 
-Four serving paths, each at full OpenVLA-7B width through the normal entry
+Six serving paths, each at full OpenVLA-7B width through the normal entry
 `predict_action_from_image`:
-  parity       bf16 weights, stacked-cache decode
-  pallas       int8 TURBO_QUANT_SUFFIXES weights, turbo numerics, frozen-KV
-               split decode
-  pallas_kv8   the same int8 weights (built once for both), the int8 stacked
-               cache and its fused-dequant decode
-  pallas_int4  the pallas tier over grouped-int4 weights (bits=4, group 128;
-               SigLIP's fc2 int8), frozen-KV split decode
+  parity        bf16 weights, stacked-cache decode
+  pallas        int8 TURBO_QUANT_SUFFIXES weights, turbo numerics, frozen-KV
+                split decode
+  pallas_kv8    the same int8 weights (built once for pallas, pallas_kv8 and
+                turbo), the int8 stacked cache and its fused-dequant decode
+  turbo         the same int8 weights on the turbo tier: every int8 linear on
+                w8a8, the fused RMSNorm -> int8 kernel, stacked-cache decode at
+                bf16 scores
+  pallas_int4   the pallas tier over grouped-int4 weights (bits=4, group 128;
+                SigLIP's fc2 int8), frozen-KV split decode
+  turbo_nibble  the turbo tier over nibble weights (bits="nibble": the trunk
+                and lm_head as two 4-bit planes, the towers int8)
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
               all started together (set-up time)
   3. kernels  each kernel against its plain PyTorch version at the 7B main-path
               shapes (B=24), with kernel / plain / library times: flash_prefill,
-              vit_attention, decode_attention (parity path), wi8_matmul,
-              fused_ln_w8a8, fused_mlp_residual, decode_split_attention (pallas),
-              stacked_decode_attention_i8 (pallas_kv8), w4a8_matmul (pallas_int4)
+              vit_attention, decode_attention (parity; turbo's bf16 scores),
+              wi8_matmul, fused_ln_w8a8, fused_mlp_residual,
+              decode_split_attention (pallas), stacked_decode_attention_i8
+              (pallas_kv8), w4a8_matmul (pallas_int4), w8a8_matmul,
+              rms_norm_quant (turbo), nib_hi_dot (turbo_nibble)
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package)
   5. main     each path once with every launch count set to 0 just before and
-              read just after (exact per-kernel counts asserted, and the
-              requant route's torch._int_mm calls), then p50 latency and
-              calls/s over timed calls; random weights from a seeded generator
-              on the card, 256x256 uint8 images, prompt_pad_len=32, A=7
+              read just after (exact per-kernel counts asserted, and no
+              torch._int_mm call), then p50 latency and calls/s over timed
+              calls; random weights from a seeded generator on the card,
+              256x256 uint8 images, prompt_pad_len=32, A=7
 then a JSON line of per-kernel figures and a last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero; with
 no CUDA card it exits 1 before printing any result.
@@ -52,6 +59,7 @@ from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import attention as attn
 from openvla_probe_tpu_torch.ops import decode_attention as dattn
 from openvla_probe_tpu_torch.ops import linear as lin
+from openvla_probe_tpu_torch.ops import rmsnorm_quant as rmsq
 from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
 from openvla_probe_tpu_torch.ops.image import BackboneTransformSpec, ImageTransformConfig
 
@@ -190,9 +198,13 @@ def check_vit_attention(dev, g):
 
 
 def check_decode_attention(dev, g):
-    """The decode-step attention at the 7B shape: q [24, 1, 32, 128] over one
-    layer of the stacked cache, k/v [24, 295, 32, 128] bf16, padded prompts,
-    the query at slot 291 (the fourth decode step)."""
+    """The decode-step attention at the 7B shape in its two score types (fp32:
+    parity, bf16: turbo; 192 launches per call each): q [24, 1, 32, 128] over
+    one layer of the stacked cache, k/v [24, 295, 32, 128] bf16, padded
+    prompts, the query at slot 291 (the fourth decode step). fp32 scores
+    within 2e-2 of the plain version; bf16 scores held to the bf16-score plain
+    version by attn.compare_bf16_scores (within 4e-3, and on average at most a
+    tenth as far from it as from the fp32-score plain version)."""
     B, T, S, H, Dh, slot = BATCH, 288, 295, 32, 128, 291
     q = torch.randn((B, 1, H, Dh), generator=g, device=dev).bfloat16()
     k = torch.randn((B, S, H, Dh), generator=g, device=dev).bfloat16()
@@ -200,24 +212,32 @@ def check_decode_attention(dev, g):
     mm_len = torch.randint(T - 12, T + 1, (B,), generator=g, device=dev)
     slots = torch.arange(S, device=dev)[None]
     valid = ((slots < mm_len[:, None]) | ((slots >= T) & (slots <= slot))).int()
-    before = attn.KERNEL_LAUNCHES["decode_attention"]
-    got = attn.decode_attention(q, k, v, valid, slot)
-    torch.cuda.synchronize()
-    assert attn.KERNEL_LAUNCHES["decode_attention"] == before + 1
-    want = attn.decode_attention_plain(q, k, v, valid, slot)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
-    err = (got.float() - want.float()).abs().max().item()
     sdpa_mask = ((valid > 0) & (slots <= slot))[:, None, None, :]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    b, by = bound_ms(_nbytes(q, k, v, got, valid), 4 * B * H * S * Dh, "bf16")
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask))
+    b, by = bound_ms(_nbytes(q, k, v, q, valid), 4 * B * H * S * Dh, "bf16")
+    by_mode = {}
+    for mode, sd in (("fp32_scores", torch.float32), ("bf16_scores", torch.bfloat16)):
+        before = attn.KERNEL_LAUNCHES["decode_attention"]
+        got = attn.decode_attention(q, k, v, valid, slot, sd)
+        torch.cuda.synchronize()
+        assert attn.KERNEL_LAUNCHES["decode_attention"] == before + 1
+        want = attn.decode_attention_plain(q, k, v, valid, slot, sd)
+        if sd == torch.bfloat16:
+            stats = attn.compare_bf16_scores(
+                got, want, attn.decode_attention_plain(q, k, v, valid, slot, torch.float32))
+        else:
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+            stats = dict(max_abs_err=(got.float() - want.float()).abs().max().item())
+        by_mode[mode] = dict(
+            launches_per_call=LAYERS * (ACTION_DIM - 1), **stats,
+            ms=cuda_ms(lambda: attn.decode_attention(q, k, v, valid, slot, sd)),
+            plain_ms=cuda_ms(lambda: attn.decode_attention_plain(q, k, v, valid, slot, sd)),
+            bound_ms=b, bound_by=by, library_ms=lib)
+    mix = _launch_weighted(by_mode, {m: r["launches_per_call"] for m, r in by_mode.items()})
     return dict(name="decode_attention", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/decode_attention.cu",
-                replaces="openvla_probe_tpu/models/llama.py:225",
-                max_abs_err=err, ms=cuda_ms(lambda: attn.decode_attention(q, k, v, valid, slot)),
-                plain_ms=cuda_ms(lambda: attn.decode_attention_plain(q, k, v, valid, slot)),
-                bound_ms=b, bound_by=by,
-                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=sdpa_mask)))
+                replaces="openvla_probe_tpu/models/llama.py:225", by_mode=by_mode, **mix)
 
 
 def _launch_weighted(by_shape: dict, per_call: dict) -> dict:
@@ -483,12 +503,149 @@ def check_w4a8_matmul(dev, g):
                 replaces="openvla_probe_tpu/ops/linear.py:573", by_shape=by_shape, **mix)
 
 
+def _int_mm_w8a8(codes, sx, q, s):
+    """The library yardstick of the w8a8 products: cuBLASLt's int8 GEMM
+    (torch._int_mm) on the same codes, then the same epilogue."""
+    return (torch._int_mm(codes, q.t()).float() * sx * s[None, :]).bfloat16()
+
+
+def check_w8a8_matmul(dev, g):
+    """The w8a8 kernel (the XLA op _w8a8_dot) at every (M, K, N) of the turbo
+    path (towers M = 6264 / 6144, prefill M = 6912, decode and lm_head M = 24;
+    SigLIP's N = 4304 and K = 4304, lm_head's N = 32064) and of the int4
+    requant route (SigLIP fc1, lm_head): bf16 x, int8 codes, fp32 scales; bit
+    for bit equal to the plain version, from bf16 x and from the fused norm's
+    codes (the prequant entry). At the prefill shapes the nibble loader too,
+    bit-equal to the int8 loader on the same codes, with its time. Library:
+    torch._int_mm on the same activation codes plus the epilogue (it leaves
+    out the activation quantization)."""
+    M_pre, M_dec, A1 = BATCH * T_PREFILL, BATCH, ACTION_DIM - 1
+    M_dino, M_sig = BATCH * 261, BATCH * 256
+    per_call = {(M_dino, 1024, 3072): 23, (M_dino, 1024, 1024): 23, (M_dino, 1024, 4096): 23,
+                (M_dino, 4096, 1024): 23, (M_sig, 1152, 3456): 26, (M_sig, 1152, 1152): 26,
+                (M_sig, 1152, 4304): 26, (M_sig, 4304, 1152): 26,
+                (M_pre, 4096, 4096): 4 * LAYERS, (M_pre, 4096, 11008): 2 * LAYERS,
+                (M_pre, 11008, 4096): LAYERS, (M_dec, 4096, 4096): 4 * LAYERS * A1,
+                (M_dec, 4096, 11008): 2 * LAYERS * A1, (M_dec, 11008, 4096): LAYERS * A1,
+                (M_dec, 4096, 32064): 1 + A1}
+    by_shape = {}
+    for (M, K, N) in per_call:
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = []
+        for _ in range(copies_past_l2(N * K)):
+            w = lin.quantize_weight(torch.randn((N, K), generator=g, device=dev) * 0.02)
+            sets.append((x, w))
+        got = lin.w8a8_matmul(*sets[0])
+        torch.cuda.synchronize()
+        want = lin.w8a8_matmul_plain(*sets[0])
+        assert torch.equal(got, want), f"{M}x{K}x{N}: not bit-equal to the plain version"
+        codes, sx = lin.quantize_rows(x.float())
+        pre = lin.PrequantActivation(codes, sx, x.dtype)
+        assert torch.equal(lin.w8a8_matmul(pre, sets[0][1]), want), f"{M}x{K}x{N}: prequant"
+        b, by = bound_ms(_nbytes(x, sets[0][1]["q"], sets[0][1]["s"], got), 2 * M * N * K, "int8")
+        row = dict(launches_per_call=per_call[(M, K, N)], max_abs_err=0.0,
+                   ms=cuda_ms(rotating(lin.w8a8_matmul, sets)),
+                   prequant_ms=cuda_ms(rotating(lin.w8a8_matmul, [(pre, w) for _, w in sets])),
+                   plain_ms=cuda_ms(rotating(lin.w8a8_matmul_plain, sets), reps=3, warmup=1),
+                   library_ms=cuda_ms(rotating(lambda w: _int_mm_w8a8(codes, sx, w["q"], w["s"]),
+                                               [(w,) for _, w in sets])),
+                   bound_ms=b, bound_by=by)
+        if M == M_pre:
+            nib = [(x, {**lin.quantize_weight_nibble(lin.dequantize_weight(w, torch.float32)),
+                        "s": w["s"]}) for _, w in sets]
+            for (_, w), (_, nw) in zip(sets, nib):
+                assert torch.equal(lin.nibble_reconstruct_q8(nw), w["q"])
+            assert torch.equal(lin.w8a8_matmul(*nib[0]), want), f"{M}x{K}x{N}: nibble loader"
+            row["nibble_ms"] = cuda_ms(rotating(lin.w8a8_matmul, nib))
+            del nib
+        by_shape[f"{M}x{K}x{N}"] = row
+        del sets, got, want, codes, pre
+    mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    return dict(name="w8a8_matmul", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/w8a8_matmul.cu",
+                replaces="openvla_probe_tpu/ops/linear.py:413", by_shape=by_shape, **mix)
+
+
+def check_rms_norm_quant(dev, g):
+    """Row 6 at its two turbo shapes, x bf16 [M, 4096] with M = 6912 (prefill,
+    64 launches per call) and 24 (each decode step, 384), held to the plain
+    version by rmsq.compare_rms_norm_quant: every code within one step, at
+    most max(16, 1e-5 n) of the n codes one step apart, scales bit-equal (the
+    fp32 row sums run in another order). No single PyTorch call computes this
+    function (library: null)."""
+    by_shape = {}
+    per_call = {BATCH * T_PREFILL: 2 * LAYERS, BATCH: 2 * LAYERS * (ACTION_DIM - 1)}
+    for M, n in per_call.items():
+        x = (torch.randn((M, 4096), generator=g, device=dev) * 2).bfloat16()
+        w = (1 + 0.2 * torch.randn((4096,), generator=g, device=dev)).bfloat16()
+        codes, sx = rmsq.rms_norm_quant(x, w, 1e-5)
+        torch.cuda.synchronize()
+        stats = rmsq.compare_rms_norm_quant(x, (codes, sx), rmsq.rms_norm_quant_plain(x, w, 1e-5))
+        b, by = bound_ms(_nbytes(x, w, codes, sx), 0, "fp32")
+        xs = [(x, w)] + [((torch.randn((M, 4096), generator=g, device=dev) * 2).bfloat16(), w)
+                         for _ in range(copies_past_l2(_nbytes(x, codes)) - 1)]
+        by_shape[f"{M}x4096"] = dict(
+            launches_per_call=n, max_abs_err=stats["max_code_step"], **stats,
+            ms=cuda_ms(rotating(lambda a, b: rmsq.rms_norm_quant(a, b, 1e-5), xs)),
+            plain_ms=cuda_ms(rotating(lambda a, b: rmsq.rms_norm_quant_plain(a, b, 1e-5), xs)),
+            library_ms=None, bound_ms=b, bound_by=by)
+    n = sum(per_call.values())
+    mix = {key: sum(r[key] * r["launches_per_call"] for r in by_shape.values()) / n
+           for key in ("ms", "plain_ms", "bound_ms")}
+    return dict(name="rms_norm_quant", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/rmsnorm_quant.cu",
+                replaces="openvla_probe_tpu/ops/rmsnorm_quant.py:42", by_shape=by_shape,
+                max_abs_err=max(r["max_abs_err"] for r in by_shape.values()), library_ms=None,
+                bound_by="bytes", **mix)
+
+
+def check_nib_hi_dot(dev, g):
+    """The hi-plane product (the XLA op _nib_hi_dot) at the turbo_nibble
+    decode shapes, M = 24: the trunk's 4096 x 4096, 4096 x 11008, 11008 x 4096
+    and lm_head's 4096 x 32064; bf16 x, nibble planes, fp32 scales; bit for
+    bit equal to the plain version. Library: torch._int_mm on the same
+    activation codes and the hi codes widened to int8 beforehand, plus the
+    same epilogue (it leaves out the quantization and streams 2x the weight
+    bytes)."""
+    A1 = ACTION_DIM - 1
+    per_call = {(BATCH, 4096, 4096): 4 * LAYERS * A1, (BATCH, 4096, 11008): 2 * LAYERS * A1,
+                (BATCH, 11008, 4096): LAYERS * A1, (BATCH, 4096, 32064): 1 + A1}
+    by_shape = {}
+    for (M, K, N) in per_call:
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = [(x, *(lambda w: (w["hi"], w["s"]))(lin.quantize_weight_nibble(
+            torch.randn((N, K), generator=g, device=dev) * 0.02)))
+            for _ in range(copies_past_l2(N * K // 2))]
+        got = lin.nib_hi_dot(*sets[0])
+        torch.cuda.synchronize()
+        want = lin.nib_hi_dot_plain(*sets[0])
+        assert torch.equal(got, want), f"{M}x{K}x{N}: not bit-equal to the plain version"
+        codes, sx = lin.quantize_rows(x.float())
+        rowsum = codes.int().sum(-1, keepdim=True).float()
+
+        def library(hi8, s):
+            acc = torch._int_mm(codes, hi8.t()).float()
+            return ((acc * 16.0 + rowsum * 7.5) * sx * s[None, :]).bfloat16()
+
+        lib_sets = [(lin.unpack_int4(hi), s) for _, hi, s in sets]
+        b, by = bound_ms(_nbytes(x, sets[0][1], sets[0][2], got), 2 * M * N * K, "int8")
+        by_shape[f"{M}x{K}x{N}"] = dict(
+            launches_per_call=per_call[(M, K, N)], max_abs_err=0.0,
+            ms=cuda_ms(rotating(lin.nib_hi_dot, sets)),
+            plain_ms=cuda_ms(rotating(lin.nib_hi_dot_plain, sets), reps=5, warmup=1),
+            library_ms=cuda_ms(rotating(library, lib_sets)), bound_ms=b, bound_by=by)
+        del sets, lib_sets, got, want
+    mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    return dict(name="nib_hi_dot", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/nib_hi_dot.cu",
+                replaces="openvla_probe_tpu/ops/linear.py:887", by_shape=by_shape, **mix)
+
+
 def check_w8a8_requant(dev, g):
-    """The requant route of the pallas_int4 path (not a kernel of the port: the
-    JAX package runs it in XLA): per call, grouped int4 -> int8 codes, then
-    torch._int_mm, at its two 7B shapes: lm_head (24 x 4096 x 32064, 7 calls)
-    and SigLIP's fc1 (6144 x 1152 x 4304, 26 calls). Equal to the plain version
-    (float64 integer sums) on the CPU side's arithmetic."""
+    """The requant route of the pallas_int4 path: per call, grouped int4 ->
+    int8 codes in PyTorch, then the w8a8 kernel, at its two 7B shapes:
+    lm_head (24 x 4096 x 32064, 7 calls) and SigLIP's fc1 (6144 x 1152 x 4304,
+    26 calls). Bit-equal to the plain version on the requantized codes."""
     rows = {}
     for (M, K, N), n in {(BATCH, 4096, 32064): ACTION_DIM, (BATCH * 256, 1152, 4304): 26}.items():
         G = K // lin.GROUP_SIZE
@@ -496,13 +653,18 @@ def check_w8a8_requant(dev, g):
         codes = torch.randint(-7, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
                               dtype=torch.int8)
         q, s = lin.pack_int4(codes), torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
+        before = _build.KERNEL_LAUNCHES["w8a8_matmul"]
         got = lin.w4a8_dot_requant(x, q, s)
+        torch.cuda.synchronize()
+        assert _build.KERNEL_LAUNCHES["w8a8_matmul"] == before + 1
         q8, s8 = lin.requant_int4_to_int8(q, s)
-        want = lin.w8a8_dot_plain(x, q8, s8)
+        want = lin.w8a8_matmul_plain(x, {"q": q8, "s": s8})
         assert torch.equal(got, want), f"{M}x{K}x{N}: requant route differs from its plain version"
-        rows[f"{M}x{K}x{N}"] = dict(calls_per_call=n,
+        b, by = bound_ms(_nbytes(x, q, s, got), 2 * M * N * K, "int8")
+        rows[f"{M}x{K}x{N}"] = dict(calls_per_call=n, bound_ms=b, bound_by=by,
                                     ms=cuda_ms(lambda: lin.w4a8_dot_requant(x, q, s)),
-                                    int_mm_ms=cuda_ms(lambda: lin.w8a8_dot(x, q8, s8)))
+                                    w8a8_matmul_ms=cuda_ms(lambda: lin.w8a8_matmul(
+                                        x, {"q": q8, "s": s8})))
     return rows
 
 
@@ -524,7 +686,9 @@ def _inputs(cfg: vla.VLAServingConfig, batch: int, hw: int, g, dev):
 
 
 # path -> (serving tier, weight bits or None for bf16, the kernels it must
-# launch: every other count must stay 0)
+# launch, each with its activation pre-pass where it has one: every other
+# count must stay 0), in the order that lets paths share one build of their
+# weights
 PATHS = {
     "parity": ("parity", None, ("flash_prefill", "vit_attention", "decode_attention")),
     "pallas": ("pallas", 8, ("flash_prefill", "vit_attention", "fused_ln_w8a8",
@@ -532,12 +696,17 @@ PATHS = {
     "pallas_kv8": ("pallas_kv8", 8, ("flash_prefill", "vit_attention", "fused_ln_w8a8",
                                      "fused_mlp_residual", "wi8_matmul",
                                      "stacked_decode_attention_i8")),
+    "turbo": ("turbo", 8, ("flash_prefill", "vit_attention", "decode_attention", "w8a8_matmul",
+                           "rms_norm_quant")),
     "pallas_int4": ("pallas", 4, ("flash_prefill", "vit_attention", "wi8_matmul",
-                                  "decode_split_attention", "w4a8_matmul")),
+                                  "decode_split_attention", "w4a8_matmul", "w8a8_matmul")),
+    "turbo_nibble": ("turbo", "nibble", ("flash_prefill", "vit_attention", "decode_attention",
+                                         "w8a8_matmul", "nib_hi_dot")),
 }
 # the path whose slice ported each kernel (its launches go into the kernels line)
 PORTED_ON = {"flash_prefill": "parity", "vit_attention": "parity", "decode_attention": "parity",
-             "stacked_decode_attention_i8": "pallas_kv8", "w4a8_matmul": "pallas_int4"}
+             "stacked_decode_attention_i8": "pallas_kv8", "w4a8_matmul": "pallas_int4",
+             "w8a8_matmul": "turbo", "rms_norm_quant": "turbo", "nib_hi_dot": "turbo_nibble"}
 
 
 def _serving(path: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
@@ -570,8 +739,8 @@ def _tiny_vlm(path: str) -> vlm.VLMConfig:
 
 # first-logit tolerance of a tiny path, card vs CPU: parity 1e-4; quantized
 # weights 1e-3 (an activation code at a rounding tie may land one step apart
-# between the two LayerNorm sums)
-TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3}
+# between the two LayerNorm or RMSNorm sums)
+TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3, "nibble": 1e-3}
 
 
 def check_tiny_path(dev, path: str):
@@ -594,12 +763,13 @@ def check_tiny_path(dev, path: str):
                                         return_first_logits=True, device=dev)
     torch.cuda.synchronize()
     launched = {k for k, n in _build.KERNEL_LAUNCHES.items() if n}
-    assert launched == set(PATHS[path][2]), _build.KERNEL_LAUNCHES
+    kernels = set(PATHS[path][2])
+    assert launched == kernels | {_build.PRE_PASSES[k] for k in kernels & set(_build.PRE_PASSES)}, \
+        _build.KERNEL_LAUNCHES
     assert torch.equal(out["action_tokens"].cpu(), ref["action_tokens"])
     err = (out["first_logits"].cpu() - ref["first_logits"]).abs().max().item()
     assert err < TINY_TOL[PATHS[path][1]], err
-    return dict(path=path, tokens_equal=True, first_logits_max_abs_err=err,
-                library_calls=dict(_build.LIBRARY_CALLS))
+    return dict(path=path, tokens_equal=True, first_logits_max_abs_err=err)
 
 
 def _to(tree, dev):
@@ -608,45 +778,69 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def _linear_route(leaf) -> str:
-    """The kernel (or library call) matmul_t takes for a quantized leaf's layout."""
+def _linear_route(leaf, int8_matmul: str, M: int) -> str:
+    """The kernel matmul_t launches for a quantized leaf's layout (a spec
+    `Leaf` per tensor), on the config's int8 route, at M rows."""
+    if "hi" in leaf:                                    # nibble planes
+        return "nib_hi_dot" if M <= lin.NIB_HI_M_MAX else "w8a8_matmul"
     if leaf["q"].dtype == torch.int8:
-        return "wi8_matmul"
-    return "w4a8_matmul" if lin.takes_w4a8_kernel(leaf) else "w8a8_dot"
+        return "wi8_matmul" if int8_matmul == "wi8" else "w8a8_matmul"
+    return "w4a8_matmul" if lin.takes_w4a8_kernel(leaf) else "w8a8_matmul"   # requant route
 
 
-def _expected_launches(path: str, cfg: vla.VLAServingConfig):
-    """Exact per-kernel launches and library calls of one call, from the
-    weight layout (convert.vlm_param_spec) and the routes of the port."""
-    L, A1 = cfg.vlm.llm.num_hidden_layers, cfg.action_dim - 1
+def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH):
+    """Exact per-kernel launches of one call, from the weight layout
+    (convert.vlm_param_spec) and the routes of the port, with the activation
+    pre-pass of each int8 GEMM call (_build.PRE_PASSES) counted apart: every
+    call but w8a8's on the fused norm's codes launches one."""
+    c = cfg.vlm
+    L, A1 = c.llm.num_hidden_layers, cfg.action_dim - 1
     bits = PATHS[path][1]
     kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
-    library = dict.fromkeys(_build.LIBRARY_CALLS, 0)
-
-    def add(route, n):
-        (library if route in library else kernels)[route] += n
-
-    blocks = sum(v.num_layers - 1 for v in cfg.vlm.vision)       # 23 + 26 tower blocks run
+    blocks = sum(v.num_layers - 1 for v in c.vision)       # 23 + 26 tower blocks run
     kernels.update(flash_prefill=L, vit_attention=blocks)
-    kernels[{"parity": "decode_attention", "pallas": "decode_split_attention",
+    kernels[{"parity": "decode_attention", "turbo": "decode_attention",
+             "pallas": "decode_split_attention",
              "pallas_kv8": "stacked_decode_attention_i8"}[cfg.tier]] = L * A1
     if bits is None:
-        return kernels, library
-    spec = convert.vlm_param_spec(cfg.vlm, lin.TURBO_QUANT_SUFFIXES, bits)
-    for name, v in zip(cfg.vlm.vision_names, cfg.vlm.vision):
+        return kernels
+    spec = convert.vlm_param_spec(c, lin.TURBO_QUANT_SUFFIXES, bits)
+    for name, v in zip(c.vision_names, c.vision):
         b, n = spec["vision"][name]["blocks"], v.num_layers - 1
         for pair, fused, calls in ((("qkv_w", "proj_w"), "fused_ln_w8a8", 2),
                                    (("fc1_w", "fc2_w"), "fused_mlp_residual", 1)):
-            if all(_linear_route(b[w]) == "wi8_matmul" for w in pair):
-                add(fused, calls * n)
+            if all(_linear_route(b[w], v.int8_matmul, 2 ** 20) == "wi8_matmul" for w in pair):
+                kernels[fused] += calls * n
             else:
                 for w in pair:
-                    add(_linear_route(b[w]), n)
-    # 7 linears per layer at prefill and at each step; lm_head 1 + A1 times
+                    kernels[_linear_route(b[w], v.int8_matmul, 2 ** 20)] += n
+    layers, route = spec["llm"]["layers"], c.llm.int8_matmul
+    # 7 linears per layer at prefill (M = B x T) and at each step (M = B); lm_head 1 + A1 times
     for w in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"):
-        add(_linear_route(spec["llm"]["layers"][w]), L * (1 + A1))
-    add(_linear_route(spec["llm"]["lm_head"]), 1 + A1)
-    return kernels, library
+        kernels[_linear_route(layers[w], route, batch * T_PREFILL)] += L
+        kernels[_linear_route(layers[w], route, batch)] += L * A1
+    kernels[_linear_route(spec["llm"]["lm_head"], route, batch)] += 1 + A1
+    # the fused norm: both sites of every layer whose consumers all take w8a8, in every
+    # pass of more than 8 rows
+    prequant = 0   # w8a8 calls on the fused norm's codes: no pre-pass
+    if c.llm.fused_rmsq and route == "w8a8":
+        passes = 1 + (A1 if batch > 8 else 0)
+        for site in (("q_proj", "k_proj", "v_proj"), ("gate_proj", "up_proj")):
+            if all("q" in layers[w] and layers[w]["q"].dtype == torch.int8 for w in site):
+                kernels["rms_norm_quant"] += L * passes
+                prequant += len(site) * L * passes
+    for gemm, pre_pass in _build.PRE_PASSES.items():
+        kernels[pre_pass] = kernels[gemm] - (prequant if gemm == "w8a8_matmul" else 0)
+    return kernels
+
+
+def _counting_int_mm(counter: list):
+    real = torch._int_mm
+
+    def counted(*a, **kw):
+        counter.append(1)
+        return real(*a, **kw)
+    return counted
 
 
 def run_main_path(dev, path: str, weights: dict):
@@ -677,14 +871,16 @@ def run_main_path(dev, path: str, weights: dict):
         torch.cuda.synchronize()
         return out
 
-    _build.reset_launch_counts()           # counts from 0 around one driven call
-    t0 = time.perf_counter()
-    out = call()
-    first_s = time.perf_counter() - t0
-    launches, library = dict(_build.KERNEL_LAUNCHES), dict(_build.LIBRARY_CALLS)
-    expect, expect_library = _expected_launches(path, cfg)
+    int_mm_calls = []                      # the port calls no library GEMM on any path
+    with mock.patch.object(torch, "_int_mm", _counting_int_mm(int_mm_calls)):
+        _build.reset_launch_counts()       # counts from 0 around one driven call
+        t0 = time.perf_counter()
+        out = call()
+        first_s = time.perf_counter() - t0
+        launches = dict(_build.KERNEL_LAUNCHES)
+    expect = _expected_launches(path, cfg)
     assert launches == expect, (path, launches, expect)
-    assert library == expect_library, (path, library, expect_library)
+    assert not int_mm_calls, (path, len(int_mm_calls))
 
     toks, actions, logits = out["action_tokens"], out["actions"], out["first_logits"]
     assert toks.shape == (BATCH, ACTION_DIM), toks.shape
@@ -701,7 +897,7 @@ def run_main_path(dev, path: str, weights: dict):
         assert _build.KERNEL_LAUNCHES == expect, _build.KERNEL_LAUNCHES
     p50 = statistics.median(times)
     return launches, dict(
-        path=path, tier=cfg.tier, weight_bits=bits, library_calls_per_call=library,
+        path=path, tier=cfg.tier, weight_bits=bits, int_mm_calls_per_call=len(int_mm_calls),
         params=n_params, param_gb=param_gb, init_s=init_s, first_call_s=first_s,
         p50_ms=p50 * 1e3, calls_per_s=BATCH / p50, call_ms=[t * 1e3 for t in times],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -737,7 +933,8 @@ def main() -> int:
                check_decode_attention(dev, g), check_wi8_matmul(dev, g),
                check_fused_ln_w8a8(dev, g), check_fused_mlp_residual(dev, g),
                check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
-               check_w4a8_matmul(dev, g)]
+               check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g), check_rms_norm_quant(dev, g),
+               check_nib_hi_dot(dev, g)]
     log("kernels", card=card, results=kernels)
     log("requant_route", card=card, shapes=check_w8a8_requant(dev, g))
 
@@ -745,7 +942,7 @@ def main() -> int:
         log("tiny", **check_tiny_path(dev, path))
 
     launches, weights = {}, {}
-    for path in PATHS:   # pallas and pallas_kv8 share one build of the int8 weights
+    for path in PATHS:   # pallas, pallas_kv8 and turbo share one build of the int8 weights
         launches[path], main_stats = run_main_path(dev, path, weights)
         log("main", card=card, batch=BATCH, launches_per_call=launches[path], **main_stats)
         torch.cuda.empty_cache()

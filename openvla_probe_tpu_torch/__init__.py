@@ -3,8 +3,9 @@
 The JAX package beside it is the reference; this package keeps its module
 layout and function names, imports neither JAX nor anything of the JAX
 package, and replaces each Pallas TPU kernel on its path with a CUDA kernel
-written for ``sm_90a`` (``ops/csrc``). Ported so far: parity-tier serving,
-``models.vla.predict_action_from_image``.
+written for ``sm_90a`` (``ops/csrc``). Ported so far: serving through
+``models.vla.predict_action_from_image`` on the parity, pallas, pallas_kv8
+and turbo tiers, over bf16, int8, grouped-int4 and nibble weights.
 
 Entry points run on ``device="cuda"`` unless the caller passes ``"cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.

@@ -7,19 +7,23 @@
   the JAX package's ``quantize_params(..., bits)`` makes them: bits=8
   per-channel int8 ``{"q": int8 [..., O, K], "s": f32 [..., O]}``; bits=4
   grouped int4 ``{"q": uint8 [..., G, O, gsz/2], "s": f32 [..., O, G]}`` in
-  the port's packed layout (``ops/linear.py``), int8 where K has no group.
+  the port's packed layout (``ops/linear.py``), int8 where K has no group;
+  bits="nibble" the two packed planes ``{"hi", "lo": uint8 [..., O, K/2],
+  "s": f32 [..., O]}`` for the Llama trunk and lm_head, int8 elsewhere.
 * `params_from_jax(tree, cfg, quant_suffixes=..., bits=...)` takes the JAX
-  package's parameter pytree as numpy arrays (grouped-int4 codes as its s4
-  arrays or its ``emit_codes=True`` int8 codes, packed here) and returns the
-  port's parameters, raising on any leaf it does not consume and on any leaf
-  it is missing.
+  package's parameter pytree as numpy arrays (int4 codes, grouped or nibble
+  planes, as its s4 arrays or its ``emit_codes=True`` int8 codes, packed
+  here) and returns the port's parameters, raising on any leaf it does not
+  consume and on any leaf it is missing.
 * `init_params(cfg, generator, device, quant_suffixes=..., bits=...)` makes
   random weights of the same distributions as the JAX package's init
   functions, directly on the device; a quantized weight is made in its float
   dtype one ``[O, K]`` slice at a time and quantized with the port's
   `quantize_leaf`, so the float stack never exists whole.
 * `config_from_jax(cfg)` reads a JAX-package config object (its dataclass
-  fields, duck-typed) into the port's config class of the same name.
+  fields, duck-typed) into the port's config class of the same name; a
+  serving config's tier sets the kernel routes (`vla.turbo_routes`) that the
+  JAX package reads from its environment.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .models import llama, vit, vla, vlm
-from .ops.linear import int4_group_size, pack_int4, quantize_leaf
+from .ops.linear import int4_group_size, leaf_bits, pack_int4, quantize_leaf
 
 
 class Leaf(NamedTuple):
@@ -129,7 +133,7 @@ def llama_param_spec(cfg: llama.LlamaConfig) -> Dict[str, Any]:
 
 
 def vlm_param_spec(cfg: vlm.VLMConfig, quant_suffixes: Tuple[str, ...] = (),
-                   bits: int = 8) -> Dict[str, Any]:
+                   bits=8) -> Dict[str, Any]:
     spec = {
         "vision": {name: vit_param_spec(v) for name, v in zip(cfg.vision_names, cfg.vision)},
         "projector": projector_param_spec(cfg.projector_arch, cfg.vision_dim,
@@ -143,13 +147,16 @@ def _quantized(name: str, leaf: Leaf, quant_suffixes: Tuple[str, ...]) -> bool:
     return name in quant_suffixes and len(leaf.shape) >= 2
 
 
-def _quant_leaf(leaf: Leaf, bits: int) -> Dict[str, Leaf]:
-    """The {q, s} layout `quantize_leaf` gives a float leaf."""
-    if bits not in (4, 8):
-        raise NotImplementedError(f"bits={bits!r}: only 8 (per-channel int8) and 4 (grouped "
-                                  "int4) are ported; mix and nibble are ROADMAP Queue 1 items "
-                                  "7 and 10")
+def _quant_leaf(name: str, leaf: Leaf, bits) -> Dict[str, Leaf]:
+    """The layout `quantize_leaf` gives float leaf `name` under
+    `quantize_params(..., bits)`."""
+    if bits not in (4, 8, "nibble"):
+        raise NotImplementedError(f"bits={bits!r}: only 8 (per-channel int8), 4 (grouped int4) "
+                                  "and 'nibble' are ported; mix is ROADMAP Queue 1 item 10")
     *lead, O, K = leaf.shape
+    if leaf_bits(name, bits) == "nibble":
+        plane = Leaf((*lead, O, K // 2), torch.uint8, leaf.init, leaf.arg)
+        return {"hi": plane, "lo": plane, "s": Leaf((*lead, O), torch.float32, "scale")}
     gsz = int4_group_size(K)
     if bits == 4 and gsz:
         return {"q": Leaf((*lead, K // gsz, O, gsz // 2), torch.uint8, leaf.init, leaf.arg),
@@ -165,7 +172,7 @@ def _quantized_spec(spec: Dict[str, Any], quant_suffixes: Tuple[str, ...],
         if isinstance(leaf, dict):
             out[name] = _quantized_spec(leaf, quant_suffixes, bits)
         elif _quantized(name, leaf, quant_suffixes):
-            out[name] = _quant_leaf(leaf, bits)
+            out[name] = _quant_leaf(name, leaf, bits)
         else:
             out[name] = leaf
     return out
@@ -181,8 +188,9 @@ def _to_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _packed_int4(arr: np.ndarray, spec: Leaf, path: str, device: torch.device) -> torch.Tensor:
-    """The JAX package's grouped-int4 codes [..., G, O, gsz] (s4, or int8 from
-    emit_codes=True) -> the port's packed uint8 [..., G, O, gsz/2]."""
+    """The JAX package's int4 codes (grouped [..., G, O, gsz] or a nibble
+    plane [..., O, K]; s4, or int8 from emit_codes=True) -> the port's packed
+    uint8 (last dim halved)."""
     want = (*spec.shape[:-1], 2 * spec.shape[-1])
     if tuple(arr.shape) != want:
         raise ValueError(f"{path}: shape {arr.shape}, expected int4 codes {want}")
@@ -199,8 +207,8 @@ def _convert(tree: Any, spec: Any, path: str, device: torch.device) -> Any:
         if isinstance(tree, dict):
             raise NotImplementedError(
                 f"{path}: a {sorted(tree)} leaf where the layout has a float weight (name it "
-                "in quant_suffixes for a quantized leaf; mix, nibble and LoRA-wrapped leaves "
-                "are not ported yet: ROADMAP Queue 1 items 7, 10, 13)")
+                "in quant_suffixes for a quantized leaf; mix and LoRA-wrapped leaves are not "
+                "ported yet: ROADMAP Queue 1 items 10, 13)")
         arr = np.asarray(tree)
         if spec.dtype == torch.uint8:
             return _packed_int4(arr, spec, path, device)
@@ -221,11 +229,11 @@ def _convert(tree: Any, spec: Any, path: str, device: torch.device) -> Any:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: vlm.VLMConfig, device: DeviceLike = "cuda",
-                    quant_suffixes: Tuple[str, ...] = (), bits: int = 8) -> Dict[str, Any]:
+                    quant_suffixes: Tuple[str, ...] = (), bits=8) -> Dict[str, Any]:
     """The JAX package's VLM parameter pytree (numpy leaves, scan-stacked
     layers; the weights named in `quant_suffixes` as its `quantize_params(...,
-    bits)` {q, s} leaves) -> the port's parameters on `device`, dtypes kept,
-    int4 codes packed."""
+    bits)` leaves) -> the port's parameters on `device`, dtypes kept, int4
+    codes packed."""
     return _convert(tree, vlm_param_spec(cfg, quant_suffixes, bits), "", resolve_device(device))
 
 
@@ -244,15 +252,16 @@ def _init_leaf(leaf: Leaf, generator: torch.Generator, device: torch.device,
     return torch.full(leaf.shape, fill, dtype=dt, device=device)
 
 
-def _init_quantized(leaf: Leaf, generator: torch.Generator, device: torch.device,
-                    dtype: Optional[torch.dtype], bits: int) -> Dict[str, torch.Tensor]:
-    """The quantized {q, s} of a random float leaf, made and quantized one
+def _init_quantized(name: str, leaf: Leaf, generator: torch.Generator, device: torch.device,
+                    dtype: Optional[torch.dtype], bits) -> Dict[str, torch.Tensor]:
+    """The quantized leaf of random float leaf `name`, made and quantized one
     [O, K] slice at a time (the peak is one float slice, not the stack)."""
     *lead, O, K = leaf.shape
     out = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
-           for k, v in _quant_leaf(leaf, bits).items()}
+           for k, v in _quant_leaf(name, leaf, bits).items()}
     for idx in np.ndindex(*lead):
-        w = quantize_leaf(_init_leaf(leaf._replace(shape=(O, K)), generator, device, dtype), bits)
+        w = quantize_leaf(_init_leaf(leaf._replace(shape=(O, K)), generator, device, dtype),
+                          leaf_bits(name, bits))
         for k in out:
             out[k][idx] = w[k]
     return out
@@ -260,12 +269,13 @@ def _init_quantized(leaf: Leaf, generator: torch.Generator, device: torch.device
 
 def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLike = "cuda",
                 dtype: Optional[torch.dtype] = None,
-                quant_suffixes: Tuple[str, ...] = (), bits: int = 8) -> Dict[str, Any]:
+                quant_suffixes: Tuple[str, ...] = (), bits=8) -> Dict[str, Any]:
     """Random VLM weights made on `device` (normal(0.02) weights, zero biases,
     unit norms, 1e-5 LayerScale, nn.Linear-uniform projector), in each
     module's config dtype unless `dtype` is given; the weights named in
     `quant_suffixes` are quantized from that float value (bits=8 per-channel
-    int8, bits=4 grouped int4). `generator` must live on `device`."""
+    int8, bits=4 grouped int4, bits="nibble" nibble planes whose codes span
+    [-8, 7]). `generator` must live on `device`."""
     dev = resolve_device(device)
 
     def walk(spec):
@@ -274,7 +284,7 @@ def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLi
             if isinstance(leaf, dict):
                 out[name] = walk(leaf)
             elif _quantized(name, leaf, quant_suffixes):
-                out[name] = _init_quantized(leaf, generator, dev, dtype, bits)
+                out[name] = _init_quantized(name, leaf, generator, dev, dtype, bits)
             else:
                 out[name] = _init_leaf(leaf, generator, dev, dtype)
         return out
@@ -286,11 +296,16 @@ def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLi
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 _DTYPE_FIELDS = ("dtype", "attn_scores_dtype", "rope_dtype")
+# the port's fields for what the JAX package reads from its environment (the
+# kernel gates): left at their defaults here, set by the serving tier
+_ROUTE_FIELDS = ("int8_matmul", "fused_rmsq")
 
 
 def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
     out = {}
     for f in dataclasses.fields(cls):
+        if f.name in _ROUTE_FIELDS:
+            continue
         if f.name in override:
             out[f.name] = override[f.name]
         elif f.name in _DTYPE_FIELDS:
@@ -302,11 +317,14 @@ def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
 
 def config_from_jax(cfg: Any) -> Any:
     """A JAX-package VLMConfig / VLAServingConfig -> the port's (the turbo
-    numerics' bf16 scores and RoPE included). Raises on what the port does
-    not run (MoE trunks; serving tiers other than parity, pallas and
-    pallas_kv8)."""
+    numerics' bf16 scores and RoPE included; the `turbo` tier's kernel
+    routes). Raises on what the port does not run (MoE trunks; serving tiers
+    other than parity, turbo, pallas and pallas_kv8)."""
     if hasattr(cfg, "vlm"):   # VLAServingConfig
-        return vla.VLAServingConfig(**_fields(cfg, vla.VLAServingConfig, vlm=config_from_jax(cfg.vlm)))
+        vlm_cfg = config_from_jax(cfg.vlm)
+        if cfg.tier == "turbo":
+            vlm_cfg = vla.turbo_routes(vlm_cfg)
+        return vla.VLAServingConfig(**_fields(cfg, vla.VLAServingConfig, vlm=vlm_cfg))
     if getattr(cfg.llm, "moe_experts", 0):
         raise NotImplementedError("MoE trunks are not ported yet: ROADMAP Queue 1 item 15")
     llm = llama.LlamaConfig(**_fields(cfg.llm, llama.LlamaConfig))

@@ -4,9 +4,12 @@ RMSNorm with fp32 variance (cast to the input dtype before the weight
 multiply), RoPE in the HF rotate_half convention rotated in `rope_dtype`,
 scores in `attn_scores_dtype` with an fp32 softmax, SwiGLU with silu in fp32:
 fp32 RoPE and scores are the parity numerics, bf16 the turbo ones. Weights
-are layer-stacked ``[L, ...]`` as in the JAX package (bf16, or per-channel
-int8 leaves through ``matmul_t``); a Python loop over the layers takes the
-place of its ``lax.scan``. Three cache layouts:
+are layer-stacked ``[L, ...]`` as in the JAX package (bf16, or quantized
+leaves through ``matmul_t`` on the config's int8 route); a Python loop over
+the layers takes the place of its ``lax.scan``. Where the config turns on the
+fused RMSNorm -> int8 kernel and every consumer of a norm takes w8a8, the
+norm hands its consumers int8 codes instead of the normed activation
+(`_norm_maybe_quant`). Three cache layouts:
 
 * the 5-D stacked ``[L, B, S, Hkv, Dh]`` pair of the stacked decode (`forward`
   with a `KVCache`), written in place (the JAX package writes it with
@@ -34,11 +37,14 @@ import torch.nn.functional as F
 
 from ..ops.attention import NEG_INF, attention_plain, decode_attention, flash_attention
 from ..ops.decode_attention import decode_flash_attention, stacked_decode_attention_i8
-from ..ops.linear import div127, index_layer, matmul_t
+from ..ops.linear import (PrequantActivation, div127, index_layer, is_int8_per_channel,
+                          matmul_t)
+from ..ops.rmsnorm_quant import rms_norm, rms_norm_quant
 
 Params = Dict[str, Any]
 
 FLASH_MIN_TQ = 64   # prefill-sized calls only take the flash kernel
+RMSQ_MIN_M = 9      # the fused RMSNorm -> int8 kernel serves norms of at least this many rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +61,12 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     attn_scores_dtype: torch.dtype = torch.float32   # bf16 = turbo
     rope_dtype: torch.dtype = torch.float32          # bf16 = turbo (HF's own rotation dtype)
+    # the JAX package's kernel gates as fields, at their defaults under its
+    # OVLA_PALLAS=1: the route of per-channel int8 leaves ("wi8": the
+    # weight-only kernel, OVLA_PALLAS_MATMUL=1; "w8a8": int8 activations, the
+    # turbo tier) and the fused RMSNorm -> int8 kernel (OVLA_PALLAS_RMSQ)
+    int8_matmul: str = "wi8"
+    fused_rmsq: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -89,16 +101,6 @@ class KVCache(NamedTuple):
 
 
 # --- building blocks --------------------------------------------------------------
-
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """HF-convention RMSNorm: fp32 variance + scale, cast to the input dtype
-    BEFORE the weight multiply."""
-    dt = x.dtype
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    xf = xf * torch.rsqrt(var + eps)
-    return xf.to(dt) * weight.to(dt)
-
 
 def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin [..., T, head_dim] in fp32, HF rotate_half convention."""
@@ -146,18 +148,18 @@ def attention(
     """Masked softmax(q kᵀ) v with an fp32 softmax.
 
     With a key-validity row, prefill-sized calls (Tq >= 64, offset 0) take the
-    flash kernel and decode calls (Tq = 1) the decode kernel, both masking
-    causal + padding themselves with fp32 scores. Other calls take the plain
-    branch: scores in `scores_dtype` + the additive mask, fp32 softmax, probs
-    cast to the input dtype, PV with fp32 accumulation (at fp32 scores, the
-    decode kernel's function too)."""
+    flash kernel (fp32 scores, as the JAX package's) and decode calls (Tq = 1)
+    the decode kernel, both masking causal + padding themselves. Other calls
+    take the plain branch: scores in `scores_dtype` + the additive mask, fp32
+    softmax, probs cast to the input dtype, PV with fp32 accumulation (the
+    decode kernel's function too, in either score type)."""
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     if kv_valid is not None and q.shape[1] >= FLASH_MIN_TQ and offset == 0:
         return flash_attention(q, k, v, kv_valid, offset=0)
     if kv_valid is not None and q.shape[1] == 1:
-        return decode_attention(q, k, v, kv_valid, offset)
+        return decode_attention(q, k, v, kv_valid, offset, scores_dtype)
     return attention_plain(q, k, v, mask, scores_dtype)
 
 
@@ -176,6 +178,19 @@ def make_causal_mask(attn_mask: torch.Tensor, tq: int, tk: int, offset: int = 0)
 Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+def _norm_maybe_quant(cfg: LlamaConfig, x: torch.Tensor, norm_w: torch.Tensor, leaves):
+    """RMSNorm, fused with the int8 activation quantization where the config
+    turns the fused kernel on, the int8 route is w8a8, the norm has more than
+    8 rows and every consumer leaf is per-channel int8 (the JAX package's
+    rule: never on the wi8 route, never for nibble or int4 leaves). Returns
+    the normed activation or a `PrequantActivation` its consumers take."""
+    M = x.shape[0] * x.shape[1]
+    if (cfg.fused_rmsq and cfg.int8_matmul == "w8a8" and M >= RMSQ_MIN_M
+            and all(is_int8_per_channel(w) for w in leaves)):
+        return PrequantActivation(*rms_norm_quant(x, norm_w, cfg.rms_norm_eps), x.dtype)
+    return rms_norm(x, norm_w, cfg.rms_norm_eps)
+
+
 def _layer_forward(
     cfg: LlamaConfig,
     lp: Params,               # single-layer params
@@ -188,15 +203,16 @@ def _layer_forward(
     caller's cache layout wants them and attends over that layer's keys."""
     B, T, D = x.shape
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    h = rms_norm(x, lp["input_layernorm"], cfg.rms_norm_eps)
-    q = matmul_t(h, lp["q_proj"]).reshape(B, T, H, Dh)
-    k = matmul_t(h, lp["k_proj"]).reshape(B, T, Hkv, Dh)
-    v = matmul_t(h, lp["v_proj"]).reshape(B, T, Hkv, Dh)
+    route = cfg.int8_matmul
+    h = _norm_maybe_quant(cfg, x, lp["input_layernorm"], (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
+    q = matmul_t(h, lp["q_proj"], route).reshape(B, T, H, Dh)
+    k = matmul_t(h, lp["k_proj"], route).reshape(B, T, Hkv, Dh)
+    v = matmul_t(h, lp["v_proj"], route).reshape(B, T, Hkv, Dh)
     q, k = apply_rope(q, k, cos, sin, cfg.rope_dtype)
-    x = x + matmul_t(attend(q, k, v).reshape(B, T, D), lp["o_proj"])
-    h = rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps)
-    gate = F.silu(matmul_t(h, lp["gate_proj"]).float()).to(h.dtype)
-    return x + matmul_t(gate * matmul_t(h, lp["up_proj"]), lp["down_proj"])
+    x = x + matmul_t(attend(q, k, v).reshape(B, T, D), lp["o_proj"], route)
+    h = _norm_maybe_quant(cfg, x, lp["post_attention_layernorm"], (lp["gate_proj"], lp["up_proj"]))
+    gate = F.silu(matmul_t(h, lp["gate_proj"], route).float()).to(h.dtype)
+    return x + matmul_t(gate * matmul_t(h, lp["up_proj"], route), lp["down_proj"], route)
 
 
 def _layer(params: Params, li: int) -> Params:
@@ -247,7 +263,7 @@ def forward(
     if cache is not None:
         out["cache"] = cache
     if compute_logits:
-        out["logits"] = matmul_t(x, params["lm_head"]).float()
+        out["logits"] = matmul_t(x, params["lm_head"], cfg.int8_matmul).float()
     return out
 
 
@@ -343,7 +359,7 @@ def greedy_decode(
         e = embed_tokens(params, tok[:, None])
         hidden = decode_step(params, cfg, e, (start_pos + t)[:, None], kv_pre, pre_mask,
                              dec_k, dec_v, t)
-        logits = matmul_t(hidden, params["lm_head"]).float()
+        logits = matmul_t(hidden, params["lm_head"], cfg.int8_matmul).float()
         tok = logits.argmax(-1)
         toks.append(tok)
         margins.append(top2_margin(logits, tok))

@@ -5,12 +5,15 @@ timm parameter layout (fused qkv, LayerScale gamma vectors, token order
 the blocks. Features are the patch tokens of the second-to-last block, no
 final norm, prefix tokens dropped (the reference's get_intermediate_layers(-2)
 contract). Attention is the tower kernel (``ops.attention.vit_flash_attention``)
-on every device, as the JAX package runs it under its kernel gate; so is a
-block whose linears are per-channel int8 (the turbo weights): LN1 + qkv, proj
-+ LayerScale + residual, and the whole MLP half each run as one fused w8a8
-kernel (``ops.vit_mlp``). Grouped-int4 linears (bits=4 weights) stand the fused
+on every device, as the JAX package runs it under its kernel gate. On the
+int8 route "wi8" (the ``pallas*`` tiers: the JAX package's tower kernel gates
+on) a block whose linears are per-channel int8 runs LN1 + qkv, proj +
+LayerScale + residual, and the whole MLP half each as one fused w8a8 kernel
+(``ops.vit_mlp``); grouped-int4 linears (bits=4 weights) stand the fused
 kernels down, as in the JAX package, and go through ``matmul_t``: an MLP half
 with an int4 fc1 and an int8 fc2 (SigLIP's ungroupable mlp dim) runs unfused.
+On the route "w8a8" (the ``turbo`` tier: the tower kernel gates off) every
+block runs the unfused chain, each int8 linear through ``w8a8_matmul``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,10 @@ class ViTConfig:
     layer_norm_eps: float = 1e-6
     dtype: torch.dtype = torch.float32
     attn_scores_dtype: torch.dtype = torch.float32  # bf16 = turbo (the tower kernel's scores are fp32)
+    # the int8 linears' route: "wi8" (the fused tower kernels where a pair of
+    # leaves is int8, wi8_matmul otherwise) or "w8a8" (unfused, w8a8_matmul);
+    # the JAX package's OVLA_PALLAS_VITLIN / _VITMLP / _MATMUL gates
+    int8_matmul: str = "wi8"
 
     @property
     def grid(self) -> int:
@@ -129,20 +136,26 @@ def embed_patches(params: Params, cfg: ViTConfig, pixels: torch.Tensor) -> torch
 
 
 def _block(cfg: ViTConfig, bp: Params, x: torch.Tensor, B: int, N: int) -> torch.Tensor:
-    """One transformer block over flat [B*N, D] activations. Per-channel int8
-    qkv + proj leaves take `fused_ln_w8a8` and int8 fc1 + fc2 leaves take
-    `fused_mlp_residual` (the JAX package's routes under its kernel gate);
-    float and grouped-int4 leaves the unfused chain through `matmul_t`."""
+    """One transformer block over flat [B*N, D] activations. On the "wi8"
+    route, per-channel int8 qkv + proj leaves take `fused_ln_w8a8` and int8
+    fc1 + fc2 leaves take `fused_mlp_residual` (the JAX package's routes under
+    its kernel gates); the rest, and every leaf on the "w8a8" route, the
+    unfused chain through `matmul_t`."""
     H, Dh = cfg.num_heads, cfg.head_dim
     D = x.shape[-1]
     eps = cfg.layer_norm_eps
-    fused_linears = is_int8_per_channel(bp["qkv_w"]) and is_int8_per_channel(bp["proj_w"])
+    route = cfg.int8_matmul
+
+    def fusable(*names):
+        return route == "wi8" and all(is_int8_per_channel(bp[n]) for n in names)
+
+    fused_linears = fusable("qkv_w", "proj_w")
     if fused_linears:
         qkv = fused_ln_w8a8(x, bp["qkv_w"], bp["qkv_b"],
                             ln=(bp["norm1_scale"], bp["norm1_bias"]), eps=eps)
     else:
         h = layer_norm(x, bp["norm1_scale"], bp["norm1_bias"], eps)
-        qkv = matmul_t(h, bp["qkv_w"]) + bp["qkv_b"]      # [B*N, 3D]
+        qkv = matmul_t(h, bp["qkv_w"], route) + bp["qkv_b"]      # [B*N, 3D]
     # q/k/v stay strided views of qkv: the kernel reads them in place
     q, k, v = (t.reshape(B, N, H, Dh) for t in qkv.split(D, dim=-1))
     attn = vit_flash_attention(q, k, v).reshape(B * N, D)
@@ -150,18 +163,18 @@ def _block(cfg: ViTConfig, bp: Params, x: torch.Tensor, B: int, N: int) -> torch
         x = fused_ln_w8a8(attn, bp["proj_w"], bp["proj_b"], res=x,
                           ls=bp["ls1"] if cfg.use_layerscale else None)
     else:
-        attn = matmul_t(attn, bp["proj_w"]) + bp["proj_b"]
+        attn = matmul_t(attn, bp["proj_w"], route) + bp["proj_b"]
         if cfg.use_layerscale:
             attn = attn * bp["ls1"]
         x = x + attn
-    if is_int8_per_channel(bp["fc1_w"]) and is_int8_per_channel(bp["fc2_w"]):
+    if fusable("fc1_w", "fc2_w"):
         ls2 = bp["ls2"] if cfg.use_layerscale else torch.ones((D,), dtype=x.dtype, device=x.device)
         return fused_mlp_residual(x, bp["norm2_scale"], bp["norm2_bias"], bp["fc1_w"],
                                   bp["fc1_b"], bp["fc2_w"], bp["fc2_b"], ls2, eps=eps,
                                   act=cfg.act)
     h = layer_norm(x, bp["norm2_scale"], bp["norm2_bias"], eps)
-    h = _act(matmul_t(h, bp["fc1_w"]) + bp["fc1_b"], cfg.act)
-    h = matmul_t(h, bp["fc2_w"]) + bp["fc2_b"]
+    h = _act(matmul_t(h, bp["fc1_w"], route) + bp["fc1_b"], cfg.act)
+    h = matmul_t(h, bp["fc2_w"], route) + bp["fc2_b"]
     if cfg.use_layerscale:
         h = h * bp["ls2"]
     return x + h

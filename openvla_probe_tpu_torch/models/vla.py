@@ -10,7 +10,7 @@ cache slots after the pad region (slot0 + t) with their true RoPE positions
 (mm_len + t), and pad slots are masked out of attention, so results do not
 depend on the pad length. Argmax runs over the full LLM vocab at every step.
 
-Three serving tiers are ported (`VLAServingConfig.for_tier`):
+Four serving tiers are ported (`VLAServingConfig.for_tier`):
 
 * ``parity``: bf16 weights, fp32 scores and RoPE, the stacked-cache decode;
 * ``pallas``: `VLMConfig.turbo` numerics, the frozen-KV split decode, over
@@ -19,12 +19,21 @@ Three serving tiers are ported (`VLAServingConfig.for_tier`):
   (bits=4, int8 where an in-dim has no group);
 * ``pallas_kv8``: turbo numerics and int8 weights, the prefill's K/V
   quantized into an int8 stacked cache that every decode step attends
-  through the fused-dequant kernel.
+  through the fused-dequant kernel;
+* ``turbo``: turbo numerics, the stacked-cache decode (bf16 scores), every
+  int8 linear on the w8a8 route (`turbo_routes`) and the fused RMSNorm ->
+  int8 kernel on; over int8 weights (bits=8) or nibble weights
+  (bits="nibble": the Llama trunk and lm_head as two 4-bit planes, the
+  towers int8), the JAX package's bench default.
 
-The weight leaves and the config pick the kernels: int8 linears take
-``wi8_matmul``, grouped-int4 linears ``w4a8_matmul`` (or the requant route),
-int8 tower blocks the fused w8a8 kernels, the frozen-KV decode the
-split-attention kernel, the int8-cache decode ``stacked_decode_attention_i8``.
+The weight leaves and the config pick the kernels: on the ``pallas*`` tiers
+int8 linears take ``wi8_matmul``, grouped-int4 linears ``w4a8_matmul`` (or the
+requant route), int8 tower blocks the fused w8a8 kernels; on ``turbo`` every
+int8 linear takes ``w8a8_matmul`` (after ``rms_norm_quant`` where a norm's
+consumers all do), nibble linears ``w8a8_matmul`` at prefill and
+``nib_hi_dot`` at decode M. The frozen-KV decode takes the split-attention
+kernel, the int8-cache decode ``stacked_decode_attention_i8``, the stacked
+decode ``decode_attention``.
 
 Other tiers and options raise NotImplementedError.
 """
@@ -52,15 +61,27 @@ _PORTED_TIERS = {
     ("parity", "stacked", False, False, False),
     ("pallas", "frozen_kv", False, False, False),
     ("pallas_kv8", "stacked_kv8", False, False, False),
+    ("turbo", "stacked", False, False, False),
 }
+
+
+def turbo_routes(vlm_cfg: vlm.VLMConfig) -> vlm.VLMConfig:
+    """The `turbo` tier's kernel routes: every int8 linear on w8a8 (trunk and
+    towers, the towers unfused) and the fused RMSNorm -> int8 kernel on (the
+    JAX package's OVLA_PALLAS_MATMUL=0, _VITLIN=0, _VITMLP=0, _RMSQ=1)."""
+    return dataclasses.replace(
+        vlm_cfg,
+        llm=dataclasses.replace(vlm_cfg.llm, int8_matmul="w8a8", fused_rmsq=True),
+        vision=tuple(dataclasses.replace(v, int8_matmul="w8a8") for v in vlm_cfg.vision))
 
 
 @dataclasses.dataclass(frozen=True)
 class VLAServingConfig:
-    """Serving configuration. Ported: tier="parity" with the stacked-cache
-    decode, tier="pallas" with the frozen-KV decode and tier="pallas_kv8" with
-    the int8 stacked-cache decode (no split prefill, no flat cache, no int8
-    frozen KV); every other value raises. Build with `for_tier`."""
+    """Serving configuration. Ported: tier="parity" and tier="turbo" with the
+    stacked-cache decode, tier="pallas" with the frozen-KV decode and
+    tier="pallas_kv8" with the int8 stacked-cache decode (no split prefill, no
+    flat cache, no int8 frozen KV); every other value raises. Build with
+    `for_tier`."""
 
     vlm: vlm.VLMConfig
     action_dim: int = 7
@@ -77,10 +98,9 @@ class VLAServingConfig:
         if knobs not in _PORTED_TIERS:
             raise NotImplementedError(
                 f"(tier, decode_impl, split_prefill, flat_cache, kv_int8) = {knobs}: only "
-                "tier='parity' with decode_impl='stacked', tier='pallas' with "
-                "decode_impl='frozen_kv' and tier='pallas_kv8' with decode_impl="
-                "'stacked_kv8' are ported; turbo (XLA w8a8), nibble and turbo_kv8 are "
-                "ROADMAP Queue 1 items 6, 7 and 10")
+                "tier='parity' and tier='turbo' with decode_impl='stacked', tier='pallas' "
+                "with decode_impl='frozen_kv' and tier='pallas_kv8' with decode_impl="
+                "'stacked_kv8' are ported; turbo_kv8 is ROADMAP Queue 1 item 10")
 
     @classmethod
     def for_tier(cls, vlm_cfg: vlm.VLMConfig, tier: str = "parity", **kw) -> "VLAServingConfig":
@@ -91,6 +111,8 @@ class VLAServingConfig:
             return cls(vlm=vlm_cfg.turbo(), tier=tier, decode_impl="frozen_kv", **kw)
         if tier == "pallas_kv8":
             return cls(vlm=vlm_cfg.turbo(), tier=tier, decode_impl="stacked_kv8", **kw)
+        if tier == "turbo":
+            return cls(vlm=turbo_routes(vlm_cfg.turbo()), tier=tier, **kw)
         raise NotImplementedError(f"serving tier {tier!r} is not ported (ROADMAP Queue 1)")
 
     @property
@@ -156,7 +178,7 @@ def predict_action_core(
 
     # hidden state at the last REAL token -> lm_head -> first generated token
     last_hidden = out["last_hidden_state"][torch.arange(B, device=dev), mm_len - 1]
-    last_logits = matmul_t(last_hidden, params["llm"]["lm_head"]).float()
+    last_logits = matmul_t(last_hidden, params["llm"]["lm_head"], c.llm.int8_matmul).float()
     first_tok = last_logits.argmax(-1)
     margins = [llama.top2_margin(last_logits, first_tok)]
 
@@ -178,7 +200,7 @@ def predict_action_core(
             if stacked8:
                 hidden = llama.decode_step_stacked_i8(params["llm"], c.llm, e, pos, cache,
                                                       valid.int(), slot0 + t)
-                lg = matmul_t(hidden, params["llm"]["lm_head"]).float()
+                lg = matmul_t(hidden, params["llm"]["lm_head"], c.llm.int8_matmul).float()
             else:
                 step_out = llama.forward(params["llm"], c.llm, e, valid.int(), pos,
                                          cache=cache, cache_index=slot0 + t)

@@ -11,7 +11,9 @@ loaded at import), so running the port on a card builds everything it needs.
 
 ``KERNEL_LAUNCHES`` is the one launch registry: every wrapper adds one to its
 kernel's count where it launches it, and nowhere else, so a run can show that
-the main path went through the kernels.
+the main path went through the kernels. The int8 GEMMs' launchers start the
+activation pre-pass (``quant_rows`` in ``csrc/int8_mma.cuh``) as a launch of
+its own before the GEMM; it is counted under its own name (``PRE_PASSES``).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ KERNELS = {
     ),
     "decode_attention": (
         "decode_attention.cu", "ovla_decode_attention",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _F, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _F, _I, _I, _I, _P],
     ),
     "wi8_matmul": (
         "wi8_matmul.cu", "ovla_wi8_matmul",
@@ -67,11 +69,23 @@ KERNELS = {
         "stacked_decode_i8.cu", "ovla_stacked_decode_i8",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
+    "w8a8_matmul": (
+        "w8a8_matmul.cu", "ovla_w8a8_matmul",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "nib_hi_dot": (
+        "nib_hi_dot.cu", "ovla_nib_hi_dot",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "rms_norm_quant": (
+        "rmsnorm_quant.cu", "ovla_rms_norm_quant",
+        [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    ),
 }
-KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-# library calls on a path that are not kernels of the port (the requant
-# route's torch._int_mm), counted beside the launches and reset with them
-LIBRARY_CALLS: Dict[str, int] = {"w8a8_dot": 0}
+# GEMM -> the name its activation pre-pass launch is counted under
+PRE_PASSES = {"w4a8_matmul": "w4a8_quant_rows", "w8a8_matmul": "w8a8_quant_rows",
+              "nib_hi_dot": "nib_hi_quant_rows"}
+KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in (*KERNELS, *PRE_PASSES.values())}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -81,9 +95,8 @@ build_report: Dict[str, object] = {}   # seconds and nvcc/ptxas output of the la
 
 
 def reset_launch_counts() -> None:
-    for counts in (KERNEL_LAUNCHES, LIBRARY_CALLS):
-        for name in counts:
-            counts[name] = 0
+    for name in KERNEL_LAUNCHES:
+        KERNEL_LAUNCHES[name] = 0
 
 
 def stream_ptr(t) -> int:

@@ -85,17 +85,38 @@ def attention_plain(q, k, v, mask, scores_dtype=torch.float32):
     scores = torch.matmul(q.permute(0, 2, 1, 3).float(), k.permute(0, 2, 3, 1).float())
     scores = scores.to(scores_dtype)
     scores = (scores * scale + mask.to(scores_dtype)).to(scores_dtype)
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.matmul(probs.float(), v.permute(0, 2, 1, 3).float())   # [B, H, Tq, Dh]
     return out.to(q.dtype).permute(0, 2, 1, 3)
 
 
-def decode_attention_plain(q, k, v, kv_valid, offset: int):
+def decode_attention_plain(q, k, v, kv_valid, offset: int, scores_dtype=torch.float32):
     """`attention_plain` for one query at absolute position `offset`: keys c
-    with kv_valid[b, c] > 0 and c <= offset are attended."""
+    with kv_valid[b, c] > 0 and c <= offset are attended. With bf16 scores
+    (turbo), q·k, its product with the scale and the masked score are each
+    rounded to bf16, as in the JAX package's XLA branch."""
     ok = (kv_valid > 0) & (torch.arange(k.shape[1], device=k.device) <= offset)[None]
     zero = torch.zeros((), dtype=torch.float32, device=k.device)
-    return attention_plain(q, k, v, torch.where(ok, zero, NEG_INF)[:, None, None, :])
+    return attention_plain(q, k, v, torch.where(ok, zero, NEG_INF)[:, None, None, :], scores_dtype)
+
+
+def compare_bf16_scores(got, want, want_fp32) -> dict:
+    """Hold a bf16-score decode output `got` to the bf16-score plain version
+    `want`: within 4e-3 everywhere (a score whose fp32 sum lands at a bf16
+    rounding tie may round the other way in the kernel's sum order), and on
+    average at most a tenth as far from it as from the fp32-score plain
+    version `want_fp32` (whether q·k is rounded to bf16, or the probabilities
+    to the activation dtype, moves the output by 1e-4 to 4e-4 on average at
+    unit-normal inputs; the kernel's other sum order by about 1e-7). Raises
+    AssertionError otherwise; returns the distances."""
+    g = got.float()
+    d = (g - want.float()).abs()
+    stats = dict(max_abs_err=d.max().item(), mean_abs_err=d.mean().item(),
+                 mean_abs_to_fp32_scores=(g - want_fp32.float()).abs().mean().item())
+    assert stats["max_abs_err"] <= 4e-3, f"bf16 scores: too far from the plain version {stats}"
+    assert 10 * stats["mean_abs_err"] <= stats["mean_abs_to_fp32_scores"], \
+        f"bf16 scores: not clearly nearer the bf16-score plain version than the fp32 one {stats}"
+    return stats
 
 
 # --- kernel wrappers -------------------------------------------------------------
@@ -183,18 +204,21 @@ def vit_flash_attention(q, k, v):
     return out
 
 
-def decode_attention(q, k, v, kv_valid, offset: int):
+def decode_attention(q, k, v, kv_valid, offset: int, scores_dtype=torch.float32):
     """One decode query per (batch, head) over the stacked cache.
 
     q [B, 1, H, Dh]; k/v [B, S, H, Dh] (one layer of the cache, heads already
-    repeated); kv_valid [B, S]; the query sits at position `offset`. Returns
-    [B, 1, H, Dh] in q's dtype, the function of `decode_attention_plain`."""
+    repeated); kv_valid [B, S]; the query sits at position `offset`; scores in
+    fp32 (parity) or bf16 (turbo). Returns [B, 1, H, Dh] in q's dtype, the
+    function of `decode_attention_plain`."""
+    if scores_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode_attention: scores in fp32 or bf16, got {scores_dtype}")
     B, Tq, H, Dh = q.shape
     S = k.shape[1]
     if Tq != 1:
         raise ValueError(f"decode_attention takes one query per row, got Tq={Tq}")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_valid, offset)
+        return decode_attention_plain(q, k, v, kv_valid, offset, scores_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     _check_cuda_inputs("decode_attention", q, k, v)
@@ -209,7 +233,8 @@ def decode_attention(q, k, v, kv_valid, offset: int):
     err = _build.launcher("decode_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
         B, H, S, Dh, q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        _scale(Dh), int(offset), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+        _scale(Dh), int(offset), int(scores_dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
     _build.check(err, "decode_attention")
     KERNEL_LAUNCHES["decode_attention"] += 1
     return out

@@ -1,13 +1,17 @@
 // decode_attention: one query per (batch, head) over the stacked KV cache, for
 // the greedy decode steps.
 //
-// Replaces no Pallas kernel: on the parity tier the JAX package decodes with
-// XLA attention (openvla_probe_tpu/models/llama.py:225-229, reached with
-// Tq = 1). Semantics of that branch kept exactly:
-//   s_c = (q . k_c in fp32) * scale + mask_c, mask_c = 0 where kv_valid[b, c] > 0
-//   and c <= offset, else the finite NEG_INF; p = softmax(s) in fp32
-//   (exp(s - m) / l); p cast to the input type (bf16); out = sum_c p_c v_c in
-//   fp32, cast to the input type.
+// Replaces no Pallas kernel: on the parity and turbo tiers the JAX package
+// decodes with XLA attention (openvla_probe_tpu/models/llama.py:225-229,
+// reached with Tq = 1). Semantics of that branch kept exactly, in its two
+// score types:
+//   fp32 scores (parity): s_c = (q . k_c in fp32) * scale + mask_c;
+//   bf16 scores (turbo): s_c = bf16(bf16(q . k_c) * scale + bf16(mask_c)), so
+//   bf16(bf16(q . k_c) * scale) for a valid key and bf16(NEG_INF) for a masked
+//   one (the product is far below NEG_INF's last place);
+// mask_c = 0 where kv_valid[b, c] > 0 and c <= offset, else the finite NEG_INF;
+// p = softmax(s) in fp32 (exp(s - m) / l); p cast to the input type (bf16);
+// out = sum_c p_c v_c in fp32, cast to the input type.
 //
 // Bound on the H100 at the OpenVLA-7B decode shape (B=24, q [24, 1, 32, 128],
 // k/v [24, 295, 32, 128] bf16): 116 MB of K/V per layer (35 us at 3.35 TB/s)
@@ -47,7 +51,12 @@ struct DecodeArgs {
   long long q_sb, k_sb, k_st, v_sb, v_st;
   float scale;
   int offset;              // absolute position of the query (causal rule)
+  int bf16_scores;         // 1: the turbo tier's bf16 scores
 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(DecodeArgs a) {
@@ -76,7 +85,10 @@ __global__ void __launch_bounds__(kDecThreads) decode_attention_kernel(DecodeArg
     for (int w = 16; w > 0; w >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, w);
     if (lane == 0) {
       const bool ok = valid[c] > 0 && c <= a.offset;
-      p_s[c] = dot * a.scale + (ok ? 0.f : kDecNegInf);
+      if (a.bf16_scores)
+        p_s[c] = ok ? bf16_round(__fmul_rn(bf16_round(dot), a.scale)) : bf16_round(kDecNegInf);
+      else
+        p_s[c] = dot * a.scale + (ok ? 0.f : kDecNegInf);
     }
   }
   __syncthreads();
@@ -135,9 +147,9 @@ extern "C" int ovla_decode_attention(const void* q, const void* k, const void* v
                                      const int32_t* kv_valid, int B, int H, int S, int Dh,
                                      long long q_sb, long long k_sb, long long k_st,
                                      long long v_sb, long long v_st, float scale, int offset,
-                                     int is_bf16, void* stream) {
+                                     int bf16_scores, int is_bf16, void* stream) {
   ovla::DecodeArgs a{q, k, v, o, kv_valid, B, H, S, Dh, q_sb, k_sb, k_st, v_sb, v_st,
-                     scale, offset};
+                     scale, offset, bf16_scores};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? ovla::launch_decode_attention<__nv_bfloat16>(a, s)
                  : ovla::launch_decode_attention<float>(a, s);

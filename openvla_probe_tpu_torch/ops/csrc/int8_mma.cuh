@@ -1,0 +1,151 @@
+// Pieces shared by the int8 tensor-core GEMMs (w4a8_matmul.cu, w8a8_matmul.cu, nib_hi_dot.cu):
+// the cp.async ring, ldmatrix, the mma.sync m16n8k32 s8 x s8 -> s32 instruction, the per-row
+// activation quantization of the JAX package (clip(rint(x / s_x), -127, 127) with IEEE
+// division, round half to even) and the one pre-pass kernel that applies it, and the k order
+// that lets packed 4-bit codes feed a fragment.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ovla_i8 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// a 16-byte copy into shared memory; src_bytes = 0 zero-fills it (a ragged edge)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  v[0] = __low2float(a), v[1] = __high2float(a), v[2] = __low2float(b), v[3] = __high2float(b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ int quant_code(float h, float sx) {
+  return __float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(h, sx)), -127.f), 127.f));
+}
+
+// Activation codes for packed 4-bit weights: a B fragment widens 8 consecutive codes
+// 8 t4 .. 8 t4 + 7 of a channel into the registers that pair with A's k 4 t4 .. 4 t4 + 3 and
+// 16 + 4 t4 .. 16 + 4 t4 + 3, so in each 32-code block the activation codes 8 t4 + i are stored
+// at 4 t4 + i and 8 t4 + 4 + i at 16 + 4 t4 + i (an integer dot product does not depend on the
+// order of its terms).
+__device__ __forceinline__ int stored_offset(int k) {   // k: a multiple of 4
+  const int c4 = (k & 31) >> 2;                          // 4-code chunk within the block
+  return (k & ~31) + 4 * ((c4 & 1) ? 4 + (c4 >> 1) : (c4 >> 1));
+}
+
+// ---------------------------------------------------------------------------
+// The activation pre-pass of the three GEMMs, its own launch before each GEMM: per-row int8
+// codes [M, K] and scales s_x [M], one block per row (a warp per row leaves decode-sized M with
+// a few warps looping over K one load latency at a time). PERM stores each 32-code block in the
+// k order of the packed-code fragments (stored_offset), for 4-bit weights; ROWSUM also writes
+// the exact row sums of the codes (nib_hi_dot's correction term). K: a multiple of 4.
+constexpr int kQThreads = 128;
+
+template <typename T, bool PERM, bool ROWSUM>
+__global__ void __launch_bounds__(kQThreads)
+    quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
+                      int* __restrict__ rowsum, int K) {
+  __shared__ float red[kQThreads / 32];
+  __shared__ int ired[kQThreads / 32];
+  const int row = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const T* xr = x + (long long)row * K;
+  float amax = 0.f;
+#pragma unroll 4
+  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
+    float v[4];
+    load4(xr + k, v);
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, w));
+  if (lane == 0) red[warp] = amax;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kQThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+  const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+  int8_t* qr = xq + (long long)row * K;
+  int sum = 0;
+#pragma unroll 4
+  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
+    float v[4];
+    load4(xr + k, v);
+    const int c0 = quant_code(v[0], s), c1 = quant_code(v[1], s);
+    const int c2 = quant_code(v[2], s), c3 = quant_code(v[3], s);
+    if constexpr (ROWSUM) sum += c0 + c1 + c2 + c3;
+    char4 c;
+    c.x = static_cast<signed char>(c0), c.y = static_cast<signed char>(c1);
+    c.z = static_cast<signed char>(c2), c.w = static_cast<signed char>(c3);
+    *reinterpret_cast<char4*>(qr + (PERM ? stored_offset(k) : k)) = c;
+  }
+  if constexpr (ROWSUM) {
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    if (lane == 0) ired[warp] = sum;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int total = 0;
+#pragma unroll
+      for (int w = 0; w < kQThreads / 32; ++w) total += ired[w];
+      rowsum[row] = total;
+    }
+  }
+  if (threadIdx.x == 0) sx[row] = s;
+}
+
+template <typename T, bool PERM, bool ROWSUM>
+cudaError_t quant_rows(const void* x, int8_t* xq, float* sx, int* rowsum, int M, int K,
+                       cudaStream_t stream) {
+  quant_rows_kernel<T, PERM, ROWSUM>
+      <<<M, kQThreads, 0, stream>>>(static_cast<const T*>(x), xq, sx, rowsum, K);
+  return cudaGetLastError();
+}
+
+// 8 packed codes (4 bytes; byte j: code 2j in its low nibble, 2j + 1 in its high nibble) ->
+// 8 sign-extended int8 codes in k order (2 words)
+__device__ __forceinline__ void widen(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t a = w & 0x0F0F0F0Fu;          // codes 0, 2, 4, 6 (low nibbles)
+  const uint32_t b = (w >> 4) & 0x0F0F0F0Fu;   // codes 1, 3, 5, 7 (high nibbles)
+  lo = __byte_perm(a, b, 0x5140);              // codes 0, 1, 2, 3
+  hi = __byte_perm(a, b, 0x7362);              // codes 4, 5, 6, 7
+  // each byte v in 0..15 -> (v ^ 8) - 8, the two's complement nibble widened
+  lo = __vsub4(lo ^ 0x08080808u, 0x08080808u);
+  hi = __vsub4(hi ^ 0x08080808u, 0x08080808u);
+}
+
+}  // namespace ovla_i8

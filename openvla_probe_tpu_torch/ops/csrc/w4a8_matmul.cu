@@ -21,10 +21,10 @@
 //     6912 x 4096 x 4096 at 1979 TOP/s.
 //
 // Design. One wrapper call makes two launches:
-//   1. a pre-pass, one block per row, writes the int8 codes x8 [M, K] and s_x [M] once (the
-//      TPU kernel quantizes each row tile once into VMEM; redone in every column block, as
-//      an early version of the fused ViT kernels did with their LayerNorm, it would repeat
-//      the work N / BN times);
+//   1. the pre-pass (quant_rows, int8_mma.cuh), one block per row, writes the int8 codes
+//      x8 [M, K] and s_x [M] once (the TPU kernel quantizes each row tile once into VMEM;
+//      redone in every column block, as an early version of the fused ViT kernels did with
+//      their LayerNorm, it would repeat the work N / BN times);
 //   2. the grouped GEMM on mma.sync m16n8k32 s8 x s8 -> s32, four k-steps per 128-deep
 //      chunk. Codes and packed weights stream through a cp.async ring of 128-deep k chunks
 //      (one 16-byte copy carries 32 codes of one output channel), one barrier per chunk.
@@ -40,109 +40,11 @@
 //      tiles, 4 warps of 16 x 16, 8 stages, so a 4096-wide product spreads over 128 blocks
 //      with ~48 KB of each block's stream in flight.
 // wgmma, TMA and split K for the decode products are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int8_mma.cuh"
 
 namespace ovla_w4 {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 f = *reinterpret_cast<const float4*>(p);
-  v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  v[0] = __low2float(a), v[1] = __high2float(a), v[2] = __low2float(b), v[3] = __high2float(b);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ int8_t quant_code(float h, float sx) {
-  return static_cast<int8_t>(
-      __float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(h, sx)), -127.f), 127.f)));
-}
-
-// ---------------------------------------------------------------------------
-// pre-pass: per-row int8 activation codes and scales, one block per row (a warp per row
-// leaves decode-sized M with a few warps looping over K one load latency at a time)
-//
-// The codes of each 32-wide k block are stored in the order the GEMM's fragments read
-// them: a B fragment widens 8 consecutive codes 8 t4 .. 8 t4 + 7 of a channel into the
-// registers that pair with A's k 4 t4 .. 4 t4 + 3 and 16 + 4 t4 .. 16 + 4 t4 + 3, so
-// physical codes 8 t4 + i are stored at 4 t4 + i and 8 t4 + 4 + i at 16 + 4 t4 + i.
-__device__ __forceinline__ int stored_offset(int k) {   // k: a multiple of 4
-  const int c4 = (k & 31) >> 2;                          // 4-code chunk within the block
-  return (k & ~31) + 4 * ((c4 & 1) ? 4 + (c4 >> 1) : (c4 >> 1));
-}
-
-constexpr int kQThreads = 128;   // one block per row: K spread over 128 threads
-
-template <typename T>
-__global__ void __launch_bounds__(kQThreads)
-    quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
-                      int K) {
-  __shared__ float red[kQThreads / 32];
-  const int row = blockIdx.x, lane = threadIdx.x % 32;
-  const T* xr = x + (long long)row * K;
-  float amax = 0.f;
-#pragma unroll 4
-  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
-    float v[4];
-    load4(xr + k, v);
-    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
-  }
-#pragma unroll
-  for (int w = 16; w > 0; w >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, w));
-  if (lane == 0) red[threadIdx.x / 32] = amax;
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kQThreads / 32; ++w) amax = fmaxf(amax, red[w]);
-  const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-  int8_t* qr = xq + (long long)row * K;
-#pragma unroll 4
-  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
-    float v[4];
-    load4(xr + k, v);
-    char4 c;
-    c.x = quant_code(v[0], s), c.y = quant_code(v[1], s);
-    c.z = quant_code(v[2], s), c.w = quant_code(v[3], s);
-    *reinterpret_cast<char4*>(qr + stored_offset(k)) = c;
-  }
-  if (threadIdx.x == 0) sx[row] = s;
-}
+using namespace ovla_i8;
 
 // ---------------------------------------------------------------------------
 // grouped GEMM
@@ -162,17 +64,6 @@ struct Cfg {
     return size_t(STAGES) * (kAStage + kBStage) + size_t(BN) * G * sizeof(float);
   }
 };
-
-// 8 packed codes (4 bytes) -> 8 sign-extended int8 codes in k order (2 words)
-__device__ __forceinline__ void widen(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  const uint32_t a = w & 0x0F0F0F0Fu;          // codes 0, 2, 4, 6 (low nibbles)
-  const uint32_t b = (w >> 4) & 0x0F0F0F0Fu;   // codes 1, 3, 5, 7 (high nibbles)
-  lo = __byte_perm(a, b, 0x5140);              // codes 0, 1, 2, 3
-  hi = __byte_perm(a, b, 0x7362);              // codes 4, 5, 6, 7
-  // each byte v in 0..15 -> (v ^ 8) - 8, the two's complement nibble widened
-  lo = __vsub4(lo ^ 0x08080808u, 0x08080808u);
-  hi = __vsub4(hi ^ 0x08080808u, 0x08080808u);
-}
 
 template <typename T, int BM, int BN, int WM, int WN, int STAGES>
 __global__ void __launch_bounds__(32 * WM * WN)
@@ -308,8 +199,8 @@ int run(const void* x, const void* q, const void* s, void* out, void* xq, void* 
         int K, int gsz, cudaStream_t stream) {
   int8_t* codes = static_cast<int8_t*>(xq);
   float* scales = static_cast<float*>(sx);
-  quant_rows_kernel<T><<<M, kQThreads, 0, stream>>>(static_cast<const T*>(x), codes, scales, K);
-  const cudaError_t err = cudaGetLastError();
+  // the pre-pass stores the codes in the k order of the packed-code fragments
+  const cudaError_t err = quant_rows<T, true, false>(x, codes, scales, nullptr, M, K, stream);
   if (err != cudaSuccess) return int(err);
   const uint8_t* qp = static_cast<const uint8_t*>(q);
   const float* sp = static_cast<const float*>(s);

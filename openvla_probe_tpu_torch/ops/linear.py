@@ -1,37 +1,47 @@
 """Linear layers of the port (counterpart of ``openvla_probe_tpu/ops/linear.py``).
 
-``matmul_t(x, w) = x @ w.T`` with ``w`` in the JAX package's ``[O, K]``
-layout, for three kinds of leaf:
+``matmul_t(x, w, int8_matmul) = x @ w.T`` with ``w`` in the JAX package's
+``[O, K]`` layout, for four kinds of leaf:
 
 * a float tensor: the JAX package leaves this product to XLA outside any
   Pallas kernel, and the port leaves it to ``torch.matmul`` (bf16 products
   with fp32 accumulation, fp32 in full fp32: see the package's numerics
   flags);
-* a per-channel int8 leaf ``{"q": int8 [O, K], "s": f32 [O]}``: the
-  weight-only int8 kernel ``wi8_matmul`` (``csrc/wi8_matmul.cu``), which is
-  the JAX dispatch under its kernel gate (``_wi8_matmul_2d``);
+* a per-channel int8 leaf ``{"q": int8 [O, K], "s": f32 [O]}``: the route the
+  config names (``int8_matmul``, the JAX package's ``OVLA_PALLAS_MATMUL`` gate
+  as a field): ``"wi8"``, the weight-only int8 kernel ``wi8_matmul``
+  (``csrc/wi8_matmul.cu``; ``_wi8_matmul_2d`` under the kernel gate, the
+  ``pallas*`` tiers), or ``"w8a8"``, per-row int8 activations times the int8
+  weights in the kernel ``w8a8_matmul`` (``csrc/w8a8_matmul.cu``; the XLA op
+  ``_w8a8_dot``, the ``turbo`` tier). A `PrequantActivation` (codes from the
+  fused RMSNorm -> int8 kernel) goes straight into ``w8a8_matmul``;
+* a nibble leaf ``{"hi": uint8 [O, K/2], "lo": uint8 [O, K/2], "s": f32 [O]}``
+  (``quantize_weight_nibble``): at M <= 32 the hi-plane kernel ``nib_hi_dot``
+  (``csrc/nib_hi_dot.cu``), else ``w8a8_matmul`` rebuilding the exact int8
+  codes ``16·hi + lo + 8`` in its weight loader (the JAX ``_nib_matmul``);
 * a grouped-int4 leaf ``{"q": uint8 [G, O, gsz/2], "s": f32 [O, G]}``: the
   w4a8 kernel ``w4a8_matmul`` (``csrc/w4a8_matmul.cu``) where ``O % 128 == 0``
   and ``gsz % 128 == 0``, else the requant route (``w4a8_dot_requant``:
-  int8 codes with per-channel scales, then ``w8a8_dot``). That is the JAX
+  int8 codes with per-channel scales, then ``w8a8_matmul``). That is the JAX
   package's rule under its kernel gate as it runs on the chip
   (``_w4a8_pallas_matmul``; its interpret mode drops the ``gsz`` condition).
 
-**Packed int4 layout.** Codes are stored group-major as in the JAX package
-(``[..., G, O, gsz]``, ``quantize_weight_int4``), two per byte: ``uint8
-[..., G, O, gsz/2]``, byte ``j`` holding code ``2j`` in its low nibble and
-code ``2j + 1`` in its high nibble, each in two's complement. One 16-byte
-load gives 32 consecutive k of one output channel. The ``uint8`` type keeps a
-packed leaf from ever passing for a per-channel int8 one.
+**Packed int4 layout.** Codes are stored two per byte in ``uint8``: byte
+``j`` holds code ``2j`` in its low nibble and code ``2j + 1`` in its high
+nibble, each in two's complement. Grouped-int4 codes are group-major as in
+the JAX package (``[..., G, O, gsz]`` -> ``uint8 [..., G, O, gsz/2]``); the
+two nibble planes keep the ``[..., O, K]`` layout (-> ``[..., O, K/2]``). One
+16-byte load gives 32 consecutive k of one output channel. The ``uint8`` type
+keeps a packed leaf from ever passing for a per-channel int8 one.
 
-Mix, nibble and LoRA leaves are not ported and raise. ``quantize_weight``,
-``quantize_weight_int4`` and ``quantize_params`` give codes and scales
-bit-identical to the JAX package's.
+Mix and LoRA leaves are not ported and raise. ``quantize_weight``,
+``quantize_weight_int4``, ``quantize_weight_nibble`` and ``quantize_params``
+give codes and scales bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -45,6 +55,8 @@ VIT_QUANT_SUFFIXES = ("qkv_w", "proj_w", "fc1_w", "fc2_w")
 TURBO_QUANT_SUFFIXES = _DEFAULT_QUANT_SUFFIXES + VIT_QUANT_SUFFIXES
 GROUP_SIZE = 128          # the JAX package's default int4 group size
 W4A8_TILE = 128           # N and gsz the w4a8 kernel takes (multiples of)
+NIB_HI_M_MAX = 32         # nibble leaves: rows up to this take the hi plane
+INT8_ROUTES = ("wi8", "w8a8")
 
 
 def is_quantized(w: Any) -> bool:
@@ -65,6 +77,24 @@ def is_grouped_int4(w: Any) -> bool:
     q, s = w["q"], w["s"]
     return (q.dim() == s.dim() + 1 and q.shape[-3] == s.shape[-1]
             and q.shape[-2] == s.shape[-2])
+
+
+def is_nibble_quant(w: Any) -> bool:
+    """A nibble-plane leaf ``{"hi": uint8 [..., O, K/2], "lo": uint8 [..., O, K/2], "s": f32 [..., O]}``."""
+    return isinstance(w, dict) and set(w) == {"hi", "lo", "s"} and w["hi"].dtype == torch.uint8
+
+
+class PrequantActivation(NamedTuple):
+    """Activation rows already RMS-normed and quantized by the fused kernel
+    (``ops.rmsnorm_quant``): int8 codes ``q8 [..., K]``, fp32 row scales
+    ``sx [..., 1]`` and the dtype the unfused path's activation would have.
+    `matmul_t` takes it in place of that activation for a per-channel int8
+    leaf: the w8a8 product then skips its own quantization (the JAX
+    package's ``PrequantActivation``)."""
+
+    q8: torch.Tensor
+    sx: torch.Tensor
+    dtype: torch.dtype
 
 
 def index_layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -147,16 +177,48 @@ def quantize_weight_int4(w: torch.Tensor, group_size: int = GROUP_SIZE) -> Dict[
     return {"q": pack_int4(codes.movedim(-2, -3)), "s": s}
 
 
-def quantize_leaf(w: torch.Tensor, bits: int = 8, group_size: int = GROUP_SIZE) -> Dict[str, torch.Tensor]:
-    """One weight leaf as `quantize_params` quantizes it: grouped int4 where
-    bits=4 and the in-dim has a group, else per-channel int8."""
+def quantize_weight_nibble(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The per-channel int8 codes of `quantize_weight` as two 4-bit planes:
+    hi = floor(q8 / 16), lo = q8 - 16·hi - 8, both in [-8, 7], so that
+    q8 = 16·hi + lo + 8 exactly; {"hi", "lo"} packed ``uint8 [..., O, I/2]``,
+    "s" the int8 scales."""
+    w8 = quantize_weight(w)
+    q8 = w8["q"].to(torch.int32)
+    hi = torch.div(q8, 16, rounding_mode="floor")
+    lo = q8 - 16 * hi - 8
+    return {"hi": pack_int4(hi.to(torch.int8)), "lo": pack_int4(lo.to(torch.int8)), "s": w8["s"]}
+
+
+def nibble_reconstruct_q8(w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The exact int8 codes of a nibble leaf, 16·hi + lo + 8, computed in
+    int32 (every intermediate in range)."""
+    hi = unpack_int4(w["hi"]).to(torch.int32)
+    return (16 * hi + unpack_int4(w["lo"]).to(torch.int32) + 8).to(torch.int8)
+
+
+def quantize_leaf(w: torch.Tensor, bits=8, group_size: int = GROUP_SIZE) -> Dict[str, torch.Tensor]:
+    """One weight leaf at a resolved width: "nibble" planes, grouped int4
+    where bits=4 and the in-dim has a group, else per-channel int8."""
+    if bits == "nibble":
+        return quantize_weight_nibble(w)
     if bits == 4 and int4_group_size(w.shape[-1], group_size):
         return quantize_weight_int4(w, group_size)
     return quantize_weight(w)
 
 
+def leaf_bits(name: str, bits):
+    """The width `quantize_params(..., bits)` gives leaf `name`: bits="nibble"
+    makes nibble planes of the Llama trunk and lm_head and int8 elsewhere."""
+    if bits == "nibble":
+        return "nibble" if name in _DEFAULT_QUANT_SUFFIXES else 8
+    return bits
+
+
 def dequantize_weight(w: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
-    """Per-channel int8 or grouped int4 -> float [..., O, I] (the JAX branches)."""
+    """Per-channel int8, nibble or grouped int4 -> float [..., O, I] (the JAX
+    branches)."""
+    if is_nibble_quant(w):
+        return (nibble_reconstruct_q8(w).float() * w["s"][..., None]).to(dtype)
     if is_grouped_int4(w):
         codes = unpack_int4(w["q"]).float()                       # [..., G, O, gsz]
         wf = codes * w["s"].movedim(-1, -2)[..., None]
@@ -165,24 +227,24 @@ def dequantize_weight(w: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch
     return (w["q"].float() * w["s"][..., None]).to(dtype)
 
 
-def quantize_params(params: Any, suffixes: tuple = _DEFAULT_QUANT_SUFFIXES, bits: int = 8,
+def quantize_params(params: Any, suffixes: tuple = _DEFAULT_QUANT_SUFFIXES, bits=8,
                     group_size: int = GROUP_SIZE) -> Any:
     """Quantize the weight leaves whose name is in `suffixes` (and that have
     at least two dims): bits=8 per-channel int8, bits=4 grouped int4 (an
-    in-dim with no usable group falls back to per-channel int8); everything
-    else passes through."""
-    if bits in ("mix", "nibble"):
+    in-dim with no usable group falls back to per-channel int8),
+    bits="nibble" nibble planes for the Llama trunk and lm_head and int8 for
+    the rest (the towers); everything else passes through."""
+    if bits == "mix":
         raise NotImplementedError(
-            f"quantize_params(bits={bits!r}): mix and nibble weights are not ported yet "
-            "(ROADMAP Queue 1 items 7 and 10)")
-    if bits not in (4, 8):
+            "quantize_params(bits='mix'): mix weights are not ported yet (ROADMAP Queue 1 item 10)")
+    if bits not in (4, 8, "nibble"):
         raise ValueError(f"bits must be 4, 8, 'mix' or 'nibble', got {bits!r}")
 
     def walk(tree, name):
         if isinstance(tree, dict):
             return {k: walk(v, k) for k, v in tree.items()}
         if name in suffixes and tree.dim() >= 2:
-            return quantize_leaf(tree, bits, group_size)
+            return quantize_leaf(tree, leaf_bits(name, bits), group_size)
         return tree
 
     return walk(params, "")
@@ -197,18 +259,22 @@ def wi8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch
     return (torch.matmul(x.float(), q.float().t()) * s.float()).to(x.dtype)
 
 
-def _check_matmul_inputs(kernel: str, x: torch.Tensor, named: Dict[str, Tuple]) -> None:
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{kernel}: x must be bf16 or fp32, got {x.dtype}")
+def _check_tensors(kernel: str, device: torch.device, named: Dict[str, Tuple]) -> None:
     for name, (t, shape, dtype) in named.items():
         if t.dtype != dtype:
             raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{kernel}: {name} must be {tuple(shape)}, got {tuple(t.shape)}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be contiguous on {x.device}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous on {device}")
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
+
+
+def _check_matmul_inputs(kernel: str, x: torch.Tensor, named: Dict[str, Tuple]) -> None:
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{kernel}: x must be bf16 or fp32, got {x.dtype}")
+    _check_tensors(kernel, x.device, named)
 
 
 def wi8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -235,34 +301,131 @@ def wi8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tenso
 # --- w8a8: per-row int8 activations x per-channel int8 weights -------------------
 
 
-def w8a8_dot_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """The JAX package's ``_w8a8_dot`` forward: per-row int8 activation codes,
-    the exact int32 product, ``(acc · s_x) · s`` in fp32, cast to x's dtype."""
+def _w8a8_operands(x, w) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.dtype]:
+    """(activation codes [M, K], row scales [M, 1], weight codes [N, K], out
+    dtype) of a w8a8 product: x a float [M, K] or a 2-D `PrequantActivation`,
+    w a per-channel int8 or nibble leaf."""
+    if isinstance(x, PrequantActivation):
+        codes, sx, dtype = x.q8, x.sx, x.dtype
+    else:
+        (codes, sx), dtype = quantize_rows(x.float()), x.dtype
+    q = nibble_reconstruct_q8(w) if is_nibble_quant(w) else w["q"]
+    return codes, sx, q, dtype
+
+
+def w8a8_matmul_plain(x, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The JAX package's ``_w8a8_dot`` forward (and the prequant branch of its
+    ``matmul_t``, and ``_nib_matmul`` at prefill M): per-row int8 activation
+    codes, the exact int32 product with the weight's int8 codes,
+    ``(f32(acc) · s_x) · s`` in fp32, cast to the activation dtype."""
+    codes, sx, q, dtype = _w8a8_operands(x, w)
+    return (int8_dot(codes, q) * sx * w["s"][None, :]).to(dtype)
+
+
+def w8a8_matmul(x, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """x [M, K] (bf16 or fp32, or a 2-D `PrequantActivation`) @ the int8 codes
+    of w [N, K]ᵀ with int8 activations -> [M, N] in the activation dtype.
+
+    w is a per-channel int8 leaf or a nibble leaf (with a float x only), whose
+    exact int8 codes the kernel rebuilds from the two planes as it loads them:
+    both give the same output for the same codes. The kernel
+    (``csrc/w8a8_matmul.cu``) is bit-equal to `w8a8_matmul_plain`; for a float
+    x the same call first writes the activation codes in a pre-pass, a launch
+    of its own, counted as ``w8a8_quant_rows``."""
+    pre = isinstance(x, PrequantActivation)
+    if pre and is_nibble_quant(w):
+        raise TypeError("w8a8_matmul: a nibble leaf takes float activations, not a "
+                        "PrequantActivation (the fused norm stands down for nibble leaves)")
+    xt = x.q8 if pre else x
+    if xt.device.type == "cpu":
+        return w8a8_matmul_plain(x, w)
+    if xt.device.type != "cuda":
+        raise ValueError(f"w8a8_matmul: unsupported device {xt.device}")
+    M, K = xt.shape
+    N = w["s"].shape[0]
+    nibble = is_nibble_quant(w)
+    named = {"hi": (w["hi"], (N, K // 2), torch.uint8), "lo": (w["lo"], (N, K // 2), torch.uint8)} \
+        if nibble else {"q": (w["q"], (N, K), torch.int8)}
+    named["s"] = (w["s"], (N,), torch.float32)
+    if pre:
+        codes, sx, dtype = x
+        if dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"w8a8_matmul: the activation dtype must be bf16 or fp32, got {dtype}")
+        _check_tensors("w8a8_matmul", xt.device, {
+            "x.q8": (codes, (M, K), torch.int8), "x.sx": (sx, (M, 1), torch.float32), **named})
+    else:
+        dtype = x.dtype
+        _check_matmul_inputs("w8a8_matmul", x, {"x": (x, (M, K), dtype), **named})
+        # written by the kernel's activation pre-pass
+        codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        sx = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    if K % (32 if nibble else 16) or N % 8:
+        raise ValueError(f"w8a8_matmul: K={K} must be a multiple of {32 if nibble else 16} "
+                         f"and N={N} of 8")
+    out = torch.empty((M, N), dtype=dtype, device=xt.device)
+    x_kind = 0 if pre else (2 if x.dtype == torch.bfloat16 else 1)
+    err = _build.launcher("w8a8_matmul")(
+        0 if pre else x.data_ptr(), codes.data_ptr(), sx.data_ptr(),
+        (w["hi"] if nibble else w["q"]).data_ptr(), w["lo"].data_ptr() if nibble else 0,
+        w["s"].data_ptr(), out.data_ptr(), M, N, K, x_kind, int(dtype == torch.bfloat16),
+        _build.stream_ptr(xt))
+    _build.check(err, "w8a8_matmul")
+    if not pre:
+        _build.KERNEL_LAUNCHES["w8a8_quant_rows"] += 1
+    _build.KERNEL_LAUNCHES["w8a8_matmul"] += 1
+    return out
+
+
+# --- nibble planes at decode M: the hi plane alone ------------------------------------
+
+
+def nib_hi_dot_plain(x: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``_nib_hi_dot``: w ≈ (16·hi + 7.5)·s, so per-row int8
+    activation codes x̂, out = ((f32(Σ x̂·hi)·16 + f32(Σ x̂)·7.5) · s_x) · s in
+    fp32 (each product and the sum rounded once), cast to x's dtype."""
     codes, sx = quantize_rows(x.float())
-    return (int8_dot(codes, q) * sx * s[None, :]).to(x.dtype)
+    acc = int8_dot(codes, unpack_int4(hi))
+    rowsum = codes.to(torch.int32).sum(dim=-1, keepdim=True).float()
+    return ((acc * 16.0 + rowsum * 7.5) * sx * s[None, :]).to(x.dtype)
 
 
-def w8a8_dot(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """x [M, K] @ int8 q [N, K].T with int8 activations -> [M, N] in x's dtype.
-
-    The JAX package computes this in XLA, outside any Pallas kernel; on a card
-    the int32 product is ``torch._int_mm`` (a library call, counted in
-    ``_build.LIBRARY_CALLS``, not a kernel of the port). The hand kernel is
-    ROADMAP Queue 2's XLA-op row."""
-    if x.device.type == "cpu":
-        return w8a8_dot_plain(x, q, s)
-    if x.device.type != "cuda":
-        raise ValueError(f"w8a8_dot: unsupported device {x.device}")
+def nib_hi_dot(x: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (bf16 or fp32) @ a nibble leaf's hi plane (packed uint8
+    [N, K/2], scales s [N]) -> [M, N] in x's dtype: `nib_hi_dot_plain`, bit for
+    bit (``csrc/nib_hi_dot.cu``: an activation pre-pass, counted as
+    ``nib_hi_quant_rows``, then the int8 product streaming only the hi
+    plane)."""
     M, K = x.shape
-    N = q.shape[0]
-    if K % 8 or N % 8:
-        raise ValueError(f"w8a8_dot: K={K} and N={N} must be multiples of 8 (torch._int_mm)")
-    codes, sx = quantize_rows(x.float())
-    if M <= 16:   # torch._int_mm takes more than 16 rows: zero rows add nothing
-        codes = torch.cat([codes, codes.new_zeros((17 - M, K))])
-    acc = torch._int_mm(codes, q.t())[:M]
-    _build.LIBRARY_CALLS["w8a8_dot"] += 1
-    return (acc.float() * sx * s[None, :]).to(x.dtype)
+    N = hi.shape[0]
+    if x.device.type == "cpu":
+        return nib_hi_dot_plain(x, hi, s)
+    if x.device.type != "cuda":
+        raise ValueError(f"nib_hi_dot: unsupported device {x.device}")
+    _check_matmul_inputs("nib_hi_dot", x, {"x": (x, (M, K), x.dtype),
+                                           "hi": (hi, (N, K // 2), torch.uint8),
+                                           "s": (s, (N,), torch.float32)})
+    if K % 32 or N % 8:
+        raise ValueError(f"nib_hi_dot: K={K} must be a multiple of 32 and N={N} of 8")
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)   # the pre-pass's scratch
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    rowsum = torch.empty((M,), dtype=torch.int32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _build.launcher("nib_hi_dot")(
+        x.data_ptr(), hi.data_ptr(), s.data_ptr(), out.data_ptr(), codes.data_ptr(),
+        sx.data_ptr(), rowsum.data_ptr(), M, N, K, int(x.dtype == torch.bfloat16),
+        _build.stream_ptr(x))
+    _build.check(err, "nib_hi_dot")
+    _build.KERNEL_LAUNCHES["nib_hi_quant_rows"] += 1
+    _build.KERNEL_LAUNCHES["nib_hi_dot"] += 1
+    return out
+
+
+def nib_matmul(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The JAX package's ``_nib_matmul``: the hi plane at M <= 32 (decode),
+    the exact int8 codes through w8a8 above (prefill)."""
+    if x.shape[0] <= NIB_HI_M_MAX:
+        return nib_hi_dot(x, w["hi"], w["s"])
+    return w8a8_matmul(x, w)
 
 
 # --- w4a8: grouped int4 weights x int8 activations (Queue 2 row 8) ---------------
@@ -281,8 +444,9 @@ def requant_int4_to_int8(q: torch.Tensor, s: torch.Tensor) -> Tuple[torch.Tensor
 
 def w4a8_dot_requant(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """The requant route: int8 codes requantized per call (no resident copy),
-    then `w8a8_dot`."""
-    return w8a8_dot(x, *requant_int4_to_int8(q, s))
+    then `w8a8_matmul`."""
+    q8, s8 = requant_int4_to_int8(q, s)
+    return w8a8_matmul(x, {"q": q8, "s": s8})
 
 
 def w4a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -324,6 +488,7 @@ def w4a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), codes.data_ptr(),
         sx.data_ptr(), M, N, K, gsz, int(x.dtype == torch.bfloat16), _build.stream_ptr(x))
     _build.check(err, "w4a8_matmul")
+    _build.KERNEL_LAUNCHES["w4a8_quant_rows"] += 1
     _build.KERNEL_LAUNCHES["w4a8_matmul"] += 1
     return out
 
@@ -335,21 +500,38 @@ def takes_w4a8_kernel(w: Dict[str, torch.Tensor]) -> bool:
     return N % W4A8_TILE == 0 and (2 * half) % W4A8_TILE == 0
 
 
-def matmul_t(x: torch.Tensor, w: Any) -> torch.Tensor:
+def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
     """x [..., K] @ w[O, K].T -> [..., O] for a float weight tensor, a
-    per-channel int8 leaf or a grouped-int4 leaf."""
+    per-channel int8 leaf (on the route `int8_matmul` names: "wi8" or
+    "w8a8"), a nibble leaf or a grouped-int4 leaf; x may be a
+    `PrequantActivation` for a per-channel int8 leaf."""
+    if isinstance(x, PrequantActivation):
+        if not is_int8_per_channel(w):
+            raise TypeError("a PrequantActivation takes a per-channel int8 leaf; gate the fused "
+                            "RMSNorm -> int8 kernel on every consumer")
+        lead, K = x.q8.shape[:-1], x.q8.shape[-1]
+        x2 = PrequantActivation(x.q8.reshape(-1, K), x.sx.reshape(-1, 1), x.dtype)
+        return w8a8_matmul(x2, w).reshape(*lead, -1)
     if isinstance(w, torch.Tensor):
         return torch.matmul(x, w.t())
     lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
     if is_int8_per_channel(w):
-        out = wi8_matmul(x.reshape(-1, K).contiguous(), w["q"], w["s"])
+        if int8_matmul not in INT8_ROUTES:
+            raise ValueError(f"int8_matmul must be one of {INT8_ROUTES}, got {int8_matmul!r}")
+        out = wi8_matmul(x2, w["q"], w["s"]) if int8_matmul == "wi8" else w8a8_matmul(x2, w)
         return out.reshape(*lead, -1)
+    if is_nibble_quant(w):
+        return nib_matmul(x2, w).reshape(*lead, -1)
     if is_grouped_int4(w):
+        if int8_matmul != "wi8":
+            raise NotImplementedError(
+                "grouped-int4 leaves without the kernel gate (the JAX package's "
+                "_w4a8_dot_grouped) are not ported: ROADMAP Queue 1 item 10")
         mm = w4a8_matmul if takes_w4a8_kernel(w) else w4a8_dot_requant
-        return mm(x.reshape(-1, K).contiguous(), w["q"], w["s"]).reshape(*lead, -1)
-    if is_quantized(w) or (isinstance(w, dict) and "hi" in w):
-        raise NotImplementedError(
-            "mix / nibble weight leaves are not ported yet: ROADMAP Queue 1 items 7 and 10")
+        return mm(x2, w["q"], w["s"]).reshape(*lead, -1)
+    if is_quantized(w):
+        raise NotImplementedError("mix weight leaves are not ported yet: ROADMAP Queue 1 item 10")
     if isinstance(w, dict) and "base" in w:
         raise NotImplementedError(
             "LoRA / multi-LoRA weight wrappers are not ported yet: "

@@ -1,12 +1,14 @@
 """Where the time of one OpenVLA-7B serving call goes, on one CUDA card.
 
-    python -m openvla_probe_tpu_torch.tools.profile_main_path [--tier parity|pallas|pallas_kv8]
-        [--weights int8|int4] [--batch 24] [--calls 3]
+    python -m openvla_probe_tpu_torch.tools.profile_main_path
+        [--tier parity|pallas|pallas_kv8|turbo] [--weights int8|int4|nibble] [--batch 24]
+        [--calls 3]
 
 Drives the same call as chip_smoke.py (random weights from a seeded
 generator: bf16 for the parity tier, TURBO_QUANT_SUFFIXES leaves for the
 others, per-channel int8 or, with --weights int4 on the pallas tier, grouped
-int4; 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
+int4, or, with --weights nibble on the turbo tier, nibble planes for the
+trunk; 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
 
   stages   device time of each stage of predict_action_from_image, each stage
            run alone through the port's own functions (CUDA events, median);
@@ -60,9 +62,11 @@ def _kernel_class(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tier", choices=("parity", "pallas", "pallas_kv8"), default="parity")
-    ap.add_argument("--weights", choices=("int8", "int4"), default="int8",
-                    help="quantized tiers: per-channel int8 or grouped int4 (pallas only)")
+    ap.add_argument("--tier", choices=("parity", "pallas", "pallas_kv8", "turbo"),
+                    default="parity")
+    ap.add_argument("--weights", choices=("int8", "int4", "nibble"), default="int8",
+                    help="quantized tiers: per-channel int8, grouped int4 (pallas only) or "
+                         "nibble (turbo only)")
     ap.add_argument("--batch", type=int, default=24)
     ap.add_argument("--calls", type=int, default=3)
     args = ap.parse_args()
@@ -74,7 +78,10 @@ def main() -> None:
     g = torch.Generator(device=dev).manual_seed(0)
     if args.weights == "int4" and args.tier != "pallas":
         ap.error("--weights int4 serves through the pallas tier")
-    params = convert.init_params(c, g, device=dev, bits=4 if args.weights == "int4" else 8,
+    if args.weights == "nibble" and args.tier != "turbo":
+        ap.error("--weights nibble serves through the turbo tier")
+    bits = {"int8": 8, "int4": 4, "nibble": "nibble"}[args.weights]
+    params = convert.init_params(c, g, device=dev, bits=bits,
                                  quant_suffixes=TURBO_QUANT_SUFFIXES if args.tier != "parity" else ())
     B, P = args.batch, cfg.prompt_pad_len
     image = torch.randint(0, 256, (B, 256, 256, 3), generator=g, device=dev, dtype=torch.uint8)
@@ -102,7 +109,7 @@ def main() -> None:
     step_pos = torch.full((B, 1), T, device=dev)
     reps = max(3, args.calls)
     extra = {}
-    if args.tier == "parity":
+    if args.tier in ("parity", "turbo"):     # the stacked-cache decode
         mask_S = torch.nn.functional.pad(mm["attn_mask"], (0, S - T))
         cache = llama.KVCache.zeros(c.llm, B, S, device=dev)
         step_valid = (torch.arange(S, device=dev)[None] <= T).int().expand(B, S)

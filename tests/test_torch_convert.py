@@ -20,7 +20,7 @@ from openvla_probe_tpu.models import vlm as jvlm
 from openvla_probe_tpu_torch import convert
 from openvla_probe_tpu_torch.device import resolve_device
 from openvla_probe_tpu_torch.models import vlm as tvlm
-from openvla_probe_tpu_torch.ops.linear import matmul_t
+from openvla_probe_tpu_torch.ops.linear import matmul_t, nib_hi_dot_plain, quantize_weight_nibble
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "openvla_probe_tpu", "transformers", "timm", "PIL", "flax")
@@ -120,15 +120,19 @@ def test_config_from_jax():
 
 
 def test_matmul_t_float_only():
-    """Float and per-channel int8 leaves multiply; mix, nibble and LoRA
-    leaves still raise."""
+    """Float, per-channel int8 and (packed) nibble leaves multiply; mix and
+    LoRA leaves still raise, and so do unpacked int8 planes (the JAX
+    package's emit_codes form, which params_from_jax packs)."""
     x, w = torch.randn(3, 4), torch.randn(5, 4)
     torch.testing.assert_close(matmul_t(x, w), x @ w.T)
     q = torch.randint(-127, 128, (5, 4), dtype=torch.int8)
     torch.testing.assert_close(matmul_t(x, {"q": q, "s": torch.ones(5)}), x @ q.float().T)
+    nib = quantize_weight_nibble(w)                                # the hi plane at M = 3
+    torch.testing.assert_close(matmul_t(x, nib), nib_hi_dot_plain(x, nib["hi"], nib["s"]),
+                               atol=0, rtol=0)
     with pytest.raises(NotImplementedError, match="Queue 1"):      # mix: int8 + grouped int4
         matmul_t(x, {"q": q, "s": torch.ones(5), "q4": q.reshape(1, 5, 4), "s4": torch.ones(5, 1)})
-    with pytest.raises(NotImplementedError, match="Queue 1"):      # nibble planes
+    with pytest.raises(TypeError):                                 # unpacked nibble planes
         matmul_t(x, {"hi": q, "lo": q, "s": torch.ones(5)})
     with pytest.raises(NotImplementedError, match="Queue 1"):
         matmul_t(x, {"base": w, "A": w, "B": w})

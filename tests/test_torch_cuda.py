@@ -14,7 +14,15 @@ and their outputs bit-equal to the plain version's on the kernels' own codes
 LayerNorm, bit-equal to the plain version. w4a8_matmul: bit-equal to its
 plain version (the same activation codes, exact integer sums, the same fold
 order and roundings). stacked_decode_attention_i8: fp32 1e-5, bf16 2e-2, as
-the other attention kernels.
+the other attention kernels. w8a8_matmul and nib_hi_dot: bit-equal to their
+plain versions (the same activation codes, exact integer sums, the same
+epilogue roundings in the same order), the nibble loader bit-equal to the
+int8 loader on the same codes. rms_norm_quant: ops.rmsnorm_quant's
+compare_rms_norm_quant (codes within one step, at most max(16, 1e-5 n) of them
+apart; bf16 scales bit-equal, fp32 within 2^-8: the fp32 row sums run in
+another order). decode_attention at bf16 scores: within 4e-3 of the bf16-score
+plain version and on average at most a tenth as far from it as from the
+fp32-score plain version (attention.compare_bf16_scores).
 """
 
 import numpy as np
@@ -270,3 +278,94 @@ def test_new_kernels_fail_loudly_on_bad_shapes(cuda):
     ks = torch.ones((1, 2, 8, 2), device=cuda)
     with pytest.raises(ValueError, match="head dim 72"):
         tdec.stacked_decode_attention_i8(q, kq, ks, kq, ks, torch.ones((2, 8), device=cuda), 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dh,slot", [(3, 295, 4, 128, 290), (4, 37, 8, 72, 30)])
+def test_decode_kernel_bf16_scores_match_plain(cuda, dtype, B, S, H, dh, slot):
+    """The turbo stacked decode's bf16 scores, held to the bf16-score plain
+    version (attention.compare_bf16_scores)."""
+    q = _rand(34, (B, 1, H, dh), dtype, cuda)
+    cache_k, cache_v = _rand(35, (2, B, S, H, dh), dtype, cuda), _rand(36, (2, B, S, H, dh), dtype, cuda)
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    valid[0, slot - 12:slot - 4] = 0
+    args = (q, cache_k[1], cache_v[1], valid, slot)
+    got = _count("decode_attention", lambda: tattn.decode_attention(*args, torch.bfloat16))
+    tattn.compare_bf16_scores(got, tattn.decode_attention_plain(*args, torch.bfloat16),
+                              tattn.decode_attention_plain(*args, torch.float32))
+
+
+W8A8_SHAPES = [
+    (24, 4096, 4096),       # a turbo decode step's product (small-M tiles)
+    (24, 4096, 32064),      # lm_head: N = 64 * 501, not a multiple of 128
+    (6144, 1152, 4304),     # SigLIP fc1: N = 16 * 269
+    (6144, 4304, 1152),     # SigLIP fc2: K = 4304 not a multiple of 32 (zero-filled k tail)
+    (100, 80, 136),         # M > 64 past one tile, K and N tails
+    (5, 48, 40),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", W8A8_SHAPES)
+def test_w8a8_kernel_bit_equal_to_plain(cuda, dtype, M, K, N):
+    x = _rand(37, (M, K), dtype, cuda)
+    w = _int8_leaf(38, N, K, cuda)
+    pre_passes = _build.KERNEL_LAUNCHES["w8a8_quant_rows"]
+    got = _count("w8a8_matmul", lambda: tlin.w8a8_matmul(x, w))
+    want = tlin.w8a8_matmul_plain(x, w)
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, want)
+    codes, sx = tlin.quantize_rows(x.float())          # the prequant entry, on the same codes
+    pre = tlin.PrequantActivation(codes, sx, dtype)
+    assert torch.equal(_count("w8a8_matmul", lambda: tlin.w8a8_matmul(pre, w)), want)
+    assert _build.KERNEL_LAUNCHES["w8a8_quant_rows"] == pre_passes + 1   # none for prequant
+
+
+@pytest.mark.parametrize("M,K,N", [(6912, 4096, 4096), (40, 11008, 264), (33, 64, 40)])
+def test_w8a8_nibble_loader_bit_equal_to_int8(cuda, M, K, N):
+    """The nibble prefill: the planes' codes rebuilt in the loader give the
+    int8 leaf's output bit for bit."""
+    x = _rand(39, (M, K), torch.bfloat16, cuda)
+    wf = _rand(40, (N, K), torch.float32, cuda) * 0.02
+    nib, int8 = tlin.quantize_weight_nibble(wf), tlin.quantize_weight(wf)
+    got = _count("w8a8_matmul", lambda: tlin.w8a8_matmul(x, nib))
+    assert torch.equal(got, tlin.w8a8_matmul(x, int8))
+    assert torch.equal(got, tlin.w8a8_matmul_plain(x, nib))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(24, 4096, 4096), (24, 11008, 4096), (32, 4096, 32064),
+                                   (5, 96, 40)])
+def test_nib_hi_dot_kernel_bit_equal_to_plain(cuda, dtype, M, K, N):
+    x = _rand(41, (M, K), dtype, cuda)
+    w = tlin.quantize_weight_nibble(_rand(42, (N, K), torch.float32, cuda) * 0.02)
+    got = _count("nib_hi_dot", lambda: tlin.nib_hi_dot(x, w["hi"], w["s"]))
+    want = tlin.nib_hi_dot_plain(x, w["hi"], w["s"])
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D", [(6912, 4096), (24, 4096), (37, 64)])
+def test_rms_norm_quant_kernel_matches_plain(cuda, dtype, M, D):
+    from openvla_probe_tpu_torch.ops import rmsnorm_quant as trmsq
+
+    x = _rand(43, (M, D), dtype, cuda) * 3
+    w = 1 + 0.2 * _rand(44, (D,), dtype, cuda)
+    q, sx = _count("rms_norm_quant", lambda: trmsq.rms_norm_quant(x, w, 1e-5))
+    wq, wsx = trmsq.rms_norm_quant_plain(x, w, 1e-5)
+    assert q.dtype == torch.int8 and q.shape == (M, D) and sx.shape == (M, 1)
+    trmsq.compare_rms_norm_quant(x, (q, sx), (wq, wsx))
+
+
+def test_turbo_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
+    x = torch.zeros((4, 40), dtype=torch.bfloat16, device=cuda)
+    w = {"q": torch.zeros((8, 40), dtype=torch.int8, device=cuda), "s": torch.ones(8, device=cuda)}
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tlin.w8a8_matmul(x, w)
+    x = torch.zeros((4, 48), dtype=torch.bfloat16, device=cuda)
+    nib = tlin.quantize_weight_nibble(torch.ones((8, 48), device=cuda))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tlin.nib_hi_dot(x, nib["hi"], nib["s"])
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tlin.w8a8_matmul(torch.zeros((40, 48), dtype=torch.bfloat16, device=cuda), nib)

