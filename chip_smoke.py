@@ -17,23 +17,31 @@ Six serving paths, each at full OpenVLA-7B width through the normal entry
                 SigLIP's fc2 int8), frozen-KV split decode
   turbo_nibble  the turbo tier over nibble weights (bits="nibble": the trunk
                 and lm_head as two 4-bit planes, the towers int8)
+and three paths of the base VLM's entry points (models/generate.py) on the
+parity tier's bf16 weights, B = 8 rows with 224 px dinosiglip pixels:
+  generate      generate_greedy_batch, prompts bucketed to 64, 32 new tokens
+  score_short   score_continuation_rows, rows bucketed to L = 64 (T = 320)
+  score_long    score_continuation_rows, L = 832 (T = 1088 > 1024: the
+                blockwise flash kernel)
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
               all started together (set-up time)
   3. kernels  each kernel against its plain PyTorch version at the 7B main-path
-              shapes (B=24), with kernel / plain / library times: flash_prefill,
+              shapes (B=24; B=8 for score_long), with kernel / plain / library
+              times: flash_prefill, flash_blockwise (with its negative control),
               vit_attention, decode_attention (parity; turbo's bf16 scores),
               wi8_matmul, fused_ln_w8a8, fused_mlp_residual,
               decode_split_attention (pallas), stacked_decode_attention_i8
               (pallas_kv8), w4a8_matmul (pallas_int4), w8a8_matmul,
               rms_norm_quant (turbo), nib_hi_dot (turbo_nibble)
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
-              versions, which the CPU tests hold against the JAX package)
+              versions, which the CPU tests hold against the JAX package):
+              equal tokens, close logits or scores
   5. main     each path once with every launch count set to 0 just before and
               read just after (exact per-kernel counts asserted, and no
-              torch._int_mm call), then p50 latency and calls/s over timed
-              calls; random weights from a seeded generator on the card,
+              torch._int_mm call), then p50 latency over timed calls; random
+              weights from a seeded generator on the card; the VLA paths with
               256x256 uint8 images, prompt_pad_len=32, A=7
 then a JSON line of per-kernel figures and a last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero; with
@@ -54,14 +62,15 @@ import torch
 import torch.nn.functional as F
 
 from openvla_probe_tpu_torch import convert
-from openvla_probe_tpu_torch.models import llama, vit, vla, vlm
+from openvla_probe_tpu_torch.models import generate, llama, vit, vla, vlm
 from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import attention as attn
 from openvla_probe_tpu_torch.ops import decode_attention as dattn
 from openvla_probe_tpu_torch.ops import linear as lin
 from openvla_probe_tpu_torch.ops import rmsnorm_quant as rmsq
 from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
-from openvla_probe_tpu_torch.ops.image import BackboneTransformSpec, ImageTransformConfig
+from openvla_probe_tpu_torch.ops.image import (BackboneTransformSpec, ImageTransformConfig,
+                                               apply_image_transform)
 
 # published H100 SXM peaks (dense): HBM bytes/s; bf16 and int8 tensor-core and
 # fp32 FMA operations/s
@@ -72,6 +81,11 @@ LAYERS, T_PREFILL = 32, 288            # Llama-2-7B layers; 1 + 256 patches + 31
 TOWER_LAUNCHES = {"dinov2": 23, "siglip": 26}   # blocks 0..L-2 of each tower run
 TIMED_CALLS = 5
 L2_BYTES = 50e6
+# the base VLM's entry points: rows, new tokens, row buckets (T = 1 + 256 + L - 1)
+VLM_PATHS = ("generate", "score_short", "score_long")
+VLM_BATCH, GEN_NEW_TOKENS, GEN_PROMPT_PAD = 8, 32, 64
+SCORE_L = {"score_short": 64, "score_long": 832}
+TIMED_VLM_CALLS = 3
 
 
 def log(phase: str, **fields) -> None:
@@ -151,6 +165,68 @@ def check_flash_prefill(dev, g):
                 replaces="openvla_probe_tpu/ops/attention.py:88",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                 library_ms=lib)
+
+
+def _causal_pairs(lens, T: int) -> int:
+    """(query, key) pairs of a causal self-attention over T positions whose
+    keys are valid below each row's length: the products the function needs."""
+    q = torch.arange(T, device=lens.device)[None]
+    return int(torch.minimum(q + 1, lens[:, None]).sum())
+
+
+def check_flash_blockwise(dev, g):
+    """Row 2 at its main-path shape, score_long's q/k/v [8, 1088, 32, 128] bf16
+    (32 launches per call; rows right-padded to 1000-1088 tokens), and at the
+    Llama position limit, [8, 2048, 32, 128]: attn.compare_blockwise against
+    the plain version (every element within one bf16 step, at most 2 % of them
+    apart), which the one-shot class (flash_attention_plain: P rounded to
+    bf16) must fail on the same inputs. Bound: q/k/v/out bytes against the
+    causal, unpadded products these rows need (the kernel visits every key
+    tile, twice the products). Library: SDPA with a boolean mask on the same
+    bf16 inputs, a time yardstick only (it rounds P to bf16)."""
+    B, H, Dh = VLM_BATCH, 32, 128
+    by_shape = {}
+    for name, (T, per_call) in {"score_long": (1088, LAYERS), "llama_limit": (2048, 0)}.items():
+        q, k, v = (torch.randn((B, T, H, Dh), generator=g, device=dev).bfloat16() for _ in range(3))
+        lens = torch.randint(T - 88, T + 1, (B,), generator=g, device=dev)
+        valid = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+        before = attn.KERNEL_LAUNCHES["flash_blockwise"]
+        got = attn.flash_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert attn.KERNEL_LAUNCHES["flash_blockwise"] == before + 1
+        want = attn.flash_attention_blockwise_plain(q, k, v, valid)
+        stats = attn.compare_blockwise(got, want)
+        control = attn.flash_attention_plain(q, k, v, valid)
+        control_apart = int((control != want).sum())
+        try:
+            attn.compare_blockwise(control, want)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError("flash_blockwise: the check passed the one-shot class (bf16 P)")
+        del control
+        ki = torch.arange(T, device=dev)
+        sdpa_mask = (valid[:, None, None, :] > 0) & (ki[None, :] <= ki[:, None])[None, None]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        b, by = bound_ms(_nbytes(q, k, v, got, valid), 4 * H * Dh * _causal_pairs(lens, T), "bf16")
+        by_shape[name] = dict(
+            launches_per_call=per_call, **stats, control_n_apart=control_apart,
+            ms=cuda_ms(lambda: attn.flash_attention(q, k, v, valid)),
+            plain_ms=cuda_ms(lambda: attn.flash_attention_blockwise_plain(q, k, v, valid),
+                             reps=5, warmup=1),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      attn_mask=sdpa_mask)),
+            bound_ms=b, bound_by=by,
+            all_tiles_bound_ms=bound_ms(0, 4 * B * H * T * T * Dh, "bf16")[0])
+        del q, k, v, got, want, qt, kt, vt, sdpa_mask
+    main = by_shape["score_long"]
+    return dict(name="flash_blockwise", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/flash_blockwise.cu",
+                replaces="openvla_probe_tpu/ops/attention.py:37",
+                max_abs_err=max(r["max_abs_err"] for r in by_shape.values()),
+                **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")},
+                by_shape=by_shape)
 
 
 def check_vit_attention(dev, g):
@@ -704,7 +780,8 @@ PATHS = {
                                          "w8a8_matmul", "nib_hi_dot")),
 }
 # the path whose slice ported each kernel (its launches go into the kernels line)
-PORTED_ON = {"flash_prefill": "parity", "vit_attention": "parity", "decode_attention": "parity",
+PORTED_ON = {"flash_prefill": "parity", "flash_blockwise": "score_long",
+             "vit_attention": "parity", "decode_attention": "parity",
              "stacked_decode_attention_i8": "pallas_kv8", "w4a8_matmul": "pallas_int4",
              "w8a8_matmul": "turbo", "rms_norm_quant": "turbo", "nib_hi_dot": "turbo_nibble"}
 
@@ -770,6 +847,144 @@ def check_tiny_path(dev, path: str):
     err = (out["first_logits"].cpu() - ref["first_logits"]).abs().max().item()
     assert err < TINY_TOL[PATHS[path][1]], err
     return dict(path=path, tokens_equal=True, first_logits_max_abs_err=err)
+
+
+class IdTok:
+    """A tokenizer stand-in whose text is the token ids themselves."""
+
+    @staticmethod
+    def decode(ids, skip_special_tokens=False):
+        return " ".join(str(i) for i in ids)
+
+
+def _ids(text: str):
+    return [int(t) for t in text.split()]
+
+
+def _vlm_requests(path: str, vocab: int, seed: int, lo: int = 1000):
+    """generate: VLM_BATCH prompts of 40-64 tokens; score_*: VLM_BATCH rows
+    of L - 31 to L tokens (L = SCORE_L[path]) whose last 1-16 tokens are the
+    continuation. Each starts with BOS; token ids from [lo, min(20000, vocab))."""
+    g = torch.Generator().manual_seed(seed)
+    hi = min(20000, vocab)
+
+    def row(n):
+        return [1] + torch.randint(lo, hi, (n - 1,), generator=g).tolist()
+
+    if path == "generate":
+        return [row(int(n)) for n in torch.randint(40, GEN_PROMPT_PAD + 1, (VLM_BATCH,),
+                                                   generator=g)]
+    L = SCORE_L[path]
+    lens = torch.randint(L - 31, L + 1, (VLM_BATCH,), generator=g).tolist()
+    conts = torch.randint(1, 17, (VLM_BATCH,), generator=g).tolist()
+    return [(row(n), n - c) for n, c in zip(lens, conts)]
+
+
+def _run_vlm(path: str, params, cfg, requests, pixels, dev, max_new: int = GEN_NEW_TOKENS):
+    """generate: the new token ids of each row (EOS-trimmed); score_*: the
+    summed log-probability of each row's continuation."""
+    if path == "generate":
+        return [_ids(t) for t in generate.generate_greedy_batch(
+            params, cfg, IdTok(), requests, pixels, max_new_tokens=max_new, device=dev)]
+    return generate.score_continuation_rows(params, cfg, requests, pixels, device=dev)
+
+
+def _expected_vlm_launches(c: vlm.VLMConfig, decode_steps: int = 0, score_T: int = 0) -> dict:
+    """Per call: one vit_attention per tower block run (49 at 7B); generate's
+    cached prefill takes the plain attention and each of its decode steps one
+    decode_attention per layer; the scorer's uncached forward over T tokens
+    one flash_prefill (T <= 1024) or flash_blockwise per layer."""
+    L = c.llm.num_hidden_layers
+    kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
+    kernels["vit_attention"] = sum(v.num_layers - 1 for v in c.vision)
+    kernels["decode_attention"] = L * decode_steps
+    if score_T:
+        kernels["flash_blockwise" if score_T > attn.ONESHOT_MAX_TK else "flash_prefill"] = L
+    return kernels
+
+
+def check_tiny_vlm(dev, path: str):
+    """The base VLM's entry points at VLMConfig.tiny() fp32 on the card vs the
+    CPU run of the plain versions (which tests/test_torch_generate.py holds to
+    the JAX package), 8 rows with per-row pixels: equal tokens (generate, 8
+    new tokens), summed log-probabilities within 1e-3 (score_short: T = 68,
+    the one-shot kernel; score_long: rows of 1073-1088 tokens, T = 1092, the
+    blockwise one), exact launch counts."""
+    cfg = vlm.VLMConfig.tiny()
+    params = convert.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    img_cfg = ImageTransformConfig(specs=(
+        BackboneTransformSpec((28, 28), "bicubic", (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+        BackboneTransformSpec((28, 28), "bicubic", (0.5, 0.5, 0.5), (0.5, 0.5, 0.5))))
+    g = torch.Generator().manual_seed(2)
+    pixels = apply_image_transform(
+        torch.randint(0, 256, (VLM_BATCH, 40, 40, 3), generator=g, dtype=torch.uint8), img_cfg)
+    if path == "generate":
+        requests = _vlm_requests(path, cfg.llm.vocab_size, 3, lo=3)
+        expect = _expected_vlm_launches(cfg, decode_steps=7)
+    else:
+        L = {"score_short": 64, "score_long": 1088}[path]
+        requests = [([1] + torch.randint(3, cfg.llm.vocab_size, (n - 1,), generator=g).tolist(),
+                     n - 5) for n in range(L - 15, L + 1, 2)]
+        expect = _expected_vlm_launches(cfg, score_T=cfg.num_patches + L)
+    ref = _run_vlm(path, params, cfg, requests, pixels, "cpu", max_new=8)
+    _build.reset_launch_counts()
+    got = _run_vlm(path, _to(params, dev), cfg, requests, pixels.to(dev), dev, max_new=8)
+    torch.cuda.synchronize()
+    assert _build.KERNEL_LAUNCHES == expect, (path, _build.KERNEL_LAUNCHES)
+    if path == "generate":
+        assert got == ref, (got, ref)
+        return dict(path=path, tokens_equal=True)
+    err = float(abs(got - ref).max())
+    assert err < 1e-3, (path, err)
+    return dict(path=path, scores_max_abs_err=err)
+
+
+def run_vlm_path(dev, path: str, params):
+    """One of the base VLM's entry points at 7B width on the parity tier's bf16
+    weights: VLM_BATCH rows with 224 px dinosiglip pixels (from 256x256 uint8
+    images, set-up), launches counted around the first call and asserted
+    exactly, then p50 over timed calls."""
+    c = vlm.VLMConfig.openvla_7b()
+    g = torch.Generator(device=dev).manual_seed(5)
+    image = torch.randint(0, 256, (VLM_BATCH, IMG_HW, IMG_HW, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    pixels = apply_image_transform(image, ImageTransformConfig.dinosiglip_224()).to(c.llm.dtype)
+    requests = _vlm_requests(path, c.llm.vocab_size, seed=6)
+    torch.cuda.reset_peak_memory_stats()
+
+    def call():
+        out = _run_vlm(path, params, c, requests, pixels, dev)
+        torch.cuda.synchronize()
+        return out
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.KERNEL_LAUNCHES)
+    expect = (_expected_vlm_launches(c, decode_steps=GEN_NEW_TOKENS - 1) if path == "generate"
+              else _expected_vlm_launches(c, score_T=c.num_patches + SCORE_L[path]))
+    assert launches == expect, (path, launches, expect)
+    if path == "generate":
+        assert len(out) == VLM_BATCH and all(len(r) <= GEN_NEW_TOKENS for r in out), out
+        assert all(0 <= t < c.llm.vocab_size for r in out for t in r), out
+        result = dict(new_tokens=[len(r) for r in out], first_tokens=out[0][:8])
+    else:
+        assert out.shape == (VLM_BATCH,) and bool((out <= 0).all()) and \
+            bool(torch.isfinite(torch.from_numpy(out)).all()), out
+        result = dict(scores=out.tolist(), T=c.num_patches + SCORE_L[path])
+    times = []
+    for _ in range(TIMED_VLM_CALLS):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+        assert _build.KERNEL_LAUNCHES == expect, _build.KERNEL_LAUNCHES
+    p50 = statistics.median(times)
+    return launches, dict(path=path, tier="parity", rows=VLM_BATCH, first_call_s=first_s,
+                          p50_ms=p50 * 1e3, rows_per_s=VLM_BATCH / p50,
+                          call_ms=[t * 1e3 for t in times],
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **result)
 
 
 def _to(tree, dev):
@@ -929,7 +1144,8 @@ def main() -> int:
     log("build", seconds=_build.build_report["seconds"], ptxas=ptxas)
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    kernels = [check_flash_prefill(dev, g), check_vit_attention(dev, g),
+    kernels = [check_flash_prefill(dev, g), check_flash_blockwise(dev, g),
+               check_vit_attention(dev, g),
                check_decode_attention(dev, g), check_wi8_matmul(dev, g),
                check_fused_ln_w8a8(dev, g), check_fused_mlp_residual(dev, g),
                check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
@@ -940,12 +1156,19 @@ def main() -> int:
 
     for path in PATHS:
         log("tiny", **check_tiny_path(dev, path))
+    for path in VLM_PATHS:
+        log("tiny", **check_tiny_vlm(dev, path))
 
     launches, weights = {}, {}
     for path in PATHS:   # pallas, pallas_kv8 and turbo share one build of the int8 weights
         launches[path], main_stats = run_main_path(dev, path, weights)
         log("main", card=card, batch=BATCH, launches_per_call=launches[path], **main_stats)
         torch.cuda.empty_cache()
+        if path == "parity":   # the base VLM's entry points on the same bf16 weights
+            for vpath in VLM_PATHS:
+                launches[vpath], vstats = run_vlm_path(dev, vpath, weights[None])
+                log("main", card=card, launches_per_call=launches[vpath], **vstats)
+                torch.cuda.empty_cache()
     weights.clear()
 
     # each kernel's launches: from the main path whose slice ported it

@@ -5,7 +5,9 @@ layout and function names, imports neither JAX nor anything of the JAX
 package, and replaces each Pallas TPU kernel on its path with a CUDA kernel
 written for ``sm_90a`` (``ops/csrc``). Ported so far: serving through
 ``models.vla.predict_action_from_image`` on the parity, pallas, pallas_kv8
-and turbo tiers, over bf16, int8, grouped-int4 and nibble weights.
+and turbo tiers, over bf16, int8, grouped-int4 and nibble weights; the base
+VLM's generation and candidate scoring (``models.generate``) and the eval
+harness (``eval``).
 
 Entry points run on ``device="cuda"`` unless the caller passes ``"cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.

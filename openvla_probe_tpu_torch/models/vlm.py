@@ -2,19 +2,23 @@
 
 Vision features are each backbone's second-to-last-block patch tokens,
 concatenated on the channel axis; projected patches are spliced in after the
-BOS token.
+BOS token, with IGNORE_INDEX labels. `forward` is the uncached
+training / eval forward (multimodal, unimodal or mixed) that the candidate
+scorer runs. The Llama trunk only: Phi and the hidden-state probe taps are
+not ported (ROADMAP Queue 1, items 10 and 15).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from . import llama, projector, vit
 
 Params = Dict[str, Any]
+IGNORE_INDEX = -100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,13 +94,72 @@ def build_multimodal_inputs(
     input_ids: torch.Tensor,        # [B, T]
     attn_mask: torch.Tensor,        # [B, T]
     pixel_values: torch.Tensor,     # [B, 3K, S, S]
+    labels: Optional[torch.Tensor] = None,
+    multimodal_mask: Optional[torch.Tensor] = None,   # [B] bool; False = text-only row
 ) -> Dict[str, torch.Tensor]:
-    """Splice projected patches after BOS: [BOS | patches | rest]."""
+    """Splice projected patches after BOS: [BOS | patches | rest].
+
+    The patch block gets IGNORE_INDEX labels. In a mixed batch a text-only
+    row keeps the spliced layout with its patch block masked out of
+    attention (with the mask-cumsum positions of `forward` it computes the
+    unspliced unimodal row)."""
     patches = project_patches(params, cfg, vision_features(params, cfg, pixel_values))
     patches = patches.to(cfg.llm.dtype)
     embeds = llama.embed_tokens(params["llm"], input_ids)   # Llama trunk only (no Phi)
     B, N = patches.shape[:2]
     mm_embeds = torch.cat([embeds[:, :1], patches, embeds[:, 1:]], dim=1)
-    patch_valid = torch.ones((B, N), dtype=attn_mask.dtype, device=attn_mask.device)
+    if multimodal_mask is None:
+        patch_valid = torch.ones((B, N), dtype=attn_mask.dtype, device=attn_mask.device)
+    else:
+        patch_valid = multimodal_mask.to(attn_mask.dtype)[:, None].expand(B, N)
     mm_mask = torch.cat([attn_mask[:, :1], patch_valid, attn_mask[:, 1:]], dim=1)
-    return {"inputs_embeds": mm_embeds, "attn_mask": mm_mask, "patches": patches}
+    out = {"inputs_embeds": mm_embeds, "attn_mask": mm_mask, "patches": patches}
+    if labels is not None:
+        patch_labels = torch.full((B, N), IGNORE_INDEX, dtype=labels.dtype, device=labels.device)
+        out["labels"] = torch.cat([labels[:, :1], patch_labels, labels[:, 1:]], dim=1)
+    return out
+
+
+def forward(
+    params: Params,
+    cfg: VLMConfig,
+    input_ids: torch.Tensor,                        # [B, T]
+    attn_mask: torch.Tensor,                        # [B, T]
+    pixel_values: Optional[torch.Tensor] = None,    # [B, 3K, S, S]
+    labels: Optional[torch.Tensor] = None,          # [B, T]
+    collect_hidden_states: bool = False,
+    multimodal_mask: Optional[torch.Tensor] = None,   # [B] bool for mixed batches
+) -> Dict[str, Any]:
+    """Training / eval forward: multimodal when `pixel_values` is given, else
+    unimodal; the uncached `llama.forward` (Tk = T, so prefill-sized rows take
+    the flash kernels: one-shot up to 1024 keys, blockwise beyond). For mixed
+    batches pass `multimodal_mask` (False rows = text-only): their patch block
+    is excluded from attention and RoPE positions count only attended tokens.
+
+    Returns logits [B, T', V] fp32, last_hidden_state, and the labels aligned
+    with the logits when `labels` is given."""
+    if not isinstance(cfg.llm, llama.LlamaConfig):
+        raise NotImplementedError(
+            f"vlm.forward on a {type(cfg.llm).__name__} trunk: the port has the Llama trunk "
+            "only (Phi: ROADMAP Queue 1 item 15)")
+    if collect_hidden_states:
+        raise NotImplementedError(
+            "collect_hidden_states (the probe taps) is not ported: ROADMAP Queue 1 item 10")
+    if pixel_values is None:
+        embeds = llama.embed_tokens(params["llm"], input_ids)
+        mask, lbls = attn_mask, labels
+    else:
+        mm = build_multimodal_inputs(params, cfg, input_ids, attn_mask, pixel_values, labels,
+                                     multimodal_mask=multimodal_mask)
+        embeds, mask, lbls = mm["inputs_embeds"], mm["attn_mask"], mm.get("labels")
+    B, T = embeds.shape[:2]
+    if multimodal_mask is not None and pixel_values is not None:
+        # position = index among attended tokens (text-only rows skip their
+        # masked patch block, as the unspliced row's RoPE positions do)
+        positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+    else:
+        positions = torch.arange(T, device=embeds.device).expand(B, T)
+    out = llama.forward(params["llm"], cfg.llm, embeds, mask, positions)
+    if lbls is not None:
+        out["labels"] = lbls
+    return out

@@ -36,6 +36,10 @@ KERNELS = {
         "flash_prefill.cu", "ovla_flash_prefill",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _P],
     ),
+    "flash_blockwise": (
+        "flash_blockwise.cu", "ovla_flash_blockwise",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _P],
+    ),
     "vit_attention": (
         "vit_attention.cu", "ovla_vit_attention",
         [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _P],

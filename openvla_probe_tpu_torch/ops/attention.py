@@ -1,14 +1,14 @@
 """Attention for the Llama prefill, the ViT towers and the decode steps.
 
-Counterpart of ``openvla_probe_tpu/ops/attention.py`` (the two one-shot
-Pallas kernels) and of the XLA attention the JAX package decodes with
-(``models/llama.py::attention`` at Tq = 1). Each public function
-is a wrapper that launches a hand-written CUDA kernel (``csrc/*.cu``) for a
-CUDA tensor, and takes the plain PyTorch version beside it only for a tensor
-that lies on the CPU. There is no fallback on the card: a CUDA input the
-kernel does not take raises. Each wrapper counts its kernel launches in the
-package's one registry, ``_build.KERNEL_LAUNCHES`` (re-exported here), so a
-run can show that the main path went through them.
+Counterpart of ``openvla_probe_tpu/ops/attention.py`` (the one-shot and the
+blockwise flash Pallas kernels and the ViT kernel) and of the XLA attention
+the JAX package decodes with (``models/llama.py::attention`` at Tq = 1). Each
+public function is a wrapper that launches a hand-written CUDA kernel
+(``csrc/*.cu``) for a CUDA tensor, and takes the plain PyTorch version beside
+it only for a tensor that lies on the CPU. There is no fallback on the card:
+a CUDA input the kernel does not take raises. Each wrapper counts its kernel
+launches in the package's one registry, ``_build.KERNEL_LAUNCHES``
+(re-exported here), so a run can show that the main path went through them.
 
 Layouts are the JAX package's: q/k/v ``[B, T, H, Dh]`` (K/V heads already
 repeated), ``kv_valid`` ``[B, Tk]`` with 1 = attend.
@@ -23,7 +23,10 @@ from . import _build
 from ._build import KERNEL_LAUNCHES, reset_launch_counts  # noqa: F401  (re-exported)
 
 NEG_INF = -2.3819763e38
-ONESHOT_MAX_TK = 1024   # the one-shot kernel holds whole fp32 score rows (<= 128 KB / 32 rows)
+# key length up to which flash_attention takes the one-shot kernel (it holds
+# whole fp32 score rows, <= 128 KB / 32 rows); longer rows take the blockwise
+# kernel, the JAX wrapper's split (_ONESHOT_MAX_TK)
+ONESHOT_MAX_TK = 1024
 MAX_HEAD_DIM = 128
 
 def _scale(dh: int) -> float:
@@ -59,6 +62,65 @@ def flash_attention_plain(q, k, v, kv_valid, offset: int = 0, causal: bool = Tru
     pv = torch.matmul(p.to(v.dtype).float(), vh)
     out = (pv / torch.clamp(l, min=1e-30)).to(q.dtype)
     return out.permute(0, 2, 1, 3)
+
+
+def flash_attention_blockwise_plain(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
+    """The blockwise flash kernel's function in plain PyTorch, computed
+    directly in fp32 (its online softmax gives the same function up to fp32
+    rounding): q upcast and multiplied by scale before the dot; masked scores
+    = NEG_INF; p = exp(s - m) kept in fp32 for PV; out = pv / max(l, 1e-30)
+    cast to the input dtype. A row with every key masked has p = 1 on each of
+    the Tk keys, so its output is the mean of V (the JAX kernel also counts
+    the keys it pads Tk with up to a multiple of 128: ROADMAP Queue 3)."""
+    B, Tq, H, Dh = q.shape
+    Tk = k.shape[1]
+    qh = q.permute(0, 2, 1, 3).float() * _scale(Dh)
+    kh = k.permute(0, 2, 1, 3).float()
+    vh = v.permute(0, 2, 1, 3).float()
+    s = torch.matmul(qh, kh.transpose(-1, -2))                        # [B, H, Tq, Tk]
+    ok = (kv_valid > 0)[:, None, None, :]
+    if causal:
+        qi = torch.arange(Tq, device=q.device)[:, None] + offset
+        ki = torch.arange(Tk, device=q.device)[None, :]
+        ok = ok & (ki <= qi)
+    s = s.masked_fill(~ok, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    out = (torch.matmul(p, vh) / torch.clamp(l, min=1e-30)).to(q.dtype)
+    return out.permute(0, 2, 1, 3)
+
+
+def compare_blockwise(got, want, max_share: float = 2e-2) -> dict:
+    """Hold a blockwise flash output `got` to the plain version `want`.
+
+    fp32: within 1e-5 (the same fp32 function, sums in another order). bf16:
+    every element within one bf16 step of the plain version (the step at the
+    larger of the two magnitudes, and at no less than 1/64 of the largest
+    output: an output near 0 is a sum that cancels, whose fp32 error is that
+    of its terms), and at most max(16, max_share of the elements) apart at
+    all. The kernel carries p to about 2^-16 of its value and differs from
+    the plain version by about 1e-6 before the output is rounded, so few
+    elements land on the other bf16 neighbour (0.2 % for the kernel's
+    arithmetic emulated on the CPU at Tk = 1100); an attention that rounds P
+    to bf16 (the one-shot class, `flash_attention_plain`) moves the output by
+    about 1e-3 of its size and lands one step apart on some 40 % of them,
+    which this check refuses (tests/test_torch_flash_blockwise.py). Raises
+    AssertionError; returns the distances."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    stats = dict(max_abs_err=d.max().item(), n_apart=int((d > 0).sum()), n=d.numel())
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+        return stats
+    # the bf16 spacing (8 significant bits) at the larger magnitude of the two
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=w.abs().max().item() / 64)
+    _, e = torch.frexp(mag)
+    step = torch.ldexp(torch.ones_like(w), e - 8)
+    stats["max_steps"] = (d / step).max().item()
+    assert bool((d <= step).all()), f"blockwise: an element more than one bf16 step off {stats}"
+    limit = max(16, int(max_share * d.numel()))
+    assert stats["n_apart"] <= limit, f"blockwise: {stats['n_apart']} elements apart > {limit} {stats}"
+    return stats
 
 
 def vit_flash_attention_plain(q, k, v):
@@ -142,23 +204,14 @@ def _check_cuda_inputs(kernel: str, q, k, v) -> None:
         raise ValueError(f"{kernel}: head dim {q.shape[-1]} > {MAX_HEAD_DIM}")
 
 
-def flash_attention(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
-    """Causal + key-validity masked softmax(q kᵀ / sqrt(Dh)) v, one-shot path.
-
-    q [B, Tq, H, Dh]; k/v [B, Tk, H, Dh]; kv_valid [B, Tk]. Returns
-    [B, Tq, H, Dh] in q's dtype. Tk > 1024 needs the blockwise kernel, which
-    is not ported yet (ROADMAP Queue 2, row 2), and raises."""
+def _launch_flash(kernel: str, q, k, v, kv_valid, offset: int, causal: bool):
+    """Launch one of the two masked flash kernels (the same C interface) on
+    CUDA tensors, after checking what the kernel takes."""
     B, Tq, H, Dh = q.shape
     Tk = k.shape[1]
-    if Tk > ONESHOT_MAX_TK:
-        raise NotImplementedError(
-            f"flash_attention with Tk={Tk} > {ONESHOT_MAX_TK} needs the blockwise "
-            "kernel (_flash_kernel), ROADMAP Queue 2 row 2: not ported yet")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_valid, offset, causal)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_cuda_inputs("flash_prefill", q, k, v)
+        raise ValueError(f"{kernel}: unsupported device {q.device}")
+    _check_cuda_inputs(kernel, q, k, v)
     _check_head_slab("q", q, (B, Tq, H, Dh))
     _check_head_slab("k", k, (B, Tk, H, Dh))
     _check_head_slab("v", v, (B, Tk, H, Dh))
@@ -167,14 +220,39 @@ def flash_attention(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
                          f"got {tuple(kv_valid.shape)} on {kv_valid.device}")
     valid = kv_valid.to(torch.int32).contiguous()
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device)
-    err = _build.launcher("flash_prefill")(
+    err = _build.launcher(kernel)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
         B, H, Tq, Tk, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), _scale(Dh), int(offset), int(bool(causal)),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
-    _build.check(err, "flash_prefill")
-    KERNEL_LAUNCHES["flash_prefill"] += 1
+    _build.check(err, kernel)
+    KERNEL_LAUNCHES[kernel] += 1
     return out
+
+
+def flash_attention(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
+    """Causal + key-validity masked softmax(q kᵀ / sqrt(Dh)) v.
+
+    q [B, Tq, H, Dh]; k/v [B, Tk, H, Dh]; kv_valid [B, Tk]. Returns
+    [B, Tq, H, Dh] in q's dtype. Dispatches by key length as the JAX wrapper
+    does: Tk <= 1024 takes the one-shot kernel (`flash_prefill`, function of
+    `flash_attention_plain`), longer rows the blockwise one
+    (`flash_attention_blockwise`)."""
+    if k.shape[1] > ONESHOT_MAX_TK:
+        return flash_attention_blockwise(q, k, v, kv_valid, offset, causal)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, kv_valid, offset, causal)
+    return _launch_flash("flash_prefill", q, k, v, kv_valid, offset, causal)
+
+
+def flash_attention_blockwise(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
+    """The blockwise online-softmax flash attention, any key length (the
+    function of `flash_attention_blockwise_plain`; the kernel's own tiles
+    take the place of the JAX wrapper's block_q / block_k). Layouts as
+    `flash_attention`."""
+    if q.device.type == "cpu":
+        return flash_attention_blockwise_plain(q, k, v, kv_valid, offset, causal)
+    return _launch_flash("flash_blockwise", q, k, v, kv_valid, offset, causal)
 
 
 def vit_flash_attention(q, k, v):

@@ -1,4 +1,5 @@
-// Pieces shared by the int8 tensor-core GEMMs (w4a8_matmul.cu, w8a8_matmul.cu, nib_hi_dot.cu):
+// Pieces shared by the int8 tensor-core GEMMs (w4a8_matmul.cu, w8a8_matmul.cu, nib_hi_dot.cu;
+// flash_blockwise.cu takes the cp.async pieces):
 // the cp.async ring, ldmatrix, the mma.sync m16n8k32 s8 x s8 -> s32 instruction, the per-row
 // activation quantization of the JAX package (clip(rint(x / s_x), -127, 127) with IEEE
 // division, round half to even) and the one pre-pass kernel that applies it, and the k order

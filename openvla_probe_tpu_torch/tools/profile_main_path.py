@@ -2,7 +2,7 @@
 
     python -m openvla_probe_tpu_torch.tools.profile_main_path
         [--tier parity|pallas|pallas_kv8|turbo] [--weights int8|int4|nibble] [--batch 24]
-        [--calls 3]
+        [--calls 3] [--entry vla|generate|score_short|score_long]
 
 Drives the same call as chip_smoke.py (random weights from a seeded
 generator: bf16 for the parity tier, TURBO_QUANT_SUFFIXES leaves for the
@@ -18,6 +18,15 @@ trunk; 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
            class (cuBLAS GEMM, the port's kernels, elementwise / other),
            beside the host-clock time of the profiled calls; the difference
            is the share of the call the device sits idle
+
+With --entry other than vla it profiles one of the base VLM's entry points
+instead (models/generate.py, parity tier, bf16 weights, --batch rows, 8 by
+default there, with 224 px dinosiglip pixels made beforehand): generate
+(generate_greedy_batch, 64-token prompts, 32 new tokens; stages: towers,
+projector, the cached prefill, one decode step), score_short and score_long
+(score_continuation_rows over rows of 64 and 832 tokens, T = 320 and 1088;
+stages: towers, projector, the uncached 32-layer forward, lm_head, the fp32
+log-softmax and gather).
 """
 
 from __future__ import annotations
@@ -33,9 +42,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .. import convert
-from ..models import llama, vit, vla, vlm
+from ..models import generate, llama, vit, vla, vlm
 from ..ops.image import ImageTransformConfig, apply_image_transform
-from ..ops.linear import TURBO_QUANT_SUFFIXES
+from ..ops.linear import TURBO_QUANT_SUFFIXES, matmul_t
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -60,6 +69,107 @@ def _kernel_class(name: str) -> str:
     return "elementwise / reduction / copy"
 
 
+def _device_time(call, calls: int) -> dict:
+    """torch.profiler device time per call by kernel name and class, beside
+    the host-clock time of the profiled calls."""
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    by_name, by_class = defaultdict(float), defaultdict(float)
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        # count device-side kernel rows only: aten:: rows repeat their kernels'
+        # time, and "Command Buffer Full" is a tracer marker, not a kernel
+        if (dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.key.startswith("aten::") or ev.key == "Command Buffer Full"):
+            continue
+        by_name[ev.key] += dev_us / 1e3 / calls
+        by_class[_kernel_class(ev.key)] += dev_us / 1e3 / calls
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
+    device_ms = sum(by_class.values())
+    return {"device_ms_per_call_by_class": dict(by_class),
+            "device_ms_per_call_total": device_ms,
+            "host_ms_per_profiled_call": host_ms,
+            "device_idle_share": 1.0 - device_ms / host_ms,
+            "top_kernels_ms_per_call": [[k[:140], v] for k, v in top]}
+
+
+def profile_vlm_entry(entry: str, batch: int, calls: int, card: str) -> None:
+    """Stages and device time of one call of a base-VLM entry point."""
+    dev = torch.device("cuda")
+    c = vlm.VLMConfig.openvla_7b()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = convert.init_params(c, g, device=dev)
+    image = torch.randint(0, 256, (batch, 256, 256, 3), generator=g, device=dev, dtype=torch.uint8)
+    pixels = apply_image_transform(image, ImageTransformConfig.dinosiglip_224()).to(c.llm.dtype)
+    lm = params["llm"]
+    reps = max(3, calls)
+    L = {"generate": 64, "score_short": 64, "score_long": 832}[entry]
+    ids = torch.randint(1000, 20000, (batch, L), generator=g, device=dev)
+    ids[:, 0] = 1
+    rows = [(r, L - 8) for r in ids.tolist()]
+    mask = torch.ones((batch, L), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        feats = vlm.vision_features(params, c, pixels)
+        mm = vlm.build_multimodal_inputs(params, c, ids, mask, pixels)
+    T = mm["inputs_embeds"].shape[1]
+    pos = torch.arange(T, device=dev).expand(batch, T)
+    stages = {
+        **{f"tower_{name}": lambda i=i, name=name: vit.forward_features(
+            params["vision"][name], c.vision[i], pixels[:, 3 * i:3 * i + 3])
+           for i, name in enumerate(c.vision_names)},
+        "projector": lambda: vlm.project_patches(params, c, feats),
+    }
+    if entry == "generate":
+        S = T + 32
+        cache = llama.KVCache.zeros(c.llm, batch, S, device=dev)
+        mask_S = torch.nn.functional.pad(mm["attn_mask"], (0, S - T))
+        step_valid = (torch.arange(S, device=dev)[None] <= T).int().expand(batch, S)
+        e = llama.embed_tokens(lm, ids[:, :1])
+        stages["llm_prefill_cached"] = lambda: llama.forward(
+            lm, c.llm, mm["inputs_embeds"], mask_S, pos, cache=cache, cache_index=0,
+            compute_logits=False)
+        stages["llm_decode_step"] = lambda: llama.forward(
+            lm, c.llm, e, step_valid, torch.full((batch, 1), T, device=dev), cache=cache,
+            cache_index=T)
+
+        def call():
+            return generate.generate_greedy_batch(params, c, _NullTok(), ids.tolist(), pixels,
+                                                  max_new_tokens=32, device=dev)
+    else:
+        with torch.no_grad():
+            hidden = llama.forward(lm, c.llm, mm["inputs_embeds"], mm["attn_mask"], pos,
+                                   compute_logits=False)["last_hidden_state"]
+            logits = matmul_t(hidden, lm["lm_head"]).float()
+        stages["llm_forward"] = lambda: llama.forward(lm, c.llm, mm["inputs_embeds"],
+                                                      mm["attn_mask"], pos, compute_logits=False)
+        stages["lm_head"] = lambda: matmul_t(hidden, lm["lm_head"]).float()
+        stages["log_softmax_gather"] = lambda: torch.log_softmax(
+            logits[:, :-1].float(), dim=-1).gather(-1, ids.new_zeros((batch, T - 1, 1)))
+
+        def call():
+            return generate.score_continuation_rows(params, c, rows, pixels, device=dev)
+    with torch.no_grad():
+        stage_ms = {name: _median_ms(fn, reps) for name, fn in stages.items()}
+        stage_ms["whole_call"] = _median_ms(call, reps)
+    head = {"card": card, "entry": entry, "batch": batch, "T": T}
+    print(json.dumps({**head, "stages_ms": stage_ms}), flush=True)
+    print(json.dumps({**head, **_device_time(call, calls)}), flush=True)
+
+
+class _NullTok:
+    @staticmethod
+    def decode(ids, skip_special_tokens=False):
+        return ""
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tier", choices=("parity", "pallas", "pallas_kv8", "turbo"),
@@ -67,12 +177,19 @@ def main() -> None:
     ap.add_argument("--weights", choices=("int8", "int4", "nibble"), default="int8",
                     help="quantized tiers: per-channel int8, grouped int4 (pallas only) or "
                          "nibble (turbo only)")
-    ap.add_argument("--batch", type=int, default=24)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="rows of a call: 24 for the VLA call, 8 for the other entries")
     ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--entry", choices=("vla", "generate", "score_short", "score_long"),
+                    default="vla", help="the VLA serving call, or a base-VLM entry point")
     args = ap.parse_args()
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.entry != "vla":
+        profile_vlm_entry(args.entry, args.batch or 8, args.calls, card)
+        return
+    args.batch = args.batch or 24
     cfg = vla.VLAServingConfig.for_tier(vlm.VLMConfig.openvla_7b(), args.tier, prompt_pad_len=32)
     c = cfg.vlm
     g = torch.Generator(device=dev).manual_seed(0)
@@ -166,34 +283,8 @@ def main() -> None:
                       "stages_ms": stages}), flush=True)
 
     # --- device time by kernel over `calls` whole calls -----------------------------
-    call()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.calls):
-            call()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / args.calls
-    by_name, by_class = defaultdict(float), defaultdict(float)
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        # count device-side kernel rows only: aten:: rows repeat their kernels'
-        # time, and "Command Buffer Full" is a tracer marker, not a kernel
-        if (dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.key.startswith("aten::") or ev.key == "Command Buffer Full"):
-            continue
-        by_name[ev.key] += dev_us / 1e3 / args.calls
-        by_class[_kernel_class(ev.key)] += dev_us / 1e3 / args.calls
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
-    device_ms = sum(by_class.values())
     print(json.dumps({"card": card, "tier": args.tier, "weights": args.weights, "batch": B,
-                      "device_ms_per_call_by_class": dict(by_class),
-                      "device_ms_per_call_total": device_ms,
-                      "host_ms_per_profiled_call": host_ms,
-                      "device_idle_share": 1.0 - device_ms / host_ms,
-                      "top_kernels_ms_per_call": [[k[:140], v] for k, v in top]}), flush=True)
+                      **_device_time(call, args.calls)}), flush=True)
 
 
 if __name__ == "__main__":

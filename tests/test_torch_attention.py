@@ -138,7 +138,14 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
 
 
 def test_flash_long_keys_raise():
+    """Past the one-shot kernel's key length the wrapper takes the blockwise
+    one: its plain version on the CPU (tests/test_torch_flash_blockwise.py
+    holds it to the JAX kernel), and a raise on a device that is neither the
+    CPU nor a card."""
     q = torch.zeros((1, 4, 1, 8))
     k = torch.zeros((1, tattn.ONESHOT_MAX_TK + 1, 1, 8))
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        tattn.flash_attention(q, k, k, torch.ones((1, k.shape[1])))
+    valid = torch.ones((1, k.shape[1]))
+    assert torch.equal(tattn.flash_attention(q, k, k, valid),
+                       tattn.flash_attention_blockwise_plain(q, k, k, valid))
+    with pytest.raises(ValueError, match="flash_blockwise"):
+        tattn.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"), valid.to("meta"))

@@ -22,7 +22,10 @@ compare_rms_norm_quant (codes within one step, at most max(16, 1e-5 n) of them
 apart; bf16 scales bit-equal, fp32 within 2^-8: the fp32 row sums run in
 another order). decode_attention at bf16 scores: within 4e-3 of the bf16-score
 plain version and on average at most a tenth as far from it as from the
-fp32-score plain version (attention.compare_bf16_scores).
+fp32-score plain version (attention.compare_bf16_scores). flash_blockwise:
+attention.compare_blockwise (fp32 within 1e-5; bf16 every element within one
+bf16 step of the plain version and at most max(16, 2 %) of the elements
+apart), which the one-shot class (P rounded to bf16) fails on the same inputs.
 """
 
 import numpy as np
@@ -101,6 +104,40 @@ def test_decode_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh, slot):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,tq,tk,H,dh,offset", [
+    (2, 40, 1100, 3, 128, 1060),   # ragged last query and key tiles, causal offset
+    (1, 130, 1025, 2, 64, 0),      # one key past the one-shot kernel; Dh = 64
+    (1, 33, 2048, 1, 128, 2015),   # the Llama position limit
+    (2, 5, 1300, 1, 72, 1295),     # Dh = 72 takes the scalar kernel
+])
+def test_flash_blockwise_kernel_matches_plain(cuda, dtype, B, tq, tk, H, dh, offset):
+    q = _rand(40, (B, tq, H, dh), dtype, cuda)
+    k = _rand(41, (B, tk, H, dh), dtype, cuda)
+    v = _rand(42, (B, tk, H, dh), dtype, cuda)
+    valid = torch.ones((B, tk), dtype=torch.int32, device=cuda)
+    valid[0, tk - 4:] = 0
+    valid[-1, :70] = 0          # a whole masked key tile first; with offset 0, fully masked rows
+    got = _count("flash_blockwise", lambda: tattn.flash_attention(q, k, v, valid, offset=offset))
+    want = tattn.flash_attention_blockwise_plain(q, k, v, valid, offset=offset)
+    tattn.compare_blockwise(got, want)
+
+
+def test_flash_blockwise_check_refuses_the_one_shot_class(cuda):
+    """Negative control: on the inputs the kernel passes with, the one-shot
+    function (P rounded to bf16 before PV) fails the same check."""
+    B, tq, tk, H, dh = 2, 64, 1100, 4, 128
+    q, k, v = (_rand(43 + i, (B, tq if i == 0 else tk, H, dh), torch.bfloat16, cuda)
+               for i in range(3))
+    valid = torch.ones((B, tk), dtype=torch.int32, device=cuda)
+    valid[1, 1000:] = 0
+    want = tattn.flash_attention_blockwise_plain(q, k, v, valid, offset=tk - tq)
+    got = _count("flash_blockwise", lambda: tattn.flash_attention(q, k, v, valid, offset=tk - tq))
+    tattn.compare_blockwise(got, want)
+    with pytest.raises(AssertionError, match="blockwise"):
+        tattn.compare_blockwise(tattn.flash_attention_plain(q, k, v, valid, offset=tk - tq), want)
+
+
 def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 8), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
@@ -111,6 +148,12 @@ def test_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 8), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="kv_valid"):
         tattn.flash_attention(q, q, q, torch.ones((1, 9), device=cuda))
+    k = torch.zeros((1, 1100, 2, 8), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError, match="flash_blockwise"):
+        tattn.flash_attention(q.half(), k, k, torch.ones((1, 1100), device=cuda))
+    k = torch.zeros((1, 1100, 2, 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        tattn.flash_attention(k[:, :8], k, k, torch.ones((1, 1100), device=cuda))
 
 
 def _codes(seed, shape, device):
