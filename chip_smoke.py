@@ -17,12 +17,19 @@ Six serving paths, each at full OpenVLA-7B width through the normal entry
                 SigLIP's fc2 int8), frozen-KV split decode
   turbo_nibble  the turbo tier over nibble weights (bits="nibble": the trunk
                 and lm_head as two 4-bit planes, the towers int8)
-and three paths of the base VLM's entry points (models/generate.py) on the
+three paths of the base VLM's entry points (models/generate.py) on the
 parity tier's bf16 weights, B = 8 rows with 224 px dinosiglip pixels:
   generate      generate_greedy_batch, prompts bucketed to 64, 32 new tokens
   score_short   score_continuation_rows, rows bucketed to L = 64 (T = 320)
   score_long    score_continuation_rows, L = 832 (T = 1088 > 1024: the
                 blockwise flash kernel)
+and two training paths through tools/bench_finetune.py (streamed LoRA r = 32,
+AdamW at a constant 5e-4, remat, the plain attention, B = 8 rows of 64 text
+tokens, T = 320):
+  train_int4    QLoRA over a grouped-int4 trunk and lm_head: w4a8_matmul
+                forward and recompute, w4a8_dx backward, lm_head requant
+  train_int8    over a per-channel int8 trunk and lm_head: w8a8_matmul and
+                its STE
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
@@ -34,15 +41,20 @@ Phases, one output line each:
               wi8_matmul, fused_ln_w8a8, fused_mlp_residual,
               decode_split_attention (pallas), stacked_decode_attention_i8
               (pallas_kv8), w4a8_matmul (pallas_int4), w8a8_matmul,
-              rms_norm_quant (turbo), nib_hi_dot (turbo_nibble)
+              rms_norm_quant (turbo), nib_hi_dot (turbo_nibble), w4a8_dx
+              (train_int4); vit_attention also at DINOv2's 518 px, N = 1370
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package):
-              equal tokens, close logits or scores
+              equal tokens, close logits or scores; the training paths' loss,
+              LoRA gradients and adapters after one step
   5. main     each path once with every launch count set to 0 just before and
               read just after (exact per-kernel counts asserted, and no
               torch._int_mm call), then p50 latency over timed calls; random
               weights from a seeded generator on the card; the VLA paths with
-              256x256 uint8 images, prompt_pad_len=32, A=7
+              256x256 uint8 images, prompt_pad_len=32, A=7; the training
+              paths count one step, then time steps after two warm-ups and
+              check that the loss stays finite, the base is bit-unchanged
+              and every B factor moved off zero
 then a JSON line of per-kernel figures and a last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero; with
 no CUDA card it exits 1 before printing any result.
@@ -56,6 +68,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from unittest import mock
 
 import torch
@@ -71,6 +84,10 @@ from openvla_probe_tpu_torch.ops import rmsnorm_quant as rmsq
 from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
 from openvla_probe_tpu_torch.ops.image import (BackboneTransformSpec, ImageTransformConfig,
                                                apply_image_transform)
+from openvla_probe_tpu_torch.tools import bench_finetune
+from openvla_probe_tpu_torch.training.lora import LoRAConfig, init_lora_params
+from openvla_probe_tpu_torch.training.train_state import tree_leaves
+from openvla_probe_tpu_torch.training.train_step import value_and_grad
 
 # published H100 SXM peaks (dense): HBM bytes/s; bf16 and int8 tensor-core and
 # fp32 FMA operations/s
@@ -86,6 +103,10 @@ VLM_PATHS = ("generate", "score_short", "score_long")
 VLM_BATCH, GEN_NEW_TOKENS, GEN_PROMPT_PAD = 8, 32, 64
 SCORE_L = {"score_short": 64, "score_long": 832}
 TIMED_VLM_CALLS = 3
+# the training paths (tools/bench_finetune.py's setting): rows, text tokens, rank, timed steps
+TRAIN_PATHS = {"train_int4": "int4", "train_int8": "int8"}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_RANK, TRAIN_LR, TRAIN_TIMED = 8, 64, 32, 5e-4, 3
+TRAIN_ROWS = TRAIN_BATCH * (1 + 256 + TRAIN_SEQ - 1)   # 2560 rows through every trunk linear
 
 
 def log(phase: str, **fields) -> None:
@@ -232,8 +253,11 @@ def check_flash_blockwise(dev, g):
 def check_vit_attention(dev, g):
     """Row 3 at the tower shapes: DINOv2 [24, 261, 16, 64] (23 launches/call)
     and SigLIP [24, 256, 16, 72] (26 launches/call), as strided views of one
-    qkv product like the towers pass them; bf16 at 2e-2 and fp32 at 1e-5."""
-    shapes = {"dinov2": (261, 16, 64, 23), "siglip": (256, 16, 72, 26)}
+    qkv product like the towers pass them, and DINOv2 at its 518 px
+    pretraining size, N = 37 x 37 + 1 = 1370 (two key chunks; no path launches
+    it); bf16 at 2e-2 and fp32 at 1e-5."""
+    shapes = {"dinov2": (261, 16, 64, 23), "siglip": (256, 16, 72, 26),
+              "dinov2_518px": (1370, 16, 64, 0)}
     by_shape = {}
     for name, (N, H, Dh, per_call) in shapes.items():
         row = {}
@@ -317,9 +341,10 @@ def check_decode_attention(dev, g):
 
 
 def _launch_weighted(by_shape: dict, per_call: dict) -> dict:
-    """Per-launch means over a kernel's main-path launch mix."""
+    """Per-launch means over a kernel's main-path launch mix (the shapes in
+    `per_call`; max_abs_err and bound_by over every shape checked)."""
     n = sum(per_call.values())
-    out = {key: sum(by_shape[s][key] * per_call[s] for s in by_shape) / n
+    out = {key: sum(by_shape[s][key] * per_call[s] for s in per_call) / n
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     out["max_abs_err"] = max(r["max_abs_err"] for r in by_shape.values())
     out["bound_by"] = "/".join(sorted({r["bound_by"] for r in by_shape.values()}))
@@ -534,10 +559,35 @@ def check_stacked_decode_i8(dev, g):
                     qt, kt, vt, attn_mask=mask), lib_sets)))
 
 
+def _train_gemm_launches(quant: str, kernel: str) -> dict:
+    """(M, K, N) -> launches of `kernel` in one 7B train step of `quant`'s
+    base, M = 2560: q/k/v/o and gate/up in the forward and the remat
+    recompute, down_proj in the forward only; lm_head once where its route
+    is `kernel` (int8; int4's lm_head takes the requant route). Held to
+    _expected_train_launches, which the train paths assert."""
+    M = TRAIN_ROWS
+    out = {(M, 4096, 4096): 2 * 4 * LAYERS, (M, 4096, 11008): 2 * 2 * LAYERS,
+           (M, 11008, 4096): LAYERS}
+    if quant == "int8":
+        out[(M, 4096, 32064)] = 1
+    cfg = bench_finetune.train_config(vlm.VLMConfig.openvla_7b(), quant)
+    assert sum(out.values()) == _expected_train_launches(quant, cfg)[kernel], (quant, kernel)
+    return out
+
+
+def _launches_of(shape, per_call: dict, per_step: dict) -> dict:
+    """A checked shape's weight: its launches per serving call, or per train step."""
+    if shape in per_call:
+        return {"launches_per_call": per_call[shape]}
+    return {"launches_per_step": per_step[shape]}
+
+
 def check_w4a8_matmul(dev, g):
     """Row 8 at every (M, K, N) the pallas_int4 path gives it: the towers'
     int4 linears (DINOv2 M = 24 x 261 = 6264, SigLIP qkv/proj M = 6144), the
-    Llama prefill M = 6912 and decode M = 24; bf16 x, random int4 codes in
+    Llama prefill M = 6912 and decode M = 24; and the three trunk shapes of a
+    train_int4 step, M = 2560 (launches_per_step; the headline times weigh the
+    serving launches, train_mix the step's); bf16 x, random int4 codes in
     [-7, 7] packed, fp32 group scales. Bit-equal to the plain version (the same
     activation codes, exact integer sums, the same fold order and roundings).
     Library: cuBLAS bf16 x @ w_bf16ᵀ on weights dequantized beforehand (it
@@ -550,8 +600,9 @@ def check_w4a8_matmul(dev, g):
                 (M_pre, 4096, 4096): 4 * LAYERS, (M_pre, 4096, 11008): 2 * LAYERS,
                 (M_pre, 11008, 4096): LAYERS, (M_dec, 4096, 4096): 4 * LAYERS * A1,
                 (M_dec, 4096, 11008): 2 * LAYERS * A1, (M_dec, 11008, 4096): LAYERS * A1}
+    per_step = _train_gemm_launches("int4", "w4a8_matmul")
     by_shape = {}
-    for (M, K, N) in per_call:
+    for (M, K, N) in {**per_call, **per_step}:
         G = K // lin.GROUP_SIZE
         x = torch.randn((M, K), generator=g, device=dev).bfloat16()
         sets = []
@@ -567,16 +618,18 @@ def check_w4a8_matmul(dev, g):
         w_bf16 = [(x, lin.dequantize_weight({"q": q, "s": s})) for x, q, s in sets]
         b, by = bound_ms(_nbytes(x, sets[0][1], sets[0][2], got), 2 * M * N * K, "int8")
         by_shape[f"{M}x{K}x{N}"] = dict(
-            launches_per_call=per_call[(M, K, N)], max_abs_err=0.0,
+            **_launches_of((M, K, N), per_call, per_step), max_abs_err=0.0,
             ms=cuda_ms(rotating(lin.w4a8_matmul, sets)),
             plain_ms=cuda_ms(rotating(lin.w4a8_matmul_plain, sets), reps=3, warmup=1),
             library_ms=cuda_ms(rotating(lambda a, w: a @ w.t(), w_bf16)),
             bound_ms=b, bound_by=by)
         del sets, w_bf16, got, want
     mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    train = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_step.items()})
     return dict(name="w4a8_matmul", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/w4a8_matmul.cu",
-                replaces="openvla_probe_tpu/ops/linear.py:573", by_shape=by_shape, **mix)
+                replaces="openvla_probe_tpu/ops/linear.py:573", by_shape=by_shape,
+                train_mix=train, **mix)
 
 
 def _int_mm_w8a8(codes, sx, q, s):
@@ -589,7 +642,9 @@ def check_w8a8_matmul(dev, g):
     """The w8a8 kernel (the XLA op _w8a8_dot) at every (M, K, N) of the turbo
     path (towers M = 6264 / 6144, prefill M = 6912, decode and lm_head M = 24;
     SigLIP's N = 4304 and K = 4304, lm_head's N = 32064) and of the int4
-    requant route (SigLIP fc1, lm_head): bf16 x, int8 codes, fp32 scales; bit
+    requant route (SigLIP fc1, lm_head), and of a train_int8 step, M = 2560
+    (the trunk and lm_head; launches_per_step, weighed apart as train_mix):
+    bf16 x, int8 codes, fp32 scales; bit
     for bit equal to the plain version, from bf16 x and from the fused norm's
     codes (the prequant entry). At the prefill shapes the nibble loader too,
     bit-equal to the int8 loader on the same codes, with its time. Library:
@@ -604,8 +659,9 @@ def check_w8a8_matmul(dev, g):
                 (M_pre, 11008, 4096): LAYERS, (M_dec, 4096, 4096): 4 * LAYERS * A1,
                 (M_dec, 4096, 11008): 2 * LAYERS * A1, (M_dec, 11008, 4096): LAYERS * A1,
                 (M_dec, 4096, 32064): 1 + A1}
+    per_step = _train_gemm_launches("int8", "w8a8_matmul")
     by_shape = {}
-    for (M, K, N) in per_call:
+    for (M, K, N) in {**per_call, **per_step}:
         x = torch.randn((M, K), generator=g, device=dev).bfloat16()
         sets = []
         for _ in range(copies_past_l2(N * K)):
@@ -619,7 +675,7 @@ def check_w8a8_matmul(dev, g):
         pre = lin.PrequantActivation(codes, sx, x.dtype)
         assert torch.equal(lin.w8a8_matmul(pre, sets[0][1]), want), f"{M}x{K}x{N}: prequant"
         b, by = bound_ms(_nbytes(x, sets[0][1]["q"], sets[0][1]["s"], got), 2 * M * N * K, "int8")
-        row = dict(launches_per_call=per_call[(M, K, N)], max_abs_err=0.0,
+        row = dict(**_launches_of((M, K, N), per_call, per_step), max_abs_err=0.0,
                    ms=cuda_ms(rotating(lin.w8a8_matmul, sets)),
                    prequant_ms=cuda_ms(rotating(lin.w8a8_matmul, [(pre, w) for _, w in sets])),
                    plain_ms=cuda_ms(rotating(lin.w8a8_matmul_plain, sets), reps=3, warmup=1),
@@ -637,18 +693,21 @@ def check_w8a8_matmul(dev, g):
         by_shape[f"{M}x{K}x{N}"] = row
         del sets, got, want, codes, pre
     mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    train = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_step.items()})
     return dict(name="w8a8_matmul", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/w8a8_matmul.cu",
-                replaces="openvla_probe_tpu/ops/linear.py:413", by_shape=by_shape, **mix)
+                replaces="openvla_probe_tpu/ops/linear.py:413", by_shape=by_shape,
+                train_mix=train, **mix)
 
 
 def check_rms_norm_quant(dev, g):
     """Row 6 at its two turbo shapes, x bf16 [M, 4096] with M = 6912 (prefill,
     64 launches per call) and 24 (each decode step, 384), held to the plain
-    version by rmsq.compare_rms_norm_quant: every code within one step, at
-    most max(16, 1e-5 n) of the n codes one step apart, scales bit-equal (the
-    fp32 row sums run in another order). No single PyTorch call computes this
-    function (library: null)."""
+    version by rmsq.compare_rms_norm_quant: every code within one step, and
+    every row that differs reproduced bit for bit, codes and scale, by the
+    plain arithmetic with the row's reciprocal RMS moved by at most 16 ulps
+    (the fp32 row sums run in another order). No single PyTorch call computes
+    this function (library: null)."""
     by_shape = {}
     per_call = {BATCH * T_PREFILL: 2 * LAYERS, BATCH: 2 * LAYERS * (ACTION_DIM - 1)}
     for M, n in per_call.items():
@@ -656,7 +715,8 @@ def check_rms_norm_quant(dev, g):
         w = (1 + 0.2 * torch.randn((4096,), generator=g, device=dev)).bfloat16()
         codes, sx = rmsq.rms_norm_quant(x, w, 1e-5)
         torch.cuda.synchronize()
-        stats = rmsq.compare_rms_norm_quant(x, (codes, sx), rmsq.rms_norm_quant_plain(x, w, 1e-5))
+        stats = rmsq.compare_rms_norm_quant(x, w, 1e-5, (codes, sx),
+                                            rmsq.rms_norm_quant_plain(x, w, 1e-5))
         b, by = bound_ms(_nbytes(x, w, codes, sx), 0, "fp32")
         xs = [(x, w)] + [((torch.randn((M, 4096), generator=g, device=dev) * 2).bfloat16(), w)
                          for _ in range(copies_past_l2(_nbytes(x, codes)) - 1)]
@@ -717,13 +777,66 @@ def check_nib_hi_dot(dev, g):
                 replaces="openvla_probe_tpu/ops/linear.py:887", by_shape=by_shape, **mix)
 
 
+def check_w4a8_dx(dev, g):
+    """Row 9 (the STE backward of the w4a8 products) at the three shapes a
+    train_int4 step gives it, B = 8 x T = 320 rows: q/k/v/o g [2560, 4096]
+    against 32 groups of [4096, 128] codes (128 launches a step), gate/up g
+    [2560, 11008] against 32 of [11008, 128] (64), down g [2560, 4096] against
+    86 of [4096, 128] (32); bf16 g (and fp32 g at the first shape), random
+    codes in [-7, 7] packed, fp32 scales; held to the plain version by
+    linear.compare_w4a8_dx (the same bf16 products, fp32 sums in another
+    order). Library: cuBLAS bf16 g @ W_bf16 on the weight dequantized
+    beforehand (it leaves out the dequantization and streams 4x the weight
+    bytes)."""
+    M = TRAIN_ROWS
+    per_step = {(M, 4096, 32): 4 * LAYERS, (M, 11008, 32): 2 * LAYERS, (M, 4096, 86): LAYERS}
+    by_shape = {}
+    for (M_, N, G) in per_step:
+        K = G * lin.GROUP_SIZE
+        gr = torch.randn((M_, N), generator=g, device=dev).bfloat16()
+        sets = []
+        for _ in range(copies_past_l2(N * K // 2)):
+            codes = torch.randint(-7, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
+                                  dtype=torch.int8)
+            s = torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
+            sets.append((gr, lin.pack_int4(codes), s))
+        before = _build.KERNEL_LAUNCHES["w4a8_dx"]
+        got = lin.w4a8_dx(*sets[0])
+        torch.cuda.synchronize()
+        assert _build.KERNEL_LAUNCHES["w4a8_dx"] == before + 1
+        stats = lin.compare_w4a8_dx(got, lin.w4a8_dx_plain(*sets[0]))
+        row = dict(launches_per_step=per_step[(M_, N, G)], **stats)
+        if (N, G) == (4096, 32):
+            g32 = gr.float()
+            row["fp32_g"] = lin.compare_w4a8_dx(lin.w4a8_dx(g32, *sets[0][1:]),
+                                                lin.w4a8_dx_plain(g32, *sets[0][1:]))
+            del g32
+        w_bf16 = [(a, lin.dequantize_weight({"q": q, "s": s})) for a, q, s in sets]
+        b, by = bound_ms(_nbytes(gr, sets[0][1], sets[0][2], got), 2 * M_ * N * K, "bf16")
+        row.update(ms=cuda_ms(rotating(lin.w4a8_dx, sets)),
+                   plain_ms=cuda_ms(rotating(lin.w4a8_dx_plain, sets), reps=3, warmup=1),
+                   library_ms=cuda_ms(rotating(lambda a, w: a @ w, w_bf16)),
+                   bound_ms=b, bound_by=by)
+        by_shape[f"{M_}x{N}x{K}"] = row
+        del sets, w_bf16, got
+    mix = _launch_weighted(by_shape, {k: r["launches_per_step"] for k, r in by_shape.items()})
+    return dict(name="w4a8_dx", route="cuda", source="openvla_probe_tpu_torch/ops/csrc/w4a8_dx.cu",
+                replaces="openvla_probe_tpu/ops/linear.py:657", by_shape=by_shape, **mix)
+
+
 def check_w8a8_requant(dev, g):
     """The requant route of the pallas_int4 path: per call, grouped int4 ->
     int8 codes in PyTorch, then the w8a8 kernel, at its two 7B shapes:
     lm_head (24 x 4096 x 32064, 7 calls) and SigLIP's fc1 (6144 x 1152 x 4304,
-    26 calls). Bit-equal to the plain version on the requantized codes."""
+    26 calls), and train_int4's lm_head (2560 x 4096 x 32064, once a step).
+    Bit-equal to the plain version on the requantized codes. Plain:
+    the requant, then w8a8_matmul_plain; library: torch._int_mm on the
+    requantized codes and the activation codes (both made beforehand) plus the
+    epilogue."""
     rows = {}
-    for (M, K, N), n in {(BATCH, 4096, 32064): ACTION_DIM, (BATCH * 256, 1152, 4304): 26}.items():
+    for (M, K, N), count in {(BATCH, 4096, 32064): {"calls_per_call": ACTION_DIM},
+                             (BATCH * 256, 1152, 4304): {"calls_per_call": 26},
+                             (TRAIN_ROWS, 4096, 32064): {"calls_per_step": 1}}.items():
         G = K // lin.GROUP_SIZE
         x = torch.randn((M, K), generator=g, device=dev).bfloat16()
         codes = torch.randint(-7, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
@@ -737,10 +850,14 @@ def check_w8a8_requant(dev, g):
         want = lin.w8a8_matmul_plain(x, {"q": q8, "s": s8})
         assert torch.equal(got, want), f"{M}x{K}x{N}: requant route differs from its plain version"
         b, by = bound_ms(_nbytes(x, q, s, got), 2 * M * N * K, "int8")
-        rows[f"{M}x{K}x{N}"] = dict(calls_per_call=n, bound_ms=b, bound_by=by,
-                                    ms=cuda_ms(lambda: lin.w4a8_dot_requant(x, q, s)),
-                                    w8a8_matmul_ms=cuda_ms(lambda: lin.w8a8_matmul(
-                                        x, {"q": q8, "s": s8})))
+        codes, sx = lin.quantize_rows(x.float())
+        rows[f"{M}x{K}x{N}"] = dict(
+            **count, bound_ms=b, bound_by=by,
+            ms=cuda_ms(lambda: lin.w4a8_dot_requant(x, q, s)),
+            w8a8_matmul_ms=cuda_ms(lambda: lin.w8a8_matmul(x, {"q": q8, "s": s8})),
+            plain_ms=cuda_ms(lambda: lin.w8a8_matmul_plain(
+                x, dict(zip(("q", "s"), lin.requant_int4_to_int8(q, s)))), reps=3, warmup=1),
+            library_ms=cuda_ms(lambda: _int_mm_w8a8(codes, sx, q8, s8)))
     return rows
 
 
@@ -783,7 +900,8 @@ PATHS = {
 PORTED_ON = {"flash_prefill": "parity", "flash_blockwise": "score_long",
              "vit_attention": "parity", "decode_attention": "parity",
              "stacked_decode_attention_i8": "pallas_kv8", "w4a8_matmul": "pallas_int4",
-             "w8a8_matmul": "turbo", "rms_norm_quant": "turbo", "nib_hi_dot": "turbo_nibble"}
+             "w8a8_matmul": "turbo", "rms_norm_quant": "turbo", "nib_hi_dot": "turbo_nibble",
+             "w4a8_dx": "train_int4"}
 
 
 def _serving(path: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
@@ -990,7 +1108,7 @@ def run_vlm_path(dev, path: str, params):
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return None if tree is None else tree.to(dev)
 
 
 def _linear_route(leaf, int8_matmul: str, M: int) -> str:
@@ -1127,6 +1245,180 @@ def _leaves(tree):
         yield tree
 
 
+# --- the training paths --------------------------------------------------------------
+
+
+def _expected_train_launches(quant: str, cfg: vlm.VLMConfig) -> dict:
+    """Exact per-kernel launches of one train step (tools/bench_finetune.py's
+    routes), from the weight layout: each trunk linear's forward kernel in
+    the forward and again in the remat recompute, but for down_proj's: the
+    non-reentrant checkpoint stops recomputing a layer once the backward has
+    every tensor it saved, and the base product of the layer's last linear,
+    issued after its LoRA side path, saves none (its STE keeps only the
+    frozen weight); on int4 the backward `w4a8_dx` where the kernel's rule
+    holds; lm_head's forward once (requant on int4); each GEMM's activation
+    pre-pass apart; no attention kernel."""
+    bits = bench_finetune.QUANTS[quant]
+    kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
+    spec = convert.vlm_param_spec(cfg, lin._DEFAULT_QUANT_SUFFIXES, bits)
+    route, L = cfg.llm.int8_matmul, cfg.llm.num_hidden_layers
+    for w in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"):
+        leaf = spec["llm"]["layers"][w]
+        kernels[_linear_route(leaf, route, 2 ** 20)] += L if w == "down_proj" else 2 * L
+        if bits == 4 and lin.takes_w4a8_kernel(leaf):
+            kernels["w4a8_dx"] += L
+    kernels[_linear_route(spec["llm"]["lm_head"], route, 2 ** 20)] += 1
+    for gemm, pre_pass in _build.PRE_PASSES.items():
+        kernels[pre_pass] = kernels[gemm]
+    return kernels
+
+
+def _random_b(lora, g):
+    """The adapters with B drawn N(0, 0.02) from `g`, so that every factor
+    has a gradient in the first step."""
+    if lora is None:
+        return None
+    if set(lora) == {"A", "B"}:
+        return {"A": lora["A"], "B": torch.randn(lora["B"].shape, generator=g) * 0.02}
+    return {k: _random_b(v, g) for k, v in lora.items()}
+
+
+def _leaf_apart(got, want) -> float:
+    """|got - want| in norm over |want|."""
+    return float((got.float().cpu() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
+
+
+# card vs CPU, one training step at tiny fp32 (tests/test_torch_training.py's
+# tolerances against the JAX package, for the same reason: each STE backward
+# rounds its scaled gradient to bf16, and the two devices' fp32 sums move some
+# of those roundings by one bf16 step): loss 1e-4 relative; every LoRA
+# gradient within 5e-3 in norm; the adapters after one AdamW step within
+# 2 lr everywhere (a near-zero gradient may take the other sign), 90 % within
+# 1e-2 lr and 99 % within 1e-1 lr
+TRAIN_TINY_TOL = dict(loss=1e-4, grad=5e-3)
+
+
+def check_tiny_train(dev, path: str):
+    """One train step of `path`'s routes at tiny fp32 size (the width-128
+    config of the int4 tiny path, so that the w4a8 kernels run) on the card
+    vs the CPU, from the same base, batch and adapters: loss, every LoRA
+    gradient, the adapters after the step, and the exact launch counts."""
+    quant = TRAIN_PATHS[path]
+    cfg = bench_finetune.train_config(_tiny_vlm("pallas_int4"), quant)
+    base = bench_finetune.base_params(cfg, quant, torch.Generator().manual_seed(1), "cpu")
+    batch = bench_finetune.synthetic_batch(cfg, 4, 16, 2, "cpu")
+    lora = _random_b(init_lora_params(base, LoRAConfig(r=8), torch.Generator().manual_seed(3)),
+                     torch.Generator().manual_seed(4))
+
+    def run(device):
+        ft = bench_finetune.Finetune(cfg, _to(base, device), _to(batch, device), rank=8,
+                                     lr=TRAIN_LR, lora=_to(lora, device))
+        _build.reset_launch_counts()
+        (loss, _), grads = value_and_grad(ft.loss_fn, ft.state.params, cfg, ft.batch)
+        launches = dict(_build.KERNEL_LAUNCHES)
+        ft.step()
+        return float(loss), grads, ft.state.params, launches
+
+    ref_loss, ref_grads, ref_lora, _ = run("cpu")
+    loss, grads, new_lora, launches = run(dev)
+    torch.cuda.synchronize()
+    expect = _expected_train_launches(quant, cfg)
+    assert launches == expect, (path, launches, expect)
+    assert abs(loss - ref_loss) <= TRAIN_TINY_TOL["loss"] * abs(ref_loss), (loss, ref_loss)
+    apart = [_leaf_apart(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(ref_grads))]
+    assert len(apart) > 20 and max(apart) <= TRAIN_TINY_TOL["grad"], max(apart)
+    deltas = torch.cat([(a.cpu() - b).abs().ravel()
+                        for a, b in zip(tree_leaves(new_lora), tree_leaves(ref_lora))])
+    q = torch.quantile(deltas, torch.tensor([0.9, 0.99]))
+    assert deltas.max() <= 2 * TRAIN_LR and q[0] <= 1e-2 * TRAIN_LR and q[1] <= 1e-1 * TRAIN_LR, q
+    return dict(path=path, loss=loss, loss_cpu=ref_loss, grads_max_rel_apart=max(apart),
+                adapters_max_apart_lr=float(deltas.max()) / TRAIN_LR,
+                adapters_p99_apart_lr=float(q[1]) / TRAIN_LR)
+
+
+def run_train_path(dev, path: str):
+    """tools/bench_finetune.py's step at OpenVLA-7B width, all layers: the
+    base from a seeded generator on the card, launches counted around the
+    first step and asserted exactly, a second warm-up step, then timed steps
+    (host clock ending in a synchronize, and CUDA events around each step,
+    which the step never waits on: the span of its work on the card's
+    timeline; the host's waits on the card inside each step are counted by
+    torch.cuda's sync debug mode);
+    the loss finite at every step, the base bit-unchanged (equal to a copy
+    taken before the steps), every B factor moved off zero."""
+    quant = TRAIN_PATHS[path]
+    cfg = bench_finetune.train_config(vlm.VLMConfig.openvla_7b(), quant)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = bench_finetune.base_params(cfg, quant, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = bench_finetune.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, dev)
+    ft = bench_finetune.Finetune(cfg, base, batch, rank=TRAIN_RANK, lr=TRAIN_LR,
+                                 max_steps=2 + TRAIN_TIMED, seed=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frozen = [t.clone() for t in tree_leaves(base)]
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    def step():
+        metrics = ft.step()
+        losses.append(float(metrics["loss"]))
+
+    _build.reset_launch_counts()           # counts from 0 around one driven step
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.KERNEL_LAUNCHES)
+    expect = _expected_train_launches(quant, cfg)
+    assert launches == expect, (path, launches, expect)
+    step()
+    times, event_ms, timed_losses, host_syncs = [], [], [], []
+    for _ in range(TRAIN_TIMED):   # no host read inside the window: the loss is read after it
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:   # every wait on the card, counted
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            start.record()
+            timed_losses.append(ft.step()["loss"])
+            end.record()
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        event_ms.append(start.elapsed_time(end))
+        host_syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    losses += [float(v) for v in timed_losses]
+    assert all(torch.isfinite(torch.tensor(losses))), losses
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(base), frozen)), "the base moved"
+    del frozen
+    lora = ft.state.params
+    b_leaves = [lw["B"] for lw in _ab_leaves(lora)]
+    assert b_leaves and all(bool((b != 0).any()) for b in b_leaves), "a B factor stayed at zero"
+    p50 = statistics.median(times)
+    state = ft.state.opt_state
+    return launches, dict(
+        path=path, base_quant=quant, batch=TRAIN_BATCH, seq=1 + cfg.num_patches + TRAIN_SEQ - 1,
+        rank=TRAIN_RANK, init_s=init_s, first_step_s=first_s, step_ms_p50=p50 * 1e3,
+        examples_per_s=TRAIN_BATCH / p50, step_ms=[t * 1e3 for t in times],
+        event_ms_per_step=event_ms, event_ms_p50=statistics.median(event_ms),
+        host_syncs_per_step=host_syncs, losses=losses,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        base_gb=bench_finetune.tree_bytes(base) / 1e9,
+        adapters_gb=bench_finetune.tree_bytes(lora) / 1e9,
+        opt_state_gb=(bench_finetune.tree_bytes(state.mu) + bench_finetune.tree_bytes(state.nu)) / 1e9,
+        adapter_leaves=len(b_leaves))
+
+
+def _ab_leaves(tree):
+    if tree is None:
+        return []
+    if set(tree) == {"A", "B"}:
+        return [tree]
+    return [leaf for v in tree.values() for leaf in _ab_leaves(v)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1150,7 +1442,7 @@ def main() -> int:
                check_fused_ln_w8a8(dev, g), check_fused_mlp_residual(dev, g),
                check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
                check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g), check_rms_norm_quant(dev, g),
-               check_nib_hi_dot(dev, g)]
+               check_nib_hi_dot(dev, g), check_w4a8_dx(dev, g)]
     log("kernels", card=card, results=kernels)
     log("requant_route", card=card, shapes=check_w8a8_requant(dev, g))
 
@@ -1158,6 +1450,8 @@ def main() -> int:
         log("tiny", **check_tiny_path(dev, path))
     for path in VLM_PATHS:
         log("tiny", **check_tiny_vlm(dev, path))
+    for path in TRAIN_PATHS:
+        log("tiny", **check_tiny_train(dev, path))
 
     launches, weights = {}, {}
     for path in PATHS:   # pallas, pallas_kv8 and turbo share one build of the int8 weights
@@ -1170,6 +1464,10 @@ def main() -> int:
                 log("main", card=card, launches_per_call=launches[vpath], **vstats)
                 torch.cuda.empty_cache()
     weights.clear()
+    for path in TRAIN_PATHS:
+        launches[path], train_stats = run_train_path(dev, path)
+        log("main", card=card, launches_per_step=launches[path], **train_stats)
+        torch.cuda.empty_cache()
 
     # each kernel's launches: from the main path whose slice ported it
     for k in kernels:

@@ -24,6 +24,10 @@
   fields, duck-typed) into the port's config class of the same name; a
   serving config's tier sets the kernel routes (`vla.turbo_routes`) that the
   JAX package reads from its environment.
+* `lora_from_jax(tree)` and `opt_state_from_jax(state)` bring the JAX
+  package's LoRA adapters (its ``{"A", "B"}`` / None tree) and its optax AdamW
+  state (``ScaleByAdamState`` mu / nu / count) across as numpy, so that a
+  training step on both sides starts from the same state.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .models import llama, vit, vla, vlm
 from .ops.linear import int4_group_size, leaf_bits, pack_int4, quantize_leaf
+from .training.train_state import OptState
 
 
 class Leaf(NamedTuple):
@@ -297,8 +302,9 @@ def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLi
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 _DTYPE_FIELDS = ("dtype", "attn_scores_dtype", "rope_dtype")
 # the port's fields for what the JAX package reads from its environment (the
-# kernel gates): left at their defaults here, set by the serving tier
-_ROUTE_FIELDS = ("int8_matmul", "fused_rmsq")
+# kernel gates): left at their defaults here, set by the serving tier or, for
+# training, by the caller (flash_attn=False: the JAX OVLA_PALLAS_ATTN=0)
+_ROUTE_FIELDS = ("int8_matmul", "fused_rmsq", "flash_attn")
 
 
 def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
@@ -330,3 +336,45 @@ def config_from_jax(cfg: Any) -> Any:
     llm = llama.LlamaConfig(**_fields(cfg.llm, llama.LlamaConfig))
     vision = tuple(vit.ViTConfig(**_fields(v, vit.ViTConfig)) for v in cfg.vision)
     return vlm.VLMConfig(**_fields(cfg, vlm.VLMConfig, llm=llm, vision=vision))
+
+
+# --- training state ----------------------------------------------------------------------
+
+
+def _tensors(tree: Any, device: torch.device) -> Any:
+    """A tree of dicts with numpy (or None) leaves -> the same tree of tensors."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    return None if tree is None else _to_tensor(np.asarray(tree), device)
+
+
+def lora_from_jax(tree: Any, device: DeviceLike = "cuda") -> Any:
+    """The JAX package's LoRA tree (``training.lora.init_lora_params``: None,
+    or ``{"A": [..., r, I], "B": [..., O, r]}`` at each target leaf; numpy
+    leaves) -> the port's, dtypes kept (fp32 masters)."""
+    return _tensors(tree, resolve_device(device))
+
+
+def _named_states(state: Any):
+    """Every NamedTuple inside an optax chain state (nested tuples)."""
+    if isinstance(state, tuple):
+        if hasattr(state, "_fields"):
+            yield state
+        for s in state:
+            yield from _named_states(s)
+
+
+def opt_state_from_jax(state: Any, device: DeviceLike = "cuda") -> OptState:
+    """The JAX package's optax state of ``make_optimizer`` (clip, scale_by_adam,
+    masked decay, scale_by_learning_rate; numpy leaves) -> the port's
+    `OptState`: the Adam count (which the schedule's count equals), mu, nu."""
+    dev = resolve_device(device)
+    named = list(_named_states(state))
+    adam = [s for s in named if set(s._fields) == {"count", "mu", "nu"}]
+    if len(adam) != 1:
+        raise ValueError(f"expected one ScaleByAdamState in the optax state, found {len(adam)}")
+    count = int(np.asarray(adam[0].count))
+    sched = [int(np.asarray(s.count)) for s in named if tuple(s._fields) == ("count",)]
+    if any(c != count for c in sched):
+        raise ValueError(f"schedule count {sched} differs from the Adam count {count}")
+    return OptState(count, _tensors(adam[0].mu, dev), _tensors(adam[0].nu, dev))

@@ -9,7 +9,11 @@ leaves through ``matmul_t`` on the config's int8 route); a Python loop over
 the layers takes the place of its ``lax.scan``. Where the config turns on the
 fused RMSNorm -> int8 kernel and every consumer of a norm takes w8a8, the
 norm hands its consumers int8 codes instead of the normed activation
-(`_norm_maybe_quant`). Three cache layouts:
+(`_norm_maybe_quant`). For training, ``flash_attn=False`` sends prefill-sized
+attention to the plain branch (the kernels have no backward) and ``remat``
+recomputes each decoder layer in the backward pass of an uncached forward
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``). Three
+cache layouts:
 
 * the 5-D stacked ``[L, B, S, Hkv, Dh]`` pair of the stacked decode (`forward`
   with a `KVCache`), written in place (the JAX package writes it with
@@ -34,6 +38,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, attention_plain, decode_attention, flash_attention
 from ..ops.decode_attention import decode_flash_attention, stacked_decode_attention_i8
@@ -67,6 +72,12 @@ class LlamaConfig:
     # turbo tier) and the fused RMSNorm -> int8 kernel (OVLA_PALLAS_RMSQ)
     int8_matmul: str = "wi8"
     fused_rmsq: bool = False
+    # prefill-sized calls on the flash kernels (the JAX package's
+    # OVLA_PALLAS_ATTN under OVLA_PALLAS=1); off, they take attention_plain,
+    # the XLA attention JAX training runs (the kernels have no backward)
+    flash_attn: bool = True
+    # recompute each decoder layer in backward (uncached forward under grad)
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -106,8 +117,9 @@ def rope_tables(cfg: LlamaConfig, positions: torch.Tensor) -> Tuple[torch.Tensor
     """cos/sin [..., T, head_dim] in fp32, HF rotate_half convention."""
     half = cfg.head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=positions.device) * 2.0 / cfg.head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                            device=positions.device), exponent)
+    # a fill on the card, not a copy from the host (which would wait for the card)
+    inv_freq = 1.0 / torch.pow(torch.full((), cfg.rope_theta, dtype=torch.float32,
+                                          device=positions.device), exponent)
     freqs = positions[..., None].float() * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
@@ -144,19 +156,21 @@ def attention(
     scores_dtype: torch.dtype = torch.float32,
     kv_valid: Optional[torch.Tensor] = None,   # [B, Tk] key validity (1 = attend)
     offset: int = 0,         # absolute position of query 0
+    flash: bool = True,      # prefill-sized calls may take the flash kernel
 ) -> torch.Tensor:
     """Masked softmax(q kᵀ) v with an fp32 softmax.
 
     With a key-validity row, prefill-sized calls (Tq >= 64, offset 0) take the
-    flash kernel (fp32 scores, as the JAX package's) and decode calls (Tq = 1)
-    the decode kernel, both masking causal + padding themselves. Other calls
-    take the plain branch: scores in `scores_dtype` + the additive mask, fp32
-    softmax, probs cast to the input dtype, PV with fp32 accumulation (the
-    decode kernel's function too, in either score type)."""
+    flash kernel (fp32 scores, as the JAX package's) where `flash` is on, and
+    decode calls (Tq = 1) the decode kernel, both masking causal + padding
+    themselves. Other calls take the plain branch: scores in `scores_dtype` +
+    the additive mask, fp32 softmax, probs cast to the input dtype, PV with
+    fp32 accumulation (the decode kernel's function too, in either score
+    type)."""
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
-    if kv_valid is not None and q.shape[1] >= FLASH_MIN_TQ and offset == 0:
+    if flash and kv_valid is not None and q.shape[1] >= FLASH_MIN_TQ and offset == 0:
         return flash_attention(q, k, v, kv_valid, offset=0)
     if kv_valid is not None and q.shape[1] == 1:
         return decode_attention(q, k, v, kv_valid, offset, scores_dtype)
@@ -253,11 +267,16 @@ def forward(
                 cache.k[li, :, offset:offset + T] = k
                 cache.v[li, :, offset:offset + T] = v
                 k, v = cache.k[li], cache.v[li]
-            return attention(q, k, v, mask, cfg.attn_scores_dtype, kv_valid, offset)
+            return attention(q, k, v, mask, cfg.attn_scores_dtype, kv_valid, offset,
+                             cfg.flash_attn)
         return attend
 
+    def layer(li: int, x: torch.Tensor) -> torch.Tensor:
+        return _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
+
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for li in range(cfg.num_hidden_layers):
-        x = _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
+        x = checkpoint(layer, li, x, use_reentrant=False) if remat else layer(li, x)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     out: Dict[str, Any] = {"last_hidden_state": x}
     if cache is not None:

@@ -5,7 +5,10 @@ timm parameter layout (fused qkv, LayerScale gamma vectors, token order
 the blocks. Features are the patch tokens of the second-to-last block, no
 final norm, prefix tokens dropped (the reference's get_intermediate_layers(-2)
 contract). Attention is the tower kernel (``ops.attention.vit_flash_attention``)
-on every device, as the JAX package runs it under its kernel gate. On the
+on every device, as the JAX package runs it under its kernel gate, or, with
+``flash_attn=False`` (training: the kernel has no backward), the plain
+attention of the JAX package's XLA branch; ``remat`` recomputes each block in
+the backward pass. On the
 int8 route "wi8" (the ``pallas*`` tiers: the JAX package's tower kernel gates
 on) a block whose linears are per-channel int8 runs LN1 + qkv, proj +
 LayerScale + residual, and the whole MLP half each as one fused w8a8 kernel
@@ -23,8 +26,9 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import vit_flash_attention
+from ..ops.attention import attention_plain, vit_flash_attention
 from ..ops.linear import index_layer, is_int8_per_channel, matmul_t
 from ..ops.vit_mlp import fused_ln_w8a8, fused_mlp_residual
 
@@ -53,6 +57,11 @@ class ViTConfig:
     # leaves is int8, wi8_matmul otherwise) or "w8a8" (unfused, w8a8_matmul);
     # the JAX package's OVLA_PALLAS_VITLIN / _VITMLP / _MATMUL gates
     int8_matmul: str = "wi8"
+    # the tower kernel (the JAX package's OVLA_PALLAS_VITATTN); off, the plain
+    # attention its training runs
+    flash_attn: bool = True
+    # recompute each block in backward (under grad)
+    remat: bool = False
 
     @property
     def grid(self) -> int:
@@ -158,7 +167,11 @@ def _block(cfg: ViTConfig, bp: Params, x: torch.Tensor, B: int, N: int) -> torch
         qkv = matmul_t(h, bp["qkv_w"], route) + bp["qkv_b"]      # [B*N, 3D]
     # q/k/v stay strided views of qkv: the kernel reads them in place
     q, k, v = (t.reshape(B, N, H, Dh) for t in qkv.split(D, dim=-1))
-    attn = vit_flash_attention(q, k, v).reshape(B * N, D)
+    if cfg.flash_attn:
+        attn = vit_flash_attention(q, k, v)
+    else:   # the JAX block's XLA branch: no mask
+        attn = attention_plain(q, k, v, q.new_zeros(()), cfg.attn_scores_dtype)
+    attn = attn.reshape(B * N, D)
     if fused_linears:
         x = fused_ln_w8a8(attn, bp["proj_w"], bp["proj_b"], res=x,
                           ls=bp["ls1"] if cfg.use_layerscale else None)
@@ -220,6 +233,9 @@ def forward_features(
     B, N, D = x.shape
     blocks = params["blocks"]
     x2 = x.reshape(B * N, D)
+    remat = cfg.remat and torch.is_grad_enabled()
     for li in range(layer_index % cfg.num_layers + 1):
-        x2 = _block(cfg, index_layer(blocks, li), x2, B, N)
+        bp = index_layer(blocks, li)
+        x2 = checkpoint(_block, cfg, bp, x2, B, N, use_reentrant=False) if remat else \
+            _block(cfg, bp, x2, B, N)
     return x2.reshape(B, N, D)[:, cfg.num_prefix_tokens:, :]

@@ -22,9 +22,10 @@ Four serving tiers are ported (`VLAServingConfig.for_tier`):
   through the fused-dequant kernel;
 * ``turbo``: turbo numerics, the stacked-cache decode (bf16 scores), every
   int8 linear on the w8a8 route (`turbo_routes`) and the fused RMSNorm ->
-  int8 kernel on; over int8 weights (bits=8) or nibble weights
-  (bits="nibble": the Llama trunk and lm_head as two 4-bit planes, the
-  towers int8), the JAX package's bench default.
+  int8 kernel on (``fused_rmsq=False`` turns it off: the JAX tier as it runs
+  with ``OVLA_PALLAS_RMSQ`` unset, its default); over int8 weights (bits=8)
+  or nibble weights (bits="nibble": the Llama trunk and lm_head as two 4-bit
+  planes, the towers int8), the JAX package's bench default.
 
 The weight leaves and the config pick the kernels: on the ``pallas*`` tiers
 int8 linears take ``wi8_matmul``, grouped-int4 linears ``w4a8_matmul`` (or the
@@ -65,13 +66,14 @@ _PORTED_TIERS = {
 }
 
 
-def turbo_routes(vlm_cfg: vlm.VLMConfig) -> vlm.VLMConfig:
+def turbo_routes(vlm_cfg: vlm.VLMConfig, fused_rmsq: bool = True) -> vlm.VLMConfig:
     """The `turbo` tier's kernel routes: every int8 linear on w8a8 (trunk and
     towers, the towers unfused) and the fused RMSNorm -> int8 kernel on (the
-    JAX package's OVLA_PALLAS_MATMUL=0, _VITLIN=0, _VITMLP=0, _RMSQ=1)."""
+    JAX package's OVLA_PALLAS_MATMUL=0, _VITLIN=0, _VITMLP=0, _RMSQ=1), or off
+    with `fused_rmsq` False (_RMSQ unset, the JAX package's default)."""
     return dataclasses.replace(
         vlm_cfg,
-        llm=dataclasses.replace(vlm_cfg.llm, int8_matmul="w8a8", fused_rmsq=True),
+        llm=dataclasses.replace(vlm_cfg.llm, int8_matmul="w8a8", fused_rmsq=fused_rmsq),
         vision=tuple(dataclasses.replace(v, int8_matmul="w8a8") for v in vlm_cfg.vision))
 
 
@@ -103,8 +105,13 @@ class VLAServingConfig:
                 "'stacked_kv8' are ported; turbo_kv8 is ROADMAP Queue 1 item 10")
 
     @classmethod
-    def for_tier(cls, vlm_cfg: vlm.VLMConfig, tier: str = "parity", **kw) -> "VLAServingConfig":
-        """One constructor per ported serving tier (the JAX package's `for_tier`)."""
+    def for_tier(cls, vlm_cfg: vlm.VLMConfig, tier: str = "parity", fused_rmsq: bool = True,
+                 **kw) -> "VLAServingConfig":
+        """One constructor per ported serving tier (the JAX package's `for_tier`).
+        `fused_rmsq` (turbo only): the fused RMSNorm -> int8 kernel, on by
+        default; False gives the JAX turbo tier with OVLA_PALLAS_RMSQ unset."""
+        if not fused_rmsq and tier != "turbo":
+            raise ValueError(f"fused_rmsq=False is an option of the turbo tier, not {tier!r}")
         if tier == "parity":
             return cls(vlm=vlm_cfg, tier=tier, **kw)
         if tier == "pallas":
@@ -112,7 +119,7 @@ class VLAServingConfig:
         if tier == "pallas_kv8":
             return cls(vlm=vlm_cfg.turbo(), tier=tier, decode_impl="stacked_kv8", **kw)
         if tier == "turbo":
-            return cls(vlm=turbo_routes(vlm_cfg.turbo()), tier=tier, **kw)
+            return cls(vlm=turbo_routes(vlm_cfg.turbo(), fused_rmsq), tier=tier, **kw)
         raise NotImplementedError(f"serving tier {tier!r} is not ported (ROADMAP Queue 1)")
 
     @property

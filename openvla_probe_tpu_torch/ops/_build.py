@@ -14,6 +14,11 @@ kernel's count where it launches it, and nowhere else, so a run can show that
 the main path went through the kernels. The int8 GEMMs' launchers start the
 activation pre-pass (``quant_rows`` in ``csrc/int8_mma.cuh``) as a launch of
 its own before the GEMM; it is counted under its own name (``PRE_PASSES``).
+
+A kernel wrapper fills an output that autograd knows nothing of, so every
+wrapper first calls `no_grad_guard`: under grad mode an input that requires
+grad raises, on every device, and the message names the differentiable
+route (an STE ``torch.autograd.Function``, or the plain attention).
 """
 
 from __future__ import annotations
@@ -85,6 +90,10 @@ KERNELS = {
         "rmsnorm_quant.cu", "ovla_rms_norm_quant",
         [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     ),
+    "w4a8_dx": (
+        "w4a8_dx.cu", "ovla_w4a8_dx",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
 }
 # GEMM -> the name its activation pre-pass launch is counted under
 PRE_PASSES = {"w4a8_matmul": "w4a8_quant_rows", "w8a8_matmul": "w8a8_quant_rows",
@@ -96,6 +105,19 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}   # source -> loaded library
 build_report: Dict[str, object] = {}   # seconds and nvcc/ptxas output of the last build
+
+
+def no_grad_guard(kernel: str, route: str, *tensors) -> None:
+    """Raise where autograd is recording and a floating input of `kernel`
+    requires grad: the kernel's output would carry no history, and every
+    gradient through it would be dropped without a word. `route` names the
+    differentiable way to the same function."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: an input requires grad, and the kernel has no backward "
+                           f"of its own: {route}")
 
 
 def reset_launch_counts() -> None:

@@ -12,6 +12,11 @@ launches in the package's one registry, ``_build.KERNEL_LAUNCHES``
 
 Layouts are the JAX package's: q/k/v ``[B, T, H, Dh]`` (K/V heads already
 repeated), ``kv_valid`` ``[B, Tk]`` with 1 = attend.
+
+The kernels have no backward, as the JAX package's Pallas attention has no
+VJP: every wrapper refuses an input that requires grad while autograd
+records. Training takes `attention_plain` (``LlamaConfig.flash_attn`` /
+``ViTConfig.flash_attn`` off, the JAX package's ``OVLA_PALLAS_ATTN=0``).
 """
 
 from __future__ import annotations
@@ -138,6 +143,11 @@ def vit_flash_attention_plain(q, k, v):
     return out.permute(0, 2, 1, 3)
 
 
+_TRAIN_ATTN = ("train with the plain attention, the JAX package's XLA branch "
+               "(LlamaConfig / ViTConfig flash_attn=False: attention_plain)")
+_DECODE_NO_GRAD = "decoding runs under torch.no_grad(); differentiate through attention_plain"
+
+
 def attention_plain(q, k, v, mask, scores_dtype=torch.float32):
     """Masked softmax(q kᵀ) v, the JAX package's XLA branch: scores in
     `scores_dtype` (fp32 = parity, bf16 = turbo) plus the additive mask
@@ -238,6 +248,7 @@ def flash_attention(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
     does: Tk <= 1024 takes the one-shot kernel (`flash_prefill`, function of
     `flash_attention_plain`), longer rows the blockwise one
     (`flash_attention_blockwise`)."""
+    _build.no_grad_guard("flash_attention", _TRAIN_ATTN, q, k, v)
     if k.shape[1] > ONESHOT_MAX_TK:
         return flash_attention_blockwise(q, k, v, kv_valid, offset, causal)
     if q.device.type == "cpu":
@@ -250,6 +261,7 @@ def flash_attention_blockwise(q, k, v, kv_valid, offset: int = 0, causal: bool =
     function of `flash_attention_blockwise_plain`; the kernel's own tiles
     take the place of the JAX wrapper's block_q / block_k). Layouts as
     `flash_attention`."""
+    _build.no_grad_guard("flash_attention_blockwise", _TRAIN_ATTN, q, k, v)
     if q.device.type == "cpu":
         return flash_attention_blockwise_plain(q, k, v, kv_valid, offset, causal)
     return _launch_flash("flash_blockwise", q, k, v, kv_valid, offset, causal)
@@ -260,10 +272,10 @@ def vit_flash_attention(q, k, v):
 
     q/k/v [B, N, H, Dh] (each token's [H, Dh] slab contiguous; batch and token
     strides free, so slices of one fused qkv product are read in place).
-    Returns [B, N, H, Dh] in q's dtype."""
+    Any N: the kernel takes keys in chunks of at most 1024 past that. Returns
+    [B, N, H, Dh] in q's dtype."""
+    _build.no_grad_guard("vit_flash_attention", _TRAIN_ATTN, q, k, v)
     B, N, H, Dh = q.shape
-    if N > ONESHOT_MAX_TK:
-        raise NotImplementedError(f"vit_flash_attention with N={N} > {ONESHOT_MAX_TK}")
     if q.device.type == "cpu":
         return vit_flash_attention_plain(q, k, v)
     if q.device.type != "cuda":
@@ -291,6 +303,7 @@ def decode_attention(q, k, v, kv_valid, offset: int, scores_dtype=torch.float32)
     function of `decode_attention_plain`."""
     if scores_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decode_attention: scores in fp32 or bf16, got {scores_dtype}")
+    _build.no_grad_guard("decode_attention", _DECODE_NO_GRAD, q, k, v)
     B, Tq, H, Dh = q.shape
     S = k.shape[1]
     if Tq != 1:

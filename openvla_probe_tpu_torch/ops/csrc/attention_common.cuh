@@ -11,10 +11,14 @@
 //   phase 3  o[r] = sum_c p[r][c] * v_c in fp32 over staged V tiles,
 //            out = o / max(l, 1e-30) cast to the input type
 //
-// No online rescaling: the numerics are the one-shot kernel's, only the
-// order of the fp32 sums differs. Products are scalar fp32 FMAs (bf16 inputs
-// are upcast exactly, so a bf16 x bf16 product is exact in fp32, as on the
-// MXU); the ViT kernel's dot is full fp32 by definition, so neither kernel may
+// No online rescaling up to 1024 keys: the numerics are the one-shot
+// kernel's, only the order of the fp32 sums differs. Unmasked calls (the ViT
+// towers) take any Tk: the three phases run once per chunk of at most 1024
+// keys, and each chunk rescales the running sums by expf(m_old - m_new) with
+// the running row max m (an online softmax, the same function up to fp32
+// rounding); with one chunk the rescale is an exact no-op (the sums start at 0).
+// Products are scalar fp32 FMAs (bf16 inputs are upcast exactly, so a bf16 x
+// bf16 product is exact in fp32, as on the MXU); the ViT kernel's dot is full fp32 by definition, so neither kernel may
 // use TF32 tensor cores. Making these tensor-core kernels (mma.sync / wgmma
 // with TMA-fed K/V rings) is later work; the layout below is what a first,
 // simple kernel needs to be right on every shape the path gives it:
@@ -27,7 +31,8 @@
 //   * the head dims of the path (64, 72, 128) are compile-time constants
 //     (no runtime division in the staging loops, float4 shared-memory reads
 //     in the score loop); any other Dh <= 128 takes the runtime-Dh instance;
-//   * Dh <= 128 (phase 3 keeps 4 x 4 fp32 accumulators per thread).
+//   * Dh <= 128 (phase 3 keeps 4 x 4 fp32 accumulators per thread);
+//   * the score rows take at most 1024 keys of shared memory (128 KB).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,10 +96,11 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
 }
 
+__host__ __device__ inline int attention_chunk(int Tk) { return Tk < kMaxTk ? Tk : kMaxTk; }
+
 __host__ __device__ inline size_t attention_smem_bytes(int Tk, int Dh) {
-  return sizeof(float) *
-         (size_t(kBlockQ) * Dh + size_t(kBlockQ) * Tk + size_t(kBlockK) * (Dh + kPitchPad) +
-          kBlockQ);
+  return sizeof(float) * (size_t(kBlockQ) * Dh + size_t(kBlockQ) * attention_chunk(Tk) +
+                          size_t(kBlockK) * (Dh + kPitchPad) + 3 * kBlockQ);
 }
 
 // Stage rows [k0, k0 + kBlockK) of one head of K or V as fp32, zero past Tk.
@@ -115,10 +121,13 @@ template <typename T, bool kScaleQFirst, bool kRoundP, int kDh>
 __global__ void __launch_bounds__(kThreads) attention_rows_kernel(AttnArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int Tk = a.Tk, Dh = kDh > 0 ? kDh : a.Dh, KP = Dh + kPitchPad;
+  const int CH = attention_chunk(Tk);      // keys per chunk
   float* q_s = smem;                       // [kBlockQ][Dh]
-  float* s_s = q_s + kBlockQ * Dh;         // [kBlockQ][Tk]: scores, then P
-  float* kv_s = s_s + kBlockQ * Tk;        // [kBlockK][KP]
-  float* l_s = kv_s + kBlockK * KP;        // [kBlockQ]
+  float* s_s = q_s + kBlockQ * Dh;         // [kBlockQ][CH]: scores, then P
+  float* kv_s = s_s + kBlockQ * CH;        // [kBlockK][KP]
+  float* l_s = kv_s + kBlockK * KP;        // [kBlockQ] running sums
+  float* m_s = l_s + kBlockQ;              // [kBlockQ] running row maxima
+  float* a_s = m_s + kBlockQ;              // [kBlockQ] this chunk's rescale
 
   const int q0 = blockIdx.x * kBlockQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -133,108 +142,129 @@ __global__ void __launch_bounds__(kThreads) attention_rows_kernel(AttnArgs a) {
     if (kScaleQFirst) x *= a.scale;
     q_s[i] = x;
   }
+  if (tid < kBlockQ) {
+    l_s[tid] = 0.f;
+    m_s[tid] = kNegInf;
+  }
+  const int py = tid / 32, px = tid % 32;   // phase 3: rows {py + 8 i} x columns {px + 32 j}
+  float o[4][4] = {};
 
-  // phase 1: thread (ty, tx) owns rows {ty, ty + 16} x keys {tx + 16 j}
-  {
-    const int ty = tid / 16, tx = tid % 16;
-    for (int k0 = 0; k0 < Tk; k0 += kBlockK) {
-      __syncthreads();  // q_s written / previous tile consumed
-      stage_tile(kv_s, K, a.k_st, k0, Tk, Dh);
-      __syncthreads();
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const float* qa = q_s + ty * Dh;
-      const float* qb = q_s + (ty + 16) * Dh;
-      if constexpr (kDh > 0 && kDh % 4 == 0) {
+  for (int c0 = 0; c0 < Tk; c0 += CH) {
+    const int cend = min(c0 + CH, Tk);
+    // phase 1: thread (ty, tx) owns rows {ty, ty + 16} x keys {tx + 16 j}
+    {
+      const int ty = tid / 16, tx = tid % 16;
+      for (int k0 = c0; k0 < cend; k0 += kBlockK) {
+        __syncthreads();  // q_s written / previous tile consumed
+        stage_tile(kv_s, K, a.k_st, k0, Tk, Dh);
+        __syncthreads();
+        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        const float* qa = q_s + ty * Dh;
+        const float* qb = q_s + (ty + 16) * Dh;
+        if constexpr (kDh > 0 && kDh % 4 == 0) {
 #pragma unroll 2
-        for (int d = 0; d < kDh; d += 4) {
-          const float4 xa = *reinterpret_cast<const float4*>(qa + d);
-          const float4 xb = *reinterpret_cast<const float4*>(qb + d);
+          for (int d = 0; d < kDh; d += 4) {
+            const float4 xa = *reinterpret_cast<const float4*>(qa + d);
+            const float4 xb = *reinterpret_cast<const float4*>(qb + d);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4 kk = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * j) * KP + d);
-            acc[0][j] += xa.x * kk.x;
-            acc[0][j] += xa.y * kk.y;
-            acc[0][j] += xa.z * kk.z;
-            acc[0][j] += xa.w * kk.w;
-            acc[1][j] += xb.x * kk.x;
-            acc[1][j] += xb.y * kk.y;
-            acc[1][j] += xb.z * kk.z;
-            acc[1][j] += xb.w * kk.w;
+            for (int j = 0; j < 4; ++j) {
+              const float4 kk = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * j) * KP + d);
+              acc[0][j] += xa.x * kk.x;
+              acc[0][j] += xa.y * kk.y;
+              acc[0][j] += xa.z * kk.z;
+              acc[0][j] += xa.w * kk.w;
+              acc[1][j] += xb.x * kk.x;
+              acc[1][j] += xb.y * kk.y;
+              acc[1][j] += xb.z * kk.z;
+              acc[1][j] += xb.w * kk.w;
+            }
+          }
+        } else {
+          for (int d = 0; d < Dh; ++d) {
+            const float xa = qa[d], xb = qb[d];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float kk = kv_s[(tx + 16 * j) * KP + d];
+              acc[0][j] += xa * kk;
+              acc[1][j] += xb * kk;
+            }
           }
         }
-      } else {
-        for (int d = 0; d < Dh; ++d) {
-          const float xa = qa[d], xb = qb[d];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = ty + 16 * i;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const float kk = kv_s[(tx + 16 * j) * KP + d];
-            acc[0][j] += xa * kk;
-            acc[1][j] += xb * kk;
+            const int c = k0 + tx + 16 * j;
+            if (c < cend) {
+              const float s = kScaleQFirst ? acc[i][j] : acc[i][j] * a.scale;
+              bool ok = valid ? valid[c] > 0 : true;
+              if (a.causal) ok = ok && (c <= q0 + r + a.offset);
+              s_s[r * CH + c - c0] = ok ? s : kNegInf;
+            }
           }
         }
       }
+    }
+    __syncthreads();
+
+    // phase 2: one warp per row; a fully masked row has m = NEG_INF and
+    // p = exp(0) = 1 on every key, so its output is the mean of V. The running
+    // max and sum carry over chunks (one chunk: m_s = NEG_INF, l_s = 0 before).
+    {
+      const int warp = tid / 32, lane = tid % 32, cn = cend - c0;
+      for (int r = warp; r < kBlockQ; r += kThreads / 32) {
+        float* row = s_s + r * CH;
+        float m = m_s[r];
+        for (int c = lane; c < cn; c += 32) m = fmaxf(m, row[c]);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = ty + 16 * i;
+        for (int w = 16; w > 0; w >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, w));
+        float l = 0.f;
+        for (int c = lane; c < cn; c += 32) {
+          const float p = expf(row[c] - m);
+          l += p;
+          row[c] = kRoundP ? to_f32(from_f32<T>(p)) : p;
+        }
+#pragma unroll
+        for (int w = 16; w > 0; w >>= 1) l += __shfl_xor_sync(0xffffffffu, l, w);
+        if (lane == 0) {
+          const float alpha = expf(m_s[r] - m);
+          l_s[r] = l_s[r] * alpha + l;
+          m_s[r] = m;
+          a_s[r] = alpha;
+        }
+      }
+    }
+    __syncthreads();
+
+    // phase 3: rescale the running output, then add this chunk's P V
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float alpha = a_s[py + 8 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[i][j] *= alpha;
+    }
+    for (int k0 = c0; k0 < cend; k0 += kBlockK) {
+      __syncthreads();  // P rows final / previous tile consumed
+      stage_tile(kv_s, V, a.v_st, k0, Tk, Dh);
+      __syncthreads();
+      const int kn = min(kBlockK, cend - k0);
+      for (int kk = 0; kk < kn; ++kk) {
+        float vv[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int c = k0 + tx + 16 * j;
-          if (c < Tk) {
-            const float s = kScaleQFirst ? acc[i][j] : acc[i][j] * a.scale;
-            bool ok = valid ? valid[c] > 0 : true;
-            if (a.causal) ok = ok && (c <= q0 + r + a.offset);
-            s_s[r * Tk + c] = ok ? s : kNegInf;
-          }
+          const int d = px + 32 * j;
+          vv[j] = d < Dh ? kv_s[kk * KP + d] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = s_s[(py + 8 * i) * CH + k0 - c0 + kk];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) o[i][j] += p * vv[j];
         }
       }
     }
-  }
-  __syncthreads();
-
-  // phase 2: one warp per row; a fully masked row has m = NEG_INF and
-  // p = exp(0) = 1 on every key, so its output is the mean of V
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < kBlockQ; r += kThreads / 32) {
-      float* row = s_s + r * Tk;
-      float m = kNegInf;
-      for (int c = lane; c < Tk; c += 32) m = fmaxf(m, row[c]);
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, w));
-      float l = 0.f;
-      for (int c = lane; c < Tk; c += 32) {
-        const float p = expf(row[c] - m);
-        l += p;
-        row[c] = kRoundP ? to_f32(from_f32<T>(p)) : p;
-      }
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1) l += __shfl_xor_sync(0xffffffffu, l, w);
-      if (lane == 0) l_s[r] = l;
-    }
-  }
-
-  // phase 3: thread (py, px) owns rows {py + 8 i} x columns {px + 32 j}
-  const int py = tid / 32, px = tid % 32;
-  float o[4][4] = {};
-  for (int k0 = 0; k0 < Tk; k0 += kBlockK) {
-    __syncthreads();  // P rows final / previous tile consumed
-    stage_tile(kv_s, V, a.v_st, k0, Tk, Dh);
-    __syncthreads();
-    const int kn = min(kBlockK, Tk - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float vv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = px + 32 * j;
-        vv[j] = d < Dh ? kv_s[kk * KP + d] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = s_s[(py + 8 * i) * Tk + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] += p * vv[j];
-      }
-    }
+    __syncthreads();  // this chunk's P and rescale consumed
   }
 
   T* O = static_cast<T*>(a.o);
@@ -255,7 +285,8 @@ __global__ void __launch_bounds__(kThreads) attention_rows_kernel(AttnArgs a) {
 // Launch on `stream`; returns the launch's cudaError_t (0 on success).
 template <typename T, bool kScaleQFirst, bool kRoundP, int kDh = 0>
 int launch_attention_rows(const AttnArgs& a, cudaStream_t stream) {
-  if (a.Dh < 1 || a.Dh > kMaxDh || a.Tk < 1 || a.Tk > kMaxTk || a.Tq < 1 ||
+  const bool masked = a.causal || a.kv_valid != nullptr;   // masked calls: one chunk
+  if (a.Dh < 1 || a.Dh > kMaxDh || a.Tk < 1 || (masked && a.Tk > kMaxTk) || a.Tq < 1 ||
       (kDh > 0 && a.Dh != kDh))
     return int(cudaErrorInvalidValue);
   auto kernel = attention_rows_kernel<T, kScaleQFirst, kRoundP, kDh>;

@@ -9,8 +9,8 @@
 // activation type BEFORE the weight multiply, whose product is cast again; the absmax, the
 // division by 127 and the division by the scale as IEEE fp32 operations, round half to even.
 // The one difference is the order of the row sum of squares (a block reduction here), so the
-// variance, and with it a code at a rounding tie, can differ: codes are held within one step of
-// the plain version's, scales within one bf16 step.
+// variance, and with it a code at a rounding tie or a row's scale, can differ: every row that
+// differs is held to the plain arithmetic with its reciprocal RMS moved by a few ulps.
 //
 // Bound on the H100 at the OpenVLA-7B prefill (M = 6912, D = 4096, bf16): bytes, 56.6 MB read
 // and 28.3 MB of codes written, 0.025 ms at 3.35 TB/s. One block per row reads its row once

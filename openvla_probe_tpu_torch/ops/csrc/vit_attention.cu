@@ -6,6 +6,10 @@
 // stays fp32; pv = p . fp32(v) in fp32; out = pv / max(l, 1e-30) cast to the
 // input type. The TPU kernel padded keys to a multiple of 128 in VMEM and
 // masked col < N; here the loops simply stop at N, which is the same function.
+// Any N: past 1024 tokens (DINOv2-L at its 518 px pretraining size has 1370)
+// the keys run in chunks of at most 1024 with an online max / sum rescale
+// (attention_common.cuh): the TPU kernel holds every key's score in VMEM at
+// once, a block's shared memory holds 1024 of them.
 //
 // Bound on the H100 at the OpenVLA-7B tower shapes (B=24; DINOv2 [24, 261, 16,
 // 64], SigLIP [24, 256, 16, 72], bf16): the dot is full fp32 by definition (no

@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import MAX_HEAD_DIM, NEG_INF, _check_cuda_inputs, _check_head_slab, _scale
+from .attention import (_DECODE_NO_GRAD, MAX_HEAD_DIM, NEG_INF, _check_cuda_inputs,
+                        _check_head_slab, _scale)
 
 MAX_KEYS = 4096   # T + A scores per (batch, head) held in shared memory
 
@@ -47,6 +48,7 @@ def decode_flash_attention_plain(q, kp, vp, kd, vd, pre_valid, dec_valid):
 
 def decode_flash_attention(q, kp, vp, kd, vd, pre_valid, dec_valid):
     """softmax([q·Kp | q·Kd]) @ [Vp; Vd] for one decode token -> [B, 1, H, Dh]."""
+    _build.no_grad_guard("decode_flash_attention", _DECODE_NO_GRAD, q, kp, vp, kd, vd)
     B, Tq, H, Dh = q.shape
     T, A = kp.shape[1], kd.shape[1]
     if Tq != 1:
@@ -107,6 +109,7 @@ def stacked_decode_attention_i8_plain(q, kq, ks, vq, vs, valid, li: int):
 
 def stacked_decode_attention_i8(q, kq, ks, vq, vs, valid, li: int):
     """softmax(q · K[li]) @ V[li] over the int8 stacked cache -> [B, 1, H, Dh]."""
+    _build.no_grad_guard("stacked_decode_attention_i8", _DECODE_NO_GRAD, q, ks, vs)
     B, Tq, H, Dh = q.shape
     L, Bk, S, KDh = kq.shape
     Hkv = KDh // Dh

@@ -34,7 +34,24 @@ two nibble planes keep the ``[..., O, K]`` layout (-> ``[..., O, K/2]``). One
 16-byte load gives 32 consecutive k of one output channel. The ``uint8`` type
 keeps a packed leaf from ever passing for a per-channel int8 one.
 
-Mix and LoRA leaves are not ported and raise. ``quantize_weight``,
+A streamed-LoRA wrapper ``{"base": leaf, "A": [r, K], "B": [O, r]}``
+(``training.lora.attach_lora``) computes ``matmul_t(x, base) + (x Aᵀ) Bᵀ``
+with the adapters cast to x's dtype, so no merged weight ever exists.
+
+**Gradients.** Every kernel wrapper refuses an input that requires grad while
+autograd records (`_build.no_grad_guard`). Under grad, `matmul_t` takes the
+straight-through (STE) ``torch.autograd.Function`` of the quantized leaf's
+route, the JAX package's custom VJPs: the kernel forward, and ``dx = g ·
+dequant(W)`` with bf16 operands and fp32 sums, cast to g's dtype; the frozen
+codes and scales get no gradient. ``w8a8_matmul_ste`` (``_w8a8_dot``: int8
+leaves on "w8a8", nibble leaves at prefill M, the int4 requant route called
+alone), ``nib_hi_dot_ste`` (``_nib_hi_dot``) and ``w4a8_matmul_ste``
+(``_w4a8_pallas_dot``: grouped int4 under the kernel gate, either forward,
+whose backward is `w4a8_dx`: the CUDA kernel ``csrc/w4a8_dx.cu`` where N and
+gsz are multiples of 128, the bf16-dequant product otherwise, Queue 2 row 9).
+``wi8_matmul`` has no backward, as the JAX ``_wi8_matmul_2d`` has no VJP.
+
+Mix leaves are not ported and raise. ``quantize_weight``,
 ``quantize_weight_int4``, ``quantize_weight_nibble`` and ``quantize_params``
 give codes and scales bit-identical to the JAX package's.
 """
@@ -57,6 +74,9 @@ GROUP_SIZE = 128          # the JAX package's default int4 group size
 W4A8_TILE = 128           # N and gsz the w4a8 kernel takes (multiples of)
 NIB_HI_M_MAX = 32         # nibble leaves: rows up to this take the hi plane
 INT8_ROUTES = ("wi8", "w8a8")
+_WI8_NO_VJP = ("wi8_matmul has no backward, as the JAX _wi8_matmul_2d has no VJP: train an "
+               "int8 base on the w8a8 route (int8_matmul='w8a8'), or call it under "
+               "torch.no_grad()")
 
 
 def is_quantized(w: Any) -> bool:
@@ -279,6 +299,7 @@ def _check_matmul_inputs(kernel: str, x: torch.Tensor, named: Dict[str, Tuple]) 
 
 def wi8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """x [M, K] (bf16 or fp32) @ int8 q [N, K].T * s [N] -> [M, N] in x's dtype."""
+    _build.no_grad_guard("wi8_matmul", _WI8_NO_VJP, x, s)
     M, K = x.shape
     N = q.shape[0]
     if x.device.type == "cpu":
@@ -337,6 +358,8 @@ def w8a8_matmul(x, w: Dict[str, torch.Tensor]) -> torch.Tensor:
         raise TypeError("w8a8_matmul: a nibble leaf takes float activations, not a "
                         "PrequantActivation (the fused norm stands down for nibble leaves)")
     xt = x.q8 if pre else x
+    _build.no_grad_guard("w8a8_matmul", "use w8a8_matmul_ste (or matmul_t), its STE",
+                         x.sx if pre else x, w["s"])
     if xt.device.type == "cpu":
         return w8a8_matmul_plain(x, w)
     if xt.device.type != "cuda":
@@ -395,6 +418,7 @@ def nib_hi_dot(x: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tens
     bit (``csrc/nib_hi_dot.cu``: an activation pre-pass, counted as
     ``nib_hi_quant_rows``, then the int8 product streaming only the hi
     plane)."""
+    _build.no_grad_guard("nib_hi_dot", "use nib_hi_dot_ste (or matmul_t), its STE", x, s)
     M, K = x.shape
     N = hi.shape[0]
     if x.device.type == "cpu":
@@ -422,10 +446,10 @@ def nib_hi_dot(x: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tens
 
 def nib_matmul(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The JAX package's ``_nib_matmul``: the hi plane at M <= 32 (decode),
-    the exact int8 codes through w8a8 above (prefill)."""
+    the exact int8 codes through w8a8 above (prefill), each with its STE."""
     if x.shape[0] <= NIB_HI_M_MAX:
-        return nib_hi_dot(x, w["hi"], w["s"])
-    return w8a8_matmul(x, w)
+        return nib_hi_dot_ste(x, w["hi"], w["s"])
+    return w8a8_matmul_ste(x, w)
 
 
 # --- w4a8: grouped int4 weights x int8 activations (Queue 2 row 8) ---------------
@@ -444,9 +468,11 @@ def requant_int4_to_int8(q: torch.Tensor, s: torch.Tensor) -> Tuple[torch.Tensor
 
 def w4a8_dot_requant(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """The requant route: int8 codes requantized per call (no resident copy),
-    then `w8a8_matmul`."""
+    then `w8a8_matmul`; called alone under grad it carries the w8a8 STE, whose
+    backward dequantizes the requantized codes ``q8 · s8`` (the JAX
+    ``_w4a8_dot_requant``)."""
     q8, s8 = requant_int4_to_int8(q, s)
-    return w8a8_matmul(x, {"q": q8, "s": s8})
+    return w8a8_matmul_ste(x, {"q": q8, "s": s8})
 
 
 def w4a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -468,6 +494,7 @@ def w4a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torc
 def w4a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """x [M, K] (bf16 or fp32) @ grouped int4 (packed q [G, N, gsz/2], s [N, G])
     -> [M, N] in x's dtype. The CUDA kernel takes N and gsz multiples of 128."""
+    _build.no_grad_guard("w4a8_matmul", "use w4a8_matmul_ste (or matmul_t), its STE", x, s)
     M, K = x.shape
     G, N, half = q.shape
     gsz = 2 * half
@@ -500,11 +527,186 @@ def takes_w4a8_kernel(w: Dict[str, torch.Tensor]) -> bool:
     return N % W4A8_TILE == 0 and (2 * half) % W4A8_TILE == 0
 
 
+# --- the STE backward of grouped int4: dx = g · dequant(W) (Queue 2 row 9) ---------
+
+
+def w4a8_dx_plain(g: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's function: per group gi, the scaled gradient
+    ``bf16(g · s[:, gi])`` (rounded to bf16 even where g is fp32) times the
+    group's codes (exact in bf16), summed over N in fp32; cast to g's dtype.
+    g [M, N], packed q [G, N, gsz/2], s [N, G] -> dx [M, G·gsz]."""
+    codes = unpack_int4(q).float()                                 # [G, N, gsz]
+    gf = g.float()
+    dx = [torch.matmul((gf * s[:, gi]).to(torch.bfloat16).float(), codes[gi])
+          for gi in range(q.shape[0])]
+    return torch.cat(dx, dim=1).to(g.dtype)
+
+
+def compare_w4a8_dx(got: torch.Tensor, want: torch.Tensor, max_share: float = 2e-2) -> dict:
+    """Hold a `w4a8_dx` output `got` to `w4a8_dx_plain`'s `want`: the same
+    bf16 products, summed in fp32 in another order. fp32: within 1e-5 of the
+    largest |want| everywhere (the sums' rounding, about 2e-6 of it at
+    N = 11008). bf16: every element within one bf16 step of want (the step at
+    the larger magnitude of the two, and at no less than 1/1024 of the
+    largest |want|: a sum that cancels keeps the fp32 error of its terms), at
+    most max(16, max_share of them) apart at all (a sum at a rounding tie).
+    Raises AssertionError; returns the distances."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    scale = w.abs().max().item()
+    stats = dict(max_abs_err=d.max().item(), n_apart=int((d > 0).sum()), n=d.numel(),
+                 max_abs_want=scale)
+    if got.dtype == torch.float32:
+        assert stats["max_abs_err"] <= 1e-5 * scale, f"w4a8_dx: fp32 sums too far apart {stats}"
+        return stats
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=scale / 1024)
+    _, e = torch.frexp(mag)
+    step = torch.ldexp(torch.ones_like(w), e - 8)
+    stats["max_steps"] = (d / step).max().item()
+    assert bool((d <= step).all()), f"w4a8_dx: an element more than one bf16 step off {stats}"
+    limit = max(16, int(max_share * d.numel()))
+    assert stats["n_apart"] <= limit, f"w4a8_dx: {stats['n_apart']} elements apart > {limit}"
+    return stats
+
+
+def _ste_dot(g: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """g [M, N] @ a bf16 dequantized weight wd [N, K] with bf16 operands and
+    fp32 sums, cast to g's dtype (the JAX STE backwards' dot; outside any
+    Pallas kernel there, a library product here): a bf16 g takes the bf16
+    product (fp32 accumulation, one rounding); an fp32 g is rounded to bf16
+    and multiplied in fp32, where bf16 products are exact."""
+    if g.dtype == torch.bfloat16:
+        return torch.matmul(g, wd)
+    return torch.matmul(g.to(torch.bfloat16).float(), wd.float()).to(g.dtype)
+
+
+def w4a8_dx_xla(g: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The JAX package's XLA form of the STE dx (``_w4a8_dx_xla``): the
+    grouped weight dequantized to bf16, then one product."""
+    return _ste_dot(g, dequantize_weight({"q": q, "s": s}, torch.bfloat16))
+
+
+def w4a8_dx(g: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """dx [M, G·gsz] = g [M, N] (bf16 or fp32) · dequant(grouped int4 W) in g's
+    dtype: the function of `w4a8_dx_plain`. Where N and gsz are multiples of
+    128 (the JAX chip rule, ``_w4a8_dx_pallas``) the CUDA kernel
+    (``csrc/w4a8_dx.cu``), else the bf16-dequant product `w4a8_dx_xla`."""
+    G, N, half = q.shape
+    gsz = 2 * half
+    _build.no_grad_guard("w4a8_dx", "it is the backward of w4a8_matmul_ste and has no "
+                         "backward of its own", g, s)
+    if N % W4A8_TILE or gsz % W4A8_TILE:
+        return w4a8_dx_xla(g, q, s)
+    if g.device.type == "cpu":
+        return w4a8_dx_plain(g, q, s)
+    if g.device.type != "cuda":
+        raise ValueError(f"w4a8_dx: unsupported device {g.device}")
+    M = g.shape[0]
+    _check_matmul_inputs("w4a8_dx", g, {"g": (g, (M, N), g.dtype),
+                                        "q": (q, (G, N, half), torch.uint8),
+                                        "s": (s, (N, G), torch.float32)})
+    dx = torch.empty((M, G * gsz), dtype=g.dtype, device=g.device)
+    err = _build.launcher("w4a8_dx")(
+        g.data_ptr(), q.data_ptr(), s.data_ptr(), dx.data_ptr(), M, N, G, gsz,
+        int(g.dtype == torch.bfloat16), _build.stream_ptr(g))
+    _build.check(err, "w4a8_dx")
+    _build.KERNEL_LAUNCHES["w4a8_dx"] += 1
+    return dx
+
+
+# --- straight-through estimators over the kernel forwards ----------------------------
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _W8A8STE(torch.autograd.Function):
+    """``w8a8_matmul`` forward; dx through the bf16 dequantized weight
+    (``q8 · s``, a nibble leaf's codes rebuilt exactly), the JAX
+    ``_w8a8_dot_bwd``. The weight is frozen: no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.w = w
+        return w8a8_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.w
+        q = nibble_reconstruct_q8(w) if is_nibble_quant(w) else w["q"]
+        wd = q.to(torch.bfloat16) * w["s"].to(torch.bfloat16)[:, None]
+        return _ste_dot(g, wd), None
+
+
+class _NibHiSTE(torch.autograd.Function):
+    """``nib_hi_dot`` forward; dx through the hi-plane weight
+    ``(16·hi + 7.5)·s`` in bf16, the JAX ``_nib_hi_dot_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, hi, s):
+        ctx.hi, ctx.s = hi, s
+        return nib_hi_dot(x, hi, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        wd = (unpack_int4(ctx.hi).to(torch.bfloat16) * 16 + 7.5) * ctx.s.to(torch.bfloat16)[:, None]
+        return _ste_dot(g, wd), None, None
+
+
+def _w4a8_forward(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Grouped int4 under the kernel gate: `w4a8_matmul` where N and gsz are
+    multiples of 128, the requant route otherwise."""
+    return w4a8_matmul(x, q, s) if takes_w4a8_kernel({"q": q}) else w4a8_dot_requant(x, q, s)
+
+
+class _W4A8STE(torch.autograd.Function):
+    """Grouped int4 under the kernel gate (the JAX ``_w4a8_pallas_dot``):
+    `_w4a8_forward`; dx = `w4a8_dx` on either route (``_w4a8_ste_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, q, s):
+        ctx.q, ctx.s = q, s
+        return _w4a8_forward(x, q, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        return w4a8_dx(g, ctx.q, ctx.s), None, None
+
+
+def w8a8_matmul_ste(x, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """`w8a8_matmul`, differentiable in x by the STE where autograd records."""
+    if not isinstance(x, PrequantActivation) and _needs_grad(x):
+        return _W8A8STE.apply(x, w)
+    return w8a8_matmul(x, w)
+
+
+def nib_hi_dot_ste(x: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """`nib_hi_dot`, differentiable in x by the STE where autograd records."""
+    if _needs_grad(x):
+        return _NibHiSTE.apply(x, hi, s)
+    return nib_hi_dot(x, hi, s)
+
+
+def w4a8_matmul_ste(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """`_w4a8_forward`, differentiable in x by the STE (`w4a8_dx`) where
+    autograd records."""
+    if _needs_grad(x):
+        return _W4A8STE.apply(x, q, s)
+    return _w4a8_forward(x, q, s)
+
+
+def is_lora_wrapped(w: Any) -> bool:
+    """A streamed-LoRA wrapper ``{"base", "A", "B"}`` (``training.lora``)."""
+    return isinstance(w, dict) and set(w) == {"base", "A", "B"}
+
+
 def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
     """x [..., K] @ w[O, K].T -> [..., O] for a float weight tensor, a
     per-channel int8 leaf (on the route `int8_matmul` names: "wi8" or
-    "w8a8"), a nibble leaf or a grouped-int4 leaf; x may be a
-    `PrequantActivation` for a per-channel int8 leaf."""
+    "w8a8"), a nibble leaf, a grouped-int4 leaf or a streamed-LoRA wrapper
+    over any of them; x may be a `PrequantActivation` for a per-channel int8
+    leaf. Quantized leaves are differentiable in x through their STE."""
     if isinstance(x, PrequantActivation):
         if not is_int8_per_channel(w):
             raise TypeError("a PrequantActivation takes a per-channel int8 leaf; gate the fused "
@@ -514,12 +716,19 @@ def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
         return w8a8_matmul(x2, w).reshape(*lead, -1)
     if isinstance(w, torch.Tensor):
         return torch.matmul(x, w.t())
+    if is_lora_wrapped(w):
+        # the low-rank side path: two thin products, never a merged weight.
+        # Its order is part of the train step's launch count: with the base
+        # product issued last, the remat recompute of a layer stops before
+        # down_proj's base kernel (its STE saves no activation)
+        delta = torch.matmul(torch.matmul(x, w["A"].to(x.dtype).t()), w["B"].to(x.dtype).t())
+        return matmul_t(x, w["base"], int8_matmul) + delta
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
     if is_int8_per_channel(w):
         if int8_matmul not in INT8_ROUTES:
             raise ValueError(f"int8_matmul must be one of {INT8_ROUTES}, got {int8_matmul!r}")
-        out = wi8_matmul(x2, w["q"], w["s"]) if int8_matmul == "wi8" else w8a8_matmul(x2, w)
+        out = wi8_matmul(x2, w["q"], w["s"]) if int8_matmul == "wi8" else w8a8_matmul_ste(x2, w)
         return out.reshape(*lead, -1)
     if is_nibble_quant(w):
         return nib_matmul(x2, w).reshape(*lead, -1)
@@ -528,12 +737,10 @@ def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
             raise NotImplementedError(
                 "grouped-int4 leaves without the kernel gate (the JAX package's "
                 "_w4a8_dot_grouped) are not ported: ROADMAP Queue 1 item 10")
-        mm = w4a8_matmul if takes_w4a8_kernel(w) else w4a8_dot_requant
-        return mm(x2, w["q"], w["s"]).reshape(*lead, -1)
+        return w4a8_matmul_ste(x2, w["q"], w["s"]).reshape(*lead, -1)
     if is_quantized(w):
         raise NotImplementedError("mix weight leaves are not ported yet: ROADMAP Queue 1 item 10")
     if isinstance(w, dict) and "base" in w:
         raise NotImplementedError(
-            "LoRA / multi-LoRA weight wrappers are not ported yet: "
-            "ROADMAP Queue 1 items 11 and 13")
+            "multi-LoRA weight wrappers are not ported yet: ROADMAP Queue 1 item 11")
     raise TypeError(f"matmul_t: unsupported weight {type(w)}")

@@ -31,6 +31,8 @@ from . import _build
 from .linear import int8_dot, quantize_rows
 
 ACTS = ("gelu", "gelu_tanh", "quick_gelu")
+_NO_VJP = ("the fused tower kernels have no backward, as the JAX kernels have no VJP: train "
+           "bf16 towers, or int8 towers unfused on ViTConfig.int8_matmul='w8a8'")
 
 
 def _act_f32(xf: torch.Tensor, kind: str) -> torch.Tensor:
@@ -132,6 +134,7 @@ def fused_ln_w8a8(x, w, b, ln: Optional[tuple] = None, res=None, ls=None,
     bias [K]) or None; res [M, N] or None; ls [N] or None. -> [M, N] in x's dtype.
     With a `probe` dict, the CUDA kernel also stores its activation codes
     ("codes" [M, K]) and row scales ("sx" [M, 1]) there, for verification."""
+    _build.no_grad_guard("fused_ln_w8a8", _NO_VJP, x, w["s"], b, *(ln or ()), res, ls)
     if x.device.type == "cpu":
         return fused_ln_w8a8_plain(x, w, b, ln, res, ls, eps)
     if x.device.type != "cuda":
@@ -172,6 +175,8 @@ def fused_mlp_residual(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2,
     g's ("codes2" [M, F], "sx2" [M, 1]) there, for verification."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act}")
+    _build.no_grad_guard("fused_mlp_residual", _NO_VJP, x, ln_scale, ln_bias, fc1["s"], fc1_b,
+                         fc2["s"], fc2_b, ls2)
     if x.device.type == "cpu":
         return fused_mlp_residual_plain(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2,
                                         eps, act)

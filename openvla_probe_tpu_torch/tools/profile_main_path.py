@@ -2,7 +2,7 @@
 
     python -m openvla_probe_tpu_torch.tools.profile_main_path
         [--tier parity|pallas|pallas_kv8|turbo] [--weights int8|int4|nibble] [--batch 24]
-        [--calls 3] [--entry vla|generate|score_short|score_long]
+        [--calls 3] [--entry vla|generate|score_short|score_long|train_int4|train_int8]
 
 Drives the same call as chip_smoke.py (random weights from a seeded
 generator: bf16 for the parity tier, TURBO_QUANT_SUFFIXES leaves for the
@@ -26,7 +26,10 @@ default there, with 224 px dinosiglip pixels made beforehand): generate
 projector, the cached prefill, one decode step), score_short and score_long
 (score_continuation_rows over rows of 64 and 832 tokens, T = 320 and 1088;
 stages: towers, projector, the uncached 32-layer forward, lm_head, the fp32
-log-softmax and gather).
+log-softmax and gather). ``--entry train_int4`` / ``train_int8`` profiles one
+step of tools/bench_finetune.py at OpenVLA-7B width (B = 8 rows of 64 text
+tokens by default, streamed LoRA r = 32 over the int4 or int8 base; stages:
+the forward alone, forward and backward, the AdamW update, the whole step).
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ from .. import convert
 from ..models import generate, llama, vit, vla, vlm
 from ..ops.image import ImageTransformConfig, apply_image_transform
 from ..ops.linear import TURBO_QUANT_SUFFIXES, matmul_t
+from ..training.train_state import apply_updates
+from ..training.train_step import value_and_grad
+from . import bench_finetune
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -164,6 +170,33 @@ def profile_vlm_entry(entry: str, batch: int, calls: int, card: str) -> None:
     print(json.dumps({**head, **_device_time(call, calls)}), flush=True)
 
 
+def profile_train(quant: str, batch: int, calls: int, card: str) -> None:
+    """Stages and device time of one train step of tools/bench_finetune.py."""
+    ft = bench_finetune.build("full", quant, batch=batch, device="cuda")
+    reps = max(3, calls)
+    lora, cfg = ft.state.params, ft.cfg
+
+    def forward():
+        with torch.no_grad():
+            return ft.loss_fn(lora, cfg, ft.batch)
+
+    _, grads = value_and_grad(ft.loss_fn, lora, cfg, ft.batch)
+
+    def update():
+        upd, _ = ft.optimizer.update(grads, ft.state.opt_state, lora)
+        return apply_updates(lora, upd)
+
+    stage_ms = {"forward_loss": _median_ms(forward, reps),
+                "forward_backward": _median_ms(
+                    lambda: value_and_grad(ft.loss_fn, lora, cfg, ft.batch), reps),
+                "adamw_update": _median_ms(update, reps),
+                "whole_step": _median_ms(ft.step, reps)}
+    head = {"card": card, "entry": f"train_{quant}", "batch": batch,
+            "T": ft.batch["input_ids"].shape[1] + cfg.num_patches}
+    print(json.dumps({**head, "stages_ms": stage_ms}), flush=True)
+    print(json.dumps({**head, **_device_time(ft.step, calls)}), flush=True)
+
+
 class _NullTok:
     @staticmethod
     def decode(ids, skip_special_tokens=False):
@@ -180,12 +213,17 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=None,
                     help="rows of a call: 24 for the VLA call, 8 for the other entries")
     ap.add_argument("--calls", type=int, default=3)
-    ap.add_argument("--entry", choices=("vla", "generate", "score_short", "score_long"),
-                    default="vla", help="the VLA serving call, or a base-VLM entry point")
+    ap.add_argument("--entry", choices=("vla", "generate", "score_short", "score_long",
+                                        "train_int4", "train_int8"),
+                    default="vla", help="the VLA serving call, a base-VLM entry point, or "
+                                        "a train step")
     args = ap.parse_args()
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.entry.startswith("train_"):
+        profile_train(args.entry[len("train_"):], args.batch or 8, args.calls, card)
+        return
     if args.entry != "vla":
         profile_vlm_entry(args.entry, args.batch or 8, args.calls, card)
         return

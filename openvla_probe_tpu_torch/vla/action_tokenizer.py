@@ -9,6 +9,7 @@ OpenVLA, not the LLM's padded 32064.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -30,13 +31,18 @@ class ActionCodec:
         return np.linspace(self.min_action, self.max_action, self.n_bins)
 
     @property
+    def action_token_begin_idx(self) -> int:
+        """Token ids above this one are action tokens."""
+        return self.vocab_size - (self.n_bins + 1)
+
+    @property
     def bin_centers(self) -> np.ndarray:
         b = self.bins
         return (b[:-1] + b[1:]) / 2.0
 
     def decode(self, token_ids: torch.Tensor) -> torch.Tensor:
         """Token ids -> fp32 bin-center actions (the documented off-by-one clip)."""
-        centers = torch.as_tensor(self.bin_centers, dtype=torch.float32, device=token_ids.device)
+        centers = _centers_on(self, token_ids.device)
         idx = self.vocab_size - token_ids.to(torch.int64)
         idx = torch.clamp(idx - 1, 0, self.n_bins - 2)
         return centers[idx]
@@ -60,3 +66,10 @@ class ActionCodec:
 
     def decode_and_unnormalize(self, token_ids, q01, q99, mask=None) -> torch.Tensor:
         return self.unnormalize(self.decode(token_ids), q01, q99, mask)
+
+
+@functools.lru_cache(maxsize=None)
+def _centers_on(codec: ActionCodec, device: torch.device) -> torch.Tensor:
+    """`codec`'s fp32 bin centers on `device`, copied there once (a copy from
+    the host inside a step makes the host wait for the card)."""
+    return torch.as_tensor(codec.bin_centers, dtype=torch.float32, device=device)

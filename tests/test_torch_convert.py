@@ -120,9 +120,10 @@ def test_config_from_jax():
 
 
 def test_matmul_t_float_only():
-    """Float, per-channel int8 and (packed) nibble leaves multiply; mix and
-    LoRA leaves still raise, and so do unpacked int8 planes (the JAX
-    package's emit_codes form, which params_from_jax packs)."""
+    """Float, per-channel int8 and (packed) nibble leaves and streamed-LoRA
+    wrappers multiply; mix and multi-LoRA leaves still raise, and so do
+    unpacked int8 planes (the JAX package's emit_codes form, which
+    params_from_jax packs)."""
     x, w = torch.randn(3, 4), torch.randn(5, 4)
     torch.testing.assert_close(matmul_t(x, w), x @ w.T)
     q = torch.randint(-127, 128, (5, 4), dtype=torch.int8)
@@ -134,8 +135,11 @@ def test_matmul_t_float_only():
         matmul_t(x, {"q": q, "s": torch.ones(5), "q4": q.reshape(1, 5, 4), "s4": torch.ones(5, 1)})
     with pytest.raises(TypeError):                                 # unpacked nibble planes
         matmul_t(x, {"hi": q, "lo": q, "s": torch.ones(5)})
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        matmul_t(x, {"base": w, "A": w, "B": w})
+    a, bm = torch.randn(2, 4), torch.randn(5, 2)
+    torch.testing.assert_close(matmul_t(x, {"base": w, "A": a, "B": bm}),
+                               x @ w.T + (x @ a.T) @ bm.T)
+    with pytest.raises(NotImplementedError, match="Queue 1"):      # multi-LoRA
+        matmul_t(x, {"base": w, "A": a[None], "Bt": bm.T[None], "sel": torch.ones(3, 1)})
 
 
 def test_resolve_device(monkeypatch):
@@ -161,8 +165,19 @@ def test_port_imports_no_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
+def test_the_scan_covers_the_training_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in ("lora", "train_state", "train_step", "checkpointing", "preemption"):
+        assert f"openvla_probe_tpu_torch/training/{name}.py" in scanned
+    assert "openvla_probe_tpu_torch/tools/bench_finetune.py" in scanned
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import openvla_probe_tpu_torch.models.vla, openvla_probe_tpu_torch.convert; "
+            "import openvla_probe_tpu_torch.training.train_step, "
+            "openvla_probe_tpu_torch.training.checkpointing, "
+            "openvla_probe_tpu_torch.training.preemption, "
+            "openvla_probe_tpu_torch.tools.bench_finetune; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

@@ -18,9 +18,9 @@ the other attention kernels. w8a8_matmul and nib_hi_dot: bit-equal to their
 plain versions (the same activation codes, exact integer sums, the same
 epilogue roundings in the same order), the nibble loader bit-equal to the
 int8 loader on the same codes. rms_norm_quant: ops.rmsnorm_quant's
-compare_rms_norm_quant (codes within one step, at most max(16, 1e-5 n) of them
-apart; bf16 scales bit-equal, fp32 within 2^-8: the fp32 row sums run in
-another order). decode_attention at bf16 scores: within 4e-3 of the bf16-score
+compare_rms_norm_quant (codes within one step; every row that differs
+reproduced bit for bit by the plain arithmetic with the reciprocal RMS moved
+by at most 16 ulps: the fp32 row sums run in another order). decode_attention at bf16 scores: within 4e-3 of the bf16-score
 plain version and on average at most a tenth as far from it as from the
 fp32-score plain version (attention.compare_bf16_scores). flash_blockwise:
 attention.compare_blockwise (fp32 within 1e-5; bf16 every element within one
@@ -398,7 +398,7 @@ def test_rms_norm_quant_kernel_matches_plain(cuda, dtype, M, D):
     q, sx = _count("rms_norm_quant", lambda: trmsq.rms_norm_quant(x, w, 1e-5))
     wq, wsx = trmsq.rms_norm_quant_plain(x, w, 1e-5)
     assert q.dtype == torch.int8 and q.shape == (M, D) and sx.shape == (M, 1)
-    trmsq.compare_rms_norm_quant(x, (q, sx), (wq, wsx))
+    trmsq.compare_rms_norm_quant(x, w, 1e-5, (q, sx), (wq, wsx))
 
 
 def test_turbo_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
@@ -412,3 +412,89 @@ def test_turbo_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
         tlin.nib_hi_dot(x, nib["hi"], nib["s"])
     with pytest.raises(ValueError, match="multiple of 32"):
         tlin.w8a8_matmul(torch.zeros((40, 48), dtype=torch.bfloat16, device=cuda), nib)
+
+
+# --- training: the w4a8 STE backward (Queue 2 row 9), the STEs, ViT past 1024 --------
+#
+# w4a8_dx: linear.compare_w4a8_dx (fp32 within 1e-5 of the largest output;
+# bf16 every element within one bf16 step and at most 2 % of them apart: the
+# same bf16 products summed in fp32 in another order). The STE Functions:
+# their forwards are the bit-equal kernels, their backwards library products
+# (w4a8_dx where its rule says so), so card grads are within 1e-5 of the CPU's
+# relative to the largest (fp32 sums in another order).
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,G,gsz", [
+    (2560, 4096, 32, 128),     # q/k/v/o at the 7B QLoRA shape
+    (300, 11008, 4, 128),      # gate/up's N, a ragged M, a slice of the groups
+    (77, 256, 3, 256),         # gsz 256: two column tiles per group
+    (1, 128, 1, 128),
+])
+def test_w4a8_dx_kernel_matches_plain(cuda, dtype, M, N, G, gsz):
+    g = _rand(40, (M, N), dtype, cuda)
+    w = tlin.quantize_weight_int4(_rand(41, (N, G * gsz), torch.float32, cuda) * 0.02,
+                                  group_size=gsz)
+    got = _count("w4a8_dx", lambda: tlin.w4a8_dx(g, w["q"], w["s"]))
+    assert got.dtype == dtype and got.shape == (M, G * gsz)
+    tlin.compare_w4a8_dx(got, tlin.w4a8_dx_plain(g, w["q"], w["s"]))
+
+
+def test_w4a8_dx_outside_the_kernel_rule_takes_the_dequant_product(cuda):
+    g = _rand(42, (40, 200), torch.bfloat16, cuda)     # N = 200: no 128 tile
+    w = tlin.quantize_weight_int4(_rand(43, (200, 256), torch.float32, cuda) * 0.02)
+    before = _build.KERNEL_LAUNCHES["w4a8_dx"]
+    got = tlin.w4a8_dx(g, w["q"], w["s"])
+    assert _build.KERNEL_LAUNCHES["w4a8_dx"] == before
+    torch.testing.assert_close(got, tlin.w4a8_dx_xla(g, w["q"], w["s"]), atol=0, rtol=0)
+
+
+def _route_leaf(route, cuda):
+    r = _rand(44, (384, 256), torch.float32, "cpu") * 0.02
+    if route == "int4_kernel":
+        return tlin.quantize_weight_int4(r), "wi8"
+    if route == "int4_requant":
+        return tlin.quantize_weight_int4(r[:200]), "wi8"
+    if route == "w8a8":
+        return tlin.quantize_weight(r), "w8a8"
+    return tlin.quantize_weight_nibble(r), "w8a8"
+
+
+@pytest.mark.parametrize("route", ["int4_kernel", "int4_requant", "w8a8", "nibble"])
+@pytest.mark.parametrize("M", [24, 96])
+def test_ste_grads_on_the_card_match_the_cpu(cuda, route, M):
+    w, int8_route = _route_leaf(route, cuda)
+    wd = {k: v.to(cuda) for k, v in w.items()}
+    x = _rand(45, (M, 256), torch.float32, "cpu")
+    gout = _rand(46, (M, w["s"].shape[0]), torch.float32, "cpu")
+
+    def grad(xx, ww):
+        xx = xx.clone().requires_grad_(True)
+        (dx,) = torch.autograd.grad((tlin.matmul_t(xx, ww, int8_route) * gout.to(xx.device)).sum(),
+                                    xx)
+        return dx
+
+    got, want = grad(x.to(cuda), wd).cpu(), grad(x, w)
+    torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("N", [1370, 2100])
+def test_vit_kernel_past_1024_tokens(cuda, dtype, tol, N):
+    """DINOv2-L at 518 px (37 x 37 patches + CLS = 1370 tokens): two key
+    chunks with the online rescale; 2100: three."""
+    B, H, dh = 2, 2, 64
+    qkv = _rand(47, (B * N, 3 * H * dh), dtype, cuda)
+    q, k, v = (t.reshape(B, N, H, dh) for t in qkv.split(H * dh, dim=-1))
+    got = _count("vit_attention", lambda: tattn.vit_flash_attention(q, k, v))
+    torch.testing.assert_close(got.float(), tattn.vit_flash_attention_plain(q, k, v).float(),
+                               atol=tol, rtol=tol)
+
+
+def test_wrappers_refuse_grad_on_the_card(cuda):
+    x = _rand(48, (32, 128), torch.bfloat16, cuda).requires_grad_(True)
+    w = tlin.quantize_weight_int4(_rand(49, (128, 128), torch.float32, cuda) * 0.02)
+    with pytest.raises(RuntimeError, match="w4a8_matmul_ste"):
+        tlin.w4a8_matmul(x, w["q"], w["s"])
+    with torch.no_grad():
+        tlin.w4a8_matmul(x, w["q"], w["s"])

@@ -368,3 +368,39 @@ def test_stacked_decode_steps_match_jax(models):
                                   cache_index=T + t)
             np.testing.assert_allclose(tout["logits"].numpy(), np.asarray(jout["logits"]),
                                        atol=ATOL, err_msg=f"step {t}")
+
+
+def _rmsq_with_r_moved(x, w, ulps, round_trip=True, rnd=torch.round):
+    """rms_norm_quant's arithmetic with each row's reciprocal RMS moved by
+    `ulps[row]` ulps: what a kernel summing in another order may give, or,
+    with `round_trip` off or another rounding, a faulty one."""
+    from openvla_probe_tpu_torch.ops import rmsnorm_quant as trmsq
+
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-5)
+    r = torch.cat([trmsq._nudge(r[i:i + 1], int(k)) for i, k in enumerate(ulps)])
+    h = xf * r
+    h = (h.to(x.dtype) * w.to(x.dtype)) if round_trip else h * w.float()
+    s = torch.clamp(h.float().abs().amax(-1, keepdim=True) / 127, min=1e-8)
+    return torch.clamp(rnd(h.float() / s), -127, 127).to(torch.int8), s
+
+
+def test_compare_rms_norm_quant_takes_moved_r_and_refuses_faults():
+    """compare_rms_norm_quant, which holds the CUDA kernel to its plain
+    version: rows whose reciprocal RMS moved by up to 6 ulps are reproduced
+    and pass; no bf16 round trip, truncation, or r 200 ulps off are refused."""
+    from openvla_probe_tpu_torch.ops import rmsnorm_quant as trmsq
+
+    g = torch.Generator().manual_seed(0)
+    M, D = 400, 1024
+    x = (torch.randn((M, D), generator=g) * 2).bfloat16()
+    w = (1 + 0.2 * torch.randn((D,), generator=g)).bfloat16()
+    want = trmsq.rms_norm_quant_plain(x, w, 1e-5)
+    moved = torch.randint(-6, 7, (M,), generator=g)
+    stats = trmsq.compare_rms_norm_quant(x, w, 1e-5, _rmsq_with_r_moved(x, w, moved), want)
+    assert stats["rows_differing"] > 0 and stats["max_r_ulps"] <= 6
+    for faulty in (_rmsq_with_r_moved(x, w, moved, round_trip=False),
+                   _rmsq_with_r_moved(x, w, moved, rnd=torch.trunc),
+                   _rmsq_with_r_moved(x, w, torch.full((M,), 200))):
+        with pytest.raises(AssertionError):
+            trmsq.compare_rms_norm_quant(x, w, 1e-5, faulty, want)
