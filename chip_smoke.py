@@ -42,7 +42,8 @@ Phases, one output line each:
               decode_split_attention (pallas), stacked_decode_attention_i8
               (pallas_kv8), w4a8_matmul (pallas_int4), w8a8_matmul,
               rms_norm_quant (turbo), nib_hi_dot (turbo_nibble), w4a8_dx
-              (train_int4); vit_attention also at DINOv2's 518 px, N = 1370
+              (train_int4); vit_attention also at DINOv2's 518 px, N = 1370,
+              and at ragged N, bf16 (tensor cores) and fp32 (scalar route)
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package):
               equal tokens, close logits or scores; the training paths' loss,
@@ -253,39 +254,49 @@ def check_flash_blockwise(dev, g):
 def check_vit_attention(dev, g):
     """Row 3 at the tower shapes: DINOv2 [24, 261, 16, 64] (23 launches/call)
     and SigLIP [24, 256, 16, 72] (26 launches/call), as strided views of one
-    qkv product like the towers pass them, and DINOv2 at its 518 px
-    pretraining size, N = 37 x 37 + 1 = 1370 (two key chunks; no path launches
-    it); bf16 at 2e-2 and fp32 at 1e-5."""
+    qkv product like the towers pass them; DINOv2 at its 518 px pretraining
+    size, N = 37 x 37 + 1 = 1370 (no path launches it); and ragged N = 1, 65
+    and 257 (Dh = 72). bf16 takes the tensor-core route (counted as
+    vit_attention) and is held by attn.compare_blockwise (every element within
+    one bf16 step of the plain version, at most max(16, 2 %) apart); fp32
+    takes the scalar route (vit_attention_scalar), within 1e-5. Bound: the
+    bytes of q/k/v/out against one pass of the function's bf16 products,
+    4 B H N^2 Dh at 989 TFLOP/s (the kernel computes the function exactly
+    with bf16 products)."""
     shapes = {"dinov2": (261, 16, 64, 23), "siglip": (256, 16, 72, 26),
-              "dinov2_518px": (1370, 16, 64, 0)}
+              "dinov2_518px": (1370, 16, 64, 0), "ragged_n1": (1, 16, 64, 0),
+              "ragged_n65": (65, 16, 64, 0), "ragged_n257_dh72": (257, 16, 72, 0)}
     by_shape = {}
     for name, (N, H, Dh, per_call) in shapes.items():
         row = {}
-        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for dtype, route in ((torch.float32, "vit_attention_scalar"),
+                             (torch.bfloat16, "vit_attention")):
             qkv = torch.randn((BATCH * N, 3 * H * Dh), generator=g, device=dev).to(dtype)
             q, k, v = (t.reshape(BATCH, N, H, Dh) for t in qkv.split(H * Dh, dim=-1))
-            before = attn.KERNEL_LAUNCHES["vit_attention"]
+            before = attn.KERNEL_LAUNCHES[route]
             got = attn.vit_flash_attention(q, k, v)
             torch.cuda.synchronize()
-            assert attn.KERNEL_LAUNCHES["vit_attention"] == before + 1
+            assert attn.KERNEL_LAUNCHES[route] == before + 1, (name, route)
             want = attn.vit_flash_attention_plain(q, k, v)
-            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
-            err = (got.float() - want.float()).abs().max().item()
+            stats = attn.compare_blockwise(got, want, kernel="vit_attention")
             if dtype == torch.float32:
-                row["fp32_max_abs_err"] = err
+                row["fp32_max_abs_err"] = stats["max_abs_err"]
+                continue
+            row.update(stats, launches_per_call=per_call)
+            if name.startswith("ragged"):
                 continue
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            b, by = bound_ms(_nbytes(q, k, v, got), 4 * BATCH * H * N * N * Dh, "fp32")
-            row.update(max_abs_err=err, launches_per_call=per_call,
-                       ms=cuda_ms(lambda: attn.vit_flash_attention(q, k, v)),
+            b, by = bound_ms(_nbytes(q, k, v, got), 4 * BATCH * H * N * N * Dh, "bf16")
+            row.update(ms=cuda_ms(lambda: attn.vit_flash_attention(q, k, v)),
                        plain_ms=cuda_ms(lambda: attn.vit_flash_attention_plain(q, k, v)),
                        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
                        bound_ms=b, bound_by=by)
         by_shape[name] = row
-    n = sum(r["launches_per_call"] for r in by_shape.values())
+    towers = {k: r for k, r in by_shape.items() if r["launches_per_call"]}
+    n = sum(r["launches_per_call"] for r in towers.values())
 
     def per_launch(key):   # mean over the main path's launch mix
-        return sum(r[key] * r["launches_per_call"] for r in by_shape.values()) / n
+        return sum(r[key] * r["launches_per_call"] for r in towers.values()) / n
 
     return dict(name="vit_attention", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/vit_attention.cu",
@@ -293,7 +304,7 @@ def check_vit_attention(dev, g):
                 max_abs_err=max(r["max_abs_err"] for r in by_shape.values()),
                 ms=per_launch("ms"), plain_ms=per_launch("plain_ms"),
                 bound_ms=per_launch("bound_ms"),
-                bound_by="/".join(sorted({r["bound_by"] for r in by_shape.values()})),
+                bound_by="/".join(sorted({r["bound_by"] for r in towers.values()})),
                 library_ms=per_launch("library_ms"), by_shape=by_shape)
 
 
@@ -938,6 +949,9 @@ def _tiny_vlm(path: str) -> vlm.VLMConfig:
 TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3, "nibble": 1e-3}
 
 
+TINY_VIT_ROUTE = "vit_attention_scalar"   # the tiny configs run fp32
+
+
 def check_tiny_path(dev, path: str):
     """The whole path at tiny fp32 size (T = 68 >= 64, so the flash kernel
     runs) on the card vs the CPU run of the plain versions: equal tokens,
@@ -958,7 +972,8 @@ def check_tiny_path(dev, path: str):
                                         return_first_logits=True, device=dev)
     torch.cuda.synchronize()
     launched = {k for k, n in _build.KERNEL_LAUNCHES.items() if n}
-    kernels = set(PATHS[path][2])
+    # fp32 towers take the ViT kernel's scalar route
+    kernels = {TINY_VIT_ROUTE if k == "vit_attention" else k for k in PATHS[path][2]}
     assert launched == kernels | {_build.PRE_PASSES[k] for k in kernels & set(_build.PRE_PASSES)}, \
         _build.KERNEL_LAUNCHES
     assert torch.equal(out["action_tokens"].cpu(), ref["action_tokens"])
@@ -1007,14 +1022,16 @@ def _run_vlm(path: str, params, cfg, requests, pixels, dev, max_new: int = GEN_N
     return generate.score_continuation_rows(params, cfg, requests, pixels, device=dev)
 
 
-def _expected_vlm_launches(c: vlm.VLMConfig, decode_steps: int = 0, score_T: int = 0) -> dict:
-    """Per call: one vit_attention per tower block run (49 at 7B); generate's
+def _expected_vlm_launches(c: vlm.VLMConfig, decode_steps: int = 0, score_T: int = 0,
+                           vit_route: str = "vit_attention") -> dict:
+    """Per call: one ViT attention per tower block run (49 at 7B: bf16, the
+    tensor-core route; fp32 towers take vit_attention_scalar); generate's
     cached prefill takes the plain attention and each of its decode steps one
     decode_attention per layer; the scorer's uncached forward over T tokens
     one flash_prefill (T <= 1024) or flash_blockwise per layer."""
     L = c.llm.num_hidden_layers
     kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
-    kernels["vit_attention"] = sum(v.num_layers - 1 for v in c.vision)
+    kernels[vit_route] = sum(v.num_layers - 1 for v in c.vision)
     kernels["decode_attention"] = L * decode_steps
     if score_T:
         kernels["flash_blockwise" if score_T > attn.ONESHOT_MAX_TK else "flash_prefill"] = L
@@ -1038,12 +1055,13 @@ def check_tiny_vlm(dev, path: str):
         torch.randint(0, 256, (VLM_BATCH, 40, 40, 3), generator=g, dtype=torch.uint8), img_cfg)
     if path == "generate":
         requests = _vlm_requests(path, cfg.llm.vocab_size, 3, lo=3)
-        expect = _expected_vlm_launches(cfg, decode_steps=7)
+        expect = _expected_vlm_launches(cfg, decode_steps=7, vit_route=TINY_VIT_ROUTE)
     else:
         L = {"score_short": 64, "score_long": 1088}[path]
         requests = [([1] + torch.randint(3, cfg.llm.vocab_size, (n - 1,), generator=g).tolist(),
                      n - 5) for n in range(L - 15, L + 1, 2)]
-        expect = _expected_vlm_launches(cfg, score_T=cfg.num_patches + L)
+        expect = _expected_vlm_launches(cfg, score_T=cfg.num_patches + L,
+                                        vit_route=TINY_VIT_ROUTE)
     ref = _run_vlm(path, params, cfg, requests, pixels, "cpu", max_new=8)
     _build.reset_launch_counts()
     got = _run_vlm(path, _to(params, dev), cfg, requests, pixels.to(dev), dev, max_new=8)

@@ -47,6 +47,10 @@ KERNELS = {
     ),
     "vit_attention": (
         "vit_attention.cu", "ovla_vit_attention",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _P],
+    ),
+    "vit_attention_scalar": (
+        "vit_attention.cu", "ovla_vit_attention_scalar",
         [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _P],
     ),
     "decode_attention": (

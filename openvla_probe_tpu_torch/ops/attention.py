@@ -95,8 +95,9 @@ def flash_attention_blockwise_plain(q, k, v, kv_valid, offset: int = 0, causal: 
     return out.permute(0, 2, 1, 3)
 
 
-def compare_blockwise(got, want, max_share: float = 2e-2) -> dict:
-    """Hold a blockwise flash output `got` to the plain version `want`.
+def compare_blockwise(got, want, max_share: float = 2e-2, kernel: str = "blockwise") -> dict:
+    """Hold a blockwise flash output `got` to the plain version `want` (also
+    the ViT kernel's, ``kernel="vit_attention"``: the same numeric class).
 
     fp32: within 1e-5 (the same fp32 function, sums in another order). bf16:
     every element within one bf16 step of the plain version (the step at the
@@ -122,9 +123,9 @@ def compare_blockwise(got, want, max_share: float = 2e-2) -> dict:
     _, e = torch.frexp(mag)
     step = torch.ldexp(torch.ones_like(w), e - 8)
     stats["max_steps"] = (d / step).max().item()
-    assert bool((d <= step).all()), f"blockwise: an element more than one bf16 step off {stats}"
+    assert bool((d <= step).all()), f"{kernel}: an element more than one bf16 step off {stats}"
     limit = max(16, int(max_share * d.numel()))
-    assert stats["n_apart"] <= limit, f"blockwise: {stats['n_apart']} elements apart > {limit} {stats}"
+    assert stats["n_apart"] <= limit, f"{kernel}: {stats['n_apart']} elements apart > {limit} {stats}"
     return stats
 
 
@@ -267,13 +268,30 @@ def flash_attention_blockwise(q, k, v, kv_valid, offset: int = 0, causal: bool =
     return _launch_flash("flash_blockwise", q, k, v, kv_valid, offset, causal)
 
 
+def vit_mma_eligible(q, k, v) -> bool:
+    """The declared rule of `vit_flash_attention`'s tensor-core route: bf16,
+    a head dim that is a multiple of 8 up to 128, and 16-byte aligned rows
+    (data pointers, batch and token strides). Both towers qualify: head
+    offsets of 128 / 144 bytes inside a qkv row, token strides of 6144 / 6912
+    bytes; so do the tiny towers' Dh = 16."""
+    Dh = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and Dh % 8 == 0 and 8 <= Dh <= MAX_HEAD_DIM
+            and all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                    for t in (q, k, v)))
+
+
 def vit_flash_attention(q, k, v):
     """Full (unmasked) bidirectional attention for the ViT towers.
 
     q/k/v [B, N, H, Dh] (each token's [H, Dh] slab contiguous; batch and token
     strides free, so slices of one fused qkv product are read in place).
-    Any N: the kernel takes keys in chunks of at most 1024 past that. Returns
-    [B, N, H, Dh] in q's dtype."""
+    Any N. Returns [B, N, H, Dh] in q's dtype, the function of
+    `vit_flash_attention_plain`. On the card, two routes by a declared rule
+    (`vit_mma_eligible`), counted apart: a call the rule admits takes the
+    tensor-core flash kernel (``vit_attention``); every other call (fp32
+    inputs, other head dims, unaligned rows) the scalar fp32-FMA kernel
+    (``vit_attention_scalar``), which computes the same function. A launch
+    that fails raises; neither route stands in for the other."""
     _build.no_grad_guard("vit_flash_attention", _TRAIN_ATTN, q, k, v)
     B, N, H, Dh = q.shape
     if q.device.type == "cpu":
@@ -284,13 +302,18 @@ def vit_flash_attention(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_head_slab(name, t, (B, N, H, Dh))
     out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
-    err = _build.launcher("vit_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, N, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), _scale(Dh), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q))
-    _build.check(err, "vit_attention")
-    KERNEL_LAUNCHES["vit_attention"] += 1
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, N, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), _scale(Dh))
+    if vit_mma_eligible(q, k, v):
+        kernel = "vit_attention"
+        err = _build.launcher(kernel)(*args, _build.stream_ptr(q))
+    else:
+        kernel = "vit_attention_scalar"
+        err = _build.launcher(kernel)(*args, int(q.dtype == torch.bfloat16),
+                                      _build.stream_ptr(q))
+    _build.check(err, kernel)
+    KERNEL_LAUNCHES[kernel] += 1
     return out
 
 

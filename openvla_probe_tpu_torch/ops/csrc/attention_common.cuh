@@ -1,4 +1,5 @@
-// One-shot row-softmax attention shared by the prefill and ViT-tower kernels.
+// One-shot row-softmax attention: the scalar route of the prefill and ViT-tower
+// kernels (fp32 inputs, head dims their tensor-core kernels do not take).
 //
 // One CTA owns (batch b, head h, a block of kBlockQ query rows) and keeps the
 // WHOLE fp32 score row of each of its queries in shared memory (Tk <= 1024),
@@ -18,10 +19,10 @@
 // the running row max m (an online softmax, the same function up to fp32
 // rounding); with one chunk the rescale is an exact no-op (the sums start at 0).
 // Products are scalar fp32 FMAs (bf16 inputs are upcast exactly, so a bf16 x
-// bf16 product is exact in fp32, as on the MXU); the ViT kernel's dot is full fp32 by definition, so neither kernel may
-// use TF32 tensor cores. Making these tensor-core kernels (mma.sync / wgmma
-// with TMA-fed K/V rings) is later work; the layout below is what a first,
-// simple kernel needs to be right on every shape the path gives it:
+// bf16 product is exact in fp32, as on the MXU); the ViT kernel's dot is full
+// fp32 by definition, so neither kernel may use TF32 tensor cores (their
+// bf16 tensor-core routes: flash_prefill.cu, vit_attention.cu). The layout
+// below is what a simple kernel needs to be right on every shape it takes:
 //
 //   * inputs are [B, T, H, Dh] with arbitrary batch/token strides and a
 //     contiguous head slab (stride Dh for heads, 1 for Dh), so the ViT's
@@ -76,6 +77,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four 8x8 bf16 matrices, transposed: lane t gets rows 2(t%4), 2(t%4)+1 of column t/4
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+// two bf16 values (RNE) in one register, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 template <typename T>

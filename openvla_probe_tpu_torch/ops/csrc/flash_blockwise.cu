@@ -58,17 +58,6 @@ constexpr int kBwThreads = 128;   // 4 warps x 16 query rows
 constexpr int kBwRows = 64;       // query rows per block
 constexpr int kBwKeys = 64;       // keys per K / V tile
 
-// four 8x8 bf16 matrices, transposed: lane t gets rows 2(t%4), 2(t%4)+1 of column t/4
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(ovla_i8::smem_u32(p)));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 template <int DH>
 struct BwLayout {
   static constexpr int P = DH + 8;                 // bf16 row pitch: 4-word bank skew

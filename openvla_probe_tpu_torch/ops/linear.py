@@ -590,7 +590,8 @@ def w4a8_dx(g: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """dx [M, G·gsz] = g [M, N] (bf16 or fp32) · dequant(grouped int4 W) in g's
     dtype: the function of `w4a8_dx_plain`. Where N and gsz are multiples of
     128 (the JAX chip rule, ``_w4a8_dx_pallas``) the CUDA kernel
-    (``csrc/w4a8_dx.cu``), else the bf16-dequant product `w4a8_dx_xla`."""
+    (``csrc/w4a8_dx.cu``), else the bf16-dequant product `w4a8_dx_xla`. A
+    launch the kernel refuses (unaligned g or q) raises."""
     G, N, half = q.shape
     gsz = 2 * half
     _build.no_grad_guard("w4a8_dx", "it is the backward of w4a8_matmul_ste and has no "
@@ -606,8 +607,9 @@ def w4a8_dx(g: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
                                         "q": (q, (G, N, half), torch.uint8),
                                         "s": (s, (N, G), torch.float32)})
     dx = torch.empty((M, G * gsz), dtype=g.dtype, device=g.device)
+    s_t = s.t().contiguous()   # [G, N]: the kernel copies one group's 64 scales per stage
     err = _build.launcher("w4a8_dx")(
-        g.data_ptr(), q.data_ptr(), s.data_ptr(), dx.data_ptr(), M, N, G, gsz,
+        g.data_ptr(), q.data_ptr(), s_t.data_ptr(), dx.data_ptr(), M, N, G, gsz,
         int(g.dtype == torch.bfloat16), _build.stream_ptr(g))
     _build.check(err, "w4a8_dx")
     _build.KERNEL_LAUNCHES["w4a8_dx"] += 1

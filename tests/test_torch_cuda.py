@@ -26,6 +26,8 @@ fp32-score plain version (attention.compare_bf16_scores). flash_blockwise:
 attention.compare_blockwise (fp32 within 1e-5; bf16 every element within one
 bf16 step of the plain version and at most max(16, 2 %) of the elements
 apart), which the one-shot class (P rounded to bf16) fails on the same inputs.
+vit_attention (bf16 on the tensor-core route, the scalar route otherwise,
+each launch counted under its route's name): attention.compare_blockwise too.
 """
 
 import numpy as np
@@ -75,17 +77,37 @@ def test_flash_prefill_kernel_matches_plain(cuda, dtype, tol, B, tq, tk, H, dh, 
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,N,H,dh", [(2, 261, 3, 64), (2, 256, 2, 72), (1, 13, 2, 16)])
-def test_vit_kernel_matches_plain(cuda, dtype, tol, B, N, H, dh):
+def _vit_route(dtype):
+    return "vit_attention" if dtype == torch.bfloat16 else "vit_attention_scalar"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,dh", [
+    (2, 261, 3, 64), (2, 256, 2, 72), (1, 13, 2, 16),
+    (3, 1, 2, 64), (2, 65, 2, 64), (2, 257, 2, 72),   # ragged: one key, a key past a tile
+    (1, 100, 2, 8), (1, 70, 1, 128),
+])
+def test_vit_kernel_matches_plain(cuda, dtype, B, N, H, dh):
+    """bf16 takes the tensor-core route and is held by attention.compare_blockwise
+    (every element within one bf16 step, at most max(16, 2 %) apart); fp32 takes
+    the scalar route, within 1e-5."""
     qkv = _rand(3, (B * N, 3 * H * dh), dtype, cuda)
     q, k, v = (t.reshape(B, N, H, dh) for t in qkv.split(H * dh, dim=-1))  # strided views
-    before = tattn.KERNEL_LAUNCHES["vit_attention"]
-    got = tattn.vit_flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    assert tattn.KERNEL_LAUNCHES["vit_attention"] == before + 1
-    want = tattn.vit_flash_attention_plain(q, k, v)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    got = _count(_vit_route(dtype), lambda: tattn.vit_flash_attention(q, k, v))
+    tattn.compare_blockwise(got, tattn.vit_flash_attention_plain(q, k, v), kernel="vit_attention")
+
+
+def test_vit_routes_by_the_declared_rule(cuda):
+    """bf16 calls outside the tensor-core rule (Dh not a multiple of 8, rows
+    not 16-byte aligned) take the scalar kernel, counted apart."""
+    q = _rand(50, (2, 40, 2, 12), torch.bfloat16, cuda)
+    got = _count("vit_attention_scalar", lambda: tattn.vit_flash_attention(q, q, q))
+    tattn.compare_blockwise(got, tattn.vit_flash_attention_plain(q, q, q), kernel="vit_attention")
+    qkv = _rand(51, (2 * 40 * 2 * 64 + 4,), torch.bfloat16, cuda)
+    q = qkv[4:].view(2, 40, 2, 64)              # 8-byte offset: not 16-byte aligned
+    assert not tattn.vit_mma_eligible(q, q, q)
+    got = _count("vit_attention_scalar", lambda: tattn.vit_flash_attention(q, q, q))
+    tattn.compare_blockwise(got, tattn.vit_flash_attention_plain(q, q, q), kernel="vit_attention")
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
@@ -430,6 +452,10 @@ def test_turbo_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     (300, 11008, 4, 128),      # gate/up's N, a ragged M, a slice of the groups
     (77, 256, 3, 256),         # gsz 256: two column tiles per group
     (1, 128, 1, 128),
+    (100, 4096, 86, 128),      # down_proj's 86 groups, a ragged M
+    (2500, 256, 2, 128),       # M past 128-row tiles, ragged
+    (1, 4096, 5, 128),
+    (130, 128, 3, 128),        # N = 128: two chunks, shallower than the ring
 ])
 def test_w4a8_dx_kernel_matches_plain(cuda, dtype, M, N, G, gsz):
     g = _rand(40, (M, N), dtype, cuda)
@@ -478,17 +504,17 @@ def test_ste_grads_on_the_card_match_the_cpu(cuda, route, M):
     torch.testing.assert_close(got, want, atol=1e-5 * want.abs().max().item(), rtol=0)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N", [1370, 2100])
-def test_vit_kernel_past_1024_tokens(cuda, dtype, tol, N):
-    """DINOv2-L at 518 px (37 x 37 patches + CLS = 1370 tokens): two key
-    chunks with the online rescale; 2100: three."""
+def test_vit_kernel_past_1024_tokens(cuda, dtype, N):
+    """DINOv2-L at 518 px (37 x 37 patches + CLS = 1370 tokens) and 2100: the
+    flash kernel streams any N; the scalar kernel takes key chunks of at most
+    1024 with the online rescale."""
     B, H, dh = 2, 2, 64
     qkv = _rand(47, (B * N, 3 * H * dh), dtype, cuda)
     q, k, v = (t.reshape(B, N, H, dh) for t in qkv.split(H * dh, dim=-1))
-    got = _count("vit_attention", lambda: tattn.vit_flash_attention(q, k, v))
-    torch.testing.assert_close(got.float(), tattn.vit_flash_attention_plain(q, k, v).float(),
-                               atol=tol, rtol=tol)
+    got = _count(_vit_route(dtype), lambda: tattn.vit_flash_attention(q, k, v))
+    tattn.compare_blockwise(got, tattn.vit_flash_attention_plain(q, k, v), kernel="vit_attention")
 
 
 def test_wrappers_refuse_grad_on_the_card(cuda):
