@@ -36,11 +36,15 @@ Phases, one output line each:
               all started together (set-up time)
   3. kernels  each kernel against its plain PyTorch version at the 7B main-path
               shapes (B=24; B=8 for score_long), with kernel / plain / library
-              times: flash_prefill, flash_blockwise (with its negative control),
+              times: flash_prefill, flash_blockwise (with its negative control,
+              a fully masked row at the score_long shape, the share of key
+              tiles its causal skip computes, and its host time a call),
               vit_attention, decode_attention (parity; turbo's bf16 scores),
               wi8_matmul, fused_ln_w8a8, fused_mlp_residual,
               decode_split_attention (pallas), stacked_decode_attention_i8
-              (pallas_kv8), w4a8_matmul (pallas_int4), w8a8_matmul,
+              (pallas_kv8), w4a8_matmul (pallas_int4; also at M = 64 / 65,
+              its two routes' edge, and its host time a call at decode),
+              w8a8_matmul,
               rms_norm_quant (turbo), nib_hi_dot (turbo_nibble), w4a8_dx
               (train_int4); vit_attention also at DINOv2's 518 px, N = 1370,
               and at ragged N, bf16 (tensor cores) and fp32 (scalar route)
@@ -189,6 +193,47 @@ def check_flash_prefill(dev, g):
                 library_ms=lib)
 
 
+def host_us(fn, reps: int = 200) -> float:
+    """Median host time of one call of `fn` (the wrapper's Python, checks and
+    launch enqueue; the card works behind it), in microseconds."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def blockwise_predicted_tile_share(valid, Tq: int, offset: int = 0, causal: bool = True) -> float:
+    """The share of (64 query rows, 64-key tile) pairs that the blockwise
+    kernel's skip rule (ops/csrc/flash_blockwise.cu, `visits`) leaves to
+    compute, predicted on the host from the mask; the kernel does not count
+    the tiles it visits. Under the causal mask, where the batch row's first
+    valid key is at or below the diagonal of the rows' first row, a tile above
+    the last row's diagonal, past the last valid key, or with no valid key
+    after the first is skipped."""
+    B, Tk = valid.shape
+    n_tiles = -(-Tk // 64)
+    seen = total = 0
+    for b in range(B):
+        keys = torch.nonzero(valid[b] > 0).flatten().tolist()
+        first, last = (keys[0], keys[-1]) if keys else (None, -1)
+        tile_any = [bool((valid[b, 64 * j:64 * j + 64] > 0).any()) for j in range(n_tiles)]
+        for qw in range(0, Tq, 64):
+            total += n_tiles
+            if not causal or first is None or first > qw + offset:
+                seen += n_tiles
+                continue
+            q_last = min(qw + 64, Tq) - 1
+            seen += sum(1 for j in range(n_tiles) if 64 * j <= min(q_last + offset, last)
+                        and (64 * j <= first or tile_any[j]))
+    return seen / total
+
+
 def _causal_pairs(lens, T: int) -> int:
     """(query, key) pairs of a causal self-attention over T positions whose
     keys are valid below each row's length: the products the function needs."""
@@ -202,22 +247,33 @@ def check_flash_blockwise(dev, g):
     Llama position limit, [8, 2048, 32, 128]: attn.compare_blockwise against
     the plain version (every element within one bf16 step, at most 2 % of them
     apart), which the one-shot class (flash_attention_plain: P rounded to
-    bf16) must fail on the same inputs. Bound: q/k/v/out bytes against the
-    causal, unpadded products these rows need (the kernel visits every key
-    tile, twice the products). Library: SDPA with a boolean mask on the same
-    bf16 inputs, a time yardstick only (it rounds P to bf16)."""
+    bf16) must fail on the same inputs. At the score_long shape also with the
+    last row's first 70 keys invalid: its query rows 0..69 see no valid key
+    and must give the mean of V over the Tk keys (their blocks visit every key
+    tile). Bound: q/k/v/out bytes against the causal, unpadded products these
+    rows need; beside it the share of key tiles the kernel's causal tile skip
+    leaves it to compute, and the host time of one wrapper call. Library: SDPA
+    with a boolean mask on the same bf16 inputs, a time yardstick only (it
+    rounds P to bf16)."""
     B, H, Dh = VLM_BATCH, 32, 128
     by_shape = {}
-    for name, (T, per_call) in {"score_long": (1088, LAYERS), "llama_limit": (2048, 0)}.items():
+    for name, (T, per_call) in {"score_long": (1088, LAYERS), "llama_limit": (2048, 0),
+                                "score_long_masked_rows": (1088, 0)}.items():
         q, k, v = (torch.randn((B, T, H, Dh), generator=g, device=dev).bfloat16() for _ in range(3))
         lens = torch.randint(T - 88, T + 1, (B,), generator=g, device=dev)
         valid = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+        if name == "score_long_masked_rows":
+            valid[-1, :70] = 0
         before = attn.KERNEL_LAUNCHES["flash_blockwise"]
         got = attn.flash_attention(q, k, v, valid)
         torch.cuda.synchronize()
         assert attn.KERNEL_LAUNCHES["flash_blockwise"] == before + 1
         want = attn.flash_attention_blockwise_plain(q, k, v, valid)
         stats = attn.compare_blockwise(got, want)
+        if name == "score_long_masked_rows":   # the mean of V over the Tk keys
+            mean_v = v[-1].float().mean(0).bfloat16()
+            stats["masked_rows"] = attn.compare_blockwise(got[-1, :70],
+                                                          mean_v[None].expand(70, H, Dh))
         control = attn.flash_attention_plain(q, k, v, valid)
         control_apart = int((control != want).sum())
         try:
@@ -239,7 +295,9 @@ def check_flash_blockwise(dev, g):
             library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                       attn_mask=sdpa_mask)),
             bound_ms=b, bound_by=by,
-            all_tiles_bound_ms=bound_ms(0, 4 * B * H * T * T * Dh, "bf16")[0])
+            all_tiles_bound_ms=bound_ms(0, 4 * B * H * T * T * Dh, "bf16")[0],
+            predicted_tile_share=blockwise_predicted_tile_share(valid, T),
+            host_us=host_us(lambda: attn.flash_attention(q, k, v, valid)))
         del q, k, v, got, want, qt, kt, vt, sdpa_mask
     main = by_shape["score_long"]
     return dict(name="flash_blockwise", route="cuda",
@@ -603,7 +661,9 @@ def check_w4a8_matmul(dev, g):
     activation codes, exact integer sums, the same fold order and roundings).
     Library: cuBLAS bf16 x @ w_bf16ᵀ on weights dequantized beforehand (it
     leaves out the activation quantization and the group fold, and streams
-    4x the weight bytes)."""
+    4x the weight bytes). Also at M = 64 and 65 (the last M of the decode
+    route and the first of the wgmma route; launches_per_call 0), and the host
+    time of one wrapper call at the decode shape."""
     M_pre, M_dec, A1 = BATCH * T_PREFILL, BATCH, ACTION_DIM - 1
     M_dino, M_sig = BATCH * 261, BATCH * 256
     per_call = {(M_dino, 1024, 3072): 23, (M_dino, 1024, 1024): 23, (M_dino, 1024, 4096): 23,
@@ -612,8 +672,9 @@ def check_w4a8_matmul(dev, g):
                 (M_pre, 11008, 4096): LAYERS, (M_dec, 4096, 4096): 4 * LAYERS * A1,
                 (M_dec, 4096, 11008): 2 * LAYERS * A1, (M_dec, 11008, 4096): LAYERS * A1}
     per_step = _train_gemm_launches("int4", "w4a8_matmul")
+    route_edge = {(64, 4096, 4096): 0, (65, 4096, 4096): 0}
     by_shape = {}
-    for (M, K, N) in {**per_call, **per_step}:
+    for (M, K, N) in {**per_call, **per_step, **route_edge}:
         G = K // lin.GROUP_SIZE
         x = torch.randn((M, K), generator=g, device=dev).bfloat16()
         sets = []
@@ -629,11 +690,13 @@ def check_w4a8_matmul(dev, g):
         w_bf16 = [(x, lin.dequantize_weight({"q": q, "s": s})) for x, q, s in sets]
         b, by = bound_ms(_nbytes(x, sets[0][1], sets[0][2], got), 2 * M * N * K, "int8")
         by_shape[f"{M}x{K}x{N}"] = dict(
-            **_launches_of((M, K, N), per_call, per_step), max_abs_err=0.0,
+            **_launches_of((M, K, N), {**per_call, **route_edge}, per_step), max_abs_err=0.0,
             ms=cuda_ms(rotating(lin.w4a8_matmul, sets)),
             plain_ms=cuda_ms(rotating(lin.w4a8_matmul_plain, sets), reps=3, warmup=1),
             library_ms=cuda_ms(rotating(lambda a, w: a @ w.t(), w_bf16)),
             bound_ms=b, bound_by=by)
+        if (M, K, N) == (M_dec, 4096, 4096):
+            by_shape[f"{M}x{K}x{N}"]["host_us"] = host_us(lambda: lin.w4a8_matmul(*sets[0]))
         del sets, w_bf16, got, want
     mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
     train = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_step.items()})

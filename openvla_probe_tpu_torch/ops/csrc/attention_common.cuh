@@ -64,7 +64,7 @@ struct AttnArgs {
 };
 
 // The bf16 tensor-core pieces of the prefill kernels (flash_prefill.cu,
-// flash_blockwise.cu): a 32-bit shared-memory load of two bf16 values and
+// vit_attention.cu): a 32-bit shared-memory load of two bf16 values and
 // mma.sync m16n8k16 bf16 x bf16 -> fp32 (exact products, fp32 sums).
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);

@@ -25,144 +25,213 @@
 //     equal).
 //
 // Bound on the H100 at the scoring shape of the path (q/k/v [8, 1088, 32, 128]
-// bf16, Cb = 8 rows of 1 + 256 + 831 tokens): 285 MB of q/k/v/out (85 us at
-// 3.35 TB/s) against 155 GFLOP (every key block visited, as the TPU kernel
-// does: 157 us at 989 TFLOP/s), so it is bound by operations.
+// bf16, Cb = 8 rows of 1 + 256 + 831 tokens, right-padded to 1000-1088): 285 MB
+// of q/k/v/out (85 us at 3.35 TB/s) against 80 GFLOP of the causal, unpadded
+// products (81 us at 989 TFLOP/s; 155 GFLOP if every key tile is visited, as
+// the TPU kernel does).
 //
-// Design (a first version: right, simple, no Tk limit):
-//   * bf16 with Dh = 64 or 128 and 16-byte aligned rows (the path): a block of
-//     4 warps owns 64 query rows of one (b, h), 16 rows a warp; Q fragments
-//     stay in registers; K/V tiles of 64 keys stream through shared memory in
-//     a two-stage cp.async ring (pitch Dh + 8: conflict-free fragment loads);
-//     S = Q Kᵀ on mma.sync m16n8k16 bf16 -> fp32; m, l and the output stay in
-//     registers. PV must not round p to bf16: each p is split into
-//     hi = bf16(p) and lo = bf16(p - hi) and both go through mma.sync against
-//     the same V fragment (ldmatrix.trans), so p is carried to about 2^-16 of
-//     its value (two tensor-core products instead of a scalar fp32 FMA loop,
-//     which would run at 67 instead of 989 TFLOP/s; TF32 would cut p and V to
-//     10 bits and is never used);
+// Tile skip (causal only). A key tile is skipped for 64 query rows when it lies
+// wholly above their causal diagonal, or past the last valid key of the batch
+// row, or holds no valid key at all, once every one of those rows has seen a
+// valid key: such a row gets p = expf(NEG_INF - m) = 0 and corr = 1 from the
+// tile, so skipping it leaves its bits as they are. A row that has seen no
+// valid key counts the tile's masked keys at p = 1 (the mean of V over Tk), so
+// when the first valid key lies past the first row's diagonal the rows visit
+// every tile. The rule depends only on the mask, so it is decided before the
+// first tile (tests/test_torch_kernel_arith_skip_fold.py emulates it). The
+// query blocks with the most tiles start first.
+//
+// Design:
+//   * bf16 with Dh = 64 or 128 and 16-byte aligned rows (the path): wgmma fed
+//     by TMA, warp-specialized (FA3's shape). A block owns 128 query rows of
+//     one (b, h); 288 threads. One producer thread loads Q once and keeps a
+//     4-stage ring of K and V tiles (64 keys, 128-byte swizzle, TMA boxes of a
+//     4-D map over [B, T, H, Dh] with the caller's strides, rows past T
+//     zero-filled) on full / empty mbarriers, loading only the tiles one of
+//     the block's two 64-row halves visits. Two consumer warpgroups of 64 rows:
+//     S = Q Kᵀ by wgmma m64n64k16 (Q and K from shared memory, K-major), then
+//     the scale, the mask (the batch row's validity bits, staged once as a
+//     bitmask), the online softmax in registers, and O += P V by wgmma
+//     m64n{Dh}k16 with P as the register A operand and V read MN-major (the
+//     transpose bit). PV must not round p to bf16: each p is split into
+//     hi = bf16(p) and lo = bf16(p - hi), both multiplied by V, so p is carried
+//     to about 2^-16 of its value; TF32 would cut p and V to 10 bits and is
+//     never used;
 //   * every other case (fp32 inputs, other head dims, unaligned rows): a
 //     scalar fp32-FMA kernel with the same function, q scaled before the dot
 //     as in the TPU program, on the staging of attention_common.cuh.
-// Skipping key blocks above the causal diagonal, wgmma and TMA are later work.
+#include <climits>
+
 #include "attention_common.cuh"
-#include "int8_mma.cuh"   // the cp.async ring pieces
+#include "hopper.cuh"
 
 namespace ovla {
 
-using ovla_i8::cp_async16;
-using ovla_i8::cp_async_commit;
-using ovla_i8::cp_async_wait;
+namespace hp = ovla_hp;
 
-constexpr int kBwThreads = 128;   // 4 warps x 16 query rows
-constexpr int kBwRows = 64;       // query rows per block
-constexpr int kBwKeys = 64;       // keys per K / V tile
+constexpr int kFwRows = 128;       // query rows per block: two consumer warpgroups of 64
+constexpr int kFwKeys = 64;        // keys per K / V tile
+constexpr int kFwStages = 4;
+constexpr int kFwConsumers = 256;
+constexpr int kFwThreads = kFwConsumers + 32;
 
 template <int DH>
-struct BwLayout {
-  static constexpr int P = DH + 8;                 // bf16 row pitch: 4-word bank skew
-  static constexpr int TILE = kBwKeys * P;         // one K or V tile
-  static constexpr size_t kSmem = sizeof(__nv_bfloat16) * (size_t(kBwRows) * P + 4 * TILE);
+struct FwLayout {
+  static constexpr int NB = DH / 64;                      // 128-byte column blocks of a row
+  static constexpr int Q_BLK = kFwRows * 128;             // one column block of Q, 16 KB
+  static constexpr int KV_BLK = kFwKeys * 128;            // one column block of K or V, 8 KB
+  static constexpr int Q_BYTES = NB * Q_BLK;
+  static constexpr int STAGE = 2 * NB * KV_BLK;           // K, then V
+  // Q, the ring, the barriers (Q, full and empty per stage), the validity bits
+  static size_t smem(int Tk) {
+    return 1024 + size_t(Q_BYTES) + size_t(kFwStages) * STAGE + (1 + 2 * kFwStages) * 8 +
+           4 * size_t((Tk + 31) / 32 + 1);
+  }
 };
 
-// Stage rows [k0, k0 + 64) of K and V (this (b, h)) into one ring stage; rows
-// past Tk are zero-filled.
-template <int DH>
-__device__ __forceinline__ void load_kv_tile(__nv_bfloat16* ks, __nv_bfloat16* vs,
-                                             const __nv_bfloat16* K, const __nv_bfloat16* V,
-                                             const AttnArgs& a, int k0) {
-  constexpr int CH = DH / 8;
-  for (int i = threadIdx.x; i < kBwKeys * CH; i += kBwThreads) {
-    const int r = i / CH, c = i % CH, t = k0 + r;
-    const bool ok = t < a.Tk;
-    cp_async16(ks + r * BwLayout<DH>::P + c * 8, ok ? K + t * a.k_st + c * 8 : K, ok ? 16 : 0);
-    cp_async16(vs + r * BwLayout<DH>::P + c * 8, ok ? V + t * a.v_st + c * 8 : V, ok ? 16 : 0);
-  }
+// Whether the 64 query rows from qw must visit key tile j (the tile skip above). first and
+// last: the batch row's first and last valid key (INT_MAX and -1 when there is none).
+__device__ __forceinline__ bool visits(const AttnArgs& a, const uint32_t* okw, int first,
+                                       int last, int qw, int j) {
+  if (qw >= a.Tq) return false;   // rows past Tq are not written
+  if (!a.causal || first > qw + a.offset) return true;   // a row sees no valid key: every tile
+  const int k0 = j * kFwKeys;
+  const int q_last = min(qw + 64, a.Tq) - 1;
+  if (k0 > min(q_last + a.offset, last)) return false;   // above the diagonal or past the keys
+  const uint32_t w1 = 2 * j + 1 < (a.Tk + 31) / 32 ? okw[2 * j + 1] : 0u;
+  return k0 <= first || (okw[2 * j] | w1) != 0u;           // a tile of invalid keys after the first
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kBwThreads) flash_blockwise_mma_kernel(AttnArgs a) {
-  using L = BwLayout<DH>;
-  constexpr int KT = DH / 16;   // k16 steps of Q Kᵀ
-  constexpr int NO = DH / 8;    // n8 output tiles
-  extern __shared__ uint4 smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [64][P]
-  __nv_bfloat16* ring = q_s + kBwRows * L::P;                        // [2][K | V][64][P]
+__global__ void __launch_bounds__(kFwThreads, 1)
+    flash_blockwise_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v, AttnArgs a) {
+  using L = FwLayout<DH>;
+  constexpr int NO = DH / 2;   // output accumulator registers per thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* q_s = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = q_s + L::Q_BYTES;                                    // [stage][K | V]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kFwStages * L::STAGE);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kFwStages;
+  uint32_t* okw = reinterpret_cast<uint32_t*>(empty + kFwStages);   // validity bits of the keys
+  __shared__ int first_s, last_s;
 
-  const int q0 = blockIdx.x * kBwRows, h = blockIdx.y, b = blockIdx.z;
+  // the query blocks with the most key tiles first (the last along Tq)
+  const int h = blockIdx.x, b = blockIdx.y, q0 = (gridDim.z - 1 - blockIdx.z) * kFwRows;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-  const __nv_bfloat16* Q = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * DH;
-  const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + h * DH;
-  const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + h * DH;
-  const int32_t* valid = a.kv_valid ? a.kv_valid + (long long)b * a.Tk : nullptr;
-  const int n_tiles = (a.Tk + kBwKeys - 1) / kBwKeys;
+  const int n_words = (a.Tk + 31) / 32, n_tiles = (a.Tk + kFwKeys - 1) / kFwKeys;
 
-  {
-    constexpr int CH = DH / 8;
-    for (int i = tid; i < kBwRows * CH; i += kBwThreads) {
-      const int r = i / CH, c = i % CH, t = q0 + r;
-      const bool ok = t < a.Tq;
-      cp_async16(q_s + r * L::P + c * 8, ok ? Q + t * a.q_st + c * 8 : Q, ok ? 16 : 0);
+  if (tid == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int i = 0; i < kFwStages; ++i) {
+      hp::mbar_init(full + i, 1);    // the producer's arrival, then the tile's bytes
+      hp::mbar_init(empty + i, 2);   // one thread of each consumer warpgroup
     }
+    hp::mbar_init_fence();
+    first_s = INT_MAX, last_s = -1;
   }
-  load_kv_tile<DH>(ring, ring + L::TILE, K, V, a, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[KT][4];   // this warp's 16 query rows as A fragments, for every tile
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const __nv_bfloat16* qa = q_s + (r0 + g) * L::P + kk * 16 + 2 * t4;
-    qf[kk][0] = lds32(qa), qf[kk][1] = lds32(qa + 8 * L::P);
-    qf[kk][2] = lds32(qa + 8), qf[kk][3] = lds32(qa + 8 * L::P + 8);
-  }
-
-  float o[NO][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // rows g and g + 8 of the warp
-  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBwKeys;
-    if (j + 1 < n_tiles) {
-      __nv_bfloat16* nxt = ring + ((j + 1) & 1) * 2 * L::TILE;
-      load_kv_tile<DH>(nxt, nxt + L::TILE, K, V, a, k0 + kBwKeys);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* ks = ring + (j & 1) * 2 * L::TILE;
-    const __nv_bfloat16* vs = ks + L::TILE;
-
-    // S = Q Kᵀ for this warp's 16 rows x 64 keys (8 n8 tiles)
-    float s[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kb = ks + (nt * 8 + g) * L::P + kk * 16 + 2 * t4;
-        mma_bf16(s[nt], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], lds32(kb), lds32(kb + 8));
+  // the batch row's validity bits (a ballot per 32 keys) and its first and last valid key
+  const int32_t* valid = a.kv_valid ? a.kv_valid + (long long)b * a.Tk : nullptr;
+  for (int w = warp; w < n_words; w += kFwThreads / 32) {
+    const int t = w * 32 + lane;
+    const uint32_t bits = __ballot_sync(0xffffffffu, t < a.Tk && (!valid || valid[t] > 0));
+    if (lane == 0) {
+      okw[w] = bits;
+      if (bits) {
+        atomicMin(&first_s, w * 32 + __ffs(bits) - 1);
+        atomicMax(&last_s, w * 32 + 31 - __clz(bits));
       }
     }
+  }
+  __syncthreads();
+  const int first = first_s, last = last_s;
+
+  if (tid >= kFwConsumers) {
+    // ---- producer: Q once, then the ring of K and V tiles the block visits ----
+    if (tid == kFwConsumers) {
+      hp::mbar_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+      for (int nb = 0; nb < L::NB; ++nb)
+        hp::tma_load_4d(q_s + nb * L::Q_BLK, &tm_q, nb * 64, h, q0, b, q_full);
+      int i = 0;
+      for (int j = 0; j < n_tiles; ++j) {
+        if (!visits(a, okw, first, last, q0, j) && !visits(a, okw, first, last, q0 + 64, j))
+          continue;
+        const int slot = i % kFwStages;
+        hp::mbar_wait(empty + slot, ((i / kFwStages) & 1) ^ 1);   // the first round passes
+        uint8_t* st = ring + slot * L::STAGE;
+        hp::mbar_expect_tx(full + slot, L::STAGE);
+#pragma unroll
+        for (int nb = 0; nb < L::NB; ++nb) {
+          hp::tma_load_4d(st + nb * L::KV_BLK, &tm_k, nb * 64, h, j * kFwKeys, b, full + slot);
+          hp::tma_load_4d(st + (L::NB + nb) * L::KV_BLK, &tm_v, nb * 64, h, j * kFwKeys, b,
+                          full + slot);
+        }
+        ++i;
+      }
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups: query rows qw .. qw + 63 ----
+  const int wg = tid / 128, wt = tid % 128, g = lane >> 2, t4 = lane & 3;
+  const int qw = q0 + wg * 64, other = q0 + (1 - wg) * 64;
+  const int row[2] = {qw + (wt / 32) * 16 + g, qw + (wt / 32) * 16 + g + 8};
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  hp::mbar_wait(q_full, 0);
+
+  int i = 0;
+  for (int j = 0; j < n_tiles; ++j) {
+    const bool mine = visits(a, okw, first, last, qw, j);
+    if (!mine && !visits(a, okw, first, last, other, j)) continue;
+    const int slot = i % kFwStages;
+    hp::mbar_wait(full + slot, (i / kFwStages) & 1);
+    ++i;
+    if (!mine) {   // the other half's tile
+      if (wt == 0) hp::mbar_arrive(empty + slot);
+      continue;
+    }
+    const uint8_t* ks = ring + slot * L::STAGE;
+    const uint8_t* vs = ks + L::NB * L::KV_BLK;
+
+    // S = Q Kᵀ: this warpgroup's 64 rows x 64 keys
+    float s[32];
+    hp::fence_operands(s);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int nb = 0; nb < L::NB; ++nb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hp::wgmma_bf16_ss_m64n64k16(s, hp::desc_sw128(q_s + nb * L::Q_BLK + wg * 64 * 128 + kk * 32),
+                                    hp::desc_sw128(ks + nb * L::KV_BLK + kk * 32), nb + kk > 0);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_operands(s);
+
     // scale, mask, and the running max of each of the thread's two rows
+    const int k0 = j * kFwKeys;
+    const uint32_t bits[2] = {okw[2 * j], 2 * j + 1 < n_words ? okw[2 * j + 1] : 0u};
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = k0 + nt * 8 + 2 * t4 + (e & 1), hr = e >> 1;
-        float x = s[nt][e] * a.scale;
+        const int kc = nt * 8 + 2 * t4 + (e & 1), c = k0 + kc, hr = e >> 1;
+        float x = s[4 * nt + e] * a.scale;
         if (c >= a.Tk) {
           x = -INFINITY;                       // past the keys: p = 0 exactly
         } else {
-          bool ok = valid ? valid[c] > 0 : true;
+          bool ok = (bits[kc >> 5] >> (kc & 31)) & 1u;
           if (a.causal) ok = ok && (c <= row[hr] + a.offset);
           if (!ok) x = kNegInf;
         }
-        s[nt][e] = x;
+        s[4 * nt + e] = x;
         mx[hr] = fmaxf(mx[hr], x);
       }
     }
@@ -179,50 +248,44 @@ __global__ void __launch_bounds__(kBwThreads) flash_blockwise_mma_kernel(AttnArg
       l[hr] *= corr[hr];
     }
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        l[e >> 1] += p;
-      }
+    for (int e = 0; e < 32; ++e) {
+      const float p = expf(s[e] - m[(e >> 1) & 1]);
+      s[e] = p;
+      l[(e >> 1) & 1] += p;
     }
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      o[nt][0] *= corr[0], o[nt][1] *= corr[0];
-      o[nt][2] *= corr[1], o[nt][3] *= corr[1];
-    }
-    // O += P V with p = hi + lo, both bf16 halves through the tensor cores.
-    // The accumulator layout of S tiles 2kk and 2kk + 1 is the A-fragment
-    // layout of keys 16kk..16kk+15.
+    for (int e = 0; e < NO; ++e) o[e] *= corr[(e >> 1) & 1];
+
+    // O += P V with p = hi + lo: the accumulator layout of S's n8 blocks 2kk and
+    // 2kk + 1 is the register-A layout of keys 16kk .. 16kk + 15
+    uint32_t hi[4][4], lo[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float* pa = s[2 * kk];
-      const float* pb = s[2 * kk + 1];
-      uint32_t hi[4] = {pack_bf16(pa[0], pa[1]), pack_bf16(pa[2], pa[3]),
-                        pack_bf16(pb[0], pb[1]), pack_bf16(pb[2], pb[3])};
-      uint32_t lo[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float* src = i < 2 ? pa : pb;
-        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&hi[i]);
-        const int e = (i & 1) * 2;
-        lo[i] = pack_bf16(src[e] - __low2float(hv), src[e + 1] - __high2float(hv));
-      }
-      // lanes 8i..8i+7 address matrix i: keys +(i & 1) * 8, columns +(i >> 1) * 8
-      const int mi = lane >> 3, rr = lane & 7;
-      const __nv_bfloat16* vrow = vs + (kk * 16 + (mi & 1) * 8 + rr) * L::P + (mi >> 1) * 8;
-#pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vrow + np * 16);
-        mma_bf16(o[2 * np], hi[0], hi[1], hi[2], hi[3], bv[0], bv[1]);
-        mma_bf16(o[2 * np], lo[0], lo[1], lo[2], lo[3], bv[0], bv[1]);
-        mma_bf16(o[2 * np + 1], hi[0], hi[1], hi[2], hi[3], bv[2], bv[3]);
-        mma_bf16(o[2 * np + 1], lo[0], lo[1], lo[2], lo[3], bv[2], bv[3]);
+      for (int r = 0; r < 4; ++r) {
+        const float* src = s + 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+        hi[kk][r] = pack_bf16(src[0], src[1]);
+        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&hi[kk][r]);
+        lo[kk][r] = pack_bf16(src[0] - __low2float(hv), src[1] - __high2float(hv));
       }
     }
-    __syncthreads();   // this stage is refilled by the next iteration's copy
+    hp::fence_operands(o);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t vd = hp::desc_sw128_mn(vs + kk * 16 * 128, L::KV_BLK);
+      if constexpr (DH == 128) {
+        hp::wgmma_bf16_rs_m64n128k16(o, hi[kk], vd, 1);
+        hp::wgmma_bf16_rs_m64n128k16(o, lo[kk], vd, 1);
+      } else {
+        hp::wgmma_bf16_rs_m64n64k16(o, hi[kk], vd, 1);
+        hp::wgmma_bf16_rs_m64n64k16(o, lo[kk], vd, 1);
+      }
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_operands(o);
+    if (wt == 0) hp::mbar_arrive(empty + slot);
   }
 
   __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o);
@@ -235,21 +298,40 @@ __global__ void __launch_bounds__(kBwThreads) flash_blockwise_mma_kernel(AttnArg
     const float den = fmaxf(lt, 1e-30f);
     __nv_bfloat16* orow = O + ((long long)b * a.Tq + row[hr]) * a.H * DH + h * DH;
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
+    for (int nt = 0; nt < DH / 8; ++nt) {
       *reinterpret_cast<__nv_bfloat162*>(orow + nt * 8 + 2 * t4) =
-          __floats2bfloat162_rn(o[nt][hr * 2] / den, o[nt][hr * 2 + 1] / den);
+          __floats2bfloat162_rn(o[4 * nt + 2 * hr] / den, o[4 * nt + 2 * hr + 1] / den);
     }
   }
 }
 
+// a 4-D map over [B, T, H, Dh] bf16 (element strides sb, st; the [H, Dh] slab contiguous) in
+// boxes of [rows tokens][64 columns], 128-byte swizzle
+inline bool encode_heads(CUtensorMap* map, const void* base, int B, int T, int H, int Dh,
+                         long long sb, long long st, int rows) {
+  const uint64_t dims[4] = {uint64_t(Dh), uint64_t(H), uint64_t(T), uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(Dh) * 2, uint64_t(st) * 2, uint64_t(sb) * 2};
+  const uint32_t box[4] = {64, 1, uint32_t(rows), 1};
+  return hp::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 template <int DH>
-int launch_blockwise_mma(const AttnArgs& a, cudaStream_t stream) {
-  auto kernel = flash_blockwise_mma_kernel<DH>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(BwLayout<DH>::kSmem));
+int launch_blockwise_wgmma(const AttnArgs& a, cudaStream_t stream) {
+  const size_t smem = FwLayout<DH>::smem(a.Tk);
+  const int q_blocks = (a.Tq + kFwRows - 1) / kFwRows;
+  if (smem > 232448 || q_blocks > 65535 || a.B > 65535) return int(cudaErrorInvalidValue);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_heads(&tm_q, a.q, a.B, a.Tq, a.H, DH, a.q_sb, a.q_st, kFwRows) ||
+      !encode_heads(&tm_k, a.k, a.B, a.Tk, a.H, DH, a.k_sb, a.k_st, kFwKeys) ||
+      !encode_heads(&tm_v, a.v, a.B, a.Tk, a.H, DH, a.v_sb, a.v_st, kFwKeys))
+    return int(cudaErrorInvalidValue);
+  auto kernel = flash_blockwise_wgmma_kernel<DH>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((a.Tq + kBwRows - 1) / kBwRows, a.H, a.B);
-  kernel<<<grid, kBwThreads, BwLayout<DH>::kSmem, stream>>>(a);
+  const dim3 grid(a.H, a.B, q_blocks);
+  kernel<<<grid, kFwThreads, smem, stream>>>(tm_q, tm_k, tm_v, a);
   return int(cudaGetLastError());
 }
 
@@ -395,7 +477,8 @@ int launch_blockwise_rows(const AttnArgs& a, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-// The tensor-core kernel takes 16-byte aligned bf16 rows (cp.async staging).
+// The tensor-core kernel takes bf16 at Dh = 64 or 128 with 16-byte aligned rows (the TMA
+// maps' strides).
 inline bool blockwise_mma_eligible(const AttnArgs& a) {
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   const bool strides = (a.q_sb | a.q_st | a.k_sb | a.k_st | a.v_sb | a.v_st) % 8 == 0;
@@ -415,8 +498,8 @@ extern "C" int ovla_flash_blockwise(const void* q, const void* k, const void* v,
                    k_sb, k_st, v_sb, v_st, scale, offset, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && ovla::blockwise_mma_eligible(a)) {
-    return Dh == 128 ? ovla::launch_blockwise_mma<128>(a, s)
-                     : ovla::launch_blockwise_mma<64>(a, s);
+    return Dh == 128 ? ovla::launch_blockwise_wgmma<128>(a, s)
+                     : ovla::launch_blockwise_wgmma<64>(a, s);
   }
   if (is_bf16) return ovla::launch_blockwise_rows<__nv_bfloat16>(a, s);
   return ovla::launch_blockwise_rows<float>(a, s);

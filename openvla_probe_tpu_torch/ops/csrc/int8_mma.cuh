@@ -1,5 +1,5 @@
 // Pieces shared by the int8 tensor-core GEMMs (w4a8_matmul.cu, w8a8_matmul.cu, nib_hi_dot.cu;
-// flash_blockwise.cu takes the cp.async pieces):
+// vit_attention.cu takes the cp.async pieces):
 // the cp.async ring, ldmatrix, the mma.sync m16n8k32 s8 x s8 -> s32 instruction, the per-row
 // activation quantization of the JAX package (clip(rint(x / s_x), -127, 127) with IEEE
 // division, round half to even) and the one pre-pass kernel that applies it, and the k order
@@ -49,6 +49,14 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
   const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
   v[0] = __low2float(a), v[1] = __high2float(a), v[2] = __low2float(b), v[3] = __high2float(b);
 }
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {   // exact: v was bf16
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b));
+}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -75,15 +83,22 @@ __device__ __forceinline__ int stored_offset(int k) {   // k: a multiple of 4
 // codes [M, K] and scales s_x [M], one block per row (a warp per row leaves decode-sized M with
 // a few warps looping over K one load latency at a time). PERM stores each 32-code block in the
 // k order of the packed-code fragments (stored_offset), for 4-bit weights; ROWSUM also writes
-// the exact row sums of the codes (nib_hi_dot's correction term). K: a multiple of 4.
+// the exact row sums of the codes (nib_hi_dot's correction term). K: a multiple of 4. The row
+// is read from device memory once: the max pass keeps it in shared memory for the code pass
+// when it fits in the 48 KB a launch takes without opting in, beside the kernel's static
+// reduction slots (read twice, a long row missed the L2 at prefill M: 0.138 ms for
+// 6912 x 11008 bf16 rows on an H100, 0.099 read once; PERF.md §6).
 constexpr int kQThreads = 128;
+constexpr int kQRowBytes = 48 * 1024 - 256;
 
 template <typename T, bool PERM, bool ROWSUM>
 __global__ void __launch_bounds__(kQThreads)
     quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
-                      int* __restrict__ rowsum, int K) {
+                      int* __restrict__ rowsum, int K, int cached) {
   __shared__ float red[kQThreads / 32];
   __shared__ int ired[kQThreads / 32];
+  extern __shared__ __align__(16) uint8_t qr_raw[];
+  T* row_s = reinterpret_cast<T*>(qr_raw);   // the row, when `cached`
   const int row = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* xr = x + (long long)row * K;
   float amax = 0.f;
@@ -91,6 +106,7 @@ __global__ void __launch_bounds__(kQThreads)
   for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
     float v[4];
     load4(xr + k, v);
+    if (cached) store4(row_s + k, v);
     amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
   }
 #pragma unroll
@@ -102,10 +118,11 @@ __global__ void __launch_bounds__(kQThreads)
   const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
   int8_t* qr = xq + (long long)row * K;
   int sum = 0;
+  const T* src = cached ? row_s : xr;
 #pragma unroll 4
   for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
     float v[4];
-    load4(xr + k, v);
+    load4(src + k, v);
     const int c0 = quant_code(v[0], s), c1 = quant_code(v[1], s);
     const int c2 = quant_code(v[2], s), c3 = quant_code(v[3], s);
     if constexpr (ROWSUM) sum += c0 + c1 + c2 + c3;
@@ -132,8 +149,10 @@ __global__ void __launch_bounds__(kQThreads)
 template <typename T, bool PERM, bool ROWSUM>
 cudaError_t quant_rows(const void* x, int8_t* xq, float* sx, int* rowsum, int M, int K,
                        cudaStream_t stream) {
-  quant_rows_kernel<T, PERM, ROWSUM>
-      <<<M, kQThreads, 0, stream>>>(static_cast<const T*>(x), xq, sx, rowsum, K);
+  const size_t row_bytes = size_t(K) * sizeof(T);
+  const int cached = row_bytes <= size_t(kQRowBytes);
+  quant_rows_kernel<T, PERM, ROWSUM><<<M, kQThreads, cached ? row_bytes : 0, stream>>>(
+      static_cast<const T*>(x), xq, sx, rowsum, K, cached);
   return cudaGetLastError();
 }
 

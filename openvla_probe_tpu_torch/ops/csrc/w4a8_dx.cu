@@ -55,12 +55,13 @@
 //     is widened and built (two register sets for A, kBBuffers = 3 B tiles).
 //   * Blocks walk the column tiles (the groups) fastest, so the blocks in
 //     flight share their g rows through L2; G = 86 leaves a partial last wave.
-#include <cuda.h>   // CUtensorMap (the encoder is fetched at run time: no -lcuda)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"   // mbarriers, TMA, the tensor-map encoder, wgmma descriptors
 
 namespace ovla_dx {
+
+using namespace ovla_hp;
 
 constexpr int kBM = 128;             // rows of M per block: 2 warpgroups x 64
 constexpr int kBJ = 128;             // dx columns per block (one group's slice)
@@ -87,58 +88,6 @@ struct Layout {
   static constexpr size_t kSmem =
       1024 + size_t(kBBuffers) * kBBytes + size_t(kStages) * STAGE + 2 * kStages * 8;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// wait for the completion of the barrier's phase of parity `parity`; a wait
-// past ~10 s of clocks (a broken ring) traps, so the launch fails instead of
-// hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000ll) __trap();
-  }
-}
-// a TMA box at (c0, c1) of `map` into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-// `bytes` contiguous bytes (a multiple of 16) into shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // 8 packed codes (4 bytes; byte b: code 2b low nibble, 2b + 1 high nibble) ->
 // 8 bf16 in order: ((c ^ 8) | 0x4300) is bf16 128 + (c ^ 8); minus 136 it is
@@ -180,42 +129,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 // the MN-major, unswizzled shared-memory descriptor of a B tile at `p`
-__device__ __forceinline__ uint64_t b_desc(const void* p) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(kLBO >> 4) << 16) |
-         (uint64_t(kSBO >> 4) << 32);
-}
-
-// d[64] = A (4 registers: this thread's 16 x 16 fragment of its warp's rows)
-// x B (16 n x 128 j at `desc`, MN-major) + (accumulate ? d : 0)
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t desc, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
-}
-// keep the compiler from moving accumulator accesses across the asynchronous
-// wgmma (an empty asm per register; ptxas sees nothing)
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+__device__ __forceinline__ uint64_t b_desc(const void* p) { return desc_plain(p, kLBO, kSBO); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -240,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(full + i, 1);    // the producer's arrival, then the stage's bytes
       mbar_init(empty + i, 1);   // one consumer thread, after both warpgroups read it
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -300,17 +214,17 @@ __global__ void __launch_bounds__(kThreads, 1)
           a[kk][i] = pack_bf16(gv.x * sv.x, gv.y * sv.y);
         }
       }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+      fence_proxy_async();
+      named_barrier(1, kConsumers);
       if (tid == 0) mbar_arrive(empty + slot);   // both warpgroups are done with the stage
 
       fence_operands(acc);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n128k16(acc, a[kk], b_desc(bt + kk * 2 * kNCore), c > 0 || kk > 0);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kWgmmaInFlight) : "memory");
+        wgmma_bf16_rs_m64n128k16(acc, a[kk], b_desc(bt + kk * 2 * kNCore), c > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<kWgmmaInFlight>();
       fence_operands(acc);
     };
     uint32_t a0[4][4], a1[4][4];
@@ -318,7 +232,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       stage(c, a0);
       stage(c + 1, a1);
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_wait<0>();
     fence_operands(acc);
 
     // accumulator block i (columns 8i .. 8i + 7): rows row0 / row0 + 8
@@ -331,39 +245,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < 16; ++i) store2(out + 8 * i, acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1]);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up at run time through cudaGetDriverEntryPoint
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a 2D map over [rows, cols] (cols contiguous, row stride `stride` bytes) in boxes of
-// [box_rows, box_cols]; boxes past the edge are zero-filled
-inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                      uint64_t rows, uint64_t cols, uint64_t stride, uint32_t box_rows,
-                      uint32_t box_cols, CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encoder();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {stride};
-  const cuuint32_t box[2] = {box_cols, box_rows}, elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>

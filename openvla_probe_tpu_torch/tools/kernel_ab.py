@@ -1,0 +1,281 @@
+"""Time kernel builds against each other on one CUDA card, in one process.
+
+    python -m openvla_probe_tpu_torch.tools.kernel_ab --lib parent=DIR [--lib TAG=PATH ...]
+        [--kernels w4a8_matmul,flash_blockwise,w4a8_dx] [--shapes MxKxN,...] [--out DIR]
+
+Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
+``--lib`` beside them: ``TAG=DIR`` builds the kernel sources found in DIR (a
+copy of another commit's ``ops/csrc``, e.g. unpacked with ``git archive``),
+``TAG=FILE.cu`` builds that one file (a variant of a source, e.g. a knock-out
+copy with one piece of its work removed: its C launcher keeps its name and
+signature). Each build is one ``nvcc`` with the flags of
+``_build.NVCC_FLAGS``, all started together, into ``--out``.
+
+For every kernel named in ``--kernels`` and every build that exports its
+launcher, at each main-path shape: one launch checked against the plain
+version (``w4a8_matmul`` bit for bit; ``flash_blockwise`` by
+``attention.compare_blockwise``; ``w4a8_dx`` by ``linear.compare_w4a8_dx``
+and bit for bit against the first ``--lib``), then the device time of one
+launch (median of 25, each queued behind a spin kernel, inputs rotated past
+the L2) in turns: every build, then every build in reverse order, so that a
+drift of the card's clocks shows as a spread between a build's two readings.
+The checks are reported, not asserted (a knock-out computes another
+function). Prints one JSON line per kernel and shape, then one line of
+launch-weighted means per kernel (the serving mix and the train mix of
+``w4a8_matmul``, as ``chip_smoke.py`` weighs them).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+
+from ..ops import _build
+from ..ops import attention as attn
+from ..ops import linear as lin
+
+SPIN_CYCLES = 4_000_000
+L2_BYTES = 50e6
+LAYERS, BATCH, T_PREFILL, A1 = 32, 24, 288, 6
+TRAIN_ROWS = 8 * (1 + 256 + 63)
+
+
+def _ms(fn, reps: int = 25, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _copies(nbytes: int) -> int:
+    return max(1, int(-(-2 * L2_BYTES // nbytes)))
+
+
+def build_libs(specs, out: Path) -> dict:
+    """tag -> {source name: ctypes.CDLL}: the port's own build under "change",
+    then one nvcc per source of every --lib spec, all started together."""
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    jobs = {}
+    for spec in specs:
+        tag, path = spec.split("=", 1)
+        path = Path(path)
+        sources = sorted(path.glob("*.cu")) if path.is_dir() else [path]
+        for src in sources:
+            lib = out / f"lib{tag}_{src.stem}.so"
+            jobs[(tag, src.name)] = (lib, subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, "-I", str(src.parent), "-I", str(_build.CSRC), "-o",
+                 str(lib), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    _build.load("w4a8_matmul")   # builds the port's kernels meanwhile
+    libs = {"change": {src: lib for src, lib in _build._loaded.items()}}
+    for (tag, name), (lib, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag}={name}:\n{log}")
+        regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
+        print(json.dumps({"build": tag, "source": name, "ptxas": regs}), flush=True)
+        libs.setdefault(tag, {})[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def launchers(libs: dict, kernel: str) -> dict:
+    """tag -> the C launcher of `kernel` in that build (argtypes declared)."""
+    source, sym, argtypes = _build.KERNELS[kernel]
+    out = {}
+    for tag, by_src in libs.items():
+        lib = by_src.get(source)
+        if lib is None and len(by_src) == 1:   # a single-file variant under another name
+            lib = next(iter(by_src.values()))
+        fn = getattr(lib, sym, None) if lib is not None else None
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            out[tag] = fn
+    return out
+
+
+def _w4a8(fn, x, q, s):
+    M, K = x.shape
+    G, N, half = q.shape
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), codes.data_ptr(),
+                    sx.data_ptr(), M, N, K, 2 * half, int(x.dtype == torch.bfloat16),
+                    _build.stream_ptr(x)), "w4a8_matmul")
+    return out
+
+
+def _flash(fn, q, k, v, valid):
+    B, Tq, H, Dh = q.shape
+    out = torch.empty_like(q)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
+                    B, H, Tq, k.shape[1], Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                    v.stride(0), v.stride(1), attn._scale(Dh), 0, 1, 1, _build.stream_ptr(q)),
+                 "flash_blockwise")
+    return out
+
+
+def _dx(fn, g, q, s_t):
+    M, N = g.shape
+    G, _, half = q.shape
+    dx = torch.empty((M, G * 2 * half), dtype=g.dtype, device=g.device)
+    _build.check(fn(g.data_ptr(), q.data_ptr(), s_t.data_ptr(), dx.data_ptr(), M, N, G, 2 * half,
+                    int(g.dtype == torch.bfloat16), _build.stream_ptr(g)), "w4a8_dx")
+    return dx
+
+
+def _turns(fns: dict, make) -> dict:
+    """Device ms of every build in turns: forward, then reverse."""
+    times = {tag: [] for tag in fns}
+    for tag in [*fns, *reversed(list(fns))]:
+        times[tag].append(_ms(make(fns[tag])))
+    return times
+
+
+def w4a8_shapes() -> dict:
+    """(M, K, N) -> (launches per pallas_int4 call, per train_int4 step)."""
+    M_pre, M_dino, M_sig, M_tr = BATCH * T_PREFILL, BATCH * 261, BATCH * 256, TRAIN_ROWS
+    call = {(M_dino, 1024, 3072): 23, (M_dino, 1024, 1024): 23, (M_dino, 1024, 4096): 23,
+            (M_dino, 4096, 1024): 23, (M_sig, 1152, 3456): 26, (M_sig, 1152, 1152): 26,
+            (M_pre, 4096, 4096): 4 * LAYERS, (M_pre, 4096, 11008): 2 * LAYERS,
+            (M_pre, 11008, 4096): LAYERS, (BATCH, 4096, 4096): 4 * LAYERS * A1,
+            (BATCH, 4096, 11008): 2 * LAYERS * A1, (BATCH, 11008, 4096): LAYERS * A1}
+    step = {(M_tr, 4096, 4096): 8 * LAYERS, (M_tr, 4096, 11008): 4 * LAYERS,
+            (M_tr, 11008, 4096): LAYERS}
+    return {shape: (call.get(shape, 0), step.get(shape, 0)) for shape in {**call, **step}}
+
+
+def ab_w4a8_matmul(fns, g, dev, shapes=None):
+    rows = []
+    for (M, K, N), (per_call, per_step) in w4a8_shapes().items():
+        if shapes and f"{M}x{K}x{N}" not in shapes:
+            continue
+        G = K // lin.GROUP_SIZE
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = []
+        for _ in range(_copies(N * K // 2)):
+            codes = torch.randint(-7, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
+                                  dtype=torch.int8)
+            s = torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
+            sets.append((x, lin.pack_int4(codes), s))
+        want = lin.w4a8_matmul_plain(*sets[0])
+        equal = {tag: bool(torch.equal(_w4a8(fn, *sets[0]), want)) for tag, fn in fns.items()}
+
+        def make(fn):
+            it = iter(range(1 << 30))
+            return lambda: _w4a8(fn, *sets[next(it) % len(sets)])
+        rows.append(dict(kernel="w4a8_matmul", shape=f"{M}x{K}x{N}", launches_per_call=per_call,
+                         launches_per_step=per_step, bit_equal=equal, ms=_turns(fns, make)))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets, want
+    for mix, key in (("serving_mix", "launches_per_call"), ("train_mix", "launches_per_step")):
+        n = sum(r[key] for r in rows)
+        if n == 0:
+            continue
+        print(json.dumps({"kernel": "w4a8_matmul", "mix": mix, "ms": {
+            tag: sum(statistics.mean(r["ms"][tag]) * r[key] for r in rows) / n for tag in fns}}),
+            flush=True)
+
+
+def ab_flash_blockwise(fns, g, dev, shapes=None):
+    B, H, Dh = 8, 32, 128
+    for T in (1088, 2048):
+        q, k, v = (torch.randn((B, T, H, Dh), generator=g, device=dev).bfloat16() for _ in range(3))
+        lens = torch.randint(T - 88, T + 1, (B,), generator=g, device=dev)
+        valid = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+        want = attn.flash_attention_blockwise_plain(q, k, v, valid)
+        checks = {}
+        for tag, fn in fns.items():
+            try:
+                checks[tag] = attn.compare_blockwise(_flash(fn, q, k, v, valid), want)
+            except AssertionError as e:
+                checks[tag] = f"refused: {e}"
+        row = dict(kernel="flash_blockwise", shape=f"{B}x{T}x{H}x{Dh}", check=checks,
+                   ms=_turns(fns, lambda fn: lambda: _flash(fn, q, k, v, valid)))
+        print(json.dumps(row), flush=True)
+        del q, k, v, want
+
+
+def ab_w4a8_dx(fns, g, dev, shapes=None):
+    M, rows = TRAIN_ROWS, []
+    for (N, G), per_step in {(4096, 32): 4 * LAYERS, (11008, 32): 2 * LAYERS,
+                             (4096, 86): LAYERS}.items():
+        K = G * lin.GROUP_SIZE
+        gr = torch.randn((M, N), generator=g, device=dev).bfloat16()
+        sets = []
+        for _ in range(_copies(N * K // 2)):
+            codes = torch.randint(-7, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
+                                  dtype=torch.int8)
+            s = torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
+            sets.append((gr, lin.pack_int4(codes), s.t().contiguous()))
+        want = lin.w4a8_dx_plain(gr, sets[0][1], sets[0][2].t())
+        outs = {tag: _dx(fn, *sets[0]) for tag, fn in fns.items()}
+        first = next(iter(outs.values()))
+        checks = {}
+        for tag, got in outs.items():
+            try:
+                checks[tag] = dict(lin.compare_w4a8_dx(got, want),
+                                   bits_equal_first=bool(torch.equal(got, first)))
+            except AssertionError as e:
+                checks[tag] = f"refused: {e}"
+
+        def make(fn):
+            it = iter(range(1 << 30))
+            return lambda: _dx(fn, *sets[next(it) % len(sets)])
+        rows.append(dict(kernel="w4a8_dx", shape=f"{M}x{N}x{K}", launches_per_step=per_step,
+                         check=checks, ms=_turns(fns, make)))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets, outs, want
+    n = sum(r["launches_per_step"] for r in rows)
+    print(json.dumps({"kernel": "w4a8_dx", "mix": "train_step", "ms": {
+        tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_step"] for r in rows) / n
+        for tag in fns}}), flush=True)
+
+
+AB = {"w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
+      "w4a8_dx": ab_w4a8_dx}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--lib", action="append", default=[], help="TAG=DIR or TAG=FILE.cu")
+    ap.add_argument("--kernels", default=",".join(AB))
+    ap.add_argument("--shapes", default="", help="w4a8_matmul MxKxN shapes to time (all)")
+    ap.add_argument("--out", default=str(_build.BUILD_DIR / "kernel_ab"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"card": smi, "torch": torch.__version__}), flush=True)
+    libs = build_libs(args.lib, Path(args.out))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    for name in args.kernels.split(","):
+        fns = launchers(libs, name)
+        order = [tag for tag in [*[s.split("=", 1)[0] for s in args.lib], "change"] if tag in fns]
+        AB[name]({tag: fns[tag] for tag in order}, g, dev,
+                 shapes=set(filter(None, args.shapes.split(","))))
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("PYTHONUNBUFFERED", "1")
+    raise SystemExit(main())

@@ -145,6 +145,43 @@ def test_flash_blockwise_kernel_matches_plain(cuda, dtype, B, tq, tk, H, dh, off
     tattn.compare_blockwise(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["masked_rows_beside_others", "not_causal", "large_offset",
+                                  "right_padded_rows"])
+def test_flash_blockwise_tile_skip_cases(cuda, dtype, case):
+    """The cases of the key-tile skip (bf16; fp32 takes the scalar kernel): a
+    query block whose first rows see no valid key beside rows that do (they
+    must get the mean of V over Tk, so the block visits every tile);
+    causal=False (nothing skipped); Tq < Tk at a large offset (every tile at or
+    below the diagonal); and the score_long case, Tq = Tk = 1088 with
+    right-padded rows (the tiles past a row's last valid key skipped)."""
+    B, H, dh, causal, offset = 2, 2, 128, True, 0
+    tq = tk = 1100
+    valid = torch.ones((B, tk), dtype=torch.int32, device=cuda)
+    if case == "masked_rows_beside_others":
+        valid[-1, :70] = 0      # rows 0..69 of the last batch row see no valid key
+    elif case == "not_causal":
+        tq, causal = 64, False
+        valid[0, 500:] = 0
+    elif case == "large_offset":
+        tq, tk, offset = 40, 2048, 2000
+        valid = torch.ones((B, tk), dtype=torch.int32, device=cuda)
+    else:
+        tq = tk = 1088
+        valid = (torch.arange(tk, device=cuda)[None]
+                 < torch.tensor([[1000], [1088]], device=cuda)).int()
+    q = _rand(50, (B, tq, H, dh), dtype, cuda)
+    k = _rand(51, (B, tk, H, dh), dtype, cuda)
+    v = _rand(52, (B, tk, H, dh), dtype, cuda)
+    got = _count("flash_blockwise", lambda: tattn.flash_attention_blockwise(
+        q, k, v, valid, offset=offset, causal=causal))
+    want = tattn.flash_attention_blockwise_plain(q, k, v, valid, offset=offset, causal=causal)
+    tattn.compare_blockwise(got, want)
+    if case == "masked_rows_beside_others":   # the mean of V over the Tk keys
+        mean_v = v[-1].float().mean(0).to(dtype).float()
+        tattn.compare_blockwise(got[-1, :70], mean_v[None].expand(70, H, dh).to(dtype))
+
+
 def test_flash_blockwise_check_refuses_the_one_shot_class(cuda):
     """Negative control: on the inputs the kernel passes with, the one-shot
     function (P rounded to bf16 before PV) fails the same check."""
@@ -291,6 +328,20 @@ def test_int8_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
     (24, 512, 384, 256),        # two 256-wide groups (two chunks per group)
     (100, 384, 256, 128),       # M > 64 past one 128-row tile
     (6264, 1024, 1024, 128),    # DINOv2 proj: M past the last tile
+    (64, 1024, 512, 128),       # the last M of the decode route
+    (65, 1024, 512, 128),       # the first M of the wgmma route
+    (128, 1024, 512, 128),      # one whole 128-row tile
+    (200, 1024, 256, 256),      # wgmma route, 256-wide groups (two chunks per group)
+    (24, 11008, 4096, 128),     # down_proj at decode: 86 groups
+    (2560, 11008, 4096, 128),   # down_proj in a train step
+    (6912, 4096, 11008, 128),   # gate/up at prefill
+    (24, 4096, 4096, 256),      # decode, 2 chunks a group: waves of 6 groups in the ring
+    (24, 2048, 2048, 512),      # decode, 4 chunks a group: waves of 3
+    (64, 4096, 4096, 512),
+    (8, 4096, 1024, 1024),      # decode, 8 chunks a group: one warp a wave
+    (24, 4096, 512, 2048),      # decode, a group longer than the ring
+    (24, 12288, 256, 128),      # an fp32 row of 48 KB: the pre-pass reads it twice
+    (100, 12288, 256, 128),
 ])
 def test_w4a8_kernel_bit_equal_to_plain(cuda, dtype, M, K, N, gsz):
     x = _rand(30, (M, K), dtype, cuda)
