@@ -36,11 +36,14 @@ Phases, one output line each:
               all started together (set-up time)
   3. kernels  each kernel against its plain PyTorch version at the 7B main-path
               shapes (B=24; B=8 for score_long), with kernel / plain / library
-              times: flash_prefill, flash_blockwise (with its negative control,
-              a fully masked row at the score_long shape, the share of key
-              tiles its causal skip computes, and its host time a call),
+              times: flash_prefill (also at score_short's shape, with its
+              negative control and a fully masked row), flash_blockwise (with
+              its negative control, a fully masked row at the score_long
+              shape, the share of key tiles its causal skip computes, and its
+              host time a call),
               vit_attention, decode_attention (parity; turbo's bf16 scores),
-              wi8_matmul, fused_ln_w8a8, fused_mlp_residual,
+              wi8_matmul (also at SigLIP's fc2 on pallas_int4, K = 4304),
+              fused_ln_w8a8, fused_mlp_residual,
               decode_split_attention (pallas), stacked_decode_attention_i8
               (pallas_kv8), w4a8_matmul (pallas_int4; also at M = 64 / 65,
               its two routes' edge, and its host time a call at decode),
@@ -162,35 +165,69 @@ def _nbytes(*ts) -> int:
 
 
 def check_flash_prefill(dev, g):
-    """Row 1 of the kernel table at the 7B prefill shape: q [24, 288, 32, 128],
-    k/v [24, 295, 32, 128] bf16 (stacked cache S = T + A), padded prompts."""
-    B, T, S, H, Dh = BATCH, 288, 295, 32, 128
-    q = torch.randn((B, T, H, Dh), generator=g, device=dev).bfloat16()
-    k = torch.randn((B, S, H, Dh), generator=g, device=dev).bfloat16()
-    v = torch.randn((B, S, H, Dh), generator=g, device=dev).bfloat16()
-    mm_len = torch.randint(T - 12, T + 1, (B,), generator=g, device=dev)
-    valid = (torch.arange(S, device=dev)[None] < mm_len[:, None]).int()   # tail slots padded
-    valid[-1, 0] = 0                      # query 0 of the last row: every key masked
-    before = attn.KERNEL_LAUNCHES["flash_prefill"]
-    got = attn.flash_attention(q, k, v, valid)
-    torch.cuda.synchronize()
-    assert attn.KERNEL_LAUNCHES["flash_prefill"] == before + 1
-    want = attn.flash_attention_plain(q, k, v, valid)
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
-    err = (got.float() - want.float()).abs().max().item()
-    ki = torch.arange(S, device=dev)
-    sdpa_mask = ((valid[:, None, None, :] > 0)
-                 & (ki[None, :] <= torch.arange(T, device=dev)[:, None])[None, None])
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = cuda_ms(lambda: attn.flash_attention(q, k, v, valid))
-    plain = cuda_ms(lambda: attn.flash_attention_plain(q, k, v, valid), reps=10)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask))
-    b, by = bound_ms(_nbytes(q, k, v, got, valid), 4 * B * H * T * S * Dh, "bf16")
+    """Row 1 at its two main-path shapes: the serving prefill, q [24, 288, 32,
+    128], k/v [24, 295, 32, 128] bf16 (stacked cache S = T + A, padded
+    prompts; 32 launches per call on every serving path), and score_short's
+    q/k/v [8, 320, 32, 128] (rows right-padded to 289-320 tokens). Query 0 of
+    the last row sees no valid key and must give the mean of V over the Tk
+    keys. attn.compare_oneshot against flash_attention_plain (every element
+    within one bf16 step plus attn.oneshot_slack, the reach of P's rounding
+    when the scores are summed in another order; at most max(16, 2 %)
+    apart), which fp32 P (flash_attention_blockwise_plain, the negative
+    control) must fail on the same inputs. Bound: q/k/v/out bytes against the causal, unpadded products
+    of QKᵀ and PV; beside it the share of key tiles the kernel's causal skip
+    leaves it to visit. Library: SDPA with a boolean mask on the same bf16
+    inputs (a yardstick of time only)."""
+    H, Dh = 32, 128
+    by_shape = {}
+    for name, (B, T, S, lo, per_call) in {"serving": (BATCH, T_PREFILL, T_PREFILL + ACTION_DIM,
+                                                      12, LAYERS),
+                                          "score_short": (VLM_BATCH, 320, 320, 31, 0)}.items():
+        q = torch.randn((B, T, H, Dh), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, S, H, Dh), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, S, H, Dh), generator=g, device=dev).bfloat16()
+        lens = torch.randint(T - lo, T + 1, (B,), generator=g, device=dev)
+        valid = (torch.arange(S, device=dev)[None] < lens[:, None]).int()   # tail slots padded
+        valid[-1, 0] = 0                      # query 0 of the last row: every key masked
+        before = attn.KERNEL_LAUNCHES["flash_prefill"]
+        got = attn.flash_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert attn.KERNEL_LAUNCHES["flash_prefill"] == before + 1
+        want = attn.flash_attention_plain(q, k, v, valid)
+        slack = attn.oneshot_slack(q, k, v, valid)
+        stats = attn.compare_oneshot(got, want, slack=slack)
+        mean_v = v[-1].float().mean(0).bfloat16()          # the mean of V over the Tk keys
+        stats["masked_row"] = attn.compare_oneshot(got[-1, :1], mean_v[None])
+        control = attn.flash_attention_blockwise_plain(q, k, v, valid)
+        try:
+            attn.compare_oneshot(control, want, slack=slack)
+        except AssertionError:
+            stats["control_n_apart"] = int((control != want).sum())
+        else:
+            raise AssertionError("flash_prefill: the check passed the blockwise class (fp32 P)")
+        del control, slack
+        ki = torch.arange(S, device=dev)
+        sdpa_mask = ((valid[:, None, None, :] > 0)
+                     & (ki[None, :] <= torch.arange(T, device=dev)[:, None])[None, None])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        b, by = bound_ms(_nbytes(q, k, v, got, valid), 4 * H * Dh * _causal_pairs(lens, T), "bf16")
+        by_shape[name] = dict(
+            launches_per_call=per_call, **stats,
+            ms=cuda_ms(lambda: attn.flash_attention(q, k, v, valid)),
+            plain_ms=cuda_ms(lambda: attn.flash_attention_plain(q, k, v, valid), reps=10),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                      attn_mask=sdpa_mask)),
+            bound_ms=b, bound_by=by,
+            predicted_tile_share=blockwise_predicted_tile_share(valid, T))
+        del q, k, v, got, want, qt, kt, vt, sdpa_mask
+    main = by_shape["serving"]
     return dict(name="flash_prefill", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/flash_prefill.cu",
                 replaces="openvla_probe_tpu/ops/attention.py:88",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                library_ms=lib)
+                max_abs_err=max(r["max_abs_err"] for r in by_shape.values()),
+                **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")},
+                by_shape=by_shape)
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -422,38 +459,40 @@ def _launch_weighted(by_shape: dict, per_call: dict) -> dict:
 
 def check_wi8_matmul(dev, g):
     """Row 7 at every (M, K, N) of the pallas path: prefill M = 24 x 288 = 6912
-    and decode / lm_head M = 24. bf16 x, int8 codes, fp32 scales; within 1e-2
-    of the plain version (exact products, fp32 sums in another order, then
-    one bf16 rounding). Library: cuBLAS bf16 x @ w_bf16ᵀ on weights
-    dequantized beforehand (it leaves out the dequantization and streams 2x
-    the weight bytes)."""
+    and decode / lm_head M = 24; and SigLIP's fc2 on pallas_int4, M = 6144,
+    K = 4304 (a partial last k tile), N = 1152. bf16 x, int8 codes, fp32
+    scales; lin.compare_wi8 against the plain version (exact products, fp32
+    sums in another order, then one bf16 rounding: every element within one
+    bf16 step, at most max(16, 2 %) apart). Library: cuBLAS bf16 x @ w_bf16ᵀ
+    on weights dequantized beforehand (it leaves out the dequantization and
+    streams 2x the weight bytes)."""
     M_pre, M_dec, A1 = BATCH * T_PREFILL, BATCH, ACTION_DIM - 1
     per_call = {(M_pre, 4096, 4096): 4 * LAYERS, (M_pre, 4096, 11008): 2 * LAYERS,
                 (M_pre, 11008, 4096): LAYERS, (M_dec, 4096, 4096): 4 * LAYERS * A1,
                 (M_dec, 4096, 11008): 2 * LAYERS * A1, (M_dec, 11008, 4096): LAYERS * A1,
                 (M_dec, 4096, 32064): 1 + A1}
     by_shape = {}
-    for (M, K, N) in per_call:
+    for (M, K, N) in (*per_call, (BATCH * 256, 4304, 1152)):
         x = torch.randn((M, K), generator=g, device=dev).bfloat16()
         sets = []
         for _ in range(copies_past_l2(N * K)):
             q = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8)
             s = torch.rand((N,), generator=g, device=dev) * 1e-3 + 1e-3
             sets.append((x, q, s))
+        before = _build.KERNEL_LAUNCHES["wi8_matmul"]
         got = lin.wi8_matmul(*sets[0])
         torch.cuda.synchronize()
-        want = lin.wi8_matmul_plain(*sets[0])
-        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+        assert _build.KERNEL_LAUNCHES["wi8_matmul"] == before + 1
+        stats = lin.compare_wi8(got, lin.wi8_matmul_plain(*sets[0]))
         w_bf16 = [(x, lin.dequantize_weight({"q": q, "s": s})) for x, q, s in sets]
         b, by = bound_ms(_nbytes(x, sets[0][1], sets[0][2], got), 2 * M * N * K, "bf16")
         by_shape[f"{M}x{K}x{N}"] = dict(
-            launches_per_call=per_call[(M, K, N)],
-            max_abs_err=(got.float() - want.float()).abs().max().item(),
+            launches_per_call=per_call.get((M, K, N), 0), **stats,
             ms=cuda_ms(rotating(lin.wi8_matmul, sets)),
             plain_ms=cuda_ms(rotating(lin.wi8_matmul_plain, sets), reps=5, warmup=1),
             library_ms=cuda_ms(rotating(lambda a, w: a @ w.t(), w_bf16)),
             bound_ms=b, bound_by=by)
-        del sets, w_bf16, got, want
+        del sets, w_bf16, got
     mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
     return dict(name="wi8_matmul", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/wi8_matmul.cu",
@@ -1012,7 +1051,10 @@ def _tiny_vlm(path: str) -> vlm.VLMConfig:
 TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3, "nibble": 1e-3}
 
 
-TINY_VIT_ROUTE = "vit_attention_scalar"   # the tiny configs run fp32
+# the tiny configs run fp32: the kernels with a bf16 tensor-core route take their scalar
+# route, counted apart
+TINY_ROUTES = {"vit_attention": "vit_attention_scalar", "flash_prefill": "flash_prefill_scalar",
+               "wi8_matmul": "wi8_matmul_scalar"}
 
 
 def check_tiny_path(dev, path: str):
@@ -1035,8 +1077,7 @@ def check_tiny_path(dev, path: str):
                                         return_first_logits=True, device=dev)
     torch.cuda.synchronize()
     launched = {k for k, n in _build.KERNEL_LAUNCHES.items() if n}
-    # fp32 towers take the ViT kernel's scalar route
-    kernels = {TINY_VIT_ROUTE if k == "vit_attention" else k for k in PATHS[path][2]}
+    kernels = {TINY_ROUTES.get(k, k) for k in PATHS[path][2]}
     assert launched == kernels | {_build.PRE_PASSES[k] for k in kernels & set(_build.PRE_PASSES)}, \
         _build.KERNEL_LAUNCHES
     assert torch.equal(out["action_tokens"].cpu(), ref["action_tokens"])
@@ -1086,18 +1127,21 @@ def _run_vlm(path: str, params, cfg, requests, pixels, dev, max_new: int = GEN_N
 
 
 def _expected_vlm_launches(c: vlm.VLMConfig, decode_steps: int = 0, score_T: int = 0,
-                           vit_route: str = "vit_attention") -> dict:
-    """Per call: one ViT attention per tower block run (49 at 7B: bf16, the
-    tensor-core route; fp32 towers take vit_attention_scalar); generate's
+                           routes: dict = None) -> dict:
+    """Per call: one ViT attention per tower block run (49 at 7B); generate's
     cached prefill takes the plain attention and each of its decode steps one
     decode_attention per layer; the scorer's uncached forward over T tokens
-    one flash_prefill (T <= 1024) or flash_blockwise per layer."""
+    one flash_prefill (T <= 1024) or flash_blockwise per layer. bf16 at 7B
+    takes the tensor-core routes; an fp32 config takes the scalar routes
+    (`routes`: TINY_ROUTES)."""
     L = c.llm.num_hidden_layers
     kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
-    kernels[vit_route] = sum(v.num_layers - 1 for v in c.vision)
+    routes = routes or {}
+    kernels[routes.get("vit_attention", "vit_attention")] = sum(v.num_layers - 1 for v in c.vision)
     kernels["decode_attention"] = L * decode_steps
     if score_T:
-        kernels["flash_blockwise" if score_T > attn.ONESHOT_MAX_TK else "flash_prefill"] = L
+        kernels["flash_blockwise" if score_T > attn.ONESHOT_MAX_TK
+                else routes.get("flash_prefill", "flash_prefill")] = L
     return kernels
 
 
@@ -1118,13 +1162,13 @@ def check_tiny_vlm(dev, path: str):
         torch.randint(0, 256, (VLM_BATCH, 40, 40, 3), generator=g, dtype=torch.uint8), img_cfg)
     if path == "generate":
         requests = _vlm_requests(path, cfg.llm.vocab_size, 3, lo=3)
-        expect = _expected_vlm_launches(cfg, decode_steps=7, vit_route=TINY_VIT_ROUTE)
+        expect = _expected_vlm_launches(cfg, decode_steps=7, routes=TINY_ROUTES)
     else:
         L = {"score_short": 64, "score_long": 1088}[path]
         requests = [([1] + torch.randint(3, cfg.llm.vocab_size, (n - 1,), generator=g).tolist(),
                      n - 5) for n in range(L - 15, L + 1, 2)]
         expect = _expected_vlm_launches(cfg, score_T=cfg.num_patches + L,
-                                        vit_route=TINY_VIT_ROUTE)
+                                        routes=TINY_ROUTES)
     ref = _run_vlm(path, params, cfg, requests, pixels, "cpu", max_new=8)
     _build.reset_launch_counts()
     got = _run_vlm(path, _to(params, dev), cfg, requests, pixels.to(dev), dev, max_new=8)

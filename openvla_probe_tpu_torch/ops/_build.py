@@ -41,6 +41,10 @@ KERNELS = {
         "flash_prefill.cu", "ovla_flash_prefill",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _P],
     ),
+    "flash_prefill_scalar": (
+        "flash_prefill.cu", "ovla_flash_prefill_scalar",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _P],
+    ),
     "flash_blockwise": (
         "flash_blockwise.cu", "ovla_flash_blockwise",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _F, _I, _I, _I, _P],
@@ -60,6 +64,10 @@ KERNELS = {
     "wi8_matmul": (
         "wi8_matmul.cu", "ovla_wi8_matmul",
         [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "wi8_matmul_scalar": (
+        "wi8_matmul.cu", "ovla_wi8_matmul_scalar",
+        [_P, _P, _P, _P, _I, _I, _I, _P],
     ),
     "fused_ln_w8a8": (
         "vit_mlp.cu", "ovla_fused_ln_w8a8",

@@ -95,23 +95,14 @@ def flash_attention_blockwise_plain(q, k, v, kv_valid, offset: int = 0, causal: 
     return out.permute(0, 2, 1, 3)
 
 
-def compare_blockwise(got, want, max_share: float = 2e-2, kernel: str = "blockwise") -> dict:
-    """Hold a blockwise flash output `got` to the plain version `want` (also
-    the ViT kernel's, ``kernel="vit_attention"``: the same numeric class).
-
-    fp32: within 1e-5 (the same fp32 function, sums in another order). bf16:
-    every element within one bf16 step of the plain version (the step at the
+def _within_one_bf16_step(got, want, max_share: float, kernel: str, slack=None) -> dict:
+    """Every element of `got` within one bf16 step of `want` (the step at the
     larger of the two magnitudes, and at no less than 1/64 of the largest
     output: an output near 0 is a sum that cancels, whose fp32 error is that
-    of its terms), and at most max(16, max_share of the elements) apart at
-    all. The kernel carries p to about 2^-16 of its value and differs from
-    the plain version by about 1e-6 before the output is rounded, so few
-    elements land on the other bf16 neighbour (0.2 % for the kernel's
-    arithmetic emulated on the CPU at Tk = 1100); an attention that rounds P
-    to bf16 (the one-shot class, `flash_attention_plain`) moves the output by
-    about 1e-3 of its size and lands one step apart on some 40 % of them,
-    which this check refuses (tests/test_torch_flash_blockwise.py). Raises
-    AssertionError; returns the distances."""
+    of its terms), plus `slack` where given, and at most max(16, max_share of
+    the elements) apart at all; fp32 outputs within 1e-5. Raises
+    AssertionError; returns the distances (`max_steps`: the largest distance
+    in bf16 steps, `n_past_one_step`: the elements more than one step apart)."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
     stats = dict(max_abs_err=d.max().item(), n_apart=int((d > 0).sum()), n=d.numel())
@@ -123,10 +114,83 @@ def compare_blockwise(got, want, max_share: float = 2e-2, kernel: str = "blockwi
     _, e = torch.frexp(mag)
     step = torch.ldexp(torch.ones_like(w), e - 8)
     stats["max_steps"] = (d / step).max().item()
-    assert bool((d <= step).all()), f"{kernel}: an element more than one bf16 step off {stats}"
+    stats["n_past_one_step"] = int((d > step).sum())
+    allowed = step if slack is None else step + slack.float()
+    assert bool((d <= allowed).all()), \
+        f"{kernel}: an element more than one bf16 step off {stats}"
     limit = max(16, int(max_share * d.numel()))
     assert stats["n_apart"] <= limit, f"{kernel}: {stats['n_apart']} elements apart > {limit} {stats}"
     return stats
+
+
+def compare_blockwise(got, want, max_share: float = 2e-2, kernel: str = "blockwise") -> dict:
+    """Hold a blockwise flash output `got` to the plain version `want` (also
+    the ViT kernel's, ``kernel="vit_attention"``: the same numeric class).
+
+    fp32: within 1e-5 (the same fp32 function, sums in another order). bf16:
+    every element within one bf16 step of the plain version, at most
+    max(16, max_share of the elements) apart (`_within_one_bf16_step`). The
+    kernel carries p to about 2^-16 of its value and differs from the plain
+    version by about 1e-6 before the output is rounded, so few elements land
+    on the other bf16 neighbour (0.2 % for the kernel's arithmetic emulated
+    on the CPU at Tk = 1100); an attention that rounds P to bf16 (the
+    one-shot class, `flash_attention_plain`) moves the output by about 1e-3
+    of its size and lands one step apart on some 40 % of them, which this
+    check refuses (tests/test_torch_flash_blockwise.py). Raises
+    AssertionError; returns the distances."""
+    return _within_one_bf16_step(got, want, max_share, kernel)
+
+
+def oneshot_slack(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
+    """Per element of the one-shot function's output [B, Tq, H, Dh], the most
+    that rounding P to bf16 can move it when the scores are summed in another
+    fp32 order than `flash_attention_plain`'s. Two fp32 sums of Dh exact
+    products differ by at most 2 (Dh - 1) u sum_i |q_i k_i| (u = 2^-24;
+    doubled again here for a tensor core's accumulation); p = exp(s - m)
+    then moves by that of its score and of the row's max, and a p that lies
+    so near a bf16 rounding point rounds to its other neighbour: the slack of
+    an output is the sum of those possible flips of bf16(P) times |v|, over
+    l. Zero for a row with every key masked (p = 1 exactly) and small for a
+    long row, it is what keeps a correct kernel within reach of
+    `compare_oneshot` on the rows with few keys (the first rows of a causal
+    prefill, where one P flip moves the output by several bf16 steps)."""
+    B, Tq, H, Dh = q.shape
+    Tk = k.shape[1]
+    u = 2.0 ** -24
+    qh, kh, vh = (x.permute(0, 2, 1, 3).float() for x in (q, k, v))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * _scale(Dh)
+    ok = (kv_valid > 0)[:, None, None, :]
+    if causal:
+        qi = torch.arange(Tq, device=q.device)[:, None] + offset
+        ok = ok & (torch.arange(Tk, device=q.device)[None, :] <= qi)
+    s = s.masked_fill(~ok, NEG_INF)
+    m, arg = s.max(dim=-1, keepdim=True)
+    err = (4 * Dh * u * _scale(Dh)) * torch.matmul(qh.abs(), kh.abs().transpose(-1, -2))
+    err = (err + 4 * u * s.abs()).masked_fill(~ok, 0.0)
+    e = err + err.gather(-1, arg) + 8 * u       # the score, the max, two expf roundings
+    p = torch.exp(s - m)
+    flips = ((p * torch.exp(e)).to(torch.bfloat16).float()
+             - (p * torch.exp(-e)).to(torch.bfloat16).float())
+    slack = torch.matmul(flips, vh.abs()) / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return slack.permute(0, 2, 1, 3)
+
+
+def compare_oneshot(got, want, max_share: float = 2e-2, slack=None) -> dict:
+    """Hold a one-shot flash output `got` (the `flash_prefill` kernel) to
+    `flash_attention_plain`'s `want`: the same scores, the same whole-row max,
+    P rounded to bf16 once, fp32 sums in another order. fp32: within 1e-5.
+    bf16: every element within one bf16 step plus `slack` (`oneshot_slack`
+    of the inputs: where the kernel's scores, summed in another order, round
+    a p to its other bf16 neighbour; None holds it to one step, for an
+    emulation with the plain version's scores), at most max(16, max_share of
+    the elements) apart (`_within_one_bf16_step`). An attention of another
+    numeric class fails it on the same inputs: fp32 P
+    (`flash_attention_blockwise_plain`) or a P rounded against a running max
+    and rescaled (an online softmax) moves most outputs of the longer rows by
+    about a bf16 step of P, 2^-9 of its size, so far more than 2 % of them
+    land on another bf16 neighbour (tests/test_torch_kernel_arith_oneshot.py,
+    chip_smoke.py). Raises AssertionError; returns the distances."""
+    return _within_one_bf16_step(got, want, max_share, "flash_prefill", slack)
 
 
 def vit_flash_attention_plain(q, k, v):
@@ -241,20 +305,37 @@ def _launch_flash(kernel: str, q, k, v, kv_valid, offset: int, causal: bool):
     return out
 
 
+def prefill_mma_eligible(q, k, v) -> bool:
+    """The declared rule of `flash_attention`'s tensor-core route (the
+    one-shot kernel at Tk <= 1024): bf16, a head dim of 64 or 128, and
+    16-byte aligned rows (data pointers, batch and token strides: the TMA
+    maps' rule). Every serving path and score_short qualify: [B, T, 32, 128]
+    bf16, K / V as views of the stacked cache."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128)
+            and all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                    for t in (q, k, v)))
+
+
 def flash_attention(q, k, v, kv_valid, offset: int = 0, causal: bool = True):
     """Causal + key-validity masked softmax(q kᵀ / sqrt(Dh)) v.
 
     q [B, Tq, H, Dh]; k/v [B, Tk, H, Dh]; kv_valid [B, Tk]. Returns
     [B, Tq, H, Dh] in q's dtype. Dispatches by key length as the JAX wrapper
-    does: Tk <= 1024 takes the one-shot kernel (`flash_prefill`, function of
+    does: Tk <= 1024 takes the one-shot kernel (function of
     `flash_attention_plain`), longer rows the blockwise one
-    (`flash_attention_blockwise`)."""
+    (`flash_attention_blockwise`). On the card the one-shot kernel has two
+    routes by a declared rule (`prefill_mma_eligible`), counted apart: the
+    tensor-core kernel (``flash_prefill``) and, for every other call (fp32
+    inputs, other head dims, unaligned rows), the scalar fp32-FMA kernel
+    (``flash_prefill_scalar``), which computes the same function. A launch
+    that fails raises; neither route stands in for the other."""
     _build.no_grad_guard("flash_attention", _TRAIN_ATTN, q, k, v)
     if k.shape[1] > ONESHOT_MAX_TK:
         return flash_attention_blockwise(q, k, v, kv_valid, offset, causal)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, kv_valid, offset, causal)
-    return _launch_flash("flash_prefill", q, k, v, kv_valid, offset, causal)
+    kernel = "flash_prefill" if prefill_mma_eligible(q, k, v) else "flash_prefill_scalar"
+    return _launch_flash(kernel, q, k, v, kv_valid, offset, causal)
 
 
 def flash_attention_blockwise(q, k, v, kv_valid, offset: int = 0, causal: bool = True):

@@ -63,9 +63,9 @@ struct AttnArgs {
   int causal;
 };
 
-// The bf16 tensor-core pieces of the prefill kernels (flash_prefill.cu,
-// vit_attention.cu): a 32-bit shared-memory load of two bf16 values and
-// mma.sync m16n8k16 bf16 x bf16 -> fp32 (exact products, fp32 sums).
+// The bf16 mma.sync pieces of vit_attention.cu: a 32-bit shared-memory load
+// of two bf16 values and mma.sync m16n8k16 bf16 x bf16 -> fp32 (exact
+// products, fp32 sums).
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -107,6 +107,53 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+}
+
+// ---- the causal key-tile skip of the tensor-core flash kernels (flash_prefill.cu,
+// flash_blockwise.cu; tests/test_torch_kernel_arith_skip_fold.py and
+// tests/test_torch_kernel_arith_oneshot.py emulate it) ----
+// A 64-key tile is skipped for 64 query rows when it lies wholly above their causal diagonal,
+// or past the last valid key of the batch row, or holds no valid key at all, once every one of
+// those rows has seen a valid key: such a row has a finite max m and gets
+// p = expf(NEG_INF - m) = 0 from every key of the tile (and, in the online softmax, a
+// correction of 1), so skipping it leaves its bits as they are. A row that has seen no valid
+// key has m = NEG_INF and counts every masked key at p = 1 (the mean of V over Tk), so when
+// the batch row's first valid key lies past the first row's diagonal the rows visit every
+// tile. The rule depends only on the mask.
+constexpr int kSkipRows = 64, kSkipKeys = 64;
+
+// Whether the 64 query rows from qw must visit key tile j. okw: the batch row's validity bits
+// (bit c % 32 of word c / 32); first and last: its first and last valid key (INT_MAX and -1
+// when there is none).
+__device__ __forceinline__ bool visits(const AttnArgs& a, const uint32_t* okw, int first,
+                                       int last, int qw, int j) {
+  if (qw >= a.Tq) return false;   // rows past Tq are not written
+  if (!a.causal || first > qw + a.offset) return true;   // a row sees no valid key: every tile
+  const int k0 = j * kSkipKeys;
+  const int q_last = min(qw + kSkipRows, a.Tq) - 1;
+  if (k0 > min(q_last + a.offset, last)) return false;   // above the diagonal or past the keys
+  const uint32_t w1 = 2 * j + 1 < (a.Tk + 31) / 32 ? okw[2 * j + 1] : 0u;
+  return k0 <= first || (okw[2 * j] | w1) != 0u;           // a tile of invalid keys after the first
+}
+
+// Stage batch row b's validity bits into okw (a ballot per 32 keys, by every warp of a block of
+// `nthreads`) and lower *first_s / raise *last_s (set to INT_MAX / -1 before, read after a
+// __syncthreads) to its first and last valid key.
+__device__ __forceinline__ void stage_valid_bits(const AttnArgs& a, int b, uint32_t* okw,
+                                                 int* first_s, int* last_s, int nthreads) {
+  const int32_t* valid = a.kv_valid ? a.kv_valid + (long long)b * a.Tk : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int w = warp; w < (a.Tk + 31) / 32; w += nthreads / 32) {
+    const int t = w * 32 + lane;
+    const uint32_t bits = __ballot_sync(0xffffffffu, t < a.Tk && (!valid || valid[t] > 0));
+    if (lane == 0) {
+      okw[w] = bits;
+      if (bits) {
+        atomicMin(first_s, w * 32 + __ffs(bits) - 1);
+        atomicMax(last_s, w * 32 + 31 - __clz(bits));
+      }
+    }
+  }
 }
 
 __host__ __device__ inline int attention_chunk(int Tk) { return Tk < kMaxTk ? Tk : kMaxTk; }

@@ -30,7 +30,8 @@
 // products (81 us at 989 TFLOP/s; 155 GFLOP if every key tile is visited, as
 // the TPU kernel does).
 //
-// Tile skip (causal only). A key tile is skipped for 64 query rows when it lies
+// Tile skip (causal only; `visits` in attention_common.cuh, shared with
+// flash_prefill.cu). A key tile is skipped for 64 query rows when it lies
 // wholly above their causal diagonal, or past the last valid key of the batch
 // row, or holds no valid key at all, once every one of those rows has seen a
 // valid key: such a row gets p = expf(NEG_INF - m) = 0 and corr = 1 from the
@@ -89,19 +90,6 @@ struct FwLayout {
   }
 };
 
-// Whether the 64 query rows from qw must visit key tile j (the tile skip above). first and
-// last: the batch row's first and last valid key (INT_MAX and -1 when there is none).
-__device__ __forceinline__ bool visits(const AttnArgs& a, const uint32_t* okw, int first,
-                                       int last, int qw, int j) {
-  if (qw >= a.Tq) return false;   // rows past Tq are not written
-  if (!a.causal || first > qw + a.offset) return true;   // a row sees no valid key: every tile
-  const int k0 = j * kFwKeys;
-  const int q_last = min(qw + 64, a.Tq) - 1;
-  if (k0 > min(q_last + a.offset, last)) return false;   // above the diagonal or past the keys
-  const uint32_t w1 = 2 * j + 1 < (a.Tk + 31) / 32 ? okw[2 * j + 1] : 0u;
-  return k0 <= first || (okw[2 * j] | w1) != 0u;           // a tile of invalid keys after the first
-}
-
 template <int DH>
 __global__ void __launch_bounds__(kFwThreads, 1)
     flash_blockwise_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -120,7 +108,7 @@ __global__ void __launch_bounds__(kFwThreads, 1)
 
   // the query blocks with the most key tiles first (the last along Tq)
   const int h = blockIdx.x, b = blockIdx.y, q0 = (gridDim.z - 1 - blockIdx.z) * kFwRows;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
   const int n_words = (a.Tk + 31) / 32, n_tiles = (a.Tk + kFwKeys - 1) / kFwKeys;
 
   if (tid == 0) {
@@ -133,19 +121,8 @@ __global__ void __launch_bounds__(kFwThreads, 1)
     first_s = INT_MAX, last_s = -1;
   }
   __syncthreads();
-  // the batch row's validity bits (a ballot per 32 keys) and its first and last valid key
-  const int32_t* valid = a.kv_valid ? a.kv_valid + (long long)b * a.Tk : nullptr;
-  for (int w = warp; w < n_words; w += kFwThreads / 32) {
-    const int t = w * 32 + lane;
-    const uint32_t bits = __ballot_sync(0xffffffffu, t < a.Tk && (!valid || valid[t] > 0));
-    if (lane == 0) {
-      okw[w] = bits;
-      if (bits) {
-        atomicMin(&first_s, w * 32 + __ffs(bits) - 1);
-        atomicMax(&last_s, w * 32 + 31 - __clz(bits));
-      }
-    }
-  }
+  // the batch row's validity bits and its first and last valid key
+  stage_valid_bits(a, b, okw, &first_s, &last_s, kFwThreads);
   __syncthreads();
   const int first = first_s, last = last_s;
 
@@ -305,26 +282,15 @@ __global__ void __launch_bounds__(kFwThreads, 1)
   }
 }
 
-// a 4-D map over [B, T, H, Dh] bf16 (element strides sb, st; the [H, Dh] slab contiguous) in
-// boxes of [rows tokens][64 columns], 128-byte swizzle
-inline bool encode_heads(CUtensorMap* map, const void* base, int B, int T, int H, int Dh,
-                         long long sb, long long st, int rows) {
-  const uint64_t dims[4] = {uint64_t(Dh), uint64_t(H), uint64_t(T), uint64_t(B)};
-  const uint64_t strides[3] = {uint64_t(Dh) * 2, uint64_t(st) * 2, uint64_t(sb) * 2};
-  const uint32_t box[4] = {64, 1, uint32_t(rows), 1};
-  return hp::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
-                    CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int DH>
 int launch_blockwise_wgmma(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem = FwLayout<DH>::smem(a.Tk);
   const int q_blocks = (a.Tq + kFwRows - 1) / kFwRows;
   if (smem > 232448 || q_blocks > 65535 || a.B > 65535) return int(cudaErrorInvalidValue);
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!encode_heads(&tm_q, a.q, a.B, a.Tq, a.H, DH, a.q_sb, a.q_st, kFwRows) ||
-      !encode_heads(&tm_k, a.k, a.B, a.Tk, a.H, DH, a.k_sb, a.k_st, kFwKeys) ||
-      !encode_heads(&tm_v, a.v, a.B, a.Tk, a.H, DH, a.v_sb, a.v_st, kFwKeys))
+  if (!hp::encode_heads(&tm_q, a.q, a.B, a.Tq, a.H, DH, a.q_sb, a.q_st, kFwRows) ||
+      !hp::encode_heads(&tm_k, a.k, a.B, a.Tk, a.H, DH, a.k_sb, a.k_st, kFwKeys) ||
+      !hp::encode_heads(&tm_v, a.v, a.B, a.Tk, a.H, DH, a.v_sb, a.v_st, kFwKeys))
     return int(cudaErrorInvalidValue);
   auto kernel = flash_blockwise_wgmma_kernel<DH>;
   cudaError_t err =

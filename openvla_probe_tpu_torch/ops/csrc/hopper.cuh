@@ -1,7 +1,8 @@
 // The Hopper pieces shared by the wgmma / TMA kernels (w4a8_dx.cu, w4a8_matmul.cu,
-// flash_blockwise.cu): mbarriers, TMA tensor-map and bulk loads, the run-time lookup of the
-// tensor-map encoder (cudaGetDriverEntryPoint: no -lcuda), shared-memory matrix descriptors
-// for wgmma, and the wgmma fence / commit / wait instructions.
+// wi8_matmul.cu, flash_blockwise.cu, flash_prefill.cu): mbarriers, TMA tensor-map and bulk
+// loads, the run-time lookup of the tensor-map encoder (cudaGetDriverEntryPoint: no -lcuda),
+// shared-memory matrix descriptors for wgmma, and the wgmma fence / commit / wait
+// instructions.
 //
 // Descriptor fields (PTX ISA, "Matrix Descriptor Format"; checked on the card):
 //   * unswizzled MN-major operand (w4a8_dx's B): 8 x 8 core matrices, LBO = bytes between
@@ -249,6 +250,18 @@ inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ba
   const uint64_t dims[2] = {cols, rows}, strides[1] = {stride};
   const uint32_t box[2] = {box_cols, box_rows};
   return encode(map, type, 2, base, dims, strides, box, swizzle);
+}
+
+// a 4-D map over attention's [B, T, H, Dh] bf16 (element strides sb, st; the [H, Dh] slab of a
+// token contiguous) in boxes of [rows tokens][64 columns] of one head, 128-byte swizzle; tokens
+// past T are zero-filled
+inline bool encode_heads(CUtensorMap* map, const void* base, int B, int T, int H, int Dh,
+                         long long sb, long long st, int rows) {
+  const uint64_t dims[4] = {uint64_t(Dh), uint64_t(H), uint64_t(T), uint64_t(B)};
+  const uint64_t strides[3] = {uint64_t(Dh) * 2, uint64_t(st) * 2, uint64_t(sb) * 2};
+  const uint32_t box[4] = {64, 1, uint32_t(rows), 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace ovla_hp

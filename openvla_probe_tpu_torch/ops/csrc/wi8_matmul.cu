@@ -3,316 +3,358 @@
 //
 // Replaces the TPU kernel openvla_probe_tpu/ops/linear.py::_wi8_kernel (reached
 // through _wi8_matmul_2d from matmul_t for every per-channel int8 leaf under
-// the kernel gate). Semantics kept: the int8 codes widen to bf16 exactly, so
+// the kernel gate). Function kept: the int8 codes widen to bf16 exactly, so
 // every product is the TPU's; the sum is fp32 (only its order differs); the
 // per-channel scale multiplies the fp32 sum; one cast to x's type at the end.
+// x is never quantized and no product runs in TF32.
 //
 // Bound on the H100 at the OpenVLA-7B shapes:
 //   * prefill, M = 6912 (B = 24 x T = 288), (K, N) in {(4096, 4096),
 //     (4096, 11008), (11008, 4096)}: 0.23-0.62 TFLOP per launch against
 //     57-163 MB, so it is bound by bf16 tensor-core operations (0.23-0.63 ms
-//     at 989 TFLOP/s);
+//     at 989 TFLOP/s); SigLIP's fc2 on the int4 tier, 6144 x 4304 x 1152, too;
 //   * decode and lm_head, M = 24: the int8 weight stream (16.8-131 MB per
 //     launch, 6.6 GB per decode step) bounds it at 5-39 us per launch, about
 //     2 ms per step at 3.35 TB/s.
+// What bounds it in fact (knock-out builds: scratch copies with one piece of work removed,
+// timed by tools/kernel_ab.py, PERF.md §6): at 6912 x 4096 x 4096 (0.41 ms with a producer
+// warp) the x loads past the ring's first fill cost nothing and the stores 0.01 ms, the
+// fragments' loads and widening 0.05; at 24 x 4096 x 4096 (15 us) a launch with no load and
+// no product takes 5.9 us (set-up and the fold), streaming with no product 12.4.
 //
-// Design. x and q tiles go global -> shared memory with cp.async (16-byte
-// copies, zero-filled past the M, N and K edges) in a multi-stage ring, the
-// int8 codes as int8 (half the bytes of bf16).
-//   * M > 64 (prefill): Hopper's warpgroup MMA (wgmma m64n128k16 bf16 ->
-//     fp32). 128 (n) x 128 (m) x 64 (k) tiles, two warpgroups of 64 weight
-//     rows each, 4 stages (three k-tiles of loads in flight); two blocks
-//     share an SM, so one block's fragment building overlaps the other's
-//     products. The
-//     product is taken transposed so the weights are the register-sourced A
-//     operand: each warp widens its own codes straight into bf16 fragments,
-//     and x (K-major, 128-byte swizzle) is read by the tensor cores from
-//     shared memory.
-//   * M <= 64 (decode, lm_head): mma.sync m16n8k16; 32 x 32 x 256 tiles, 4
-//     warps of 32 x 8, 4 stages: narrow N tiles put 128-1002 blocks on the
-//     132 SMs and deep K stages keep ~24 KB of weights in flight per block;
-//     the codes widen to bf16 as each warp loads its B fragments (each warp
-//     owns its own columns, so no code is widened twice).
-// fp32 activations (the tiny test configurations) take a scalar fp32-FMA
-// kernel: a bf16 product would round x. TMA, a warp-specialized persistent
-// schedule and split-K for the 4096-wide decode products are later work.
+// The int8 -> bf16 widening (`widen2`), exact for every code c in -128..127: a byte
+// permutation builds the bf16 words 0x43 | (c & 0x7F) = 128 + (c & 0x7F) and
+// 0x43 | (c & 0x80) = 128 or 256 (c < 0), and one bf16x2 subtraction of the two gives c,
+// which is representable, so the subtraction does not round (bf16 has 7 fraction bits: a
+// single bias of 128 would need 8). tests/test_torch_kernel_arith_oneshot.py checks all 256
+// codes.
+//
+// M > 64 (prefill, the SigLIP fc2): bf16 wgmma m64n256k16 fed by TMA, warp-specialized (the
+// shape of w4a8_matmul.cu). The block computes outᵀ, a tile of 128 weight rows (n) x 256 rows
+// of x (m), so the int8 weights are wgmma's register operand A, widened in registers, and x
+// is its shared-memory operand B; each code is widened once per 256 rows of x. 384 threads:
+//   * a producer warpgroup, which gives its registers to the consumers (setmaxnreg; 7-8 %
+//     faster than one producer warp of a 288-thread block, tools/kernel_ab.py), in which one
+//     thread keeps a 5-stage ring full, each stage one 64-deep k chunk: x
+//     [256 rows][128 bytes] (a TMA box, 128-byte swizzle, rows past M and k past K
+//     zero-filled: SigLIP's K = 4304 ends in a partial box) and the codes of the block's 128
+//     weight rows [128 n][64 bytes] (a TMA box, 64-byte swizzle), on full / empty mbarriers;
+//   * two consumer warpgroups of 64 weight rows x 256 rows of x (128 fp32 accumulators a
+//     thread). Per stage each thread loads its fragment's code pairs (k 2 t4, 2 t4 + 1 and
+//     2 t4 + 8, 2 t4 + 9 of its rows g, g + 8 in each k16 step: x's k order, which the
+//     register fragment must match) with 16-bit loads, conflict-free under the swizzle,
+//     widens them after the stage's wait, then issues the four wgmma and waits for them
+//     before the next stage's fragments are built: no register of an in-flight wgmma is
+//     written by another instruction, and the other warpgroup's products run meanwhile.
+// M <= 64 (decode steps, lm_head): mma.sync m16n8k16 bf16 fed by TMA, split-K across warps.
+// A block owns 32 weight columns (N = 4096: 128 blocks, one wave on the 132 SMs) and 32 rows
+// of x (M <= 64: one or two row blocks) over all of K. 8 consumer warps take the 128-deep k
+// chunks in turn (chunk c to warp c % 8), each from two stages of its own (16 stages, 64 KB
+// of weights in flight a block: a warp never waits on a stage another warp frees, so no wait
+// runs a whole mbarrier phase ahead); one producer thread fills them in chunk order. In a
+// k16 step a thread takes 4 consecutive k, 4 t4 .. 4 t4 + 3, at the fragment's slots
+// 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 for both operands (an 8-byte load of x, a 4-byte load
+// of codes: the same k in the same slots, and a dot product does not depend on the order of
+// its terms). At the end each warp's fp32 partial sums go to shared memory and every output
+// is their sum in warp order 0..7, then times s: a fixed order, no atomics.
+// fp32 activations (the tiny test configurations) take a scalar fp32-FMA kernel
+// (ovla_wi8_matmul_scalar; the wrapper counts it as wi8_matmul_scalar): a bf16 product would
+// round x.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 
+#include "hopper.cuh"
 
-namespace ovla {
+namespace ovla_wi8 {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+namespace hp = ovla_hp;
+
+// two int8 codes (byte sel & 0xF and (sel >> 8) & 0xF of w: 0x5140 the low pair, 0x7362 the
+// high pair) -> bf16x2, the first code in the low half; exact
+template <uint32_t SEL>
+__device__ __forceinline__ uint32_t widen2(uint32_t w) {
+  const uint32_t a = __byte_perm(w, 0x43434343u, SEL);   // [c0, 0x43, c1, 0x43]
+  const uint32_t lo = a & 0xFF7FFF7Fu;                     // 128 + (c & 0x7F)
+  const uint32_t hi = a & 0xFF80FF80u;                     // 128, or 256 where c < 0
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
+                             *reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return *reinterpret_cast<uint32_t*>(&r);
 }
 
-// 16-byte global -> shared copy; bytes past `src_bytes` (0 or 16) are zero-filled
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two neighbouring int8 codes -> packed bf16x2 (exact), lower k in the low half
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(const int8_t* p) {
-  const char2 c = *reinterpret_cast<const char2*>(p);
-  __nv_bfloat162 h = __floats2bfloat162_rn(float(c.x), float(c.y));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void store_pair(__nv_bfloat16* out, int M, int N, int m, int n,
-                                           float v0, float v1) {
-  if (m >= M) return;
-  __nv_bfloat16* o = out + (long long)m * N + n;
-  if (n + 1 < N && (N % 2) == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
-  } else {
-    if (n < N) o[0] = __float2bfloat16(v0);
-    if (n + 1 < N) o[1] = __float2bfloat16(v1);
-  }
+__device__ __forceinline__ uint32_t lds_u16(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
 }
 
 // ---------------------------------------------------------------------------
-// M > 64: warpgroup MMA
+// M > 64: wgmma with the weights as the register operand
 
-// The product is computed transposed, D'[n, m] = q[n, :] · x[m, :], so that
-// the int8 weights are wgmma's A operand, which may come from registers: each
-// warp widens its own 16 rows of codes to bf16 fragments in registers (every
-// code once, no shared-memory round trip), and x is the B operand, read from
-// shared memory through a descriptor.
-constexpr int kGBN = 128, kGBM = 128, kGBK = 64, kGStages = 4, kGThreads = 256;
-// x tile [128 m][64 k] bf16: one 128-byte row per m, in 8-row atoms of 1024
-// bytes with the 128-byte swizzle (16-byte chunk c of row r stored at chunk
-// c ^ (r % 8)), the K-major layout wgmma reads without bank conflicts
-constexpr int kAtom = 1024;
-constexpr int kGXBytes = kGBM * kGBK * 2;    // one x stage (16 KB)
-constexpr int kGQP = kGBK + 16;              // int8 q stage row pitch (conflict-free fragments)
-constexpr int kGQBytes = kGBN * kGQP;        // one int8 q stage
-constexpr size_t kGSmem = kAtom /* alignment slack */ + kGStages * (kGXBytes + kGQBytes);
-
-__device__ __forceinline__ int swizzled(int r, int chunk) {   // chunk = k / 8
-  return r * 128 + ((chunk ^ (r & 7)) << 4);
-}
-
-// K-major operand, 128-byte swizzle, 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t gmma_desc(const void* p) {
-  return (uint64_t((smem_u32(p) & 0x3FFFF) >> 4)) | (uint64_t(1) << 16) |
-         (uint64_t(kAtom >> 4) << 32) | (uint64_t(1) << 62);
-}
+constexpr int kPBN = 128;                     // weight rows per block: two warpgroups of 64
+constexpr int kPBM = 256;                     // rows of x per block: wgmma's n
+constexpr int kPBK = 64;                      // k per stage: one 128-byte row of x
+constexpr int kPStages = 5;
+constexpr int kPConsumers = 256;
+constexpr int kPThreads = kPConsumers + 128;  // a producer warpgroup: setmaxnreg hands its registers over
+constexpr int kPAcc = kPBM / 2;               // fp32 accumulators a thread
+constexpr int kPXBytes = kPBM * kPBK * 2;     // x of a stage
+constexpr int kPQBytes = kPBN * kPBK;         // codes of a stage, 8 KB
+constexpr int kPStage = kPXBytes + kPQBytes;  // a multiple of 1024
+constexpr size_t kPSmem = 1024 + size_t(kPStages) * kPStage + 2 * kPStages * 8;
 
 #define OVLA_ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
                      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d[64] += A[64 x 16] (bf16 fragments in registers) · B[16 x 128] (bf16, shared memory)
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                    uint64_t db) {
+// d[128] += A (4 registers: this thread's 16 x 16 bf16 fragment of its warp's rows) ·
+// B (16 x 256 bf16 at `db`, K-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
       "}\n"
-      : OVLA_ACC8(0), OVLA_ACC8(8), OVLA_ACC8(16), OVLA_ACC8(24), OVLA_ACC8(32),
-        OVLA_ACC8(40), OVLA_ACC8(48), OVLA_ACC8(56)
+      : OVLA_ACC8(0), OVLA_ACC8(8), OVLA_ACC8(16), OVLA_ACC8(24), OVLA_ACC8(32), OVLA_ACC8(40),
+        OVLA_ACC8(48), OVLA_ACC8(56), OVLA_ACC8(64), OVLA_ACC8(72), OVLA_ACC8(80), OVLA_ACC8(88),
+        OVLA_ACC8(96), OVLA_ACC8(104), OVLA_ACC8(112), OVLA_ACC8(120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 #undef OVLA_ACC8
 
-// Pin the accumulators around the k loop: the compiler may not move their
-// accesses across this point. Used only where no wgmma is in flight (a
-// non-wgmma definition of an in-flight operand makes ptxas serialize wgmma).
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+// The codes of rows r (bytes k, k + 1) in a [rows][64 bytes] tile with the 64-byte swizzle
+// (16-byte chunk c of row r stored at chunk c ^ ((r >> 1) & 3))
+__device__ __forceinline__ const uint8_t* code_at(const uint8_t* qs, int r, int k) {
+  return qs + r * 64 + ((((k >> 4) ^ (r >> 1)) & 3) << 4) + (k & 15);
 }
 
-__device__ __forceinline__ void wgmma_load_stage(uint8_t* xs, int8_t* qs,
-                                                 const __nv_bfloat16* x, const int8_t* q,
-                                                 int M, int N, int K, int m0, int n0, int k0) {
-  // x: thread i -> row i / 8, chunk i % 8: a warp reads 4 whole 128-byte rows,
-  // and the swizzle spreads each 8 threads' chunks over all 32 banks
-  for (int i = threadIdx.x; i < kGBM * (kGBK / 8); i += kGThreads) {
-    const int r = i >> 3, c = i & 7, m = m0 + r, k = k0 + c * 8;
-    const bool ok = m < M && k < K;
-    cp_async16(xs + swizzled(r, c), ok ? x + (long long)m * K + k : x, ok ? 16 : 0);
-  }
-  for (int i = threadIdx.x; i < kGBN * (kGBK / 16); i += kGThreads) {
-    const int r = i / (kGBK / 16), c = i % (kGBK / 16), n = n0 + r, k = k0 + c * 16;
-    const bool ok = n < N && k < K;
-    cp_async16(qs + r * kGQP + c * 16, ok ? q + (long long)n * K + k : q, ok ? 16 : 0);
-  }
-}
+__global__ void __launch_bounds__(kPThreads, 1)
+    wi8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_q, const float* __restrict__ s,
+                     __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kPStages * kPStage);
+  uint64_t* empty = full + kPStages;
+  const int n0 = blockIdx.x * kPBN, m0 = blockIdx.y * kPBM;
+  const int KT = (K + kPBK - 1) / kPBK;
+  const int tid = threadIdx.x;
 
-__global__ void __launch_bounds__(kGThreads, 2)
-    wi8_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                     const float* __restrict__ s, __nv_bfloat16* __restrict__ out, int M, int N,
-                     int K) {
-  extern __shared__ __align__(128) uint8_t wg_smem_raw[];
-  // the swizzle atoms need 1024-byte aligned tiles
-  uint8_t* xs = wg_smem_raw + ((kAtom - (smem_u32(wg_smem_raw) & (kAtom - 1))) & (kAtom - 1));
-  int8_t* qs = reinterpret_cast<int8_t*>(xs + kGStages * kGXBytes);   // [stages] int8 q tiles
-  const int n0 = blockIdx.x * kGBN, m0 = blockIdx.y * kGBM;
-  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int KT = (K + kGBK - 1) / kGBK;
-  const int qrow = wg * 64 + warp * 16 + g;   // this thread's fragment rows: qrow, qrow + 8
-
-  float d[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.f;
-  fence_regs(d);   // only wgmma touches d from here to the end of the k loop
-
-#pragma unroll
-  for (int st = 0; st < kGStages - 1; ++st) {
-    if (st < KT)
-      wgmma_load_stage(xs + st * kGXBytes, qs + st * kGQBytes, x, q, M, N, K, m0, n0,
-                       st * kGBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kGStages - 2>();   // this thread's copies of stage kt landed
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();   // every copy of stage kt landed; every product of k-tile kt - 1 done
-    const int nxt = kt + kGStages - 1;   // into k-tile kt - 1's slot
-    if (nxt < KT)
-      wgmma_load_stage(xs + (nxt % kGStages) * kGXBytes, qs + (nxt % kGStages) * kGQBytes, x,
-                       q, M, N, K, m0, n0, nxt * kGBK);
-    cp_async_commit();
-
-    // A fragments (rows qrow, qrow + 8) of the stage's four k16 steps, built
-    // before the products start: no register of an in-flight wgmma is
-    // written by another instruction, so ptxas keeps the four pipelined
-    uint32_t af[4][4];
-    const int8_t* qst = qs + (kt % kGStages) * kGQBytes;
-#pragma unroll
-    for (int kk = 0; kk < kGBK / 16; ++kk) {
-      const int8_t* r0 = qst + qrow * kGQP + kk * 16 + 2 * t4;
-      af[kk][0] = i8x2_to_bf16x2(r0);
-      af[kk][1] = i8x2_to_bf16x2(r0 + 8 * kGQP);
-      af[kk][2] = i8x2_to_bf16x2(r0 + 8);
-      af[kk][3] = i8x2_to_bf16x2(r0 + 8 * kGQP + 8);
+  if (tid == 0) {
+    for (int i = 0; i < kPStages; ++i) {
+      hp::mbar_init(full + i, 1);    // the producer's arrival, then the stage's bytes
+      hp::mbar_init(empty + i, 2);   // one thread of each consumer warpgroup
     }
-    const uint8_t* xb = xs + (kt % kGStages) * kGXBytes;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < kGBK / 16; ++kk)   // k16 step kk: 32 bytes along each x row
-      wgmma_m64n128k16_rs(d, af[kk], gmma_desc(xb + kk * 32));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    hp::mbar_init_fence();
   }
-  fence_regs(d);
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // D' layout: n8 tile j holds D'[rows qrow, qrow + 8][columns 8 j + 2 t4, + 1],
-  // i.e. out[m = m0 + 8 j + 2 t4 (+1)][n = n0 + qrow (+8)]
-  const int n = n0 + qrow;
+  if (tid >= kPConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // ---- producer: one thread keeps the ring of x and code tiles full ----
+    if (tid == kPConsumers) {
+      for (int c = 0; c < KT; ++c) {
+        const int slot = c % kPStages;
+        hp::mbar_wait(empty + slot, ((c / kPStages) & 1) ^ 1);   // the first round passes
+        uint8_t* st = ring + slot * kPStage;
+        hp::mbar_expect_tx(full + slot, kPStage);
+        hp::tma_load_2d(st, &tm_x, c * kPBK, m0, full + slot);
+        hp::tma_load_2d(st + kPXBytes, &tm_q, c * kPBK, n0, full + slot);
+      }
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups: weight rows 64 wg .. 64 wg + 63 of the tile x kPBM rows of x
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + g;   // this thread's fragment rows r0, r0 + 8
+
+  float d[kPAcc];
+#pragma unroll
+  for (int i = 0; i < kPAcc; ++i) d[i] = 0.f;
+  for (int c = 0; c < KT; ++c) {
+    const int slot = c % kPStages;
+    hp::mbar_wait(full + slot, (c / kPStages) & 1);
+    const uint8_t* xs = ring + slot * kPStage;
+    const uint8_t* qs = xs + kPXBytes;
+    // A fragments of the stage's four k16 steps: a0 / a1 rows r0 / r0 + 8 at k 2 t4, 2 t4 + 1,
+    // a2 / a3 the same rows at k 2 t4 + 8, 2 t4 + 9 (x's k order)
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = kk * 16 + 2 * t4;
+      af[kk][0] = widen2<0x5140>(lds_u16(code_at(qs, r0, k)));
+      af[kk][1] = widen2<0x5140>(lds_u16(code_at(qs, r0 + 8, k)));
+      af[kk][2] = widen2<0x5140>(lds_u16(code_at(qs, r0, k + 8)));
+      af[kk][3] = widen2<0x5140>(lds_u16(code_at(qs, r0 + 8, k + 8)));
+    }
+    hp::fence_operands(d);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)   // k16 step kk: 32 bytes along each 128-byte x row
+      wgmma_rs(d, af[kk], hp::desc_sw128(xs + kk * 32));
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_operands(d);
+    if (wt == 0) hp::mbar_arrive(empty + slot);
+  }
+
+  // accumulator block j (rows of x 8 j .. 8 j + 7): weight rows r0 (e < 2), r0 + 8; rows of x
+  // 8 j + 2 t4 + (e & 1)
+  const int n = n0 + r0;
   const float s0 = n < N ? s[n] : 0.f, s8 = n + 8 < N ? s[n + 8] : 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int m = m0 + j * 8 + 2 * t4;
+  for (int j = 0; j < kPBM / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int mm = m + (e & 1), nn = n + (e >> 1) * 8;
-      if (mm < M && nn < N)
-        out[(long long)mm * N + nn] = __float2bfloat16(d[4 * j + e] * ((e >> 1) ? s8 : s0));
+      const int m = m0 + 8 * j + 2 * t4 + (e & 1), nn = n + 8 * (e >> 1);
+      if (m < M && nn < N)
+        out[(long long)m * N + nn] = __float2bfloat16(d[4 * j + e] * ((e >> 1) ? s8 : s0));
     }
-  }
 }
 
 // ---------------------------------------------------------------------------
-// M <= 64: mma.sync
+// M <= 64: mma.sync over TMA stages, K split across warps
 
-constexpr int kSBM = 32, kSBN = 32, kSBK = 256, kSStages = 4, kSThreads = 128;
-constexpr int kSXP = kSBK + 8;    // x tile pitch (bf16): 16-byte skew
-constexpr int kSQP = kSBK + 16;   // q tile pitch (bytes)
-constexpr size_t kSSmem = kSStages * (kSBM * kSXP * sizeof(__nv_bfloat16) + kSBN * kSQP);
+constexpr int kDBN = 32;                      // weight columns per block
+constexpr int kDBM = 32;                      // rows of x per block
+constexpr int kDBK = 128;                     // k per stage
+constexpr int kDWarps = 8;                    // consumer warps, chunk c to warp c % 8
+constexpr int kDSlots = 2;                    // stages of each warp's own
+constexpr int kDStages = kDWarps * kDSlots;
+constexpr int kDConsumers = 32 * kDWarps;
+constexpr int kDThreads = kDConsumers + 32;
+constexpr int kDXBox = kDBM * 128;            // x [32 rows][64 k] bf16, 4 KB
+constexpr int kDXBytes = 2 * kDXBox;          // x of a stage: two boxes
+constexpr int kDQBytes = kDBN * kDBK;         // codes of a stage [32 n][128 bytes], 4 KB
+constexpr int kDStage = kDXBytes + kDQBytes;  // 12 KB
+constexpr int kDPitch = kDBN + 8;             // partial sums' row pitch (floats)
+constexpr size_t kDSmem = 1024 + size_t(kDStages) * kDStage + 2 * kDStages * 8;
+static_assert(kDWarps * kDBM * kDPitch * 4 <= kDStages * kDStage, "partials fit the ring");
 
-__global__ void __launch_bounds__(kSThreads)
-    wi8_small_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
-                     const float* __restrict__ s, __nv_bfloat16* __restrict__ out, int M, int N,
-                     int K) {
-  extern __shared__ __align__(16) uint8_t sm_smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(sm_smem);    // [stages][32][kSXP]
-  int8_t* qs = reinterpret_cast<int8_t*>(xs + kSStages * kSBM * kSXP);   // [stages][32][kSQP]
-  const int n0 = blockIdx.x * kSBN, m0 = blockIdx.y * kSBM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int KT = (K + kSBK - 1) / kSBK;
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0, uint32_t a1,
+                                               uint32_t a2, uint32_t a3, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
-  auto load = [&](int kt) {
-    __nv_bfloat16* xd = xs + (kt % kSStages) * kSBM * kSXP;
-    int8_t* qd = qs + (kt % kSStages) * kSBN * kSQP;
-    const int k0 = kt * kSBK;
-    for (int i = threadIdx.x; i < kSBM * (kSBK / 8); i += kSThreads) {
-      const int r = i / (kSBK / 8), c = i % (kSBK / 8), m = m0 + r, k = k0 + c * 8;
-      const bool ok = m < M && k < K;
-      cp_async16(xd + r * kSXP + c * 8, ok ? x + (long long)m * K + k : x, ok ? 16 : 0);
+__global__ void __launch_bounds__(kDThreads, 1)
+    wi8_decode_kernel(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_q, const float* __restrict__ s,
+                      __nv_bfloat16* __restrict__ out, int M, int N, int K) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDStages * kDStage);
+  uint64_t* empty = full + kDStages;
+  const int n0 = blockIdx.x * kDBN, m0 = blockIdx.y * kDBM;
+  const int KT = (K + kDBK - 1) / kDBK;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i < kDStages; ++i) {
+      hp::mbar_init(full + i, 1);
+      hp::mbar_init(empty + i, 1);   // lane 0 of the warp that owns the stage
     }
-    for (int i = threadIdx.x; i < kSBN * (kSBK / 16); i += kSThreads) {
-      const int r = i / (kSBK / 16), c = i % (kSBK / 16), n = n0 + r, k = k0 + c * 16;
-      const bool ok = n < N && k < K;
-      cp_async16(qd + r * kSQP + c * 16, ok ? q + (long long)n * K + k : q, ok ? 16 : 0);
-    }
-  };
-
-  float acc[2][4] = {};   // m16 tiles 0, 1 x the warp's n8 tile
-#pragma unroll
-  for (int st = 0; st < kSStages - 1; ++st) {
-    if (st < KT) load(st);
-    cp_async_commit();
+    hp::mbar_init_fence();
   }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kSStages - 2>();
-    __syncthreads();   // stage kt landed for every thread; stage kt - 1 fully consumed
-    if (kt + kSStages - 1 < KT) load(kt + kSStages - 1);
-    cp_async_commit();
-    const __nv_bfloat16* xst = xs + (kt % kSStages) * kSBM * kSXP;
-    const int8_t* qst = qs + (kt % kSStages) * kSBN * kSQP;
-#pragma unroll
-    for (int kk = 0; kk < kSBK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(a[i], xst + (i * 16 + lane % 16) * kSXP + kk + (lane / 16) * 8);
-      const int8_t* qb = qst + (warp * 8 + g) * kSQP + kk + 2 * t4;
-      const uint32_t b0 = i8x2_to_bf16x2(qb), b1 = i8x2_to_bf16x2(qb + 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) mma_bf16_16816(acc[i], a[i], b0, b1);
-    }
-  }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  const int n = n0 + warp * 8 + 2 * t4;
-  const float s0 = n < N ? s[n] : 0.f, s1 = n + 1 < N ? s[n + 1] : 0.f;
+  if (tid >= kDConsumers) {
+    if (tid == kDConsumers) {
+      for (int c = 0; c < KT; ++c) {   // chunk c: warp c % 8, its stage (c / 8) % 2
+        const int r = c / kDWarps, slot = (c % kDWarps) * kDSlots + r % kDSlots;
+        hp::mbar_wait(empty + slot, ((r / kDSlots) & 1) ^ 1);
+        uint8_t* st = ring + slot * kDStage;
+        hp::mbar_expect_tx(full + slot, kDStage);
+        hp::tma_load_2d(st, &tm_x, c * kDBK, m0, full + slot);
+        hp::tma_load_2d(st + kDXBox, &tm_x, c * kDBK + 64, m0, full + slot);
+        hp::tma_load_2d(st + kDXBytes, &tm_q, c * kDBK, n0, full + slot);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  // the scale of this thread's column in the fold (one column a thread), loaded before the
+  // stages arrive
+  static_assert(kDConsumers % kDBN == 0, "a thread folds one column");
+  const float s_col = n0 + tid % kDBN < N ? s[n0 + tid % kDBN] : 0.f;
+  float acc[2][4][4];   // m16 tiles 0, 1 x n8 tiles 0..3
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    store_pair(out, M, N, m0 + i * 16 + g, n, acc[i][0] * s0, acc[i][1] * s1);
-    store_pair(out, M, N, m0 + i * 16 + g + 8, n, acc[i][2] * s0, acc[i][3] * s1);
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int r = 0; warp + kDWarps * r < KT; ++r) {
+    const int slot = warp * kDSlots + r % kDSlots;
+    hp::mbar_wait(full + slot, (r / kDSlots) & 1);
+    const uint8_t* xs = ring + slot * kDStage;
+    const uint8_t* qs = xs + kDXBytes;
+#pragma unroll
+    for (int i = 0; i < kDBK / 16; ++i) {
+      // x rows mt * 16 + g (+ 8), k 16 i + 4 t4 .. + 3: box i / 4, 16-byte chunk
+      // 2 (i % 4) + t4 / 2 stored at chunk ^ (row % 8), bytes 8 (t4 % 2) ..
+      uint2 xa[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = mt * 16 + g + 8 * h, chunk = 2 * (i % 4) + (t4 >> 1);
+          xa[mt][h] = *reinterpret_cast<const uint2*>(
+              xs + (i / 4) * kDXBox + row * 128 + ((chunk ^ (row & 7)) << 4) + 8 * (t4 & 1));
+        }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        // codes of column nt * 8 + g at k 16 i + 4 t4 .. + 3 (128-byte rows, 16-byte chunk i
+        // stored at chunk i ^ (n % 8))
+        const int n = nt * 8 + g;
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(qs + n * 128 +
+                                                              ((i ^ (n & 7)) << 4) + 4 * t4);
+        const uint32_t b0 = widen2<0x5140>(w), b1 = widen2<0x7362>(w);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          mma_bf16_16816(acc[mt][nt], xa[mt][0].x, xa[mt][1].x, xa[mt][0].y, xa[mt][1].y, b0, b1);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(empty + slot);
+  }
+
+  // every warp's stages consumed: the ring takes the partial sums [warp][32 rows][pitch]
+  hp::named_barrier(1, kDConsumers);
+  float* part = reinterpret_cast<float*>(ring);
+  float* pw = part + warp * kDBM * kDPitch;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(pw + (mt * 16 + g + 8 * h) * kDPitch + nt * 8 + 2 * t4) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+  hp::named_barrier(1, kDConsumers);
+#pragma unroll
+  for (int k = 0; k < kDBM * kDBN / kDConsumers; ++k) {
+    const int e = tid + kDConsumers * k, row = e / kDBN, col = e % kDBN;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDWarps; ++w) sum += part[(w * kDBM + row) * kDPitch + col];
+    const int m = m0 + row, n = n0 + col;
+    if (m < M && n < N) out[(long long)m * N + n] = __float2bfloat16(sum * s_col);
   }
 }
 
@@ -342,38 +384,59 @@ __global__ void __launch_bounds__(kF32Tile* kF32Tile)
 }
 
 template <class Kernel>
-int launch_tiled(Kernel kernel, size_t smem, int threads, int bm, int bn, const void* x,
-                 const int8_t* q, const float* s, void* out, int M, int N, int K,
-                 cudaStream_t stream) {
+int launch_tma(Kernel kernel, size_t smem, int threads, int bm, int bn, int box_m, int box_n,
+               CUtensorMapSwizzle q_swizzle, const void* x, const void* q, const float* s,
+               void* out, int M, int N, int K, cudaStream_t stream) {
+  CUtensorMap tm_x, tm_q;
+  if (!hp::encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, K, uint64_t(K) * 2, box_m,
+                     64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hp::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, K, K, box_n,
+                     q_swizzle == CU_TENSOR_MAP_SWIZZLE_64B ? 64 : 128, q_swizzle))
+    return int(cudaErrorInvalidValue);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid((N + bn - 1) / bn, (M + bm - 1) / bm);
-  kernel<<<grid, threads, smem, stream>>>(static_cast<const __nv_bfloat16*>(x), q, s,
-                                          static_cast<__nv_bfloat16*>(out), M, N, K);
+  kernel<<<grid, threads, smem, stream>>>(tm_x, tm_q, s, static_cast<__nv_bfloat16*>(out), M,
+                                          N, K);
   return int(cudaGetLastError());
 }
 
-}  // namespace ovla
+}  // namespace ovla_wi8
 
-// Returns the launch's cudaError_t (0 on success). x, q, s, out contiguous;
-// K a multiple of 16 (16-byte rows of q); x, q and out 16-byte aligned.
+namespace {
+bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; }
+}  // namespace
+
+// The bf16 routes (M > 64: wgmma; M <= 64: mma.sync); is_bf16 = 0 is refused
+// (cudaErrorInvalidValue): fp32 x takes ovla_wi8_matmul_scalar. Returns the launch's
+// cudaError_t (0 on success). x, q, s, out contiguous; K a multiple of 16 (the TMA maps'
+// 16-byte rows of q); x and q 16-byte aligned.
 extern "C" int ovla_wi8_matmul(const void* x, const void* q, const void* s, void* out, int M,
                                int N, int K, int is_bf16, void* stream) {
+  namespace w = ovla_wi8;
+  if (!is_bf16 || M < 1 || N < 1 || K < 16 || K % 16 != 0 || misaligned(x) || misaligned(q) ||
+      (M + w::kPBM - 1) / w::kPBM > 65535)
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int8_t* qi = static_cast<const int8_t*>(q);
   const float* sf = static_cast<const float*>(s);
-  if (M < 1 || N < 1 || K < 16 || K % 16 != 0) return int(cudaErrorInvalidValue);
-  if (!is_bf16) {
-    const dim3 grid((N + ovla::kF32Tile - 1) / ovla::kF32Tile,
-                    (M + ovla::kF32Tile - 1) / ovla::kF32Tile);
-    ovla::wi8_f32_kernel<<<grid, ovla::kF32Tile * ovla::kF32Tile, 0, st>>>(
-        static_cast<const float*>(x), qi, sf, static_cast<float*>(out), M, N, K);
-    return int(cudaGetLastError());
-  }
   if (M <= 64)
-    return ovla::launch_tiled(ovla::wi8_small_kernel, ovla::kSSmem, ovla::kSThreads, ovla::kSBM,
-                              ovla::kSBN, x, qi, sf, out, M, N, K, st);
-  return ovla::launch_tiled(ovla::wi8_wgmma_kernel, ovla::kGSmem, ovla::kGThreads, ovla::kGBM,
-                            ovla::kGBN, x, qi, sf, out, M, N, K, st);
+    return w::launch_tma(w::wi8_decode_kernel, w::kDSmem, w::kDThreads, w::kDBM, w::kDBN,
+                         w::kDBM, w::kDBN, CU_TENSOR_MAP_SWIZZLE_128B, x, q, sf, out, M, N, K,
+                         st);
+  return w::launch_tma(w::wi8_wgmma_kernel, w::kPSmem, w::kPThreads, w::kPBM, w::kPBN, w::kPBM,
+                       w::kPBN, CU_TENSOR_MAP_SWIZZLE_64B, x, q, sf, out, M, N, K, st);
+}
+
+// fp32 x: the scalar fp32-FMA kernel, the same function.
+extern "C" int ovla_wi8_matmul_scalar(const void* x, const void* q, const void* s, void* out,
+                                      int M, int N, int K, void* stream) {
+  namespace w = ovla_wi8;
+  if (M < 1 || N < 1 || K < 1 || (M + w::kF32Tile - 1) / w::kF32Tile > 65535)
+    return int(cudaErrorInvalidValue);
+  const dim3 grid((N + w::kF32Tile - 1) / w::kF32Tile, (M + w::kF32Tile - 1) / w::kF32Tile);
+  w::wi8_f32_kernel<<<grid, w::kF32Tile * w::kF32Tile, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(q), static_cast<const float*>(s),
+      static_cast<float*>(out), M, N, K);
+  return int(cudaGetLastError());
 }

@@ -298,7 +298,12 @@ def _check_matmul_inputs(kernel: str, x: torch.Tensor, named: Dict[str, Tuple]) 
 
 
 def wi8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """x [M, K] (bf16 or fp32) @ int8 q [N, K].T * s [N] -> [M, N] in x's dtype."""
+    """x [M, K] (bf16 or fp32) @ int8 q [N, K].T * s [N] -> [M, N] in x's dtype.
+
+    On the card, two routes by x's dtype, counted apart: bf16 takes the
+    tensor-core kernel (``wi8_matmul``: wgmma above M = 64, mma.sync at and
+    below), fp32 (the tiny configurations) the scalar fp32-FMA kernel
+    (``wi8_matmul_scalar``): a bf16 product would round x."""
     _build.no_grad_guard("wi8_matmul", _WI8_NO_VJP, x, s)
     M, K = x.shape
     N = q.shape[0]
@@ -311,11 +316,15 @@ def wi8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tenso
     if K % 16:
         raise ValueError(f"wi8_matmul: K={K} must be a multiple of 16")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    err = _build.launcher("wi8_matmul")(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, N, K,
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(x))
-    _build.check(err, "wi8_matmul")
-    _build.KERNEL_LAUNCHES["wi8_matmul"] += 1
+    args = (x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, N, K)
+    if x.dtype == torch.bfloat16:
+        kernel = "wi8_matmul"
+        err = _build.launcher(kernel)(*args, 1, _build.stream_ptr(x))
+    else:
+        kernel = "wi8_matmul_scalar"
+        err = _build.launcher(kernel)(*args, _build.stream_ptr(x))
+    _build.check(err, kernel)
+    _build.KERNEL_LAUNCHES[kernel] += 1
     return out
 
 
@@ -542,31 +551,56 @@ def w4a8_dx_plain(g: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Te
     return torch.cat(dx, dim=1).to(g.dtype)
 
 
-def compare_w4a8_dx(got: torch.Tensor, want: torch.Tensor, max_share: float = 2e-2) -> dict:
-    """Hold a `w4a8_dx` output `got` to `w4a8_dx_plain`'s `want`: the same
-    bf16 products, summed in fp32 in another order. fp32: within 1e-5 of the
-    largest |want| everywhere (the sums' rounding, about 2e-6 of it at
-    N = 11008). bf16: every element within one bf16 step of want (the step at
-    the larger magnitude of the two, and at no less than 1/1024 of the
-    largest |want|: a sum that cancels keeps the fp32 error of its terms), at
-    most max(16, max_share of them) apart at all (a sum at a rounding tie).
-    Raises AssertionError; returns the distances."""
+def _within_one_bf16_step(got: torch.Tensor, want: torch.Tensor, floor: float,
+                          max_share: float, kernel: str) -> dict:
+    """Every element of `got` within one bf16 step of `want` (the step at the
+    larger magnitude of the two, and at no less than `floor` of the largest
+    |want|: a sum that cancels keeps the fp32 error of its terms), at most
+    max(16, max_share of them) apart at all (a sum at a rounding tie). fp32:
+    within 1e-5 of the largest |want| everywhere. Raises AssertionError;
+    returns the distances."""
     g, w = got.float(), want.float()
     d = (g - w).abs()
     scale = w.abs().max().item()
     stats = dict(max_abs_err=d.max().item(), n_apart=int((d > 0).sum()), n=d.numel(),
                  max_abs_want=scale)
     if got.dtype == torch.float32:
-        assert stats["max_abs_err"] <= 1e-5 * scale, f"w4a8_dx: fp32 sums too far apart {stats}"
+        assert stats["max_abs_err"] <= 1e-5 * scale, f"{kernel}: fp32 sums too far apart {stats}"
         return stats
-    mag = torch.maximum(g.abs(), w.abs()).clamp(min=scale / 1024)
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=scale * floor)
     _, e = torch.frexp(mag)
     step = torch.ldexp(torch.ones_like(w), e - 8)
     stats["max_steps"] = (d / step).max().item()
-    assert bool((d <= step).all()), f"w4a8_dx: an element more than one bf16 step off {stats}"
+    assert bool((d <= step).all()), f"{kernel}: an element more than one bf16 step off {stats}"
     limit = max(16, int(max_share * d.numel()))
-    assert stats["n_apart"] <= limit, f"w4a8_dx: {stats['n_apart']} elements apart > {limit}"
+    assert stats["n_apart"] <= limit, f"{kernel}: {stats['n_apart']} elements apart > {limit}"
     return stats
+
+
+def compare_w4a8_dx(got: torch.Tensor, want: torch.Tensor, max_share: float = 2e-2) -> dict:
+    """Hold a `w4a8_dx` output `got` to `w4a8_dx_plain`'s `want`: the same
+    bf16 products, summed in fp32 in another order. fp32: within 1e-5 of the
+    largest |want| everywhere (the sums' rounding, about 2e-6 of it at
+    N = 11008). bf16: every element within one bf16 step of want, the step
+    floored at 1/1024 of the largest |want|, at most max(16, max_share of
+    them) apart (`_within_one_bf16_step`). Raises AssertionError; returns the
+    distances."""
+    return _within_one_bf16_step(got, want, 1 / 1024, max_share, "w4a8_dx")
+
+
+def compare_wi8(got: torch.Tensor, want: torch.Tensor, max_share: float = 2e-2) -> dict:
+    """Hold a `wi8_matmul` output `got` to `wi8_matmul_plain`'s `want`: the
+    same exact products (an int8 code is exact in bf16), summed in fp32 in
+    another order, times the same scale, one rounding to x's type. fp32 (the
+    scalar route): within 1e-4 + 1e-4 |want|. bf16: every element within one
+    bf16 step of want, the step floored at 1/1024 of the largest |want|, at
+    most max(16, max_share of them) apart (`_within_one_bf16_step`): a
+    product that rounds x, or sums it in TF32, moves most outputs by more.
+    Raises AssertionError; returns the distances."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return dict(max_abs_err=(got - want).abs().max().item())
+    return _within_one_bf16_step(got, want, 1 / 1024, max_share, "wi8_matmul")
 
 
 def _ste_dot(g: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:

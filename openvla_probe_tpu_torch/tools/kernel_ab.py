@@ -1,7 +1,8 @@
 """Time kernel builds against each other on one CUDA card, in one process.
 
     python -m openvla_probe_tpu_torch.tools.kernel_ab --lib parent=DIR [--lib TAG=PATH ...]
-        [--kernels w4a8_matmul,flash_blockwise,w4a8_dx] [--shapes MxKxN,...] [--out DIR]
+        [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx]
+        [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
 ``--lib`` beside them: ``TAG=DIR`` builds the kernel sources found in DIR (a
@@ -13,16 +14,20 @@ signature). Each build is one ``nvcc`` with the flags of
 
 For every kernel named in ``--kernels`` and every build that exports its
 launcher, at each main-path shape: one launch checked against the plain
-version (``w4a8_matmul`` bit for bit; ``flash_blockwise`` by
-``attention.compare_blockwise``; ``w4a8_dx`` by ``linear.compare_w4a8_dx``
-and bit for bit against the first ``--lib``), then the device time of one
+version (``w4a8_matmul`` bit for bit; ``flash_prefill`` by
+``attention.compare_oneshot`` with its ``oneshot_slack``; ``wi8_matmul`` by ``linear.compare_wi8``;
+``flash_blockwise`` by ``attention.compare_blockwise``; ``w4a8_dx`` by
+``linear.compare_w4a8_dx`` and bit for bit against the first ``--lib``),
+then the device time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
 drift of the card's clocks shows as a spread between a build's two readings.
 The checks are reported, not asserted (a knock-out computes another
 function). Prints one JSON line per kernel and shape, then one line of
 launch-weighted means per kernel (the serving mix and the train mix of
-``w4a8_matmul``, as ``chip_smoke.py`` weighs them).
+``w4a8_matmul``, the pallas mix of ``wi8_matmul`` and its prefill and decode
+routes apart, the serving and score_short launches of ``flash_prefill``, as
+``chip_smoke.py`` weighs them).
 """
 
 from __future__ import annotations
@@ -43,7 +48,7 @@ from ..ops import linear as lin
 
 SPIN_CYCLES = 4_000_000
 L2_BYTES = 50e6
-LAYERS, BATCH, T_PREFILL, A1 = 32, 24, 288, 6
+LAYERS, BATCH, T_PREFILL, A1 = 32, 24, 288, 6   # A1: decode steps after the prefill (A = 7)
 TRAIN_ROWS = 8 * (1 + 256 + 63)
 
 
@@ -121,14 +126,29 @@ def _w4a8(fn, x, q, s):
     return out
 
 
-def _flash(fn, q, k, v, valid):
+def _flash(fn, q, k, v, valid, name="flash_blockwise"):
     B, Tq, H, Dh = q.shape
     out = torch.empty_like(q)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
                     B, H, Tq, k.shape[1], Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                     v.stride(0), v.stride(1), attn._scale(Dh), 0, 1, 1, _build.stream_ptr(q)),
-                 "flash_blockwise")
+                 name)
     return out
+
+
+def _wi8(fn, x, q, s):
+    M, K = x.shape
+    out = torch.empty((M, q.shape[0]), dtype=x.dtype, device=x.device)
+    _build.check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, q.shape[0], K,
+                    int(x.dtype == torch.bfloat16), _build.stream_ptr(x)), "wi8_matmul")
+    return out
+
+
+def _checked(compare, got, want) -> dict:
+    try:
+        return compare(got, want)
+    except AssertionError as e:
+        return {"refused": str(e)}
 
 
 def _dx(fn, g, q, s_t):
@@ -193,6 +213,74 @@ def ab_w4a8_matmul(fns, g, dev, shapes=None):
             flush=True)
 
 
+def wi8_shapes() -> dict:
+    """(M, K, N) -> launches per pallas call (pallas_kv8 the same; SigLIP's
+    fc2 is pallas_int4's, 26 a call)."""
+    M_pre = BATCH * T_PREFILL
+    return {(M_pre, 4096, 4096): 4 * LAYERS, (M_pre, 4096, 11008): 2 * LAYERS,
+            (M_pre, 11008, 4096): LAYERS, (BATCH, 4096, 4096): 4 * LAYERS * A1,
+            (BATCH, 4096, 11008): 2 * LAYERS * A1, (BATCH, 11008, 4096): LAYERS * A1,
+            (BATCH, 4096, 32064): 1 + A1, (BATCH * 256, 4304, 1152): 0}
+
+
+def ab_wi8_matmul(fns, g, dev, shapes=None):
+    rows = []
+    for (M, K, N), per_call in wi8_shapes().items():
+        if shapes and f"{M}x{K}x{N}" not in shapes:
+            continue
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = []
+        for _ in range(_copies(N * K)):
+            q = torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8)
+            s = torch.rand((N,), generator=g, device=dev) * 1e-3 + 1e-3
+            sets.append((x, q, s))
+        want = lin.wi8_matmul_plain(*sets[0])
+        checks = {tag: _checked(lin.compare_wi8, _wi8(fn, *sets[0]), want)
+                  for tag, fn in fns.items()}
+
+        def make(fn):
+            it = iter(range(1 << 30))
+            return lambda: _wi8(fn, *sets[next(it) % len(sets)])
+        rows.append(dict(kernel="wi8_matmul", shape=f"{M}x{K}x{N}", launches_per_call=per_call,
+                         route="decode" if M <= 64 else "prefill", check=checks,
+                         ms=_turns(fns, make)))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets, want
+    for mix, keep in (("pallas_mix", lambda r: True),
+                      ("pallas_prefill", lambda r: r["route"] == "prefill"),
+                      ("pallas_decode", lambda r: r["route"] == "decode")):
+        sel = [r for r in rows if keep(r) and r["launches_per_call"]]
+        n = sum(r["launches_per_call"] for r in sel)
+        if n:
+            print(json.dumps({"kernel": "wi8_matmul", "mix": mix, "launches": n, "ms": {
+                tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_call"] for r in sel) / n
+                for tag in fns}}), flush=True)
+
+
+def ab_flash_prefill(fns, g, dev, shapes=None):
+    """The serving prefill [24, 288 | 295, 32, 128] (padded prompts, the stacked
+    cache's S = T + A keys, query 0 of the last row with every key masked) and
+    score_short's [8, 320, 32, 128] (right-padded rows); 32 launches a call each."""
+    H, Dh = 32, 128
+    for name, (B, T, S, lo) in {"serving": (BATCH, T_PREFILL, T_PREFILL + A1 + 1, 12),
+                                "score_short": (8, 320, 320, 31)}.items():
+        q = torch.randn((B, T, H, Dh), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, H, Dh), generator=g, device=dev).bfloat16() for _ in range(2))
+        lens = torch.randint(T - lo, T + 1, (B,), generator=g, device=dev)
+        valid = (torch.arange(S, device=dev)[None] < lens[:, None]).int()
+        valid[-1, 0] = 0
+        want = attn.flash_attention_plain(q, k, v, valid)
+        slack = attn.oneshot_slack(q, k, v, valid)
+        checks = {tag: _checked(lambda got, w: attn.compare_oneshot(got, w, slack=slack),
+                                _flash(fn, q, k, v, valid, "flash_prefill"), want)
+                  for tag, fn in fns.items()}
+        row = dict(kernel="flash_prefill", shape=f"{B}x{T}|{S}x{H}x{Dh}", path=name,
+                   launches_per_call=LAYERS, check=checks,
+                   ms=_turns(fns, lambda fn: lambda: _flash(fn, q, k, v, valid, "flash_prefill")))
+        print(json.dumps(row), flush=True)
+        del q, k, v, want, slack
+
+
 def ab_flash_blockwise(fns, g, dev, shapes=None):
     B, H, Dh = 8, 32, 128
     for T in (1088, 2048):
@@ -248,7 +336,8 @@ def ab_w4a8_dx(fns, g, dev, shapes=None):
         for tag in fns}}), flush=True)
 
 
-AB = {"w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
+AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
+      "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
       "w4a8_dx": ab_w4a8_dx}
 
 
@@ -256,7 +345,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lib", action="append", default=[], help="TAG=DIR or TAG=FILE.cu")
     ap.add_argument("--kernels", default=",".join(AB))
-    ap.add_argument("--shapes", default="", help="w4a8_matmul MxKxN shapes to time (all)")
+    ap.add_argument("--shapes", default="",
+                    help="w4a8_matmul / wi8_matmul MxKxN shapes to time (all)")
     ap.add_argument("--out", default=str(_build.BUILD_DIR / "kernel_ab"))
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -5,9 +5,15 @@ neither JAX nor the JAX package, so it also runs where only PyTorch is
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 
 Tolerances: fp32 inputs 1e-5 (the same fp32 sums in another order); bf16
-inputs 2e-2 compared in fp32 (about 2 bf16 ulps at |x| <= 1). The int8
-kernels: wi8_matmul 1e-2 (exact products, fp32 sums in another order, then
-one bf16 rounding); the fused w8a8 kernels' activation codes within one
+inputs 2e-2 compared in fp32 (about 2 bf16 ulps at |x| <= 1); flash_prefill
+by attention.compare_oneshot (fp32 within 1e-5; bf16 every element within
+one bf16 step plus attention.oneshot_slack, the reach of P's rounding to
+bf16 when the scores are summed in another order, and at most max(16, 2 %)
+of the elements apart). The int8
+kernels: wi8_matmul by linear.compare_wi8 (exact products, fp32 sums in
+another order, then one bf16 rounding: bf16 every element within one bf16
+step and at most max(16, 2 %) apart, fp32 within 1e-4 + 1e-4 |want|); the
+fused w8a8 kernels' activation codes within one
 step of the plain version's (the fp32 LayerNorm sums run in another order)
 and their outputs bit-equal to the plain version's on the kernels' own codes
 (equal codes give equal int32 sums and the same epilogue); without a
@@ -55,26 +61,55 @@ def _rand(seed, shape, dtype, device):
     return torch.from_numpy(r.normal(size=shape).astype(np.float32)).to(device, dtype)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def _prefill_route(dtype, dh):
+    return ("flash_prefill" if dtype == torch.bfloat16 and dh in (64, 128)
+            else "flash_prefill_scalar")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,tq,tk,H,dh,offset", [
-    (2, 40, 47, 3, 128, 0),     # Tq not a multiple of the 32-row block, Tk past one tile
+    (2, 40, 47, 3, 128, 0),     # Tq not a multiple of the row block, Tk past one tile
     (1, 70, 70, 2, 64, 0),
     (1, 33, 1024, 1, 128, 0),   # the longest one-shot key row (largest shared memory)
     (2, 5, 130, 1, 72, 125),    # causal offset; Dh = 72 takes the scalar kernel
+    (2, 40, 300, 2, 128, 260),  # causal offset on the tensor-core route, ragged Tk
+    (2, 288, 295, 2, 128, 0),   # the serving prefill's Tq | Tk (stacked cache S = T + A)
+    (2, 320, 320, 2, 128, 0),   # score_short's
 ])
-def test_flash_prefill_kernel_matches_plain(cuda, dtype, tol, B, tq, tk, H, dh, offset):
+def test_flash_prefill_kernel_matches_plain(cuda, dtype, B, tq, tk, H, dh, offset):
+    """bf16 at Dh 64 / 128 takes the tensor-core route (flash_prefill), held by
+    attention.compare_oneshot with its oneshot_slack; fp32 and other head dims
+    the scalar route (flash_prefill_scalar), fp32 within 1e-5. Query rows 0..1
+    of the last batch row see no valid key at offset 0 and give the mean of V
+    over the Tk keys."""
     q = _rand(0, (B, tq, H, dh), dtype, cuda)
     k = _rand(1, (B, tk, H, dh), dtype, cuda)
     v = _rand(2, (B, tk, H, dh), dtype, cuda)
     valid = torch.ones((B, tk), dtype=torch.int32, device=cuda)
     valid[0, tk - 4:] = 0
     valid[-1, :2] = 0           # with offset 0: query rows 0..1 fully masked
-    before = tattn.KERNEL_LAUNCHES["flash_prefill"]
-    got = tattn.flash_attention(q, k, v, valid, offset=offset)
-    torch.cuda.synchronize()
-    assert tattn.KERNEL_LAUNCHES["flash_prefill"] == before + 1
+    got = _count(_prefill_route(dtype, dh),
+                 lambda: tattn.flash_attention(q, k, v, valid, offset=offset))
     want = tattn.flash_attention_plain(q, k, v, valid, offset=offset)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    tattn.compare_oneshot(got, want, slack=tattn.oneshot_slack(q, k, v, valid, offset))
+    if offset == 0:
+        mean_v = v[-1].float().mean(0).to(dtype)
+        tattn.compare_oneshot(got[-1, :2], mean_v[None].expand(2, H, dh))
+
+
+def test_flash_prefill_routes_by_the_declared_rule(cuda):
+    """bf16 calls outside the tensor-core rule (Dh 72, rows not 16-byte
+    aligned) take the scalar kernel, counted apart; the tensor-core launcher
+    refuses them itself (no fallback inside it)."""
+    valid = torch.ones((2, 50), dtype=torch.int32, device=cuda)
+    for q in (_rand(60, (2, 50, 2, 72), torch.bfloat16, cuda),
+              _rand(61, (2 * 50 * 2 * 64 + 4,), torch.bfloat16, cuda)[4:].view(2, 50, 2, 64)):
+        assert not tattn.prefill_mma_eligible(q, q, q)
+        got = _count("flash_prefill_scalar", lambda: tattn.flash_attention(q, q, q, valid))
+        tattn.compare_oneshot(got, tattn.flash_attention_plain(q, q, q, valid),
+                              slack=tattn.oneshot_slack(q, q, q, valid))
+        with pytest.raises(RuntimeError, match="flash_prefill"):
+            tattn._launch_flash("flash_prefill", q, q, q, valid, 0, True)
 
 
 def _vit_route(dtype):
@@ -233,22 +268,27 @@ def _count(name, fn):
     return out
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [
-    (24, 4096, 4096),       # a decode step's product (small-M tiles)
-    (24, 4096, 32064),      # lm_head: N = 64 * 501
-    (6264, 1152, 1000),     # M and N past the 128-row / 128-column tiles
+    (24, 4096, 4096),       # a decode step's product (the mma.sync route)
+    (24, 4096, 32064),      # lm_head: N not a multiple of 128
+    (6264, 1152, 1000),     # M and N past the 256-row / 128-column tiles
     (100, 80, 136),         # M > 64 with K past one 64-deep stage
-    (5, 48, 40),            # K not a multiple of the 32 / 256 staging depth
+    (5, 48, 40),            # K not a multiple of the staging depth
+    (64, 4096, 4096),       # the last M of the mma.sync route
+    (65, 4096, 4096),       # the first of the wgmma route
+    (6144, 4304, 1152),     # SigLIP's fc2: K = 4304 ends in a partial k tile
 ])
-def test_wi8_kernel_matches_plain(cuda, dtype, tol, M, K, N):
+def test_wi8_kernel_matches_plain(cuda, dtype, M, K, N):
+    """bf16 takes the tensor-core kernel (wi8_matmul), fp32 the scalar one
+    (wi8_matmul_scalar); both held by linear.compare_wi8."""
     x = _rand(7, (M, K), dtype, cuda)
     q = _codes(8, (N, K), cuda)
     s = _rand(9, (N,), torch.float32, cuda).abs() * 1e-3 + 1e-4
-    got = _count("wi8_matmul", lambda: tlin.wi8_matmul(x, q, s))
-    want = tlin.wi8_matmul_plain(x, q, s)
+    route = "wi8_matmul" if dtype == torch.bfloat16 else "wi8_matmul_scalar"
+    got = _count(route, lambda: tlin.wi8_matmul(x, q, s))
     assert got.dtype == dtype and got.shape == (M, N)
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    tlin.compare_wi8(got, tlin.wi8_matmul_plain(x, q, s))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
