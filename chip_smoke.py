@@ -41,16 +41,26 @@ Phases, one output line each:
               its negative control, a fully masked row at the score_long
               shape, the share of key tiles its causal skip computes, and its
               host time a call),
-              vit_attention, decode_attention (parity; turbo's bf16 scores),
+              vit_attention, decode_attention (parity; turbo's bf16 scores;
+              generate's B = 8, S = 352, and its single row timed at the
+              cluster rule beside one CTA a (b, h); edge cases: ragged
+              cluster key ranges, a CTA with no key, a query far before the
+              last key, a row masked but BOS, a row masked everywhere),
               wi8_matmul (also at SigLIP's fc2 on pallas_int4, K = 4304),
               fused_ln_w8a8, fused_mlp_residual,
-              decode_split_attention (pallas), stacked_decode_attention_i8
+              decode_split_attention (pallas; a single row timed at the
+              cluster rule beside one CTA a (b, h); edge cases: the prefill /
+              generated boundary inside a chunk, a row masked but BOS),
+              stacked_decode_attention_i8
               (pallas_kv8), w4a8_matmul (pallas_int4; also at M = 64 / 65,
               its two routes' edge, and its host time a call at decode),
               w8a8_matmul,
               rms_norm_quant (turbo), nib_hi_dot (turbo_nibble), w4a8_dx
               (train_int4); vit_attention also at DINOv2's 518 px, N = 1370,
-              and at ragged N, bf16 (tensor cores) and fp32 (scalar route)
+              and at ragged N, bf16 (tensor cores) and fp32 (scalar route);
+              the decode attentions' scalar routes (fp32, Dh = 72), which no
+              main path takes: a line of their own (`scalar_routes`), with the
+              main paths' launches (0) and the tiny paths' (`tiny_launches`)
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package):
               equal tokens, close logits or scores; the training paths' loss,
@@ -63,14 +73,14 @@ Phases, one output line each:
               paths count one step, then time steps after two warm-ups and
               check that the loss stays finite, the base is bit-unchanged
               and every B factor moved off zero
-then a JSON line of per-kernel figures and a last line
+then a JSON line of per-kernel figures (each kernel's launches from the main
+path's run), a JSON line of the scalar routes' figures, and a last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero; with
 no CUDA card it exits 1 before printing any result.
 """
 
 from __future__ import annotations
 
-import itertools
 import json
 import statistics
 import subprocess
@@ -92,7 +102,8 @@ from openvla_probe_tpu_torch.ops import rmsnorm_quant as rmsq
 from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
 from openvla_probe_tpu_torch.ops.image import (BackboneTransformSpec, ImageTransformConfig,
                                                apply_image_transform)
-from openvla_probe_tpu_torch.tools import bench_finetune
+from openvla_probe_tpu_torch.tools import bench_finetune, kernel_ab
+from openvla_probe_tpu_torch.tools.kernel_ab import rotating
 from openvla_probe_tpu_torch.training.lora import LoRAConfig, init_lora_params
 from openvla_probe_tpu_torch.training.train_state import tree_leaves
 from openvla_probe_tpu_torch.training.train_step import value_and_grad
@@ -142,13 +153,6 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
-
-
-def rotating(fn, arg_sets):
-    """`fn` over several copies of its inputs in turn, so that timed launches
-    read them from device memory as the main path does, not from L2."""
-    it = itertools.cycle(arg_sets)
-    return lambda: fn(*next(it))
 
 
 def copies_past_l2(nbytes: int) -> int:
@@ -403,47 +407,169 @@ def check_vit_attention(dev, g):
                 library_ms=per_launch("library_ms"), by_shape=by_shape)
 
 
+def _decode_inputs(B, T, S, slot, H, Dh, g, dev, dtype=torch.bfloat16, copies=2):
+    """A stacked-cache decode step: q [B, 1, H, Dh]; `copies` layers of k/v
+    [B, S, H, Dh] (timed in turn, past the L2); padded prompts of T - 12 .. T
+    tokens, then the generated slots up to `slot`."""
+    q = torch.randn((B, 1, H, Dh), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((copies, B, S, H, Dh), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, kernel_ab.decode_valid(B, T, S, slot, g, dev)
+
+
+def _decode_bound(q, k, v, valid, slot, kind: str):
+    """decode_attention's bound: the bytes and products of the keys up to the
+    query's slot (the rest are masked in every row that has a valid key
+    there), q, out and their validity."""
+    n = min(k.shape[1], slot + 1)
+    B, _, H, Dh = q.shape
+    return bound_ms(_nbytes(q, k[:, :n], v[:, :n], q, valid[:, :n]), 4 * B * H * n * Dh, kind)
+
+
+def _by_cluster_size(kernel: str, call, sets) -> dict:
+    """Device ms of `kernel`'s ring launcher at its cluster rule and at 1, 2
+    and 4 CTAs a (b, h), on the rotated input sets (uncounted launches)."""
+    fns = {"rule": _build.launcher(kernel), **kernel_ab.cluster_launchers(kernel)}
+    return {str(cs): cuda_ms(rotating(lambda *a: call(fn, *a), sets)) for cs, fn in fns.items()}
+
+
+def _hold_decode(got, q, k, v, valid, slot, sd) -> dict:
+    """decode_attention's tolerances: fp32 scores within 2e-2 of the plain
+    version, bf16 scores by attn.compare_bf16_scores."""
+    want = attn.decode_attention_plain(q, k, v, valid, slot, sd)
+    if sd == torch.bfloat16:
+        return attn.compare_bf16_scores(
+            got, want, attn.decode_attention_plain(q, k, v, valid, slot, torch.float32))
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    return dict(max_abs_err=(got.float() - want.float()).abs().max().item())
+
+
+def _launched(kernel: str, fn):
+    """fn(), asserting it launched `kernel` once (the route the shape takes)."""
+    before = _build.KERNEL_LAUNCHES[kernel]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.KERNEL_LAUNCHES[kernel] == before + 1, kernel
+    return out
+
+
 def check_decode_attention(dev, g):
-    """The decode-step attention at the 7B shape in its two score types (fp32:
-    parity, bf16: turbo; 192 launches per call each): q [24, 1, 32, 128] over
-    one layer of the stacked cache, k/v [24, 295, 32, 128] bf16, padded
-    prompts, the query at slot 291 (the fourth decode step). fp32 scores
-    within 2e-2 of the plain version; bf16 scores held to the bf16-score plain
-    version by attn.compare_bf16_scores (within 4e-3, and on average at most a
-    tenth as far from it as from the fp32-score plain version)."""
-    B, T, S, H, Dh, slot = BATCH, 288, 295, 32, 128, 291
-    q = torch.randn((B, 1, H, Dh), generator=g, device=dev).bfloat16()
-    k = torch.randn((B, S, H, Dh), generator=g, device=dev).bfloat16()
-    v = torch.randn((B, S, H, Dh), generator=g, device=dev).bfloat16()
-    mm_len = torch.randint(T - 12, T + 1, (B,), generator=g, device=dev)
-    slots = torch.arange(S, device=dev)[None]
-    valid = ((slots < mm_len[:, None]) | ((slots >= T) & (slots <= slot))).int()
-    sdpa_mask = ((valid > 0) & (slots <= slot))[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask))
-    b, by = bound_ms(_nbytes(q, k, v, q, valid), 4 * B * H * S * Dh, "bf16")
+    """The decode-step attention's ring route (bf16, Dh = 128) at the 7B
+    shapes: serving, q [24, 1, 32, 128] over one layer of the stacked cache,
+    k/v [24, 295, 32, 128], the query at slot 291 (the fourth decode step), in
+    its two score types (fp32: parity, bf16: turbo and turbo_nibble; 192
+    launches per call each; one CTA a (b, h)); generate's, B = 8 over S = 352
+    (T 320 + 32 new tokens), slot 335, fp32 scores (992 launches a generate
+    call; one CTA a (b, h)); generate's single row (generate_text; keys split
+    over a 4-CTA cluster: 96, 96, 96, 48 of the 336 up to the slot), timed at
+    the cluster rule beside 1, 2 and 4 CTAs a (b, h). Edge cases, checked
+    untimed: generate's first step (slot 320, 31 keys past it), S = 37 over 2
+    rows of 16 heads (4 CTAs of 16, 16, 5 and no key: ranges that are no
+    multiple of the chunk or of the split), and at every shape a row whose
+    keys are all masked but BOS (its output is V's first row) and a row masked
+    everywhere (the mean of all S values of V, keys past the slot included).
+    fp32 scores within 2e-2 of the plain version; bf16 scores by
+    attn.compare_bf16_scores (within 4e-3, and on average at most a tenth as
+    far from it as from the fp32-score plain version). Bound: the keys up to
+    the slot (_decode_bound). Library: SDPA with the same boolean mask (P not
+    rounded)."""
+    Dh = 128
+    shapes = {"serving": (BATCH, T_PREFILL, T_PREFILL + ACTION_DIM, T_PREFILL + 3, 32,
+                          ("fp32", "bf16"), LAYERS * (ACTION_DIM - 1)),
+              "generate": (VLM_BATCH, 320, 320 + GEN_NEW_TOKENS, 335, 32, ("fp32",),
+                           LAYERS * (GEN_NEW_TOKENS - 1)),
+              "generate_1row": (1, 320, 320 + GEN_NEW_TOKENS, 335, 32, ("fp32",), 0),
+              "generate_first_step": (VLM_BATCH, 320, 320 + GEN_NEW_TOKENS, 320, 32,
+                                      ("fp32", "bf16"), 0),
+              "ragged_cluster": (2, 30, 37, 30, 16, ("fp32", "bf16"), 0)}
     by_mode = {}
-    for mode, sd in (("fp32_scores", torch.float32), ("bf16_scores", torch.bfloat16)):
-        before = attn.KERNEL_LAUNCHES["decode_attention"]
-        got = attn.decode_attention(q, k, v, valid, slot, sd)
-        torch.cuda.synchronize()
-        assert attn.KERNEL_LAUNCHES["decode_attention"] == before + 1
-        want = attn.decode_attention_plain(q, k, v, valid, slot, sd)
-        if sd == torch.bfloat16:
-            stats = attn.compare_bf16_scores(
-                got, want, attn.decode_attention_plain(q, k, v, valid, slot, torch.float32))
-        else:
-            torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
-            stats = dict(max_abs_err=(got.float() - want.float()).abs().max().item())
-        by_mode[mode] = dict(
-            launches_per_call=LAYERS * (ACTION_DIM - 1), **stats,
-            ms=cuda_ms(lambda: attn.decode_attention(q, k, v, valid, slot, sd)),
-            plain_ms=cuda_ms(lambda: attn.decode_attention_plain(q, k, v, valid, slot, sd)),
-            bound_ms=b, bound_by=by, library_ms=lib)
-    mix = _launch_weighted(by_mode, {m: r["launches_per_call"] for m, r in by_mode.items()})
+    for name, (B, T, S, slot, H, modes, per_call) in shapes.items():
+        q, k, v, valid = _decode_inputs(B, T, S, slot, H, Dh, g, dev)
+        bos_only, masked = valid.clone(), valid.clone()
+        bos_only[-1, 1:] = 0
+        masked[-1] = 0
+        slots = torch.arange(S, device=dev)[None]
+        sdpa_mask = ((valid > 0) & (slots <= slot))[:, None, None, :]
+        sets = [(q, k[i], v[i], valid, slot) for i in range(2)]
+        lib_sets = [(q.transpose(1, 2), k[i].transpose(1, 2), v[i].transpose(1, 2))
+                    for i in range(2)]
+        for mode in modes:
+            sd = torch.bfloat16 if mode == "bf16" else torch.float32
+            row = dict(launches_per_call=per_call)
+            for vv, tag in ((valid, ""), (bos_only, "bos_only_row_"), (masked, "masked_row_")):
+                got = _launched("decode_attention", lambda: attn.decode_attention(
+                    q, k[0], v[0], vv, slot, sd))
+                stats = _hold_decode(got, q, k[0], v[0], vv, slot, sd)
+                row.update({tag + key: val for key, val in stats.items()})
+                if tag == "bos_only_row_":
+                    torch.testing.assert_close(got[-1].float(), v[0][-1, :1].float(), atol=2e-2,
+                                               rtol=0)
+            torch.testing.assert_close(got[-1].float(), v[0][-1].float().mean(0, keepdim=True),
+                                       atol=2e-2, rtol=0)
+            if per_call or name == "generate_1row":
+                b, by = _decode_bound(q, k[0], v[0], valid, slot, "bf16")
+                row.update(bound_ms=b, bound_by=by, ms=cuda_ms(rotating(
+                    lambda *a: attn.decode_attention(*a, sd), sets)))
+            if per_call:
+                row.update(
+                    plain_ms=cuda_ms(rotating(lambda *a: attn.decode_attention_plain(*a, sd),
+                                              sets)),
+                    library_ms=cuda_ms(rotating(lambda qt, kt, vt: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=sdpa_mask), lib_sets)))
+            if name == "generate_1row":
+                row["ms_by_cluster_size"] = _by_cluster_size(
+                    "decode_attention", kernel_ab.call_decode_attention,
+                    [(*a, int(sd == torch.bfloat16)) for a in sets])
+            row["max_abs_err"] = max(val for key, val in row.items() if key.endswith("max_abs_err"))
+            by_mode[f"{name}_{mode}_scores"] = row
+        del q, k, v, sets, lib_sets
+    serving = {m: r["launches_per_call"] for m, r in by_mode.items() if m.startswith("serving")}
+    mix = _launch_weighted({m: by_mode[m] for m in serving}, serving)
+    mix["max_abs_err"] = max(r["max_abs_err"] for r in by_mode.values())
     return dict(name="decode_attention", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/decode_attention.cu",
                 replaces="openvla_probe_tpu/models/llama.py:225", by_mode=by_mode, **mix)
+
+
+def check_decode_attention_scalar(dev, g):
+    """decode_attention's scalar route (fp32, other head dims, unaligned rows;
+    the tiny fp32 paths launch it) at the serving decode's shape in fp32,
+    q [24, 1, 32, 128] over k/v [24, 295, 32, 128], and at Dh = 72 in bf16,
+    both score types: fp32 scores within 1e-5 on fp32 inputs and 2e-2 on bf16
+    ones, bf16 scores by attn.compare_bf16_scores.
+    Bound: the fp32 bytes; library: SDPA in fp32 with the same mask."""
+    B, T, S, slot, H = BATCH, T_PREFILL, T_PREFILL + ACTION_DIM, T_PREFILL + 3, 32
+    q, k, v, valid = _decode_inputs(B, T, S, slot, H, 128, g, dev, torch.float32)
+    row = {}
+    got = _launched("decode_attention_scalar",
+                    lambda: attn.decode_attention(q, k[0], v[0], valid, slot, torch.float32))
+    want = attn.decode_attention_plain(q, k[0], v[0], valid, slot, torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    row["fp32_fp32_scores_max_abs_err"] = (got - want).abs().max().item()
+    got = _launched("decode_attention_scalar",
+                    lambda: attn.decode_attention(q, k[0], v[0], valid, slot, torch.bfloat16))
+    row["fp32_bf16_scores_max_abs_err"] = _hold_decode(got, q, k[0], v[0], valid, slot,
+                                                       torch.bfloat16)["max_abs_err"]
+    q72, k72, v72, valid72 = _decode_inputs(4, 30, 37, 30, 8, 72, g, dev, copies=1)
+    for sd in (torch.float32, torch.bfloat16):
+        got = _launched("decode_attention_scalar", lambda: attn.decode_attention(
+            q72, k72[0], v72[0], valid72, 30, sd))
+        row[f"dh72_{'bf16' if sd == torch.bfloat16 else 'fp32'}_scores_max_abs_err"] = \
+            _hold_decode(got, q72, k72[0], v72[0], valid72, 30, sd)["max_abs_err"]
+    slots = torch.arange(S, device=dev)[None]
+    sdpa_mask = ((valid > 0) & (slots <= slot))[:, None, None, :]
+    sets = [(q, k[i], v[i], valid, slot) for i in range(2)]
+    lib_sets = [(q.transpose(1, 2), k[i].transpose(1, 2), v[i].transpose(1, 2)) for i in range(2)]
+    b, by = _decode_bound(q, k[0], v[0], valid, slot, "fp32")
+    return dict(name="decode_attention_scalar", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/decode_attention.cu",
+                replaces="openvla_probe_tpu/models/llama.py:225", by_check=row,
+                max_abs_err=max(row.values()),
+                ms=cuda_ms(rotating(attn.decode_attention, sets)),
+                plain_ms=cuda_ms(rotating(attn.decode_attention_plain, sets)),
+                bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(rotating(lambda qt, kt, vt: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sdpa_mask), lib_sets)))
 
 
 def _launch_weighted(by_shape: dict, per_call: dict) -> dict:
@@ -594,34 +720,107 @@ def check_fused_mlp_residual(dev, g):
                 replaces="openvla_probe_tpu/ops/vit_mlp.py:62", by_shape=by_shape, **mix)
 
 
-def check_decode_split_attention(dev, g):
-    """Row 4 at the 7B decode shape: q [24, 1, 32, 128] over one layer of the
-    frozen prefill K/V [24, 288, 32, 128] and of the generated K/V
-    [24, 6, 32, 128] (strided layer slices of stacked buffers), padded
-    prompts, decode step 3; within 2e-2 of the plain version (bf16). Library:
-    SDPA on K/V concatenated beforehand (it leaves out the concatenation and
-    rounds P to bf16)."""
-    B, T, A, H, Dh = BATCH, T_PREFILL, ACTION_DIM - 1, 32, 128
-    kp, vp = (torch.randn((2, B, T, H, Dh), generator=g, device=dev).bfloat16() for _ in range(2))
-    kd, vd = (torch.randn((2, B, A, H, Dh), generator=g, device=dev).bfloat16() for _ in range(2))
-    q = torch.randn((B, 1, H, Dh), generator=g, device=dev).bfloat16()
+def _split_inputs(B, T, A, step, H, Dh, g, dev, dtype=torch.bfloat16, copies=2):
+    """A frozen-KV decode step: q [B, 1, H, Dh]; `copies` layer slices of
+    stacked kp/vp [B, T, H, Dh] and kd/vd [B, A, H, Dh]; padded prompts of
+    T - 12 .. T tokens; the generated slots up to `step`."""
+    kp, vp = (torch.randn((copies, B, T, H, Dh), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    kd, vd = (torch.randn((copies, B, A, H, Dh), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    q = torch.randn((B, 1, H, Dh), generator=g, device=dev).to(dtype)
     mm_len = torch.randint(T - 12, T + 1, (B,), generator=g, device=dev)
     pre = (torch.arange(T, device=dev)[None] < mm_len[:, None]).int()
-    dec = (torch.arange(A, device=dev) <= 3).int()[None].expand(B, A)
-    sets = [(q, kp[i], vp[i], kd[i], vd[i], pre, dec) for i in range(2)]
-    got = dattn.decode_flash_attention(*sets[0])
-    torch.cuda.synchronize()
-    want = dattn.decode_flash_attention_plain(*sets[0])
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
-    sdpa_mask = torch.cat([pre, dec], dim=1).bool()[:, None, None, :]
-    lib_sets = [(q.transpose(1, 2), torch.cat([kp[i], kd[i]], 1).transpose(1, 2),
-                 torch.cat([vp[i], vd[i]], 1).transpose(1, 2)) for i in range(2)]
-    b, by = bound_ms(_nbytes(q, kp[0], vp[0], kd[0], vd[0], pre, dec, got),
-                     4 * B * H * (T + A) * Dh, "fp32")
+    dec = (torch.arange(A, device=dev) <= step).int()[None].expand(B, A).contiguous()
+    return [(q, kp[i], vp[i], kd[i], vd[i], pre, dec) for i in range(copies)]
+
+
+def check_decode_split_attention(dev, g):
+    """Row 4's ring route (bf16, Dh = 128) at the 7B decode shape: q [24, 1,
+    32, 128] over one layer of the frozen prefill K/V [24, 288, 32, 128] and of
+    the generated K/V [24, 6, 32, 128] (strided layer slices of stacked
+    buffers), padded prompts, decode step 3 (one CTA a (b, h)); within 2e-2 of
+    the plain version (bf16). A single row (a one-observation pallas call;
+    keys split over a 4-CTA cluster), timed at the cluster rule beside 1, 2
+    and 4 CTAs a (b, h). Edge cases, checked untimed: T = 283 over 2 rows
+    (2-CTA clusters; the prefill / generated boundary inside a chunk), and at
+    every shape a row whose keys are all masked but BOS (its output is Vp's
+    first row). Library: SDPA on K/V concatenated beforehand (it leaves out
+    the concatenation and rounds P to bf16)."""
+    B, T, A, H, Dh = BATCH, T_PREFILL, ACTION_DIM - 1, 32, 128
+    by_shape = {}
+    for name, (b_, t_) in {"serving": (B, T), "boundary_in_chunk": (2, 283),
+                           "one_row": (1, T)}.items():
+        sets = _split_inputs(b_, t_, A, 3, H, Dh, g, dev)
+        q, kp, vp, kd, vd, pre, dec = sets[0]
+        edge_pre, edge_dec = pre.clone(), dec.clone()
+        edge_pre[-1, 1:] = 0
+        edge_dec[-1] = 0
+        errs = []
+        for pv, dv in ((pre, dec), (edge_pre, edge_dec)):
+            args = (q, kp, vp, kd, vd, pv, dv)
+            got = _launched("decode_split_attention", lambda: dattn.decode_flash_attention(*args))
+            want = dattn.decode_flash_attention_plain(*args)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+            errs.append((got.float() - want.float()).abs().max().item())
+        torch.testing.assert_close(got[-1].float(), vp[-1, :1].float(), atol=2e-2, rtol=0)
+        by_shape[name] = dict(max_abs_err=errs[0], bos_only_row_max_abs_err=errs[1])
+        if name == "boundary_in_chunk":
+            continue
+        b, by = bound_ms(_nbytes(q, kp, vp, kd, vd, pre, dec, got), 4 * b_ * H * (t_ + A) * Dh,
+                         "fp32")
+        by_shape[name].update(ms=cuda_ms(rotating(dattn.decode_flash_attention, sets)),
+                              bound_ms=b, bound_by=by)
+        if name == "one_row":
+            by_shape[name]["ms_by_cluster_size"] = _by_cluster_size(
+                "decode_split_attention", kernel_ab.call_decode_split, sets)
+            continue
+        sdpa_mask = torch.cat([pre, dec], dim=1).bool()[:, None, None, :]
+        lib_sets = [(q.transpose(1, 2), torch.cat([s[1], s[3]], 1).transpose(1, 2),
+                     torch.cat([s[2], s[4]], 1).transpose(1, 2)) for s in sets]
+        by_shape[name].update(
+            launches_per_call=LAYERS * A,
+            plain_ms=cuda_ms(rotating(dattn.decode_flash_attention_plain, sets)),
+            library_ms=cuda_ms(rotating(lambda qt, kt, vt: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask), lib_sets)))
+        del lib_sets
+    main = by_shape["serving"]
     return dict(name="decode_split_attention", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/decode_split_attention.cu",
                 replaces="openvla_probe_tpu/ops/decode_attention.py:33",
-                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                max_abs_err=max(max(r["max_abs_err"], r["bos_only_row_max_abs_err"])
+                                for r in by_shape.values()),
+                **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms")},
+                by_shape=by_shape)
+
+
+def check_decode_split_attention_scalar(dev, g):
+    """Row 4's scalar route (fp32, other head dims, unaligned rows; the tiny
+    fp32 pallas paths launch it) at the 7B decode shape in fp32, within 1e-5
+    of the plain version, and at Dh = 72 in bf16 within 2e-2. Bound: the fp32
+    bytes; library: SDPA in fp32 on K/V concatenated beforehand."""
+    B, T, A, H, Dh = BATCH, T_PREFILL, ACTION_DIM - 1, 32, 128
+    sets = _split_inputs(B, T, A, 3, H, Dh, g, dev, torch.float32)
+    got = _launched("decode_split_attention_scalar",
+                    lambda: dattn.decode_flash_attention(*sets[0]))
+    want = dattn.decode_flash_attention_plain(*sets[0])
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    err = (got - want).abs().max().item()
+    args72 = _split_inputs(4, 30, A, 3, 8, 72, g, dev, copies=1)[0]
+    got72 = _launched("decode_split_attention_scalar",
+                      lambda: dattn.decode_flash_attention(*args72))
+    want72 = dattn.decode_flash_attention_plain(*args72)
+    torch.testing.assert_close(got72.float(), want72.float(), atol=2e-2, rtol=2e-2)
+    q, kp, vp, kd, vd, pre, dec = sets[0]
+    sdpa_mask = torch.cat([pre, dec], dim=1).bool()[:, None, None, :]
+    lib_sets = [(q.transpose(1, 2), torch.cat([s[1], s[3]], 1).transpose(1, 2),
+                 torch.cat([s[2], s[4]], 1).transpose(1, 2)) for s in sets]
+    b, by = bound_ms(_nbytes(q, kp, vp, kd, vd, pre, dec, got), 4 * B * H * (T + A) * Dh, "fp32")
+    return dict(name="decode_split_attention_scalar", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/decode_split_attention.cu",
+                replaces="openvla_probe_tpu/ops/decode_attention.py:33",
+                max_abs_err=max(err, (got72.float() - want72.float()).abs().max().item()),
                 ms=cuda_ms(rotating(dattn.decode_flash_attention, sets)),
                 plain_ms=cuda_ms(rotating(dattn.decode_flash_attention_plain, sets)),
                 bound_ms=b, bound_by=by,
@@ -1054,7 +1253,8 @@ TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3, "nibble": 1e-3}
 # the tiny configs run fp32: the kernels with a bf16 tensor-core route take their scalar
 # route, counted apart
 TINY_ROUTES = {"vit_attention": "vit_attention_scalar", "flash_prefill": "flash_prefill_scalar",
-               "wi8_matmul": "wi8_matmul_scalar"}
+               "wi8_matmul": "wi8_matmul_scalar", "decode_attention": "decode_attention_scalar",
+               "decode_split_attention": "decode_split_attention_scalar"}
 
 
 def check_tiny_path(dev, path: str):
@@ -1083,7 +1283,8 @@ def check_tiny_path(dev, path: str):
     assert torch.equal(out["action_tokens"].cpu(), ref["action_tokens"])
     err = (out["first_logits"].cpu() - ref["first_logits"]).abs().max().item()
     assert err < TINY_TOL[PATHS[path][1]], err
-    return dict(path=path, tokens_equal=True, first_logits_max_abs_err=err)
+    return dict(path=path, tokens_equal=True, first_logits_max_abs_err=err,
+                launches={k: n for k, n in _build.KERNEL_LAUNCHES.items() if n})
 
 
 class IdTok:
@@ -1138,7 +1339,7 @@ def _expected_vlm_launches(c: vlm.VLMConfig, decode_steps: int = 0, score_T: int
     kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
     routes = routes or {}
     kernels[routes.get("vit_attention", "vit_attention")] = sum(v.num_layers - 1 for v in c.vision)
-    kernels["decode_attention"] = L * decode_steps
+    kernels[routes.get("decode_attention", "decode_attention")] = L * decode_steps
     if score_T:
         kernels["flash_blockwise" if score_T > attn.ONESHOT_MAX_TK
                 else routes.get("flash_prefill", "flash_prefill")] = L
@@ -1568,11 +1769,17 @@ def main() -> int:
                check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
                check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g), check_rms_norm_quant(dev, g),
                check_nib_hi_dot(dev, g), check_w4a8_dx(dev, g)]
-    log("kernels", card=card, results=kernels)
+    # the decode attentions' scalar routes: no main path takes them (the tiny fp32 paths do)
+    scalar_routes = [check_decode_attention_scalar(dev, g),
+                     check_decode_split_attention_scalar(dev, g)]
+    log("kernels", card=card, results=kernels, scalar_routes=scalar_routes)
     log("requant_route", card=card, shapes=check_w8a8_requant(dev, g))
 
+    tiny = {}
     for path in PATHS:
-        log("tiny", **check_tiny_path(dev, path))
+        row = check_tiny_path(dev, path)
+        tiny[path] = row["launches"]
+        log("tiny", **row)
     for path in VLM_PATHS:
         log("tiny", **check_tiny_vlm(dev, path))
     for path in TRAIN_PATHS:
@@ -1594,14 +1801,21 @@ def main() -> int:
         log("main", card=card, launches_per_step=launches[path], **train_stats)
         torch.cuda.empty_cache()
 
-    # each kernel's launches: from the main path whose slice ported it
+    # each kernel's launches: from the main path whose slice ported it; a scalar route's from
+    # every main path (none takes one) and, apart, from the tiny paths that run it
     for k in kernels:
         k["launches"] = launches[PORTED_ON.get(k["name"], "pallas")][k["name"]]
         assert k["launches"] > 0, k["name"]
+    for k in scalar_routes:
+        k["launches"] = sum(counts.get(k["name"], 0) for counts in launches.values())
+        k["tiny_launches"] = sum(counts.get(k["name"], 0) for counts in tiny.values())
+        assert k["tiny_launches"] > 0, k["name"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(smi, flush=True)
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}), flush=True)
+    print(json.dumps({"scalar_routes": [{key: k[key] for key in (*keys, "tiny_launches")}
+                                        for k in scalar_routes]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

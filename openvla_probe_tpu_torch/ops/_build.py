@@ -61,6 +61,10 @@ KERNELS = {
         "decode_attention.cu", "ovla_decode_attention",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _F, _I, _I, _I, _P],
     ),
+    "decode_attention_scalar": (
+        "decode_attention.cu", "ovla_decode_attention_scalar",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _L, _F, _I, _I, _I, _P],
+    ),
     "wi8_matmul": (
         "wi8_matmul.cu", "ovla_wi8_matmul",
         [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -79,6 +83,11 @@ KERNELS = {
     ),
     "decode_split_attention": (
         "decode_split_attention.cu", "ovla_decode_split_attention",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+         _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
+    ),
+    "decode_split_attention_scalar": (
+        "decode_split_attention.cu", "ovla_decode_split_attention_scalar",
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
          _L, _L, _L, _L, _L, _L, _L, _L, _L, _F, _I, _P],
     ),

@@ -398,13 +398,39 @@ def vit_flash_attention(q, k, v):
     return out
 
 
+DECODE_RING_HEAD_DIM = 128
+DECODE_RING_MAX_KEYS = 4096
+
+
+def decode_ring_eligible(q, *kv) -> bool:
+    """The declared rule of the decode attentions' ring route (`decode_attention`
+    and `decode_attention.decode_flash_attention`), the whole of what its
+    launchers take: bf16 at a head dim of 128; `kv` the K and V of each key
+    segment in order ((k, v), or the split decode's (kp, vp, kd, vd)), every
+    segment at least one key and all of them at most DECODE_RING_MAX_KEYS;
+    every K/V tensor's data pointer, batch and token strides 16-byte aligned
+    (the launchers copy whole rows in bulk). Every serving decode and
+    generate's qualify: one layer's [B, S, 32, 128] slice of the stacked bf16
+    buffers."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] == DECODE_RING_HEAD_DIM
+            and all(t.shape[1] >= 1 for t in kv)
+            and sum(t.shape[1] for t in kv[::2]) <= DECODE_RING_MAX_KEYS
+            and all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                    for t in kv))
+
+
 def decode_attention(q, k, v, kv_valid, offset: int, scores_dtype=torch.float32):
     """One decode query per (batch, head) over the stacked cache.
 
     q [B, 1, H, Dh]; k/v [B, S, H, Dh] (one layer of the cache, heads already
     repeated); kv_valid [B, S]; the query sits at position `offset`; scores in
     fp32 (parity) or bf16 (turbo). Returns [B, 1, H, Dh] in q's dtype, the
-    function of `decode_attention_plain`."""
+    function of `decode_attention_plain`. On the card, two routes by a
+    declared rule (`decode_ring_eligible`), counted apart: the ring kernel
+    (``decode_attention``) and, for every other call (fp32, other head dims,
+    unaligned rows), the scalar kernel (``decode_attention_scalar``), which
+    computes the same function. A launch that fails raises; neither route
+    stands in for the other."""
     if scores_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decode_attention: scores in fp32 or bf16, got {scores_dtype}")
     _build.no_grad_guard("decode_attention", _DECODE_NO_GRAD, q, k, v)
@@ -425,11 +451,12 @@ def decode_attention(q, k, v, kv_valid, offset: int, scores_dtype=torch.float32)
                          f"got {tuple(kv_valid.shape)} on {kv_valid.device}")
     valid = kv_valid.to(torch.int32).contiguous()
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
-    err = _build.launcher("decode_attention")(
+    kernel = "decode_attention" if decode_ring_eligible(q, k, v) else "decode_attention_scalar"
+    err = _build.launcher(kernel)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
         B, H, S, Dh, q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         _scale(Dh), int(offset), int(scores_dtype == torch.bfloat16),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
-    _build.check(err, "decode_attention")
-    KERNEL_LAUNCHES["decode_attention"] += 1
+    _build.check(err, kernel)
+    KERNEL_LAUNCHES[kernel] += 1
     return out

@@ -14,15 +14,31 @@
 // out = sum_c p_c v_c in fp32, cast to the input type.
 //
 // Bound on the H100 at the OpenVLA-7B decode shape (B=24, q [24, 1, 32, 128],
-// k/v [24, 295, 32, 128] bf16): 116 MB of K/V per layer (35 us at 3.35 TB/s)
-// against 58 MFLOP, so it is bytes-bound. The plain PyTorch version upcasts
-// and re-lays out the whole cache in fp32 per layer and step (~5x the bytes).
-// Here one block of 128 threads per (b, h) reads each K row and each V row
-// once, coalesced (a warp per key for q . k, a thread per head dim for PV),
-// and keeps scores and probabilities in shared memory.
+// k/v [24, 295, 32, 128] bf16, the query at slot 291): 115 MB of the K/V up to
+// the query (34 us at 3.35 TB/s) against 58 MFLOP, so it is bytes-bound; at
+// generate's middle step (B = 8, S = 352, slot 335) 44 MB (13 us) over only
+// 256 (b, h) pairs for 132 SMs.
+//
+// Two routes, chosen by the wrapper's declared rule before the launch
+// (ops/attention.py::decode_ring_eligible), each launcher refusing what it
+// does not take:
+//  * ovla_decode_attention: bf16 at Dh = 128 with 16-byte aligned rows and
+//    strides: the ring route of decode_common.cuh (bulk copies of whole rows
+//    through each warp's ring of stages, K then V; q.k and P.V on mma.sync;
+//    keys split across a cluster of 1, 2 or 4 CTAs by B * H: 1 at serving and
+//    for generate's 8 rows, 4 for a single row; only keys up to the query's
+//    position are read, unless a row has no valid key there). P is rounded
+//    to bf16 after the division by the whole row's sum, so the cluster
+//    exchanges its max and then its sum before any CTA forms P.
+//  * ovla_decode_attention_scalar: fp32, other head dims, unaligned rows. One
+//    block of 128 threads per (b, h) reads each K row and each V row once,
+//    coalesced (a warp per key for q . k, a thread per head dim for PV), and
+//    keeps scores and probabilities in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode_common.cuh"
 
 namespace ovla {
 
@@ -142,15 +158,59 @@ int launch_decode_attention(const DecodeArgs& a, cudaStream_t stream) {
 
 }  // namespace ovla
 
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int ovla_decode_attention(const void* q, const void* k, const void* v, void* o,
-                                     const int32_t* kv_valid, int B, int H, int S, int Dh,
-                                     long long q_sb, long long k_sb, long long k_st,
-                                     long long v_sb, long long v_st, float scale, int offset,
-                                     int bf16_scores, int is_bf16, void* stream) {
+// The scalar route. Returns the launch's cudaError_t (0 on success).
+extern "C" int ovla_decode_attention_scalar(const void* q, const void* k, const void* v,
+                                            void* o, const int32_t* kv_valid, int B, int H,
+                                            int S, int Dh, long long q_sb, long long k_sb,
+                                            long long k_st, long long v_sb, long long v_st,
+                                            float scale, int offset, int bf16_scores,
+                                            int is_bf16, void* stream) {
   ovla::DecodeArgs a{q, k, v, o, kv_valid, B, H, S, Dh, q_sb, k_sb, k_st, v_sb, v_st,
                      scale, offset, bf16_scores};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? ovla::launch_decode_attention<__nv_bfloat16>(a, s)
                  : ovla::launch_decode_attention<float>(a, s);
+}
+
+namespace ovla {
+
+template <int kMode>
+__global__ void __launch_bounds__(ovla_dec::kThreads, ovla_dec::kMinBlocksPerSm)
+    decode_ring_kernel(ovla_dec::RingArgs a) {
+  ovla_dec::ring_decode<kMode>(a);
+}
+
+}  // namespace ovla
+
+// The ring route: bf16 at Dh = 128, K/V pointers and strides 16-byte aligned, S <= 4096;
+// anything else is refused (cudaErrorInvalidValue) before a launch. `cs` CTAs a (b, h): 1, 2 or
+// 4, or 0 for cluster_size's rule (ovla_decode_attention; a given size times the rule against
+// the others).
+extern "C" int ovla_decode_attention_cs(const void* q, const void* k, const void* v, void* o,
+                                        const int32_t* kv_valid, int B, int H, int S, int Dh,
+                                        long long q_sb, long long k_sb, long long k_st,
+                                        long long v_sb, long long v_st, float scale, int offset,
+                                        int bf16_scores, int is_bf16, int cs, void* stream) {
+  const void* ptrs[2] = {k, v};
+  const long long strides[4] = {k_sb, k_st, v_sb, v_st};
+  if (B < 1 || H < 1 || !ovla_dec::ring_takes(is_bf16, Dh, S, ptrs, 2, strides, 4))
+    return int(cudaErrorInvalidValue);
+  ovla_dec::RingArgs a{q, k, v, k, v, kv_valid, kv_valid, o, B, H, S, S,
+                       q_sb, k_sb, k_st, v_sb, v_st, k_sb, k_st, v_sb, v_st,
+                       scale, offset, cs ? cs : ovla_dec::cluster_size(B * H),
+                       ovla_dec::ring_keys(S, offset, true)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16_scores
+             ? ovla_dec::launch_ring(ovla::decode_ring_kernel<ovla_dec::kBf16Scores>, a, s)
+             : ovla_dec::launch_ring(ovla::decode_ring_kernel<ovla_dec::kFp32Scores>, a, s);
+}
+
+// The ring route at cluster_size's rule. The signature is the scalar route's.
+extern "C" int ovla_decode_attention(const void* q, const void* k, const void* v, void* o,
+                                     const int32_t* kv_valid, int B, int H, int S, int Dh,
+                                     long long q_sb, long long k_sb, long long k_st,
+                                     long long v_sb, long long v_st, float scale, int offset,
+                                     int bf16_scores, int is_bf16, void* stream) {
+  return ovla_decode_attention_cs(q, k, v, o, kv_valid, B, H, S, Dh, q_sb, k_sb, k_st, v_sb,
+                                  v_st, scale, offset, bf16_scores, is_bf16, 0, stream);
 }

@@ -12,20 +12,29 @@
 //   to bf16 like XLA; this one must not.)
 //
 // Bound on the H100 at the OpenVLA-7B decode shape (B = 24, q [24, 1, 32, 128],
-// kp/vp [24, 288, 32, 128], kd/vd [24, 6, 32, 128] bf16): 115 MB of K/V per
-// launch (34 us at 3.35 TB/s) against 58 MFLOP, so it is bytes-bound.
+// kp/vp [24, 288, 32, 128], kd/vd [24, 6, 32, 128] bf16): 116 MB of K/V per
+// launch (35 us at 3.35 TB/s) against 58 MFLOP, so it is bytes-bound.
 //
-// Design. One block of 128 threads per (b, h) reads every K row and every V
-// row once, in place from the [B, T, H, Dh] views of the stacked buffers (the
-// TPU wrapper's transposes to [B*H, T, Dh] are a VMEM layout matter and are
-// not copied). Scores and probabilities stay in shared memory. At Dh = 128
-// with bf16 a warp reads a whole key row with one 8-byte load per lane, and
-// the four warps split the keys of P·V (each lane 4 head dims), summed across
-// warps in a fixed order at the end; other head dims and fp32 take a scalar
-// path (a warp per key, a thread per head dim).
+// Two routes, chosen by the wrapper's declared rule before the launch
+// (ops/decode_attention.py::decode_ring_eligible), each launcher refusing what
+// it does not take:
+//  * ovla_decode_split_attention: bf16 at Dh = 128 with 16-byte aligned rows
+//    and strides: the ring route of decode_common.cuh (bulk copies of whole
+//    rows through each warp's ring of stages, K then V, the two segments one
+//    key index space with the boundary at T anywhere in a 16-key chunk; q.k
+//    and P.V on mma.sync, q' and p as three bf16 terms each; keys split
+//    across a cluster of 1, 2 or 4 CTAs by B * H (1 at serving), the max
+//    exchanged before p, the sums added with the P.V partials at the combine,
+//    since p is never rounded).
+//  * ovla_decode_split_attention_scalar: fp32, other head dims, unaligned rows.
+//    One block of 128 threads per (b, h) reads every K row and every V row
+//    once, in place (a warp per key for the scores, a thread per head dim for
+//    P.V); scores and probabilities stay in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "decode_common.cuh"
 
 namespace ovla {
 
@@ -59,25 +68,13 @@ struct SplitArgs {
   float scale;
 };
 
-// 4 consecutive bf16 -> fp32 (one 8-byte load)
-__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&f)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  f[0] = __low2float(a);
-  f[1] = __high2float(a);
-  f[2] = __low2float(b);
-  f[3] = __high2float(b);
-}
-
-template <typename T, bool kVec128>
+template <typename T>
 __global__ void __launch_bounds__(kDsThreads) decode_split_kernel(SplitArgs a) {
   extern __shared__ float ds_smem[];
   const int S = a.T + a.A, Dh = a.Dh;
   float* q_s = ds_smem;                 // [Dh]
   float* p_s = q_s + Dh;                // [S]: scores, then probabilities
   float* red = p_s + S;                 // [kDsWarps]
-  float* part = red + kDsWarps;         // [kDsWarps][Dh]: per-warp P·V partial sums
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const T* Q = static_cast<const T*>(a.q) + b * a.q_sb + h * Dh;
@@ -96,14 +93,7 @@ __global__ void __launch_bounds__(kDsThreads) decode_split_kernel(SplitArgs a) {
     const bool pre = c < a.T;
     const T* krow = pre ? KP + c * a.kp_st : KD + (c - a.T) * a.kd_st;
     float dot = 0.f;
-    if constexpr (kVec128) {
-      float kf[4];
-      ld4(reinterpret_cast<const __nv_bfloat16*>(krow) + 4 * lane, kf);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dot += q_s[4 * lane + j] * kf[j];
-    } else {
-      for (int d = lane; d < Dh; d += 32) dot += q_s[d] * ds_f32(krow[d]);
-    }
+    for (int d = lane; d < Dh; d += 32) dot += q_s[d] * ds_f32(krow[d]);
 #pragma unroll
     for (int w = 16; w > 0; w >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, w);
     if (lane == 0) p_s[c] = (pre ? pv[c] : dv[c - a.T]) > 0 ? dot : kDsNegInf;
@@ -135,39 +125,18 @@ __global__ void __launch_bounds__(kDsThreads) decode_split_kernel(SplitArgs a) {
   const float den = fmaxf(l, 1e-30f);
 
   T* O = static_cast<T*>(a.o) + ((long long)b * a.H + h) * Dh;
-  if constexpr (kVec128) {
-    // warp w sums keys w, w + 4, ...; lane owns head dims 4 lane .. 4 lane + 3
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int c = warp; c < S; c += kDsWarps) {
-      const T* vrow = c < a.T ? VP + c * a.vp_st : VD + (c - a.T) * a.vd_st;
-      float vf[4];
-      ld4(reinterpret_cast<const __nv_bfloat16*>(vrow) + 4 * lane, vf);
-      const float p = p_s[c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] += p * vf[j];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) part[warp * Dh + 4 * lane + j] = acc[j];
-    __syncthreads();
-    for (int d = tid; d < Dh; d += kDsThreads) {
-      float o = 0.f;
-      for (int w = 0; w < kDsWarps; ++w) o += part[w * Dh + d];
-      O[d] = ds_cast<T>(o / den);
-    }
-  } else {
-    for (int d = tid; d < Dh; d += kDsThreads) {
-      float acc = 0.f;
-      for (int c = 0; c < a.T; ++c) acc += p_s[c] * ds_f32(VP[c * a.vp_st + d]);
-      for (int c = 0; c < a.A; ++c) acc += p_s[a.T + c] * ds_f32(VD[c * a.vd_st + d]);
-      O[d] = ds_cast<T>(acc / den);
-    }
+  for (int d = tid; d < Dh; d += kDsThreads) {
+    float acc = 0.f;
+    for (int c = 0; c < a.T; ++c) acc += p_s[c] * ds_f32(VP[c * a.vp_st + d]);
+    for (int c = 0; c < a.A; ++c) acc += p_s[a.T + c] * ds_f32(VD[c * a.vd_st + d]);
+    O[d] = ds_cast<T>(acc / den);
   }
 }
 
-template <typename T, bool kVec128>
+template <typename T>
 int launch_decode_split(const SplitArgs& a, cudaStream_t stream) {
-  auto kernel = decode_split_kernel<T, kVec128>;
-  const size_t smem = sizeof(float) * (a.Dh + a.T + a.A + kDsWarps + kDsWarps * a.Dh);
+  auto kernel = decode_split_kernel<T>;
+  const size_t smem = sizeof(float) * (a.Dh + a.T + a.A + kDsWarps);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -177,9 +146,9 @@ int launch_decode_split(const SplitArgs& a, cudaStream_t stream) {
 
 }  // namespace ovla
 
-// Returns the launch's cudaError_t (0 on success). Each token's [H, Dh] slab
-// contiguous; strides in elements.
-extern "C" int ovla_decode_split_attention(
+// The scalar route. Returns the launch's cudaError_t (0 on success). Each
+// token's [H, Dh] slab contiguous; strides in elements.
+extern "C" int ovla_decode_split_attention_scalar(
     const void* q, const void* kp, const void* vp, const void* kd, const void* vd,
     const int32_t* pre_valid, const int32_t* dec_valid, void* o, int B, int H, int T, int A,
     int Dh, long long q_sb, long long kp_sb, long long kp_st, long long vp_sb, long long vp_st,
@@ -190,10 +159,50 @@ extern "C" int ovla_decode_split_attention(
   ovla::SplitArgs a{q, kp, vp, kd, vd, pre_valid, dec_valid, o, B, H, T, A, Dh,
                     q_sb, kp_sb, kp_st, vp_sb, vp_st, kd_sb, kd_st, vd_sb, vd_st, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto aligned8 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 7) == 0; };
-  const bool vec = is_bf16 && Dh == 128 && aligned8(kp) && aligned8(vp) && aligned8(kd) &&
-                   aligned8(vd) && (kp_sb | kp_st | vp_sb | vp_st | kd_sb | kd_st | vd_sb | vd_st) % 4 == 0;
-  if (vec) return ovla::launch_decode_split<__nv_bfloat16, true>(a, s);
-  if (is_bf16) return ovla::launch_decode_split<__nv_bfloat16, false>(a, s);
-  return ovla::launch_decode_split<float, false>(a, s);
+  return is_bf16 ? ovla::launch_decode_split<__nv_bfloat16>(a, s)
+                 : ovla::launch_decode_split<float>(a, s);
+}
+
+namespace ovla {
+
+__global__ void __launch_bounds__(ovla_dec::kThreads, ovla_dec::kMinBlocksPerSm)
+    decode_split_ring_kernel(ovla_dec::RingArgs a) {
+  ovla_dec::ring_decode<ovla_dec::kSplit>(a);
+}
+
+}  // namespace ovla
+
+// The ring route: bf16 at Dh = 128, every K/V pointer and stride 16-byte aligned, T, A >= 1,
+// T + A <= 4096; anything else is refused (cudaErrorInvalidValue) before a launch. `cs` CTAs a
+// (b, h): 1, 2 or 4, or 0 for cluster_size's rule (ovla_decode_split_attention; a given size
+// times the rule against the others).
+extern "C" int ovla_decode_split_attention_cs(
+    const void* q, const void* kp, const void* vp, const void* kd, const void* vd,
+    const int32_t* pre_valid, const int32_t* dec_valid, void* o, int B, int H, int T, int A,
+    int Dh, long long q_sb, long long kp_sb, long long kp_st, long long vp_sb, long long vp_st,
+    long long kd_sb, long long kd_st, long long vd_sb, long long vd_st, float scale, int is_bf16,
+    int cs, void* stream) {
+  const void* ptrs[4] = {kp, vp, kd, vd};
+  const long long strides[8] = {kp_sb, kp_st, vp_sb, vp_st, kd_sb, kd_st, vd_sb, vd_st};
+  if (B < 1 || H < 1 || T < 1 || A < 1 ||
+      !ovla_dec::ring_takes(is_bf16, Dh, T + A, ptrs, 4, strides, 8))
+    return int(cudaErrorInvalidValue);
+  ovla_dec::RingArgs a{q, kp, vp, kd, vd, pre_valid, dec_valid, o, B, H, T, T + A,
+                       q_sb, kp_sb, kp_st, vp_sb, vp_st, kd_sb, kd_st, vd_sb, vd_st,
+                       scale, 0, cs ? cs : ovla_dec::cluster_size(B * H),
+                       ovla_dec::ring_keys(T + A, 0, false)};
+  return ovla_dec::launch_ring(ovla::decode_split_ring_kernel, a,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// The ring route at cluster_size's rule. The signature is the scalar route's.
+extern "C" int ovla_decode_split_attention(
+    const void* q, const void* kp, const void* vp, const void* kd, const void* vd,
+    const int32_t* pre_valid, const int32_t* dec_valid, void* o, int B, int H, int T, int A,
+    int Dh, long long q_sb, long long kp_sb, long long kp_st, long long vp_sb, long long vp_st,
+    long long kd_sb, long long kd_st, long long vd_sb, long long vd_st, float scale, int is_bf16,
+    void* stream) {
+  return ovla_decode_split_attention_cs(q, kp, vp, kd, vd, pre_valid, dec_valid, o, B, H, T, A,
+                                        Dh, q_sb, kp_sb, kp_st, vp_sb, vp_st, kd_sb, kd_st,
+                                        vd_sb, vd_st, scale, is_bf16, 0, stream);
 }

@@ -24,7 +24,7 @@ import torch
 
 from . import _build
 from .attention import (_DECODE_NO_GRAD, MAX_HEAD_DIM, NEG_INF, _check_cuda_inputs,
-                        _check_head_slab, _scale)
+                        _check_head_slab, _scale, decode_ring_eligible)
 
 MAX_KEYS = 4096   # T + A scores per (batch, head) held in shared memory
 
@@ -47,7 +47,13 @@ def decode_flash_attention_plain(q, kp, vp, kd, vd, pre_valid, dec_valid):
 
 
 def decode_flash_attention(q, kp, vp, kd, vd, pre_valid, dec_valid):
-    """softmax([q·Kp | q·Kd]) @ [Vp; Vd] for one decode token -> [B, 1, H, Dh]."""
+    """softmax([q·Kp | q·Kd]) @ [Vp; Vd] for one decode token -> [B, 1, H, Dh].
+
+    On the card, two routes by the declared rule `attention.decode_ring_eligible`,
+    counted apart: the ring kernel (``decode_split_attention``) and, for every
+    other call (fp32, other head dims, unaligned rows), the scalar kernel
+    (``decode_split_attention_scalar``), which computes the same function. A
+    launch that fails raises; neither route stands in for the other."""
     _build.no_grad_guard("decode_flash_attention", _DECODE_NO_GRAD, q, kp, vp, kd, vd)
     B, Tq, H, Dh = q.shape
     T, A = kp.shape[1], kd.shape[1]
@@ -71,14 +77,16 @@ def decode_flash_attention(q, kp, vp, kd, vd, pre_valid, dec_valid):
     pv = pre_valid.to(torch.int32).contiguous()
     dv = dec_valid.to(torch.int32).contiguous()
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
-    err = _build.launcher("decode_split_attention")(
+    kernel = ("decode_split_attention" if decode_ring_eligible(q, kp, vp, kd, vd)
+              else "decode_split_attention_scalar")
+    err = _build.launcher(kernel)(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kd.data_ptr(), vd.data_ptr(),
         pv.data_ptr(), dv.data_ptr(), out.data_ptr(), B, H, T, A, Dh,
         q.stride(0), kp.stride(0), kp.stride(1), vp.stride(0), vp.stride(1),
         kd.stride(0), kd.stride(1), vd.stride(0), vd.stride(1), _scale(Dh),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
-    _build.check(err, "decode_split_attention")
-    _build.KERNEL_LAUNCHES["decode_split_attention"] += 1
+    _build.check(err, kernel)
+    _build.KERNEL_LAUNCHES[kernel] += 1
     return out
 
 

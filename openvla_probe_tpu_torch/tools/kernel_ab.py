@@ -1,7 +1,8 @@
 """Time kernel builds against each other on one CUDA card, in one process.
 
     python -m openvla_probe_tpu_torch.tools.kernel_ab --lib parent=DIR [--lib TAG=PATH ...]
-        [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx]
+        [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx,
+                   decode_split_attention,decode_attention]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -17,11 +18,15 @@ launcher, at each main-path shape: one launch checked against the plain
 version (``w4a8_matmul`` bit for bit; ``flash_prefill`` by
 ``attention.compare_oneshot`` with its ``oneshot_slack``; ``wi8_matmul`` by ``linear.compare_wi8``;
 ``flash_blockwise`` by ``attention.compare_blockwise``; ``w4a8_dx`` by
-``linear.compare_w4a8_dx`` and bit for bit against the first ``--lib``),
-then the device time of one
+``linear.compare_w4a8_dx`` and bit for bit against the first ``--lib``;
+``decode_split_attention`` and ``decode_attention`` at fp32 scores within
+2e-2 of the plain version, ``decode_attention`` at bf16 scores by
+``attention.compare_bf16_scores``), then the device time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
 drift of the card's clocks shows as a spread between a build's two readings.
+The port's own build of the two decode attentions is also timed at 1, 2 and
+4 CTAs a (b, h) (``change_ms_by_cluster_size``), beside its cluster rule.
 The checks are reported, not asserted (a knock-out computes another
 function). Prints one JSON line per kernel and shape, then one line of
 launch-weighted means per kernel (the serving mix and the train mix of
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import os
 import statistics
@@ -44,11 +50,13 @@ import torch
 
 from ..ops import _build
 from ..ops import attention as attn
+from ..ops import decode_attention as dattn
 from ..ops import linear as lin
 
 SPIN_CYCLES = 4_000_000
 L2_BYTES = 50e6
 LAYERS, BATCH, T_PREFILL, A1 = 32, 24, 288, 6   # A1: decode steps after the prefill (A = 7)
+GEN_NEW = 32                                     # generate's new tokens: 31 decode steps
 TRAIN_ROWS = 8 * (1 + 256 + 63)
 
 
@@ -69,6 +77,13 @@ def _ms(fn, reps: int = 25, warmup: int = 3) -> float:
 
 def _copies(nbytes: int) -> int:
     return max(1, int(-(-2 * L2_BYTES // nbytes)))
+
+
+def rotating(fn, arg_sets):
+    """`fn` over several copies of its inputs in turn, so that timed launches
+    read them from device memory as the main path does, not from L2."""
+    it = itertools.cycle(arg_sets)
+    return lambda: fn(*next(it))
 
 
 def build_libs(specs, out: Path) -> dict:
@@ -97,6 +112,18 @@ def build_libs(specs, out: Path) -> dict:
         print(json.dumps({"build": tag, "source": name, "ptxas": regs}), flush=True)
         libs.setdefault(tag, {})[name] = ctypes.CDLL(str(lib))
     return libs
+
+
+def cluster_launchers(kernel: str, sizes=(1, 2, 4)) -> dict:
+    """cs -> the port's ring launcher of `kernel` (``decode_attention`` or
+    ``decode_split_attention``) at `cs` CTAs a (b, h), with the launcher's own
+    arguments: its ``_cs`` entry, `cs` passed before the stream. Not counted
+    in ``_build.KERNEL_LAUNCHES``: it times the cluster rule against the
+    other sizes, beside the main path."""
+    _, sym, argtypes = _build.KERNELS[kernel]
+    fn = getattr(_build.load(kernel), sym + "_cs")
+    fn.argtypes, fn.restype = [*argtypes[:-1], ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    return {cs: (lambda *a, cs=cs: fn(*a[:-1], cs, a[-1])) for cs in sizes}
 
 
 def launchers(libs: dict, kernel: str) -> dict:
@@ -196,12 +223,9 @@ def ab_w4a8_matmul(fns, g, dev, shapes=None):
             sets.append((x, lin.pack_int4(codes), s))
         want = lin.w4a8_matmul_plain(*sets[0])
         equal = {tag: bool(torch.equal(_w4a8(fn, *sets[0]), want)) for tag, fn in fns.items()}
-
-        def make(fn):
-            it = iter(range(1 << 30))
-            return lambda: _w4a8(fn, *sets[next(it) % len(sets)])
         rows.append(dict(kernel="w4a8_matmul", shape=f"{M}x{K}x{N}", launches_per_call=per_call,
-                         launches_per_step=per_step, bit_equal=equal, ms=_turns(fns, make)))
+                         launches_per_step=per_step, bit_equal=equal,
+                         ms=_turns(fns, lambda fn: rotating(lambda *a: _w4a8(fn, *a), sets))))
         print(json.dumps(rows[-1]), flush=True)
         del sets, want
     for mix, key in (("serving_mix", "launches_per_call"), ("train_mix", "launches_per_step")):
@@ -237,13 +261,9 @@ def ab_wi8_matmul(fns, g, dev, shapes=None):
         want = lin.wi8_matmul_plain(*sets[0])
         checks = {tag: _checked(lin.compare_wi8, _wi8(fn, *sets[0]), want)
                   for tag, fn in fns.items()}
-
-        def make(fn):
-            it = iter(range(1 << 30))
-            return lambda: _wi8(fn, *sets[next(it) % len(sets)])
         rows.append(dict(kernel="wi8_matmul", shape=f"{M}x{K}x{N}", launches_per_call=per_call,
                          route="decode" if M <= 64 else "prefill", check=checks,
-                         ms=_turns(fns, make)))
+                         ms=_turns(fns, lambda fn: rotating(lambda *a: _wi8(fn, *a), sets))))
         print(json.dumps(rows[-1]), flush=True)
         del sets, want
     for mix, keep in (("pallas_mix", lambda r: True),
@@ -322,12 +342,9 @@ def ab_w4a8_dx(fns, g, dev, shapes=None):
                                    bits_equal_first=bool(torch.equal(got, first)))
             except AssertionError as e:
                 checks[tag] = f"refused: {e}"
-
-        def make(fn):
-            it = iter(range(1 << 30))
-            return lambda: _dx(fn, *sets[next(it) % len(sets)])
         rows.append(dict(kernel="w4a8_dx", shape=f"{M}x{N}x{K}", launches_per_step=per_step,
-                         check=checks, ms=_turns(fns, make)))
+                         check=checks,
+                         ms=_turns(fns, lambda fn: rotating(lambda *a: _dx(fn, *a), sets))))
         print(json.dumps(rows[-1]), flush=True)
         del sets, outs, want
     n = sum(r["launches_per_step"] for r in rows)
@@ -336,9 +353,120 @@ def ab_w4a8_dx(fns, g, dev, shapes=None):
         for tag in fns}}), flush=True)
 
 
+def call_decode_split(fn, q, kp, vp, kd, vd, pre, dec):
+    """`fn`, a launcher with ``decode_split_attention``'s arguments, on the
+    wrapper's tensors."""
+    B, _, H, Dh = q.shape
+    out = torch.empty_like(q)
+    _build.check(fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), kd.data_ptr(), vd.data_ptr(),
+                    pre.data_ptr(), dec.data_ptr(), out.data_ptr(), B, H, kp.shape[1],
+                    kd.shape[1], Dh, q.stride(0), kp.stride(0), kp.stride(1), vp.stride(0),
+                    vp.stride(1), kd.stride(0), kd.stride(1), vd.stride(0), vd.stride(1),
+                    attn._scale(Dh), int(q.dtype == torch.bfloat16), _build.stream_ptr(q)),
+                 "decode_split_attention")
+    return out
+
+
+def call_decode_attention(fn, q, k, v, valid, offset, bf16_scores):
+    """`fn`, a launcher with ``decode_attention``'s arguments, on the wrapper's
+    tensors."""
+    B, _, H, Dh = q.shape
+    out = torch.empty_like(q)
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid.data_ptr(),
+                    B, H, k.shape[1], Dh, q.stride(0), k.stride(0), k.stride(1), v.stride(0),
+                    v.stride(1), attn._scale(Dh), offset, int(bf16_scores),
+                    int(q.dtype == torch.bfloat16), _build.stream_ptr(q)), "decode_attention")
+    return out
+
+
+def _close(got, want) -> dict:
+    """The decode attentions' bf16 tolerance (chip_smoke.py's): 2e-2."""
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    return {"max_abs_err": (got.float() - want.float()).abs().max().item()}
+
+
+def decode_valid(B, T, S, slot, g, dev):
+    """Padded prompts of T - 12 .. T tokens, then the generated slots up to
+    `slot`: the key validity of a stacked-cache decode step."""
+    lens = torch.randint(T - 12, T + 1, (B,), generator=g, device=dev)
+    slots = torch.arange(S, device=dev)[None]
+    return ((slots < lens[:, None]) | ((slots >= T) & (slots <= slot))).int()
+
+
+def ab_decode_split_attention(fns, g, dev, shapes=None):
+    """The pallas / pallas_int4 frozen-KV decode at step 3: q [24, 1, 32, 128],
+    layer slices of stacked kp/vp [24, 288, 32, 128] and kd/vd [24, 6, 32, 128];
+    192 launches a call."""
+    B, T, A, H, Dh = BATCH, T_PREFILL, A1, 32, 128
+    q = torch.randn((B, 1, H, Dh), generator=g, device=dev).bfloat16()
+    pre = decode_valid(B, T, T, T, g, dev)
+    dec = (torch.arange(A, device=dev) <= 3).int()[None].expand(B, A).contiguous()
+    n = max(2, _copies(2 * B * (T + A) * H * Dh * 2))
+    kp, vp = (torch.randn((n, B, T, H, Dh), generator=g, device=dev).bfloat16() for _ in range(2))
+    kd, vd = (torch.randn((n, B, A, H, Dh), generator=g, device=dev).bfloat16() for _ in range(2))
+    sets = [(q, kp[i], vp[i], kd[i], vd[i], pre, dec) for i in range(n)]
+    want = dattn.decode_flash_attention_plain(*sets[0])
+    row = dict(kernel="decode_split_attention", shape=f"{B}x{T}+{A}x{H}x{Dh}", path="pallas",
+               launches_per_call=LAYERS * A1,
+               check={tag: _checked(_close, call_decode_split(fn, *sets[0]), want)
+                      for tag, fn in fns.items()},
+               ms=_turns(fns, lambda fn: rotating(lambda *a: call_decode_split(fn, *a), sets)),
+               change_ms_by_cluster_size=_turns(cluster_launchers("decode_split_attention"),
+                                                lambda fn: rotating(
+                                                    lambda *a: call_decode_split(fn, *a), sets)))
+    print(json.dumps(row), flush=True)
+
+
+def ab_decode_attention(fns, g, dev, shapes=None):
+    """The stacked-cache decode: serving [24, 1, 32, 128] over S = 295 at step 3
+    (slot 291) in parity's fp32 and turbo's bf16 scores, 192 launches a call
+    each; generate's B = 8 over S = 352 (T 320 + 32 new tokens) at its middle
+    step (slot 335), fp32 scores, 992 launches a generate call; and generate
+    at 1, 2 and 4 rows."""
+    H, Dh, rows = 32, 128, []
+    for path, (B, T, S, slot, bf16_scores) in {
+            "parity": (BATCH, T_PREFILL, T_PREFILL + A1 + 1, T_PREFILL + 3, 0),
+            "turbo": (BATCH, T_PREFILL, T_PREFILL + A1 + 1, T_PREFILL + 3, 1),
+            "generate": (8, 320, 352, 335, 0),
+            # generate at 1, 2 and 4 rows (generate_text's single prompt and up): the
+            # shapes that split keys across a cluster
+            "generate_1row": (1, 320, 352, 335, 0), "generate_2rows": (2, 320, 352, 335, 0),
+            "generate_4rows": (4, 320, 352, 335, 0)}.items():
+        q = torch.randn((B, 1, H, Dh), generator=g, device=dev).bfloat16()
+        valid = decode_valid(B, T, S, slot, g, dev)
+        n = max(2, _copies(2 * B * S * H * Dh * 2))
+        k, v = (torch.randn((n, B, S, H, Dh), generator=g, device=dev).bfloat16() for _ in range(2))
+        sets = [(q, k[i], v[i], valid, slot, bf16_scores) for i in range(n)]
+        sd = torch.bfloat16 if bf16_scores else torch.float32
+        want = attn.decode_attention_plain(q, k[0], v[0], valid, slot, sd)
+        checks = {}
+        for tag, fn in fns.items():
+            got = call_decode_attention(fn, *sets[0])
+            checks[tag] = _checked(lambda x, w: attn.compare_bf16_scores(
+                x, w, attn.decode_attention_plain(q, k[0], v[0], valid, slot, torch.float32)),
+                got, want) if bf16_scores else _checked(_close, got, want)
+        rows.append(dict(kernel="decode_attention", shape=f"{B}x{S}x{H}x{Dh}", path=path,
+                         scores="bf16" if bf16_scores else "fp32",
+                         launches_per_call=LAYERS * (GEN_NEW - 1 if path.startswith("generate")
+                                                     else A1),
+                         check=checks,
+                         ms=_turns(fns, lambda fn: rotating(
+                             lambda *a: call_decode_attention(fn, *a), sets)),
+                         change_ms_by_cluster_size=_turns(
+                             cluster_launchers("decode_attention"),
+                             lambda fn: rotating(lambda *a: call_decode_attention(fn, *a), sets))))
+        print(json.dumps(rows[-1]), flush=True)
+        del k, v, sets
+    serving = [r for r in rows if r["path"] in ("parity", "turbo")]
+    print(json.dumps({"kernel": "decode_attention", "mix": "serving", "ms": {
+        tag: statistics.mean(statistics.mean(r["ms"][tag]) for r in serving) for tag in fns}}),
+        flush=True)
+
+
 AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
-      "w4a8_dx": ab_w4a8_dx}
+      "w4a8_dx": ab_w4a8_dx, "decode_split_attention": ab_decode_split_attention,
+      "decode_attention": ab_decode_attention}
 
 
 def main() -> int:

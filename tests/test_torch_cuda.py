@@ -34,6 +34,15 @@ bf16 step of the plain version and at most max(16, 2 %) of the elements
 apart), which the one-shot class (P rounded to bf16) fails on the same inputs.
 vit_attention (bf16 on the tensor-core route, the scalar route otherwise,
 each launch counted under its route's name): attention.compare_blockwise too.
+The decode attentions take their ring route for bf16 at Dh = 128 (counted as
+decode_attention / decode_split_attention) and the scalar route otherwise
+(``*_scalar``), with the tolerances above, at shapes whose cluster splits
+leave ragged key ranges, a CTA with no key, a prefill / generated boundary
+inside a 16-key chunk, a query far before the last key (decode_attention's
+ring reads the keys up to it), a row whose keys are all masked but BOS (its
+output is V's first row) and a row masked everywhere (the mean of all of V),
+at the cluster rule and at each cluster size (tools/kernel_ab.py's
+``cluster_launchers``).
 """
 
 import numpy as np
@@ -45,6 +54,7 @@ from openvla_probe_tpu_torch.ops import attention as tattn
 from openvla_probe_tpu_torch.ops import decode_attention as tdec
 from openvla_probe_tpu_torch.ops import linear as tlin
 from openvla_probe_tpu_torch.ops import vit_mlp as tmlp
+from openvla_probe_tpu_torch.tools import kernel_ab
 
 pytestmark = pytest.mark.cuda
 
@@ -145,20 +155,132 @@ def test_vit_routes_by_the_declared_rule(cuda):
     tattn.compare_blockwise(got, tattn.vit_flash_attention_plain(q, q, q), kernel="vit_attention")
 
 
+def _decode_route(kernel, dtype, dh):
+    """The route a decode attention takes (attention.decode_ring_eligible on
+    aligned rows): the ring kernel for bf16 at Dh = 128, the scalar kernel
+    for the rest, each counted under its own name."""
+    return kernel if dtype == torch.bfloat16 and dh == 128 else f"{kernel}_scalar"
+
+
+# (B, S, H, Dh, slot): B * H decides the cluster (1 CTA a (b, h) from 116 pairs on 132 SMs, 2
+# from 58, else 4); S = 295 and 352 are no multiple of the 16-key chunk
+DECODE_SHAPES = [
+    (3, 295, 4, 128, 290),      # 12 pairs: 4 CTAs of 80, 80, 80, 55 keys
+    (24, 295, 32, 128, 291),    # the serving decode: one CTA a (b, h)
+    (8, 352, 32, 128, 335),     # generate's: one CTA a (b, h)
+    (1, 352, 32, 128, 335),     # generate's single row: 4 CTAs of 96, 96, 96, 64 keys
+    (2, 37, 16, 128, 30),       # 4 CTAs of 16, 16, 5 and no key
+    (8, 352, 32, 128, 100),     # the query far before the last key: the ring reads 101 keys
+    (1, 352, 32, 128, 40),      # the same over a 4-CTA cluster: 16, 16, 9 and no key
+    (2, 37, 2, 72, 30),         # Dh = 72: the scalar route
+]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,S,H,dh,slot", [(3, 295, 4, 128, 290), (2, 37, 2, 72, 30)])
+@pytest.mark.parametrize("B,S,H,dh,slot", DECODE_SHAPES)
 def test_decode_kernel_matches_plain(cuda, dtype, tol, B, S, H, dh, slot):
     q = _rand(4, (B, 1, H, dh), dtype, cuda)
     cache_k = _rand(5, (2, B, S, H, dh), dtype, cuda)   # one layer of a stacked cache
     cache_v = _rand(6, (2, B, S, H, dh), dtype, cuda)
     valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
     valid[0, slot - 12:slot - 4] = 0      # a padded prompt
-    before = tattn.KERNEL_LAUNCHES["decode_attention"]
-    got = tattn.decode_attention(q, cache_k[1], cache_v[1], valid, slot)
-    torch.cuda.synchronize()
-    assert tattn.KERNEL_LAUNCHES["decode_attention"] == before + 1
+    valid[-1, 1:] = 0                     # every key masked but BOS (the only row where B = 1)
+    got = _count(_decode_route("decode_attention", dtype, dh),
+                 lambda: tattn.decode_attention(q, cache_k[1], cache_v[1], valid, slot))
     want = tattn.decode_attention_plain(q, cache_k[1], cache_v[1], valid, slot)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got[-1].float(), cache_v[1][-1, :1].float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("scores", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,slot", [(8, 352, 32, 335), (1, 352, 32, 335), (1, 352, 32, 40),
+                                        (2, 37, 16, 30)])
+def test_decode_row_masked_everywhere_is_the_mean_of_v(cuda, scores, B, S, H, slot):
+    """A row with no valid key up to the slot: every key of the S has p = 1, so
+    the output is the mean of all of V, keys past the slot included (the ring
+    reads those after its own, at every cluster size)."""
+    dh = 128
+    q = _rand(80, (B, 1, H, dh), torch.bfloat16, cuda)
+    k, v = _rand(81, (B, S, H, dh), torch.bfloat16, cuda), _rand(82, (B, S, H, dh), torch.bfloat16, cuda)
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    valid[-1] = 0
+    args = (q, k, v, valid, slot, scores)
+    got = _count("decode_attention", lambda: tattn.decode_attention(*args))
+    want = tattn.decode_attention_plain(*args)
+    if scores == torch.bfloat16:
+        tattn.compare_bf16_scores(got, want, tattn.decode_attention_plain(*args[:-1]))
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got[-1].float(), v[-1].float().mean(0, keepdim=True), atol=2e-2,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("kernel", ["decode_attention", "decode_split_attention"])
+@pytest.mark.parametrize("B", [1, 3, 24])
+def test_decode_cluster_sizes_agree(cuda, kernel, B):
+    """The ring launchers at 1, 2 and 4 CTAs a (b, h) (their ``_cs`` entries,
+    which time the cluster rule) compute the rule's function: within 2e-2 of
+    the plain version, a query at slot 291 of 295 keys (the split decode: 288
+    prefill keys, 6 generated); any other size is refused."""
+    H, dh = 32, 128
+    q = _rand(90, (B, 1, H, dh), torch.bfloat16, cuda)
+    k, v = _rand(91, (B, 295, H, dh), torch.bfloat16, cuda), _rand(92, (B, 295, H, dh), torch.bfloat16, cuda)
+    valid = torch.ones((B, 295), dtype=torch.int32, device=cuda)
+    valid[0, 280:288] = 0
+    if kernel == "decode_attention":
+        args = (q, k, v, valid, 291, 0)
+        call, want = kernel_ab.call_decode_attention, tattn.decode_attention_plain(*args[:-1])
+    else:
+        args = (q, k[:, :288], v[:, :288], k[:, 288:294], v[:, 288:294],
+                valid[:, :288].contiguous(), valid[:, 288:294].contiguous())
+        call, want = kernel_ab.call_decode_split, tdec.decode_flash_attention_plain(*args)
+    for cs, fn in kernel_ab.cluster_launchers(kernel, sizes=(1, 2, 4, 3)).items():
+        if cs == 3:
+            with pytest.raises(RuntimeError, match="failed to launch"):
+                call(fn, *args)
+            continue
+        torch.testing.assert_close(call(fn, *args).float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_decode_routes_by_the_declared_rule(cuda):
+    """bf16 at Dh = 128 with rows off 16-byte alignment takes the scalar
+    kernels, counted apart; the ring launchers refuse fp32, other head dims
+    and unaligned rows themselves (no fallback inside them)."""
+    B, S, H, dh, slot = 2, 40, 2, 128, 35
+    k, v = (_rand(seed, (B * S * H * dh + 4,), torch.bfloat16, cuda)[4:].view(B, S, H, dh)
+            for seed in (70, 72))                 # 8-byte offsets: not 16-byte aligned
+    q = _rand(71, (B, 1, H, dh), torch.bfloat16, cuda)
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    assert not tattn.decode_ring_eligible(q, k, v)
+    ka, va = (_rand(seed, (B, S, H, dh), torch.bfloat16, cuda) for seed in (73, 74))
+    empty = (q, ka, va, ka[:, :0], va[:, :0], valid, valid[:, :0].contiguous())
+    assert not tattn.decode_ring_eligible(*empty[:5])      # no generated key: not the ring's
+    before = dict(_build.KERNEL_LAUNCHES)
+    with pytest.raises((RuntimeError, ValueError)):
+        tdec.decode_flash_attention(*empty)
+    assert _build.KERNEL_LAUNCHES == before
+    got = _count("decode_attention_scalar", lambda: tattn.decode_attention(q, k, v, valid, slot))
+    torch.testing.assert_close(got.float(),
+                               tattn.decode_attention_plain(q, k, v, valid, slot).float(),
+                               atol=2e-2, rtol=2e-2)
+    pre, dec = valid[:, :S - 6].contiguous(), valid[:, :6].contiguous()
+    args = (q, k[:, :S - 6], v[:, :S - 6], k[:, S - 6:], v[:, S - 6:], pre, dec)
+    got = _count("decode_split_attention_scalar", lambda: tdec.decode_flash_attention(*args))
+    torch.testing.assert_close(got.float(), tdec.decode_flash_attention_plain(*args).float(),
+                               atol=2e-2, rtol=2e-2)
+    out = torch.empty_like(q)
+    for qq, kk, dd in ((q.float(), k.float(), dh), (q, k, dh), (q[..., :72], k[..., :72], 72)):
+        err = _build.launcher("decode_attention")(
+            qq.data_ptr(), kk.data_ptr(), kk.data_ptr(), out.data_ptr(), valid.data_ptr(), B, H, S,
+            dd, qq.stride(0), kk.stride(0), kk.stride(1), kk.stride(0), kk.stride(1),
+            tattn._scale(dd), slot, 0, int(qq.dtype == torch.bfloat16), _build.stream_ptr(q))
+        assert err != 0, (qq.dtype, dd)
+    err = _build.launcher("decode_split_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), k.data_ptr(), v.data_ptr(), pre.data_ptr(),
+        dec.data_ptr(), out.data_ptr(), B, H, S - 6, 6, dh, q.stride(0), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        tattn._scale(dh), 1, _build.stream_ptr(q))
+    assert err != 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -334,20 +456,28 @@ def test_fused_mlp_kernel_matches_plain(cuda, dtype, M, D, F, act, layerscale):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,T,A,H,dh", [(3, 288, 6, 4, 128), (2, 21, 6, 3, 16)])
+@pytest.mark.parametrize("B,T,A,H,dh", [
+    (3, 288, 6, 4, 128),        # 4 CTAs of 80, 80, 80, 54 keys; T at a chunk's start
+    (24, 288, 6, 32, 128),      # the serving decode: one CTA a (b, h), T at a chunk's start
+    (2, 283, 6, 32, 128),       # 2 CTAs; the prefill / generated boundary inside a chunk
+    (2, 21, 6, 3, 16),          # Dh = 16: the scalar route
+])
 def test_decode_split_kernel_matches_plain(cuda, dtype, tol, B, T, A, H, dh):
     q = _rand(25, (B, 1, H, dh), dtype, cuda)
     kp, vp = _rand(26, (2, B, T, H, dh), dtype, cuda), _rand(27, (2, B, T, H, dh), dtype, cuda)
     kd, vd = _rand(28, (2, B, A, H, dh), dtype, cuda), _rand(29, (2, B, A, H, dh), dtype, cuda)
     pre = torch.ones((B, T), dtype=torch.int32, device=cuda)
     pre[0, T - 7:] = 0                      # a right-padded prompt
+    pre[-1, 1:] = 0                         # the last row: every key masked but BOS
     dec = torch.zeros((B, A), dtype=torch.int32, device=cuda)
-    dec[:, :3] = 1                          # decode step 2
+    dec[:-1, :3] = 1                        # decode step 2
     args = (q, kp[1], vp[1], kd[1], vd[1], pre, dec)   # one layer of the stacked buffers
-    got = _count("decode_split_attention", lambda: tdec.decode_flash_attention(*args))
+    got = _count(_decode_route("decode_split_attention", dtype, dh),
+                 lambda: tdec.decode_flash_attention(*args))
     want = tdec.decode_flash_attention_plain(*args)
     assert got.dtype == dtype and got.shape == (B, 1, H, dh)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(got[-1].float(), vp[1][-1, :1].float(), atol=tol, rtol=tol)
 
 
 def test_int8_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
@@ -437,7 +567,8 @@ def test_new_kernels_fail_loudly_on_bad_shapes(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,dh,slot", [(3, 295, 4, 128, 290), (4, 37, 8, 72, 30)])
+@pytest.mark.parametrize("B,S,H,dh,slot", [*[s for s in DECODE_SHAPES if s[3] == 128],
+                                          (4, 37, 8, 72, 30)])
 def test_decode_kernel_bf16_scores_match_plain(cuda, dtype, B, S, H, dh, slot):
     """The turbo stacked decode's bf16 scores, held to the bf16-score plain
     version (attention.compare_bf16_scores)."""
@@ -446,7 +577,8 @@ def test_decode_kernel_bf16_scores_match_plain(cuda, dtype, B, S, H, dh, slot):
     valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
     valid[0, slot - 12:slot - 4] = 0
     args = (q, cache_k[1], cache_v[1], valid, slot)
-    got = _count("decode_attention", lambda: tattn.decode_attention(*args, torch.bfloat16))
+    got = _count(_decode_route("decode_attention", dtype, dh),
+                 lambda: tattn.decode_attention(*args, torch.bfloat16))
     tattn.compare_bf16_scores(got, tattn.decode_attention_plain(*args, torch.bfloat16),
                               tattn.decode_attention_plain(*args, torch.float32))
 
