@@ -54,20 +54,27 @@ Phases, one output line each:
               stacked_decode_attention_i8
               (pallas_kv8), w4a8_matmul (pallas_int4; also at M = 64 / 65,
               its two routes' edge, and its host time a call at decode),
-              w8a8_matmul,
+              w8a8_matmul (turbo; also the nibble loader and the prequant
+              entry, turbo_nibble's mix, and the routes' edge M = 64 / 65
+              and ragged shapes),
               rms_norm_quant (turbo), nib_hi_dot (turbo_nibble), w4a8_dx
               (train_int4); vit_attention also at DINOv2's 518 px, N = 1370,
               and at ragged N, bf16 (tensor cores) and fp32 (scalar route);
-              the decode attentions' scalar routes (fp32, Dh = 72), which no
-              main path takes: a line of their own (`scalar_routes`), with the
-              main paths' launches (0) and the tiny paths' (`tiny_launches`)
+              the scalar routes (the decode attentions' at fp32 and Dh = 72,
+              vit_attention's, flash_prefill's and wi8_matmul's in fp32),
+              which no main path takes: a line of their own
+              (`scalar_routes`), with the main paths' launches (0) and the
+              tiny paths' (`tiny_launches`)
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package):
               equal tokens, close logits or scores; the training paths' loss,
               LoRA gradients and adapters after one step
   5. main     each path once with every launch count set to 0 just before and
               read just after (exact per-kernel counts asserted, and no
-              torch._int_mm call), then p50 latency over timed calls; random
+              torch._int_mm call), then p50 latency over timed calls and,
+              for the serving paths, the card's busy time a call beside it
+              (torch.profiler over one call, as tools/profile_main_path.py
+              measures it: the idle share is an upper bound); random
               weights from a seeded generator on the card; the VLA paths with
               256x256 uint8 images, prompt_pad_len=32, A=7; the training
               paths count one step, then time steps after two warm-ups and
@@ -102,7 +109,7 @@ from openvla_probe_tpu_torch.ops import rmsnorm_quant as rmsq
 from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
 from openvla_probe_tpu_torch.ops.image import (BackboneTransformSpec, ImageTransformConfig,
                                                apply_image_transform)
-from openvla_probe_tpu_torch.tools import bench_finetune, kernel_ab
+from openvla_probe_tpu_torch.tools import bench_finetune, kernel_ab, profile_main_path
 from openvla_probe_tpu_torch.tools.kernel_ab import rotating
 from openvla_probe_tpu_torch.training.lora import LoRAConfig, init_lora_params
 from openvla_probe_tpu_torch.training.train_state import tree_leaves
@@ -405,6 +412,83 @@ def check_vit_attention(dev, g):
                 bound_ms=per_launch("bound_ms"),
                 bound_by="/".join(sorted({r["bound_by"] for r in towers.values()})),
                 library_ms=per_launch("library_ms"), by_shape=by_shape)
+
+
+def check_vit_attention_scalar(dev, g):
+    """vit_attention's scalar route (fp32, other head dims; the tiny fp32
+    paths launch it) at the DINOv2 tower shape in fp32, q/k/v [24, 261, 16,
+    64] as strided views of one qkv product, within 1e-5 of the plain
+    version (attn.compare_blockwise's fp32 rule). Bound: the fp32 bytes
+    against the products at the fp32 rate; library: SDPA in fp32."""
+    N, H, Dh = 261, 16, 64
+    qkv = torch.randn((BATCH * N, 3 * H * Dh), generator=g, device=dev)
+    q, k, v = (t.reshape(BATCH, N, H, Dh) for t in qkv.split(H * Dh, dim=-1))
+    got = _launched("vit_attention_scalar", lambda: attn.vit_flash_attention(q, k, v))
+    stats = attn.compare_blockwise(got, attn.vit_flash_attention_plain(q, k, v),
+                                   kernel="vit_attention")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b, by = bound_ms(_nbytes(q, k, v, got), 4 * BATCH * H * N * N * Dh, "fp32")
+    return dict(name="vit_attention_scalar", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/vit_attention.cu",
+                replaces="openvla_probe_tpu/ops/attention.py:255",
+                max_abs_err=stats["max_abs_err"],
+                ms=cuda_ms(lambda: attn.vit_flash_attention(q, k, v)),
+                plain_ms=cuda_ms(lambda: attn.vit_flash_attention_plain(q, k, v)),
+                bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+
+
+def check_flash_prefill_scalar(dev, g):
+    """flash_prefill's scalar route (fp32, head dims other than 64 / 128,
+    unaligned rows; the tiny fp32 paths launch it) at score_short's shape in
+    fp32, q/k/v [8, 320, 32, 128], right-padded rows, within
+    attn.compare_oneshot's fp32 rule (1e-5) of the plain version. Bound: the
+    fp32 bytes against the causal products at the fp32 rate; library: SDPA
+    in fp32 with the same boolean mask."""
+    B, T, H, Dh = VLM_BATCH, 320, 32, 128
+    q, k, v = (torch.randn((B, T, H, Dh), generator=g, device=dev) for _ in range(3))
+    lens = torch.randint(T - 31, T + 1, (B,), generator=g, device=dev)
+    valid = (torch.arange(T, device=dev)[None] < lens[:, None]).int()
+    got = _launched("flash_prefill_scalar", lambda: attn.flash_attention(q, k, v, valid))
+    stats = attn.compare_oneshot(got, attn.flash_attention_plain(q, k, v, valid))
+    ki = torch.arange(T, device=dev)
+    mask = (valid[:, None, None, :] > 0) & (ki[None, :] <= ki[:, None])[None, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b, by = bound_ms(_nbytes(q, k, v, got, valid), 4 * H * Dh * _causal_pairs(lens, T), "fp32")
+    return dict(name="flash_prefill_scalar", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/flash_prefill.cu",
+                replaces="openvla_probe_tpu/ops/attention.py:88",
+                max_abs_err=stats["max_abs_err"],
+                ms=cuda_ms(lambda: attn.flash_attention(q, k, v, valid)),
+                plain_ms=cuda_ms(lambda: attn.flash_attention_plain(q, k, v, valid), reps=10),
+                bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                          attn_mask=mask)))
+
+
+def check_wi8_matmul_scalar(dev, g):
+    """wi8_matmul's scalar route (fp32 x; the tiny fp32 pallas paths launch
+    it) at the pallas decode shape in fp32, x [24, 4096] against int8 codes
+    [4096, 4096], by lin.compare_wi8 (fp32 within 1e-4 + 1e-4 |want|).
+    Bound: the fp32 x, int8 weight and output bytes against the products at
+    the fp32 rate; library: fp32 x @ w_f32ᵀ on weights dequantized
+    beforehand (full fp32, no TF32)."""
+    M, K, N = BATCH, 4096, 4096
+    x = torch.randn((M, K), generator=g, device=dev)
+    sets = [(x, torch.randint(-127, 128, (N, K), generator=g, device=dev, dtype=torch.int8),
+             torch.rand((N,), generator=g, device=dev) * 1e-3 + 1e-3)
+            for _ in range(copies_past_l2(N * K))]
+    got = _launched("wi8_matmul_scalar", lambda: lin.wi8_matmul(*sets[0]))
+    stats = lin.compare_wi8(got, lin.wi8_matmul_plain(*sets[0]))
+    w_f32 = [(x, lin.dequantize_weight({"q": q, "s": s}, torch.float32)) for _, q, s in sets]
+    b, by = bound_ms(_nbytes(x, sets[0][1], sets[0][2], got), 2 * M * N * K, "fp32")
+    return dict(name="wi8_matmul_scalar", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/wi8_matmul.cu",
+                replaces="openvla_probe_tpu/ops/linear.py:327",
+                max_abs_err=stats["max_abs_err"], ms=cuda_ms(rotating(lin.wi8_matmul, sets)),
+                plain_ms=cuda_ms(rotating(lin.wi8_matmul_plain, sets)),
+                bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(rotating(lambda a, w: a @ w.t(), w_f32)))
 
 
 def _decode_inputs(B, T, S, slot, H, Dh, g, dev, dtype=torch.bfloat16, copies=2):
@@ -959,7 +1043,13 @@ def check_w8a8_matmul(dev, g):
     bf16 x, int8 codes, fp32 scales; bit
     for bit equal to the plain version, from bf16 x and from the fused norm's
     codes (the prequant entry). At the prefill shapes the nibble loader too,
-    bit-equal to the int8 loader on the same codes, with its time. Library:
+    bit-equal to the int8 loader on the same codes, with its time; nibble_mix
+    weighs turbo_nibble's call as it runs (the towers' 196 int8 launches at
+    their bf16-x times, the trunk's 224 nibble prefills at the nibble
+    loader's). Edge cases, checked bit for bit and untimed, in both entries
+    and (K a multiple of 32) both weight forms: the routes' edge M = 64 / 65,
+    one row, ragged M, K and N (100 x 80 x 136, 5 x 48 x 40, 200 x 96 x
+    136). Library:
     torch._int_mm on the same activation codes plus the epilogue (it leaves
     out the activation quantization)."""
     M_pre, M_dec, A1 = BATCH * T_PREFILL, BATCH, ACTION_DIM - 1
@@ -1004,12 +1094,34 @@ def check_w8a8_matmul(dev, g):
             del nib
         by_shape[f"{M}x{K}x{N}"] = row
         del sets, got, want, codes, pre
+    edges = {}
+    for (M, K, N) in ((64, 4096, 4096), (65, 4096, 4096), (1, 4096, 4096), (100, 80, 136),
+                      (5, 48, 40), (200, 96, 136)):
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        w = lin.quantize_weight(torch.randn((N, K), generator=g, device=dev) * 0.02)
+        want = lin.w8a8_matmul_plain(x, w)
+        pre = lin.PrequantActivation(*lin.quantize_rows(x.float()), x.dtype)
+        entries = {"x": (x, w), "prequant": (pre, w)}
+        if K % 32 == 0:   # nibble planes need K a multiple of 32
+            entries["nibble"] = (x, kernel_ab.nibble_of(w))
+        for entry, args in entries.items():
+            got = _launched("w8a8_matmul", lambda: lin.w8a8_matmul(*args))
+            assert torch.equal(got, want), f"{M}x{K}x{N} {entry}: not bit-equal"
+        edges[f"{M}x{K}x{N}"] = "bit_equal"
     mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
     train = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_step.items()})
+    towers = {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items() if M in (M_dino, M_sig)}
+    prefill = {f"{M_pre}x{K}x{N}": per_call[(M_pre, K, N)] for (M, K, N) in per_call if M == M_pre}
+    n_nib = sum(towers.values()) + sum(prefill.values())
+    nibble_mix = {key: (sum(by_shape[s][key] * n for s, n in towers.items())
+                        + sum(by_shape[s]["nibble_ms" if key == "ms" else key] * n
+                              for s, n in prefill.items())) / n_nib
+                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    nibble_mix["launches_per_call"] = n_nib
     return dict(name="w8a8_matmul", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/w8a8_matmul.cu",
                 replaces="openvla_probe_tpu/ops/linear.py:413", by_shape=by_shape,
-                train_mix=train, **mix)
+                edge_cases=edges, train_mix=train, nibble_mix=nibble_mix, **mix)
 
 
 def check_rms_norm_quant(dev, g):
@@ -1051,10 +1163,11 @@ def check_nib_hi_dot(dev, g):
     """The hi-plane product (the XLA op _nib_hi_dot) at the turbo_nibble
     decode shapes, M = 24: the trunk's 4096 x 4096, 4096 x 11008, 11008 x 4096
     and lm_head's 4096 x 32064; bf16 x, nibble planes, fp32 scales; bit for
-    bit equal to the plain version. Library: torch._int_mm on the same
-    activation codes and the hi codes widened to int8 beforehand, plus the
-    same epilogue (it leaves out the quantization and streams 2x the weight
-    bytes)."""
+    bit equal to the plain version; edge cases untimed: one row,
+    NIB_HI_M_MAX = 32 and 33, ragged M, K and N (5 x 96 x 40, 65 x 96 x 40).
+    Library: torch._int_mm on the same activation codes and the hi codes
+    widened to int8 beforehand, plus the same epilogue (it leaves out the
+    quantization and streams 2x the weight bytes)."""
     A1 = ACTION_DIM - 1
     per_call = {(BATCH, 4096, 4096): 4 * LAYERS * A1, (BATCH, 4096, 11008): 2 * LAYERS * A1,
                 (BATCH, 11008, 4096): LAYERS * A1, (BATCH, 4096, 32064): 1 + A1}
@@ -1083,10 +1196,19 @@ def check_nib_hi_dot(dev, g):
             plain_ms=cuda_ms(rotating(lin.nib_hi_dot_plain, sets), reps=5, warmup=1),
             library_ms=cuda_ms(rotating(library, lib_sets)), bound_ms=b, bound_by=by)
         del sets, lib_sets, got, want
+    edges = {}
+    for (M, K, N) in ((1, 4096, 4096), (lin.NIB_HI_M_MAX, 4096, 4096), (33, 4096, 4096),
+                      (5, 96, 40), (65, 96, 40)):
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        w = lin.quantize_weight_nibble(torch.randn((N, K), generator=g, device=dev) * 0.02)
+        got = _launched("nib_hi_dot", lambda: lin.nib_hi_dot(x, w["hi"], w["s"]))
+        assert torch.equal(got, lin.nib_hi_dot_plain(x, w["hi"], w["s"])), f"{M}x{K}x{N}"
+        edges[f"{M}x{K}x{N}"] = "bit_equal"
     mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
     return dict(name="nib_hi_dot", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/nib_hi_dot.cu",
-                replaces="openvla_probe_tpu/ops/linear.py:887", by_shape=by_shape, **mix)
+                replaces="openvla_probe_tpu/ops/linear.py:887", by_shape=by_shape,
+                edge_cases=edges, **mix)
 
 
 def check_w4a8_dx(dev, g):
@@ -1555,10 +1677,14 @@ def run_main_path(dev, path: str, weights: dict):
         times.append(time.perf_counter() - t0)
         assert _build.KERNEL_LAUNCHES == expect, _build.KERNEL_LAUNCHES
     p50 = statistics.median(times)
+    busy = profile_main_path.device_time(call, 1)   # the card's busy time a call
     return launches, dict(
         path=path, tier=cfg.tier, weight_bits=bits, int_mm_calls_per_call=len(int_mm_calls),
         params=n_params, param_gb=param_gb, init_s=init_s, first_call_s=first_s,
         p50_ms=p50 * 1e3, calls_per_s=BATCH / p50, call_ms=[t * 1e3 for t in times],
+        device_ms_per_call=busy["device_ms_per_call_total"],
+        device_ms_by_class=busy["device_ms_per_call_by_class"],
+        device_idle_share=busy["device_idle_share"],
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         first_tokens=toks[0].tolist())
 
@@ -1769,9 +1895,10 @@ def main() -> int:
                check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
                check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g), check_rms_norm_quant(dev, g),
                check_nib_hi_dot(dev, g), check_w4a8_dx(dev, g)]
-    # the decode attentions' scalar routes: no main path takes them (the tiny fp32 paths do)
+    # the scalar routes: no main path takes them (the tiny fp32 paths do)
     scalar_routes = [check_decode_attention_scalar(dev, g),
-                     check_decode_split_attention_scalar(dev, g)]
+                     check_decode_split_attention_scalar(dev, g), check_vit_attention_scalar(dev, g),
+                     check_flash_prefill_scalar(dev, g), check_wi8_matmul_scalar(dev, g)]
     log("kernels", card=card, results=kernels, scalar_routes=scalar_routes)
     log("requant_route", card=card, shapes=check_w8a8_requant(dev, g))
 

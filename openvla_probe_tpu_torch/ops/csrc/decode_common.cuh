@@ -403,13 +403,7 @@ __device__ __forceinline__ void ring_decode(const RingArgs& a) {
 // the number of CTAs a (b, h): the fewest of 1, 2 and 4 that set at least 7/8 of the SMs to
 // work (more CTAs than SMs only share the SMs, and clusters cost their exchanges)
 inline int cluster_size(int pairs) {
-  static const int sms = [] {
-    int dev = 0, n = 132;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-    return n;
-  }();
+  const int sms = ovla_hp::sm_count();
   for (int cs = 1; cs < 4; cs *= 2)
     if (8 * pairs * cs >= 7 * sms) return cs;
   return 4;

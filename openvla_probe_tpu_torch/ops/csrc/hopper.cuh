@@ -1,8 +1,9 @@
 // The Hopper pieces shared by the wgmma / TMA kernels (w4a8_dx.cu, w4a8_matmul.cu,
-// wi8_matmul.cu, flash_blockwise.cu, flash_prefill.cu): mbarriers, TMA tensor-map and bulk
+// wi8_matmul.cu, w8a8_matmul.cu, flash_blockwise.cu, flash_prefill.cu, int8_decode.cuh,
+// decode_common.cuh): mbarriers, TMA tensor-map and bulk
 // loads, the run-time lookup of the tensor-map encoder (cudaGetDriverEntryPoint: no -lcuda),
-// shared-memory matrix descriptors for wgmma, and the wgmma fence / commit / wait
-// instructions.
+// shared-memory matrix descriptors for wgmma, the wgmma fence / commit / wait
+// instructions, and the device's SM count.
 //
 // Descriptor fields (PTX ISA, "Matrix Descriptor Format"; checked on the card):
 //   * unswizzled MN-major operand (w4a8_dx's B): 8 x 8 core matrices, LBO = bytes between
@@ -204,6 +205,20 @@ template <int N>
 __device__ __forceinline__ void fence_operands(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// ---- the device (host) ----
+// the SMs of the current device, looked up once (132, an H100 SXM's, if the query fails): the
+// size of a persistent grid, and what the decode attentions' cluster rule fills
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      count = 132;
+    return count;
+  }();
+  return n;
 }
 
 // ---- tensor maps (host) ----

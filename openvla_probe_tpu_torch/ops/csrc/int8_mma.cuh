@@ -1,9 +1,10 @@
-// Pieces shared by the int8 tensor-core GEMMs (w4a8_matmul.cu, w8a8_matmul.cu, nib_hi_dot.cu;
-// vit_attention.cu takes the cp.async pieces):
+// Pieces shared by the int8 tensor-core GEMMs (w4a8_matmul.cu, w8a8_matmul.cu, nib_hi_dot.cu,
+// int8_decode.cuh; vit_attention.cu takes the cp.async pieces):
 // the cp.async ring, ldmatrix, the mma.sync m16n8k32 s8 x s8 -> s32 instruction, the per-row
 // activation quantization of the JAX package (clip(rint(x / s_x), -127, 127) with IEEE
-// division, round half to even) and the one pre-pass kernel that applies it, and the k order
-// that lets packed 4-bit codes feed a fragment.
+// division, round half to even) and the one pre-pass kernel that applies it, the k order
+// that lets packed 4-bit codes feed a fragment, and the widening of packed 4-bit codes (one
+// plane, or the two nibble planes rebuilt into their exact int8 codes) in registers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -166,6 +167,18 @@ __device__ __forceinline__ void widen(uint32_t w, uint32_t& lo, uint32_t& hi) {
   // each byte v in 0..15 -> (v ^ 8) - 8, the two's complement nibble widened
   lo = __vsub4(lo ^ 0x08080808u, 0x08080808u);
   hi = __vsub4(hi ^ 0x08080808u, 0x08080808u);
+}
+
+// 8 packed codes of each nibble plane (one word each, as `widen` takes them) -> the 8 exact int8
+// codes 16·hi + lo + 8 in k order (two words). As a byte, 16·hi + lo + 8 is
+// (hi's nibble << 4) | (lo's nibble ^ 8): the low nibble is lo + 8 in 0..15 and
+// 16·hi + 128 ≡ hi's nibble << 4 (mod 256), so no intermediate leaves its range
+// (openvla_probe_tpu/ops/linear.py::nibble_reconstruct_q8, fused into the loaders).
+__device__ __forceinline__ void rebuild(uint32_t ph, uint32_t pl, uint32_t& w0, uint32_t& w1) {
+  const uint32_t ev = ((ph & 0x0F0F0F0Fu) << 4) | ((pl & 0x0F0F0F0Fu) ^ 0x08080808u);  // 0 2 4 6
+  const uint32_t od = (ph & 0xF0F0F0F0u) | (((pl >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);  // 1 3 5 7
+  w0 = __byte_perm(ev, od, 0x5140);   // codes 0, 1, 2, 3
+  w1 = __byte_perm(ev, od, 0x7362);   // codes 4, 5, 6, 7
 }
 
 }  // namespace ovla_i8

@@ -7,7 +7,8 @@
 // bit for bit:
 //   * per-row codes clip(rint(x / s_x), -127, 127) with s_x = max(max|x| / 127, 1e-8) and IEEE
 //     divisions (round half to even, as jnp.round), or the given codes and scales;
-//   * the exact int32 product (|sum| <= 127² · K < 2³¹ for K < 133,000);
+//   * the exact int32 product (|sum| <= 127² · K < 2³¹ for K < 133,000), so no order of its
+//     terms, no split of K and no order of adding the splits changes a bit;
 //   * out = cast((f32(acc) · s_x) · s), the conversion and the two products each rounded once
 //     (the _rn intrinsics: nvcc would not contract them, but they say so).
 // Weight codes come in one of two forms:
@@ -15,223 +16,331 @@
 //   * two nibble planes hi, lo, packed uint8 [N, K / 2] (byte j: code 2j in its low nibble,
 //     2j + 1 in its high nibble, two's complement), whose exact int8 codes 16·hi + lo + 8 the
 //     loader rebuilds in registers (openvla_probe_tpu/ops/linear.py::nibble_reconstruct_q8 fused
-//     in). As a byte, 16·hi + lo + 8 is (hi's nibble << 4) | (lo's nibble ^ 8): the low nibble is
-//     lo + 8 in 0..15 and 16·hi + 128 ≡ hi's nibble << 4 (mod 256), so no intermediate leaves
-//     its range. The same codes give the same output in both forms.
+//     in; int8_mma.cuh rebuild). The same codes give the same output in both forms.
 //
-// Bound on the H100 at the OpenVLA-7B shapes: prefill and towers (M = 6144-6912) by int8
-// tensor-core operations, 0.117 ms for 6912 x 4096 x 4096 at 1979 TOP/s; decode (M = 24) by the
-// weight stream, 16.8 MB per 4096 x 4096 launch (5.0 us at 3.35 TB/s).
+// Bound on the H100 at the OpenVLA-7B shapes: prefill and towers (M = 6144-6912) and train
+// steps (M = 2560) by int8 tensor-core operations, 0.117 ms for 6912 x 4096 x 4096 at
+// 1979 TOP/s; decode (M = 24) by the weight stream, 16.8 MB per 4096 x 4096 launch (5.0 us at
+// 3.35 TB/s). The earlier kernels (mma.sync from ldmatrix fragments, every thread's cp.async
+// copies, one barrier a chunk) took 0.480 ms (int8) and 0.573 (nibble) at 6912 x 4096 x 4096
+// and 0.027 at 24 x 4096 x 4096 on an H100 80GB HBM3 at 700 W (PERF.md §6).
 //
-// Design (a first version: mma.sync, no wgmma or TMA). One call makes one or two launches:
-//   1. for float activations, the pre-pass (quant_rows, int8_mma.cuh) writes the codes
-//      [M, K] and s_x [M];
-//   2. the GEMM on mma.sync m16n8k32 s8 x s8 -> s32, four k-steps per 128-deep chunk. Codes and
-//      weights stream through a cp.async ring of 128-deep k chunks, one barrier per chunk, and
-//      are read with ldmatrix. int8 weights in their natural k order, as the codes of the
-//      pre-pass or of the fused norm. Nibble planes go straight from the staged chunk into B
-//      fragments: ldmatrix hands each thread 8 consecutive codes of one channel from each plane,
-//      rebuilt to int8 in registers; a fragment takes k in another order than those 8 codes, so
-//      for nibble weights the pre-pass stores each 32-code block of activation codes in the
-//      matching order (an integer dot product does not depend on the order of its terms; the
-//      fused norm's codes, in natural order, never meet nibble weights). Ragged edges are
-//      zero-filled by the copies (rows past M, columns past N, k past K in 16-code units) and
-//      masked at the store.
-//      M > 64: 128 x 128 tiles, 8 warps of 64 x 32, 3 stages. M <= 64 (decode): 32 x 32 tiles,
-//      4 warps of 16 x 16, 8 stages, so a 4096-wide product spreads over 128 blocks.
-#include "int8_mma.cuh"
+// One call makes one or two launches: for float activations the pre-pass (quant_rows,
+// int8_mma.cuh) writes the codes [M, K] and s_x [M] (for nibble planes each 32-code block in
+// the stored_offset k order the packed fragments take); then one of two GEMM routes.
+//
+// M > 64 (prefill, towers, train steps): int8 wgmma fed by TMA, warp-specialized, on a
+// persistent grid (one block an SM, tiles in turn). A tile is outᵀ: kBN = 128 weight rows (n)
+// x kBM rows of activation codes (m, wgmma's N), so one skeleton serves both weight forms:
+// int8 weights are wgmma's shared-memory operand A, nibble planes are rebuilt in registers
+// straight into its register operand A (widening 4-bit codes into a shared-memory tile first
+// cost 0.60-0.62 ms against 0.51 at 6912 x 4096 x 4096 in w4a8_matmul.cu), and the activation
+// codes are its shared-memory operand B in their natural k order (or the pre-pass's permuted
+// order for planes). 384 threads:
+//   * a producer warpgroup that gives its registers to the consumers (setmaxnreg, as
+//     wi8_matmul.cu), in which one thread keeps a ring of 128-deep k chunks full with TMA
+//     boxes: activation codes [kBM rows][128 bytes] (128-byte swizzle; rows past M and k past
+//     K zero-filled: SigLIP's K = 4304), and int8 weights [128 n][128 bytes] (128-byte
+//     swizzle) or the hi and lo planes [128 n][64 bytes] each (64-byte swizzle: conflict-free
+//     ldmatrix rows), on full / empty mbarriers; it runs on into the block's next tile while
+//     the consumers store the last one;
+//   * two consumer warpgroups of 64 weight rows x kBM rows, one int32 accumulator over all of
+//     K (no group fold): per chunk four wgmma.m64nNk32.s32.s8.s8 committed as one group.
+//     int8 leaves keep one group in flight: the consumer waits for the group before
+//     (wgmma_wait<1>) and releases its stage, so the next chunk's wait and descriptors are
+//     sent under the products (w4a8_matmul.cu waits for every chunk). The nibble loader
+//     builds each chunk's fragments (two ldmatrix per plane a warp, `rebuild`) between groups
+//     and waits for its group: ptxas serializes a register-A wgmma behind fragments written
+//     while a group is in flight (C7513), and a second fragment buffer measured 1.5-2.3 %
+//     slower than the wait; the other warpgroup's products run meanwhile;
+//   * the epilogue applies s_x and s with the two _rn products and stores bf16 or fp32,
+//     columns past N and rows past M masked.
+//   int8: kBM = 256 (m64n256, 128 accumulators a thread, 4 stages of 48 KB); nibble: kBM = 192
+//   (m64n192, 96 accumulators, 5 stages of 40 KB); 168 registers a thread either way, the
+//   most ptxas gives a 384-thread block, no spill.
+// What bounds it (knock-out builds timed by tools/kernel_ab.py on an H100 80GB HBM3 at 700 W,
+// PERF.md §6): at 6912 x 4096 x 4096 on the prequant codes (0.185 ms) the ring's handoffs, not
+// its bytes nor the products: with no products 0.176, with no activation-code loads (2/3 of
+// the bytes) 0.178, with half the stages 0.244; then the epilogue's stores (none: 0.148).
+// The persistent grid took 0-7 % off a grid of one block a tile at the prefill shapes (and
+// added up to 3 % at three of the towers' eight).
+// M <= 64 (decode steps, lm_head): the split-K decode route of int8_decode.cuh, int8 codes or
+// the two planes rebuilt in registers.
+#include "int8_decode.cuh"
 
 namespace ovla_w8 {
 
-using namespace ovla_i8;
+namespace hp = ovla_hp;
+using ovla_i8::ldmatrix_x4;
+using ovla_i8d::store1;
 
-// ---------------------------------------------------------------------------
-// GEMM
+constexpr int kChunk = 128;                 // k per stage
+constexpr int kBN = 128;                    // weight rows per block: two warpgroups of 64
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;  // + a producer warpgroup (setmaxnreg)
 
-constexpr int kChunk = 128;        // k per staged chunk
-// tile pitch: 36 words, conflict-free ldmatrix rows. A row of a weight tile holds a channel's
-// 128 int8 codes, or its 64 packed bytes of the hi plane, then 64 of the lo plane.
-constexpr int kP = kChunk + 16;
-
-template <int BM, int BN, int WM, int WN, int STAGES, bool NIB>
-struct Cfg {
-  static constexpr int kThreads = 32 * WM * WN;
-  static constexpr int MT = BM / WM / 16, NT = BN / WN / 8;   // m16 / n8 tiles per warp
-  static constexpr int kAStage = BM * kP;
-  static constexpr int kBStage = BN * kP;
-  static constexpr size_t kSmem = size_t(STAGES) * (kAStage + kBStage);
-  static_assert(NT % 2 == 0, "B fragments load two n8 tiles at a time");
+template <bool NIB>
+struct Pre {
+  static constexpr int kBM = NIB ? 192 : 256;        // activation rows per block: wgmma's N
+  static constexpr int kStages = NIB ? 5 : 4;
+  static constexpr int kABytes = kBM * kChunk;       // activation codes of a stage
+  static constexpr int kQBytes = kBN * kChunk;       // int8 [128][128], or hi then lo [128][64]
+  static constexpr int kStage = kABytes + kQBytes;   // a multiple of 1024
+  static constexpr int kAcc = kBM / 2;               // int32 accumulators a thread
+  static constexpr size_t kSmem = 1024 + size_t(kStages) * kStage + 2 * kStages * 8;
 };
 
-// 8 packed codes of each plane (one word each) -> the 8 int8 codes 16·hi + lo + 8 in k order
-// (two words)
-__device__ __forceinline__ void rebuild(uint32_t ph, uint32_t pl, uint32_t& w0, uint32_t& w1) {
-  const uint32_t ev = ((ph & 0x0F0F0F0Fu) << 4) | ((pl & 0x0F0F0F0Fu) ^ 0x08080808u);  // 0 2 4 6
-  const uint32_t od = (ph & 0xF0F0F0F0u) | (((pl >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);  // 1 3 5 7
-  w0 = __byte_perm(ev, od, 0x5140);   // codes 0, 1, 2, 3
-  w1 = __byte_perm(ev, od, 0x7362);   // codes 4, 5, 6, 7
+#define OVLA_IACC8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
+                      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d[128] += A (64 x 32 int8 at `da`, K-major) · B (32 x 256 int8 at `db`, K-major)
+__device__ __forceinline__ void wgmma_s8_ss_m64n256k32(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n"
+      "}\n"
+      : OVLA_IACC8(0), OVLA_IACC8(8), OVLA_IACC8(16), OVLA_IACC8(24), OVLA_IACC8(32),
+        OVLA_IACC8(40), OVLA_IACC8(48), OVLA_IACC8(56), OVLA_IACC8(64), OVLA_IACC8(72),
+        OVLA_IACC8(80), OVLA_IACC8(88), OVLA_IACC8(96), OVLA_IACC8(104), OVLA_IACC8(112),
+        OVLA_IACC8(120)
+      : "l"(da), "l"(db), "n"(1));
 }
 
-// two blocks per SM: 110.6 KB of shared memory each at the 128 x 128 tiles, so at most 128
-// registers a thread (one block per SM at 156 was 1.6x slower, nibble loader)
-template <typename T, int BM, int BN, int WM, int WN, int STAGES, bool NIB>
-__global__ void __launch_bounds__(32 * WM * WN, 2)
-    w8a8_gemm_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                     const uint8_t* __restrict__ q, const uint8_t* __restrict__ lo,
-                     const float* __restrict__ s, T* __restrict__ out, int M, int N, int K) {
-  using C = Cfg<BM, BN, WM, WN, STAGES, NIB>;
-  constexpr int MT = C::MT, NT = C::NT, kThreads = C::kThreads;
-  extern __shared__ __align__(16) uint8_t w8_smem[];
-  int8_t* as = reinterpret_cast<int8_t*>(w8_smem);                       // [STAGES][BM][kP]
-  uint8_t* bs = w8_smem + STAGES * C::kAStage;                           // [STAGES][BN][kP]
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % WM, wn = warp / WM;
+// d[96] += A (4 registers: this thread's 16 x 32 int8 fragment of its warp's rows) ·
+// B (32 x 192 int8 at `db`, K-major)
+__device__ __forceinline__ void wgmma_s8_rs_m64n192k32(int (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p;\n"
+      "}\n"
+      : OVLA_IACC8(0), OVLA_IACC8(8), OVLA_IACC8(16), OVLA_IACC8(24), OVLA_IACC8(32),
+        OVLA_IACC8(40), OVLA_IACC8(48), OVLA_IACC8(56), OVLA_IACC8(64), OVLA_IACC8(72),
+        OVLA_IACC8(80), OVLA_IACC8(88)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+#undef OVLA_IACC8
+
+template <typename T, bool NIB>
+__global__ void __launch_bounds__(kThreads, 1)
+    w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                      const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_lo, const float* __restrict__ sx,
+                      const float* __restrict__ s, T* __restrict__ out, int M, int N, int K) {
+  using P = Pre<NIB>;
+  constexpr int S = P::kStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * P::kStage);
+  uint64_t* empty = full + S;
+  // tile t: weight rows (t % NT) · 128, activation rows (t / NT) · kBM; block b takes tiles
+  // b, b + gridDim.x, ...
+  const int NT = (N + kBN - 1) / kBN, tiles = NT * ((M + P::kBM - 1) / P::kBM);
+  const int KC = (K + kChunk - 1) / kChunk;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      hp::mbar_init(full + i, 1);    // the producer's arrival, then the stage's bytes
+      hp::mbar_init(empty + i, 2);   // one thread of each consumer warpgroup
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // ---- producer: one thread keeps the ring of activation and weight tiles full, running
+    // ahead into the block's next tile while the consumers store the last one
+    if (tid == kConsumers) {
+      int g = 0;   // the block's chunks so far, over its tiles: stage g % S, round g / S
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int n0 = (t % NT) * kBN, m0 = (t / NT) * P::kBM;
+        for (int c = 0; c < KC; ++c, ++g) {
+          const int slot = g % S;
+          hp::mbar_wait(empty + slot, ((g / S) & 1) ^ 1);   // the first round passes
+          uint8_t* st = ring + slot * P::kStage;
+          hp::mbar_expect_tx(full + slot, P::kStage);
+          hp::tma_load_2d(st, &tm_a, c * kChunk, m0, full + slot);
+          if constexpr (NIB) {
+            hp::tma_load_2d(st + P::kABytes, &tm_q, c * (kChunk / 2), n0, full + slot);
+            hp::tma_load_2d(st + P::kABytes + kBN * kChunk / 2, &tm_lo, c * (kChunk / 2), n0,
+                            full + slot);
+          } else {
+            hp::tma_load_2d(st + P::kABytes, &tm_q, c * kChunk, n0, full + slot);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups: weight rows 64 wg .. 64 wg + 63 of the tile x kBM rows
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
   const int g8 = lane >> 2, t4 = lane & 3;
-  const int KC = (K + kChunk - 1) / kChunk, Kh = K / 2;
+  const int r0 = wg * 64 + warp * 16 + g8;   // this thread's weight rows r0, r0 + 8
 
-  auto load = [&](int c) {
-    const int k0 = c * kChunk;
-    int8_t* ad = as + (c % STAGES) * C::kAStage;
-    for (int i = threadIdx.x; i < BM * (kChunk / 16); i += kThreads) {
-      const int r = i / (kChunk / 16), k = k0 + (i % (kChunk / 16)) * 16, m = m0 + r;
-      const bool ok = m < M && k < K;   // rows past M and k past K are zero-filled
-      cp_async16(ad + r * kP + (k - k0), ok ? xq + (long long)m * K + k : xq, ok ? 16 : 0);
-    }
-    uint8_t* bd = bs + (c % STAGES) * C::kBStage;
-    if constexpr (NIB) {
-      // 32 codes (16 packed bytes) per copy: units 0-3 of a row from the hi plane, 4-7 from lo
-      for (int i = threadIdx.x; i < BN * 8; i += kThreads) {
-        const int r = i / 8, u = i % 8, n = n0 + r, k = k0 + 32 * (u % 4);
-        const bool ok = n < N && k < K;
-        const uint8_t* plane = u < 4 ? q : lo;
-        cp_async16(bd + r * kP + 16 * u, ok ? plane + (long long)n * Kh + k / 2 : plane,
-                   ok ? 16 : 0);
-      }
-    } else {
-      for (int i = threadIdx.x; i < BN * (kChunk / 16); i += kThreads) {
-        const int r = i / (kChunk / 16), k = k0 + (i % (kChunk / 16)) * 16, n = n0 + r;
-        const bool ok = n < N && k < K;
-        cp_async16(bd + r * kP + (k - k0), ok ? q + (long long)n * K + k : q, ok ? 16 : 0);
-      }
-    }
-  };
-
-  int acc[MT][NT][4];
+  int g = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int n0 = (t % NT) * kBN, m0 = (t / NT) * P::kBM;
+    int d[P::kAcc];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int i = 0; i < P::kAcc; ++i) d[i] = 0;
+    for (int c = 0; c < KC; ++c, ++g) {
+      const int slot = g % S;
+      hp::mbar_wait(full + slot, (g / S) & 1);
+      const uint8_t* as = ring + slot * P::kStage;   // B: the chunk's activation codes
+      const uint8_t* qs = as + P::kABytes;            // A: the weights
+      uint32_t f[4][4];   // nibble: the chunk's register fragments
+      if constexpr (NIB) {
+        // ldmatrix hands lane (g8, t4) the packed bytes 4 t4 .. 4 t4 + 3 of row g8 of the
+        // 8-row group in k32 step kk (matrix kk; 16-byte chunk kk of row n stored at
+        // kk ^ ((n >> 1) & 3)), i.e. its codes 8 t4 .. 8 t4 + 7 of each plane, rebuilt into
+        // the fragment's k 4 t4 .. 4 t4 + 3 and 16 + 4 t4 .. 16 + 4 t4 + 3 (the pre-pass's order)
+        uint32_t ph[2][4], pl[2][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < KC) load(st);
-    cp_async_commit();
-  }
-  for (int c = 0; c < KC; ++c) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();   // chunk c landed for every thread; chunk c - 1's stage consumed
-    if (c + STAGES - 1 < KC) load(c + STAGES - 1);
-    cp_async_commit();
-    const int8_t* ast = as + (c % STAGES) * C::kAStage;
-    const uint8_t* bst = bs + (c % STAGES) * C::kBStage;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      // ldmatrix on an int8 tile read as b16: each 8 x 16-byte matrix hands lane (g8, t4)
-      // bytes 4 t4 .. 4 t4 + 3 of row g8, the s8 fragment layout of A and of int8 B; of a
-      // packed plane, the bytes 4 t4 .. 4 t4 + 3 of channel g8 in k32 step kk, i.e. its codes
-      // 8 t4 .. 8 t4 + 7 (the order the pre-pass stored the activation codes in)
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldmatrix_x4(a[mt], ast + ((wm * MT + mt) * 16 + (lane & 15)) * kP + kk * 32 +
-                               (lane >> 4) * 16);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        // matrices: n8 tile j, then n8 tile j + 1; of each, int8 k 0-15 and 16-31, or the
-        // hi and the lo plane's packed word
-        const uint8_t* row = bst + ((wn * NT + j + (lane >> 4)) * 8 + (lane & 7)) * kP;
-        uint32_t b[4];
-        if constexpr (NIB) {
-          ldmatrix_x4(b, row + ((lane >> 3) & 1) * 64 + kk * 16);
-          rebuild(b[0], b[1], b[0], b[1]);
-          rebuild(b[2], b[3], b[2], b[3]);
-        } else {
-          ldmatrix_x4(b, row + kk * 32 + ((lane >> 3) & 1) * 16);
+        for (int h = 0; h < 2; ++h) {
+          const int n = wg * 64 + warp * 16 + 8 * h + (lane & 7);
+          const int off = n * 64 + (((lane >> 3) ^ ((n >> 1) & 3)) << 4);
+          ldmatrix_x4(ph[h], qs + off);
+          ldmatrix_x4(pl[h], qs + kBN * kChunk / 2 + off);
         }
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_s8_16832(acc[mt][j], a[mt], b[0], b[1]);
-          mma_s8_16832(acc[mt][j + 1], a[mt], b[2], b[3]);
+        for (int kk = 0; kk < 4; ++kk) {
+          ovla_i8::rebuild(ph[0][kk], pl[0][kk], f[kk][0], f[kk][2]);   // rows g8
+          ovla_i8::rebuild(ph[1][kk], pl[1][kk], f[kk][1], f[kk][3]);   // rows g8 + 8
         }
+      }
+      hp::fence_operands(d);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {   // k32 step kk: 32 bytes along each 128-byte row
+        if constexpr (NIB)
+          wgmma_s8_rs_m64n192k32(d, f[kk], hp::desc_sw128(as + kk * 32));
+        else
+          wgmma_s8_ss_m64n256k32(d, hp::desc_sw128(qs + wg * 64 * kChunk + kk * 32),
+                                 hp::desc_sw128(as + kk * 32));
+      }
+      hp::wgmma_commit();
+      if constexpr (NIB) {
+        // ptxas serializes a register-A wgmma behind the next chunk's fragments anyway (C7513):
+        // wait for this group and release its stage (1.5-2.3 % faster than a group in flight)
+        hp::wgmma_wait<0>();
+        hp::fence_operands(d);
+        if (wt == 0) hp::mbar_arrive(empty + slot);
+      } else {
+        hp::wgmma_wait<1>();   // the group before this one is done: release its stage
+        hp::fence_operands(d);
+        if (c > 0 && wt == 0) hp::mbar_arrive(empty + (g - 1) % S);
+      }
+    }
+    if constexpr (!NIB) {
+      hp::wgmma_wait<0>();
+      hp::fence_operands(d);
+      if (wt == 0) hp::mbar_arrive(empty + (g - 1) % S);   // the tile's last stage
+    }
+
+    // accumulator block j (activation rows 8 j .. 8 j + 7): weight rows r0 (e < 2), r0 + 8;
+    // activation rows 8 j + 2 t4 + (e & 1)
+    const int n = n0 + r0;
+    const float s0 = n < N ? s[n] : 0.f, s8 = n + 8 < N ? s[n + 8] : 0.f;
+#pragma unroll
+    for (int j = 0; j < P::kBM / 8; ++j) {
+      const int m = m0 + 8 * j + 2 * t4;
+      const float sm0 = m < M ? sx[m] : 0.f, sm1 = m + 1 < M ? sx[m + 1] : 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int mm = m + (e & 1), nn = n + 8 * (e >> 1);
+        if (mm < M && nn < N)
+          store1(out + (long long)mm * N + nn,
+                 __fmul_rn(__fmul_rn(__int2float_rn(d[4 * j + e]), (e & 1) ? sm1 : sm0),
+                           (e >> 1) ? s8 : s0));
       }
     }
   }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + (wn * NT + j) * 8 + 2 * t4;
-    if (n >= N) continue;   // N is a multiple of 8: n + 1 < N too
-    const float s0 = s[n], s1 = s[n + 1];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + (wm * MT + mt) * 16 + g8 + 8 * h;
-        if (m >= M) continue;
-        const float sm = sx[m];
-        store2(out + (long long)m * N + n,
-               __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][j][2 * h]), sm), s0),
-               __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][j][2 * h + 1]), sm), s1));
-      }
-  }
-}
-
-template <typename T, int BM, int BN, int WM, int WN, int STAGES, bool NIB>
-int launch_gemm(const int8_t* xq, const float* sx, const uint8_t* q, const uint8_t* lo,
-                const float* s, T* out, int M, int N, int K, cudaStream_t stream) {
-  using C = Cfg<BM, BN, WM, WN, STAGES, NIB>;
-  auto kernel = w8a8_gemm_kernel<T, BM, BN, WM, WN, STAGES, NIB>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::kSmem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(xq, sx, q, lo, s, out, M, N, K);
-  return int(cudaGetLastError());
 }
 
 template <typename T, bool NIB>
-int gemm(const int8_t* xq, const float* sx, const uint8_t* q, const uint8_t* lo, const float* s,
-         T* out, int M, int N, int K, cudaStream_t stream) {
-  if (M <= 64)
-    return launch_gemm<T, 32, 32, 2, 2, 8, NIB>(xq, sx, q, lo, s, out, M, N, K, stream);
-  return launch_gemm<T, 128, 128, 2, 4, 3, NIB>(xq, sx, q, lo, s, out, M, N, K, stream);
+int launch_wgmma(const int8_t* xq, const float* sx, const uint8_t* q, const uint8_t* lo,
+                 const float* s, T* out, int M, int N, int K, cudaStream_t stream) {
+  using P = Pre<NIB>;
+  CUtensorMap tm_a, tm_q, tm_lo;
+  const uint64_t qcols = NIB ? K / 2 : K;
+  const uint32_t qbox = NIB ? kChunk / 2 : kChunk;
+  const CUtensorMapSwizzle qsw = NIB ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!hp::encode_2d(&tm_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, K, P::kBM, kChunk,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hp::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, qcols, qcols, kBN, qbox, qsw) ||
+      (NIB && !hp::encode_2d(&tm_lo, CU_TENSOR_MAP_DATA_TYPE_UINT8, lo, N, qcols, qcols, kBN,
+                             qbox, qsw)))
+    return int(cudaErrorInvalidValue);
+  if (!NIB) tm_lo = tm_q;   // unused
+  auto kernel = w8a8_wgmma_kernel<T, NIB>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(P::kSmem));
+  if (err != cudaSuccess) return int(err);
+  const long long tiles = (long long)((N + kBN - 1) / kBN) * ((M + P::kBM - 1) / P::kBM);
+  const int sms = hp::sm_count();
+  const int grid = int(tiles < sms ? tiles : sms);   // one persistent block an SM
+  kernel<<<grid, kThreads, P::kSmem, stream>>>(tm_a, tm_q, tm_lo, sx, s, out, M, N, K);
+  return int(cudaGetLastError());
 }
 
 template <typename T>
 int run(const int8_t* xq, const float* sx, const uint8_t* q, const uint8_t* lo, const float* s,
         void* out, int M, int N, int K, cudaStream_t stream) {
+  namespace d = ovla_i8d;
   T* o = static_cast<T*>(out);
-  return lo ? gemm<T, true>(xq, sx, q, lo, s, o, M, N, K, stream)
-            : gemm<T, false>(xq, sx, q, lo, s, o, M, N, K, stream);
+  if (M <= 64) {
+    const d::EpiW8 epi{sx, s};
+    return lo ? d::launch<d::W::kNibble>(xq, q, lo, epi, o, M, N, K, stream)
+              : d::launch<d::W::kInt8>(xq, q, lo, epi, o, M, N, K, stream);
+  }
+  return lo ? launch_wgmma<T, true>(xq, sx, q, lo, s, o, M, N, K, stream)
+            : launch_wgmma<T, false>(xq, sx, q, lo, s, o, M, N, K, stream);
 }
 
 }  // namespace ovla_w8
+
+namespace {
+bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) != 0; }
+}  // namespace
 
 // Returns the launches' cudaError_t (0 on success). x_kind: 0 = the codes xq int8 [M, K] and
 // scales sx fp32 [M] are given (x unused), 1 = x fp32 [M, K], 2 = x bf16 [M, K], whose codes and
 // scales the pre-pass writes into xq and sx. q: int8 codes [N, K] when lo is null, else the hi
 // plane, lo the lo plane, both packed uint8 [N, K / 2], with float activations only. s fp32
-// [N]; out [M, N], bf16 when out_bf16 else fp32. All contiguous and 16-byte aligned; K a
-// multiple of 16 (of 32 for planes), N a multiple of 8.
+// [N]; out [M, N], bf16 when out_bf16 else fp32. All contiguous; x, xq, q and lo 16-byte
+// aligned (the TMA maps); K a multiple of 16 (of 32 for planes), N a multiple of 8; M up to
+// 65535 · 192 (the tile count stays an int).
 extern "C" int ovla_w8a8_matmul(const void* x, void* xq, void* sx, const void* q, const void* lo,
                                 const void* s, void* out, int M, int N, int K, int x_kind,
                                 int out_bf16, void* stream) {
   if (M < 1 || N < 8 || N % 8 != 0 || K < 16 || K % (lo ? 32 : 16) != 0 || x_kind < 0 ||
-      x_kind > 2 || (x_kind && !x) || (lo && !x_kind))
+      x_kind > 2 || (x_kind && !x) || (lo && !x_kind) || (M + 191) / 192 > 65535 ||
+      misaligned(x) || misaligned(xq) || misaligned(q) || misaligned(lo))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* codes = static_cast<int8_t*>(xq);

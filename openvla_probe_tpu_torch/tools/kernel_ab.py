@@ -2,7 +2,7 @@
 
     python -m openvla_probe_tpu_torch.tools.kernel_ab --lib parent=DIR [--lib TAG=PATH ...]
         [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx,
-                   decode_split_attention,decode_attention]
+                   decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -21,7 +21,9 @@ version (``w4a8_matmul`` bit for bit; ``flash_prefill`` by
 ``linear.compare_w4a8_dx`` and bit for bit against the first ``--lib``;
 ``decode_split_attention`` and ``decode_attention`` at fp32 scores within
 2e-2 of the plain version, ``decode_attention`` at bf16 scores by
-``attention.compare_bf16_scores``), then the device time of one
+``attention.compare_bf16_scores``; ``w8a8_matmul`` bit for bit from bf16 x,
+from the fused norm's codes (the prequant entry) and through the nibble
+loader; ``nib_hi_dot`` bit for bit), then the device time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
 drift of the card's clocks shows as a spread between a build's two readings.
@@ -31,8 +33,10 @@ The checks are reported, not asserted (a knock-out computes another
 function). Prints one JSON line per kernel and shape, then one line of
 launch-weighted means per kernel (the serving mix and the train mix of
 ``w4a8_matmul``, the pallas mix of ``wi8_matmul`` and its prefill and decode
-routes apart, the serving and score_short launches of ``flash_prefill``, as
-``chip_smoke.py`` weighs them).
+routes apart, the serving and score_short launches of ``flash_prefill``, the
+turbo, turbo_nibble and train_int8 mixes of ``w8a8_matmul`` with its two
+routes apart and the turbo_nibble mix of ``nib_hi_dot``, as ``chip_smoke.py``
+weighs them).
 """
 
 from __future__ import annotations
@@ -463,10 +467,168 @@ def ab_decode_attention(fns, g, dev, shapes=None):
         flush=True)
 
 
+def call_w8a8(fn, x, w):
+    """`fn`, a launcher with ``w8a8_matmul``'s arguments, on the wrapper's
+    operands: x a float [M, K] or a `linear.PrequantActivation`, w an int8 or
+    nibble leaf."""
+    pre = isinstance(x, lin.PrequantActivation)
+    xt = x.q8 if pre else x
+    M, K = xt.shape
+    N = w["s"].shape[0]
+    nib = lin.is_nibble_quant(w)
+    if pre:
+        codes, sx, dtype = x
+    else:
+        dtype = x.dtype
+        codes = torch.empty((M, K), dtype=torch.int8, device=xt.device)
+        sx = torch.empty((M, 1), dtype=torch.float32, device=xt.device)
+    out = torch.empty((M, N), dtype=dtype, device=xt.device)
+    bf16 = dtype == torch.bfloat16
+    _build.check(fn(0 if pre else x.data_ptr(), codes.data_ptr(), sx.data_ptr(),
+                    (w["hi"] if nib else w["q"]).data_ptr(), w["lo"].data_ptr() if nib else 0,
+                    w["s"].data_ptr(), out.data_ptr(), M, N, K, 0 if pre else (2 if bf16 else 1),
+                    int(bf16), _build.stream_ptr(xt)), "w8a8_matmul")
+    return out
+
+
+def call_nib_hi(fn, x, hi, s):
+    """`fn`, a launcher with ``nib_hi_dot``'s arguments, on the wrapper's tensors."""
+    M, K = x.shape
+    N = hi.shape[0]
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    rowsum = torch.empty((M,), dtype=torch.int32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.check(fn(x.data_ptr(), hi.data_ptr(), s.data_ptr(), out.data_ptr(), codes.data_ptr(),
+                    sx.data_ptr(), rowsum.data_ptr(), M, N, K, int(x.dtype == torch.bfloat16),
+                    _build.stream_ptr(x)), "nib_hi_dot")
+    return out
+
+
+def nibble_of(w: dict) -> dict:
+    """The nibble planes of an int8 leaf's own codes (hi = floor(q / 16),
+    lo = q - 16 hi - 8), exactly as `linear.quantize_weight_nibble` splits them."""
+    q = w["q"].to(torch.int32)
+    hi = torch.div(q, 16, rounding_mode="floor")
+    return {"hi": lin.pack_int4(hi.to(torch.int8)), "lo": lin.pack_int4((q - 16 * hi - 8).to(torch.int8)),
+            "s": w["s"]}
+
+
+def w8a8_shapes() -> dict:
+    """(M, K, N) -> launches by entry in a turbo call (``turbo_x``: from bf16
+    x with the pre-pass, ``turbo_pre``: on the fused norm's codes), in a
+    turbo_nibble call (``nibble_tower``: the towers' int8 linears,
+    ``nibble_prefill``: the trunk's nibble planes at prefill M) and in a
+    train_int8 step (``train``); the route edge M = 64 / 65 with none."""
+    M_pre, M_dino, M_sig, M_tr, L = BATCH * T_PREFILL, BATCH * 261, BATCH * 256, TRAIN_ROWS, LAYERS
+    out = {}
+
+    def add(shape, **n):
+        row = out.setdefault(shape, dict.fromkeys(
+            ("turbo_x", "turbo_pre", "nibble_tower", "nibble_prefill", "train"), 0))
+        for k, v in n.items():
+            row[k] += v
+
+    for M, (K, N), n in [(M_dino, kn, 23) for kn in ((1024, 3072), (1024, 1024), (1024, 4096),
+                                                     (4096, 1024))] + \
+                        [(M_sig, kn, 26) for kn in ((1152, 3456), (1152, 1152), (1152, 4304),
+                                                    (4304, 1152))]:
+        add((M, K, N), turbo_x=n, nibble_tower=n)
+    for M, per in ((M_pre, 1), (BATCH, A1)):
+        add((M, 4096, 4096), turbo_pre=3 * L * per, turbo_x=L * per)
+        add((M, 4096, 11008), turbo_pre=2 * L * per)
+        add((M, 11008, 4096), turbo_x=L * per)
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        add((M_pre, K, N), nibble_prefill=L * {4096: 4, 11008: 2}[N] if K == 4096 else L)
+    add((BATCH, 4096, 32064), turbo_x=1 + A1)
+    add((M_tr, 4096, 4096), train=8 * L)
+    add((M_tr, 4096, 11008), train=4 * L)
+    add((M_tr, 11008, 4096), train=L)
+    add((M_tr, 4096, 32064), train=1)
+    add((64, 4096, 4096))
+    add((65, 4096, 4096))
+    return out
+
+
+def ab_w8a8_matmul(fns, g, dev, shapes=None):
+    """Every (M, K, N) of w8a8_shapes: each entry its shape takes on a main
+    path (bf16 x, the prequant codes, the nibble planes) checked bit for bit
+    and timed in turns; then the launch-weighted mixes."""
+    rows = []
+    for (M, K, N), n in w8a8_shapes().items():
+        if shapes and f"{M}x{K}x{N}" not in shapes:
+            continue
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = [(x, lin.quantize_weight(torch.randn((N, K), generator=g, device=dev) * 0.02))
+                for _ in range(_copies(N * K))]
+        want = lin.w8a8_matmul_plain(*sets[0])
+        entries = {"x": sets}
+        if n["turbo_pre"]:
+            codes, sx = lin.quantize_rows(x.float())
+            entries["prequant"] = [(lin.PrequantActivation(codes, sx, x.dtype), w) for _, w in sets]
+        if n["nibble_prefill"] or M == 65:
+            entries["nibble"] = [(x, nibble_of(w)) for _, w in sets]
+        checks = {e: {tag: bool(torch.equal(call_w8a8(fn, *es[0]), want)) for tag, fn in fns.items()}
+                  for e, es in entries.items()}
+        rows.append(dict(kernel="w8a8_matmul", shape=f"{M}x{K}x{N}", launches=n,
+                         route="decode" if M <= 64 else "wgmma", bit_equal=checks,
+                         ms={e: _turns(fns, lambda fn: rotating(lambda *a: call_w8a8(fn, *a), es))
+                             for e, es in entries.items()}))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets, entries, want
+    mixes = {"turbo": (("turbo_x", "x"), ("turbo_pre", "prequant")),
+             "turbo_nibble": (("nibble_tower", "x"), ("nibble_prefill", "nibble")),
+             "train_int8": (("train", "x"),)}
+    for mix, parts in mixes.items():
+        for route in ("all", "wgmma", "decode"):
+            sel = [(r, key, e) for r in rows for key, e in parts
+                   if r["launches"][key] and route in ("all", r["route"])]
+            n = sum(r["launches"][key] for r, key, _ in sel)
+            if n:
+                print(json.dumps({"kernel": "w8a8_matmul", "mix": mix, "route": route,
+                                  "launches": n, "ms": {
+                    tag: sum(statistics.mean(r["ms"][e][tag]) * r["launches"][key]
+                             for r, key, e in sel) / n for tag in fns}}), flush=True)
+
+
+def nib_hi_shapes() -> dict:
+    """(M, K, N) -> launches per turbo_nibble call (every decode step's trunk
+    linears and lm_head, M = 24); M = 1 and 32 (NIB_HI_M_MAX) with none."""
+    L = LAYERS
+    return {(BATCH, 4096, 4096): 4 * L * A1, (BATCH, 4096, 11008): 2 * L * A1,
+            (BATCH, 11008, 4096): L * A1, (BATCH, 4096, 32064): 1 + A1,
+            (1, 4096, 4096): 0, (lin.NIB_HI_M_MAX, 4096, 4096): 0}
+
+
+def ab_nib_hi_dot(fns, g, dev, shapes=None):
+    rows = []
+    for (M, K, N), per_call in nib_hi_shapes().items():
+        if shapes and f"{M}x{K}x{N}" not in shapes:
+            continue
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = []
+        for _ in range(_copies(N * K // 2)):
+            w = lin.quantize_weight_nibble(torch.randn((N, K), generator=g, device=dev) * 0.02)
+            sets.append((x, w["hi"], w["s"]))
+        want = lin.nib_hi_dot_plain(*sets[0])
+        rows.append(dict(kernel="nib_hi_dot", shape=f"{M}x{K}x{N}", launches_per_call=per_call,
+                         bit_equal={tag: bool(torch.equal(call_nib_hi(fn, *sets[0]), want))
+                                    for tag, fn in fns.items()},
+                         ms=_turns(fns, lambda fn: rotating(lambda *a: call_nib_hi(fn, *a), sets))))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets, want
+    n = sum(r["launches_per_call"] for r in rows)
+    if n:
+        print(json.dumps({"kernel": "nib_hi_dot", "mix": "turbo_nibble", "launches": n, "ms": {
+            tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_call"] for r in rows) / n
+            for tag in fns}}), flush=True)
+
+
 AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
       "w4a8_dx": ab_w4a8_dx, "decode_split_attention": ab_decode_split_attention,
-      "decode_attention": ab_decode_attention}
+      "decode_attention": ab_decode_attention, "w8a8_matmul": ab_w8a8_matmul,
+      "nib_hi_dot": ab_nib_hi_dot}
 
 
 def main() -> int:
@@ -474,7 +636,8 @@ def main() -> int:
     ap.add_argument("--lib", action="append", default=[], help="TAG=DIR or TAG=FILE.cu")
     ap.add_argument("--kernels", default=",".join(AB))
     ap.add_argument("--shapes", default="",
-                    help="w4a8_matmul / wi8_matmul MxKxN shapes to time (all)")
+                    help="w4a8_matmul / wi8_matmul / w8a8_matmul / nib_hi_dot MxKxN shapes "
+                         "to time (all)")
     ap.add_argument("--out", default=str(_build.BUILD_DIR / "kernel_ab"))
     args = ap.parse_args()
     if not torch.cuda.is_available():

@@ -75,7 +75,7 @@ def _kernel_class(name: str) -> str:
     return "elementwise / reduction / copy"
 
 
-def _device_time(call, calls: int) -> dict:
+def device_time(call, calls: int) -> dict:
     """torch.profiler device time per call by kernel name and class, beside
     the host-clock time of the profiled calls."""
     call()
@@ -167,7 +167,7 @@ def profile_vlm_entry(entry: str, batch: int, calls: int, card: str) -> None:
         stage_ms["whole_call"] = _median_ms(call, reps)
     head = {"card": card, "entry": entry, "batch": batch, "T": T}
     print(json.dumps({**head, "stages_ms": stage_ms}), flush=True)
-    print(json.dumps({**head, **_device_time(call, calls)}), flush=True)
+    print(json.dumps({**head, **device_time(call, calls)}), flush=True)
 
 
 def profile_train(quant: str, batch: int, calls: int, card: str) -> None:
@@ -194,7 +194,7 @@ def profile_train(quant: str, batch: int, calls: int, card: str) -> None:
     head = {"card": card, "entry": f"train_{quant}", "batch": batch,
             "T": ft.batch["input_ids"].shape[1] + cfg.num_patches}
     print(json.dumps({**head, "stages_ms": stage_ms}), flush=True)
-    print(json.dumps({**head, **_device_time(ft.step, calls)}), flush=True)
+    print(json.dumps({**head, **device_time(ft.step, calls)}), flush=True)
 
 
 class _NullTok:
@@ -322,7 +322,7 @@ def main() -> None:
 
     # --- device time by kernel over `calls` whole calls -----------------------------
     print(json.dumps({"card": card, "tier": args.tier, "weights": args.weights, "batch": B,
-                      **_device_time(call, args.calls)}), flush=True)
+                      **device_time(call, args.calls)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -584,12 +584,17 @@ def test_decode_kernel_bf16_scores_match_plain(cuda, dtype, B, S, H, dh, slot):
 
 
 W8A8_SHAPES = [
-    (24, 4096, 4096),       # a turbo decode step's product (small-M tiles)
+    (24, 4096, 4096),       # a turbo decode step's product (the split-K decode route)
     (24, 4096, 32064),      # lm_head: N = 64 * 501, not a multiple of 128
     (6144, 1152, 4304),     # SigLIP fc1: N = 16 * 269
     (6144, 4304, 1152),     # SigLIP fc2: K = 4304 not a multiple of 32 (zero-filled k tail)
     (100, 80, 136),         # M > 64 past one tile, K and N tails
     (5, 48, 40),
+    (1, 4096, 4096),        # one row (the decode route's first row block, 31 rows zero-filled)
+    (64, 4096, 4096),       # the last M of the decode route (two row blocks)
+    (65, 4096, 4096),       # the first M of the wgmma route
+    (2560, 4096, 4096),     # a train_int8 step's rows
+    (6264, 1024, 1024),     # DINOv2: M past the last 256-row tile
 ]
 
 
@@ -609,10 +614,13 @@ def test_w8a8_kernel_bit_equal_to_plain(cuda, dtype, M, K, N):
     assert _build.KERNEL_LAUNCHES["w8a8_quant_rows"] == pre_passes + 1   # none for prequant
 
 
-@pytest.mark.parametrize("M,K,N", [(6912, 4096, 4096), (40, 11008, 264), (33, 64, 40)])
+@pytest.mark.parametrize("M,K,N", [(6912, 4096, 4096), (40, 11008, 264), (33, 64, 40),
+                                   (1, 4096, 4096), (32, 4096, 4096), (64, 4096, 4096),
+                                   (65, 4096, 4096), (2560, 4096, 4096), (200, 96, 136)])
 def test_w8a8_nibble_loader_bit_equal_to_int8(cuda, M, K, N):
-    """The nibble prefill: the planes' codes rebuilt in the loader give the
-    int8 leaf's output bit for bit."""
+    """The nibble loader (wgmma above M = 64, the split-K decode route at and
+    below; M = 32 / 33 is nib_matmul's NIB_HI_M_MAX edge): the planes' codes
+    rebuilt in the loader give the int8 leaf's output bit for bit."""
     x = _rand(39, (M, K), torch.bfloat16, cuda)
     wf = _rand(40, (N, K), torch.float32, cuda) * 0.02
     nib, int8 = tlin.quantize_weight_nibble(wf), tlin.quantize_weight(wf)
@@ -623,7 +631,8 @@ def test_w8a8_nibble_loader_bit_equal_to_int8(cuda, M, K, N):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(24, 4096, 4096), (24, 11008, 4096), (32, 4096, 32064),
-                                   (5, 96, 40)])
+                                   (5, 96, 40), (1, 4096, 4096), (33, 4096, 4096),
+                                   (65, 96, 40), (2560, 4096, 4096)])
 def test_nib_hi_dot_kernel_bit_equal_to_plain(cuda, dtype, M, K, N):
     x = _rand(41, (M, K), dtype, cuda)
     w = tlin.quantize_weight_nibble(_rand(42, (N, K), torch.float32, cuda) * 0.02)
@@ -631,6 +640,60 @@ def test_nib_hi_dot_kernel_bit_equal_to_plain(cuda, dtype, M, K, N):
     want = tlin.nib_hi_dot_plain(x, w["hi"], w["s"])
     assert got.dtype == dtype and got.shape == (M, N)
     assert torch.equal(got, want)
+
+
+def _launch_diff(fn) -> dict:
+    before = dict(_build.KERNEL_LAUNCHES)
+    fn()
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in _build.KERNEL_LAUNCHES.items() if n != before[k]}
+
+
+def test_int8_gemms_take_their_routes_at_every_main_path_shape(cuda):
+    """Every (M, K, N) the turbo, turbo_nibble and train_int8 paths give
+    w8a8_matmul, in each entry the shape takes (bf16 x, the fused norm's
+    codes, nibble planes), and every turbo_nibble decode shape of nib_hi_dot:
+    one launch of the kernel and one of its pre-pass (none on the prequant
+    entry) and nothing else: no other route exists, and no call falls back."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for (M, K, N), n in kernel_ab.w8a8_shapes().items():
+        x = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+        w = tlin.quantize_weight(torch.randn((N, K), generator=g, device=cuda) * 0.02)
+        assert _launch_diff(lambda: tlin.w8a8_matmul(x, w)) == {"w8a8_matmul": 1,
+                                                               "w8a8_quant_rows": 1}
+        if n["turbo_pre"]:
+            pre = tlin.PrequantActivation(*tlin.quantize_rows(x.float()), x.dtype)
+            assert _launch_diff(lambda: tlin.w8a8_matmul(pre, w)) == {"w8a8_matmul": 1}
+        if n["nibble_prefill"]:
+            nib = kernel_ab.nibble_of(w)
+            assert _launch_diff(lambda: tlin.w8a8_matmul(x, nib)) == {"w8a8_matmul": 1,
+                                                                     "w8a8_quant_rows": 1}
+    for (M, K, N) in kernel_ab.nib_hi_shapes():
+        x = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+        w = tlin.quantize_weight_nibble(torch.randn((N, K), generator=g, device=cuda) * 0.02)
+        assert _launch_diff(lambda: tlin.nib_hi_dot(x, w["hi"], w["s"])) == {
+            "nib_hi_dot": 1, "nib_hi_quant_rows": 1}
+
+
+def test_int8_gemm_launchers_refuse_what_their_tensor_maps_cannot_take(cuda):
+    """The C launchers return cudaErrorInvalidValue (1), launching nothing,
+    for a pointer off the 16-byte alignment the TMA maps need, and the
+    wrappers check it before the launch."""
+    x = torch.zeros((4, 64 + 16), dtype=torch.bfloat16, device=cuda)[:, 8:].contiguous()
+    w = {"q": torch.zeros((8, 64), dtype=torch.int8, device=cuda), "s": torch.ones(8, device=cuda)}
+    codes = torch.empty(4 * 64 + 1, dtype=torch.int8, device=cuda)
+    sx = torch.empty(4, device=cuda)
+    out = torch.empty((4, 8), dtype=torch.bfloat16, device=cuda)
+    fn = _build.launcher("w8a8_matmul")
+    assert fn(x.data_ptr(), codes[1:].data_ptr(), sx.data_ptr(), w["q"].data_ptr(), 0,
+              w["s"].data_ptr(), out.data_ptr(), 4, 8, 64, 2, 1, _build.stream_ptr(x)) == 1
+    rowsum = torch.empty(4, dtype=torch.int32, device=cuda)
+    hi = torch.zeros((8 * 32 + 1,), dtype=torch.uint8, device=cuda)
+    assert _build.launcher("nib_hi_dot")(
+        x.data_ptr(), hi[1:].data_ptr(), w["s"].data_ptr(), out.data_ptr(), codes.data_ptr(),
+        sx.data_ptr(), rowsum.data_ptr(), 4, 8, 64, 1, _build.stream_ptr(x)) == 1
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tlin.w8a8_matmul(tlin.PrequantActivation(codes[1:].view(4, 64), sx[:, None], x.dtype), w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
