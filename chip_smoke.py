@@ -47,7 +47,9 @@ Phases, one output line each:
               cluster key ranges, a CTA with no key, a query far before the
               last key, a row masked but BOS, a row masked everywhere),
               wi8_matmul (also at SigLIP's fc2 on pallas_int4, K = 4304),
-              fused_ln_w8a8, fused_mlp_residual,
+              fused_ln_w8a8, fused_mlp_residual (each call's pre-pass and
+              GEMM launches exact; edge cases M = 1, 64, 65, 257, N tails,
+              F = 8208, fp32; the host time of one call),
               decode_split_attention (pallas; a single row timed at the
               cluster rule beside one CTA a (b, h); edge cases: the prefill /
               generated boundary inside a chunk, a row masked but BOS),
@@ -718,90 +720,169 @@ def _tower_weight(n, k, g, dev):
     return lin.quantize_weight(torch.randn((n, k), generator=g, device=dev) * 0.02)
 
 
+LN_W8A8_LAUNCHES = {"fused_ln_w8a8_quant_rows": 1, "fused_ln_w8a8": 1}
+MLP_LAUNCHES = {"fused_mlp_ln_quant_rows": 1, "fused_mlp_fc1": 1, "fused_mlp_quant_rows": 1,
+                "fused_mlp_residual": 1}
+
+
+def _launch_diff(fn):
+    """fn() and the launches it made, by name."""
+    before = dict(_build.KERNEL_LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - before[k] for k, n in _build.KERNEL_LAUNCHES.items() if n != before[k]}
+
+
+def _ln_w8a8_inputs(M, K, N, form, g, dev, dtype=torch.bfloat16):
+    x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    w = _tower_weight(N, K, g, dev)
+    b = (torch.randn((N,), generator=g, device=dev) * 0.1).to(dtype)
+    kw = {}
+    if form == "ln":
+        kw["ln"] = ((1 + 0.1 * torch.randn((K,), generator=g, device=dev)).to(dtype),
+                    (0.1 * torch.randn((K,), generator=g, device=dev)).to(dtype))
+    else:
+        kw["res"] = torch.randn((M, N), generator=g, device=dev).to(dtype)
+        if form == "res_ls":
+            kw["ls"] = torch.randn((N,), generator=g, device=dev).to(dtype)
+    return x, w, b, kw
+
+
+def _hold_ln_w8a8(x, w, b, kw, name):
+    """vmlp.compare_ln_w8a8, one call launching exactly its pre-pass and GEMM;
+    bit-equal to the plain version outright where there is no LayerNorm."""
+    (got, stats), launched = _launch_diff(lambda: vmlp.compare_ln_w8a8(x, w, b, **kw))
+    assert launched == LN_W8A8_LAUNCHES, (name, launched)
+    want = vmlp.fused_ln_w8a8_plain(x, w, b, **kw)
+    if "ln" not in kw:
+        assert torch.equal(got, want), f"{name}: not bit-equal to the plain version"
+    return got, want, dict(stats, max_abs_err=(got.float() - want.float()).abs().max().item(),
+                           equal_share=(got == want).float().mean().item())
+
+
 def check_fused_ln_w8a8(dev, g):
     """Row 10 at its four call forms: each tower's qkv entry (LN1 first) and
     proj exit (residual; DINOv2's LayerScale). The kernel's activation codes
     within one step of the plain version's, and its output bit-equal to the
     plain version's on its own codes (vmlp.compare_ln_w8a8); without a
     LayerNorm the codes are equal, so the output equals the plain version's
-    bit for bit. Library: the plain version with torch._int_mm for the
+    bit for bit. Each call launches its pre-pass and its GEMM once
+    (LN_W8A8_LAUNCHES). Library: the plain version with torch._int_mm for the
     integer product (it leaves the LayerNorm, quantize and epilogue as
-    separate passes)."""
+    separate passes). Untimed edge cases, held the same way: M = 1 and 64 (the
+    decode route), 65 and 257 (the wgmma route's first rows), N tails (200:
+    inside a 128-row weight tile; 36: no multiple of 8, scalar stores), and
+    the four forms in fp32. The host time of one wrapper call at DINOv2's qkv."""
     forms = {"dinov2_qkv": (6264, 1024, 3072, "ln", 23), "dinov2_proj": (6264, 1024, 1024, "res_ls", 23),
              "siglip_qkv": (6144, 1152, 3456, "ln", 26), "siglip_proj": (6144, 1152, 1152, "res", 26)}
     by_shape = {}
+    host = None
     for name, (M, K, N, form, per_call) in forms.items():
-        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
-        w = _tower_weight(N, K, g, dev)
-        b = (torch.randn((N,), generator=g, device=dev) * 0.1).bfloat16()
-        kw = {}
-        if form == "ln":
-            kw["ln"] = ((1 + 0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16(),
-                        (0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16())
-        else:
-            kw["res"] = torch.randn((M, N), generator=g, device=dev).bfloat16()
-            if form == "res_ls":
-                kw["ls"] = torch.randn((N,), generator=g, device=dev).bfloat16()
-        got, stats = vmlp.compare_ln_w8a8(x, w, b, **kw)
-        torch.cuda.synchronize()
-        want = vmlp.fused_ln_w8a8_plain(x, w, b, **kw)
-        if form != "ln":
-            assert torch.equal(got, want), f"{name}: not bit-equal to the plain version"
+        x, w, b, kw = _ln_w8a8_inputs(M, K, N, form, g, dev)
+        got, want, stats = _hold_ln_w8a8(x, w, b, kw, name)
         with mock.patch.object(vmlp, "int8_dot", _int_mm_dot):
             lib = cuda_ms(lambda: vmlp.fused_ln_w8a8_plain(x, w, b, **kw))
         nbytes = _nbytes(x, w["q"], w["s"], b, got, *kw.get("ln", ()), *(
             [kw["res"]] if "res" in kw else []), *([kw["ls"]] if "ls" in kw else []))
         bnd, by = bound_ms(nbytes, 2 * M * N * K, "int8")
         by_shape[name] = dict(
-            launches_per_call=per_call, max_abs_err=(got.float() - want.float()).abs().max().item(),
-            equal_share=(got == want).float().mean().item(), **stats,
+            launches_per_call=per_call, **stats,
             ms=cuda_ms(lambda: vmlp.fused_ln_w8a8(x, w, b, **kw)),
             plain_ms=cuda_ms(lambda: vmlp.fused_ln_w8a8_plain(x, w, b, **kw), reps=5, warmup=1),
             library_ms=lib, bound_ms=bnd, bound_by=by)
+        if host is None:
+            host = host_us(lambda: vmlp.fused_ln_w8a8(x, w, b, **kw))
+        del x, w, b, kw, got, want
+    edges = {}
+    for name, (M, K, N, form, dtype) in {
+            "m1_dinov2_qkv": (1, 1024, 3072, "ln", torch.bfloat16),
+            "m64_dinov2_proj": (64, 1024, 1024, "res_ls", torch.bfloat16),
+            "m65_siglip_proj": (65, 1152, 1152, "res", torch.bfloat16),
+            "m257_siglip_qkv": (257, 1152, 3456, "ln", torch.bfloat16),
+            "n200_tail": (300, 64, 200, "res_ls", torch.bfloat16),
+            "n36_not_8": (100, 64, 36, "res", torch.bfloat16),
+            **{f"fp32_{k}": (*v[:4], torch.float32) for k, v in forms.items()}}.items():
+        x, w, b, kw = _ln_w8a8_inputs(M, K, N, form, g, dev, dtype)
+        edges[name] = _hold_ln_w8a8(x, w, b, kw, name)[2]
+        del x, w, b, kw
     mix = _launch_weighted(by_shape, {k: v[4] for k, v in forms.items()})
     return dict(name="fused_ln_w8a8", route="cuda", source="openvla_probe_tpu_torch/ops/csrc/vit_mlp.cu",
-                replaces="openvla_probe_tpu/ops/vit_mlp.py:123", by_shape=by_shape, **mix)
+                replaces="openvla_probe_tpu/ops/vit_mlp.py:123", by_shape=by_shape,
+                edge_cases=edges, host_us_per_call=host, launches_per_wrapper_call=LN_W8A8_LAUNCHES,
+                **mix)
+
+
+def _mlp_inputs(M, D, F_, layerscale, g, dev, dtype=torch.bfloat16):
+    cast = lambda t: t.to(dtype)
+    x = cast(torch.randn((M, D), generator=g, device=dev))
+    ln = (cast(1 + 0.1 * torch.randn((D,), generator=g, device=dev)),
+          cast(0.1 * torch.randn((D,), generator=g, device=dev)))
+    fc1, fc2 = _tower_weight(F_, D, g, dev), _tower_weight(D, F_, g, dev)
+    b1 = cast(0.1 * torch.randn((F_,), generator=g, device=dev))
+    b2 = cast(0.1 * torch.randn((D,), generator=g, device=dev))
+    ls2 = cast(torch.randn((D,), generator=g, device=dev)) if layerscale else \
+        torch.ones((D,), dtype=dtype, device=dev)
+    return (x, *ln, fc1, b1, fc2, b2, ls2)
+
+
+def _hold_mlp(args, name, act="gelu_tanh"):
+    """vmlp.compare_mlp_residual, one call launching exactly its two pre-passes
+    and two GEMMs (MLP_LAUNCHES)."""
+    (got, stats), launched = _launch_diff(lambda: vmlp.compare_mlp_residual(*args, act=act))
+    assert launched == MLP_LAUNCHES, (name, launched)
+    want = vmlp.fused_mlp_residual_plain(*args, act=act)
+    return got, want, dict(stats, max_abs_err=(got.float() - want.float()).abs().max().item(),
+                           equal_share=(got == want).float().mean().item())
 
 
 def check_fused_mlp_residual(dev, g):
     """Row 11 at both towers' MLP halves (turbo act gelu_tanh): DINOv2 with
     LayerScale, SigLIP (F = 4304 = 16 x 269) with ones; both activation codes
     within one step of the plain version's and the output bit-equal to the
-    plain version's on the kernel's own codes (vmlp.compare_mlp_residual).
-    Library: the plain version with torch._int_mm for both integer products
-    (it writes the [M, F] intermediate to device memory, as the fused kernel
-    does not)."""
+    plain version's on the kernel's own codes (vmlp.compare_mlp_residual),
+    each call launching its two pre-passes and two GEMMs once (MLP_LAUNCHES).
+    Library: the plain version with torch._int_mm for both integer products.
+    Untimed edge cases, held the same way: M = 1 and 64 (the decode route),
+    65 and 257 at DINOv2's widths, F = 8208 (past the earlier kernel's 8192),
+    both towers in fp32, and the erf and quick GELU. The host time of one
+    wrapper call at DINOv2."""
     towers = {"dinov2": (6264, 1024, 4096, True), "siglip": (6144, 1152, 4304, False)}
     by_shape = {}
+    host = None
     for name, (M, D, F_, layerscale) in towers.items():
-        bf = lambda t: t.bfloat16()
-        x = bf(torch.randn((M, D), generator=g, device=dev))
-        ln = (bf(1 + 0.1 * torch.randn((D,), generator=g, device=dev)),
-              bf(0.1 * torch.randn((D,), generator=g, device=dev)))
-        fc1, fc2 = _tower_weight(F_, D, g, dev), _tower_weight(D, F_, g, dev)
-        b1 = bf(0.1 * torch.randn((F_,), generator=g, device=dev))
-        b2 = bf(0.1 * torch.randn((D,), generator=g, device=dev))
-        ls2 = bf(torch.randn((D,), generator=g, device=dev)) if layerscale else \
-            torch.ones((D,), dtype=torch.bfloat16, device=dev)
-        args = (x, *ln, fc1, b1, fc2, b2, ls2)
-        got, stats = vmlp.compare_mlp_residual(*args)
-        torch.cuda.synchronize()
-        want = vmlp.fused_mlp_residual_plain(*args)
+        args = _mlp_inputs(M, D, F_, layerscale, g, dev)
+        got, want, stats = _hold_mlp(args, name)
         with mock.patch.object(vmlp, "int8_dot", _int_mm_dot):
             lib = cuda_ms(lambda: vmlp.fused_mlp_residual_plain(*args))
-        bnd, by = bound_ms(_nbytes(x, *ln, fc1["q"], fc1["s"], b1, fc2["q"], fc2["s"], b2, ls2, got),
-                           4 * M * D * F_, "int8")
+        x, ln_s, ln_b, fc1, b1, fc2, b2, ls2 = args
+        bnd, by = bound_ms(_nbytes(x, ln_s, ln_b, fc1["q"], fc1["s"], b1, fc2["q"], fc2["s"], b2,
+                                   ls2, got), 4 * M * D * F_, "int8")
         by_shape[name] = dict(
-            launches_per_call=TOWER_LAUNCHES[name],
-            max_abs_err=(got.float() - want.float()).abs().max().item(),
-            equal_share=(got == want).float().mean().item(), **stats,
+            launches_per_call=TOWER_LAUNCHES[name], **stats,
             ms=cuda_ms(lambda: vmlp.fused_mlp_residual(*args)),
             plain_ms=cuda_ms(lambda: vmlp.fused_mlp_residual_plain(*args), reps=5, warmup=1),
             library_ms=lib, bound_ms=bnd, bound_by=by)
+        if host is None:
+            host = host_us(lambda: vmlp.fused_mlp_residual(*args))
+        del args, x, fc1, fc2, got, want
+    edges = {}
+    for name, (M, D, F_, layerscale, dtype, act) in {
+            "m1_dinov2": (1, 1024, 4096, True, torch.bfloat16, "gelu_tanh"),
+            "m64_siglip": (64, 1152, 4304, False, torch.bfloat16, "gelu_tanh"),
+            "m65_dinov2": (65, 1024, 4096, True, torch.bfloat16, "gelu"),
+            "m257_dinov2": (257, 1024, 4096, True, torch.bfloat16, "quick_gelu"),
+            "f8208": (257, 1024, 8208, True, torch.bfloat16, "gelu_tanh"),
+            "fp32_dinov2": (6264, 1024, 4096, True, torch.float32, "gelu_tanh"),
+            "fp32_siglip": (6144, 1152, 4304, False, torch.float32, "gelu_tanh")}.items():
+        args = _mlp_inputs(M, D, F_, layerscale, g, dev, dtype)
+        edges[name] = _hold_mlp(args, name, act)[2]
+        del args
     mix = _launch_weighted(by_shape, TOWER_LAUNCHES)
     return dict(name="fused_mlp_residual", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/vit_mlp.cu",
-                replaces="openvla_probe_tpu/ops/vit_mlp.py:62", by_shape=by_shape, **mix)
+                replaces="openvla_probe_tpu/ops/vit_mlp.py:62", by_shape=by_shape,
+                edge_cases=edges, host_us_per_call=host, launches_per_wrapper_call=MLP_LAUNCHES,
+                **mix)
 
 
 def _split_inputs(B, T, A, step, H, Dh, g, dev, dtype=torch.bfloat16, copies=2):
@@ -1318,10 +1399,10 @@ def _inputs(cfg: vla.VLAServingConfig, batch: int, hw: int, g, dev):
 # weights
 PATHS = {
     "parity": ("parity", None, ("flash_prefill", "vit_attention", "decode_attention")),
-    "pallas": ("pallas", 8, ("flash_prefill", "vit_attention", "fused_ln_w8a8",
+    "pallas": ("pallas", 8, ("flash_prefill", "vit_attention", "fused_ln_w8a8", "fused_mlp_fc1",
                              "fused_mlp_residual", "wi8_matmul", "decode_split_attention")),
     "pallas_kv8": ("pallas_kv8", 8, ("flash_prefill", "vit_attention", "fused_ln_w8a8",
-                                     "fused_mlp_residual", "wi8_matmul",
+                                     "fused_mlp_fc1", "fused_mlp_residual", "wi8_matmul",
                                      "stacked_decode_attention_i8")),
     "turbo": ("turbo", 8, ("flash_prefill", "vit_attention", "decode_attention", "w8a8_matmul",
                            "rms_norm_quant")),
@@ -1588,10 +1669,13 @@ def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH)
     spec = convert.vlm_param_spec(c, lin.TURBO_QUANT_SUFFIXES, bits)
     for name, v in zip(c.vision_names, c.vision):
         b, n = spec["vision"][name]["blocks"], v.num_layers - 1
-        for pair, fused, calls in ((("qkv_w", "proj_w"), "fused_ln_w8a8", 2),
-                                   (("fc1_w", "fc2_w"), "fused_mlp_residual", 1)):
+        # the fused kernels: one GEMM launch per linear of the pair (fc1's counted as
+        # fused_mlp_fc1), each with its pre-pass
+        for pair, fused in ((("qkv_w", "proj_w"), ("fused_ln_w8a8", "fused_ln_w8a8")),
+                            (("fc1_w", "fc2_w"), ("fused_mlp_fc1", "fused_mlp_residual"))):
             if all(_linear_route(b[w], v.int8_matmul, 2 ** 20) == "wi8_matmul" for w in pair):
-                kernels[fused] += calls * n
+                for gemm in fused:
+                    kernels[gemm] += n
             else:
                 for w in pair:
                     kernels[_linear_route(b[w], v.int8_matmul, 2 ** 20)] += n

@@ -12,8 +12,11 @@ loaded at import), so running the port on a card builds everything it needs.
 ``KERNEL_LAUNCHES`` is the one launch registry: every wrapper adds one to its
 kernel's count where it launches it, and nowhere else, so a run can show that
 the main path went through the kernels. The int8 GEMMs' launchers start the
-activation pre-pass (``quant_rows`` in ``csrc/int8_mma.cuh``) as a launch of
-its own before the GEMM; it is counted under its own name (``PRE_PASSES``).
+activation pre-pass (``quant_rows`` or ``ln_quant_rows`` in
+``csrc/int8_mma.cuh``) as a launch of its own before the GEMM; it is counted
+under its own name (``PRE_PASSES``). ``fused_mlp_residual`` is two GEMMs
+with a pre-pass each: fc1's launch counts as ``fused_mlp_fc1``, fc2's (the
+one that makes the output) as ``fused_mlp_residual``.
 
 A kernel wrapper fills an output that autograd knows nothing of, so every
 wrapper first calls `no_grad_guard`: under grad mode an input that requires
@@ -118,8 +121,9 @@ KERNELS = {
 }
 # GEMM -> the name its activation pre-pass launch is counted under
 PRE_PASSES = {"w4a8_matmul": "w4a8_quant_rows", "w8a8_matmul": "w8a8_quant_rows",
-              "nib_hi_dot": "nib_hi_quant_rows"}
-KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in (*KERNELS, *PRE_PASSES.values())}
+              "nib_hi_dot": "nib_hi_quant_rows", "fused_ln_w8a8": "fused_ln_w8a8_quant_rows",
+              "fused_mlp_fc1": "fused_mlp_ln_quant_rows", "fused_mlp_residual": "fused_mlp_quant_rows"}
+KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in (*KERNELS, *PRE_PASSES, *PRE_PASSES.values())}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 

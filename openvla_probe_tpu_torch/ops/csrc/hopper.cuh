@@ -1,6 +1,6 @@
 // The Hopper pieces shared by the wgmma / TMA kernels (w4a8_dx.cu, w4a8_matmul.cu,
-// wi8_matmul.cu, w8a8_matmul.cu, flash_blockwise.cu, flash_prefill.cu, int8_decode.cuh,
-// decode_common.cuh): mbarriers, TMA tensor-map and bulk
+// wi8_matmul.cu, flash_blockwise.cu, flash_prefill.cu, int8_wgmma.cuh for w8a8_matmul.cu and
+// vit_mlp.cu, int8_decode.cuh, decode_common.cuh): mbarriers, TMA tensor-map and bulk
 // loads, the run-time lookup of the tensor-map encoder (cudaGetDriverEntryPoint: no -lcuda),
 // shared-memory matrix descriptors for wgmma, the wgmma fence / commit / wait
 // instructions, and the device's SM count.

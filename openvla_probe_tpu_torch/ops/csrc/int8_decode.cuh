@@ -1,5 +1,6 @@
 // The split-K decode route of the int8 GEMMs at decode M, shared by w8a8_matmul.cu (M <= 64,
-// int8 weights or nibble planes) and nib_hi_dot.cu (the hi plane alone): out[m, n] =
+// int8 weights or nibble planes), vit_mlp.cu (M <= 64, through int8_wgmma.cuh's run_int8) and
+// nib_hi_dot.cu (the hi plane alone): out[m, n] =
 // epi(Σ_k x8[m, k] · w8[n, k], m, n), the exact int32 sum, then the caller's fp32 epilogue.
 //
 // Bound on the H100 at the OpenVLA-7B decode shapes (M = 24): the weight stream, 16.8 MB of
@@ -77,11 +78,22 @@ __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // The epilogues, each product rounded once (the _rn intrinsics keep nvcc from contracting)
-struct EpiW8 {   // w8a8: (f32(acc) · s_x) · s
+struct EpiW8 {   // w8a8: (f32(acc) · s_x) · s; int8_wgmma.cuh's functor interface, stored direct
+  static constexpr bool kStaged = false;
+  struct Col {
+    float s = 0.f;
+  };
   const float* sx;
   const float* s;
+  // read-only loads (ld.global.nc): the compiler may hoist them past the output stores
+  __device__ __forceinline__ Col col(int n) const { return {__ldg(s + n)}; }
+  __device__ __forceinline__ float row(int m) const { return __ldg(sx + m); }
+  __device__ __forceinline__ float head(int acc, float sxm, const Col& c) const {
+    return __fmul_rn(__fmul_rn(__int2float_rn(acc), sxm), c.s);
+  }
+  __device__ __forceinline__ float tail(float y, long long) const { return y; }
   __device__ __forceinline__ float operator()(int acc, int m, int n) const {
-    return __fmul_rn(__fmul_rn(__int2float_rn(acc), sx[m]), s[n]);
+    return head(acc, row(m), col(n));
   }
 };
 struct EpiHi {   // nib_hi_dot: ((f32(acc) · 16 + f32(rowsum) · 7.5) · s_x) · s

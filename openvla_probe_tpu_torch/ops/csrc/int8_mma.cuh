@@ -1,8 +1,9 @@
 // Pieces shared by the int8 tensor-core GEMMs (w4a8_matmul.cu, w8a8_matmul.cu, nib_hi_dot.cu,
-// int8_decode.cuh; vit_attention.cu takes the cp.async pieces):
+// vit_mlp.cu, int8_decode.cuh, int8_wgmma.cuh; vit_attention.cu takes the cp.async pieces):
 // the cp.async ring, ldmatrix, the mma.sync m16n8k32 s8 x s8 -> s32 instruction, the per-row
 // activation quantization of the JAX package (clip(rint(x / s_x), -127, 127) with IEEE
-// division, round half to even) and the one pre-pass kernel that applies it, the k order
+// division, round half to even) and the pre-pass kernels that apply it (quant_rows; ln_quant_rows,
+// a LayerNorm first, for vit_mlp.cu), the k order
 // that lets packed 4-bit codes feed a fragment, and the widening of packed 4-bit codes (one
 // plane, or the two nibble planes rebuilt into their exact int8 codes) in registers.
 #pragma once
@@ -65,6 +66,18 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// round an fp32 value to T and back: a T-typed intermediate of the function
+template <typename T>
+__device__ __forceinline__ float rt(float x);
+template <>
+__device__ __forceinline__ float rt<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float rt<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ int quant_code(float h, float sx) {
   return __float2int_rn(fminf(fmaxf(rintf(__fdiv_rn(h, sx)), -127.f), 127.f));
 }
@@ -88,14 +101,19 @@ __device__ __forceinline__ int stored_offset(int k) {   // k: a multiple of 4
 // is read from device memory once: the max pass keeps it in shared memory for the code pass
 // when it fits in the 48 KB a launch takes without opting in, beside the kernel's static
 // reduction slots (read twice, a long row missed the L2 at prefill M: 0.138 ms for
-// 6912 x 11008 bf16 rows on an H100, 0.099 read once; PERF.md §6).
+// 6912 x 11008 bf16 rows on an H100, 0.099 read once; PERF.md §6). `fn` maps each value first
+// (the identity, or vit_mlp.cu's activation rounded to T: the codes of act(x)).
 constexpr int kQThreads = 128;
 constexpr int kQRowBytes = 48 * 1024 - 256;
 
-template <typename T, bool PERM, bool ROWSUM>
+struct Ident {
+  __device__ __forceinline__ float operator()(float v) const { return v; }
+};
+
+template <typename T, bool PERM, bool ROWSUM, class Fn>
 __global__ void __launch_bounds__(kQThreads)
     quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
-                      int* __restrict__ rowsum, int K, int cached) {
+                      int* __restrict__ rowsum, int K, int cached, const Fn fn) {
   __shared__ float red[kQThreads / 32];
   __shared__ int ired[kQThreads / 32];
   extern __shared__ __align__(16) uint8_t qr_raw[];
@@ -107,7 +125,9 @@ __global__ void __launch_bounds__(kQThreads)
   for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
     float v[4];
     load4(xr + k, v);
-    if (cached) store4(row_s + k, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = fn(v[i]);
+    if (cached) store4(row_s + k, v);   // exact: fn's values are T values
     amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])), fmaxf(fabsf(v[2]), fabsf(v[3]))));
   }
 #pragma unroll
@@ -124,6 +144,10 @@ __global__ void __launch_bounds__(kQThreads)
   for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
     float v[4];
     load4(src + k, v);
+    if (!cached) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = fn(v[i]);
+    }
     const int c0 = quant_code(v[0], s), c1 = quant_code(v[1], s);
     const int c2 = quant_code(v[2], s), c3 = quant_code(v[3], s);
     if constexpr (ROWSUM) sum += c0 + c1 + c2 + c3;
@@ -147,13 +171,113 @@ __global__ void __launch_bounds__(kQThreads)
   if (threadIdx.x == 0) sx[row] = s;
 }
 
-template <typename T, bool PERM, bool ROWSUM>
+template <typename T, bool PERM, bool ROWSUM, class Fn = Ident>
 cudaError_t quant_rows(const void* x, int8_t* xq, float* sx, int* rowsum, int M, int K,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const Fn& fn = Fn{}) {
   const size_t row_bytes = size_t(K) * sizeof(T);
   const int cached = row_bytes <= size_t(kQRowBytes);
-  quant_rows_kernel<T, PERM, ROWSUM><<<M, kQThreads, cached ? row_bytes : 0, stream>>>(
-      static_cast<const T*>(x), xq, sx, rowsum, K, cached);
+  quant_rows_kernel<T, PERM, ROWSUM, Fn><<<M, kQThreads, cached ? row_bytes : 0, stream>>>(
+      static_cast<const T*>(x), xq, sx, rowsum, K, cached, fn);
+  return cudaGetLastError();
+}
+
+// The LayerNorm pre-pass of the fused tower GEMMs (vit_mlp.cu): h = rt_T(LayerNorm(x)) in fp32,
+// each op rounded once (mean = Σ x / K; var = Σ (x - mean)² / K; h = (x - mean) · rsqrt(var + eps)
+// · scale + bias, rounded to T), then quant_rows' per-row codes and s_x of h. One block a row, the
+// row cached in shared memory (and h written over it) when it fits, as quant_rows; the sums in a
+// fixed order: each thread its 4-vectors k = 4 tid + 512 i in turn, the elements in k order, then
+// the warp's 32 partials by an xor butterfly (16, 8, 4, 2, 1), then the 4 warps' in warp order.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) v += __shfl_xor_sync(0xffffffffu, v, w);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = red[0];
+#pragma unroll
+  for (int w = 1; w < kQThreads / 32; ++w) t += red[w];
+  __syncthreads();   // red is free again
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kQThreads)
+    ln_quant_rows_kernel(const T* __restrict__ x, const T* __restrict__ sc,
+                         const T* __restrict__ bi, float eps, int8_t* __restrict__ xq,
+                         float* __restrict__ sx, int K, int cached) {
+  __shared__ float red[kQThreads / 32];
+  extern __shared__ __align__(16) uint8_t qr_raw[];
+  T* row_s = reinterpret_cast<T*>(qr_raw);   // the row, then h, when `cached`
+  const int row = blockIdx.x;
+  const T* xr = x + (long long)row * K;
+  float sum = 0.f;
+  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
+    float v[4];
+    load4(xr + k, v);
+    if (cached) store4(row_s + k, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sum += v[i];
+  }
+  const float mean = __fdiv_rn(block_sum(sum, red), float(K));
+  const T* src = cached ? row_s : xr;
+  float sq = 0.f;
+  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
+    float v[4];
+    load4(src + k, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float dv = __fsub_rn(v[i], mean);
+      sq = __fadd_rn(sq, __fmul_rn(dv, dv));
+    }
+  }
+  const float rstd = rsqrtf(__fadd_rn(__fdiv_rn(block_sum(sq, red), float(K)), eps));
+  auto ln = [&](int k, float (&h)[4]) {   // h at k .. k + 3, from the row's x
+    float v[4], s4[4], b4[4];
+    load4(src + k, v);
+    load4(sc + k, s4);
+    load4(bi + k, b4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = rt<T>(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rstd), s4[i]), b4[i]));
+  };
+  float amax = 0.f;
+  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
+    float h[4];
+    ln(k, h);
+    if (cached) store4(row_s + k, h);   // this thread's own elements: no other reads them
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(h[0]), fabsf(h[1])), fmaxf(fabsf(h[2]), fabsf(h[3]))));
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, w));
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kQThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+  const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+  int8_t* qr = xq + (long long)row * K;
+  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
+    float h[4];
+    if (cached)
+      load4(row_s + k, h);
+    else
+      ln(k, h);
+    char4 c;
+    c.x = static_cast<signed char>(quant_code(h[0], s));
+    c.y = static_cast<signed char>(quant_code(h[1], s));
+    c.z = static_cast<signed char>(quant_code(h[2], s));
+    c.w = static_cast<signed char>(quant_code(h[3], s));
+    *reinterpret_cast<char4*>(qr + k) = c;
+  }
+  if (threadIdx.x == 0) sx[row] = s;
+}
+
+template <typename T>
+cudaError_t ln_quant_rows(const void* x, const void* sc, const void* bi, float eps, int8_t* xq,
+                          float* sx, int M, int K, cudaStream_t stream) {
+  const size_t row_bytes = size_t(K) * sizeof(T);
+  const int cached = row_bytes <= size_t(kQRowBytes);
+  ln_quant_rows_kernel<T><<<M, kQThreads, cached ? row_bytes : 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(sc), static_cast<const T*>(bi), eps, xq, sx,
+      K, cached);
   return cudaGetLastError();
 }
 

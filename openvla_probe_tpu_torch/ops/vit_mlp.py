@@ -4,8 +4,7 @@
   the qkv entry (LN1 first) and the proj exit (residual, DINOv2's LayerScale)
   of a quantized tower block.
 * ``fused_mlp_residual(x, ...)`` = ``x + ls2 · (fc2_w8a8(act(fc1_w8a8(LN2(x)) + b1)) + b2)``:
-  the whole MLP half-block, the ``[M, F]`` intermediate never written to
-  device memory.
+  the whole MLP half-block.
 
 w8a8 is the JAX package's turbo-tier arithmetic, cast for cast: LN in fp32
 rounded to the input dtype; per-row ``sx = max(max|h| / 127, 1e-8)`` from that
@@ -14,10 +13,21 @@ int8 product accumulated exactly as an integer; ``(acc · sx) · s`` in fp32,
 cast; bias add, LayerScale multiply and residual add in the input dtype; the
 activation in fp32, cast back.
 
-Each wrapper launches its CUDA kernel (``csrc/vit_mlp.cu``) for a CUDA tensor
-and takes the plain PyTorch version beside it only for a CPU tensor. The plain
-versions compute the integer accumulators exactly through float64 products
-of the codes (``ops.linear.int8_dot``).
+Each wrapper launches its CUDA kernels (``csrc/vit_mlp.cu``) for a CUDA tensor
+and takes the plain PyTorch version beside it only for a CPU tensor. A call
+is a chain of launches on the int8 wgmma core that ``w8a8_matmul`` runs on
+(``csrc/int8_wgmma.cuh``), each counted under its own name in
+``_build.KERNEL_LAUNCHES``: ``fused_ln_w8a8`` is a pre-pass (LayerNorm and
+quantize, or quantize; ``fused_ln_w8a8_quant_rows``) writing the activation
+codes to device memory, then the GEMM with the fused epilogue
+(``fused_ln_w8a8``); ``fused_mlp_residual`` is the LN2 pre-pass
+(``fused_mlp_ln_quant_rows``), fc1 with its bias (``fused_mlp_fc1``)
+writing ``y [M, F]``, the pass that applies the activation to y and
+quantizes g = act(y) row by row (``fused_mlp_quant_rows``), and fc2 with
+bias, LayerScale and the residual (``fused_mlp_residual``). The wrappers
+allocate the codes, scales and y that the launches pass on; with a ``probe`` dict, the codes and scales are its
+buffers. The plain versions compute the integer accumulators exactly through
+float64 products of the codes (``ops.linear.int8_dot``).
 """
 
 from __future__ import annotations
@@ -99,7 +109,8 @@ def fused_mlp_residual_plain(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2,
 # --- kernel wrappers -------------------------------------------------------------
 
 
-def _check(kernel: str, x: torch.Tensor, named: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]]):
+def _check(kernel: str, x: torch.Tensor, named: Dict[str, Tuple[torch.Tensor, tuple, torch.dtype]],
+           aligned: Tuple[str, ...]):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{kernel}: x must be bf16 or fp32, got {x.dtype}")
     for name, (t, shape, dtype) in named.items():
@@ -109,7 +120,9 @@ def _check(kernel: str, x: torch.Tensor, named: Dict[str, Tuple[torch.Tensor, tu
             raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous on {x.device}")
-        if t.dtype == torch.int8 and t.data_ptr() % 16:   # the weights stream as 16-byte copies
+        # the pre-passes read x and the LayerNorm parameters as 16-byte vectors, and the
+        # GEMMs' TMA maps read the weight codes
+        if name in aligned and t.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
 
 
@@ -117,23 +130,26 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _probe_buffers(probe: Optional[dict], x, **shapes):
-    """Device buffers for a kernel's activation codes ("codes*", int8) and row
-    scales ("sx*", fp32), stored into `probe`; None pointers without one."""
-    if probe is None:
-        return [None] * len(shapes)
-    for name, shape in shapes.items():
-        dtype = torch.int8 if name.startswith("codes") else torch.float32
-        probe[name] = torch.empty(shape, dtype=dtype, device=x.device)
-    return [probe[name].data_ptr() for name in shapes]
+def _code_buffers(probe: Optional[dict], x, rows: int, **cols):
+    """The activation codes ("codes*", int8 [rows, cols]) and row scales
+    ("sx*", fp32 [rows, 1]) that a pre-pass writes and a GEMM reads: fresh,
+    or stored into `probe` for verification. Returns them in order."""
+    out = []
+    for name, n in cols.items():
+        t = torch.empty((rows, n), dtype=torch.int8 if name.startswith("codes") else torch.float32,
+                        device=x.device)
+        if probe is not None:
+            probe[name] = t
+        out.append(t)
+    return out
 
 
 def fused_ln_w8a8(x, w, b, ln: Optional[tuple] = None, res=None, ls=None,
                   eps: float = 1e-6, probe: Optional[dict] = None) -> torch.Tensor:
     """x [M, K]; w = {"q": int8 [N, K], "s": f32 [N]}; b [N]; ln = (scale [K],
     bias [K]) or None; res [M, N] or None; ls [N] or None. -> [M, N] in x's dtype.
-    With a `probe` dict, the CUDA kernel also stores its activation codes
-    ("codes" [M, K]) and row scales ("sx" [M, 1]) there, for verification."""
+    With a `probe` dict, the CUDA kernels' activation codes ("codes" [M, K])
+    and row scales ("sx" [M, 1]) are stored there, for verification."""
     _build.no_grad_guard("fused_ln_w8a8", _NO_VJP, x, w["s"], b, *(ln or ()), res, ls)
     if x.device.type == "cpu":
         return fused_ln_w8a8_plain(x, w, b, ln, res, ls, eps)
@@ -150,17 +166,18 @@ def fused_ln_w8a8(x, w, b, ln: Optional[tuple] = None, res=None, ls=None,
         named["res"] = (res, (M, N), dt)
     if ls is not None:
         named["ls"] = (ls, (N,), dt)
-    _check("fused_ln_w8a8", x, named)
-    if K % 16:
-        raise ValueError(f"fused_ln_w8a8: K={K} must be a multiple of 16")
+    _check("fused_ln_w8a8", x, named, ("x", "q", "ln_scale", "ln_bias"))
+    if K < 16 or K % 16:
+        raise ValueError(f"fused_ln_w8a8: K={K} must be a positive multiple of 16")
     out = torch.empty((M, N), dtype=dt, device=x.device)
-    probes = _probe_buffers(probe, x, codes=(M, K), sx=(M, 1))
+    codes, sx = _code_buffers(probe, x, M, codes=K, sx=1)
     err = _build.launcher("fused_ln_w8a8")(
         x.data_ptr(), _ptr(ln[0] if ln is not None else None),
         _ptr(ln[1] if ln is not None else None), w["q"].data_ptr(), w["s"].data_ptr(),
-        b.data_ptr(), _ptr(res), _ptr(ls), out.data_ptr(), M, K, N, float(eps), *probes,
-        int(dt == torch.bfloat16), _build.stream_ptr(x))
+        b.data_ptr(), _ptr(res), _ptr(ls), out.data_ptr(), M, K, N, float(eps), codes.data_ptr(),
+        sx.data_ptr(), int(dt == torch.bfloat16), _build.stream_ptr(x))
     _build.check(err, "fused_ln_w8a8")
+    _build.KERNEL_LAUNCHES["fused_ln_w8a8_quant_rows"] += 1
     _build.KERNEL_LAUNCHES["fused_ln_w8a8"] += 1
     return out
 
@@ -170,9 +187,9 @@ def fused_mlp_residual(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2,
                        probe: Optional[dict] = None) -> torch.Tensor:
     """x [M, D]; fc1 = {"q": int8 [F, D], "s": [F]}; fc2 = {"q": int8 [D, F],
     "s": [D]}; biases [F] / [D]; ls2 [D] (ones where the tower has no
-    LayerScale). -> [M, D] in x's dtype. With a `probe` dict, the CUDA kernel
-    also stores its LN2 codes and scales ("codes1" [M, D], "sx1" [M, 1]) and
-    g's ("codes2" [M, F], "sx2" [M, 1]) there, for verification."""
+    LayerScale). -> [M, D] in x's dtype. With a `probe` dict, the CUDA
+    kernels' LN2 codes and scales ("codes1" [M, D], "sx1" [M, 1]) and g's
+    ("codes2" [M, F], "sx2" [M, 1]) are stored there, for verification."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act}")
     _build.no_grad_guard("fused_mlp_residual", _NO_VJP, x, ln_scale, ln_bias, fc1["s"], fc1_b,
@@ -190,19 +207,25 @@ def fused_mlp_residual(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2,
         "fc1.q": (fc1["q"], (Fd, D), torch.int8), "fc1.s": (fc1["s"], (Fd,), torch.float32),
         "fc1_b": (fc1_b, (Fd,), dt), "fc2.q": (fc2["q"], (D, Fd), torch.int8),
         "fc2.s": (fc2["s"], (D,), torch.float32), "fc2_b": (fc2_b, (D,), dt),
-        "ls2": (ls2, (D,), dt)})
-    if D % 16 or Fd % 16 or not 32 <= Fd <= 8192:
-        raise ValueError(f"fused_mlp_residual: D={D} and F={Fd} (32..8192) must be "
-                         "multiples of 16")
+        "ls2": (ls2, (D,), dt)}, ("x", "ln_scale", "ln_bias", "fc1.q", "fc2.q"))
+    if D < 16 or Fd < 16 or D % 16 or Fd % 16:
+        raise ValueError(f"fused_mlp_residual: D={D} and F={Fd} must be positive multiples of 16")
     out = torch.empty((M, D), dtype=dt, device=x.device)
-    probes = _probe_buffers(probe, x, codes1=(M, D), sx1=(M, 1), codes2=(M, Fd), sx2=(M, 1))
+    codes1, sx1, sx2 = _code_buffers(probe, x, M, codes1=D, sx1=1, sx2=1)
+    # g's codes [M, F], then fc1's output y [M, F] in x's dtype: one buffer
+    g8 = torch.empty(M * Fd * (1 + x.element_size()), dtype=torch.int8, device=x.device)
+    if probe is not None:
+        probe["codes2"] = g8[:M * Fd].view(M, Fd)
     err = _build.launcher("fused_mlp_residual")(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), fc1["q"].data_ptr(),
         fc1["s"].data_ptr(), fc1_b.data_ptr(), fc2["q"].data_ptr(), fc2["s"].data_ptr(),
         fc2_b.data_ptr(), ls2.data_ptr(), out.data_ptr(), M, D, Fd, float(eps),
-        ACTS.index(act), *probes, int(dt == torch.bfloat16), _build.stream_ptr(x))
+        ACTS.index(act), codes1.data_ptr(), sx1.data_ptr(), g8.data_ptr(), sx2.data_ptr(),
+        int(dt == torch.bfloat16), _build.stream_ptr(x))
     _build.check(err, "fused_mlp_residual")
-    _build.KERNEL_LAUNCHES["fused_mlp_residual"] += 1
+    for name in ("fused_mlp_ln_quant_rows", "fused_mlp_fc1", "fused_mlp_quant_rows",
+                 "fused_mlp_residual"):
+        _build.KERNEL_LAUNCHES[name] += 1
     return out
 
 
@@ -233,11 +256,18 @@ def compare_ln_w8a8(x, w, b, ln: Optional[tuple] = None, res=None, ls=None,
     raises AssertionError."""
     probe: dict = {}
     out = fused_ln_w8a8(x, w, b, ln, res, ls, eps, probe=probe)
+    return out, hold_ln_w8a8(out, probe, x, w, b, ln, res, ls, eps)
+
+
+def hold_ln_w8a8(out, probe: dict, x, w, b, ln: Optional[tuple] = None, res=None, ls=None,
+                 eps: float = 1e-6) -> Dict[str, float]:
+    """`compare_ln_w8a8`'s rule on an output and the codes and scales ("codes",
+    "sx") that came with it."""
     h = _layer_norm_f32(x, ln[0], ln[1], eps).to(x.dtype) if ln is not None else x
     share = _codes_within_one_step(probe["codes"], quantize_rows(h.float())[0], "fused_ln_w8a8")
     _bit_equal(out, fused_ln_w8a8_from_codes(probe["codes"], probe["sx"], w, b, res, ls, x.dtype),
                "fused_ln_w8a8")
-    return out, {"code_diff_share": share}
+    return {"code_diff_share": share}
 
 
 def compare_mlp_residual(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2, eps: float = 1e-6,
@@ -249,6 +279,14 @@ def compare_mlp_residual(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2, eps:
     probe: dict = {}
     out = fused_mlp_residual(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2, eps, act,
                              probe=probe)
+    return out, hold_mlp_residual(out, probe, x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2,
+                                  eps, act)
+
+
+def hold_mlp_residual(out, probe: dict, x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2,
+                      eps: float = 1e-6, act: str = "gelu_tanh") -> Dict[str, float]:
+    """`compare_mlp_residual`'s rule on an output and the codes and scales
+    ("codes1", "sx1", "codes2", "sx2") that came with it."""
     h = _layer_norm_f32(x, ln_scale, ln_bias, eps).to(x.dtype)
     share1 = _codes_within_one_step(probe["codes1"], quantize_rows(h.float())[0],
                                     "fused_mlp_residual LN2")
@@ -257,4 +295,4 @@ def compare_mlp_residual(x, ln_scale, ln_bias, fc1, fc1_b, fc2, fc2_b, ls2, eps:
                                     "fused_mlp_residual g")
     _bit_equal(out, mlp_out_from_codes(x, probe["codes2"], probe["sx2"], fc2, fc2_b, ls2),
                "fused_mlp_residual")
-    return out, {"code_diff_share": share1, "g_code_diff_share": share2}
+    return {"code_diff_share": share1, "g_code_diff_share": share2}

@@ -2,7 +2,8 @@
 
     python -m openvla_probe_tpu_torch.tools.kernel_ab --lib parent=DIR [--lib TAG=PATH ...]
         [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx,
-                   decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot]
+                   decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot,
+                   fused_ln_w8a8,fused_mlp_residual]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -23,7 +24,11 @@ version (``w4a8_matmul`` bit for bit; ``flash_prefill`` by
 2e-2 of the plain version, ``decode_attention`` at bf16 scores by
 ``attention.compare_bf16_scores``; ``w8a8_matmul`` bit for bit from bf16 x,
 from the fused norm's codes (the prequant entry) and through the nibble
-loader; ``nib_hi_dot`` bit for bit), then the device time of one
+loader; ``nib_hi_dot`` bit for bit; ``fused_ln_w8a8`` and
+``fused_mlp_residual`` by ``vit_mlp.hold_ln_w8a8`` / ``hold_mlp_residual``,
+their codes within one step and their outputs bit-equal on their own codes,
+each build timed with the code buffers its wrapper passes), then the device
+time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
 drift of the card's clocks shows as a spread between a build's two readings.
@@ -35,8 +40,8 @@ launch-weighted means per kernel (the serving mix and the train mix of
 ``w4a8_matmul``, the pallas mix of ``wi8_matmul`` and its prefill and decode
 routes apart, the serving and score_short launches of ``flash_prefill``, the
 turbo, turbo_nibble and train_int8 mixes of ``w8a8_matmul`` with its two
-routes apart and the turbo_nibble mix of ``nib_hi_dot``, as ``chip_smoke.py``
-weighs them).
+routes apart, the turbo_nibble mix of ``nib_hi_dot`` and the pallas mixes of
+the two fused tower kernels, as ``chip_smoke.py`` weighs them).
 """
 
 from __future__ import annotations
@@ -624,11 +629,174 @@ def ab_nib_hi_dot(fns, g, dev, shapes=None):
             for tag in fns}}), flush=True)
 
 
+def ln_w8a8_forms() -> dict:
+    """name -> (M, K, N, form, launches per pallas call) of ``fused_ln_w8a8``:
+    each tower's qkv entry (LN1 first) and proj exit (residual; DINOv2's
+    LayerScale), blocks 0..L-2 (pallas_kv8 the same)."""
+    M_dino, M_sig = BATCH * 261, BATCH * 256
+    return {"dinov2_qkv": (M_dino, 1024, 3072, "ln", 23),
+            "dinov2_proj": (M_dino, 1024, 1024, "res_ls", 23),
+            "siglip_qkv": (M_sig, 1152, 3456, "ln", 26), "siglip_proj": (M_sig, 1152, 1152, "res", 26)}
+
+
+def mlp_towers() -> dict:
+    """tower -> (M, D, F, LayerScale, launches per pallas call) of ``fused_mlp_residual``."""
+    return {"dinov2": (BATCH * 261, 1024, 4096, True, 23),
+            "siglip": (BATCH * 256, 1152, 4304, False, 26)}
+
+
+def _takes_null_buffers(fn, args) -> bool:
+    """Whether a build of a fused tower launcher runs with null code buffers
+    (the parent's design kept the codes on chip and wrote them only for a
+    probe; the wgmma design needs them): a refused call returns
+    cudaErrorInvalidValue and launches nothing."""
+    err = fn(*args)
+    torch.cuda.synchronize()
+    if err not in (0, 1):
+        _build.check(err, "fused tower kernel")
+    return err == 0
+
+
+def call_ln_w8a8(fn, x, w, b, ln=None, res=None, ls=None, probe=None, buffers=True):
+    """`fn`, a launcher with ``fused_ln_w8a8``'s arguments, on the wrapper's
+    tensors; code buffers stored into `probe`, or fresh, or none (null
+    pointers) when not `buffers`."""
+    M, K = x.shape
+    N = w["q"].shape[0]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    codes = sx = None
+    if probe is not None or buffers:
+        codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+        sx = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+        if probe is not None:
+            probe.update(codes=codes, sx=sx)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = (x.data_ptr(), ptr(ln[0] if ln else None), ptr(ln[1] if ln else None),
+            w["q"].data_ptr(), w["s"].data_ptr(), b.data_ptr(), ptr(res), ptr(ls), out.data_ptr(),
+            M, K, N, 1e-6, ptr(codes), ptr(sx), int(x.dtype == torch.bfloat16),
+            _build.stream_ptr(x))
+    return out, args
+
+
+def call_mlp(fn, x, ln_s, ln_b, fc1, b1, fc2, b2, ls2, probe=None, buffers=True):
+    """`fn`, a launcher with ``fused_mlp_residual``'s arguments (gelu_tanh),
+    on the wrapper's tensors, as `call_ln_w8a8`; g's buffer holds g's codes
+    and then fc1's output, as the wrapper allocates it."""
+    M, D = x.shape
+    F = fc1["q"].shape[0]
+    out = torch.empty((M, D), dtype=x.dtype, device=x.device)
+    bufs = [None] * 4
+    if probe is not None or buffers:
+        g8 = torch.empty(M * F * (1 + x.element_size()), dtype=torch.int8, device=x.device)
+        bufs = [torch.empty((M, D), dtype=torch.int8, device=x.device),
+                torch.empty((M, 1), device=x.device), g8, torch.empty((M, 1), device=x.device)]
+        if probe is not None:
+            probe.update(codes1=bufs[0], sx1=bufs[1], codes2=g8[:M * F].view(M, F), sx2=bufs[3])
+    args = (x.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), fc1["q"].data_ptr(),
+            fc1["s"].data_ptr(), b1.data_ptr(), fc2["q"].data_ptr(), fc2["s"].data_ptr(),
+            b2.data_ptr(), ls2.data_ptr(), out.data_ptr(), M, D, F, 1e-6, 1,
+            *(None if t is None else t.data_ptr() for t in bufs), int(x.dtype == torch.bfloat16),
+            _build.stream_ptr(x))
+    return out, args
+
+
+def _run(fn, call, *a, **kw):
+    out, args = call(fn, *a, **kw)
+    _build.check(fn(*args), "fused tower kernel")
+    return out
+
+
+def _tower_mix(kernel: str, rows, fns) -> None:
+    n = sum(r["launches_per_call"] for r in rows)
+    if n:
+        print(json.dumps({"kernel": kernel, "mix": "pallas", "launches": n, "ms": {
+            tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_call"] for r in rows) / n
+            for tag in fns}}), flush=True)
+
+
+def ab_fused_ln_w8a8(fns, g, dev, shapes=None):
+    """Every call form of ``ln_w8a8_forms`` at bf16, each build held by
+    ``vit_mlp.hold_ln_w8a8`` (its codes within one step, its output bit-equal
+    on its own codes) and timed in turns, each with the buffers its wrapper
+    passes; then the launch-weighted pallas mix."""
+    from ..ops import vit_mlp as vmlp
+    rows = []
+    for name, (M, K, N, form, per_call) in ln_w8a8_forms().items():
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        b = (torch.randn((N,), generator=g, device=dev) * 0.1).bfloat16()
+        kw = {}
+        if form == "ln":
+            kw["ln"] = ((1 + 0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16(),
+                        (0.1 * torch.randn((K,), generator=g, device=dev)).bfloat16())
+        else:
+            kw["res"] = torch.randn((M, N), generator=g, device=dev).bfloat16()
+            if form == "res_ls":
+                kw["ls"] = torch.randn((N,), generator=g, device=dev).bfloat16()
+        sets = [(x, lin.quantize_weight(torch.randn((N, K), generator=g, device=dev) * 0.02), b)
+                for _ in range(_copies(N * K))]
+        checks, buffers = {}, {}
+        for tag, fn in fns.items():
+            buffers[tag] = not _takes_null_buffers(fn, call_ln_w8a8(fn, *sets[0], **kw,
+                                                                     buffers=False)[1])
+            probe: dict = {}
+            got = _run(fn, call_ln_w8a8, *sets[0], **kw, probe=probe)
+            checks[tag] = _checked(lambda o, p: vmlp.hold_ln_w8a8(o, p, *sets[0], **kw), got, probe)
+        rows.append(dict(kernel="fused_ln_w8a8", shape=f"{M}x{K}x{N}", form=name,
+                         launches_per_call=per_call, check=checks, buffers=buffers,
+                         ms=_turns(fns, lambda fn: rotating(
+                             lambda *a: _run(fn, call_ln_w8a8, *a, **kw,
+                                             buffers=buffers[_tag_of(fns, fn)]), sets))))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets
+    _tower_mix("fused_ln_w8a8", rows, fns)
+
+
+def _tag_of(fns: dict, fn) -> str:
+    return next(tag for tag, f in fns.items() if f is fn)
+
+
+def ab_fused_mlp_residual(fns, g, dev, shapes=None):
+    """Both towers' MLP halves of ``mlp_towers`` at bf16 (gelu_tanh), each
+    build held by ``vit_mlp.hold_mlp_residual`` and timed in turns as
+    `ab_fused_ln_w8a8`; then the launch-weighted pallas mix."""
+    from ..ops import vit_mlp as vmlp
+    rows = []
+    for name, (M, D, F, layerscale, per_call) in mlp_towers().items():
+        bf = lambda t: t.bfloat16()
+        x = bf(torch.randn((M, D), generator=g, device=dev))
+        ln = (bf(1 + 0.1 * torch.randn((D,), generator=g, device=dev)),
+              bf(0.1 * torch.randn((D,), generator=g, device=dev)))
+        b1 = bf(0.1 * torch.randn((F,), generator=g, device=dev))
+        b2 = bf(0.1 * torch.randn((D,), generator=g, device=dev))
+        ls2 = bf(torch.randn((D,), generator=g, device=dev)) if layerscale else \
+            torch.ones((D,), dtype=torch.bfloat16, device=dev)
+        sets = []
+        for _ in range(_copies(2 * F * D)):
+            fc1 = lin.quantize_weight(torch.randn((F, D), generator=g, device=dev) * 0.02)
+            fc2 = lin.quantize_weight(torch.randn((D, F), generator=g, device=dev) * 0.02)
+            sets.append((x, *ln, fc1, b1, fc2, b2, ls2))
+        checks, buffers = {}, {}
+        for tag, fn in fns.items():
+            buffers[tag] = not _takes_null_buffers(fn, call_mlp(fn, *sets[0], buffers=False)[1])
+            probe: dict = {}
+            got = _run(fn, call_mlp, *sets[0], probe=probe)
+            checks[tag] = _checked(lambda o, p: vmlp.hold_mlp_residual(o, p, *sets[0]), got, probe)
+        rows.append(dict(kernel="fused_mlp_residual", shape=f"{M}x{D}x{F}", form=name,
+                         launches_per_call=per_call, check=checks, buffers=buffers,
+                         ms=_turns(fns, lambda fn: rotating(
+                             lambda *a: _run(fn, call_mlp, *a, buffers=buffers[_tag_of(fns, fn)]),
+                             sets))))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets
+    _tower_mix("fused_mlp_residual", rows, fns)
+
+
 AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
       "w4a8_dx": ab_w4a8_dx, "decode_split_attention": ab_decode_split_attention,
       "decode_attention": ab_decode_attention, "w8a8_matmul": ab_w8a8_matmul,
-      "nib_hi_dot": ab_nib_hi_dot}
+      "nib_hi_dot": ab_nib_hi_dot, "fused_ln_w8a8": ab_fused_ln_w8a8,
+      "fused_mlp_residual": ab_fused_mlp_residual}
 
 
 def main() -> int:

@@ -17,7 +17,9 @@ fused w8a8 kernels' activation codes within one
 step of the plain version's (the fp32 LayerNorm sums run in another order)
 and their outputs bit-equal to the plain version's on the kernels' own codes
 (equal codes give equal int32 sums and the same epilogue); without a
-LayerNorm, bit-equal to the plain version. w4a8_matmul: bit-equal to its
+LayerNorm, bit-equal to the plain version; each call launching exactly its
+pre-passes and GEMMs, at the towers' shapes in bf16 and fp32, both routes'
+edges (M = 1, 64, 65, 257), N tails and F = 8208. w4a8_matmul: bit-equal to its
 plain version (the same activation codes, exact integer sums, the same fold
 order and roundings). stacked_decode_attention_i8: fp32 1e-5, bf16 2e-2, as
 the other attention kernels. w8a8_matmul and nib_hi_dot: bit-equal to their
@@ -413,13 +415,23 @@ def test_wi8_kernel_matches_plain(cuda, dtype, M, K, N):
     tlin.compare_wi8(got, tlin.wi8_matmul_plain(x, q, s))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,K,N,form", [
+FUSED_LN_SHAPES = [
     (6264, 1024, 3072, "ln"),       # DINOv2 qkv entry
     (6264, 1024, 1024, "res_ls"),   # DINOv2 proj exit
+    (6144, 1152, 3456, "ln"),       # SigLIP qkv entry
     (6144, 1152, 1152, "res"),      # SigLIP proj exit
     (37, 48, 80, "ln"),
-])
+    (1, 1024, 3072, "ln"),          # one row: the decode route
+    (64, 1024, 1024, "res_ls"),     # the last M of the decode route
+    (65, 1152, 1152, "res"),        # the first of the wgmma route
+    (257, 1152, 3456, "ln"),        # a 256-row tile and one row past it
+    (300, 64, 200, "res_ls"),       # an N tail inside a 128-row weight tile
+    (100, 64, 36, "res"),           # N no multiple of 8: the stores element by element
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,form", FUSED_LN_SHAPES)
 def test_fused_ln_w8a8_kernel_matches_plain(cuda, dtype, M, K, N, form):
     x = _rand(10, (M, K), dtype, cuda)
     w = _int8_leaf(11, N, K, cuda)
@@ -438,12 +450,23 @@ def test_fused_ln_w8a8_kernel_matches_plain(cuda, dtype, M, K, N, form):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype,M,D,F,act,layerscale", [
+FUSED_MLP_SHAPES = [
     (torch.bfloat16, 6264, 1024, 4096, "gelu_tanh", True),    # DINOv2 (turbo act), LayerScale
     (torch.bfloat16, 6144, 1152, 4304, "gelu_tanh", False),   # SigLIP: F = 16 * 269
+    (torch.float32, 6264, 1024, 4096, "gelu_tanh", True),     # both towers in fp32
+    (torch.float32, 6144, 1152, 4304, "gelu_tanh", False),
     (torch.bfloat16, 37, 32, 80, "gelu", True),
-    (torch.float32, 37, 32, 80, "gelu", True),    # fp32 (the tiny towers): F of a few hundred at most
-])
+    (torch.float32, 37, 32, 80, "gelu", True),                # fp32 (the tiny towers)
+    (torch.bfloat16, 1, 1024, 4096, "gelu_tanh", True),       # one row: the decode route
+    (torch.bfloat16, 64, 1152, 4304, "gelu_tanh", False),     # the decode route's last M
+    (torch.bfloat16, 65, 1024, 4096, "quick_gelu", True),     # the wgmma route's first M
+    (torch.bfloat16, 257, 1024, 4096, "gelu", True),
+    (torch.bfloat16, 257, 1024, 8208, "gelu_tanh", True),     # F past the earlier 8192 limit
+    (torch.float32, 300, 64, 8208, "gelu_tanh", True),
+]
+
+
+@pytest.mark.parametrize("dtype,M,D,F,act,layerscale", FUSED_MLP_SHAPES)
 def test_fused_mlp_kernel_matches_plain(cuda, dtype, M, D, F, act, layerscale):
     x = _rand(17, (M, D), dtype, cuda)
     ln_s, ln_b = 1 + 0.1 * _rand(18, (D,), dtype, cuda), 0.1 * _rand(19, (D,), dtype, cuda)
@@ -478,6 +501,55 @@ def test_decode_split_kernel_matches_plain(cuda, dtype, tol, B, T, A, H, dh):
     assert got.dtype == dtype and got.shape == (B, 1, H, dh)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(got[-1].float(), vp[1][-1, :1].float(), atol=tol, rtol=tol)
+
+
+def test_fused_tower_calls_launch_their_pre_passes_and_gemms(cuda):
+    """Every main-path form of the fused tower kernels, and one row (the
+    decode route): one fused_ln_w8a8 call launches its pre-pass and its GEMM
+    once; one fused_mlp_residual call its two pre-passes and two GEMMs once;
+    nothing else (no fallback, no other kernel)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for name, (M, K, N, form, _) in kernel_ab.ln_w8a8_forms().items():
+        for m in (M, 1):
+            x = torch.randn((m, K), generator=g, device=cuda).bfloat16()
+            w = tlin.quantize_weight(torch.randn((N, K), generator=g, device=cuda) * 0.02)
+            b = torch.zeros(N, dtype=torch.bfloat16, device=cuda)
+            kw = ({"ln": (torch.ones(K, dtype=x.dtype, device=cuda), b[:1].expand(K).contiguous())}
+                  if form == "ln" else {"res": torch.zeros((m, N), dtype=x.dtype, device=cuda)})
+            assert _launch_diff(lambda: tmlp.fused_ln_w8a8(x, w, b, **kw)) == {
+                "fused_ln_w8a8_quant_rows": 1, "fused_ln_w8a8": 1}, (name, m)
+    for name, (M, D, F, _, _) in kernel_ab.mlp_towers().items():
+        for m in (M, 1):
+            x = torch.randn((m, D), generator=g, device=cuda).bfloat16()
+            ones, zd, zf = (torch.ones(D, dtype=x.dtype, device=cuda),
+                            torch.zeros(D, dtype=x.dtype, device=cuda),
+                            torch.zeros(F, dtype=x.dtype, device=cuda))
+            fc1 = tlin.quantize_weight(torch.randn((F, D), generator=g, device=cuda) * 0.02)
+            fc2 = tlin.quantize_weight(torch.randn((D, F), generator=g, device=cuda) * 0.02)
+            assert _launch_diff(lambda: tmlp.fused_mlp_residual(
+                x, ones, zd, fc1, zf, fc2, zd, ones)) == {
+                "fused_mlp_ln_quant_rows": 1, "fused_mlp_fc1": 1, "fused_mlp_quant_rows": 1,
+                "fused_mlp_residual": 1}, (name, m)
+
+
+def test_fused_tower_launchers_refuse_what_they_cannot_take(cuda):
+    """The C launchers return cudaErrorInvalidValue (1), launching nothing,
+    without the code buffers the pre-passes write (the earlier kernels took
+    null ones) or for an x off 16-byte alignment; the wrappers raise first."""
+    x = torch.zeros((4 * 64 + 8,), dtype=torch.bfloat16, device=cuda)
+    w = {"q": torch.zeros((8, 64), dtype=torch.int8, device=cuda), "s": torch.ones(8, device=cuda)}
+    b = torch.zeros(8, dtype=torch.bfloat16, device=cuda)
+    out = torch.empty((4, 8), dtype=torch.bfloat16, device=cuda)
+    codes = torch.empty((4, 64), dtype=torch.int8, device=cuda)
+    sx = torch.empty(4, device=cuda)
+    fn = _build.launcher("fused_ln_w8a8")
+    args = [x.data_ptr(), None, None, w["q"].data_ptr(), w["s"].data_ptr(), b.data_ptr(), None,
+            None, out.data_ptr(), 4, 64, 8, 1e-6, codes.data_ptr(), sx.data_ptr(), 1,
+            _build.stream_ptr(x)]
+    assert fn(*args[:13], None, None, *args[15:]) == 1
+    assert fn(x[1:].data_ptr(), *args[1:]) == 1
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tmlp.fused_ln_w8a8(x[4:4 + 4 * 64].view(4, 64), w, b)
 
 
 def test_int8_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):
