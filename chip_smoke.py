@@ -27,7 +27,8 @@ and two training paths through tools/bench_finetune.py (streamed LoRA r = 32,
 AdamW at a constant 5e-4, remat, the plain attention, B = 8 rows of 64 text
 tokens, T = 320):
   train_int4    QLoRA over a grouped-int4 trunk and lm_head: w4a8_matmul
-                forward and recompute, w4a8_dx backward, lm_head requant
+                forward and recompute, w4a8_dx backward, lm_head on
+                w4a8_requant
   train_int8    over a per-channel int8 trunk and lm_head: w8a8_matmul and
                 its STE
 Phases, one output line each:
@@ -59,8 +60,11 @@ Phases, one output line each:
               w8a8_matmul (turbo; also the nibble loader and the prequant
               entry, turbo_nibble's mix, and the routes' edge M = 64 / 65
               and ragged shapes),
-              rms_norm_quant (turbo), nib_hi_dot (turbo_nibble), w4a8_dx
-              (train_int4); vit_attention also at DINOv2's 518 px, N = 1370,
+              rms_norm_quant (turbo; also at M = 1, odd D and fp32),
+              nib_hi_dot (turbo_nibble), w4a8_dx (train_int4), w4a8_requant
+              (pallas_int4's lm_head and SigLIP fc1, train_int4's lm_head;
+              beside the two-step route it replaced; edge M, N and group
+              sizes); vit_attention also at DINOv2's 518 px, N = 1370,
               and at ragged N, bf16 (tensor cores) and fp32 (scalar route);
               the scalar routes (the decode attentions' at fp32 and Dh = 72,
               vit_attention's, flash_prefill's and wi8_matmul's in fp32),
@@ -1118,8 +1122,8 @@ def _int_mm_w8a8(codes, sx, q, s):
 def check_w8a8_matmul(dev, g):
     """The w8a8 kernel (the XLA op _w8a8_dot) at every (M, K, N) of the turbo
     path (towers M = 6264 / 6144, prefill M = 6912, decode and lm_head M = 24;
-    SigLIP's N = 4304 and K = 4304, lm_head's N = 32064) and of the int4
-    requant route (SigLIP fc1, lm_head), and of a train_int8 step, M = 2560
+    SigLIP's N = 4304 and K = 4304, lm_head's N = 32064), and of a train_int8
+    step, M = 2560
     (the trunk and lm_head; launches_per_step, weighed apart as train_mix):
     bf16 x, int8 codes, fp32 scales; bit
     for bit equal to the plain version, from bf16 x and from the fused norm's
@@ -1211,8 +1215,10 @@ def check_rms_norm_quant(dev, g):
     version by rmsq.compare_rms_norm_quant: every code within one step, and
     every row that differs reproduced bit for bit, codes and scale, by the
     plain arithmetic with the row's reciprocal RMS moved by at most 16 ulps
-    (the fp32 row sums run in another order). No single PyTorch call computes
-    this function (library: null)."""
+    (the fp32 row sums run in another order). Edge cases held the same way,
+    untimed: one row, D = 128 and an odd D (one-element loads), a D past 128
+    threads x 8 vectors (more threads a row), fp32 x. No single PyTorch call
+    computes this function (library: null)."""
     by_shape = {}
     per_call = {BATCH * T_PREFILL: 2 * LAYERS, BATCH: 2 * LAYERS * (ACTION_DIM - 1)}
     for M, n in per_call.items():
@@ -1230,12 +1236,25 @@ def check_rms_norm_quant(dev, g):
             ms=cuda_ms(rotating(lambda a, b: rmsq.rms_norm_quant(a, b, 1e-5), xs)),
             plain_ms=cuda_ms(rotating(lambda a, b: rmsq.rms_norm_quant_plain(a, b, 1e-5), xs)),
             library_ms=None, bound_ms=b, bound_by=by)
+    edges = {}
+    for M, D, dtype in ((1, 4096, torch.bfloat16), (24, 128, torch.bfloat16),
+                        (24, 4095, torch.bfloat16), (7, 12288, torch.bfloat16),
+                        (6912, 4096, torch.float32), (24, 4096, torch.float32),
+                        (5, 999, torch.float32)):
+        x = (torch.randn((M, D), generator=g, device=dev) * 2).to(dtype)
+        w = (1 + 0.2 * torch.randn((D,), generator=g, device=dev)).to(dtype)
+        got, launched = _launch_diff(lambda: rmsq.rms_norm_quant(x, w, 1e-5))
+        assert launched == {"rms_norm_quant": 1}, launched
+        stats = rmsq.compare_rms_norm_quant(x, w, 1e-5, got, rmsq.rms_norm_quant_plain(x, w, 1e-5))
+        edges[f"{M}x{D}_{str(dtype)[6:]}"] = {k: stats[k] for k in ("max_code_step",
+                                                                    "rows_differing", "max_r_ulps")}
     n = sum(per_call.values())
     mix = {key: sum(r[key] * r["launches_per_call"] for r in by_shape.values()) / n
            for key in ("ms", "plain_ms", "bound_ms")}
     return dict(name="rms_norm_quant", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/rmsnorm_quant.cu",
                 replaces="openvla_probe_tpu/ops/rmsnorm_quant.py:42", by_shape=by_shape,
+                edge_cases=edges,
                 max_abs_err=max(r["max_abs_err"] for r in by_shape.values()), library_ms=None,
                 bound_by="bytes", **mix)
 
@@ -1339,41 +1358,99 @@ def check_w4a8_dx(dev, g):
                 replaces="openvla_probe_tpu/ops/linear.py:657", by_shape=by_shape, **mix)
 
 
+REQUANT_LAUNCHES = {"w4a8_requant_quant_rows": 1, "w4a8_requant": 1}
+
+
+def requant_scratch_bytes(M: int, K: int) -> int:
+    """What one requant call may allocate beside its output: the pre-pass's
+    codes [M, K] and scales [M], and the caching allocator's slack (it hands
+    out a cached block whole where less than 1 MiB of it would be left over:
+    under 3 MiB for the three tensors); the [N, K] int8 copy of the two-step
+    route (5.0 MB at SigLIP's fc1, 131 MB at lm_head) would not fit."""
+    return M * K + 4 * M + (3 << 20)
+
+
+def _int4_leaf(G, N, gsz, g, dev):
+    """Random grouped-int4 codes in [-8, 7] (-8 too: the packed format holds
+    it), packed, and fp32 group scales."""
+    codes = torch.randint(-8, 8, (G, N, gsz), generator=g, device=dev, dtype=torch.int8)
+    return lin.pack_int4(codes), torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
+
+
 def check_w8a8_requant(dev, g):
-    """The requant route of the pallas_int4 path: per call, grouped int4 ->
-    int8 codes in PyTorch, then the w8a8 kernel, at its two 7B shapes:
-    lm_head (24 x 4096 x 32064, 7 calls) and SigLIP's fc1 (6144 x 1152 x 4304,
-    26 calls), and train_int4's lm_head (2560 x 4096 x 32064, once a step).
-    Bit-equal to the plain version on the requantized codes. Plain:
-    the requant, then w8a8_matmul_plain; library: torch._int_mm on the
-    requantized codes and the activation codes (both made beforehand) plus the
-    epilogue."""
-    rows = {}
-    for (M, K, N), count in {(BATCH, 4096, 32064): {"calls_per_call": ACTION_DIM},
-                             (BATCH * 256, 1152, 4304): {"calls_per_call": 26},
-                             (TRAIN_ROWS, 4096, 32064): {"calls_per_step": 1}}.items():
+    """The int4 requant route (lin.w4a8_requant: the XLA op _w4a8_dot_requant,
+    int4 groups rebuilt to int8 codes and row scales inside the int8 GEMM's
+    weight loader) at its three 7B shapes: lm_head (24 x 4096 x 32064, 7
+    calls a pallas_int4 call) and SigLIP's fc1 (6144 x 1152 x 4304, 26), and
+    train_int4's lm_head (2560 x 4096 x 32064, once a step; weighed apart as
+    train_mix); bf16 x, random codes, fp32 group scales. Bit for bit equal
+    to the plain version (the requant in PyTorch, then w8a8_matmul_plain),
+    each call exactly one pre-pass and one GEMM launch, its peak-memory rise
+    the output and the pre-pass's scratch alone (requant_scratch_bytes: no
+    [N, K] int8 copy, which the route no longer makes). Beside it, in the
+    same run, the route it replaces (the requant in PyTorch, then
+    w8a8_matmul: two_step_ms) and the GEMM alone on the requantized codes
+    (w8a8_matmul_ms). Edge cases bit for bit, untimed, in
+    bf16 and fp32: M = 1, 24, 64, 65 at N = 200 and 4304; group sizes 32, 64
+    and 96 (G = 9) and gsz = 128 at G = 32; rows whose scales all sit at the
+    1e-8 floor. Library: torch._int_mm on the requantized codes and the
+    activation codes (both made beforehand) plus the epilogue."""
+    per_call = {(BATCH, 4096, 32064): ACTION_DIM, (BATCH * 256, 1152, 4304): 26}
+    per_step = {(TRAIN_ROWS, 4096, 32064): 1}
+    by_shape = {}
+    for (M, K, N) in {**per_call, **per_step}:
         G = K // lin.GROUP_SIZE
         x = torch.randn((M, K), generator=g, device=dev).bfloat16()
-        codes = torch.randint(-7, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
-                              dtype=torch.int8)
-        q, s = lin.pack_int4(codes), torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
-        before = _build.KERNEL_LAUNCHES["w8a8_matmul"]
-        got = lin.w4a8_dot_requant(x, q, s)
+        sets = [(x, *_int4_leaf(G, N, lin.GROUP_SIZE, g, dev))
+                for _ in range(copies_past_l2(N * K // 2))]
+        _, q, s = sets[0]
         torch.cuda.synchronize()
-        assert _build.KERNEL_LAUNCHES["w8a8_matmul"] == before + 1
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got, launched = _launch_diff(lambda: lin.w4a8_requant(x, q, s))
+        rise = torch.cuda.max_memory_allocated() - base - _nbytes(got)
+        assert launched == REQUANT_LAUNCHES, (M, K, N, launched)
+        assert rise <= requant_scratch_bytes(M, K), f"{M}x{K}x{N}: {rise} bytes allocated"
         q8, s8 = lin.requant_int4_to_int8(q, s)
         want = lin.w8a8_matmul_plain(x, {"q": q8, "s": s8})
         assert torch.equal(got, want), f"{M}x{K}x{N}: requant route differs from its plain version"
         b, by = bound_ms(_nbytes(x, q, s, got), 2 * M * N * K, "int8")
         codes, sx = lin.quantize_rows(x.float())
-        rows[f"{M}x{K}x{N}"] = dict(
-            **count, bound_ms=b, bound_by=by,
-            ms=cuda_ms(lambda: lin.w4a8_dot_requant(x, q, s)),
+        by_shape[f"{M}x{K}x{N}"] = dict(
+            **_launches_of((M, K, N), per_call, per_step), max_abs_err=0.0,
+            peak_rise_bytes=rise, int8_copy_bytes=N * K, bound_ms=b, bound_by=by,
+            ms=cuda_ms(rotating(lin.w4a8_requant, sets)),
+            two_step_ms=cuda_ms(rotating(lambda a, qq, ss: lin.w8a8_matmul(
+                a, dict(zip(("q", "s"), lin.requant_int4_to_int8(qq, ss)))), sets),
+                reps=5, warmup=1),
             w8a8_matmul_ms=cuda_ms(lambda: lin.w8a8_matmul(x, {"q": q8, "s": s8})),
-            plain_ms=cuda_ms(lambda: lin.w8a8_matmul_plain(
-                x, dict(zip(("q", "s"), lin.requant_int4_to_int8(q, s)))), reps=3, warmup=1),
+            plain_ms=cuda_ms(rotating(lin.w4a8_requant_plain, sets), reps=3, warmup=1),
             library_ms=cuda_ms(lambda: _int_mm_w8a8(codes, sx, q8, s8)))
-    return rows
+        del sets, got, want, q8, s8, codes
+    edges = {}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for (M, N, G, gsz, dtype) in ((1, 200, 32, 128, bf16), (24, 200, 32, 128, fp32),
+                                  (64, 4304, 9, 128, bf16), (65, 4304, 9, 128, fp32),
+                                  (65, 200, 32, 128, bf16), (24, 4304, 32, 128, bf16),
+                                  (24, 200, 9, 32, bf16), (200, 136, 9, 32, fp32),
+                                  (24, 200, 9, 64, fp32), (200, 200, 9, 64, bf16),
+                                  (5, 40, 9, 96, bf16), (100, 200, 9, 96, bf16)):
+        K = G * gsz
+        x = torch.randn((M, K), generator=g, device=dev).to(dtype)
+        q, s = _int4_leaf(G, N, gsz, g, dev)
+        s[: N // 4] = 1e-8                       # rows at the scale floor: r = 1e-8 / (s8 + 1e-30)
+        got, launched = _launch_diff(lambda: lin.w4a8_requant(x, q, s))
+        assert launched == REQUANT_LAUNCHES, launched
+        assert torch.equal(got, lin.w4a8_requant_plain(x, q, s)), f"{M}x{K}x{N} gsz {gsz} {dtype}"
+        edges[f"{M}x{K}x{N}_gsz{gsz}_{str(dtype)[6:]}"] = "bit_equal"
+    mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    mix["two_step_ms"] = sum(by_shape[f"{M}x{K}x{N}"]["two_step_ms"] * n
+                             for (M, K, N), n in per_call.items()) / sum(per_call.values())
+    train = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_step.items()})
+    return dict(name="w4a8_requant", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/w8a8_matmul.cu",
+                replaces="openvla_probe_tpu/ops/linear.py:548", by_shape=by_shape,
+                edge_cases=edges, train_mix=train, **mix)
 
 
 def _inputs(cfg: vla.VLAServingConfig, batch: int, hw: int, g, dev):
@@ -1407,7 +1484,7 @@ PATHS = {
     "turbo": ("turbo", 8, ("flash_prefill", "vit_attention", "decode_attention", "w8a8_matmul",
                            "rms_norm_quant")),
     "pallas_int4": ("pallas", 4, ("flash_prefill", "vit_attention", "wi8_matmul",
-                                  "decode_split_attention", "w4a8_matmul", "w8a8_matmul")),
+                                  "decode_split_attention", "w4a8_matmul", "w4a8_requant")),
     "turbo_nibble": ("turbo", "nibble", ("flash_prefill", "vit_attention", "decode_attention",
                                          "w8a8_matmul", "nib_hi_dot")),
 }
@@ -1416,7 +1493,7 @@ PORTED_ON = {"flash_prefill": "parity", "flash_blockwise": "score_long",
              "vit_attention": "parity", "decode_attention": "parity",
              "stacked_decode_attention_i8": "pallas_kv8", "w4a8_matmul": "pallas_int4",
              "w8a8_matmul": "turbo", "rms_norm_quant": "turbo", "nib_hi_dot": "turbo_nibble",
-             "w4a8_dx": "train_int4"}
+             "w4a8_dx": "train_int4", "w4a8_requant": "pallas_int4"}
 
 
 def _serving(path: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
@@ -1647,7 +1724,7 @@ def _linear_route(leaf, int8_matmul: str, M: int) -> str:
         return "nib_hi_dot" if M <= lin.NIB_HI_M_MAX else "w8a8_matmul"
     if leaf["q"].dtype == torch.int8:
         return "wi8_matmul" if int8_matmul == "wi8" else "w8a8_matmul"
-    return "w4a8_matmul" if lin.takes_w4a8_kernel(leaf) else "w8a8_matmul"   # requant route
+    return "w4a8_matmul" if lin.takes_w4a8_kernel(leaf) else "w4a8_requant"
 
 
 def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH):
@@ -1978,13 +2055,12 @@ def main() -> int:
                check_fused_ln_w8a8(dev, g), check_fused_mlp_residual(dev, g),
                check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
                check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g), check_rms_norm_quant(dev, g),
-               check_nib_hi_dot(dev, g), check_w4a8_dx(dev, g)]
+               check_nib_hi_dot(dev, g), check_w4a8_dx(dev, g), check_w8a8_requant(dev, g)]
     # the scalar routes: no main path takes them (the tiny fp32 paths do)
     scalar_routes = [check_decode_attention_scalar(dev, g),
                      check_decode_split_attention_scalar(dev, g), check_vit_attention_scalar(dev, g),
                      check_flash_prefill_scalar(dev, g), check_wi8_matmul_scalar(dev, g)]
     log("kernels", card=card, results=kernels, scalar_routes=scalar_routes)
-    log("requant_route", card=card, shapes=check_w8a8_requant(dev, g))
 
     tiny = {}
     for path in PATHS:

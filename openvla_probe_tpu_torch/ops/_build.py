@@ -106,6 +106,10 @@ KERNELS = {
         "w8a8_matmul.cu", "ovla_w8a8_matmul",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "w4a8_requant": (
+        "w8a8_matmul.cu", "ovla_w4a8_requant",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
     "nib_hi_dot": (
         "nib_hi_dot.cu", "ovla_nib_hi_dot",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -121,8 +125,9 @@ KERNELS = {
 }
 # GEMM -> the name its activation pre-pass launch is counted under
 PRE_PASSES = {"w4a8_matmul": "w4a8_quant_rows", "w8a8_matmul": "w8a8_quant_rows",
-              "nib_hi_dot": "nib_hi_quant_rows", "fused_ln_w8a8": "fused_ln_w8a8_quant_rows",
-              "fused_mlp_fc1": "fused_mlp_ln_quant_rows", "fused_mlp_residual": "fused_mlp_quant_rows"}
+              "w4a8_requant": "w4a8_requant_quant_rows", "nib_hi_dot": "nib_hi_quant_rows",
+              "fused_ln_w8a8": "fused_ln_w8a8_quant_rows", "fused_mlp_fc1": "fused_mlp_ln_quant_rows",
+              "fused_mlp_residual": "fused_mlp_quant_rows"}
 KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in (*KERNELS, *PRE_PASSES, *PRE_PASSES.values())}
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]

@@ -75,6 +75,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
 }
+// a TMA box at (c0, c1, c2) of a 3-D `map` into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
 // a TMA box at (c0, c1, c2, c3) of a 4-D `map`, completing on `bar`
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
                                             int c2, int c3, uint64_t* bar) {
@@ -265,6 +274,19 @@ inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* ba
   const uint64_t dims[2] = {cols, rows}, strides[1] = {stride};
   const uint32_t box[2] = {box_cols, box_rows};
   return encode(map, type, 2, base, dims, strides, box, swizzle);
+}
+
+// a 3-D map over grouped int4 codes, packed uint8 [G][N][gsz / 2] (group-major), in boxes of
+// [rows][64 bytes] of one group (a 128-deep chunk: gsz a multiple of 128; 64-byte swizzle, as a
+// nibble plane) or [rows][16 bytes] (one 32-deep k step: gsz a multiple of 32; unswizzled);
+// rows past N and groups past G are zero-filled, so a box never reads the next group's rows
+inline bool encode_groups(CUtensorMap* map, const void* base, int G, int N, int gsz, int rows) {
+  const bool chunk = gsz % 128 == 0;
+  const uint64_t dims[3] = {uint64_t(gsz / 2), uint64_t(N), uint64_t(G)};
+  const uint64_t strides[2] = {uint64_t(gsz / 2), uint64_t(N) * uint64_t(gsz / 2)};
+  const uint32_t box[3] = {chunk ? 64u : 16u, uint32_t(rows), 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, base, dims, strides, box,
+                chunk ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // a 4-D map over attention's [B, T, H, Dh] bf16 (element strides sb, st; the [H, Dh] slab of a

@@ -5,7 +5,8 @@
 // division, round half to even) and the pre-pass kernels that apply it (quant_rows; ln_quant_rows,
 // a LayerNorm first, for vit_mlp.cu), the k order
 // that lets packed 4-bit codes feed a fragment, and the widening of packed 4-bit codes (one
-// plane, or the two nibble planes rebuilt into their exact int8 codes) in registers.
+// plane, or the two nibble planes rebuilt into their exact int8 codes, or grouped int4 codes
+// requantized to int8 by a per-row table) in registers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -303,6 +304,53 @@ __device__ __forceinline__ void rebuild(uint32_t ph, uint32_t pl, uint32_t& w0, 
   const uint32_t od = (ph & 0xF0F0F0F0u) | (((pl >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);  // 1 3 5 7
   w0 = __byte_perm(ev, od, 0x5140);   // codes 0, 1, 2, 3
   w1 = __byte_perm(ev, od, 0x7362);   // codes 4, 5, 6, 7
+}
+
+// ---------------------------------------------------------------------------
+// The int4 requant (openvla_probe_tpu/ops/linear.py::_w4a8_dot_requant, fused into the loaders):
+// per weight row n, s8 = f32(max_g s[n, g]) · f32(7/127); per group, r = s[n, g] / (s8 + 1e-30)
+// (IEEE division); code = clip(rint(f32(q4) · r), -127, 127). The constants are the float32
+// roundings of the doubles 7/127 and 1e-30, as the JAX package's weak-typed Python floats are.
+constexpr float kReqS8 = static_cast<float>(7.0 / 127.0);
+constexpr float kReqTiny = static_cast<float>(1e-30);
+
+__device__ __forceinline__ float requant_r(float s, float s8) {
+  return __fdiv_rn(s, __fadd_rn(s8, kReqTiny));
+}
+// clip(rint(q · r), -127, 127): the product rounded once, then rounded half to even
+__device__ __forceinline__ int requant_code(int q, float r) {
+  return min(max(__float2int_rn(__fmul_rn(static_cast<float>(q), r)), -127), 127);
+}
+
+// A row's requant table: byte v of the four words is the code of the packed nibble v (v = 0..15,
+// q4 = v - 16 · (v >= 8)). The four lanes t4 = 0..3 that hold one weight row in a fragment each
+// compute one word (its four entries) from the row's r and gather the other three by shuffles.
+struct Lut {
+  uint32_t t[4];
+};
+__device__ __forceinline__ Lut requant_lut(float r, int lane) {
+  const int t4 = lane & 3, q0 = t4 < 2 ? 4 * t4 : 4 * t4 - 16;
+  const uint32_t c0 = requant_code(q0, r) & 0xFF, c1 = requant_code(q0 + 1, r) & 0xFF;
+  const uint32_t c2 = requant_code(q0 + 2, r) & 0xFF, c3 = requant_code(q0 + 3, r) & 0xFF;
+  const uint32_t word = c0 | (c1 << 8) | (c2 << 16) | (c3 << 24);
+  Lut L;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) L.t[j] = __shfl_sync(0xffffffffu, word, (lane & ~3) | j);
+  return L;
+}
+// 8 packed codes (one word, as `widen` takes it: nibble i is code i) -> their 8 requantized int8
+// codes in k order (two words), by table: each nibble's low 3 bits pick a byte of the half-table
+// of nibbles 0..7 and of 8..15, and its high bit the half (selectors kept below 8: __byte_perm's
+// sign-replicating selectors are never used)
+__device__ __forceinline__ uint32_t lut4(uint32_t sel, uint32_t half, const Lut& L) {
+  const uint32_t a = __byte_perm(L.t[0], L.t[1], sel), b = __byte_perm(L.t[2], L.t[3], sel);
+  const uint32_t k = __byte_perm(0u, 0xFFFFFFFFu, half);   // 0xFF in the bytes of nibbles >= 8
+  return (a & ~k) | (b & k);
+}
+__device__ __forceinline__ void requant(uint32_t p, const Lut& L, uint32_t& w0, uint32_t& w1) {
+  const uint32_t sel = p & 0x77777777u, half = (p >> 1) & 0x44444444u;
+  w0 = lut4(sel, half, L);                 // codes 0, 1, 2, 3
+  w1 = lut4(sel >> 16, half >> 16, L);     // codes 4, 5, 6, 7
 }
 
 }  // namespace ovla_i8

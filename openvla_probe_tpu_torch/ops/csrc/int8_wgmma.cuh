@@ -3,26 +3,34 @@
 // wgmma fed by TMA on a persistent grid; at M <= 64 the split-K decode route of int8_decode.cuh
 // with the same functor (`run_int8`; w8a8_matmul.cu picks its routes itself).
 //
-// Design (w8a8_matmul's wgmma route, templated on the epilogue). A tile is outᵀ: kBN = 128 weight
-// rows (n) x kBM rows of activation codes (m, wgmma's N), so one skeleton serves both weight forms:
-// int8 weights are wgmma's shared-memory operand A, nibble planes are rebuilt in registers straight
-// into its register operand A (widening 4-bit codes into a shared-memory tile first cost
-// 0.60-0.62 ms against 0.51 at 6912 x 4096 x 4096 in w4a8_matmul.cu), and the activation codes are
-// its shared-memory operand B in their natural k order (or the pre-pass's permuted order for
-// planes). 384 threads:
+// Design (w8a8_matmul's wgmma route, templated on the epilogue and the weight form). A tile is
+// outᵀ: kBN = 128 weight rows (n) x kBM rows of activation codes (m, wgmma's N), so one skeleton
+// serves three weight forms: int8 weights are wgmma's shared-memory operand A; nibble planes are
+// rebuilt in registers straight into its register operand A (widening 4-bit codes into a
+// shared-memory tile first cost 0.60-0.62 ms against 0.51 at 6912 x 4096 x 4096 in
+// w4a8_matmul.cu), and so are grouped int4 codes (W::kInt4, the int4 requant route): each weight
+// row's s8 made at the tile's start from its G scales, r per (row, group) by an IEEE division, a
+// 16-entry code table a row a chunk (int8_mma.cuh requant_lut: four lanes a word, shuffles), the
+// nibbles looked up with byte permutes (requant). The activation codes are its shared-memory
+// operand B in their natural k order (or the pre-pass's permuted order for packed codes). 384
+// threads:
 //   * a producer warpgroup that gives its registers to the consumers (setmaxnreg, as
 //     wi8_matmul.cu), in which one thread keeps a ring of 128-deep k chunks full with TMA boxes:
 //     activation codes [kBM rows][128 bytes] (128-byte swizzle; rows past M and k past K
 //     zero-filled: SigLIP's K = 4304), and int8 weights [128 n][128 bytes] (128-byte swizzle) or
 //     the hi and lo planes [128 n][64 bytes] each (64-byte swizzle: conflict-free ldmatrix rows),
-//     on full / empty mbarriers; it runs on into the block's next tile while the consumers store
-//     the last one;
+//     or the int4 codes from a 3-D map [G][N][gsz / 2] (rows past N zero-filled inside each
+//     group): one box [128 n][64 bytes] a chunk where gsz is a multiple of 128 (64-byte
+//     swizzle, a nibble plane's layout), else four boxes [128 n][16 bytes], one 32-deep k step
+//     of one group each (unswizzled: 8 rows of 16 bytes are 128 contiguous bytes, so ldmatrix
+//     is conflict-free; a step past K not loaded), on full / empty mbarriers; it runs on into
+//     the block's next tile while the consumers store the last one;
 //   * two consumer warpgroups of 64 weight rows x kBM rows, one int32 accumulator over all of K
 //     (no group fold): per chunk four wgmma.m64nNk32.s32.s8.s8 committed as one group. int8
 //     leaves keep one group in flight: the consumer waits for the group before (wgmma_wait<1>)
 //     and releases its stage, so the next chunk's wait and descriptors are sent under the
-//     products. The nibble loader builds each chunk's fragments (two ldmatrix per plane a warp,
-//     `rebuild`) between groups and waits for its group: ptxas serializes a register-A wgmma
+//     products. The nibble and int4 loaders build each chunk's fragments (two ldmatrix per plane
+//     a warp, `rebuild` or `requant`) between groups and wait for their group: ptxas serializes a register-A wgmma
 //     behind fragments written while a group is in flight (C7513), and a second fragment buffer
 //     measured 1.5-2.3 % slower than the wait; the other warpgroup's products run meanwhile;
 //   * the epilogue, on the accumulators in registers: either direct (w8a8_matmul: the functor's
@@ -40,7 +48,8 @@
 //     to few instructions (bf16x2 steps, one conversion for two outputs).
 //   int8: kBM = 256 (m64n256, 128 accumulators a thread, 4 stages of 48 KB) or kBM = 128 (m64n128,
 //   64 accumulators, 6 stages of 32 KB); nibble: kBM = 192 (m64n192, 96 accumulators, 5 stages of
-//   40 KB); 168 registers a thread, the most ptxas gives a 384-thread block.
+//   40 KB); int4: kBM = 192 (6 stages of 32 KB); 168 registers a thread, the most ptxas gives a
+//   384-thread block.
 #pragma once
 
 #include "int8_decode.cuh"
@@ -50,7 +59,9 @@ namespace ovla_wg {
 namespace hp = ovla_hp;
 using ovla_i8::ldmatrix_x4;
 using ovla_i8::to_f32;
+using ovla_i8d::Groups;
 using ovla_i8d::store1;
+using ovla_i8d::W;
 
 constexpr int kChunk = 128;                 // k per stage
 constexpr int kBN = 128;                    // weight rows per block: two warpgroups of 64
@@ -58,14 +69,20 @@ constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;  // + a producer warpgroup (setmaxnreg)
 constexpr int kStgRows = 32;                // activation rows a round of the staged epilogue
 
-template <bool NIB, int BM>
+// the weight forms: int8 leaves (W::kInt8, shared-memory A), and packed 4-bit codes rebuilt in
+// registers into the register A (W::kNibble: the two planes; W::kInt4: grouped int4 codes
+// requantized per row)
+template <W WF, int BM>
 struct Pre {
-  static_assert(NIB ? BM == 192 : (BM == 256 || BM == 128), "the instantiated tile shapes");
+  static constexpr bool kRegA = WF != W::kInt8;
+  static_assert(WF != W::kHi, "the hi plane alone has no wgmma route");
+  static_assert(kRegA ? BM == 192 : (BM == 256 || BM == 128), "the instantiated tile shapes");
   static constexpr int kBM = BM;                      // activation rows per block: wgmma's N
   static constexpr int kABytes = kBM * kChunk;       // activation codes of a stage
-  static constexpr int kQBytes = kBN * kChunk;       // int8 [128][128], or hi then lo [128][64]
+  // int8 [128][128], hi then lo [128][64], or int4 [4 k steps][128][16]
+  static constexpr int kQBytes = WF == W::kInt4 ? kBN * kChunk / 2 : kBN * kChunk;
   static constexpr int kStage = kABytes + kQBytes;   // a multiple of 1024
-  static constexpr int kStages = NIB ? 5 : (BM == 256 ? 4 : 6);   // ~192-200 KB of ring
+  static constexpr int kStages = WF == W::kNibble ? 5 : WF == W::kInt4 ? 6 : (BM == 256 ? 4 : 6);
   static constexpr int kAcc = kBM / 2;               // int32 accumulators a thread
 };
 
@@ -78,9 +95,9 @@ struct Stg {
   static constexpr int kItems = kStgRows * (64 / kV) / 128;   // vectors a thread a round
 };
 
-template <bool NIB, int BM, typename T, bool STAGED>
+template <W WF, int BM, typename T, bool STAGED>
 constexpr size_t smem_bytes() {
-  using P = Pre<NIB, BM>;
+  using P = Pre<WF, BM>;
   return 1024 + size_t(P::kStages) * P::kStage + (STAGED ? Stg<T>::kBytes : 0) +
          2 * P::kStages * 8;
 }
@@ -168,14 +185,16 @@ __device__ __forceinline__ void wgmma_s8_rs_m64n192k32(int (&d)[96], const uint3
 //     uint4 add_rows(uint4 r, uint4 y)      16 bytes of rowop + 16 bytes of head values, in T;
 //   then `rowop` (nullptr, or [M, N] in T, read-only) is
 //   added last: out = rt(rowop[m, n] + head)
-template <typename T, bool NIB, int BM, class Epi>
+template <typename T, W WF, int BM, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_lo, const Epi epi, T* __restrict__ out,
-                 int M, int N, int K, int vec) {
-  using P = Pre<NIB, BM>;
+                 int M, int N, int K, int vec, const Groups grp) {
+  using P = Pre<WF, BM>;
   constexpr int S = P::kStages;
   constexpr bool kStaged = Epi::kStaged;
+  constexpr bool NIB = WF == W::kNibble, INT4 = WF == W::kInt4;
+  static_assert(!(INT4 && kStaged), "the int4 form stores direct (its s8 replaces the functor's s)");
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
   T* stg = reinterpret_cast<T*>(ring + S * P::kStage);
@@ -209,6 +228,21 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int slot = g % S;
           hp::mbar_wait(empty + slot, ((g / S) & 1) ^ 1);   // the first round passes
           uint8_t* st = ring + slot * P::kStage;
+          if constexpr (INT4) {
+            // gsz a multiple of 128: the chunk in one box [128 n][64 bytes] (64-byte swizzle);
+            // else its 32-deep k steps, one box [128 n][16 bytes] of one group each, at
+            // st + kABytes + 2048 kk, a step past K not loaded (its codes map to 0)
+            const int steps = grp.gsz % kChunk == 0 ? 1 : min(4, (K - c * kChunk) / 32);
+            const int box = grp.gsz % kChunk == 0 ? P::kQBytes : kBN * 16;
+            hp::mbar_expect_tx(full + slot, P::kABytes + steps * box);
+            hp::tma_load_2d(st, &tm_a, c * kChunk, m0, full + slot);
+            for (int kk = 0; kk < steps; ++kk) {
+              const int k = c * kChunk + 32 * kk;
+              hp::tma_load_3d(st + P::kABytes + kk * box, &tm_q, (k % grp.gsz) / 2, n0,
+                              k / grp.gsz, full + slot);
+            }
+            continue;
+          }
           hp::mbar_expect_tx(full + slot, P::kStage);
           hp::tma_load_2d(st, &tm_a, c * kChunk, m0, full + slot);
           if constexpr (NIB) {
@@ -230,19 +264,82 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g8 = lane >> 2, t4 = lane & 3;
   const int r0 = wg * 64 + warp * 16 + g8;   // this thread's weight rows r0, r0 + 8
 
+  const bool one_group = INT4 && grp.gsz % kChunk == 0;   // int4: a chunk lies in one group
   int g = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int n0 = (t % NT) * kBN, m0 = (t / NT) * P::kBM;
+    // int4: s8 of this thread's weight rows n0 + r0 + 8 h (0 past N), the 4 lanes t4 of a row
+    // taking its G scales in turn (a max: any order)
+    float s8[2] = {0.f, 0.f};
+    if constexpr (INT4) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + r0 + 8 * h;
+        float mx = __int_as_float(0xff800000u);   // -inf
+        if (n < N)
+          for (int gi = t4; gi < grp.G; gi += 4)
+            mx = fmaxf(mx, __ldg(grp.s + (long long)n * grp.G + gi));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        s8[h] = n < N ? __fmul_rn(mx, ovla_i8::kReqS8) : 0.f;
+      }
+    }
+    // int4: the scale s[n, g] of weight row n = n0 + r0 + 8 h in the group holding k (0 past N
+    // and past K), and the requant r from it; one group a chunk: each chunk's scales loaded a
+    // chunk ahead
+    auto group_s = [&](int h, int k) {
+      const int n = n0 + r0 + 8 * h, gi = k / grp.gsz;
+      return n < N && gi < grp.G ? __ldg(grp.s + (long long)n * grp.G + gi) : 0.f;
+    };
+    float snext[2] = {0.f, 0.f};
+    if constexpr (INT4) {
+      if (one_group) snext[0] = group_s(0, 0), snext[1] = group_s(1, 0);
+    }
     int d[P::kAcc];
 #pragma unroll
     for (int i = 0; i < P::kAcc; ++i) d[i] = 0;
     for (int c = 0; c < KC; ++c, ++g) {
       const int slot = g % S;
+      ovla_i8::Lut tbl[2];   // int4, one group a chunk: the tables of this thread's two rows
+      if constexpr (INT4) {
+        if (one_group) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float sv = snext[h];
+            snext[h] = group_s(h, (c + 1) * kChunk);
+            tbl[h] = ovla_i8::requant_lut(ovla_i8::requant_r(sv, s8[h]), lane);
+          }
+        }
+      }
       hp::mbar_wait(full + slot, (g / S) & 1);
       const uint8_t* as = ring + slot * P::kStage;   // B: the chunk's activation codes
       const uint8_t* qs = as + P::kABytes;            // A: the weights
-      uint32_t f[4][4];   // nibble: the chunk's register fragments
-      if constexpr (NIB) {
+      uint32_t f[4][4];   // packed codes: the chunk's register fragments
+      if constexpr (INT4) {
+        // one group a chunk: a nibble plane's layout (64-byte rows, 16-byte chunk kk of row n
+        // at kk ^ ((n >> 1) & 3)); else box kk [128 n][16 bytes] at 2048 kk. ldmatrix hands lane
+        // (g8, t4) the packed bytes 4 t4 .. 4 t4 + 3 of row g8 (+ 8 h) in k32 step kk, its codes
+        // 8 t4 .. 8 t4 + 7, requantized by the row's table into the fragment's k 4 t4 .. 4 t4 + 3
+        // and 16 + 4 t4 .. 16 + 4 t4 + 3 (the pre-pass's order)
+        uint32_t ph[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = wg * 64 + warp * 16 + 8 * h + (lane & 7);
+          ldmatrix_x4(ph[h], qs + (one_group ? n * 64 + (((lane >> 3) ^ ((n >> 1) & 3)) << 4)
+                                             : (lane >> 3) * (kBN * 16) + n * 16));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const ovla_i8::Lut tb =
+                one_group ? tbl[h]
+                          : ovla_i8::requant_lut(
+                                ovla_i8::requant_r(group_s(h, c * kChunk + 32 * kk), s8[h]), lane);
+            ovla_i8::requant(ph[h][kk], tb, f[kk][h], f[kk][h + 2]);   // rows g8 (+ 8 h)
+          }
+        }
+      } else if constexpr (NIB) {
         // ldmatrix hands lane (g8, t4) the packed bytes 4 t4 .. 4 t4 + 3 of row g8 of the
         // 8-row group in k32 step kk (matrix kk; 16-byte chunk kk of row n stored at
         // kk ^ ((n >> 1) & 3)), i.e. its codes 8 t4 .. 8 t4 + 7 of each plane, rebuilt into
@@ -265,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       hp::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {   // k32 step kk: 32 bytes along each 128-byte row
-        if constexpr (NIB)
+        if constexpr (P::kRegA)
           wgmma_s8_rs_m64n192k32(d, f[kk], hp::desc_sw128(as + kk * 32));
         else if constexpr (BM == 256)
           wgmma_s8_ss_m64n256k32(d, hp::desc_sw128(qs + wg * 64 * kChunk + kk * 32),
@@ -275,7 +372,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                  hp::desc_sw128(as + kk * 32));
       }
       hp::wgmma_commit();
-      if constexpr (NIB) {
+      if constexpr (P::kRegA) {
         // ptxas serializes a register-A wgmma behind the next chunk's fragments anyway (C7513):
         // wait for this group and release its stage (1.5-2.3 % faster than a group in flight)
         hp::wgmma_wait<0>();
@@ -287,7 +384,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (c > 0 && wt == 0) hp::mbar_arrive(empty + (g - 1) % S);
       }
     }
-    if constexpr (!NIB) {
+    if constexpr (!P::kRegA) {
       hp::wgmma_wait<0>();
       hp::fence_operands(d);
       if (wt == 0) hp::mbar_arrive(empty + (g - 1) % S);   // the tile's last stage
@@ -298,7 +395,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     using Col = typename Epi::Col;
     if constexpr (!kStaged) {
       const int n = n0 + r0;
-      const Col c0 = n < N ? epi.col(n) : Col{}, c8 = n + 8 < N ? epi.col(n + 8) : Col{};
+      Col c0{}, c8{};
+      if constexpr (INT4) {   // the requantized rows' scales s8 in place of the functor's s
+        c0 = Col{s8[0]}, c8 = Col{s8[1]};
+      } else {
+        if (n < N) c0 = epi.col(n);
+        if (n + 8 < N) c8 = epi.col(n + 8);
+      }
 #pragma unroll
       for (int j = 0; j < P::kBM / 8; ++j) {
         const int m = m0 + 8 * j + 2 * t4;
@@ -366,19 +469,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // One launch of the wgmma route: codes xq int8 [M, K], weights q int8 [N, K] (or the planes q =
-// hi, lo, uint8 [N, K / 2] with NIB). Returns the cudaError_t.
-template <typename T, bool NIB, int BM, class Epi>
+// hi, lo, uint8 [N, K / 2] with W::kNibble, or grouped int4 codes q uint8 [G][N][gsz / 2] with
+// W::kInt4 and `grp`). Returns the cudaError_t.
+template <typename T, W WF, int BM, class Epi>
 int launch_wgmma(const int8_t* xq, const uint8_t* q, const uint8_t* lo, const Epi& epi, T* out,
-                 int M, int N, int K, cudaStream_t stream) {
-  using P = Pre<NIB, BM>;
-  constexpr size_t kSmem = smem_bytes<NIB, BM, T, Epi::kStaged>();
+                 int M, int N, int K, cudaStream_t stream, const Groups grp = {}) {
+  using P = Pre<WF, BM>;
+  constexpr bool NIB = WF == W::kNibble;
+  constexpr size_t kSmem = smem_bytes<WF, BM, T, Epi::kStaged>();
   CUtensorMap tm_a, tm_q, tm_lo;
   const uint64_t qcols = NIB ? K / 2 : K;
   const uint32_t qbox = NIB ? kChunk / 2 : kChunk;
   const CUtensorMapSwizzle qsw = NIB ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   if (!hp::encode_2d(&tm_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, M, K, K, P::kBM, kChunk,
                      CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !hp::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, qcols, qcols, kBN, qbox, qsw) ||
+      (WF == W::kInt4
+           ? !hp::encode_groups(&tm_q, q, grp.G, N, grp.gsz, kBN)
+           : !hp::encode_2d(&tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, qcols, qcols, kBN, qbox,
+                            qsw)) ||
       (NIB && !hp::encode_2d(&tm_lo, CU_TENSOR_MAP_DATA_TYPE_UINT8, lo, N, qcols, qcols, kBN,
                              qbox, qsw)))
     return int(cudaErrorInvalidValue);
@@ -388,14 +496,14 @@ int launch_wgmma(const int8_t* xq, const uint8_t* q, const uint8_t* lo, const Ep
     auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
     vec = N % 8 == 0 && aligned(out) && (epi.rowop == nullptr || aligned(epi.rowop));
   }
-  auto kernel = wgmma_kernel<T, NIB, BM, Epi>;
+  auto kernel = wgmma_kernel<T, WF, BM, Epi>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
   if (err != cudaSuccess) return int(err);
   const long long tiles = (long long)((N + kBN - 1) / kBN) * ((M + P::kBM - 1) / P::kBM);
   const int sms = hp::sm_count();
   const int grid = int(tiles < sms ? tiles : sms);   // one persistent block an SM
-  kernel<<<grid, kThreads, kSmem, stream>>>(tm_a, tm_q, tm_lo, epi, out, M, N, K, vec);
+  kernel<<<grid, kThreads, kSmem, stream>>>(tm_a, tm_q, tm_lo, epi, out, M, N, K, vec, grp);
   return int(cudaGetLastError());
 }
 
@@ -421,8 +529,9 @@ int run_int8(const int8_t* xq, const int8_t* q, const Epi& epi, T* out, int M, i
   namespace d = ovla_i8d;
   const uint8_t* qp = reinterpret_cast<const uint8_t*>(q);
   if (M <= 64) return d::launch<d::W::kInt8>(xq, qp, nullptr, epi, out, M, N, K, stream);
-  return tile_rows(M, N) == 128 ? launch_wgmma<T, false, 128>(xq, qp, nullptr, epi, out, M, N, K, stream)
-                                : launch_wgmma<T, false, 256>(xq, qp, nullptr, epi, out, M, N, K, stream);
+  if (tile_rows(M, N) == 128)
+    return launch_wgmma<T, W::kInt8, 128>(xq, qp, nullptr, epi, out, M, N, K, stream);
+  return launch_wgmma<T, W::kInt8, 256>(xq, qp, nullptr, epi, out, M, N, K, stream);
 }
 
 }  // namespace ovla_wg

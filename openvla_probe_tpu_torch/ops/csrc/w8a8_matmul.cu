@@ -25,6 +25,15 @@
 // copies, one barrier a chunk) took 0.480 ms (int8) and 0.573 (nibble) at 6912 x 4096 x 4096
 // and 0.027 at 24 x 4096 x 4096 on an H100 80GB HBM3 at 700 W (PERF.md §6).
 //
+// ovla_w4a8_requant (the int4 requant route, openvla_probe_tpu/ops/linear.py::_w4a8_dot_requant):
+// the same GEMM with grouped int4 weights requantized to int8 in the weight loader (W::kInt4 of
+// int8_wgmma.cuh and int8_decode.cuh): no [N, K] int8 copy, no op before the launch but the
+// activation pre-pass. Bound at its 7B shapes: lm_head at decode by the int4 codes' 66 MB
+// (0.021 ms at 3.35 TB/s); SigLIP's fc1 (6144 x 1152 x 4304) and a train step's lm_head
+// (2560 x 4096 x 32064) by int8 operations. The route it replaces (the requant as seven PyTorch
+// ops making a 131 MB int8 copy at lm_head, then this GEMM) took 3.242 ms at lm_head decode and
+// 0.314 at SigLIP's fc1 on an H100 80GB HBM3 at 700 W (PERF.md §6).
+//
 // One call makes one or two launches: for float activations the pre-pass (quant_rows,
 // int8_mma.cuh) writes the codes [M, K] and s_x [M] (for nibble planes each 32-code block in
 // the stored_offset k order the packed fragments take); then one of two GEMM routes.
@@ -55,8 +64,20 @@ int run(const int8_t* xq, const float* sx, const uint8_t* q, const uint8_t* lo, 
   if (M <= 64)
     return lo ? d::launch<d::W::kNibble>(xq, q, lo, epi, o, M, N, K, stream)
               : d::launch<d::W::kInt8>(xq, q, lo, epi, o, M, N, K, stream);
-  return lo ? ovla_wg::launch_wgmma<T, true, 192>(xq, q, lo, epi, o, M, N, K, stream)
-            : ovla_wg::launch_wgmma<T, false, 256>(xq, q, lo, epi, o, M, N, K, stream);
+  return lo ? ovla_wg::launch_wgmma<T, d::W::kNibble, 192>(xq, q, lo, epi, o, M, N, K, stream)
+            : ovla_wg::launch_wgmma<T, d::W::kInt8, 256>(xq, q, lo, epi, o, M, N, K, stream);
+}
+
+// the int4 requant route: grouped int4 codes requantized to int8 in the weight loader, the
+// epilogue's s the rows' s8 (computed in the kernel; the functor's s unused)
+template <typename T>
+int run_requant(const int8_t* xq, const float* sx, const uint8_t* q, const ovla_i8d::Groups& grp,
+                void* out, int M, int N, int K, cudaStream_t stream) {
+  namespace d = ovla_i8d;
+  T* o = static_cast<T*>(out);
+  const d::EpiW8 epi{sx, nullptr};
+  if (M <= 64) return d::launch<d::W::kInt4>(xq, q, nullptr, epi, o, M, N, K, stream, grp);
+  return ovla_wg::launch_wgmma<T, d::W::kInt4, 192>(xq, q, nullptr, epi, o, M, N, K, stream, grp);
 }
 
 }  // namespace ovla_w8
@@ -99,4 +120,35 @@ extern "C" int ovla_w8a8_matmul(const void* x, void* xq, void* sx, const void* q
   const float* sp = static_cast<const float*>(s);
   if (out_bf16) return ovla_w8::run<__nv_bfloat16>(codes, scales, qp, lp, sp, out, M, N, K, st);
   return ovla_w8::run<float>(codes, scales, qp, lp, sp, out, M, N, K, st);
+}
+
+// The int4 requant route (openvla_probe_tpu/ops/linear.py::_w4a8_dot_requant, XLA on the TPU):
+// out = w8a8(x, requant(q, s)) with the int8 codes and their per-row scales s8 made in the GEMM's
+// weight loader, in registers (int8_mma.cuh requant_lut / requant), so no [N, K] int8 copy
+// exists. Returns the launches' cudaError_t (0 on success). x [M, K] (bf16 when is_bf16, else
+// fp32), scratch xq int8 [M, K] and sx fp32 [M] (the pre-pass writes the codes in the
+// stored_offset k order of the packed fragments), q packed uint8 [G][N][gsz / 2] (group-major),
+// s fp32 [N][G], out [M, N] in x's type. All contiguous; x, xq and q 16-byte aligned; gsz a
+// multiple of 32 (each 32-deep k step in one group; the wrapper refuses other group sizes),
+// K = G · gsz, N a multiple of 8.
+extern "C" int ovla_w4a8_requant(const void* x, void* xq, void* sx, const void* q, const void* s,
+                                 void* out, int M, int N, int G, int gsz, int is_bf16,
+                                 void* stream) {
+  const long long K = (long long)G * gsz;
+  if (M < 1 || N < 8 || N % 8 != 0 || G < 1 || gsz < 32 || gsz % 32 != 0 || K > (1 << 30) ||
+      (M + 191) / 192 > 65535 || !x || !s || misaligned(x) || misaligned(xq) || misaligned(q))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* codes = static_cast<int8_t*>(xq);
+  float* scales = static_cast<float*>(sx);
+  using ovla_i8::quant_rows;
+  const cudaError_t err =
+      is_bf16 ? quant_rows<__nv_bfloat16, true, false>(x, codes, scales, nullptr, M, int(K), st)
+              : quant_rows<float, true, false>(x, codes, scales, nullptr, M, int(K), st);
+  if (err != cudaSuccess) return int(err);
+  const ovla_i8d::Groups grp{static_cast<const float*>(s), G, gsz};
+  const uint8_t* qp = static_cast<const uint8_t*>(q);
+  if (is_bf16)
+    return ovla_w8::run_requant<__nv_bfloat16>(codes, scales, qp, grp, out, M, N, int(K), st);
+  return ovla_w8::run_requant<float>(codes, scales, qp, grp, out, M, N, int(K), st);
 }

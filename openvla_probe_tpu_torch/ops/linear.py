@@ -21,8 +21,9 @@
   codes ``16·hi + lo + 8`` in its weight loader (the JAX ``_nib_matmul``);
 * a grouped-int4 leaf ``{"q": uint8 [G, O, gsz/2], "s": f32 [O, G]}``: the
   w4a8 kernel ``w4a8_matmul`` (``csrc/w4a8_matmul.cu``) where ``O % 128 == 0``
-  and ``gsz % 128 == 0``, else the requant route (``w4a8_dot_requant``:
-  int8 codes with per-channel scales, then ``w8a8_matmul``). That is the JAX
+  and ``gsz % 128 == 0``, else the requant route (``w4a8_dot_requant``: the
+  kernel ``w4a8_requant``, the int8 GEMM with int8 codes and per-channel
+  scales requantized from the groups in its weight loader). That is the JAX
   package's rule under its kernel gate as it runs on the chip
   (``_w4a8_pallas_matmul``; its interpret mode drops the ``gsz`` condition).
 
@@ -44,11 +45,12 @@ straight-through (STE) ``torch.autograd.Function`` of the quantized leaf's
 route, the JAX package's custom VJPs: the kernel forward, and ``dx = g ·
 dequant(W)`` with bf16 operands and fp32 sums, cast to g's dtype; the frozen
 codes and scales get no gradient. ``w8a8_matmul_ste`` (``_w8a8_dot``: int8
-leaves on "w8a8", nibble leaves at prefill M, the int4 requant route called
-alone), ``nib_hi_dot_ste`` (``_nib_hi_dot``) and ``w4a8_matmul_ste``
-(``_w4a8_pallas_dot``: grouped int4 under the kernel gate, either forward,
-whose backward is `w4a8_dx`: the CUDA kernel ``csrc/w4a8_dx.cu`` where N and
-gsz are multiples of 128, the bf16-dequant product otherwise, Queue 2 row 9).
+leaves on "w8a8", nibble leaves at prefill M; and the int4 requant route
+called alone, on the requantized codes), ``nib_hi_dot_ste``
+(``_nib_hi_dot``) and ``w4a8_matmul_ste`` (``_w4a8_pallas_dot``: grouped
+int4 under the kernel gate, either forward, whose backward is `w4a8_dx`: the
+CUDA kernel ``csrc/w4a8_dx.cu`` where N and gsz are multiples of 128, the
+bf16-dequant product otherwise, Queue 2 row 9).
 ``wi8_matmul`` has no backward, as the JAX ``_wi8_matmul_2d`` has no VJP.
 
 Mix leaves are not ported and raise. ``quantize_weight``,
@@ -464,6 +466,9 @@ def nib_matmul(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
 # --- w4a8: grouped int4 weights x int8 activations (Queue 2 row 8) ---------------
 
 
+REQUANT_GSZ_STEP = 32     # the requant kernel's group sizes: multiples of this
+
+
 def requant_int4_to_int8(q: torch.Tensor, s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grouped int4 [G, N, gsz/2] packed + [N, G] scales -> per-channel int8
     codes [N, G·gsz] and scales [N] (the JAX package's ``_w4a8_dot_requant``):
@@ -475,13 +480,58 @@ def requant_int4_to_int8(q: torch.Tensor, s: torch.Tensor) -> Tuple[torch.Tensor
     return q8.movedim(0, 1).reshape(N, G * 2 * half), s8
 
 
-def w4a8_dot_requant(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """The requant route: int8 codes requantized per call (no resident copy),
-    then `w8a8_matmul`; called alone under grad it carries the w8a8 STE, whose
-    backward dequantizes the requantized codes ``q8 · s8`` (the JAX
-    ``_w4a8_dot_requant``)."""
+def w4a8_requant_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The requant route's function (the JAX ``_w4a8_dot_requant`` forward):
+    `w8a8_matmul_plain` over `requant_int4_to_int8`'s codes and scales."""
     q8, s8 = requant_int4_to_int8(q, s)
-    return w8a8_matmul_ste(x, {"q": q8, "s": s8})
+    return w8a8_matmul_plain(x, {"q": q8, "s": s8})
+
+
+def w4a8_requant(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (bf16 or fp32) @ grouped int4 (packed q [G, N, gsz/2], s
+    [N, G]) requantized to per-channel int8 -> [M, N] in x's dtype:
+    `w4a8_requant_plain`, bit for bit. The CUDA kernel (``csrc/w8a8_matmul.cu``
+    ``ovla_w4a8_requant``) rebuilds the int8 codes and their row scales from
+    the int4 groups in the int8 GEMM's weight loader, in registers: no
+    ``[N, K]`` int8 tensor exists. One call is two launches, the activation
+    pre-pass (counted as ``w4a8_requant_quant_rows``) and the GEMM. It takes
+    group sizes that are multiples of 32 (each 32-deep k step of a fragment
+    in one group) and N a multiple of 8, and raises on others: no ported
+    configuration has one (``int4_group_size`` gives 128, or an in-dim below
+    128: 32 and 64 in the tiny configurations)."""
+    _build.no_grad_guard("w4a8_requant", "use w4a8_dot_requant (or matmul_t), its STE", x, s)
+    M, K = x.shape
+    G, N, half = q.shape
+    gsz = 2 * half
+    if x.device.type == "cpu":
+        return w4a8_requant_plain(x, q, s)
+    if x.device.type != "cuda":
+        raise ValueError(f"w4a8_requant: unsupported device {x.device}")
+    _check_matmul_inputs("w4a8_requant", x, {
+        "x": (x, (M, G * gsz), x.dtype), "q": (q, (G, N, half), torch.uint8),
+        "s": (s, (N, G), torch.float32)})
+    if gsz % REQUANT_GSZ_STEP or N % 8:
+        raise ValueError(f"w4a8_requant: the group size {gsz} must be a multiple of "
+                         f"{REQUANT_GSZ_STEP} and N={N} of 8")
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)   # the activation pre-pass
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _build.launcher("w4a8_requant")(
+        x.data_ptr(), codes.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(),
+        out.data_ptr(), M, N, G, gsz, int(x.dtype == torch.bfloat16), _build.stream_ptr(x))
+    _build.check(err, "w4a8_requant")
+    _build.KERNEL_LAUNCHES["w4a8_requant_quant_rows"] += 1
+    _build.KERNEL_LAUNCHES["w4a8_requant"] += 1
+    return out
+
+
+def w4a8_dot_requant(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The requant route (the JAX ``_w4a8_dot_requant``): `w4a8_requant`, no
+    resident int8 copy; called alone under grad it carries the w8a8 STE, whose
+    backward dequantizes the requantized codes ``q8 · s8``."""
+    if _needs_grad(x):
+        return _W4A8RequantSTE.apply(x, q, s)
+    return w4a8_requant(x, q, s)
 
 
 def w4a8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -671,8 +721,27 @@ class _W8A8STE(torch.autograd.Function):
     def backward(ctx, g):
         w = ctx.w
         q = nibble_reconstruct_q8(w) if is_nibble_quant(w) else w["q"]
-        wd = q.to(torch.bfloat16) * w["s"].to(torch.bfloat16)[:, None]
-        return _ste_dot(g, wd), None
+        return _int8_ste_dx(g, q, w["s"]), None
+
+
+def _int8_ste_dx(g: torch.Tensor, q8: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The w8a8 STE's dx: g times the bf16 dequantized weight ``q8 · s``."""
+    return _ste_dot(g, q8.to(torch.bfloat16) * s.to(torch.bfloat16)[:, None])
+
+
+class _W4A8RequantSTE(torch.autograd.Function):
+    """``w4a8_requant`` forward; dx through the bf16 dequantized requantized
+    weight ``q8 · s8``, as `_W8A8STE` on `requant_int4_to_int8`'s leaf (the
+    JAX ``_w4a8_dot_requant`` carries ``_w8a8_dot``'s VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, q, s):
+        ctx.q, ctx.s = q, s
+        return w4a8_requant(x, q, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _int8_ste_dx(g, *requant_int4_to_int8(ctx.q, ctx.s)), None, None
 
 
 class _NibHiSTE(torch.autograd.Function):

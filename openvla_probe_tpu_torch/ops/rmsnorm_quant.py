@@ -8,11 +8,14 @@ where every consumer of a norm is a per-channel int8 leaf on the w8a8 route
 (``models/llama.py::_norm_maybe_quant``; off unless the config turns it on,
 as the JAX package's ``OVLA_PALLAS_RMSQ``).
 
-The wrapper launches the CUDA kernel (``csrc/rmsnorm_quant.cu``) for a CUDA
-tensor and takes the plain PyTorch version only for a CPU tensor. The kernel
-sums each row's squares in another order than the plain version, so its
-reciprocal RMS can differ in the last bits: `compare_rms_norm_quant` states
-how far its codes and scales may be from the plain version's.
+The wrapper launches the CUDA kernel (``csrc/rmsnorm_quant.cu``: one block a
+row, the row in registers) for a CUDA tensor and takes the plain PyTorch
+version only for a CPU tensor. The kernel sums each row's squares in another
+order than the plain version, so its reciprocal RMS can differ in the last
+bits: `compare_rms_norm_quant` states how far its codes and scales may be
+from the plain version's. The kernel loads 16-byte vectors where D is a
+multiple of 16 / sizeof(x) and the rows are 16-byte aligned, one element at
+a time otherwise; it holds up to `RMSQ_MAX_VECS` vectors (or elements) a row.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import torch
 
 from . import _build
 from .linear import quantize_rows
+
+RMSQ_MAX_VECS = 4096   # the kernel's longest row: 512 threads x 8 vectors
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -61,6 +66,11 @@ def rms_norm_quant(x: torch.Tensor, weight: torch.Tensor,
     x2 = x.reshape(-1, D).contiguous()
     w = weight.to(x.dtype).contiguous()
     M = x2.shape[0]
+    V = 16 // x.element_size()
+    vec = D % V == 0 and x2.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if D > RMSQ_MAX_VECS * (V if vec else 1):
+        raise ValueError(f"rms_norm_quant: D={D} is longer than the kernel's "
+                         f"{RMSQ_MAX_VECS} {'vectors of ' + str(V) if vec else 'elements'}")
     codes = torch.empty((M, D), dtype=torch.int8, device=x.device)
     sx = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     err = _build.launcher("rms_norm_quant")(

@@ -3,7 +3,7 @@
     python -m openvla_probe_tpu_torch.tools.kernel_ab --lib parent=DIR [--lib TAG=PATH ...]
         [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx,
                    decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot,
-                   fused_ln_w8a8,fused_mlp_residual]
+                   fused_ln_w8a8,fused_mlp_residual,w4a8_requant,rms_norm_quant]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -27,7 +27,10 @@ from the fused norm's codes (the prequant entry) and through the nibble
 loader; ``nib_hi_dot`` bit for bit; ``fused_ln_w8a8`` and
 ``fused_mlp_residual`` by ``vit_mlp.hold_ln_w8a8`` / ``hold_mlp_residual``,
 their codes within one step and their outputs bit-equal on their own codes,
-each build timed with the code buffers its wrapper passes), then the device
+each build timed with the code buffers its wrapper passes; ``w4a8_requant``
+bit for bit, a build without that kernel timed on the two-step route it
+replaced (the requant in PyTorch, then its ``w8a8_matmul``);
+``rms_norm_quant`` by ``rmsnorm_quant.compare_rms_norm_quant``), then the device
 time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
@@ -40,8 +43,10 @@ launch-weighted means per kernel (the serving mix and the train mix of
 ``w4a8_matmul``, the pallas mix of ``wi8_matmul`` and its prefill and decode
 routes apart, the serving and score_short launches of ``flash_prefill``, the
 turbo, turbo_nibble and train_int8 mixes of ``w8a8_matmul`` with its two
-routes apart, the turbo_nibble mix of ``nib_hi_dot`` and the pallas mixes of
-the two fused tower kernels, as ``chip_smoke.py`` weighs them).
+routes apart, the turbo_nibble mix of ``nib_hi_dot``, the pallas mixes of
+the two fused tower kernels, the pallas_int4 and train_int4 mixes of
+``w4a8_requant`` and the turbo mix of ``rms_norm_quant``, as ``chip_smoke.py``
+weighs them).
 """
 
 from __future__ import annotations
@@ -791,12 +796,119 @@ def ab_fused_mlp_residual(fns, g, dev, shapes=None):
     _tower_mix("fused_mlp_residual", rows, fns)
 
 
+def call_requant(fn, x, q, s):
+    """`fn`, a launcher with ``w4a8_requant``'s arguments, on the wrapper's tensors."""
+    M, K = x.shape
+    G, N, half = q.shape
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.check(fn(x.data_ptr(), codes.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(),
+                    out.data_ptr(), M, N, G, 2 * half, int(x.dtype == torch.bfloat16),
+                    _build.stream_ptr(x)), "w4a8_requant")
+    return out
+
+
+def requant_routes(libs: dict) -> dict:
+    """tag -> the int4 requant route of that build, called as (x, q, s): its
+    ``w4a8_requant`` kernel where it exports one, else the two-step route
+    before it (the requant in PyTorch, then the build's ``w8a8_matmul``)."""
+    kernel, two_step = launchers(libs, "w4a8_requant"), launchers(libs, "w8a8_matmul")
+    out = {}
+    for tag in libs:
+        if tag in kernel:
+            out[tag] = lambda x, q, s, fn=kernel[tag]: call_requant(fn, x, q, s)
+        elif tag in two_step:
+            out[tag] = lambda x, q, s, fn=two_step[tag]: call_w8a8(
+                fn, x, dict(zip(("q", "s"), lin.requant_int4_to_int8(q, s))))
+    return out
+
+
+def requant_shapes() -> dict:
+    """(M, K, N) -> (launches per pallas_int4 call, per train_int4 step) of
+    the requant route: lm_head at decode, SigLIP's fc1, lm_head in a step."""
+    return {(BATCH, 4096, 32064): (1 + A1, 0), (BATCH * 256, 1152, 4304): (26, 0),
+            (TRAIN_ROWS, 4096, 32064): (0, 1)}
+
+
+def ab_w4a8_requant(routes, g, dev, shapes=None):
+    """Every shape of requant_shapes, each build's route (`requant_routes`)
+    bit for bit against the plain version and timed in turns; then the
+    pallas_int4 mix and the train_int4 step's."""
+    rows = []
+    for (M, K, N), (per_call, per_step) in requant_shapes().items():
+        if shapes and f"{M}x{K}x{N}" not in shapes:
+            continue
+        G = K // lin.GROUP_SIZE
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = []
+        for _ in range(_copies(N * K // 2)):
+            codes = torch.randint(-8, 8, (G, N, lin.GROUP_SIZE), generator=g, device=dev,
+                                  dtype=torch.int8)
+            s = torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3
+            sets.append((x, lin.pack_int4(codes), s))
+        want = lin.w4a8_requant_plain(*sets[0])
+        rows.append(dict(kernel="w4a8_requant", shape=f"{M}x{K}x{N}", launches_per_call=per_call,
+                         launches_per_step=per_step,
+                         bit_equal={tag: bool(torch.equal(fn(*sets[0]), want))
+                                    for tag, fn in routes.items()},
+                         ms=_turns(routes, lambda fn: rotating(fn, sets))))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets, want
+    for mix, key in (("pallas_int4", "launches_per_call"), ("train_int4", "launches_per_step")):
+        n = sum(r[key] for r in rows)
+        if n:
+            print(json.dumps({"kernel": "w4a8_requant", "mix": mix, "launches": n, "ms": {
+                tag: sum(statistics.mean(r["ms"][tag]) * r[key] for r in rows) / n
+                for tag in routes}}), flush=True)
+
+
+def call_rmsq(fn, x, w, eps=1e-5):
+    """`fn`, a launcher with ``rms_norm_quant``'s arguments: (codes, scales)."""
+    M, D = x.shape
+    codes = torch.empty((M, D), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    _build.check(fn(x.data_ptr(), w.data_ptr(), codes.data_ptr(), sx.data_ptr(), M, D, eps,
+                    int(x.dtype == torch.bfloat16), _build.stream_ptr(x)), "rms_norm_quant")
+    return codes, sx
+
+
+def ab_rms_norm_quant(fns, g, dev, shapes=None):
+    """turbo's two shapes, x bf16 [M, 4096]: M = 6912 (prefill, 64 launches a
+    call) and 24 (decode steps, 384); each build held to the plain version by
+    `rmsnorm_quant.compare_rms_norm_quant` (reported) and timed in turns; then
+    the launch-weighted turbo mix."""
+    from ..ops import rmsnorm_quant as rmsq
+
+    rows = []
+    for M, per_call in ((BATCH * T_PREFILL, 2 * LAYERS), (BATCH, 2 * LAYERS * A1)):
+        if shapes and f"{M}x4096" not in shapes:
+            continue
+        w = (1 + 0.2 * torch.randn((4096,), generator=g, device=dev)).bfloat16()
+        sets = [((torch.randn((M, 4096), generator=g, device=dev) * 2).bfloat16(), w)
+                for _ in range(_copies(M * 4096 * 3))]
+        want = rmsq.rms_norm_quant_plain(*sets[0], 1e-5)
+        rows.append(dict(kernel="rms_norm_quant", shape=f"{M}x4096", launches_per_call=per_call,
+                         held={tag: _checked(lambda got, ref: rmsq.compare_rms_norm_quant(
+                             sets[0][0], w, 1e-5, got, ref), call_rmsq(fn, *sets[0]), want)
+                               for tag, fn in fns.items()},
+                         ms=_turns(fns, lambda fn: rotating(lambda *a: call_rmsq(fn, *a), sets))))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets, want
+    n = sum(r["launches_per_call"] for r in rows)
+    if n:
+        print(json.dumps({"kernel": "rms_norm_quant", "mix": "turbo", "launches": n, "ms": {
+            tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_call"] for r in rows) / n
+            for tag in fns}}), flush=True)
+
+
 AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
       "w4a8_dx": ab_w4a8_dx, "decode_split_attention": ab_decode_split_attention,
       "decode_attention": ab_decode_attention, "w8a8_matmul": ab_w8a8_matmul,
       "nib_hi_dot": ab_nib_hi_dot, "fused_ln_w8a8": ab_fused_ln_w8a8,
-      "fused_mlp_residual": ab_fused_mlp_residual}
+      "fused_mlp_residual": ab_fused_mlp_residual, "w4a8_requant": ab_w4a8_requant,
+      "rms_norm_quant": ab_rms_norm_quant}
 
 
 def main() -> int:
@@ -804,8 +916,8 @@ def main() -> int:
     ap.add_argument("--lib", action="append", default=[], help="TAG=DIR or TAG=FILE.cu")
     ap.add_argument("--kernels", default=",".join(AB))
     ap.add_argument("--shapes", default="",
-                    help="w4a8_matmul / wi8_matmul / w8a8_matmul / nib_hi_dot MxKxN shapes "
-                         "to time (all)")
+                    help="w4a8_matmul / wi8_matmul / w8a8_matmul / nib_hi_dot / w4a8_requant "
+                         "MxKxN (rms_norm_quant MxD) shapes to time (all)")
     ap.add_argument("--out", default=str(_build.BUILD_DIR / "kernel_ab"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -817,7 +929,7 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
     for name in args.kernels.split(","):
-        fns = launchers(libs, name)
+        fns = requant_routes(libs) if name == "w4a8_requant" else launchers(libs, name)
         order = [tag for tag in [*[s.split("=", 1)[0] for s in args.lib], "change"] if tag in fns]
         AB[name]({tag: fns[tag] for tag in order}, g, dev,
                  shapes=set(filter(None, args.shapes.split(","))))

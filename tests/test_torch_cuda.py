@@ -25,7 +25,9 @@ order and roundings). stacked_decode_attention_i8: fp32 1e-5, bf16 2e-2, as
 the other attention kernels. w8a8_matmul and nib_hi_dot: bit-equal to their
 plain versions (the same activation codes, exact integer sums, the same
 epilogue roundings in the same order), the nibble loader bit-equal to the
-int8 loader on the same codes. rms_norm_quant: ops.rmsnorm_quant's
+int8 loader on the same codes. w4a8_requant: bit-equal to its plain version
+(the requant in PyTorch, then w8a8_matmul_plain: the same int8 codes and row
+scales, rebuilt in the kernel's loader). rms_norm_quant: ops.rmsnorm_quant's
 compare_rms_norm_quant (codes within one step; every row that differs
 reproduced bit for bit by the plain arithmetic with the reciprocal RMS moved
 by at most 16 ulps: the fp32 row sums run in another order). decode_attention at bf16 scores: within 4e-3 of the bf16-score
@@ -769,7 +771,8 @@ def test_int8_gemm_launchers_refuse_what_their_tensor_maps_cannot_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M,D", [(6912, 4096), (24, 4096), (37, 64)])
+@pytest.mark.parametrize("M,D", [(6912, 4096), (24, 4096), (37, 64), (1, 4096), (24, 128),
+                                 (24, 4095), (6912, 999), (5, 12288)])
 def test_rms_norm_quant_kernel_matches_plain(cuda, dtype, M, D):
     from openvla_probe_tpu_torch.ops import rmsnorm_quant as trmsq
 
@@ -779,6 +782,93 @@ def test_rms_norm_quant_kernel_matches_plain(cuda, dtype, M, D):
     wq, wsx = trmsq.rms_norm_quant_plain(x, w, 1e-5)
     assert q.dtype == torch.int8 and q.shape == (M, D) and sx.shape == (M, 1)
     trmsq.compare_rms_norm_quant(x, w, 1e-5, (q, sx), (wq, wsx))
+
+
+# --- the int4 requant route: w4a8_requant, bit for bit -------------------------------
+
+REQUANT_SHAPES = [
+    (24, 32064, 32, 128),      # lm_head at decode (the split-K route)
+    (6144, 4304, 9, 128),      # SigLIP fc1 (the wgmma route; N = 4304 not a multiple of 32)
+    (2560, 32064, 32, 128),    # lm_head in a train_int4 step
+    *[(M, N, 32, 128) for M in (1, 24, 64, 65) for N in (200, 4304)],   # the routes' edge
+    (24, 200, 9, 32), (100, 136, 9, 64), (5, 40, 9, 96), (200, 200, 3, 96),   # group sizes
+]
+
+
+# what the caching allocator may add to a call's allocations: it hands out a
+# cached block whole where less than 1 MiB of it would be left over
+ALLOC_SLACK = 3 << 20
+
+
+def _int4_groups(seed, G, N, gsz, device):
+    """Codes in [-8, 7] packed; scales with a fifth of the rows at the 1e-8 floor."""
+    r = np.random.default_rng(seed)
+    codes = torch.from_numpy(r.integers(-8, 8, (G, N, gsz)).astype(np.int8))
+    s = torch.from_numpy((r.random((N, G)) * 2e-3 + 2e-3).astype(np.float32))
+    s[: N // 5] = 1e-8
+    return tlin.pack_int4(codes).to(device), s.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,G,gsz", REQUANT_SHAPES)
+def test_w4a8_requant_kernel_bit_equal_to_plain(cuda, dtype, M, N, G, gsz):
+    """One pre-pass and one GEMM launch a call, nothing allocated but the
+    output and the pre-pass's codes and scales (within the allocator's slack;
+    an [N, K] int8 copy, past that slack at the 7B shapes, would show), and
+    the output of the requant in PyTorch, then w8a8_matmul_plain, bit for bit."""
+    K = G * gsz
+    x = _rand(50, (M, K), dtype, cuda)
+    q, s = _int4_groups(51, G, N, gsz, cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(_build.KERNEL_LAUNCHES)
+    got = tlin.w4a8_requant(x, q, s)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in _build.KERNEL_LAUNCHES.items() if n != before[k]}
+    assert launched == {"w4a8_requant_quant_rows": 1, "w4a8_requant": 1}
+    rise = torch.cuda.max_memory_allocated() - base - got.numel() * got.element_size()
+    assert rise <= M * K + 4 * M + ALLOC_SLACK, rise
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, tlin.w4a8_requant_plain(x, q, s))
+
+
+def test_w4a8_requant_refuses_what_it_does_not_take(cuda):
+    """A group size that is not a multiple of 32 raises (no ported leaf has
+    one); the launcher refuses a pointer off 16-byte alignment."""
+    x = torch.zeros((4, 96), dtype=torch.bfloat16, device=cuda)
+    q, s = _int4_groups(52, 2, 8, 48, cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tlin.w4a8_requant(x, q, s)
+    q, s = _int4_groups(53, 3, 8, 32, cuda)
+    raw = torch.zeros(q.numel() + 1, dtype=torch.uint8, device=cuda)
+    codes = torch.empty((4, 96), dtype=torch.int8, device=cuda)
+    sx = torch.empty(4, device=cuda)
+    out = torch.empty((4, 8), dtype=torch.bfloat16, device=cuda)
+    assert _build.launcher("w4a8_requant")(
+        x.data_ptr(), codes.data_ptr(), sx.data_ptr(), raw[1:].data_ptr(), s.data_ptr(),
+        out.data_ptr(), 4, 8, 3, 32, 1, _build.stream_ptr(x)) == 1
+
+
+@pytest.mark.parametrize("M", [24, 96])
+def test_requant_route_alone_under_grad_matches_the_cpu(cuda, M):
+    """w4a8_dot_requant called under grad: the kernel forward, dx through the
+    requantized codes' bf16 dequantized weight, as on the CPU."""
+    q, s = _int4_groups(54, 2, 200, 128, "cpu")
+    x = _rand(55, (M, 256), torch.float32, "cpu")
+    gout = _rand(56, (M, 200), torch.float32, "cpu")
+
+    def run(dev):
+        xx = x.to(dev).requires_grad_(True)
+        out = tlin.w4a8_dot_requant(xx, q.to(dev), s.to(dev))
+        (dx,) = torch.autograd.grad((out * gout.to(dev)).sum(), xx)
+        return out.detach().cpu(), dx.cpu()
+
+    before = _build.KERNEL_LAUNCHES["w4a8_requant"]
+    (out, dx), (want_out, want_dx) = run(cuda), run("cpu")
+    assert _build.KERNEL_LAUNCHES["w4a8_requant"] == before + 1
+    assert torch.equal(out, want_out)
+    torch.testing.assert_close(dx, want_dx, atol=1e-5 * want_dx.abs().max().item(), rtol=0)
 
 
 def test_turbo_wrappers_raise_on_inputs_the_kernels_do_not_take(cuda):

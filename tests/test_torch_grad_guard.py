@@ -67,6 +67,7 @@ def _calls():
         "nib_hi_dot": (tlin.nib_hi_dot, lambda x: (x(4, 32), nib["hi"], nib["s"])),
         "w4a8_matmul": (tlin.w4a8_matmul, lambda x: (x(4, 128), w4["q"], w4["s"])),
         "w4a8_dx": (tlin.w4a8_dx, lambda x: (x(4, 128), w4["q"], w4["s"])),
+        "w4a8_requant": (tlin.w4a8_requant, lambda x: (x(4, 128), w4["q"], w4["s"])),
         "rms_norm_quant": (trmsq.rms_norm_quant, lambda x: (x(4, 32), torch.ones(32), 1e-5)),
         "fused_ln_w8a8": (tmlp.fused_ln_w8a8, lambda x: (x(4, 32), w8, torch.zeros(16))),
         "fused_mlp_residual": (tmlp.fused_mlp_residual,

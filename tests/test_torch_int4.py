@@ -358,7 +358,8 @@ def both(models):
             jnp.asarray(plen), jnp.asarray(q01), jnp.asarray(q99), jnp.asarray(mask),
             return_first_logits=True)
         want = jax.tree.map(np.asarray, want)
-    routes = {"w4a8_matmul": 0, "w4a8_dot_requant": 0, "w8a8_matmul": 0, "wi8_matmul": 0}
+    routes = {"w4a8_matmul": 0, "w4a8_dot_requant": 0, "w4a8_requant": 0, "w8a8_matmul": 0,
+              "wi8_matmul": 0}
     with pytest.MonkeyPatch.context() as mp:
         for name in routes:
             fn = getattr(tlin, name)
@@ -396,13 +397,15 @@ def test_logits_and_margins_close(both, key):
 def test_routes_per_call(both, models):
     """The routes one call takes, as chip_smoke.py counts them at 7B: every
     int4 linear but lm_head and SigLIP's fc1/fc2 on the kernel; the requant
-    route's product on the w8a8 kernel (no library GEMM)."""
+    route's product on its own kernel, w4a8_requant (no library GEMM, no
+    w8a8_matmul call)."""
     _, _, routes = both
     c = models[2].vlm
     L, A1 = c.llm.num_hidden_layers, A - 1
     dino, siglip = (v.num_layers - 1 for v in c.vision)     # blocks 0..L-2 run
     assert routes == {"w4a8_matmul": 4 * dino + 2 * siglip + 7 * L * (1 + A1),
-                      "w4a8_dot_requant": siglip + 1 + A1, "w8a8_matmul": siglip + 1 + A1,
+                      "w4a8_dot_requant": siglip + 1 + A1, "w4a8_requant": siglip + 1 + A1,
+                      "w8a8_matmul": 0,
                       "wi8_matmul": siglip}
     assert set(_build.KERNEL_LAUNCHES.values()) == {0}
 
