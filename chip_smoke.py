@@ -102,6 +102,7 @@ import time
 import warnings
 from unittest import mock
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -115,6 +116,7 @@ from openvla_probe_tpu_torch.ops import rmsnorm_quant as rmsq
 from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
 from openvla_probe_tpu_torch.ops.image import (BackboneTransformSpec, ImageTransformConfig,
                                                apply_image_transform)
+from openvla_probe_tpu_torch.probe import train_probes
 from openvla_probe_tpu_torch.tools import bench_finetune, kernel_ab, profile_main_path
 from openvla_probe_tpu_torch.tools.kernel_ab import rotating
 from openvla_probe_tpu_torch.training.lora import LoRAConfig, init_lora_params
@@ -997,37 +999,126 @@ def check_decode_split_attention_scalar(dev, g):
                     qt, kt, vt, attn_mask=sdpa_mask), lib_sets)))
 
 
-def check_stacked_decode_i8(dev, g):
-    """Row 5 at the 7B decode shape: q [24, 1, 32, 128] bf16 over one layer of
-    the int8 stacked cache, kq/vq [2, 24, 320, 4096] int8, ks/vs [2, 24, 320,
-    32] fp32 (S = 295 rounded up to 32s), padded prompts, decode step 3; timed
-    alternating the two layers (63 MB each, past L2). Within 2e-2 of the plain
-    version (bf16 outputs). Library: SDPA on K/V dequantized to bf16
-    beforehand (it leaves out the dequantization and rounds P to bf16)."""
-    B, T, S, H, Dh, slot = BATCH, T_PREFILL, 320, 32, 128, T_PREFILL + 3
-    kq, vq = (torch.randint(-127, 128, (2, B, S, H * Dh), generator=g, device=dev,
+def _stacked_inputs(B, S, H, Hkv, T, slot, g, dev, dtype=torch.bfloat16):
+    """Two layers of an int8 stacked cache (kq/vq [2, B, S, Hkv·128], ks/vs [2, B,
+    S, Hkv]), q [B, 1, H, 128], padded prompts of T - 12 .. T tokens, then the
+    generated slots up to `slot`."""
+    kq, vq = (torch.randint(-127, 128, (2, B, S, Hkv * 128), generator=g, device=dev,
                             dtype=torch.int8) for _ in range(2))
-    ks, vs = (torch.rand((2, B, S, H), generator=g, device=dev) * 0.02 + 1e-3 for _ in range(2))
-    q = torch.randn((B, 1, H, Dh), generator=g, device=dev).bfloat16()
-    mm_len = torch.randint(T - 12, T + 1, (B,), generator=g, device=dev)
-    slots = torch.arange(S, device=dev)[None]
-    valid = ((slots < mm_len[:, None]) | ((slots >= T) & (slots <= slot))).int()
-    sets = [(q, kq, ks, vq, vs, valid, li) for li in (1, 0)]
-    got = dattn.stacked_decode_attention_i8(*sets[0])
-    torch.cuda.synchronize()
-    want = dattn.stacked_decode_attention_i8_plain(*sets[0])
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    ks, vs = (torch.rand((2, B, S, Hkv), generator=g, device=dev) * 0.02 + 1e-3 for _ in range(2))
+    q = torch.randn((B, 1, H, 128), generator=g, device=dev).to(dtype)
+    return q, kq, ks, vq, vs, kernel_ab.decode_valid(B, T, S, slot, g, dev)
 
-    def dequant(c, sc, li):
-        return (c[li].reshape(B, S, H, Dh).float() * sc[li][..., None]).bfloat16().transpose(1, 2)
 
-    mask = (valid > 0)[:, None, None, :]
-    lib_sets = [(q.transpose(1, 2), dequant(kq, ks, li), dequant(vq, vs, li)) for li in (1, 0)]
-    b, by = bound_ms(_nbytes(q, kq[1], vq[1], ks[1], vs[1], valid, got), 4 * B * H * S * Dh, "fp32")
+def check_stacked_decode_i8(dev, g):
+    """Row 5's ring route (bf16 q at Dh = 128) at the 7B decode shape: q [24, 1,
+    32, 128] over one layer of the int8 stacked cache, kq/vq [2, 24, 320, 4096]
+    int8, ks/vs [2, 24, 320, 32] fp32 (S = 295 rounded up to 32s), padded
+    prompts, at decode steps 0 and 5 (the query at slot 288 and 293; the kernel
+    reads the slots up to it, n = slot + 1, as llama.decode_step_stacked_i8
+    passes); timed alternating the two layers (63 MB each, past L2). Within 2e-2
+    of the plain version (bf16 outputs), also with a row masked everywhere (the
+    mean of V over all S) and at GQA n_rep 4 (8 heads over 2 kv heads). A single
+    row (a one-observation call: a 4-CTA cluster a (b, kv head)) timed at the
+    cluster rule beside 1, 2 and 4 CTAs. Bound: the bytes of the slots read.
+    Library: SDPA on K/V dequantized to bf16 beforehand (it leaves out the
+    dequantization and rounds P to bf16)."""
+    B, T, S, H = BATCH, T_PREFILL, 320, 32
+    by_step = {}
+    for name, (b_, h_, hkv, t) in {"step0": (B, H, H, 0), "step5": (B, H, H, ACTION_DIM - 2),
+                                   "gqa4": (4, 32, 8, 3), "one_row": (1, H, H, ACTION_DIM - 2)
+                                   }.items():
+        slot = T + t
+        q, kq, ks, vq, vs, valid = _stacked_inputs(b_, S, h_, hkv, T, slot, g, dev)
+        sets = [(q, kq, ks, vq, vs, valid, li, slot + 1) for li in (1, 0)]
+        masked = valid.clone()
+        masked[-1] = 0
+        errs = []
+        for vv in (valid, masked):
+            args = (q, kq, ks, vq, vs, vv, 1, slot + 1)
+            got = _launched("stacked_decode_attention_i8",
+                            lambda: dattn.stacked_decode_attention_i8(*args))
+            want = dattn.stacked_decode_attention_i8_plain(*args)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+            errs.append((got.float() - want.float()).abs().max().item())
+        mean_v = (vq[1, -1].reshape(S, hkv, 128).float() * vs[1, -1][..., None]).mean(0)
+        torch.testing.assert_close(got[-1, 0].float(),
+                                   torch.repeat_interleave(mean_v, h_ // hkv, 0),
+                                   atol=2e-2, rtol=0)
+        row = dict(max_abs_err=errs[0], masked_row_max_abs_err=errs[1], keys_read=slot + 1)
+        by_step[name] = row
+        if name == "gqa4":
+            continue
+        n = slot + 1
+        b, by = bound_ms(_nbytes(q, kq[1, :, :n], vq[1, :, :n], ks[1, :, :n], vs[1, :, :n],
+                                 valid[:, :n], got), 4 * b_ * h_ * n * 128, "fp32")
+        row.update(ms=cuda_ms(rotating(dattn.stacked_decode_attention_i8, sets)),
+                   bound_ms=b, bound_by=by)
+        if name == "one_row":
+            row["ms_by_cluster_size"] = _by_cluster_size(
+                "stacked_decode_attention_i8",
+                lambda fn, q_, kq_, ks_, vq_, vs_, valid_, li, n_: kernel_ab.call_stacked(
+                    (fn, True), q_, kq_[li], ks_[li], vq_[li], vs_[li], valid_, n_), sets)
+            continue
+
+        def dequant(c, sc, li):
+            return (c[li].reshape(b_, S, hkv, 128).float()
+                    * sc[li][..., None]).bfloat16().transpose(1, 2)
+
+        mask = (valid > 0)[:, None, None, :]
+        lib_sets = [(q.transpose(1, 2), dequant(kq, ks, li), dequant(vq, vs, li)) for li in (1, 0)]
+        row.update(launches_per_call=LAYERS,
+                   plain_ms=cuda_ms(rotating(dattn.stacked_decode_attention_i8_plain, sets)),
+                   library_ms=cuda_ms(rotating(lambda qt, kt, vt: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=mask), lib_sets)))
+        del lib_sets
+    steps = [by_step["step0"], by_step["step5"]]
     return dict(name="stacked_decode_attention_i8", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/stacked_decode_i8.cu",
                 replaces="openvla_probe_tpu/ops/decode_attention.py:112",
-                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                max_abs_err=max(max(r["max_abs_err"], r["masked_row_max_abs_err"])
+                                for r in by_step.values()),
+                **{key: statistics.mean(r[key] for r in steps)
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+                bound_by=steps[0]["bound_by"], by_step=by_step)
+
+
+def check_stacked_decode_i8_scalar(dev, g):
+    """Row 5's scalar route (fp32 q, head dims 16, 32, 64; the tiny fp32
+    pallas_kv8 path launches it) at the 7B decode shape in fp32 (step 3,
+    the slots up to the query), within 1e-5 of the plain version, and at Dh = 64
+    with n_rep 4 in bf16 within 2e-2. Bound: the bytes of the slots read;
+    library: SDPA in fp32 on K/V dequantized beforehand."""
+    B, T, S, H, slot = BATCH, T_PREFILL, 320, 32, T_PREFILL + 3
+    q, kq, ks, vq, vs, valid = _stacked_inputs(B, S, H, H, T, slot, g, dev, torch.float32)
+    sets = [(q, kq, ks, vq, vs, valid, li, slot + 1) for li in (1, 0)]
+    got = _launched("stacked_decode_attention_i8_scalar",
+                    lambda: dattn.stacked_decode_attention_i8(*sets[0]))
+    want = dattn.stacked_decode_attention_i8_plain(*sets[0])
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    err = (got - want).abs().max().item()
+    kq64 = torch.randint(-127, 128, (1, 4, 40, 2 * 64), generator=g, device=dev, dtype=torch.int8)
+    ks64 = torch.rand((1, 4, 40, 2), generator=g, device=dev) * 0.02 + 1e-3
+    q64 = torch.randn((4, 1, 8, 64), generator=g, device=dev).bfloat16()
+    v64 = torch.ones((4, 40), dtype=torch.int32, device=dev)
+    a64 = (q64, kq64, ks64, kq64, ks64, v64, 0, 33)
+    got64 = _launched("stacked_decode_attention_i8_scalar",
+                      lambda: dattn.stacked_decode_attention_i8(*a64))
+    want64 = dattn.stacked_decode_attention_i8_plain(*a64)
+    torch.testing.assert_close(got64.float(), want64.float(), atol=2e-2, rtol=2e-2)
+    n = slot + 1
+    b, by = bound_ms(_nbytes(q, kq[1, :, :n], vq[1, :, :n], ks[1, :, :n], vs[1, :, :n],
+                             valid[:, :n], got), 4 * B * H * n * 128, "fp32")
+
+    def dequant(c, sc, li):
+        return (c[li].reshape(B, S, H, 128).float() * sc[li][..., None]).transpose(1, 2)
+
+    mask = (valid > 0)[:, None, None, :]
+    lib_sets = [(q.transpose(1, 2), dequant(kq, ks, li), dequant(vq, vs, li)) for li in (1, 0)]
+    return dict(name="stacked_decode_attention_i8_scalar", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/stacked_decode_i8.cu",
+                replaces="openvla_probe_tpu/ops/decode_attention.py:112",
+                max_abs_err=max(err, (got64.float() - want64.float()).abs().max().item()),
                 ms=cuda_ms(rotating(dattn.stacked_decode_attention_i8, sets)),
                 plain_ms=cuda_ms(rotating(dattn.stacked_decode_attention_i8_plain, sets)),
                 bound_ms=b, bound_by=by,
@@ -1534,7 +1625,8 @@ TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3, "nibble": 1e-3}
 # route, counted apart
 TINY_ROUTES = {"vit_attention": "vit_attention_scalar", "flash_prefill": "flash_prefill_scalar",
                "wi8_matmul": "wi8_matmul_scalar", "decode_attention": "decode_attention_scalar",
-               "decode_split_attention": "decode_split_attention_scalar"}
+               "decode_split_attention": "decode_split_attention_scalar",
+               "stacked_decode_attention_i8": "stacked_decode_attention_i8_scalar"}
 
 
 def check_tiny_path(dev, path: str):
@@ -1850,6 +1942,122 @@ def run_main_path(dev, path: str, weights: dict):
         first_tokens=toks[0].tolist())
 
 
+# the probe phase: the tap on pallas_kv8 at 7B width, then the probe bank on the card over
+# seeded synthetic episodes (64 episodes of 256 frames: 16384 rows, 33 layers of 4096, 64
+# labels, one planted informative layer), 2 epochs of batch 4096; a small bank (3 layers of
+# 24, 6 labels) trained on the card and on the CPU from the same start
+PROBE_EPISODES, PROBE_T, PROBE_K, PROBE_LAYER, PROBE_EPOCHS, PROBE_LR = 64, 256, 64, 10, 2, 1e-2
+PROBE_SMALL_TOL = 1e-4   # the small bank, card vs CPU (fp32 sums in another order, 5 epochs)
+
+
+def run_probe_tap(dev, params):
+    """pallas_kv8 at 7B width, B = 24, with collect_hidden_states=True:
+    hidden_pooled [24, 33, 4096] fp32 and finite, the action tokens those of
+    the same call without the tap, the card's busy ms a call with the tap and
+    without it (torch.profiler, in turns: tap, none, none, tap)."""
+    cfg = _serving("pallas_kv8", vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
+                   prompt_pad_len=PROMPT_PAD)
+    g = torch.Generator(device=dev).manual_seed(7)
+    img_cfg = ImageTransformConfig.dinosiglip_224()
+    image, ids, plen, q01, q99, mask = _inputs(cfg, BATCH, IMG_HW, g, dev)
+
+    def call(tap):
+        out = vla.predict_action_from_image(params, cfg, image, img_cfg, ids, plen, q01, q99,
+                                            mask, collect_hidden_states=tap, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    tapped, plain = call(True), call(False)
+    hp = tapped["hidden_pooled"]
+    L, D = cfg.vlm.llm.num_hidden_layers, cfg.vlm.llm.hidden_size
+    assert hp.shape == (BATCH, L + 1, D) and hp.dtype == torch.float32, (hp.shape, hp.dtype)
+    assert torch.isfinite(hp).all()
+    assert "hidden_pooled" not in plain
+    assert torch.equal(tapped["action_tokens"], plain["action_tokens"])
+    busy = {True: [], False: []}
+    for tap in (True, False, False, True):
+        busy[tap].append(profile_main_path.device_time(lambda: call(tap), 1)[
+            "device_ms_per_call_total"])
+    return dict(hidden_pooled_shape=list(hp.shape), action_tokens_equal=True,
+                busy_ms_per_call_with_tap=statistics.mean(busy[True]),
+                busy_ms_per_call_without_tap=statistics.mean(busy[False]), busy_ms_turns=busy,
+                pooled_abs_mean_by_layer=hp.abs().mean((0, 2)).tolist())
+
+
+def _probe_episodes(n_eps, T, layers, D, K, planted, g, dev):
+    """Seeded synthetic episodes (tests/test_probe.py's recipe): labels
+    sign(z · W_k) decodable from layer `planted` (z plus a little noise), every
+    other layer noise; label K-1 constant (dropped by the keep-filter), label
+    K-2 not applicable on ~30 % of frames. Made on `dev` with generator `g`,
+    stored as the capture stores them (fp16 hidden states, int8 labels)."""
+    W = torch.randn((K, D), generator=g, device=dev)
+    eps = []
+    for _ in range(n_eps):
+        z = torch.randn((T, D), generator=g, device=dev)
+        y = (z @ W.T > 0).to(torch.int8)
+        y[:, K - 1] = 1
+        y[torch.rand((T,), generator=g, device=dev) < 0.3, K - 2] = -1
+        hid = torch.randn((layers, T, D), generator=g, device=dev)
+        hid[planted] = z + 0.05 * torch.randn((T, D), generator=g, device=dev)
+        eps.append({"visual_semantic_encoding": hid.half().cpu().numpy(),
+                    "symbolic_state_object_relations": y[:, :K - 2].cpu().numpy(),
+                    "symbolic_state_action_subgoals": y[:, K - 2:].cpu().numpy()})
+    return eps
+
+
+def run_probe_bank(dev):
+    """The probe bank trained on the card at D = 4096 over 33 layers (16384
+    rows, 64 labels, batch 4096, 2 epochs): the planted layer's F1 and AP above
+    every noise layer's; ms an epoch (train_probes' `train_s`: the epochs on
+    the host clock, ended by the copy of the bank off the card) and the peak
+    device memory. Then a small bank trained on the card and on the CPU from
+    the same seeded start: its weights within PROBE_SMALL_TOL, its records
+    within 1e-2."""
+    assert not torch.backends.cuda.matmul.allow_tf32   # the bank's products in full fp32
+    g = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    eps = _probe_episodes(PROBE_EPISODES, PROBE_T, LAYERS + 1, 4096, PROBE_K, PROBE_LAYER, g, dev)
+    make_s = time.perf_counter() - t0
+    cfg = train_probes.ProbeTrainConfig(epochs=PROBE_EPOCHS, learning_rate=PROBE_LR)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = train_probes.train_probes(eps, cfg, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    recs = {r["layer"]: r for r in result["records"]}
+    planted = recs[PROBE_LAYER]
+    noise = [r for layer, r in recs.items() if layer != PROBE_LAYER]
+    for key in ("val_f1", "val_ap"):
+        assert planted[key] > max(r[key] for r in noise), (key, planted, noise)
+    train_ids = set(result["split"]["train_ids"])
+    n_train = sum(e["visual_semantic_encoding"].shape[1] for i, e in enumerate(eps)
+                  if i in train_ids)
+    kept, train_s = int(result["bank"].keep.size), result["train_s"]
+    del eps, result
+    torch.cuda.empty_cache()
+
+    small = _probe_episodes(12, 40, 3, 24, 6, 1, torch.Generator().manual_seed(3), "cpu")
+    scfg = train_probes.ProbeTrainConfig(epochs=5, batch_size=64, learning_rate=1e-2)
+    on_card = train_probes.train_probes(small, scfg, device=dev)
+    on_cpu = train_probes.train_probes(small, scfg, device="cpu")
+    err = max(float(np.abs(getattr(on_card["bank"], k) - getattr(on_cpu["bank"], k)).max())
+              for k in ("w", "b"))
+    assert err <= PROBE_SMALL_TOL, err
+    rec_err = max(abs(a[k] - b[k]) for a, b in zip(on_card["records"], on_cpu["records"])
+                  for k in a)
+    assert rec_err <= 1e-2, (on_card["records"], on_cpu["records"])
+    return dict(layers=LAYERS + 1, hidden=4096, labels=PROBE_K, kept=kept, train_rows=n_train,
+                batch=cfg.batch_size, epochs=PROBE_EPOCHS, episodes_make_s=make_s, run_s=run_s,
+                ms_per_epoch=train_s / PROBE_EPOCHS * 1e3, peak_mem_gb=peak_gb,
+                planted_layer=PROBE_LAYER, planted_val_f1=planted["val_f1"],
+                planted_val_ap=planted["val_ap"],
+                best_noise_val_f1=max(r["val_f1"] for r in noise),
+                best_noise_val_ap=max(r["val_ap"] for r in noise),
+                small_bank_card_vs_cpu_max_abs_err=err, small_records_max_abs_err=rec_err)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2059,7 +2267,8 @@ def main() -> int:
     # the scalar routes: no main path takes them (the tiny fp32 paths do)
     scalar_routes = [check_decode_attention_scalar(dev, g),
                      check_decode_split_attention_scalar(dev, g), check_vit_attention_scalar(dev, g),
-                     check_flash_prefill_scalar(dev, g), check_wi8_matmul_scalar(dev, g)]
+                     check_flash_prefill_scalar(dev, g), check_wi8_matmul_scalar(dev, g),
+                     check_stacked_decode_i8_scalar(dev, g)]
     log("kernels", card=card, results=kernels, scalar_routes=scalar_routes)
 
     tiny = {}
@@ -2077,6 +2286,9 @@ def main() -> int:
         launches[path], main_stats = run_main_path(dev, path, weights)
         log("main", card=card, batch=BATCH, launches_per_call=launches[path], **main_stats)
         torch.cuda.empty_cache()
+        if path == "pallas_kv8":   # the probe tap on the same weights
+            log("probe", card=card, tap=run_probe_tap(dev, weights[PATHS[path][1]]))
+            torch.cuda.empty_cache()
         if path == "parity":   # the base VLM's entry points on the same bf16 weights
             for vpath in VLM_PATHS:
                 launches[vpath], vstats = run_vlm_path(dev, vpath, weights[None])
@@ -2087,6 +2299,7 @@ def main() -> int:
         launches[path], train_stats = run_train_path(dev, path)
         log("main", card=card, launches_per_step=launches[path], **train_stats)
         torch.cuda.empty_cache()
+    log("probe", card=card, bank=run_probe_bank(dev))
 
     # each kernel's launches: from the main path whose slice ported it; a scalar route's from
     # every main path (none takes one) and, apart, from the tiny paths that run it

@@ -241,11 +241,18 @@ def forward(
     positions: torch.Tensor,                # [B, T] absolute positions
     cache: Optional[KVCache] = None,
     cache_index: Optional[int] = None,
+    collect_hidden_states: bool = False,
+    pool_mask: Optional[torch.Tensor] = None,   # [B, T] override for the tap pooling
     compute_logits: bool = True,
     static_zero_offset: bool = False,       # caller knows cache_index == 0 (prefill)
 ) -> Dict[str, Any]:
     """Run the decoder stack. Returns last_hidden_state, logits [B, T, V] in
-    fp32 when `compute_logits`, and the (in-place updated) cache if given."""
+    fp32 when `compute_logits`, the (in-place updated) cache if given, and with
+    `collect_hidden_states` the probe tap: hidden_pooled [B, L+1, D] fp32, the
+    masked mean over T of the embeddings, of layers 1..L-1's outputs and of the
+    final-normed last layer (HF's output_hidden_states convention). The
+    pooling weights are `pool_mask`, else attn_mask[:, :T] without a cache and
+    ones with one."""
     B, T, D = inputs_embeds.shape
     x = inputs_embeds
     offset = 0 if cache is None else int(cache_index)
@@ -274,11 +281,32 @@ def forward(
     def layer(li: int, x: torch.Tensor) -> torch.Tensor:
         return _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
 
+    pool = None
+    if collect_hidden_states:
+        if pool_mask is not None:
+            pool_w = pool_mask.float()
+        elif cache is None:
+            pool_w = attn_mask[:, :T].float()
+        else:
+            pool_w = torch.ones((B, T), dtype=torch.float32, device=x.device)
+        denom = torch.clamp(pool_w.sum(-1, keepdim=True), min=1.0)
+
+        def pool(h: torch.Tensor) -> torch.Tensor:
+            return (h.float() * pool_w[..., None]).sum(1) / denom
+
+        pooled = [pool(inputs_embeds)]
+
+    L = cfg.num_hidden_layers
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
-    for li in range(cfg.num_hidden_layers):
+    for li in range(L):
         x = checkpoint(layer, li, x, use_reentrant=False) if remat else layer(li, x)
+        if pool is not None and li < L - 1:
+            pooled.append(pool(x))
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     out: Dict[str, Any] = {"last_hidden_state": x}
+    if pool is not None:
+        pooled.append(pool(x))
+        out["hidden_pooled"] = torch.stack(pooled, dim=1)   # [B, L+1, D]
     if cache is not None:
         out["cache"] = cache
     if compute_logits:
@@ -302,17 +330,26 @@ def prefill(
     inputs_embeds: torch.Tensor,          # [B, T, D]
     attn_mask: torch.Tensor,              # [B, T] (1 = real token)
     positions: torch.Tensor,              # [B, T]
+    collect_hidden_states: bool = False,
+    pool_mask: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
     """Self-attention prefill that also returns every layer's post-RoPE K/V
     for the split decode: the same math as `forward` without a cache, each
-    layer's K/V written in place into one preallocated [L, B, T, Hkv, Dh] pair."""
+    layer's K/V written in place into one preallocated [L, B, T, Hkv, Dh] pair.
+    With `collect_hidden_states`, also the probe tap hidden_pooled [B, L+1, D],
+    pooled over `pool_mask`, else over attn_mask."""
     B, T, _ = inputs_embeds.shape
     shape = (cfg.num_hidden_layers, B, T, cfg.num_key_value_heads, cfg.head_dim)
     kv = PrefillKV(torch.empty(shape, dtype=inputs_embeds.dtype, device=inputs_embeds.device),
                    torch.empty(shape, dtype=inputs_embeds.dtype, device=inputs_embeds.device))
     out = forward(params, cfg, inputs_embeds, attn_mask, positions, cache=KVCache(kv.k, kv.v),
-                  cache_index=0, compute_logits=False, static_zero_offset=True)
-    return {"last_hidden_state": out["last_hidden_state"], "kv": kv}
+                  cache_index=0, collect_hidden_states=collect_hidden_states,
+                  pool_mask=attn_mask if pool_mask is None else pool_mask,
+                  compute_logits=False, static_zero_offset=True)
+    res = {"last_hidden_state": out["last_hidden_state"], "kv": kv}
+    if collect_hidden_states:
+        res["hidden_pooled"] = out["hidden_pooled"]
+    return res
 
 
 def _split_attention(q, kp, vp, kd, vd, pre_valid, dec_valid) -> torch.Tensor:
@@ -455,7 +492,8 @@ def decode_step_stacked_i8(
 ) -> torch.Tensor:
     """One greedy decode step over the int8 stacked cache: each layer
     quantizes the new token's K/V into slot `slot` of layer `li` in place,
-    then attends the whole cache through the fused-dequant kernel. Returns the
+    then attends the cache through the fused-dequant kernel, which reads the
+    slots up to `slot` (`valid` masks every later one). Returns the
     final-normed last hidden state [B, D]."""
     # cast once per call, not per layer (apply_rope's own cast is then a no-op)
     cos, sin = (t.to(cfg.rope_dtype) for t in rope_tables(cfg, positions))
@@ -464,7 +502,9 @@ def decode_step_stacked_i8(
         def attend(q, k, v):
             codes, scales = _quant_heads(torch.stack([k[:, 0], v[:, 0]]))   # K and V at once
             cq.codes[:, li, :, slot], cq.scales[:, li, :, slot] = codes, scales
-            return stacked_decode_attention_i8(q, cq.kq, cq.ks, cq.vq, cq.vs, valid, li)
+            # the slots past this token's are masked: the kernel reads slots [0, slot]
+            return stacked_decode_attention_i8(q, cq.kq, cq.ks, cq.vq, cq.vs, valid, li,
+                                               n_keys=slot + 1)
         return attend
 
     for li in range(cfg.num_hidden_layers):

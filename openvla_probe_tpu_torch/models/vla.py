@@ -141,9 +141,15 @@ def predict_action_core(
     q01,                          # [B, A] or [A]
     q99,
     action_mask,                  # [B, A] or [A] bool; False dims pass through
+    collect_hidden_states: bool = False,
     return_first_logits: bool = False,
     device: DeviceLike = "cuda",
 ) -> Dict[str, torch.Tensor]:
+    """One serving call on `device`. With `collect_hidden_states`, result
+    ["hidden_pooled"] [B, L+1, D] is the prefill's probe tap pooled over
+    [BOS | patches | prompt] without the trailing 29871 (the reference's
+    capture runs its first forward without it); the action tokens do not
+    change."""
     dev = resolve_device(device)
     c = cfg.vlm
     pixel_values = torch.as_tensor(pixel_values, device=dev)
@@ -161,16 +167,20 @@ def predict_action_core(
     T = embeds.shape[1]
     mm_len = 1 + N + (prompt_len - 1)                                  # [B] true length
     positions = torch.arange(T, device=dev).expand(B, T)
+    pool_mask = None
+    if collect_hidden_states:
+        pool_mask = (torch.arange(T, device=dev)[None, :] < (mm_len - 1)[:, None]).int()
+    taps = dict(collect_hidden_states=collect_hidden_states, pool_mask=pool_mask)
 
     frozen_kv = cfg.decode_impl == "frozen_kv"
     stacked8 = cfg.decode_impl == "stacked_kv8"
     if frozen_kv:
         # prefill writes each layer's K/V into the frozen [L, B, T, Hkv, Dh] pair
-        out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions)
+        out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions, **taps)
     elif stacked8:
         # prefill K/V (Tk = T), then quantized layer by layer into the int8
         # stacked cache; S int8-tile aligned (32) as in the JAX package
-        out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions)
+        out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions, **taps)
         S = -(-cfg.cache_len // 32) * 32
         cache = llama.quantize_prefill_to_stacked(out.pop("kv"), S)
     else:
@@ -181,6 +191,7 @@ def predict_action_core(
             params["llm"], c.llm, embeds, attn_mask_S, positions,
             cache=cache, cache_index=0, compute_logits=False,
             static_zero_offset=True,   # prefill: the flash kernel may engage
+            **taps,
         )
 
     # hidden state at the last REAL token -> lm_head -> first generated token
@@ -228,6 +239,8 @@ def predict_action_core(
     }
     if return_first_logits:
         result["first_logits"] = last_logits
+    if collect_hidden_states:
+        result["hidden_pooled"] = out["hidden_pooled"]                 # [B, L+1, D]
     return result
 
 
@@ -242,6 +255,7 @@ def predict_action_from_image(
     q01,
     q99,
     action_mask,
+    collect_hidden_states: bool = False,
     return_first_logits: bool = False,
     device: DeviceLike = "cuda",
 ) -> Dict[str, torch.Tensor]:
@@ -250,5 +264,5 @@ def predict_action_from_image(
     pixels = apply_image_transform(torch.as_tensor(image_u8, device=dev), image_cfg)
     return predict_action_core(
         params, cfg, pixels.to(cfg.vlm.llm.dtype), input_ids, prompt_len, q01, q99,
-        action_mask, return_first_logits, device=dev,
+        action_mask, collect_hidden_states, return_first_logits, device=dev,
     )

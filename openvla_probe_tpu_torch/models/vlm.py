@@ -4,8 +4,8 @@ Vision features are each backbone's second-to-last-block patch tokens,
 concatenated on the channel axis; projected patches are spliced in after the
 BOS token, with IGNORE_INDEX labels. `forward` is the uncached
 training / eval forward (multimodal, unimodal or mixed) that the candidate
-scorer runs. The Llama trunk only: Phi and the hidden-state probe taps are
-not ported (ROADMAP Queue 1, items 10 and 15).
+scorer runs, with the hidden-state probe tap on request. The Llama trunk
+only: Phi is not ported (ROADMAP Queue 1, item 15).
 """
 
 from __future__ import annotations
@@ -136,15 +136,14 @@ def forward(
     batches pass `multimodal_mask` (False rows = text-only): their patch block
     is excluded from attention and RoPE positions count only attended tokens.
 
-    Returns logits [B, T', V] fp32, last_hidden_state, and the labels aligned
-    with the logits when `labels` is given."""
+    Returns logits [B, T', V] fp32, last_hidden_state, the labels aligned
+    with the logits when `labels` is given, and with `collect_hidden_states`
+    the probe tap hidden_pooled [B, L+1, D] (`llama.forward`'s, pooled over
+    the attention mask)."""
     if not isinstance(cfg.llm, llama.LlamaConfig):
         raise NotImplementedError(
             f"vlm.forward on a {type(cfg.llm).__name__} trunk: the port has the Llama trunk "
             "only (Phi: ROADMAP Queue 1 item 15)")
-    if collect_hidden_states:
-        raise NotImplementedError(
-            "collect_hidden_states (the probe taps) is not ported: ROADMAP Queue 1 item 10")
     if pixel_values is None:
         embeds = llama.embed_tokens(params["llm"], input_ids)
         mask, lbls = attn_mask, labels
@@ -159,7 +158,8 @@ def forward(
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
     else:
         positions = torch.arange(T, device=embeds.device).expand(B, T)
-    out = llama.forward(params["llm"], cfg.llm, embeds, mask, positions)
+    out = llama.forward(params["llm"], cfg.llm, embeds, mask, positions,
+                        collect_hidden_states=collect_hidden_states)
     if lbls is not None:
         out["labels"] = lbls
     return out

@@ -100,7 +100,11 @@ KERNELS = {
     ),
     "stacked_decode_attention_i8": (
         "stacked_decode_i8.cu", "ovla_stacked_decode_i8",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "stacked_decode_attention_i8_scalar": (
+        "stacked_decode_i8.cu", "ovla_stacked_decode_i8_scalar",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     ),
     "w8a8_matmul": (
         "w8a8_matmul.cu", "ovla_w8a8_matmul",

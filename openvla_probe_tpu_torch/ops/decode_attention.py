@@ -15,10 +15,14 @@ and takes the plain PyTorch version beside it only for a CPU tensor:
   over layer ``li`` of the int8 flat stacked cache of the ``pallas_kv8`` tier,
   the dequantization fused: kq/vq int8 ``[L, B, S, Hkv·Dh]``, ks/vs fp32
   ``[L, B, S, Hkv]`` per-(slot, head) scales, valid ``[B, S]`` (the whole
-  cache is one segment, one softmax). GQA heads share their kv head.
+  cache is one segment, one softmax), the slots up to ``n_keys`` read. GQA
+  heads share their kv head. bf16 q at Dh = 128 takes the ring route
+  (`stacked_ring_eligible`), every other call the scalar route, counted apart.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -94,12 +98,17 @@ def decode_flash_attention(q, kp, vp, kd, vd, pre_valid, dec_valid):
 
 STACKED_HEAD_DIMS = (16, 32, 64, 128)
 STACKED_REPS = (1, 2, 4, 8)
+STACKED_RING_HEAD_DIM = 128
+STACKED_RING_MAX_KEYS = 1024   # csrc/stacked_decode_i8.cu: kRingMaxKeys
 
 
-def stacked_decode_attention_i8_plain(q, kq, ks, vq, vs, valid, li: int):
+def stacked_decode_attention_i8_plain(q, kq, ks, vq, vs, valid, li: int,
+                                      n_keys: Optional[int] = None):
     """The TPU kernel's function: kf = f32(kq) · ks, vf = f32(vq) · vs; q · scale
-    in fp32 before the dot; fp32 scores, NEG_INF on invalid slots; fp32 softmax
-    numerator and P·V (P not rounded); pv / max(l, 1e-30) cast to q's dtype."""
+    in fp32 before the dot; fp32 scores, NEG_INF on invalid slots (and on the
+    slots at or past `n_keys`, all S by default); fp32 softmax numerator and
+    P·V (P not rounded); pv / max(l, 1e-30) cast to q's dtype. A row with no
+    valid slot gets p = 1 at every slot: the mean of V over all S."""
     B, _, H, Dh = q.shape
     S = kq.shape[2]
     Hkv = kq.shape[3] // Dh
@@ -108,15 +117,37 @@ def stacked_decode_attention_i8_plain(q, kq, ks, vq, vs, valid, li: int):
     if H != Hkv:
         kf, vf = (torch.repeat_interleave(t, H // Hkv, dim=2) for t in (kf, vf))
     qf = q[:, 0].float() * _scale(Dh)                                   # [B, H, Dh]
+    ok = valid > 0
+    if n_keys is not None and n_keys < S:
+        ok = ok & (torch.arange(S, device=valid.device) < n_keys)
     s = torch.einsum("bhd,bshd->bhs", qf, kf)
-    s = s.masked_fill(~(valid > 0)[:, None, :], NEG_INF)
+    s = s.masked_fill(~ok[:, None, :], NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     pv = torch.einsum("bhs,bshd->bhd", p, vf)
     return (pv / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)).to(q.dtype)[:, None]
 
 
-def stacked_decode_attention_i8(q, kq, ks, vq, vs, valid, li: int):
-    """softmax(q · K[li]) @ V[li] over the int8 stacked cache -> [B, 1, H, Dh]."""
+def stacked_ring_eligible(q, S: int) -> bool:
+    """The declared rule of row 5's ring route (``stacked_decode_attention_i8``),
+    the whole of what its launcher takes beyond the wrapper's own checks: bf16 q
+    at a head dim of 128 and at most STACKED_RING_MAX_KEYS slots. Every serving
+    decode step of the pallas_kv8 tier qualifies; fp32 q and head dims 16, 32,
+    64 take the scalar route."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] == STACKED_RING_HEAD_DIM
+            and S <= STACKED_RING_MAX_KEYS)
+
+
+def stacked_decode_attention_i8(q, kq, ks, vq, vs, valid, li: int,
+                                n_keys: Optional[int] = None):
+    """softmax(q · K[li]) @ V[li] over the int8 stacked cache -> [B, 1, H, Dh].
+
+    Slots at or past `n_keys` (all S by default) count as masked and are not
+    read: the decode step passes slot + 1, whose later slots are masked anyway.
+    On the card, two routes by the declared rule `stacked_ring_eligible`,
+    counted apart: the ring kernel (``stacked_decode_attention_i8``) and, for
+    every other call, the scalar kernel (``stacked_decode_attention_i8_scalar``),
+    which computes the same function. A launch that fails raises; neither route
+    stands in for the other."""
     _build.no_grad_guard("stacked_decode_attention_i8", _DECODE_NO_GRAD, q, ks, vs)
     B, Tq, H, Dh = q.shape
     L, Bk, S, KDh = kq.shape
@@ -126,8 +157,11 @@ def stacked_decode_attention_i8(q, kq, ks, vq, vs, valid, li: int):
                          f"{tuple(kq.shape)} disagree")
     if not 0 <= li < L:
         raise IndexError(f"stacked_decode_attention_i8: layer {li} of {L}")
+    n = S if n_keys is None else int(n_keys)
+    if not 1 <= n <= S:
+        raise ValueError(f"stacked_decode_attention_i8: n_keys {n} outside [1, {S}]")
     if q.device.type == "cpu":
-        return stacked_decode_attention_i8_plain(q, kq, ks, vq, vs, valid, li)
+        return stacked_decode_attention_i8_plain(q, kq, ks, vq, vs, valid, li, n_keys)
     if q.device.type != "cuda":
         raise ValueError(f"stacked_decode_attention_i8: unsupported device {q.device}")
     if q.dtype not in (torch.bfloat16, torch.float32):
@@ -150,10 +184,12 @@ def stacked_decode_attention_i8(q, kq, ks, vq, vs, valid, li: int):
                          f"on {valid.device}")
     v32 = valid.to(torch.int32).contiguous()
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
-    err = _build.launcher("stacked_decode_attention_i8")(
+    kernel = ("stacked_decode_attention_i8" if stacked_ring_eligible(q, S)
+              else "stacked_decode_attention_i8_scalar")
+    err = _build.launcher(kernel)(
         q.data_ptr(), kq[li].data_ptr(), ks[li].data_ptr(), vq[li].data_ptr(), vs[li].data_ptr(),
-        v32.data_ptr(), out.data_ptr(), B, H, Hkv, S, Dh, _scale(Dh),
+        v32.data_ptr(), out.data_ptr(), B, H, Hkv, S, Dh, n, _scale(Dh),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
-    _build.check(err, "stacked_decode_attention_i8")
-    _build.KERNEL_LAUNCHES["stacked_decode_attention_i8"] += 1
+    _build.check(err, kernel)
+    _build.KERNEL_LAUNCHES[kernel] += 1
     return out

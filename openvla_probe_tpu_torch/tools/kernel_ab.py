@@ -3,7 +3,8 @@
     python -m openvla_probe_tpu_torch.tools.kernel_ab --lib parent=DIR [--lib TAG=PATH ...]
         [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx,
                    decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot,
-                   fused_ln_w8a8,fused_mlp_residual,w4a8_requant,rms_norm_quant]
+                   fused_ln_w8a8,fused_mlp_residual,w4a8_requant,rms_norm_quant,
+                   stacked_decode_attention_i8]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -30,13 +31,17 @@ their codes within one step and their outputs bit-equal on their own codes,
 each build timed with the code buffers its wrapper passes; ``w4a8_requant``
 bit for bit, a build without that kernel timed on the two-step route it
 replaced (the requant in PyTorch, then its ``w8a8_matmul``);
-``rms_norm_quant`` by ``rmsnorm_quant.compare_rms_norm_quant``), then the device
+``rms_norm_quant`` by ``rmsnorm_quant.compare_rms_norm_quant``;
+``stacked_decode_attention_i8`` within 2e-2 of the plain version, a build
+from before its ring route called with its own signature, every slot
+read), then the device
 time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
 drift of the card's clocks shows as a spread between a build's two readings.
-The port's own build of the two decode attentions is also timed at 1, 2 and
-4 CTAs a (b, h) (``change_ms_by_cluster_size``), beside its cluster rule.
+The port's own build of the three decode attentions is also timed at 1, 2
+and 4 CTAs a (b, h) (``change_ms_by_cluster_size``), beside its cluster
+rule.
 The checks are reported, not asserted (a knock-out computes another
 function). Prints one JSON line per kernel and shape, then one line of
 launch-weighted means per kernel (the serving mix and the train mix of
@@ -45,8 +50,9 @@ routes apart, the serving and score_short launches of ``flash_prefill``, the
 turbo, turbo_nibble and train_int8 mixes of ``w8a8_matmul`` with its two
 routes apart, the turbo_nibble mix of ``nib_hi_dot``, the pallas mixes of
 the two fused tower kernels, the pallas_int4 and train_int4 mixes of
-``w4a8_requant`` and the turbo mix of ``rms_norm_quant``, as ``chip_smoke.py``
-weighs them).
+``w4a8_requant``, the turbo mix of ``rms_norm_quant`` and the pallas_kv8 mix
+of ``stacked_decode_attention_i8`` (its six decode steps), as
+``chip_smoke.py`` weighs them).
 """
 
 from __future__ import annotations
@@ -129,8 +135,9 @@ def build_libs(specs, out: Path) -> dict:
 
 
 def cluster_launchers(kernel: str, sizes=(1, 2, 4)) -> dict:
-    """cs -> the port's ring launcher of `kernel` (``decode_attention`` or
-    ``decode_split_attention``) at `cs` CTAs a (b, h), with the launcher's own
+    """cs -> the port's ring launcher of `kernel` (``decode_attention``,
+    ``decode_split_attention`` or ``stacked_decode_attention_i8``) at `cs` CTAs
+    a (b, h) (a (b, kv head) for the last), with the launcher's own
     arguments: its ``_cs`` entry, `cs` passed before the stream. Not counted
     in ``_build.KERNEL_LAUNCHES``: it times the cluster rule against the
     other sizes, beside the main path."""
@@ -473,6 +480,81 @@ def ab_decode_attention(fns, g, dev, shapes=None):
         del k, v, sets
     serving = [r for r in rows if r["path"] in ("parity", "turbo")]
     print(json.dumps({"kernel": "decode_attention", "mix": "serving", "ms": {
+        tag: statistics.mean(statistics.mean(r["ms"][tag]) for r in serving) for tag in fns}}),
+        flush=True)
+
+
+# the C launcher of row 5 before its ring route: no `n` argument (every slot read)
+_STACKED_OLD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def stacked_launchers(libs: dict) -> dict:
+    """tag -> (launcher, takes n) of ``stacked_decode_attention_i8`` in each
+    build: a build with the scalar route's entry has the ring route's
+    signature (the slots up to `n`); an older one reads every slot."""
+    out = {}
+    for tag, fn in launchers(libs, "stacked_decode_attention_i8").items():
+        lib = libs[tag].get("stacked_decode_i8.cu") or next(iter(libs[tag].values()))
+        new = getattr(lib, "ovla_stacked_decode_i8_scalar", None) is not None
+        if not new:
+            fn.argtypes = _STACKED_OLD_ARGTYPES
+        out[tag] = (fn, new)
+    return out
+
+
+def call_stacked(fn, q, kq, ks, vq, vs, valid, n):
+    """`fn`, a (launcher, takes n) pair of ``stacked_decode_attention_i8``, on one
+    layer ([B, S, Hkv·Dh] codes, [B, S, Hkv] scales)."""
+    launcher, takes_n = fn
+    B, _, H, Dh = q.shape
+    S, Hkv = kq.shape[1], ks.shape[2]
+    out = torch.empty_like(q)
+    head = (q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), B, H, Hkv, S, Dh)
+    tail = (attn._scale(Dh), int(q.dtype == torch.bfloat16), _build.stream_ptr(q))
+    _build.check(launcher(*head, *((n,) if takes_n else ()), *tail),
+                 "stacked_decode_attention_i8")
+    return out
+
+
+def ab_stacked_decode_attention_i8(fns, g, dev, shapes=None):
+    """The pallas_kv8 decode at each of its six steps: q [24, 1, 32, 128] bf16
+    over one layer of the int8 stacked cache, S = 320 slots, the query at slot
+    288 + t (a build that takes `n` reads slots [0, 289 + t)), 32 launches a
+    step; and one row (a one-observation call: the cluster rule's 4 CTAs) at
+    the last step. Each build held to the plain version within 2e-2."""
+    H, Dh, S = 32, 128, 320
+    rows = []
+    for path, (B, steps) in {"pallas_kv8": (BATCH, range(A1)), "one_row": (1, (A1 - 1,))}.items():
+        n_sets = max(2, _copies(2 * B * S * H * Dh))
+        kq, vq = (torch.randint(-127, 128, (n_sets, B, S, H * Dh), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((n_sets, B, S, H), generator=g, device=dev) * 0.02 + 1e-3
+                  for _ in range(2))
+        q = torch.randn((B, 1, H, Dh), generator=g, device=dev).bfloat16()
+        for t in steps:
+            slot = T_PREFILL + t
+            valid = decode_valid(B, T_PREFILL, S, slot, g, dev)
+            sets = [(q, kq[i], ks[i], vq[i], vs[i], valid, slot + 1) for i in range(n_sets)]
+            want = dattn.stacked_decode_attention_i8_plain(q, kq, ks, vq, vs, valid, 0)
+            row = dict(kernel="stacked_decode_attention_i8", shape=f"{B}x{S}x{H}x{Dh}",
+                       path=path, step=t, keys_read=slot + 1,
+                       launches_per_call=LAYERS if path == "pallas_kv8" else 0,
+                       check={tag: _checked(_close, call_stacked(fn, *sets[0]), want)
+                              for tag, fn in fns.items()},
+                       ms=_turns(fns, lambda fn: rotating(lambda *a: call_stacked(fn, *a),
+                                                          sets)))
+            if path == "one_row":
+                row["change_ms_by_cluster_size"] = _turns(
+                    {cs: (fn, True) for cs, fn in
+                     cluster_launchers("stacked_decode_attention_i8").items()},
+                    lambda fn: rotating(lambda *a: call_stacked(fn, *a), sets))
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        del kq, vq, ks, vs
+    serving = [r for r in rows if r["path"] == "pallas_kv8"]
+    print(json.dumps({"kernel": "stacked_decode_attention_i8", "mix": "pallas_kv8", "ms": {
         tag: statistics.mean(statistics.mean(r["ms"][tag]) for r in serving) for tag in fns}}),
         flush=True)
 
@@ -908,7 +990,8 @@ AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "decode_attention": ab_decode_attention, "w8a8_matmul": ab_w8a8_matmul,
       "nib_hi_dot": ab_nib_hi_dot, "fused_ln_w8a8": ab_fused_ln_w8a8,
       "fused_mlp_residual": ab_fused_mlp_residual, "w4a8_requant": ab_w4a8_requant,
-      "rms_norm_quant": ab_rms_norm_quant}
+      "rms_norm_quant": ab_rms_norm_quant,
+      "stacked_decode_attention_i8": ab_stacked_decode_attention_i8}
 
 
 def main() -> int:
@@ -929,7 +1012,9 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4321)
     for name in args.kernels.split(","):
-        fns = requant_routes(libs) if name == "w4a8_requant" else launchers(libs, name)
+        fns = (requant_routes(libs) if name == "w4a8_requant" else
+               stacked_launchers(libs) if name == "stacked_decode_attention_i8" else
+               launchers(libs, name))
         order = [tag for tag in [*[s.split("=", 1)[0] for s in args.lib], "change"] if tag in fns]
         AB[name]({tag: fns[tag] for tag in order}, g, dev,
                  shapes=set(filter(None, args.shapes.split(","))))

@@ -23,7 +23,10 @@ from openvla_probe_tpu_torch.models import vlm as tvlm
 from openvla_probe_tpu_torch.ops.linear import matmul_t, nib_hi_dot_plain, quantize_weight_nibble
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "openvla_probe_tpu", "transformers", "timm", "PIL", "flax")
+# sklearn and optax: the probe bank's metrics and optimizer are the port's own (numpy,
+# training/train_state.py); the machine with the card has neither
+FORBIDDEN = ("jax", "jaxlib", "openvla_probe_tpu", "transformers", "timm", "PIL", "flax",
+             "sklearn", "optax")
 
 
 @pytest.fixture(scope="module")
@@ -172,12 +175,18 @@ def test_the_scan_covers_the_training_slice():
     assert "openvla_probe_tpu_torch/tools/bench_finetune.py" in scanned
 
 
+def test_the_scan_covers_the_probe_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in ("__init__", "episodes", "train_probes", "analysis", "logs", "metrics"):
+        assert f"openvla_probe_tpu_torch/probe/{name}.py" in scanned
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import openvla_probe_tpu_torch.models.vla, openvla_probe_tpu_torch.convert; "
             "import openvla_probe_tpu_torch.training.train_step, "
             "openvla_probe_tpu_torch.training.checkpointing, "
             "openvla_probe_tpu_torch.training.preemption, "
-            "openvla_probe_tpu_torch.tools.bench_finetune; "
+            "openvla_probe_tpu_torch.tools.bench_finetune, openvla_probe_tpu_torch.probe; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

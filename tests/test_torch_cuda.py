@@ -21,8 +21,9 @@ LayerNorm, bit-equal to the plain version; each call launching exactly its
 pre-passes and GEMMs, at the towers' shapes in bf16 and fp32, both routes'
 edges (M = 1, 64, 65, 257), N tails and F = 8208. w4a8_matmul: bit-equal to its
 plain version (the same activation codes, exact integer sums, the same fold
-order and roundings). stacked_decode_attention_i8: fp32 1e-5, bf16 2e-2, as
-the other attention kernels. w8a8_matmul and nib_hi_dot: bit-equal to their
+order and roundings). stacked_decode_attention_i8 (the ring route for bf16 at
+Dh = 128, the scalar route otherwise, counted apart): fp32 1e-5, bf16 2e-2,
+as the other attention kernels. w8a8_matmul and nib_hi_dot: bit-equal to their
 plain versions (the same activation codes, exact integer sums, the same
 epilogue roundings in the same order), the nibble loader bit-equal to the
 int8 loader on the same codes. w4a8_requant: bit-equal to its plain version
@@ -597,13 +598,21 @@ def test_w4a8_kernel_bit_equal_to_plain(cuda, dtype, M, K, N, gsz):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,S,H,Hkv,dh", [
-    (3, 320, 4, 4, 128),   # the 7B slot count and head dim
-    (2, 40, 4, 2, 16),     # GQA n_rep = 2, tiny heads
-    (2, 100, 8, 1, 64),    # n_rep = 8
-    (1, 33, 2, 2, 32),
+@pytest.mark.parametrize("B,S,H,Hkv,dh,n", [
+    (3, 320, 4, 4, 128, None),   # the 7B slot count and head dim: 12 pairs, 4-CTA clusters
+    (24, 320, 32, 32, 128, 292), # the serving decode at step 4: slots up to the query only
+    (2, 320, 8, 2, 128, 291),    # GQA n_rep = 4 on the ring route
+    (1, 320, 16, 2, 128, 300),   # n_rep = 8, 2 pairs
+    (9, 100, 16, 8, 128, 77),    # n_rep = 2, 72 pairs: 2-CTA clusters
+    (2, 40, 4, 2, 16, None),     # GQA n_rep = 2, tiny heads
+    (2, 100, 8, 1, 64, 60),      # n_rep = 8
+    (1, 33, 2, 2, 32, None),
 ])
-def test_stacked_decode_kernel_matches_plain(cuda, dtype, tol, B, S, H, Hkv, dh):
+def test_stacked_decode_kernel_matches_plain(cuda, dtype, tol, B, S, H, Hkv, dh, n):
+    """Both routes (the ring kernel for bf16 at Dh = 128, the scalar kernel for
+    the rest, counted apart) against the plain version, with the slots past
+    `n` read by neither; the last row masked everywhere (the mean of V over
+    all S) and the first with a padded prompt."""
     L, li = 3, 1
     r = np.random.default_rng(32)
     kq, vq = (torch.from_numpy(r.integers(-127, 128, (L, B, S, Hkv * dh)).astype(np.int8)).to(cuda)
@@ -612,12 +621,55 @@ def test_stacked_decode_kernel_matches_plain(cuda, dtype, tol, B, S, H, Hkv, dh)
               for _ in range(2))
     q = _rand(33, (B, 1, H, dh), dtype, cuda)
     valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
-    valid[0, S // 2:S - 3] = 0             # a padded prompt before the generated slots
-    args = (q, kq, ks, vq, vs, valid, li)
-    got = _count("stacked_decode_attention_i8", lambda: tdec.stacked_decode_attention_i8(*args))
+    last = S if n is None else n
+    valid[:, last:] = 0                    # the slots past the query are masked
+    valid[0, last // 2:last - 3] = 0       # a padded prompt before the generated slots
+    if B > 1:
+        valid[-1] = 0                      # a row masked everywhere
+    args = (q, kq, ks, vq, vs, valid, li, n)
+    route = _decode_route("stacked_decode_attention_i8", dtype, dh)
+    got = _count(route, lambda: tdec.stacked_decode_attention_i8(*args))
     want = tdec.stacked_decode_attention_i8_plain(*args)
     assert got.dtype == dtype and got.shape == (B, 1, H, dh)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(want, tdec.stacked_decode_attention_i8_plain(*args[:-1]))
+
+
+@pytest.mark.parametrize("cs", [1, 2, 4])
+def test_stacked_ring_at_each_cluster_size(cuda, cs):
+    """The ring route's launcher at 1, 2 and 4 CTAs a (b, kv head) (uncounted),
+    at the serving slots with ragged key ranges, against the plain version."""
+    B, S, H, n = 3, 320, 4, 293
+    r = np.random.default_rng(40 + cs)
+    kq, vq = (torch.from_numpy(r.integers(-127, 128, (1, B, S, H * 128)).astype(np.int8)).to(cuda)
+              for _ in range(2))
+    ks, vs = (torch.from_numpy(r.uniform(1e-3, 2e-2, (1, B, S, H)).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    q = _rand(41, (B, 1, H, 128), torch.bfloat16, cuda)
+    valid = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    valid[:, n:] = 0
+    valid[-1] = 0
+    out = torch.empty_like(q)
+    fn = kernel_ab.cluster_launchers("stacked_decode_attention_i8")[cs]
+    _build.check(fn(q.data_ptr(), kq[0].data_ptr(), ks[0].data_ptr(), vq[0].data_ptr(),
+                    vs[0].data_ptr(), valid.data_ptr(), out.data_ptr(), B, H, H, S, 128, n,
+                    tattn._scale(128), 1, _build.stream_ptr(q)), "stacked_decode_attention_i8")
+    torch.cuda.synchronize()
+    want = tdec.stacked_decode_attention_i8_plain(q, kq, ks, vq, vs, valid, 0, n)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+def test_stacked_ring_launcher_refuses_what_it_does_not_take(cuda):
+    q32 = torch.zeros((2, 1, 2, 128), device=cuda)
+    kq = torch.zeros((1, 2, 8, 256), dtype=torch.int8, device=cuda)
+    ks = torch.ones((1, 2, 8, 2), device=cuda)
+    valid = torch.ones((2, 8), dtype=torch.int32, device=cuda)
+    fn = _build.launcher("stacked_decode_attention_i8")
+    for q, n, bf16 in ((q32, 8, 0), (q32.bfloat16(), 0, 1), (q32.bfloat16(), 9, 1)):
+        err = fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), kq.data_ptr(), ks.data_ptr(),
+                 valid.data_ptr(), q.data_ptr(), 2, 2, 2, 8, 128, n, 0.1, bf16,
+                 _build.stream_ptr(q))
+        assert err != 0
 
 
 def test_new_kernels_fail_loudly_on_bad_shapes(cuda):

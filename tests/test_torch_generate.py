@@ -17,6 +17,7 @@ word hash (zlib.crc32 in place of the per-process salted `hash`), so that
 every run sees the same ids.
 """
 
+import dataclasses
 import zlib
 
 import jax
@@ -137,10 +138,16 @@ def test_vlm_forward_mixed_text_row_equals_unimodal(models):
 
 
 def test_vlm_forward_unported_options_raise(models):
+    """A trunk other than Llama (Phi) still raises; the probe tap, unported
+    before, now returns hidden_pooled (tests/test_torch_probe_taps.py holds it
+    to the JAX package)."""
     _, _, tcfg, tparams = models
     ids = torch.ones((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvlm.forward(tparams, tcfg, ids, torch.ones_like(ids), collect_hidden_states=True)
+        tvlm.forward(tparams, dataclasses.replace(tcfg, llm=object()), ids, torch.ones_like(ids))
+    out = tvlm.forward(tparams, tcfg, ids, torch.ones_like(ids), collect_hidden_states=True)
+    L, D = tcfg.llm.num_hidden_layers, tcfg.llm.hidden_size
+    assert out["hidden_pooled"].shape == (1, L + 1, D)
 
 
 # --- generation -------------------------------------------------------------------
