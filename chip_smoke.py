@@ -31,6 +31,23 @@ tokens, T = 320):
                 w4a8_requant
   train_int8    over a per-channel int8 trunk and lm_head: w8a8_matmul and
                 its STE
+and, on the weights of turbo and turbo_nibble while they are alive, the bs = 1
+robot-control point and (turbo's int8 weights) the action server:
+  bs1           one 256x256 image, P = 32, A = 7: the sequential
+                predict_action_from_image; predict_action_speculative_from_image
+                drafted with the sequential tokens (with PARITY_r02's margin
+                check: the first token that differs must sit within twice the
+                gap between the verify's logits and the sequential logits on the
+                same prefix), with its own previous output (the steady state:
+                full acceptance, no decode_attention launch) and with a draft
+                wrong everywhere (n_accepted 0, six decode steps); p50 ms over 5
+                calls after a warm-up, busy ms a call, launches per kernel
+  serve         serving/server.py over models.vla.OpenVLA: 6 concurrent POST
+                /act to a dynamically batching server on 127.0.0.1, each batch's
+                tokens equal to a direct predict_action_batch over the same
+                requests in the same bucket, /stats; then 4 steps of one
+                speculative stream on a bs = 1 server (n_accepted a step,
+                /stats acceptance, client-side p50 ms)
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
@@ -74,7 +91,9 @@ Phases, one output line each:
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package):
               equal tokens, close logits or scores; the training paths' loss,
-              LoRA gradients and adapters after one step
+              LoRA gradients and adapters after one step; the speculative core
+              on turbo and turbo_nibble (drafts correct, partial, wrong): equal
+              tokens and n_accepted
   5. main     each path once with every launch count set to 0 just before and
               read just after (exact per-kernel counts asserted, and no
               torch._int_mm call), then p50 latency over timed calls and,
@@ -85,7 +104,8 @@ Phases, one output line each:
               256x256 uint8 images, prompt_pad_len=32, A=7; the training
               paths count one step, then time steps after two warm-ups and
               check that the loss stays finite, the base is bit-unchanged
-              and every B factor moved off zero
+              and every B factor moved off zero; the bs1 and serve phases
+              (above) after turbo and turbo_nibble
 then a JSON line of per-kernel figures (each kernel's launches from the main
 path's run), a JSON line of the scalar routes' figures, and a last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero; with
@@ -98,8 +118,11 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 import warnings
+import zlib
 from unittest import mock
 
 import numpy as np
@@ -117,6 +140,8 @@ from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
 from openvla_probe_tpu_torch.ops.image import (BackboneTransformSpec, ImageTransformConfig,
                                                apply_image_transform)
 from openvla_probe_tpu_torch.probe import train_probes
+from openvla_probe_tpu_torch.serving.server import (OpenVLAServer, decode_numpy, encode_numpy,
+                                                    get_openvla_prompt)
 from openvla_probe_tpu_torch.tools import bench_finetune, kernel_ab, profile_main_path
 from openvla_probe_tpu_torch.tools.kernel_ab import rotating
 from openvla_probe_tpu_torch.training.lora import LoRAConfig, init_lora_params
@@ -2232,6 +2257,308 @@ def run_train_path(dev, path: str):
         adapter_leaves=len(b_leaves))
 
 
+# --- the bs = 1 robot-control point and the action server ------------------------------------
+
+BS1_TIMED = 5
+BS1_PATHS = ("turbo", "turbo_nibble")
+SERVE_REQUESTS, SERVE_STREAM_STEPS = 6, 4
+
+
+def _bs1_measure(fn):
+    """A warm-up call, then BS1_TIMED calls each with every count set to 0
+    just before and read just after (the same counts every call), then the
+    card's busy ms of one more call (torch.profiler)."""
+    fn()
+    times, launches, out = [], None, None
+    for _ in range(BS1_TIMED):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+        counts = {k: n for k, n in _build.KERNEL_LAUNCHES.items() if n}
+        assert launches is None or counts == launches, (counts, launches)
+        launches = counts
+    busy = profile_main_path.device_time(fn, 1)
+    return out, dict(p50_ms=statistics.median(times) * 1e3, call_ms=[t * 1e3 for t in times],
+                     busy_ms_per_call=busy["device_ms_per_call_total"],
+                     device_idle_share=busy["device_idle_share"], launches_per_call=launches)
+
+
+def _bs1_check_launches(path: str, launches: dict, decode_steps: int):
+    """Every launch of a bs = 1 call is a kernel of the path (or its pre-pass):
+    32 flash_prefill (the prefill or the verify pass, Tq >= 64) and
+    32 decode_attention a decode step."""
+    kernels = set(PATHS[path][2])
+    allowed = kernels | {_build.PRE_PASSES[k] for k in kernels & set(_build.PRE_PASSES)}
+    assert set(launches) <= allowed, (path, launches)
+    assert launches.get("flash_prefill", 0) == LAYERS, launches
+    assert launches.get("decode_attention", 0) == LAYERS * decode_steps, (decode_steps, launches)
+
+
+def _margin_check(seq_logits, verify_logits, seq_tokens, spec_tokens):
+    """PARITY_r02's margin framework: per position, the gap between the
+    verify's logits and the sequential call's on the same prefix (the draft
+    is the sequential tokens) and the sequential call's top-2 margin. The
+    first position where the tokens differ must have margin <= 2 x gap (an
+    argmax can move only that far); later positions see another prefix."""
+    rows = []
+    for j, lg in enumerate(seq_logits):
+        top2 = torch.topk(lg[0], 2).values
+        rows.append(dict(pos=j, gap=(verify_logits[0, j] - lg[0]).abs().max().item(),
+                         margin=(top2[0] - top2[1]).item()))
+    diff = [j for j in range(len(seq_tokens)) if seq_tokens[j] != spec_tokens[j]]
+    first = diff[0] if diff else None
+    if first is not None:
+        r = rows[first]
+        assert r["margin"] <= 2 * r["gap"], ("a token moved past its margin", rows, first)
+    return dict(per_position=rows, first_difference=first,
+                worst_margin_over_gap=min(r["margin"] / max(r["gap"], 1e-30) for r in rows))
+
+
+def run_bs1(dev, path: str, params):
+    """The robot-control point: one 256x256 uint8 image, P = 32, A = 7, at
+    7B width. The sequential call; the speculative entry drafted with the
+    sequential tokens (with the margin check), with its own previous output
+    (the steady state: drafts converge to full acceptance within A calls, as
+    each call accepts at least the previous call's accepted prefix and its
+    corrected token), and with a draft wrong everywhere."""
+    cfg = _serving(path, vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
+                   prompt_pad_len=PROMPT_PAD)
+    g = torch.Generator(device=dev).manual_seed(11)
+    img_cfg = ImageTransformConfig.dinosiglip_224()
+    image, ids, plen, q01, q99, mask = _inputs(cfg, 1, IMG_HW, g, dev)
+    A = ACTION_DIM
+
+    def seq():
+        out = vla.predict_action_from_image(params, cfg, image, img_cfg, ids, plen, q01, q99,
+                                            mask, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    def spec(draft):
+        out = vla.predict_action_speculative_from_image(params, cfg, image, img_cfg, ids, plen,
+                                                        draft, q01, q99, mask, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    rows = {}
+    seq_out, rows["sequential"] = _bs1_measure(seq)
+    _bs1_check_launches(path, rows["sequential"]["launches_per_call"], A - 1)
+    seq_tokens = seq_out["action_tokens"]
+
+    # the spec entry drafted with the sequential tokens, and its margin check
+    seq_logits, verify_logits = [], []
+    real_margin, real_matmul = llama.top2_margin, vla.matmul_t
+
+    def catch_margin(logits, idx):
+        seq_logits.append(logits.float().clone())
+        return real_margin(logits, idx)
+
+    def catch_verify(x, w, route="wi8"):
+        out = real_matmul(x, w, route)
+        if x.ndim == 3 and x.shape[1] == A:
+            verify_logits.append(out.float().clone())
+        return out
+
+    with mock.patch.object(llama, "top2_margin", catch_margin):
+        seq()
+    with mock.patch.object(vla, "matmul_t", catch_verify):
+        drafted = spec(seq_tokens)
+    margins = _margin_check(seq_logits, verify_logits[0], seq_tokens[0].tolist(),
+                            drafted["action_tokens"][0].tolist())
+    out, rows["spec_sequential_draft"] = _bs1_measure(lambda: spec(seq_tokens))
+    n_acc = int(out["n_accepted"][0])
+    rows["spec_sequential_draft"].update(n_accepted=n_acc, margin_check=margins,
+                                         tokens_equal_sequential=bool(torch.equal(
+                                             out["action_tokens"], seq_tokens)))
+    _bs1_check_launches(path, rows["spec_sequential_draft"]["launches_per_call"],
+                        A - min(n_acc + 1, A))
+
+    # the steady state: each call drafts with the previous call's output
+    state = {"draft": seq_tokens}
+    converge = []
+    for _ in range(A + 1):
+        out = spec(state["draft"])
+        converge.append(int(out["n_accepted"][0]))
+        state["draft"] = out["action_tokens"]
+        if converge[-1] == A:
+            break
+    assert converge[-1] == A, ("the steady state must accept its own output", converge)
+
+    def steady():
+        o = spec(state["draft"])
+        state["draft"] = o["action_tokens"]
+        return o
+
+    out, rows["spec_steady"] = _bs1_measure(steady)
+    assert int(out["n_accepted"][0]) == A
+    rows["spec_steady"].update(n_accepted=A, calls_to_converge=converge)
+    _bs1_check_launches(path, rows["spec_steady"]["launches_per_call"], 0)   # no decode step
+
+    # a draft wrong everywhere: greedy token 0 is the steady state's token 0, so n_accepted 0
+    wrong = (state["draft"] + 1) % cfg.codec_vocab_size
+    out, rows["spec_wrong_draft"] = _bs1_measure(lambda: spec(wrong))
+    assert int(out["n_accepted"][0]) == 0, out["n_accepted"]
+    rows["spec_wrong_draft"].update(n_accepted=0)
+    _bs1_check_launches(path, rows["spec_wrong_draft"]["launches_per_call"], A - 1)
+    return dict(path=path, tier=cfg.tier, weight_bits=PATHS[path][1], batch=1,
+                sequential_tokens=seq_tokens[0].tolist(),
+                steady_tokens=state["draft"][0].tolist(), **rows)
+
+
+class StubTok:
+    """A word tokenizer stand-in (BOS, one id per word by zlib.crc32)."""
+
+    @staticmethod
+    def encode(text):
+        return [1] + [zlib.crc32(w.encode()) % 30000 + 1000 for w in text.split()]
+
+
+class _RecordingModel:
+    """The OpenVLA a server calls, recording each batch it serves (the
+    requests in their bucket and the results) for the direct comparison."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.batches = model, model.cfg, []
+
+    def predict_action_batch(self, images, prompts, unnorm_keys=None):
+        out = self.model.predict_action_batch(images, prompts, unnorm_keys)
+        self.batches.append((np.array(images), list(prompts), list(unnorm_keys), out))
+        return out
+
+
+def _post_act(port: int, payload: dict):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/act",
+                                 data=json.dumps(encode_numpy(payload)).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        out = decode_numpy(json.loads(r.read()))
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _get_stats(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def run_serve(dev, params):
+    """The action server on the card over the port's OpenVLA (turbo, int8
+    weights at 7B width): a dynamically batching server answers
+    SERVE_REQUESTS concurrent POST /act from threads, each batch's tokens
+    equal to a direct predict_action_batch over the same requests in the same
+    bucket (bit-equal: the kernels do no global atomics and no cross-row
+    reduction); then a bs = 1 server with speculative streams answers
+    SERVE_STREAM_STEPS steps of one stream on the same frame."""
+    cfg = _serving("turbo", vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
+                   prompt_pad_len=PROMPT_PAD)
+    A = ACTION_DIM
+    stats = {"libero_spatial": {"action": {"q01": -np.ones(A, np.float32),
+                                           "q99": np.ones(A, np.float32)}},
+             "bridge_orig": {"action": {"q01": np.linspace(-0.5, 0, A).astype(np.float32),
+                                        "q99": np.linspace(0.5, 2, A).astype(np.float32),
+                                        "mask": np.array([True] * (A - 1) + [False])}}}
+    model = vla.OpenVLA(params, cfg, StubTok(), stats, device=dev)
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 256, (SERVE_REQUESTS, IMG_HW, IMG_HW, 3), dtype=np.uint8)
+    tasks = [f"pick up the {w} block and place it in bin {i}"
+             for i, w in enumerate(("red", "green", "blue", "black", "white", "yellow"))]
+    keys = [("libero_spatial", "bridge_orig")[i % 2] for i in range(SERVE_REQUESTS)]
+    model.predict_action_batch(frames[:2], [get_openvla_prompt(t) for t in tasks[:2]], keys[:2])
+
+    rec = _RecordingModel(model)
+    srv = OpenVLAServer(rec, dynamic_batching=True, max_batch=8, max_wait_ms=50.0)
+    srv.run(host="127.0.0.1", port=0, background=True)
+    replies, client_ms = [None] * SERVE_REQUESTS, [None] * SERVE_REQUESTS
+    try:
+        def call(i):
+            replies[i], client_ms[i] = _post_act(srv.port, {"image": frames[i],
+                                                            "instruction": tasks[i],
+                                                            "unnorm_key": keys[i]})
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(SERVE_REQUESTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        batched_stats = _get_stats(srv.port)
+    finally:
+        srv.shutdown()
+        srv.batcher.shutdown()
+    assert all(r is not None for r in replies), replies
+    assert batched_stats["requests"] == SERVE_REQUESTS and batched_stats["batches"] == len(
+        rec.batches) >= 1, batched_stats
+    prompt_of = {get_openvla_prompt(t): i for i, t in enumerate(tasks)}
+    for images, prompts, bkeys, results in rec.batches:
+        direct = model.predict_action_batch(images, prompts, bkeys)
+        for j, (r, d) in enumerate(zip(results, direct)):
+            assert np.array_equal(r["action_tokens"], d["action_tokens"]), (prompts[j], r, d)
+            i = prompt_of[prompts[j]]
+            assert np.array_equal(replies[i]["action"], r["actions"]), i
+    served = dict(requests=SERVE_REQUESTS, batches=[len(b[1]) for b in rec.batches],
+                  tokens_equal_direct_batch=True, client_p50_ms=statistics.median(client_ms),
+                  client_ms=client_ms, stats=batched_stats)
+
+    srv = OpenVLAServer(model)         # bs = 1, speculative streams
+    srv.run(host="127.0.0.1", port=0, background=True)
+    step_ms = []
+    try:
+        assert srv._spec_streams
+        payload = {"image": frames[0], "instruction": tasks[0], "unnorm_key": keys[0],
+                   "stream_id": "arm-0"}
+        actions = []
+        for _ in range(SERVE_STREAM_STEPS):
+            out, ms = _post_act(srv.port, payload)
+            actions.append(out["action"])
+            step_ms.append(ms)
+        stream_stats = _get_stats(srv.port)
+        n_accepted = [a for a, _ in srv._spec_accept]
+    finally:
+        srv.shutdown()
+    assert len(n_accepted) == SERVE_STREAM_STEPS - 1, n_accepted
+    assert all(np.isfinite(a).all() and a.shape == (A,) for a in actions)
+    stream = dict(steps=SERVE_STREAM_STEPS, n_accepted_per_drafted_step=n_accepted,
+                  client_p50_ms=statistics.median(step_ms), client_ms=step_ms,
+                  speculative=stream_stats["speculative"],
+                  latency_ms=stream_stats["latency_ms"])
+    return dict(batched=served, stream=stream)
+
+
+def check_tiny_spec(dev, path: str):
+    """The speculative core at tiny fp32 size on the card vs the CPU run on the
+    same weights: drafts correct, right for 3 tokens, and wrong, from the CPU's
+    sequential tokens; equal tokens and n_accepted."""
+    tvlm = _tiny_vlm(path)
+    cfg = _serving(path, tvlm, prompt_pad_len=64, codec_vocab_size=tvlm.llm.vocab_size)
+    params = _init(path, cfg.vlm, torch.Generator().manual_seed(1), "cpu")
+    img_cfg = ImageTransformConfig(specs=(
+        BackboneTransformSpec((28, 28), "bicubic", (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+        BackboneTransformSpec((28, 28), "bicubic", (0.5, 0.5, 0.5), (0.5, 0.5, 0.5))))
+    inputs = _inputs(cfg, 4, 40, torch.Generator().manual_seed(2), "cpu")
+    seq = vla.predict_action_from_image(params, cfg, inputs[0], img_cfg, *inputs[1:],
+                                        device="cpu")["action_tokens"]
+    params_d = _to(params, dev)
+    rows = {}
+    for kind in ("correct", "partial", "wrong"):
+        draft = seq.clone()
+        if kind == "partial":
+            draft[:, 3:] = (draft[:, 3:] + 7) % cfg.codec_vocab_size
+        elif kind == "wrong":
+            draft = (draft + 1) % cfg.codec_vocab_size
+        args = (inputs[1], inputs[2], draft, *inputs[3:])
+        ref = vla.predict_action_speculative_from_image(params, cfg, inputs[0], img_cfg, *args,
+                                                        device="cpu")
+        _build.reset_launch_counts()
+        out = vla.predict_action_speculative_from_image(
+            params_d, cfg, inputs[0].to(dev), img_cfg, *(x.to(dev) for x in args), device=dev)
+        torch.cuda.synchronize()
+        assert torch.equal(out["action_tokens"].cpu(), ref["action_tokens"]), (kind, out, ref)
+        assert torch.equal(out["n_accepted"].cpu(), ref["n_accepted"]), (kind, out, ref)
+        rows[kind] = dict(n_accepted=ref["n_accepted"].tolist(),
+                          launches={k: n for k, n in _build.KERNEL_LAUNCHES.items() if n})
+    return dict(path=path, entry="speculative", tokens_equal=True, n_accepted_equal=True, **rows)
+
+
 def _ab_leaves(tree):
     if tree is None:
         return []
@@ -2280,6 +2607,8 @@ def main() -> int:
         log("tiny", **check_tiny_vlm(dev, path))
     for path in TRAIN_PATHS:
         log("tiny", **check_tiny_train(dev, path))
+    for path in BS1_PATHS:
+        log("tiny", **check_tiny_spec(dev, path))
 
     launches, weights = {}, {}
     for path in PATHS:   # pallas, pallas_kv8 and turbo share one build of the int8 weights
@@ -2288,6 +2617,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         if path == "pallas_kv8":   # the probe tap on the same weights
             log("probe", card=card, tap=run_probe_tap(dev, weights[PATHS[path][1]]))
+            torch.cuda.empty_cache()
+        if path in BS1_PATHS:      # the bs = 1 point on the same weights
+            log("bs1", card=card, **run_bs1(dev, path, weights[PATHS[path][1]]))
+            torch.cuda.empty_cache()
+        if path == "turbo":        # the action server on turbo's int8 weights
+            log("serve", card=card, **run_serve(dev, weights[PATHS[path][1]]))
             torch.cuda.empty_cache()
         if path == "parity":   # the base VLM's entry points on the same bf16 weights
             for vpath in VLM_PATHS:

@@ -5,21 +5,31 @@ weight matrices (one per spatial axis) that replicate Pillow's resample
 (kernel, antialias support scaling, window bounds, fixed-point coefficient
 quantization); both products run in full fp32 (no TF32: see the package's
 numerics flags), and each pass is rounded to the uint8 grid, as Pillow does.
+``pil_resize_exact`` (numpy, float64) is bit-identical with Pillow's uint8
+output. The public HWC helpers (``pil_resize``, ``center_crop``,
+``letterbox_pad``) wrap the channels-first implementations the transform
+runs; ``PrismaticImageTransform`` applies the transform on a device.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..device import DeviceLike, resolve_device
+
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)  # DINOv2
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
+OPENAI_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
 SIGLIP_STD = (0.5, 0.5, 0.5)
+IMAGENET_INCEPTION_MEAN = (0.5, 0.5, 0.5)
+IMAGENET_INCEPTION_STD = (0.5, 0.5, 0.5)
 
 
 # --- PIL-exact resample kernels (numpy, float64) ---------------------------------
@@ -90,6 +100,22 @@ def resample_weights(
     return W
 
 
+def pil_resize_exact(image: np.ndarray, out_hw: Tuple[int, int], method: str = "bicubic") -> np.ndarray:
+    """Host-side numpy resample of [..., H, W, C], bit-exact with Pillow's
+    uint8 path (float64 accumulation over Pillow-quantized weights, per-pass
+    floor(x + 0.5), clip)."""
+    h_in, w_in = image.shape[-3], image.shape[-2]
+    h_out, w_out = out_hw
+    if (h_in, w_in) == (h_out, w_out):
+        return image.astype(np.uint8)
+    x = image.astype(np.float64)
+    x = np.einsum("ow,...hwc->...hoc", resample_weights(w_in, w_out, method), x)
+    x = np.clip(np.floor(x + 0.5), 0, 255)
+    x = np.einsum("oh,...hwc->...owc", resample_weights(h_in, h_out, method), x)
+    x = np.clip(np.floor(x + 0.5), 0, 255)
+    return x.astype(np.uint8)
+
+
 def _round_u8(x: torch.Tensor) -> torch.Tensor:
     """PIL clip8: round half up to the uint8 grid and clamp (kept in float)."""
     return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
@@ -146,6 +172,32 @@ def _letterbox_pad_chw(image: torch.Tensor, fill: Tuple[float, float, float]) ->
     mask[vp:vp + h, hp:hp + w] = False
     fill_t = torch.tensor(fill, dtype=torch.float32, device=out.device)[:, None, None]
     return torch.where(mask[None], fill_t, out)
+
+
+def pil_resize(
+    image: torch.Tensor,
+    out_hw: Tuple[int, int],
+    method: str = "bicubic",
+    emulate_uint8_rounding: bool = True,
+) -> torch.Tensor:
+    """Resize a [..., H, W, C] uint8 or float image to `out_hw` with PIL
+    semantics (`pil_resize_chw` on the channels-first view): float32 in [0, 255]."""
+    x = torch.movedim(torch.as_tensor(image), -1, -3)
+    return torch.movedim(pil_resize_chw(x, out_hw, method, emulate_uint8_rounding), -3, -1)
+
+
+def center_crop(image: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Center crop [..., H, W, C]; zero-pads first where the image is smaller
+    (torchvision's functional center_crop)."""
+    x = torch.movedim(torch.as_tensor(image), -1, -3)
+    return torch.movedim(_center_crop_chw(x, out_hw), -3, -1)
+
+
+def letterbox_pad(image: torch.Tensor, fill: Tuple[float, float, float]) -> torch.Tensor:
+    """Symmetric pad of [..., H, W, C] to square with a constant per-channel
+    fill (floor((max side - side) / 2) on each side). Returns float32."""
+    x = torch.movedim(torch.as_tensor(image), -1, -3)
+    return torch.movedim(_letterbox_pad_chw(x, fill), -3, -1)
 
 
 @dataclass(frozen=True)
@@ -210,3 +262,16 @@ def apply_image_transform(image: torch.Tensor, config: ImageTransformConfig) -> 
         std = torch.tensor(spec.std, dtype=torch.float32, device=x.device)[:, None, None]
         outs.append((xi - mean) / std)
     return torch.cat(outs, dim=-3)
+
+
+class PrismaticImageTransform:
+    """Callable applying `apply_image_transform` with one config on `device`:
+    uint8 [..., H, W, 3] (numpy or a tensor) -> float32 [..., 3K, S, S]."""
+
+    def __init__(self, config: Optional[ImageTransformConfig] = None,
+                 device: DeviceLike = "cuda") -> None:
+        self.config = config or ImageTransformConfig.dinosiglip_224()
+        self.device = resolve_device(device)
+
+    def __call__(self, image) -> torch.Tensor:
+        return apply_image_transform(torch.as_tensor(image, device=self.device), self.config)

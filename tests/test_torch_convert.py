@@ -24,9 +24,10 @@ from openvla_probe_tpu_torch.ops.linear import matmul_t, nib_hi_dot_plain, quant
 
 ROOT = Path(__file__).resolve().parents[1]
 # sklearn and optax: the probe bank's metrics and optimizer are the port's own (numpy,
-# training/train_state.py); the machine with the card has neither
+# training/train_state.py); tensorflow: robot/openvla_utils.crop_and_resize is the port's
+# own (PyTorch); the machine with the card has none of them
 FORBIDDEN = ("jax", "jaxlib", "openvla_probe_tpu", "transformers", "timm", "PIL", "flax",
-             "sklearn", "optax")
+             "sklearn", "optax", "tensorflow")
 
 
 @pytest.fixture(scope="module")
@@ -187,6 +188,23 @@ def test_importing_the_port_loads_no_jax():
             "openvla_probe_tpu_torch.training.checkpointing, "
             "openvla_probe_tpu_torch.training.preemption, "
             "openvla_probe_tpu_torch.tools.bench_finetune, openvla_probe_tpu_torch.probe; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_the_scan_covers_the_serving_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in ("probe/capture", "robot/openvla_utils", "robot/robot_utils", "serving/batcher",
+                 "serving/server", "models/vla", "ops/image"):
+        assert f"openvla_probe_tpu_torch/{name}.py" in scanned
+
+
+def test_importing_the_serving_slice_loads_no_jax():
+    code = ("import sys; import openvla_probe_tpu_torch.probe.capture, "
+            "openvla_probe_tpu_torch.robot.openvla_utils, "
+            "openvla_probe_tpu_torch.robot.robot_utils, "
+            "openvla_probe_tpu_torch.serving.server, openvla_probe_tpu_torch.serving.batcher; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
