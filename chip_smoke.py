@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Six serving paths, each at full OpenVLA-7B width through the normal entry
+Ten serving paths, each at full OpenVLA-7B width through the normal entry
 `predict_action_from_image`:
   parity        bf16 weights, stacked-cache decode
   pallas        int8 TURBO_QUANT_SUFFIXES weights, turbo numerics, frozen-KV
@@ -13,10 +13,24 @@ Six serving paths, each at full OpenVLA-7B width through the normal entry
   turbo         the same int8 weights on the turbo tier: every int8 linear on
                 w8a8, the fused RMSNorm -> int8 kernel, stacked-cache decode at
                 bf16 scores
+  turbo_kv8     the same int8 weights on the turbo_kv8 tier: turbo's routes,
+                the frozen-KV split decode over the prefill K/V quantized to
+                int8 (split_attention_i8, the norms plain in the decode steps)
+  turbo_fused   turbo on the same int8 weights after llama.fuse_serving_params
+                (q/k/v and gate/up one product each, fused in place after
+                turbo's phases): tokens and first logits bit-equal to turbo's
   pallas_int4   the pallas tier over grouped-int4 weights (bits=4, group 128;
                 SigLIP's fc2 int8), frozen-KV split decode
+  turbo_int4    the turbo tier over pallas_int4's weights: the requant route
+                at prefill and in the towers, w4a8_grouped at decode M and
+                lm_head, SigLIP's fc2 on w8a8_matmul
   turbo_nibble  the turbo tier over nibble weights (bits="nibble": the trunk
                 and lm_head as two 4-bit planes, the towers int8)
+  turbo_mix     the turbo tier over mix weights (bits="mix": the trunk and
+                lm_head as int8 and int4 copies, the towers int8; codes and
+                scales drawn directly by linear.random_params_like): the int8
+                copy on w8a8_matmul at prefill, the int4 copy on w4a8_grouped
+                at decode M
 three paths of the base VLM's entry points (models/generate.py) on the
 parity tier's bf16 weights, B = 8 rows with 224 px dinosiglip pixels:
   generate      generate_greedy_batch, prompts bucketed to 64, 32 new tokens
@@ -81,7 +95,10 @@ Phases, one output line each:
               nib_hi_dot (turbo_nibble), w4a8_dx (train_int4), w4a8_requant
               (pallas_int4's lm_head and SigLIP fc1, train_int4's lm_head;
               beside the two-step route it replaced; edge M, N and group
-              sizes); vit_attention also at DINOv2's 518 px, N = 1370,
+              sizes), split_attention_i8 (turbo_kv8; GQA, fp32, a row masked
+              but BOS; decode_attention.compare_split_attention_i8),
+              w4a8_grouped (turbo_int4 and turbo_mix at decode M: bit-equal;
+              edge M, N and group sizes); vit_attention also at DINOv2's 518 px, N = 1370,
               and at ragged N, bf16 (tensor cores) and fp32 (scalar route);
               the scalar routes (the decode attentions' at fp32 and Dh = 72,
               vit_attention's, flash_prefill's and wi8_matmul's in fp32),
@@ -1569,6 +1586,121 @@ def check_w8a8_requant(dev, g):
                 edge_cases=edges, train_mix=train, **mix)
 
 
+GROUPED_LAUNCHES = {"w4a8_grouped_quant_rows": 1, "w4a8_grouped": 1}
+
+
+def check_w4a8_grouped(dev, g):
+    """The grouped decode product (the XLA op _w4a8_dot_grouped: the turbo
+    tier over grouped-int4 and mix weights at M <= 32) at its 7B shapes, M =
+    24: the trunk's 4096 x 4096, 4096 x 11008, 11008 x 4096 (each layer of
+    each of the six decode steps) and lm_head's 4096 x 32064 (7 a call);
+    bf16 x, random codes in [-8, 7], fp32 group scales, group 128. Bit for
+    bit equal to the plain version (its fp32 fold order is the kernel's),
+    each call one pre-pass and one GEMM launch. Edge cases bit for bit,
+    untimed, bf16 and fp32: M = 1, 32, 33, 70; group sizes 32, 64, 96, 256;
+    N = 8, 40, 136, 200; rows at the scale floor. Library: cuBLAS bf16 on the
+    weight dequantized to bf16 beforehand (it leaves out the quantization and
+    streams 4x the weight bytes)."""
+    A1 = ACTION_DIM - 1
+    per_call = {(BATCH, 4096, 4096): 4 * LAYERS * A1, (BATCH, 4096, 11008): 2 * LAYERS * A1,
+                (BATCH, 11008, 4096): LAYERS * A1, (BATCH, 4096, 32064): 1 + A1}
+    by_shape = {}
+    for (M, K, N) in per_call:
+        G = K // lin.GROUP_SIZE
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = [(x, *_int4_leaf(G, N, lin.GROUP_SIZE, g, dev))
+                for _ in range(copies_past_l2(N * K // 2))]
+        got, launched = _launch_diff(lambda: lin.w4a8_grouped(*sets[0]))
+        assert launched == GROUPED_LAUNCHES, (M, K, N, launched)
+        want = lin.w4a8_grouped_plain(*sets[0])
+        assert torch.equal(got, want), f"{M}x{K}x{N}: not bit-equal to the plain version"
+        lib_sets = [(x, lin.dequantize_weight({"q": q, "s": s}, torch.bfloat16))
+                    for _, q, s in sets]
+        b, by = bound_ms(_nbytes(*sets[0], got), 2 * M * N * K, "int8")
+        by_shape[f"{M}x{K}x{N}"] = dict(
+            launches_per_call=per_call[(M, K, N)], max_abs_err=0.0,
+            ms=cuda_ms(rotating(lin.w4a8_grouped, sets)),
+            plain_ms=cuda_ms(rotating(lin.w4a8_grouped_plain, sets), reps=5, warmup=1),
+            library_ms=cuda_ms(rotating(lambda a, wd: a @ wd.t(), lib_sets)),
+            bound_ms=b, bound_by=by)
+        del sets, lib_sets, got, want
+    edges = {}
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for (M, N, G, gsz, dtype) in ((1, 200, 32, 128, bf16), (32, 136, 9, 32, fp32),
+                                  (33, 40, 3, 64, bf16), (70, 136, 4, 256, fp32),
+                                  (5, 200, 9, 96, bf16), (24, 8, 1, 32, bf16),
+                                  (24, 4304, 9, 128, fp32)):
+        x = torch.randn((M, G * gsz), generator=g, device=dev).to(dtype)
+        q, s = _int4_leaf(G, N, gsz, g, dev)
+        s[: N // 4] = 1e-8
+        got, launched = _launch_diff(lambda: lin.w4a8_grouped(x, q, s))
+        assert launched == GROUPED_LAUNCHES, launched
+        assert torch.equal(got, lin.w4a8_grouped_plain(x, q, s)), f"{M}x{N} gsz {gsz} {dtype}"
+        edges[f"{M}x{G * gsz}x{N}_gsz{gsz}_{str(dtype)[6:]}"] = "bit_equal"
+    mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    return dict(name="w4a8_grouped", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/w4a8_grouped.cu",
+                replaces="openvla_probe_tpu/ops/linear.py:526", by_shape=by_shape,
+                edge_cases=edges, **mix)
+
+
+def check_split_attention_i8(dev, g):
+    """The int8 frozen-KV decode attention (the XLA function
+    _split_attention_i8 of the turbo_kv8 tier) at its 7B shape: q [24, 1, 32,
+    128] bf16 over one layer of the int8 prefill K/V [24, 288, 32, 128] with
+    their scales and the bf16 generated K/V [24, 6, 32, 128], bf16 scores,
+    padded prompts, decode step 3; held to the plain version by
+    decode_attention.compare_split_attention_i8 (every element within two
+    steps of its row's p code, s_p · 127, plus one bf16 step: fp32 sums in
+    another order and exp's last bits move a p code only at a rounding tie),
+    one launch a call. Edge cases, untimed: GQA (n_rep 4) at Dh 128, fp32 q at
+    fp32 and bf16 scores, a row masked but BOS, one row. Library: SDPA on the
+    K/V dequantized to bf16 beforehand, the two segments concatenated (it
+    leaves out the quantization of q and p and reads 2x the prefill bytes)."""
+    B, T, A, H, Dh = BATCH, T_PREFILL, ACTION_DIM - 1, 32, 128
+    sets = kernel_ab.split_i8_sets(B, T, A, 3, H, H, Dh, g, dev,
+                                   copies_past_l2(2 * B * T * H * Dh))
+    before = _build.KERNEL_LAUNCHES["split_attention_i8"]
+    got = dattn.split_attention_i8(*sets[0], torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _build.KERNEL_LAUNCHES["split_attention_i8"] == before + 1
+    stats = dattn.compare_split_attention_i8(got, *sets[0], torch.bfloat16)
+    q, kq, ks, vq, vs, kd, vd, pre, dec = sets[0]
+    edges = {}
+    for name, (b_, h_, hkv, dtype, scores) in {
+            "gqa4": (2, 32, 8, torch.bfloat16, torch.bfloat16),
+            "fp32_fp32_scores": (3, 32, 32, torch.float32, torch.float32),
+            "fp32_bf16_scores": (3, 32, 32, torch.float32, torch.bfloat16),
+            "one_row": (1, 32, 32, torch.bfloat16, torch.bfloat16)}.items():
+        args = kernel_ab.split_i8_sets(b_, T, A, 3, h_, hkv, Dh, g, dev, 1, dtype)[0]
+        pv = args[7].clone()
+        pv[-1, 1:] = 0                               # a row masked but BOS
+        args = (*args[:7], pv, args[8])
+        out = dattn.split_attention_i8(*args, scores)
+        edges[name] = dattn.compare_split_attention_i8(out, *args, scores)["max_abs_err"]
+    kf = [(s[0].transpose(1, 2),
+           torch.cat([(s[1].float() * s[2][..., None]).bfloat16(), s[5]], 1).transpose(1, 2),
+           torch.cat([(s[3].float() * s[4][..., None]).bfloat16(), s[6]], 1).transpose(1, 2))
+          for s in sets]
+    mask = torch.cat([pre, dec], dim=1).bool()[:, None, None, :]
+    b, by = bound_ms(_nbytes(q, kq, ks, vq, vs, kd, vd, pre, dec, got),
+                     4 * B * H * (T + A) * Dh, "int8")
+    res = dict(name="split_attention_i8", route="cuda",
+               source="openvla_probe_tpu_torch/ops/csrc/split_attention_i8.cu",
+               replaces="openvla_probe_tpu/models/llama.py:746",
+               max_abs_err=max(stats["max_abs_err"], *edges.values()),
+               max_share_of_tolerance=stats["max_share_of_limit"], n_apart=stats["n_apart"],
+               ms=cuda_ms(rotating(lambda *a: dattn.split_attention_i8(*a, torch.bfloat16),
+                                   sets)),
+               plain_ms=cuda_ms(rotating(lambda *a: dattn.split_attention_i8_plain(
+                   *a, torch.bfloat16), sets), reps=5, warmup=1),
+               library_ms=cuda_ms(rotating(lambda qt, kt, vt: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=mask), kf)),
+               bound_ms=b, bound_by=by, launches_per_call=LAYERS * A, edge_cases=edges)
+    del sets, kf
+    return res
+
+
 def _inputs(cfg: vla.VLAServingConfig, batch: int, hw: int, g, dev):
     """uint8 images and right-padded prompts [BOS, tokens..., 29871]."""
     P = cfg.prompt_pad_len
@@ -1599,17 +1731,29 @@ PATHS = {
                                      "stacked_decode_attention_i8")),
     "turbo": ("turbo", 8, ("flash_prefill", "vit_attention", "decode_attention", "w8a8_matmul",
                            "rms_norm_quant")),
+    "turbo_kv8": ("turbo_kv8", 8, ("flash_prefill", "vit_attention", "split_attention_i8",
+                                   "w8a8_matmul", "rms_norm_quant")),
+    "turbo_fused": ("turbo", 8, ("flash_prefill", "vit_attention", "decode_attention",
+                                 "w8a8_matmul", "rms_norm_quant")),
     "pallas_int4": ("pallas", 4, ("flash_prefill", "vit_attention", "wi8_matmul",
                                   "decode_split_attention", "w4a8_matmul", "w4a8_requant")),
+    "turbo_int4": ("turbo", 4, ("flash_prefill", "vit_attention", "decode_attention",
+                                "w8a8_matmul", "w4a8_requant", "w4a8_grouped")),
     "turbo_nibble": ("turbo", "nibble", ("flash_prefill", "vit_attention", "decode_attention",
                                          "w8a8_matmul", "nib_hi_dot")),
+    "turbo_mix": ("turbo", "mix", ("flash_prefill", "vit_attention", "decode_attention",
+                                   "w8a8_matmul", "w4a8_grouped", "rms_norm_quant")),
 }
+# turbo over the int8 weights after llama.fuse_serving_params (q/k/v and gate/up fused in
+# place of turbo's tree, after turbo's phases): tokens bit-equal to turbo's
+FUSED_PATHS = ("turbo_fused",)
 # the path whose slice ported each kernel (its launches go into the kernels line)
 PORTED_ON = {"flash_prefill": "parity", "flash_blockwise": "score_long",
              "vit_attention": "parity", "decode_attention": "parity",
              "stacked_decode_attention_i8": "pallas_kv8", "w4a8_matmul": "pallas_int4",
              "w8a8_matmul": "turbo", "rms_norm_quant": "turbo", "nib_hi_dot": "turbo_nibble",
-             "w4a8_dx": "train_int4", "w4a8_requant": "pallas_int4"}
+             "w4a8_dx": "train_int4", "w4a8_requant": "pallas_int4",
+             "split_attention_i8": "turbo_kv8", "w4a8_grouped": "turbo_int4"}
 
 
 def _serving(path: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
@@ -1617,9 +1761,20 @@ def _serving(path: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
 
 
 def _init(path: str, vlm_cfg: vlm.VLMConfig, g, dev):
+    """The path's weights: random floats quantized one slice at a time
+    (convert.init_params), or for mix the codes and scales drawn directly
+    (linear.random_params_like, the JAX bench's initializer), fused where the
+    path is in FUSED_PATHS."""
     bits = PATHS[path][1]
-    return convert.init_params(vlm_cfg, g, device=dev, bits=bits or 8,
-                               quant_suffixes=lin.TURBO_QUANT_SUFFIXES if bits else ())
+    if bits == "mix":
+        params = lin.random_params_like(
+            convert.vlm_param_spec(vlm_cfg, lin.TURBO_QUANT_SUFFIXES, bits), g, device=dev)
+    else:
+        params = convert.init_params(vlm_cfg, g, device=dev, bits=bits or 8,
+                                     quant_suffixes=lin.TURBO_QUANT_SUFFIXES if bits else ())
+    if path in FUSED_PATHS:
+        params["llm"] = llama.fuse_serving_params(params["llm"])
+    return params
 
 
 def _tiny_vlm(path: str) -> vlm.VLMConfig:
@@ -1643,7 +1798,7 @@ def _tiny_vlm(path: str) -> vlm.VLMConfig:
 # first-logit tolerance of a tiny path, card vs CPU: parity 1e-4; quantized
 # weights 1e-3 (an activation code at a rounding tie may land one step apart
 # between the two LayerNorm or RMSNorm sums)
-TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3, "nibble": 1e-3}
+TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3, "nibble": 1e-3, "mix": 1e-3}
 
 
 # the tiny configs run fp32: the kernels with a bf16 tensor-core route take their scalar
@@ -1839,25 +1994,38 @@ def _linear_route(leaf, int8_matmul: str, M: int) -> str:
     `Leaf` per tensor), on the config's int8 route, at M rows."""
     if "hi" in leaf:                                    # nibble planes
         return "nib_hi_dot" if M <= lin.NIB_HI_M_MAX else "w8a8_matmul"
+    if "q4" in leaf:                                    # mix: the row count picks the copy
+        return "w4a8_grouped" if M <= lin.NIB_HI_M_MAX else "w8a8_matmul"
     if leaf["q"].dtype == torch.int8:
         return "wi8_matmul" if int8_matmul == "wi8" else "w8a8_matmul"
-    return "w4a8_matmul" if lin.takes_w4a8_kernel(leaf) else "w4a8_requant"
+    if int8_matmul == "wi8":                            # grouped int4 under the kernel gate
+        return "w4a8_matmul" if lin.takes_w4a8_kernel(leaf) else "w4a8_requant"
+    return "w4a8_grouped" if M <= lin.NIB_HI_M_MAX else "w4a8_requant"
+
+
+def _takes_int8_codes(leaf, M: int) -> bool:
+    """A consumer the fused norm serves at M rows: an int8 leaf, or a mix leaf
+    above M = 32 (llama._norm_maybe_quant)."""
+    if "q4" in leaf:
+        return M > lin.NIB_HI_M_MAX
+    return "q" in leaf and leaf["q"].dtype == torch.int8
 
 
 def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH):
     """Exact per-kernel launches of one call, from the weight layout
     (convert.vlm_param_spec) and the routes of the port, with the activation
     pre-pass of each int8 GEMM call (_build.PRE_PASSES) counted apart: every
-    call but w8a8's on the fused norm's codes launches one."""
+    call but w8a8's on the fused norm's codes launches one. A fused path runs
+    one product for q/k/v and one for gate/up."""
     c = cfg.vlm
     L, A1 = c.llm.num_hidden_layers, cfg.action_dim - 1
     bits = PATHS[path][1]
     kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
     blocks = sum(v.num_layers - 1 for v in c.vision)       # 23 + 26 tower blocks run
     kernels.update(flash_prefill=L, vit_attention=blocks)
-    kernels[{"parity": "decode_attention", "turbo": "decode_attention",
-             "pallas": "decode_split_attention",
-             "pallas_kv8": "stacked_decode_attention_i8"}[cfg.tier]] = L * A1
+    attn = {"stacked": "decode_attention", "stacked_kv8": "stacked_decode_attention_i8",
+            "frozen_kv": "split_attention_i8" if cfg.kv_int8 else "decode_split_attention"}
+    kernels[attn[cfg.decode_impl]] = L * A1
     if bits is None:
         return kernels
     spec = convert.vlm_param_spec(c, lin.TURBO_QUANT_SUFFIXES, bits)
@@ -1874,20 +2042,27 @@ def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH)
                 for w in pair:
                     kernels[_linear_route(b[w], v.int8_matmul, 2 ** 20)] += n
     layers, route = spec["llm"]["layers"], c.llm.int8_matmul
-    # 7 linears per layer at prefill (M = B x T) and at each step (M = B); lm_head 1 + A1 times
-    for w in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"):
-        kernels[_linear_route(layers[w], route, batch * T_PREFILL)] += L
-        kernels[_linear_route(layers[w], route, batch)] += L * A1
+    fused_leaves = path in FUSED_PATHS
+    # the products of a layer (q/k/v and gate/up one each when fused) at prefill (M = B x T)
+    # and at each step (M = B); lm_head 1 + A1 times
+    groups = (("q_proj", "k_proj", "v_proj"), ("o_proj",), ("gate_proj", "up_proj"),
+              ("down_proj",))
+    for group in groups:
+        for w in group[:1] if fused_leaves else group:
+            kernels[_linear_route(layers[w], route, batch * T_PREFILL)] += L
+            kernels[_linear_route(layers[w], route, batch)] += L * A1
     kernels[_linear_route(spec["llm"]["lm_head"], route, batch)] += 1 + A1
-    # the fused norm: both sites of every layer whose consumers all take w8a8, in every
-    # pass of more than 8 rows
+    # the fused norm: both sites of every layer whose consumers all take int8 codes, in the
+    # prefill and, on the stacked decode, in every step of more than 8 rows (the frozen-KV
+    # and int8-cache decode steps keep the plain norm)
     prequant = 0   # w8a8 calls on the fused norm's codes: no pre-pass
     if c.llm.fused_rmsq and route == "w8a8":
-        passes = 1 + (A1 if batch > 8 else 0)
-        for site in (("q_proj", "k_proj", "v_proj"), ("gate_proj", "up_proj")):
-            if all("q" in layers[w] and layers[w]["q"].dtype == torch.int8 for w in site):
-                kernels["rms_norm_quant"] += L * passes
-                prequant += len(site) * L * passes
+        steps = A1 if cfg.decode_impl == "stacked" and batch > llama.RMSQ_MIN_M - 1 else 0
+        for M, n in ((batch * T_PREFILL, 1), (batch, steps)):
+            for site in (groups[0], groups[2]):
+                if n and all(_takes_int8_codes(layers[w], M) for w in site):
+                    kernels["rms_norm_quant"] += L * n
+                    prequant += (1 if fused_leaves else len(site)) * L * n
     for gemm, pre_pass in _build.PRE_PASSES.items():
         kernels[pre_pass] = kernels[gemm] - (prequant if gemm == "w8a8_matmul" else 0)
     return kernels
@@ -1902,9 +2077,14 @@ def _counting_int_mm(counter: list):
     return counted
 
 
+MAIN_OUT = {}   # path -> (action tokens, first logits) of its driven call
+
+
 def run_main_path(dev, path: str, weights: dict):
     """`weights` caches the last built weights by their bits, so that paths
-    sharing weights build them once."""
+    sharing weights build them once; a path in FUSED_PATHS fuses the cached
+    tree's trunk in place (the unfused leaves dropped) and must give the
+    unfused turbo path's tokens and first logits bit for bit."""
     cfg = _serving(path, vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
                    prompt_pad_len=PROMPT_PAD)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1917,12 +2097,20 @@ def run_main_path(dev, path: str, weights: dict):
         weights[bits] = _init(path, cfg.vlm, g, dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
+    elif path in FUSED_PATHS and "qkv_proj" not in weights[bits]["llm"]["layers"]:
+        t0 = time.perf_counter()
+        weights[bits]["llm"] = llama.fuse_serving_params(weights[bits]["llm"])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
     params = weights[bits]
     torch.cuda.reset_peak_memory_stats()   # the serving peak, not the init's transients
     n_params = sum(t.numel() for t in _leaves(params))
     param_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
     img_cfg = ImageTransformConfig.dinosiglip_224()
-    image, ids, plen, q01, q99, mask = _inputs(cfg, BATCH, IMG_HW, g, dev)
+    # the requests from a generator of their own: every path sees the same ones, whether or
+    # not it built its weights
+    image, ids, plen, q01, q99, mask = _inputs(cfg, BATCH, IMG_HW,
+                                               torch.Generator(device=dev).manual_seed(1), dev)
 
     def call():
         out = vla.predict_action_from_image(params, cfg, image, img_cfg, ids, plen, q01, q99,
@@ -1946,6 +2134,12 @@ def run_main_path(dev, path: str, weights: dict):
     assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vlm.llm.vocab_size
     assert actions.shape == (BATCH, ACTION_DIM) and torch.isfinite(actions).all()
     assert logits.shape == (BATCH, cfg.vlm.llm.vocab_size) and torch.isfinite(logits).all()
+    MAIN_OUT[path] = (toks, logits)
+    equal_to = None
+    if path in FUSED_PATHS:
+        equal_to = "turbo"
+        assert torch.equal(toks, MAIN_OUT[equal_to][0]), (path, "tokens differ from turbo's")
+        assert torch.equal(logits, MAIN_OUT[equal_to][1]), (path, "logits differ from turbo's")
 
     times = []
     for _ in range(TIMED_CALLS):
@@ -1957,7 +2151,8 @@ def run_main_path(dev, path: str, weights: dict):
     p50 = statistics.median(times)
     busy = profile_main_path.device_time(call, 1)   # the card's busy time a call
     return launches, dict(
-        path=path, tier=cfg.tier, weight_bits=bits, int_mm_calls_per_call=len(int_mm_calls),
+        path=path, tier=cfg.tier, weight_bits=bits, fused=path in FUSED_PATHS,
+        bit_equal_to=equal_to, int_mm_calls_per_call=len(int_mm_calls),
         params=n_params, param_gb=param_gb, init_s=init_s, first_call_s=first_s,
         p50_ms=p50 * 1e3, calls_per_s=BATCH / p50, call_ms=[t * 1e3 for t in times],
         device_ms_per_call=busy["device_ms_per_call_total"],
@@ -2590,7 +2785,8 @@ def main() -> int:
                check_fused_ln_w8a8(dev, g), check_fused_mlp_residual(dev, g),
                check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
                check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g), check_rms_norm_quant(dev, g),
-               check_nib_hi_dot(dev, g), check_w4a8_dx(dev, g), check_w8a8_requant(dev, g)]
+               check_nib_hi_dot(dev, g), check_w4a8_dx(dev, g), check_w8a8_requant(dev, g),
+               check_split_attention_i8(dev, g), check_w4a8_grouped(dev, g)]
     # the scalar routes: no main path takes them (the tiny fp32 paths do)
     scalar_routes = [check_decode_attention_scalar(dev, g),
                      check_decode_split_attention_scalar(dev, g), check_vit_attention_scalar(dev, g),
@@ -2611,7 +2807,9 @@ def main() -> int:
         log("tiny", **check_tiny_spec(dev, path))
 
     launches, weights = {}, {}
-    for path in PATHS:   # pallas, pallas_kv8 and turbo share one build of the int8 weights
+    # pallas, pallas_kv8, turbo, turbo_kv8 and turbo_fused share one build of the int8 weights
+    # (fused in place after turbo's phases), pallas_int4 and turbo_int4 one of the int4 weights
+    for path in PATHS:
         launches[path], main_stats = run_main_path(dev, path, weights)
         log("main", card=card, batch=BATCH, launches_per_call=launches[path], **main_stats)
         torch.cuda.empty_cache()

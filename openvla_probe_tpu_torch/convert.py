@@ -9,11 +9,13 @@
   grouped int4 ``{"q": uint8 [..., G, O, gsz/2], "s": f32 [..., O, G]}`` in
   the port's packed layout (``ops/linear.py``), int8 where K has no group;
   bits="nibble" the two packed planes ``{"hi", "lo": uint8 [..., O, K/2],
-  "s": f32 [..., O]}`` for the Llama trunk and lm_head, int8 elsewhere.
+  "s": f32 [..., O]}`` for the Llama trunk and lm_head, int8 elsewhere;
+  bits="mix" both copies ``{"q", "s", "q4", "s4"}`` (int8 and packed grouped
+  int4) for the trunk and lm_head, int8 elsewhere and where K has no group.
 * `params_from_jax(tree, cfg, quant_suffixes=..., bits=...)` takes the JAX
-  package's parameter pytree as numpy arrays (int4 codes, grouped or nibble
-  planes, as its s4 arrays or its ``emit_codes=True`` int8 codes, packed
-  here) and returns the port's parameters, raising on any leaf it does not
+  package's parameter pytree as numpy arrays (int4 codes, grouped, mix
+  copies or nibble planes, as its s4 arrays or its ``emit_codes=True`` int8
+  codes, packed here) and returns the port's parameters, raising on any leaf it does not
   consume and on any leaf it is missing.
 * `init_params(cfg, generator, device, quant_suffixes=..., bits=...)` makes
   random weights of the same distributions as the JAX package's init
@@ -155,19 +157,21 @@ def _quantized(name: str, leaf: Leaf, quant_suffixes: Tuple[str, ...]) -> bool:
 def _quant_leaf(name: str, leaf: Leaf, bits) -> Dict[str, Leaf]:
     """The layout `quantize_leaf` gives float leaf `name` under
     `quantize_params(..., bits)`."""
-    if bits not in (4, 8, "nibble"):
-        raise NotImplementedError(f"bits={bits!r}: only 8 (per-channel int8), 4 (grouped int4) "
-                                  "and 'nibble' are ported; mix is ROADMAP Queue 1 item 10")
+    if bits not in (4, 8, "mix", "nibble"):
+        raise ValueError(f"bits must be 4, 8, 'mix' or 'nibble', got {bits!r}")
     *lead, O, K = leaf.shape
-    if leaf_bits(name, bits) == "nibble":
+    width = leaf_bits(name, bits)
+    if width == "nibble":
         plane = Leaf((*lead, O, K // 2), torch.uint8, leaf.init, leaf.arg)
         return {"hi": plane, "lo": plane, "s": Leaf((*lead, O), torch.float32, "scale")}
-    gsz = int4_group_size(K)
-    if bits == 4 and gsz:
-        return {"q": Leaf((*lead, K // gsz, O, gsz // 2), torch.uint8, leaf.init, leaf.arg),
-                "s": Leaf((*lead, O, K // gsz), torch.float32, "scale")}
-    return {"q": Leaf(leaf.shape, torch.int8, leaf.init, leaf.arg),
+    int8 = {"q": Leaf(leaf.shape, torch.int8, leaf.init, leaf.arg),
             "s": Leaf(leaf.shape[:-1], torch.float32, "scale")}
+    gsz = int4_group_size(K)
+    if width not in (4, "mix") or not gsz:
+        return int8
+    int4 = {"q": Leaf((*lead, K // gsz, O, gsz // 2), torch.uint8, leaf.init, leaf.arg),
+            "s": Leaf((*lead, O, K // gsz), torch.float32, "scale")}
+    return int4 if width == 4 else {**int8, "q4": int4["q"], "s4": int4["s"]}
 
 
 def _quantized_spec(spec: Dict[str, Any], quant_suffixes: Tuple[str, ...],
@@ -212,8 +216,8 @@ def _convert(tree: Any, spec: Any, path: str, device: torch.device) -> Any:
         if isinstance(tree, dict):
             raise NotImplementedError(
                 f"{path}: a {sorted(tree)} leaf where the layout has a float weight (name it "
-                "in quant_suffixes for a quantized leaf; mix and LoRA-wrapped leaves are not "
-                "ported yet: ROADMAP Queue 1 items 10, 13)")
+                "in quant_suffixes for a quantized leaf; LoRA-wrapped leaves are not "
+                "ported yet: ROADMAP Queue 1 item 13)")
         arr = np.asarray(tree)
         if spec.dtype == torch.uint8:
             return _packed_int4(arr, spec, path, device)
@@ -279,8 +283,9 @@ def init_params(cfg: vlm.VLMConfig, generator: torch.Generator, device: DeviceLi
     unit norms, 1e-5 LayerScale, nn.Linear-uniform projector), in each
     module's config dtype unless `dtype` is given; the weights named in
     `quant_suffixes` are quantized from that float value (bits=8 per-channel
-    int8, bits=4 grouped int4, bits="nibble" nibble planes whose codes span
-    [-8, 7]). `generator` must live on `device`."""
+    int8, bits=4 grouped int4, bits="mix" int8 and int4 copies, bits="nibble"
+    nibble planes whose codes span [-8, 7]). `generator` must live on
+    `device`."""
     dev = resolve_device(device)
 
     def walk(spec):
@@ -323,12 +328,12 @@ def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
 
 def config_from_jax(cfg: Any) -> Any:
     """A JAX-package VLMConfig / VLAServingConfig -> the port's (the turbo
-    numerics' bf16 scores and RoPE included; the `turbo` tier's kernel
-    routes). Raises on what the port does not run (MoE trunks; serving tiers
-    other than parity, turbo, pallas and pallas_kv8)."""
+    numerics' bf16 scores and RoPE included; the kernel routes of the turbo
+    and turbo_kv8 tiers). Raises on what the port does not run (MoE
+    trunks)."""
     if hasattr(cfg, "vlm"):   # VLAServingConfig
         vlm_cfg = config_from_jax(cfg.vlm)
-        if cfg.tier == "turbo":
+        if cfg.tier in ("turbo", "turbo_kv8"):
             vlm_cfg = vla.turbo_routes(vlm_cfg)
         return vla.VLAServingConfig(**_fields(cfg, vla.VLAServingConfig, vlm=vlm_cfg))
     if getattr(cfg.llm, "moe_experts", 0):

@@ -6,10 +6,14 @@ scores in `attn_scores_dtype` with an fp32 softmax, SwiGLU with silu in fp32:
 fp32 RoPE and scores are the parity numerics, bf16 the turbo ones. Weights
 are layer-stacked ``[L, ...]`` as in the JAX package (bf16, or quantized
 leaves through ``matmul_t`` on the config's int8 route); a Python loop over
-the layers takes the place of its ``lax.scan``. Where the config turns on the
-fused RMSNorm -> int8 kernel and every consumer of a norm takes w8a8, the
-norm hands its consumers int8 codes instead of the normed activation
-(`_norm_maybe_quant`). For training, ``flash_attn=False`` sends prefill-sized
+the layers takes the place of its ``lax.scan``. `fuse_serving_params` fuses
+q/k/v into ``qkv_proj`` and gate/up into ``gate_up_proj`` (4 products a layer
+instead of 7), which every forward and decode takes where present. Where the
+config turns on the fused RMSNorm -> int8 kernel and every consumer of a
+norm takes w8a8, the norm hands its consumers int8 codes instead of the
+normed activation (`_norm_maybe_quant`; the frozen-KV and int8-cache decode
+steps keep the plain norm, as in the JAX package). For training,
+``flash_attn=False`` sends prefill-sized
 attention to the plain branch (the kernels have no backward) and ``remat``
 recomputes each decoder layer in the backward pass of an uncached forward
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``). Three
@@ -17,12 +21,16 @@ cache layouts:
 
 * the 5-D stacked ``[L, B, S, Hkv, Dh]`` pair of the stacked decode (`forward`
   with a `KVCache`), written in place (the JAX package writes it with
-  dynamic_update_slice on the scan carry);
+  dynamic_update_slice on the scan carry), or the flat ``[L, B, S, Hkv·Dh]``
+  pair of `KVCache.zeros_flat`, read as a 5-D view of the same bytes;
 * the frozen-KV split decode (`prefill`, `decode_step`, `greedy_decode`): the
   prefill writes each layer's post-RoPE K/V in place into one preallocated
   ``[L, B, T, Hkv, Dh]`` pair (the JAX package emits them through scan ys),
   and each decode step attends [frozen prefill K/V | generated K/V] with one
   joint softmax, the generated K/V written in place into ``[L, B, A, Hkv, Dh]``;
+  over a `PrefillKVQ` (the ``turbo_kv8`` tier) the frozen K/V are int8 with
+  per-(token, head) scales, attended by ``split_attention_i8`` without
+  dequantizing, the generated buffer in the model's dtype;
 * the int8 flat stacked cache of the `pallas_kv8` tier (`KVCacheQ`,
   `quantize_prefill_to_stacked`, `decode_step_stacked_i8`): int8
   ``[L, B, S, Hkv·Dh]`` codes with fp32 ``[L, B, S, Hkv]`` per-(slot, head)
@@ -41,9 +49,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, attention_plain, decode_attention, flash_attention
-from ..ops.decode_attention import decode_flash_attention, stacked_decode_attention_i8
-from ..ops.linear import (PrequantActivation, div127, index_layer, is_int8_per_channel,
-                          matmul_t)
+from ..ops.decode_attention import (decode_flash_attention, split_attention_i8,
+                                    stacked_decode_attention_i8)
+from ..ops.linear import (NIB_HI_M_MAX, PrequantActivation, div127, index_layer,
+                          is_grouped_int4, is_int8_per_channel, is_mixed_quant, matmul_t)
 from ..ops.rmsnorm_quant import rms_norm, rms_norm_quant
 
 Params = Dict[str, Any]
@@ -106,6 +115,17 @@ class KVCache(NamedTuple):
     @staticmethod
     def zeros(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, device=None) -> "KVCache":
         shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        dtype = dtype or cfg.dtype
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+    @staticmethod
+    def zeros_flat(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
+                   device=None) -> "KVCache":
+        """The flat [L, B, S, Hkv·Dh] layout (the JAX package's, which denies
+        XLA two cache layouts); `forward` reads it as a 5-D view of the same
+        bytes. `max_len` should be a multiple of 8, as the JAX package pads it."""
+        shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads * cfg.head_dim)
         dtype = dtype or cfg.dtype
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
@@ -192,15 +212,23 @@ def make_causal_mask(attn_mask: torch.Tensor, tq: int, tk: int, offset: int = 0)
 Attend = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def _norm_maybe_quant(cfg: LlamaConfig, x: torch.Tensor, norm_w: torch.Tensor, leaves):
-    """RMSNorm, fused with the int8 activation quantization where the config
-    turns the fused kernel on, the int8 route is w8a8, the norm has more than
-    8 rows and every consumer leaf is per-channel int8 (the JAX package's
-    rule: never on the wi8 route, never for nibble or int4 leaves). Returns
-    the normed activation or a `PrequantActivation` its consumers take."""
+def _norm_maybe_quant(cfg: LlamaConfig, x: torch.Tensor, norm_w: torch.Tensor, leaves,
+                      fused: bool = True):
+    """RMSNorm, fused with the int8 activation quantization where `fused`, the
+    config turns the fused kernel on, the int8 route is w8a8, the norm has
+    more than 8 rows and every consumer leaf takes its int8 copy through w8a8:
+    a per-channel int8 leaf, or a mix leaf above M = 32, where it reads its
+    int8 copy (the JAX package's rule: never on the wi8 route, never for
+    nibble or int4 leaves, nor for mix leaves at decode M, which read the int4
+    copy). Returns the normed activation or a `PrequantActivation` its
+    consumers take."""
     M = x.shape[0] * x.shape[1]
-    if (cfg.fused_rmsq and cfg.int8_matmul == "w8a8" and M >= RMSQ_MIN_M
-            and all(is_int8_per_channel(w) for w in leaves)):
+
+    def w8a8_leaf(w) -> bool:
+        return is_int8_per_channel(w) or (is_mixed_quant(w) and M > NIB_HI_M_MAX)
+
+    if (fused and cfg.fused_rmsq and cfg.int8_matmul == "w8a8" and M >= RMSQ_MIN_M
+            and all(w8a8_leaf(w) for w in leaves)):
         return PrequantActivation(*rms_norm_quant(x, norm_w, cfg.rms_norm_eps), x.dtype)
     return rms_norm(x, norm_w, cfg.rms_norm_eps)
 
@@ -212,21 +240,35 @@ def _layer_forward(
     cos: torch.Tensor,
     sin: torch.Tensor,
     attend: Attend,           # (q [B,T,H,Dh], k, v [B,T,Hkv,Dh] post-RoPE) -> [B,T,H,Dh]
+    fused_norm: bool = True,  # the fused RMSNorm -> int8 kernel may serve the norms
 ) -> torch.Tensor:
     """One decoder block. `attend` stores the new tokens' K/V where the
-    caller's cache layout wants them and attends over that layer's keys."""
+    caller's cache layout wants them and attends over that layer's keys. The
+    fused ``qkv_proj`` / ``gate_up_proj`` leaves of `fuse_serving_params` are
+    taken where present (one product, then a split)."""
     B, T, D = x.shape
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     route = cfg.int8_matmul
-    h = _norm_maybe_quant(cfg, x, lp["input_layernorm"], (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
-    q = matmul_t(h, lp["q_proj"], route).reshape(B, T, H, Dh)
-    k = matmul_t(h, lp["k_proj"], route).reshape(B, T, Hkv, Dh)
-    v = matmul_t(h, lp["v_proj"], route).reshape(B, T, Hkv, Dh)
-    q, k = apply_rope(q, k, cos, sin, cfg.rope_dtype)
-    x = x + matmul_t(attend(q, k, v).reshape(B, T, D), lp["o_proj"], route)
-    h = _norm_maybe_quant(cfg, x, lp["post_attention_layernorm"], (lp["gate_proj"], lp["up_proj"]))
-    gate = F.silu(matmul_t(h, lp["gate_proj"], route).float()).to(h.dtype)
-    return x + matmul_t(gate * matmul_t(h, lp["up_proj"], route), lp["down_proj"], route)
+    qkv_leaves = ((lp["qkv_proj"],) if "qkv_proj" in lp
+                  else (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
+    h = _norm_maybe_quant(cfg, x, lp["input_layernorm"], qkv_leaves, fused_norm)
+    if "qkv_proj" in lp:
+        q, k, v = torch.split(matmul_t(h, lp["qkv_proj"], route), [H * Dh, Hkv * Dh, Hkv * Dh],
+                              dim=-1)
+    else:
+        q, k, v = (matmul_t(h, w, route) for w in qkv_leaves)
+    q, k = apply_rope(q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), cos, sin, cfg.rope_dtype)
+    x = x + matmul_t(attend(q, k, v.reshape(B, T, Hkv, Dh)).reshape(B, T, D), lp["o_proj"], route)
+    mlp_leaves = ((lp["gate_up_proj"],) if "gate_up_proj" in lp
+                  else (lp["gate_proj"], lp["up_proj"]))
+    h = _norm_maybe_quant(cfg, x, lp["post_attention_layernorm"], mlp_leaves, fused_norm)
+    if "gate_up_proj" in lp:
+        g, up = torch.chunk(matmul_t(h, lp["gate_up_proj"], route), 2, dim=-1)
+        gate = F.silu(g.float()).to(h.dtype)
+    else:
+        gate = F.silu(matmul_t(h, lp["gate_proj"], route).float()).to(h.dtype)
+        up = matmul_t(h, lp["up_proj"], route)
+    return x + matmul_t(gate * up, lp["down_proj"], route)
 
 
 def _layer(params: Params, li: int) -> Params:
@@ -267,13 +309,17 @@ def forward(
         kv_valid = attn_mask[:, :T]
     else:
         kv_valid = attn_mask if ((static_zero_offset and T > 1) or T == 1) else None
+    kv5 = cache
+    if cache is not None and cache.k.dim() == 4:   # the flat layout: a 5-D view, same bytes
+        kv5 = KVCache(*(t.view(*t.shape[:3], cfg.num_key_value_heads, cfg.head_dim)
+                        for t in cache))
 
     def attend_layer(li: int) -> Attend:
         def attend(q, k, v):
-            if cache is not None:
-                cache.k[li, :, offset:offset + T] = k
-                cache.v[li, :, offset:offset + T] = v
-                k, v = cache.k[li], cache.v[li]
+            if kv5 is not None:
+                kv5.k[li, :, offset:offset + T] = k
+                kv5.v[li, :, offset:offset + T] = v
+                k, v = kv5.k[li], kv5.v[li]
             return attention(q, k, v, mask, cfg.attn_scores_dtype, kv_valid, offset,
                              cfg.flash_attn)
         return attend
@@ -324,6 +370,43 @@ class PrefillKV(NamedTuple):
     v: torch.Tensor
 
 
+class PrefillKVQ(NamedTuple):
+    """int8 frozen prefill K/V (the ``turbo_kv8`` tier): codes int8
+    [L, B, T, Hkv, Dh] and fp32 [L, B, T, Hkv] per-(layer, batch, token, head)
+    absmax scales. The decode attends it without dequantizing (int8 q·K and
+    scale-folded int8 p·V, `split_attention_i8`): the int8 bytes are the only
+    prefill K/V the decode steps read."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    ks: torch.Tensor
+    vs: torch.Tensor
+
+
+def _quant_rows_heads(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., H, Dh] -> (int8 codes [..., H, Dh], fp32 scales [..., H]):
+    s = max(max|x|, 1e-8) / 127 (the clamp before the division), codes
+    clip(round(x / s), -127, 127)."""
+    xf = x.float()
+    s = div127(torch.clamp(xf.abs().amax(dim=-1), min=1e-8))
+    return torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8), s
+
+
+def quantize_prefill_kv(kv: PrefillKV) -> PrefillKVQ:
+    """Frozen prefill K/V -> int8 codes and scales (the JAX package's
+    ``quantize_prefill_kv``, the same values), one layer at a time into
+    preallocated tensors (the fp32 transient of the whole stack would be
+    twice the bf16 K/V)."""
+    L, B, T, Hkv, Dh = kv.k.shape
+    dev = kv.k.device
+    codes = torch.empty((2, L, B, T, Hkv, Dh), dtype=torch.int8, device=dev)
+    scales = torch.empty((2, L, B, T, Hkv), dtype=torch.float32, device=dev)
+    for li in range(L):
+        for i, x in enumerate((kv.k[li], kv.v[li])):
+            codes[i, li], scales[i, li] = _quant_rows_heads(x)
+    return PrefillKVQ(codes[0], codes[1], scales[0], scales[1])
+
+
 def prefill(
     params: Params,
     cfg: LlamaConfig,
@@ -365,51 +448,63 @@ def decode_step(
     cfg: LlamaConfig,
     x: torch.Tensor,            # [B, 1, D] current-token embedding
     positions: torch.Tensor,    # [B, 1] absolute position of the token
-    kv_pre: PrefillKV,
+    kv_pre,                     # PrefillKV, or PrefillKVQ (int8)
     pre_mask: torch.Tensor,     # [B, T] prefill validity (1 = attend)
     dec_k: torch.Tensor,        # [L, B, A, Hkv, Dh] generated-token K buffer (updated in place)
     dec_v: torch.Tensor,
     t: int,                     # decode-step index (this token's slot)
 ) -> torch.Tensor:
-    """One greedy decode step (the JAX package's unrolled form). Returns the
+    """One greedy decode step (the JAX package's unrolled form), the norms
+    plain as there. Over a `PrefillKVQ` each layer attends through
+    `split_attention_i8`, else through the split decode kernel. Returns the
     final-normed last hidden state [B, D]."""
     B, A = x.shape[0], dec_k.shape[2]
     # cast once per call, not per layer (apply_rope's own cast is then a no-op)
     cos, sin = (t.to(cfg.rope_dtype) for t in rope_tables(cfg, positions))
     dec_valid = (torch.arange(A, device=x.device) <= t).int()[None].expand(B, A).contiguous()
 
+    quantized = isinstance(kv_pre, PrefillKVQ)
+
     def attend_layer(li: int) -> Attend:
         def attend(q, k, v):
             dec_k[li, :, t] = k[:, 0]
             dec_v[li, :, t] = v[:, 0]
+            if quantized:
+                return split_attention_i8(q, kv_pre.k[li], kv_pre.ks[li], kv_pre.v[li],
+                                          kv_pre.vs[li], dec_k[li], dec_v[li], pre_mask,
+                                          dec_valid, cfg.attn_scores_dtype)
             return _split_attention(q, kv_pre.k[li], kv_pre.v[li], dec_k[li], dec_v[li],
                                     pre_mask, dec_valid)
         return attend
 
     for li in range(cfg.num_hidden_layers):
-        x = _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
+        x = _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li),
+                           fused_norm=False)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)[:, 0]
 
 
 def greedy_decode(
     params: Params,
     cfg: LlamaConfig,
-    kv_pre: PrefillKV,
+    kv_pre,                     # PrefillKV, or PrefillKVQ (int8)
     pre_mask: torch.Tensor,     # [B, T] prefill validity
     first_token: torch.Tensor,  # [B] (from the prefill logits)
     start_pos: torch.Tensor,    # [B] absolute position of first_token
     n_steps: int,               # number of ADDITIONAL tokens to generate
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy-decode `n_steps` tokens after `first_token`. Returns (tokens
-    [B, n_steps], top1 - top2 logit margins [B, n_steps])."""
+    [B, n_steps], top1 - top2 logit margins [B, n_steps]). The generated-token
+    buffer is in the prefill K/V's dtype, the model's over an int8
+    `PrefillKVQ`."""
     B = first_token.shape[0]
     dev = first_token.device
     if n_steps == 0:
         return (torch.zeros((B, 0), dtype=torch.long, device=dev),
                 torch.zeros((B, 0), dtype=torch.float32, device=dev))
     shape = (cfg.num_hidden_layers, B, n_steps, cfg.num_key_value_heads, cfg.head_dim)
-    dec_k = torch.zeros(shape, dtype=kv_pre.k.dtype, device=dev)
-    dec_v = torch.zeros(shape, dtype=kv_pre.k.dtype, device=dev)
+    dec_dtype = cfg.dtype if isinstance(kv_pre, PrefillKVQ) else kv_pre.k.dtype
+    dec_k = torch.zeros(shape, dtype=dec_dtype, device=dev)
+    dec_v = torch.zeros(shape, dtype=dec_dtype, device=dev)
     toks, margins, tok = [], [], first_token
     for t in range(n_steps):
         e = embed_tokens(params, tok[:, None])
@@ -455,12 +550,9 @@ class KVCacheQ(NamedTuple):
 
 
 def _quant_heads(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., H, Dh] -> (int8 [..., H·Dh] flat, fp32 scales [..., H]):
-    s = max(max|x|, 1e-8) / 127 (the clamp before the division), codes
-    clip(round(x / s), -127, 127)."""
-    xf = x.float()
-    s = div127(torch.clamp(xf.abs().amax(dim=-1), min=1e-8))
-    qi = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    """[..., H, Dh] -> (int8 [..., H·Dh] flat, fp32 scales [..., H]): the
+    codes of `_quant_rows_heads`, flattened."""
+    qi, s = _quant_rows_heads(x)
     return qi.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]), s
 
 
@@ -508,8 +600,44 @@ def decode_step_stacked_i8(
         return attend
 
     for li in range(cfg.num_hidden_layers):
-        x = _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
+        x = _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li),
+                           fused_norm=False)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)[:, 0]
+
+
+def fuse_serving_params(llm_params: Params) -> Params:
+    """Serving-side weight fusion (the JAX package's): q/k/v -> one
+    ``qkv_proj`` [L, (H + 2Hkv)·Dh, D] and gate/up -> one ``gate_up_proj``
+    [L, 2F, D], so each decode layer runs 4 products instead of 7. Every leaf
+    form concatenates each of its tensors along its own output-channel axis
+    (the groups cover the shared in-dim, so they are untouched): bf16 [L, O, K],
+    per-channel int8 {q [L, O, K], s [L, O]}, packed grouped int4 {q [L, G, O,
+    gsz/2], s [L, O, G]}, nibble planes {hi, lo [L, O, K/2], s [L, O]} and mix
+    {q, s, q4, s4}: axis -2, except the per-channel scales "s" (-1). A column's
+    result does not depend on which leaf it sits in, so the outputs are
+    bit-equal to the unfused ones. The gate/up fusion stands down where a
+    layer has a router. Returns a new tree without the unfused leaves, which
+    a caller frees by replacing its own tree: the peak is the trunk and the
+    fused leaves (about 0.6 of the trunk's bytes at 7B), never two trunks.
+    Training keeps the unfused layout."""
+    layers = dict(llm_params["layers"])
+
+    def cat(names, out):
+        ws = [layers.pop(n) for n in names]
+        if isinstance(ws[0], dict):
+            if any(set(w) != set(ws[0]) for w in ws):
+                raise ValueError(f"fusing {names}: mismatched leaf layouts "
+                                 f"{[sorted(w) for w in ws]}")
+            per_channel_s = -2 if is_grouped_int4(ws[0]) else -1
+            layers[out] = {k: torch.cat([w[k] for w in ws], dim=per_channel_s if k == "s" else -2)
+                           for k in ws[0]}
+        else:
+            layers[out] = torch.cat(ws, dim=1)
+
+    cat(("q_proj", "k_proj", "v_proj"), "qkv_proj")
+    if "router" not in layers:
+        cat(("gate_proj", "up_proj"), "gate_up_proj")
+    return {**llm_params, "layers": layers}
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:

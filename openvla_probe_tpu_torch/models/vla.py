@@ -10,7 +10,7 @@ cache slots after the pad region (slot0 + t) with their true RoPE positions
 (mm_len + t), and pad slots are masked out of attention, so results do not
 depend on the pad length. Argmax runs over the full LLM vocab at every step.
 
-Four serving tiers are ported (`VLAServingConfig.for_tier`):
+The serving tiers of the JAX package's table (`VLAServingConfig.for_tier`):
 
 * ``parity``: bf16 weights, fp32 scores and RoPE, the stacked-cache decode;
 * ``pallas``: `VLMConfig.turbo` numerics, the frozen-KV split decode, over
@@ -23,18 +23,26 @@ Four serving tiers are ported (`VLAServingConfig.for_tier`):
 * ``turbo``: turbo numerics, the stacked-cache decode (bf16 scores), every
   int8 linear on the w8a8 route (`turbo_routes`) and the fused RMSNorm ->
   int8 kernel on (``fused_rmsq=False`` turns it off: the JAX tier as it runs
-  with ``OVLA_PALLAS_RMSQ`` unset, its default); over int8 weights (bits=8)
-  or nibble weights (bits="nibble": the Llama trunk and lm_head as two 4-bit
-  planes, the towers int8), the JAX package's bench default.
+  with ``OVLA_PALLAS_RMSQ`` unset, its default); over int8 weights (bits=8),
+  grouped int4 (bits=4), mix weights (bits="mix": the Llama trunk and lm_head
+  as int8 and int4 copies, the towers int8) or nibble weights (bits="nibble":
+  the trunk and lm_head as two 4-bit planes, the towers int8), the JAX
+  package's bench configurations;
+* ``turbo_kv8``: turbo's routes, the frozen-KV split decode over the prefill
+  K/V quantized to int8 (`llama.PrefillKVQ`).
 
 The weight leaves and the config pick the kernels: on the ``pallas*`` tiers
 int8 linears take ``wi8_matmul``, grouped-int4 linears ``w4a8_matmul`` (or the
 requant route), int8 tower blocks the fused w8a8 kernels; on ``turbo`` every
 int8 linear takes ``w8a8_matmul`` (after ``rms_norm_quant`` where a norm's
 consumers all do), nibble linears ``w8a8_matmul`` at prefill and
-``nib_hi_dot`` at decode M. The frozen-KV decode takes the split-attention
-kernel, the int8-cache decode ``stacked_decode_attention_i8``, the stacked
-decode ``decode_attention``.
+``nib_hi_dot`` at decode M, grouped-int4 linears the requant route at prefill
+and ``w4a8_grouped`` at decode M, mix linears their int8 copy through
+``w8a8_matmul`` at prefill and their int4 copy through ``w4a8_grouped`` at
+decode M. The frozen-KV decode takes the split-attention kernel (over int8
+K/V, ``split_attention_i8``), the int8-cache decode
+``stacked_decode_attention_i8``, the stacked decode ``decode_attention``.
+Weights fused by `llama.fuse_serving_params` serve every tier.
 
 Verified speculation (`predict_action_speculative_core`, the bs = 1 robot
 control loop): one verify forward over [prompt | draft] scores every draft
@@ -43,19 +51,16 @@ ported tier over the bf16 stacked cache. `OpenVLA` is the stateful wrapper:
 tokenized prompts, norm-stats lookup, batching and the env-drift guard.
 
 The ``OVLA_*`` environment knobs the port reads: ``OpenVLA`` applies
-``OVLA_STACKED_KV8`` and ``OVLA_LEGACY_DECODE`` once, at construction
+``OVLA_STACKED_KV8``, ``OVLA_LEGACY_DECODE``, ``OVLA_KV_INT8``,
+``OVLA_SPLIT_PREFILL`` and ``OVLA_FLAT_CACHE`` once, at construction
 (`VLAServingConfig.with_env_overrides`), and carries ``OVLA_DECODE_UNROLL``
-into `decode_unroll`; ``OVLA_KV_INT8``, ``OVLA_SPLIT_PREFILL`` and
-``OVLA_FLAT_CACHE`` select options that are not ported and raise there. The
-JAX package's per-kernel gates (``OVLA_PALLAS``, ``OVLA_PALLAS_*``,
+into `decode_unroll`. The JAX package's per-kernel gates (``OVLA_PALLAS``, ``OVLA_PALLAS_*``,
 ``OVLA_W8A8``, ``OVLA_W4A8*``, ``OVLA_VITMLP_BM``, ``OVLA_FLASH_ONESHOT``) are
 config fields or fixed rules here: set when an ``OpenVLA`` is built, one
 raises and names what replaces it (`KERNEL_GATE_FIELDS`).
 ``OVLA_PALLAS_INTERPRET`` (the TPU kernels' interpret mode) has no
 counterpart and is not read. After construction every knob of
 `_serving_env_snapshot` is watched: a change raises on the next call.
-
-Other tiers and options raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -126,15 +131,6 @@ def _check_kernel_gates() -> None:
                         for k in set_gates))
 
 
-_PORTED_TIERS = {
-    # (tier, decode_impl, split_prefill, flat_cache, kv_int8)
-    ("parity", "stacked", False, False, False),
-    ("pallas", "frozen_kv", False, False, False),
-    ("pallas_kv8", "stacked_kv8", False, False, False),
-    ("turbo", "stacked", False, False, False),
-}
-
-
 def turbo_routes(vlm_cfg: vlm.VLMConfig, fused_rmsq: bool = True) -> vlm.VLMConfig:
     """The `turbo` tier's kernel routes: every int8 linear on w8a8 (trunk and
     towers, the towers unfused) and the fused RMSNorm -> int8 kernel on (the
@@ -148,11 +144,17 @@ def turbo_routes(vlm_cfg: vlm.VLMConfig, fused_rmsq: bool = True) -> vlm.VLMConf
 
 @dataclasses.dataclass(frozen=True)
 class VLAServingConfig:
-    """Serving configuration. Ported: tier="parity" and tier="turbo" with the
-    stacked-cache decode, tier="pallas" with the frozen-KV decode and
-    tier="pallas_kv8" with the int8 stacked-cache decode (no split prefill, no
-    flat cache, no int8 frozen KV); every other value raises. Build with
-    `for_tier`.
+    """Serving configuration: a tier of the module docstring's list, its
+    decode (`decode_impl`: "stacked" over the S-slot cache, "frozen_kv" over
+    the frozen prefill K/V and a generated-token buffer, "stacked_kv8" over
+    the int8 stacked cache) and its options, validated by the JAX package's
+    rules (the same ValueErrors): `split_prefill` (stacked only: the prefill
+    writes its K/V into the frozen pair, then one pad builds the stacked
+    cache) and `flat_cache` (stacked only: the cache in the flat [L, B, S,
+    Hkv·Dh] layout, S padded to a multiple of 8), both token-identical to the
+    plain stacked decode; `kv_int8` (frozen_kv only: the int8 frozen prefill
+    K/V; tier="turbo_kv8" requires it); the pallas_kv8 tier and
+    decode_impl="stacked_kv8" imply each other. Build with `for_tier`.
 
     `speculative_in_parity`: the parity tier's contract is bit-equality with
     the sequential decode, which the batched verify pass cannot promise at
@@ -175,14 +177,29 @@ class VLAServingConfig:
     speculative_in_parity: str = "reject"   # reject | allow
 
     def __post_init__(self):
-        knobs = (self.tier, self.decode_impl, self.split_prefill, self.flat_cache, self.kv_int8)
-        if knobs not in _PORTED_TIERS:
-            raise NotImplementedError(
-                f"(tier, decode_impl, split_prefill, flat_cache, kv_int8) = {knobs}: only "
-                "tier='parity' and tier='turbo' with decode_impl='stacked', tier='pallas' "
-                "with decode_impl='frozen_kv' and tier='pallas_kv8' with decode_impl="
-                "'stacked_kv8' are ported; the rest (turbo_kv8, split_prefill, flat_cache) "
-                "is ROADMAP Queue 1 item 10")
+        if self.decode_impl not in ("stacked", "frozen_kv", "stacked_kv8"):
+            raise ValueError("decode_impl must be stacked|frozen_kv|"
+                             f"stacked_kv8, got {self.decode_impl}")
+        if self.tier not in ("parity", "turbo", "turbo_kv8", "pallas", "pallas_kv8"):
+            raise ValueError(f"unknown serving tier {self.tier!r}")
+        if self.kv_int8 and self.decode_impl != "frozen_kv":
+            raise ValueError("kv_int8 lives on the frozen-KV decode path; "
+                             "set decode_impl='frozen_kv' (this was previously "
+                             "a silent env-knob no-op)")
+        if self.split_prefill and self.decode_impl != "stacked":
+            raise ValueError("split_prefill is a stacked-decode option")
+        if self.flat_cache and (self.decode_impl != "stacked" or self.split_prefill):
+            raise ValueError("flat_cache is a stacked-carry-decode option "
+                             "(and excludes split_prefill's 5D pad path)")
+        if self.tier == "turbo_kv8" and not self.kv_int8:
+            raise ValueError("tier='turbo_kv8' without kv_int8=True would "
+                             "mislabel the numerics row; use tier='turbo' or "
+                             "for_tier(vlm_cfg, 'turbo_kv8')")
+        if (self.tier == "pallas_kv8") != (self.decode_impl == "stacked_kv8"):
+            raise ValueError("the pallas_kv8 tier and decode_impl='stacked_kv8' "
+                             "imply each other (the int8 stacked cache IS the "
+                             "tier's numerics row); build via "
+                             "for_tier(vlm_cfg, 'pallas_kv8')")
         if self.speculative_in_parity not in ("reject", "allow"):
             raise ValueError("speculative_in_parity must be 'reject' or 'allow', "
                              f"got {self.speculative_in_parity!r}")
@@ -190,11 +207,11 @@ class VLAServingConfig:
     @classmethod
     def for_tier(cls, vlm_cfg: vlm.VLMConfig, tier: str = "parity", fused_rmsq: bool = True,
                  **kw) -> "VLAServingConfig":
-        """One constructor per ported serving tier (the JAX package's `for_tier`).
-        `fused_rmsq` (turbo only): the fused RMSNorm -> int8 kernel, on by
-        default; False gives the JAX turbo tier with OVLA_PALLAS_RMSQ unset."""
-        if not fused_rmsq and tier != "turbo":
-            raise ValueError(f"fused_rmsq=False is an option of the turbo tier, not {tier!r}")
+        """One constructor per serving tier (the JAX package's `for_tier`).
+        `fused_rmsq` (turbo and turbo_kv8): the fused RMSNorm -> int8 kernel,
+        on by default; False gives the JAX tier with OVLA_PALLAS_RMSQ unset."""
+        if not fused_rmsq and tier not in ("turbo", "turbo_kv8"):
+            raise ValueError(f"fused_rmsq=False is an option of the turbo tiers, not {tier!r}")
         if tier == "parity":
             return cls(vlm=vlm_cfg, tier=tier, **kw)
         if tier == "pallas":
@@ -203,16 +220,18 @@ class VLAServingConfig:
             return cls(vlm=vlm_cfg.turbo(), tier=tier, decode_impl="stacked_kv8", **kw)
         if tier == "turbo":
             return cls(vlm=turbo_routes(vlm_cfg.turbo(), fused_rmsq), tier=tier, **kw)
-        raise NotImplementedError(f"serving tier {tier!r} is not ported (ROADMAP Queue 1)")
+        if tier == "turbo_kv8":
+            return cls(vlm=turbo_routes(vlm_cfg.turbo(), fused_rmsq), tier=tier,
+                       decode_impl="frozen_kv", kv_int8=True, **kw)
+        raise ValueError(f"unknown serving tier {tier!r}")
 
     def with_env_overrides(self) -> "VLAServingConfig":
         """Apply the legacy `OVLA_*` serving knobs once: the JAX package's
         `with_env_overrides`, the same rules and errors. OVLA_STACKED_KV8=1
-        selects the pallas_kv8 tier, OVLA_LEGACY_DECODE the stacked (1) or
-        frozen-KV (0) decode, OVLA_DECODE_UNROLL `decode_unroll`. A config
-        the JAX package would build but the port does not run (OVLA_KV_INT8's
-        turbo_kv8, OVLA_SPLIT_PREFILL, OVLA_FLAT_CACHE, or a decode the tier
-        lacks) raises NotImplementedError in its validation."""
+        selects the pallas_kv8 tier, OVLA_KV_INT8=1 the turbo_kv8 tier,
+        OVLA_LEGACY_DECODE the stacked (1) or frozen-KV (0) decode,
+        OVLA_SPLIT_PREFILL and OVLA_FLAT_CACHE their options,
+        OVLA_DECODE_UNROLL `decode_unroll`."""
         env = os.environ
         c = self
         legacy = env.get("OVLA_LEGACY_DECODE")
@@ -310,6 +329,8 @@ def predict_action_core(
     if frozen_kv:
         # prefill writes each layer's K/V into the frozen [L, B, T, Hkv, Dh] pair
         out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions, **taps)
+        if cfg.kv_int8:   # turbo_kv8: the frozen K/V as int8 codes and scales
+            out["kv"] = llama.quantize_prefill_kv(out["kv"])
     elif stacked8:
         # prefill K/V (Tk = T), then quantized layer by layer into the int8
         # stacked cache; S int8-tile aligned (32) as in the JAX package
@@ -318,14 +339,23 @@ def predict_action_core(
         cache = llama.quantize_prefill_to_stacked(out.pop("kv"), S)
     else:
         S = cfg.cache_len
-        cache = llama.KVCache.zeros(c.llm, B, S, dtype=c.llm.dtype, device=dev)
-        attn_mask_S = torch.nn.functional.pad(mm_mask, (0, S - T))
-        out = llama.forward(
-            params["llm"], c.llm, embeds, attn_mask_S, positions,
-            cache=cache, cache_index=0, compute_logits=False,
-            static_zero_offset=True,   # prefill: the flash kernel may engage
-            **taps,
-        )
+        if cfg.flat_cache:
+            S = -(-S // 8) * 8   # a multiple of 8, as the JAX package pads it
+        if cfg.split_prefill:
+            # the frozen-KV prefill, then one pad into the stacked cache (token-identical)
+            out = llama.prefill(params["llm"], c.llm, embeds, mm_mask, positions, **taps)
+            cache = llama.KVCache(*(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, S - T))
+                                    for t in out.pop("kv")))
+        else:
+            mk = llama.KVCache.zeros_flat if cfg.flat_cache else llama.KVCache.zeros
+            cache = mk(c.llm, B, S, dtype=c.llm.dtype, device=dev)
+            attn_mask_S = torch.nn.functional.pad(mm_mask, (0, S - T))
+            out = llama.forward(
+                params["llm"], c.llm, embeds, attn_mask_S, positions,
+                cache=cache, cache_index=0, compute_logits=False,
+                static_zero_offset=True,   # prefill: the flash kernel may engage
+                **taps,
+            )
 
     # hidden state at the last REAL token -> lm_head -> first generated token
     last_hidden = out["last_hidden_state"][torch.arange(B, device=dev), mm_len - 1]

@@ -126,10 +126,19 @@ KERNELS = {
         "w4a8_dx.cu", "ovla_w4a8_dx",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "w4a8_grouped": (
+        "w4a8_grouped.cu", "ovla_w4a8_grouped",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "split_attention_i8": (
+        "split_attention_i8.cu", "ovla_split_attention_i8",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
 }
 # GEMM -> the name its activation pre-pass launch is counted under
 PRE_PASSES = {"w4a8_matmul": "w4a8_quant_rows", "w8a8_matmul": "w8a8_quant_rows",
               "w4a8_requant": "w4a8_requant_quant_rows", "nib_hi_dot": "nib_hi_quant_rows",
+              "w4a8_grouped": "w4a8_grouped_quant_rows",
               "fused_ln_w8a8": "fused_ln_w8a8_quant_rows", "fused_mlp_fc1": "fused_mlp_ln_quant_rows",
               "fused_mlp_residual": "fused_mlp_quant_rows"}
 KERNEL_LAUNCHES: Dict[str, int] = {name: 0 for name in (*KERNELS, *PRE_PASSES, *PRE_PASSES.values())}

@@ -19,13 +19,20 @@
   (``quantize_weight_nibble``): at M <= 32 the hi-plane kernel ``nib_hi_dot``
   (``csrc/nib_hi_dot.cu``), else ``w8a8_matmul`` rebuilding the exact int8
   codes ``16·hi + lo + 8`` in its weight loader (the JAX ``_nib_matmul``);
-* a grouped-int4 leaf ``{"q": uint8 [G, O, gsz/2], "s": f32 [O, G]}``: the
-  w4a8 kernel ``w4a8_matmul`` (``csrc/w4a8_matmul.cu``) where ``O % 128 == 0``
-  and ``gsz % 128 == 0``, else the requant route (``w4a8_dot_requant``: the
+* a grouped-int4 leaf ``{"q": uint8 [G, O, gsz/2], "s": f32 [O, G]}``: on the
+  ``"wi8"`` route (the JAX package's kernel gate) the w4a8 kernel
+  ``w4a8_matmul`` (``csrc/w4a8_matmul.cu``) where ``O % 128 == 0`` and
+  ``gsz % 128 == 0``, else the requant route (``w4a8_dot_requant``: the
   kernel ``w4a8_requant``, the int8 GEMM with int8 codes and per-channel
-  scales requantized from the groups in its weight loader). That is the JAX
-  package's rule under its kernel gate as it runs on the chip
-  (``_w4a8_pallas_matmul``; its interpret mode drops the ``gsz`` condition).
+  scales requantized from the groups in its weight loader), the JAX
+  package's rule as it runs on the chip (``_w4a8_pallas_matmul``; its
+  interpret mode drops the ``gsz`` condition); on ``"w8a8"`` (the turbo
+  tier, no kernel gate) the grouped decode kernel ``w4a8_grouped``
+  (``csrc/w4a8_grouped.cu``, the JAX ``_w4a8_dot_grouped``) at M <= 32 and
+  the requant route above;
+* a mix leaf ``{"q", "s"`` (per-channel int8) ``, "q4", "s4"`` (grouped int4)
+  ``}`` (``quantize_weight_mixed``), whatever the route: the int4 copy through
+  ``w4a8_grouped`` at M <= 32, the int8 copy through ``w8a8_matmul`` above.
 
 **Packed int4 layout.** Codes are stored two per byte in ``uint8``: byte
 ``j`` holds code ``2j`` in its low nibble and code ``2j + 1`` in its high
@@ -53,9 +60,10 @@ CUDA kernel ``csrc/w4a8_dx.cu`` where N and gsz are multiples of 128, the
 bf16-dequant product otherwise, Queue 2 row 9).
 ``wi8_matmul`` has no backward, as the JAX ``_wi8_matmul_2d`` has no VJP.
 
-Mix leaves are not ported and raise. ``quantize_weight``,
-``quantize_weight_int4``, ``quantize_weight_nibble`` and ``quantize_params``
-give codes and scales bit-identical to the JAX package's.
+``quantize_weight``, ``quantize_weight_int4``, ``quantize_weight_mixed``,
+``quantize_weight_nibble`` and ``quantize_params`` give codes and scales
+bit-identical to the JAX package's. ``random_params_like`` draws quantized
+codes and scales directly (the JAX package's benchmark initializer).
 """
 
 from __future__ import annotations
@@ -99,6 +107,13 @@ def is_grouped_int4(w: Any) -> bool:
     q, s = w["q"], w["s"]
     return (q.dim() == s.dim() + 1 and q.shape[-3] == s.shape[-1]
             and q.shape[-2] == s.shape[-2])
+
+
+def is_mixed_quant(w: Any) -> bool:
+    """A dual-precision leaf ``{"q": int8 [..., O, I], "s": f32 [..., O],
+    "q4": uint8 [..., G, O, gsz/2], "s4": f32 [..., O, G]}``."""
+    return (isinstance(w, dict) and set(w) == {"q", "s", "q4", "s4"} and w["q"].dtype == torch.int8
+            and w["q4"].dtype == torch.uint8)
 
 
 def is_nibble_quant(w: Any) -> bool:
@@ -199,6 +214,18 @@ def quantize_weight_int4(w: torch.Tensor, group_size: int = GROUP_SIZE) -> Dict[
     return {"q": pack_int4(codes.movedim(-2, -3)), "s": s}
 
 
+def quantize_weight_mixed(w: torch.Tensor, group_size: int = GROUP_SIZE) -> Dict[str, torch.Tensor]:
+    """Dual-precision serving leaf: per-channel int8 and grouped int4, both
+    quantized from the same weights: ``{"q", "s"}`` for prefill M, ``{"q4",
+    "s4"}`` (packed) for decode M (`matmul_t` picks by row count). An in-dim
+    with no group collapses to the single int8 leaf."""
+    w8 = quantize_weight(w)
+    if not int4_group_size(w.shape[-1], group_size):
+        return w8
+    w4 = quantize_weight_int4(w, group_size)
+    return {"q": w8["q"], "s": w8["s"], "q4": w4["q"], "s4": w4["s"]}
+
+
 def quantize_weight_nibble(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The per-channel int8 codes of `quantize_weight` as two 4-bit planes:
     hi = floor(q8 / 16), lo = q8 - 16·hi - 8, both in [-8, 7], so that
@@ -219,10 +246,13 @@ def nibble_reconstruct_q8(w: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def quantize_leaf(w: torch.Tensor, bits=8, group_size: int = GROUP_SIZE) -> Dict[str, torch.Tensor]:
-    """One weight leaf at a resolved width: "nibble" planes, grouped int4
-    where bits=4 and the in-dim has a group, else per-channel int8."""
+    """One weight leaf at a resolved width: "nibble" planes, "mix" copies,
+    grouped int4 where bits=4 and the in-dim has a group, else per-channel
+    int8."""
     if bits == "nibble":
         return quantize_weight_nibble(w)
+    if bits == "mix":
+        return quantize_weight_mixed(w, group_size)
     if bits == 4 and int4_group_size(w.shape[-1], group_size):
         return quantize_weight_int4(w, group_size)
     return quantize_weight(w)
@@ -230,15 +260,16 @@ def quantize_leaf(w: torch.Tensor, bits=8, group_size: int = GROUP_SIZE) -> Dict
 
 def leaf_bits(name: str, bits):
     """The width `quantize_params(..., bits)` gives leaf `name`: bits="nibble"
-    makes nibble planes of the Llama trunk and lm_head and int8 elsewhere."""
-    if bits == "nibble":
-        return "nibble" if name in _DEFAULT_QUANT_SUFFIXES else 8
+    and bits="mix" make nibble planes or mix copies of the Llama trunk and
+    lm_head (the decode stream) and int8 elsewhere."""
+    if bits in ("nibble", "mix"):
+        return bits if name in _DEFAULT_QUANT_SUFFIXES else 8
     return bits
 
 
 def dequantize_weight(w: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
-    """Per-channel int8, nibble or grouped int4 -> float [..., O, I] (the JAX
-    branches)."""
+    """Per-channel int8, nibble, grouped int4 or mix (its int8 copy) -> float
+    [..., O, I] (the JAX branches)."""
     if is_nibble_quant(w):
         return (nibble_reconstruct_q8(w).float() * w["s"][..., None]).to(dtype)
     if is_grouped_int4(w):
@@ -254,12 +285,10 @@ def quantize_params(params: Any, suffixes: tuple = _DEFAULT_QUANT_SUFFIXES, bits
     """Quantize the weight leaves whose name is in `suffixes` (and that have
     at least two dims): bits=8 per-channel int8, bits=4 grouped int4 (an
     in-dim with no usable group falls back to per-channel int8),
-    bits="nibble" nibble planes for the Llama trunk and lm_head and int8 for
-    the rest (the towers); everything else passes through."""
-    if bits == "mix":
-        raise NotImplementedError(
-            "quantize_params(bits='mix'): mix weights are not ported yet (ROADMAP Queue 1 item 10)")
-    if bits not in (4, 8, "nibble"):
+    bits="nibble" nibble planes and bits="mix" dual int8 + int4 copies for
+    the Llama trunk and lm_head and int8 for the rest (the towers, which run
+    at prefill M only); everything else passes through."""
+    if bits not in (4, 8, "mix", "nibble"):
         raise ValueError(f"bits must be 4, 8, 'mix' or 'nibble', got {bits!r}")
 
     def walk(tree, name):
@@ -270,6 +299,58 @@ def quantize_params(params: Any, suffixes: tuple = _DEFAULT_QUANT_SUFFIXES, bits
         return tree
 
     return walk(params, "")
+
+
+def random_params_like(shapes: Any, generator: torch.Generator, weight_scale: float = 0.02,
+                       device=None) -> Any:
+    """Random parameters for a tree of shape-like leaves (anything with
+    ``.shape`` and ``.dtype``: meta tensors, ``convert.vlm_param_spec``'s
+    leaves), made directly on `device` from `generator` (which must live
+    there), one leaf at a time, never a float twin of a quantized weight (the
+    JAX package's benchmark initializer, its ranges and operating points):
+    int8 codes uniform in [-127, 127]; packed int4 codes uniform in [-8, 7]
+    for nibble planes ("hi", "lo") and [-7, 7] for grouped codes; scales "s"
+    at ``weight_scale · 4 / 127 · (1 + U)`` (the absmax of ~4k normal draws
+    over 127; a bare grouped-int4 leaf's "s" too, as in the JAX package) and
+    mix leaves' "s4" at ``weight_scale · 3.2 / 7 · (1 + U)``; other float
+    leaves N(0, weight_scale); anything else zeros.
+    The bits are not the JAX package's (a torch generator): values for
+    throughput runs, finite but arbitrary."""
+    s_lo, s4_lo = weight_scale * 4.0 / 127.0, weight_scale * 3.2 / 7.0
+
+    def leaf(name: str, spec) -> torch.Tensor:
+        shape, dtype = tuple(spec.shape), spec.dtype
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=generator, device=device,
+                                 dtype=torch.int8)
+        if dtype == torch.uint8:   # packed int4: two codes a byte
+            lo = -8 if name in ("hi", "lo") else -7
+            codes = torch.randint(lo, 8, (*shape[:-1], 2 * shape[-1]), generator=generator,
+                                  device=device, dtype=torch.int8)
+            return pack_int4(codes)
+        if dtype.is_floating_point and name in ("s", "s4"):
+            u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+            return ((s4_lo if name == "s4" else s_lo) * (1.0 + u)).to(dtype)
+        if dtype.is_floating_point:
+            x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+            return (x * weight_scale).to(dtype)
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return leaf(name, tree)
+
+    return walk(shapes, "")
+
+
+def random_params_like_eager_int4(shapes: Any, generator: torch.Generator,
+                                  weight_scale: float = 0.02, device=None) -> Any:
+    """The JAX package's variant for trees with int4 leaves, which bounds its
+    peak at one leaf's codes: `random_params_like` already makes every leaf
+    alone (an int4 leaf's int8 codes are dropped once packed), so the two are
+    one function here."""
+    return random_params_like(shapes, generator, weight_scale, device)
 
 
 # --- weight-only int8 matmul (Queue 2 row 7) ---------------------------------
@@ -579,6 +660,78 @@ def w4a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
     return out
 
 
+# --- w4a8 grouped: the decode-M product of grouped int4 off the kernel gate ---------------
+
+
+GROUPED_CHUNK, GROUPED_WARPS = 128, 8   # csrc/w4a8_grouped.cu: k per chunk, warps taking them in turn
+
+
+def w4a8_grouped_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``_w4a8_dot_grouped`` forward, its fp32 sums in the
+    kernel's order: per-row int8 activation codes, s_x = max(max|x| / 127,
+    1e-8); K split into 128-deep chunks, chunk c taken by warp c % 8; each
+    warp folds the exact int32 product of every segment of its chunks (a
+    chunk cut at group boundaries) into its fp32 sum as ``acc + f32(p) ·
+    s[:, g]`` (two roundings), in k order; the 8 warps' sums added in warp
+    order; ``(total · s_x)`` cast to x's dtype. x [M, K], packed q
+    [G, N, gsz/2], s [N, G] -> [M, N]. No term depends on M or N."""
+    M, K = x.shape
+    G, N, half = q.shape
+    gsz = 2 * half
+    codes, sx = quantize_rows(x.float())
+    w = unpack_int4(q)
+    acc = [torch.zeros((M, N), dtype=torch.float32, device=x.device)
+           for _ in range(GROUPED_WARPS)]
+    for c in range(-(-K // GROUPED_CHUNK)):
+        k, end = c * GROUPED_CHUNK, min(K, (c + 1) * GROUPED_CHUNK)
+        while k < end:
+            g = k // gsz
+            seg = min(end, (g + 1) * gsz)
+            p = int8_dot(codes[:, k:seg], w[g][:, k - g * gsz:seg - g * gsz])
+            acc[c % GROUPED_WARPS] = acc[c % GROUPED_WARPS] + p * s[:, g]
+            k = seg
+    total = acc[0]
+    for part in acc[1:]:
+        total = total + part
+    return (total * sx).to(x.dtype)
+
+
+def w4a8_grouped(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (bf16 or fp32) @ grouped int4 (packed q [G, N, gsz/2], s
+    [N, G]) with int8 activations, each group's int32 product scaled by its
+    own s -> [M, N] in x's dtype: `w4a8_grouped_plain`, bit for bit. The CUDA
+    kernel (``csrc/w4a8_grouped.cu``): the activation pre-pass (counted as
+    ``w4a8_grouped_quant_rows``), then the split-K decode core of
+    ``csrc/int8_decode.cuh`` on the int4 codes with each segment's int32
+    partial folded into an fp32 sum. It takes group sizes that are multiples
+    of 32 and N a multiple of 8 (lm_head's 32064 included), any M, and raises
+    on others."""
+    _build.no_grad_guard("w4a8_grouped", "use w4a8_grouped_ste (or matmul_t), its STE", x, s)
+    M, K = x.shape
+    G, N, half = q.shape
+    gsz = 2 * half
+    if x.device.type == "cpu":
+        return w4a8_grouped_plain(x, q, s)
+    if x.device.type != "cuda":
+        raise ValueError(f"w4a8_grouped: unsupported device {x.device}")
+    _check_matmul_inputs("w4a8_grouped", x, {
+        "x": (x, (M, G * gsz), x.dtype), "q": (q, (G, N, half), torch.uint8),
+        "s": (s, (N, G), torch.float32)})
+    if gsz % REQUANT_GSZ_STEP or N % 8:
+        raise ValueError(f"w4a8_grouped: the group size {gsz} must be a multiple of "
+                         f"{REQUANT_GSZ_STEP} and N={N} of 8")
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)   # the activation pre-pass
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    err = _build.launcher("w4a8_grouped")(
+        x.data_ptr(), codes.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(),
+        out.data_ptr(), M, N, G, gsz, int(x.dtype == torch.bfloat16), _build.stream_ptr(x))
+    _build.check(err, "w4a8_grouped")
+    _build.KERNEL_LAUNCHES["w4a8_grouped_quant_rows"] += 1
+    _build.KERNEL_LAUNCHES["w4a8_grouped"] += 1
+    return out
+
+
 def takes_w4a8_kernel(w: Dict[str, torch.Tensor]) -> bool:
     """The grouped-int4 dispatch rule: the kernel where N and gsz are
     multiples of 128, the requant route otherwise."""
@@ -779,6 +932,20 @@ class _W4A8STE(torch.autograd.Function):
         return w4a8_dx(g, ctx.q, ctx.s), None, None
 
 
+class _W4A8GroupedSTE(torch.autograd.Function):
+    """Grouped int4 off the kernel gate at decode M (the JAX
+    ``_w4a8_dot_grouped``): `w4a8_grouped`; dx = `w4a8_dx` (``_w4a8_ste_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, q, s):
+        ctx.q, ctx.s = q, s
+        return w4a8_grouped(x, q, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        return w4a8_dx(g, ctx.q, ctx.s), None, None
+
+
 def w8a8_matmul_ste(x, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     """`w8a8_matmul`, differentiable in x by the STE where autograd records."""
     if not isinstance(x, PrequantActivation) and _needs_grad(x):
@@ -801,6 +968,19 @@ def w4a8_matmul_ste(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.
     return _w4a8_forward(x, q, s)
 
 
+def w4a8_grouped_ste(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """`w4a8_grouped`, differentiable in x by the STE (`w4a8_dx`) where
+    autograd records."""
+    if _needs_grad(x):
+        return _W4A8GroupedSTE.apply(x, q, s)
+    return w4a8_grouped(x, q, s)
+
+
+def int8_copy(w: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The per-channel int8 leaf of an int8 or mix leaf."""
+    return {"q": w["q"], "s": w["s"]}
+
+
 def is_lora_wrapped(w: Any) -> bool:
     """A streamed-LoRA wrapper ``{"base", "A", "B"}`` (``training.lora``)."""
     return isinstance(w, dict) and set(w) == {"base", "A", "B"}
@@ -809,16 +989,17 @@ def is_lora_wrapped(w: Any) -> bool:
 def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
     """x [..., K] @ w[O, K].T -> [..., O] for a float weight tensor, a
     per-channel int8 leaf (on the route `int8_matmul` names: "wi8" or
-    "w8a8"), a nibble leaf, a grouped-int4 leaf or a streamed-LoRA wrapper
-    over any of them; x may be a `PrequantActivation` for a per-channel int8
-    leaf. Quantized leaves are differentiable in x through their STE."""
+    "w8a8"), a nibble leaf, a grouped-int4 leaf (by the route too), a mix
+    leaf or a streamed-LoRA wrapper over any of them; x may be a
+    `PrequantActivation` for a leaf with an int8 copy. Quantized leaves are
+    differentiable in x through their STE."""
     if isinstance(x, PrequantActivation):
-        if not is_int8_per_channel(w):
-            raise TypeError("a PrequantActivation takes a per-channel int8 leaf; gate the fused "
-                            "RMSNorm -> int8 kernel on every consumer")
+        if not (is_int8_per_channel(w) or is_mixed_quant(w)):
+            raise TypeError("a PrequantActivation takes a per-channel int8 leaf or a mix leaf's "
+                            "int8 copy; gate the fused RMSNorm -> int8 kernel on every consumer")
         lead, K = x.q8.shape[:-1], x.q8.shape[-1]
         x2 = PrequantActivation(x.q8.reshape(-1, K), x.sx.reshape(-1, 1), x.dtype)
-        return w8a8_matmul(x2, w).reshape(*lead, -1)
+        return w8a8_matmul(x2, int8_copy(w)).reshape(*lead, -1)
     if isinstance(w, torch.Tensor):
         return torch.matmul(x, w.t())
     if is_lora_wrapped(w):
@@ -837,14 +1018,22 @@ def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
         return out.reshape(*lead, -1)
     if is_nibble_quant(w):
         return nib_matmul(x2, w).reshape(*lead, -1)
+    decode_m = x2.shape[0] <= NIB_HI_M_MAX
+    if is_mixed_quant(w):
+        # the row count picks the copy, on every route (so the verify trunk and the
+        # decode steps of one call read the same grid at the same M)
+        out = (w4a8_grouped_ste(x2, w["q4"], w["s4"]) if decode_m
+               else w8a8_matmul_ste(x2, int8_copy(w)))
+        return out.reshape(*lead, -1)
     if is_grouped_int4(w):
-        if int8_matmul != "wi8":
-            raise NotImplementedError(
-                "grouped-int4 leaves without the kernel gate (the JAX package's "
-                "_w4a8_dot_grouped) are not ported: ROADMAP Queue 1 item 10")
-        return w4a8_matmul_ste(x2, w["q"], w["s"]).reshape(*lead, -1)
-    if is_quantized(w):
-        raise NotImplementedError("mix weight leaves are not ported yet: ROADMAP Queue 1 item 10")
+        if int8_matmul == "wi8":
+            out = w4a8_matmul_ste(x2, w["q"], w["s"])
+        elif int8_matmul == "w8a8":
+            out = (w4a8_grouped_ste(x2, w["q"], w["s"]) if decode_m
+                   else w4a8_dot_requant(x2, w["q"], w["s"]))
+        else:
+            raise ValueError(f"int8_matmul must be one of {INT8_ROUTES}, got {int8_matmul!r}")
+        return out.reshape(*lead, -1)
     if isinstance(w, dict) and "base" in w:
         raise NotImplementedError(
             "multi-LoRA weight wrappers are not ported yet: ROADMAP Queue 1 item 11")

@@ -4,7 +4,7 @@
         [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx,
                    decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot,
                    fused_ln_w8a8,fused_mlp_residual,w4a8_requant,rms_norm_quant,
-                   stacked_decode_attention_i8]
+                   stacked_decode_attention_i8,split_attention_i8,w4a8_grouped]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -34,7 +34,8 @@ replaced (the requant in PyTorch, then its ``w8a8_matmul``);
 ``rms_norm_quant`` by ``rmsnorm_quant.compare_rms_norm_quant``;
 ``stacked_decode_attention_i8`` within 2e-2 of the plain version, a build
 from before its ring route called with its own signature, every slot
-read), then the device
+read; ``split_attention_i8`` by ``decode_attention.compare_split_attention_i8``;
+``w4a8_grouped`` bit for bit), then the device
 time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
@@ -51,8 +52,9 @@ turbo, turbo_nibble and train_int8 mixes of ``w8a8_matmul`` with its two
 routes apart, the turbo_nibble mix of ``nib_hi_dot``, the pallas mixes of
 the two fused tower kernels, the pallas_int4 and train_int4 mixes of
 ``w4a8_requant``, the turbo mix of ``rms_norm_quant`` and the pallas_kv8 mix
-of ``stacked_decode_attention_i8`` (its six decode steps), as
-``chip_smoke.py`` weighs them).
+of ``stacked_decode_attention_i8`` (its six decode steps), the turbo_kv8 mix
+of ``split_attention_i8`` and the turbo_int4 / turbo_mix mix of
+``w4a8_grouped``, as ``chip_smoke.py`` weighs them).
 """
 
 from __future__ import annotations
@@ -984,6 +986,94 @@ def ab_rms_norm_quant(fns, g, dev, shapes=None):
             for tag in fns}}), flush=True)
 
 
+def call_split_i8(fn, q, kq, ks, vq, vs, kd, vd, pre, dec, scores=torch.bfloat16):
+    B, _, H, Dh = q.shape
+    T, Hkv, A = kq.shape[1], kq.shape[2], kd.shape[1]
+    out = torch.empty_like(q)
+    _build.check(fn(q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+                    kd.data_ptr(), vd.data_ptr(), pre.data_ptr(), dec.data_ptr(), out.data_ptr(),
+                    B, H, Hkv, T, A, Dh, attn._scale(Dh), int(q.dtype == torch.bfloat16),
+                    int(scores == torch.bfloat16), _build.stream_ptr(q)), "split_attention_i8")
+    return out
+
+
+def split_i8_sets(B, T, A, step, H, Hkv, Dh, g, dev, copies, dtype=torch.bfloat16):
+    """`copies` turbo_kv8 decode-step inputs: int8 prefill K/V [B, T, Hkv, Dh] and
+    scales (quantized from normal draws by llama.quantize_prefill_kv), q and
+    generated K/V [B, A, Hkv, Dh] in `dtype`, padded prompts of T - 12 .. T
+    tokens, the generated slots up to `step`."""
+    from ..models import llama
+
+    kv = llama.quantize_prefill_kv(llama.PrefillKV(
+        *(torch.randn((copies, B, T, Hkv, Dh), generator=g, device=dev).to(dtype)
+          for _ in range(2))))
+    kd, vd = (torch.randn((copies, B, A, Hkv, Dh), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    q = torch.randn((B, 1, H, Dh), generator=g, device=dev).to(dtype)
+    mm_len = torch.randint(T - 12, T + 1, (B,), generator=g, device=dev)
+    pre = (torch.arange(T, device=dev)[None] < mm_len[:, None]).int()
+    dec = (torch.arange(A, device=dev) <= step).int()[None].expand(B, A).contiguous()
+    return [(q, kv.k[i], kv.ks[i], kv.v[i], kv.vs[i], kd[i], vd[i], pre, dec)
+            for i in range(copies)]
+
+
+def ab_split_attention_i8(fns, g, dev, shapes=None):
+    """The turbo_kv8 decode attention at the 7B serving shape, decode step 3
+    (192 launches a call), bf16 scores."""
+    sets = split_i8_sets(BATCH, T_PREFILL, A1, 3, 32, 32, 128, g, dev,
+                         _copies(2 * BATCH * T_PREFILL * 4096))
+    row = dict(kernel="split_attention_i8", shape="serving", launches_per_call=LAYERS * A1,
+               checks={tag: _checked(lambda got, _: dattn.compare_split_attention_i8(
+                   got, *sets[0], torch.bfloat16), call_split_i8(fn, *sets[0]), None)
+                   for tag, fn in fns.items()},
+               ms=_turns(fns, lambda fn: rotating(lambda *a: call_split_i8(fn, *a), sets)))
+    print(json.dumps(row), flush=True)
+
+
+def call_grouped(fn, x, q, s):
+    M, K = x.shape
+    G, N, half = q.shape
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.check(fn(x.data_ptr(), codes.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(),
+                    out.data_ptr(), M, N, G, 2 * half, int(x.dtype == torch.bfloat16),
+                    _build.stream_ptr(x)), "w4a8_grouped")
+    return out
+
+
+def ab_w4a8_grouped(fns, g, dev, shapes=None):
+    """The grouped decode product at the turbo_int4 / turbo_mix shapes (M = 24),
+    beside nib_hi_dot on the same shapes (the same decode core over a 4-bit
+    plane, the port's own build) as a yardstick."""
+    rows = []
+    for (M, K, N), per_call in nib_hi_shapes().items():
+        if per_call == 0 or (shapes and f"{M}x{K}x{N}" not in shapes):
+            continue
+        G = K // lin.GROUP_SIZE
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sets = [(x, lin.pack_int4(torch.randint(-8, 8, (G, N, lin.GROUP_SIZE), generator=g,
+                                                device=dev, dtype=torch.int8)),
+                 torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3)
+                for _ in range(_copies(N * K // 2))]
+        want = lin.w4a8_grouped_plain(*sets[0])
+        nib = [(x, *(lambda w: (w["hi"], w["s"]))(lin.quantize_weight_nibble(
+            torch.randn((N, K), generator=g, device=dev) * 0.02))) for _ in range(2)]
+        rows.append(dict(kernel="w4a8_grouped", shape=f"{M}x{K}x{N}", launches_per_call=per_call,
+                         bit_equal={tag: bool(torch.equal(call_grouped(fn, *sets[0]), want))
+                                    for tag, fn in fns.items()},
+                         ms=_turns(fns, lambda fn: rotating(lambda *a: call_grouped(fn, *a),
+                                                            sets)),
+                         nib_hi_dot_ms=_ms(rotating(lin.nib_hi_dot, nib))))
+        print(json.dumps(rows[-1]), flush=True)
+        del sets, want, nib
+    n = sum(r["launches_per_call"] for r in rows)
+    if n:
+        print(json.dumps({"kernel": "w4a8_grouped", "mix": "turbo_int4", "launches": n, "ms": {
+            tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_call"] for r in rows) / n
+            for tag in fns}}), flush=True)
+
+
 AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
       "w4a8_dx": ab_w4a8_dx, "decode_split_attention": ab_decode_split_attention,
@@ -991,7 +1081,8 @@ AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "nib_hi_dot": ab_nib_hi_dot, "fused_ln_w8a8": ab_fused_ln_w8a8,
       "fused_mlp_residual": ab_fused_mlp_residual, "w4a8_requant": ab_w4a8_requant,
       "rms_norm_quant": ab_rms_norm_quant,
-      "stacked_decode_attention_i8": ab_stacked_decode_attention_i8}
+      "stacked_decode_attention_i8": ab_stacked_decode_attention_i8,
+      "split_attention_i8": ab_split_attention_i8, "w4a8_grouped": ab_w4a8_grouped}
 
 
 def main() -> int:

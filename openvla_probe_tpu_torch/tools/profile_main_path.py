@@ -1,19 +1,23 @@
 """Where the time of one OpenVLA-7B serving call goes, on one CUDA card.
 
     python -m openvla_probe_tpu_torch.tools.profile_main_path
-        [--tier parity|pallas|pallas_kv8|turbo] [--weights int8|int4|nibble] [--batch 24]
-        [--calls 3] [--entry vla|generate|score_short|score_long|train_int4|train_int8]
+        [--tier parity|pallas|pallas_kv8|turbo|turbo_kv8] [--weights int8|int4|mix|nibble]
+        [--fused] [--batch 24] [--calls 3]
+        [--entry vla|generate|score_short|score_long|train_int4|train_int8]
 
 Drives the same call as chip_smoke.py (random weights from a seeded
 generator: bf16 for the parity tier, TURBO_QUANT_SUFFIXES leaves for the
-others, per-channel int8 or, with --weights int4 on the pallas tier, grouped
-int4, or, with --weights nibble on the turbo tier, nibble planes for the
-trunk; 256x256 uint8 images, prompt_pad_len=32, A=7) and prints JSON lines:
+others, per-channel int8 or, with --weights int4 on the pallas or turbo tier,
+grouped int4, or, with --weights mix or nibble on the turbo tier, int8 and
+int4 copies or nibble planes for the trunk; --fused fuses the trunk's q/k/v
+and gate/up (llama.fuse_serving_params); 256x256 uint8 images,
+prompt_pad_len=32, A=7) and prints JSON lines:
 
   stages   device time of each stage of predict_action_from_image, each stage
            run alone through the port's own functions (CUDA events, median);
            pallas_kv8 splits its prefill into the trunk and the layer-by-layer
-           quantization into the int8 stacked cache
+           quantization into the int8 stacked cache, turbo_kv8 into the trunk
+           and the quantization of the frozen K/V
   kernels  torch.profiler device time per call, summed by kernel name and by
            class (cuBLAS GEMM, the port's kernels, elementwise / other),
            beside the host-clock time of the profiled calls; the difference
@@ -205,11 +209,13 @@ class _NullTok:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tier", choices=("parity", "pallas", "pallas_kv8", "turbo"),
+    ap.add_argument("--tier", choices=("parity", "pallas", "pallas_kv8", "turbo", "turbo_kv8"),
                     default="parity")
-    ap.add_argument("--weights", choices=("int8", "int4", "nibble"), default="int8",
-                    help="quantized tiers: per-channel int8, grouped int4 (pallas only) or "
-                         "nibble (turbo only)")
+    ap.add_argument("--weights", choices=("int8", "int4", "mix", "nibble"), default="int8",
+                    help="quantized tiers: per-channel int8, grouped int4 (pallas or turbo), "
+                         "mix or nibble (turbo only)")
+    ap.add_argument("--fused", action="store_true",
+                    help="fuse the trunk's q/k/v and gate/up (llama.fuse_serving_params)")
     ap.add_argument("--batch", type=int, default=None,
                     help="rows of a call: 24 for the VLA call, 8 for the other entries")
     ap.add_argument("--calls", type=int, default=3)
@@ -231,13 +237,15 @@ def main() -> None:
     cfg = vla.VLAServingConfig.for_tier(vlm.VLMConfig.openvla_7b(), args.tier, prompt_pad_len=32)
     c = cfg.vlm
     g = torch.Generator(device=dev).manual_seed(0)
-    if args.weights == "int4" and args.tier != "pallas":
-        ap.error("--weights int4 serves through the pallas tier")
-    if args.weights == "nibble" and args.tier != "turbo":
-        ap.error("--weights nibble serves through the turbo tier")
-    bits = {"int8": 8, "int4": 4, "nibble": "nibble"}[args.weights]
-    params = convert.init_params(c, g, device=dev, bits=bits,
-                                 quant_suffixes=TURBO_QUANT_SUFFIXES if args.tier != "parity" else ())
+    if args.weights == "int4" and args.tier not in ("pallas", "turbo"):
+        ap.error("--weights int4 serves through the pallas and turbo tiers")
+    if args.weights in ("mix", "nibble") and args.tier != "turbo":
+        ap.error(f"--weights {args.weights} serves through the turbo tier")
+    bits = {"int8": 8, "int4": 4, "mix": "mix", "nibble": "nibble"}[args.weights]
+    suffixes = TURBO_QUANT_SUFFIXES if args.tier != "parity" else ()
+    params = convert.init_params(c, g, device=dev, bits=bits, quant_suffixes=suffixes)
+    if args.fused:
+        params["llm"] = llama.fuse_serving_params(params["llm"])
     B, P = args.batch, cfg.prompt_pad_len
     image = torch.randint(0, 256, (B, 256, 256, 3), generator=g, device=dev, dtype=torch.uint8)
     ids = torch.randint(1000, 20000, (B, P), generator=g, device=dev)
@@ -294,9 +302,12 @@ def main() -> None:
     else:
         with torch.no_grad():
             kv = llama.prefill(params["llm"], c.llm, mm["inputs_embeds"], mm["attn_mask"], pos)["kv"]
+            if cfg.kv_int8:
+                kv16, kv = kv, llama.quantize_prefill_kv(kv)
+                extra["kv8_prefill_quantize"] = lambda: llama.quantize_prefill_kv(kv16)
         dec_shape = (c.llm.num_hidden_layers, B, cfg.action_dim - 1, c.llm.num_key_value_heads,
                      c.llm.head_dim)
-        dec_k, dec_v = (torch.zeros(dec_shape, dtype=kv.k.dtype, device=dev) for _ in range(2))
+        dec_k, dec_v = (torch.zeros(dec_shape, dtype=c.llm.dtype, device=dev) for _ in range(2))
 
         def prefill():
             return llama.prefill(params["llm"], c.llm, mm["inputs_embeds"], mm["attn_mask"], pos)
@@ -317,12 +328,13 @@ def main() -> None:
             "llm_decode_step": _median_ms(decode_step, reps),
             "whole_call": _median_ms(call, reps),
         }
-    print(json.dumps({"card": card, "tier": args.tier, "weights": args.weights, "batch": B,
-                      "stages_ms": stages}), flush=True)
+    print(json.dumps({"card": card, "tier": args.tier, "weights": args.weights,
+                      "fused": args.fused, "batch": B, "stages_ms": stages}), flush=True)
 
     # --- device time by kernel over `calls` whole calls -----------------------------
-    print(json.dumps({"card": card, "tier": args.tier, "weights": args.weights, "batch": B,
-                      **device_time(call, args.calls)}), flush=True)
+    print(json.dumps({"card": card, "tier": args.tier, "weights": args.weights,
+                      "fused": args.fused, "batch": B, **device_time(call, args.calls)}),
+          flush=True)
 
 
 if __name__ == "__main__":

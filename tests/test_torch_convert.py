@@ -20,7 +20,8 @@ from openvla_probe_tpu.models import vlm as jvlm
 from openvla_probe_tpu_torch import convert
 from openvla_probe_tpu_torch.device import resolve_device
 from openvla_probe_tpu_torch.models import vlm as tvlm
-from openvla_probe_tpu_torch.ops.linear import matmul_t, nib_hi_dot_plain, quantize_weight_nibble
+from openvla_probe_tpu_torch.ops.linear import (matmul_t, nib_hi_dot_plain, quantize_weight_mixed,
+                                              quantize_weight_nibble, w4a8_grouped_plain)
 
 ROOT = Path(__file__).resolve().parents[1]
 # sklearn and optax: the probe bank's metrics and optimizer are the port's own (numpy,
@@ -124,9 +125,9 @@ def test_config_from_jax():
 
 
 def test_matmul_t_float_only():
-    """Float, per-channel int8 and (packed) nibble leaves and streamed-LoRA
-    wrappers multiply; mix and multi-LoRA leaves still raise, and so do
-    unpacked int8 planes (the JAX package's emit_codes form, which
+    """Float, per-channel int8, (packed) nibble and mix leaves and streamed-LoRA
+    wrappers multiply; multi-LoRA leaves still raise, and so do unpacked int8
+    planes or int4 copies (the JAX package's emit_codes form, which
     params_from_jax packs)."""
     x, w = torch.randn(3, 4), torch.randn(5, 4)
     torch.testing.assert_close(matmul_t(x, w), x @ w.T)
@@ -135,7 +136,10 @@ def test_matmul_t_float_only():
     nib = quantize_weight_nibble(w)                                # the hi plane at M = 3
     torch.testing.assert_close(matmul_t(x, nib), nib_hi_dot_plain(x, nib["hi"], nib["s"]),
                                atol=0, rtol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1"):      # mix: int8 + grouped int4
+    mix = quantize_weight_mixed(w)                                 # the int4 copy at M = 3
+    torch.testing.assert_close(matmul_t(x, mix), w4a8_grouped_plain(x, mix["q4"], mix["s4"]),
+                               atol=0, rtol=0)
+    with pytest.raises(TypeError):                                 # an unpacked int4 copy
         matmul_t(x, {"q": q, "s": torch.ones(5), "q4": q.reshape(1, 5, 4), "s4": torch.ones(5, 1)})
     with pytest.raises(TypeError):                                 # unpacked nibble planes
         matmul_t(x, {"hi": q, "lo": q, "s": torch.ones(5)})

@@ -1024,3 +1024,101 @@ def test_wrappers_refuse_grad_on_the_card(cuda):
         tlin.w4a8_matmul(x, w["q"], w["s"])
     with torch.no_grad():
         tlin.w4a8_matmul(x, w["q"], w["s"])
+
+
+# --- w4a8_grouped and split_attention_i8 ----------------------------------------------------
+
+GROUPED_SHAPES = [
+    (24, 4096, 32, 128), (24, 32064, 32, 128), (24, 4096, 86, 128),    # the 7B decode shapes
+    (1, 200, 2, 128), (32, 136, 9, 32), (33, 40, 3, 64), (5, 200, 9, 96),  # edges, group sizes
+    (70, 136, 4, 256), (24, 8, 1, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,G,gsz", GROUPED_SHAPES)
+def test_w4a8_grouped_kernel_bit_equal_to_plain(cuda, dtype, M, N, G, gsz):
+    """One pre-pass and one GEMM launch a call and the plain version's output
+    bit for bit (the same codes, exact group sums, the same fp32 fold order)."""
+    x = _rand(60, (M, G * gsz), dtype, cuda)
+    q, s = _int4_groups(61, G, N, gsz, cuda)
+    before = dict(_build.KERNEL_LAUNCHES)
+    got = tlin.w4a8_grouped(x, q, s)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in _build.KERNEL_LAUNCHES.items() if n != before[k]}
+    assert launched == {"w4a8_grouped_quant_rows": 1, "w4a8_grouped": 1}
+    assert got.dtype == dtype and got.shape == (M, N)
+    assert torch.equal(got, tlin.w4a8_grouped_plain(x, q, s))
+
+
+def test_w4a8_grouped_columns_do_not_depend_on_n_on_the_card(cuda):
+    """A column's output is the same in a fused leaf (fuse_serving_params)."""
+    x = _rand(62, (24, 512), torch.bfloat16, cuda)
+    q, s = _int4_groups(63, 4, 96, 128, cuda)
+    whole = tlin.w4a8_grouped(x, q, s)
+    part = tlin.w4a8_grouped(x, q[:, 32:64].contiguous(), s[32:64].contiguous())
+    assert torch.equal(whole[:, 32:64], part)
+
+
+def test_w4a8_grouped_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((4, 96), dtype=torch.bfloat16, device=cuda)
+    q, s = _int4_groups(64, 2, 8, 48, cuda)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tlin.w4a8_grouped(x, q, s)
+    q, s = _int4_groups(65, 3, 8, 32, cuda)
+    raw = torch.zeros(q.numel() + 1, dtype=torch.uint8, device=cuda)
+    codes = torch.empty((4, 96), dtype=torch.int8, device=cuda)
+    sx = torch.empty(4, device=cuda)
+    out = torch.empty((4, 8), dtype=torch.bfloat16, device=cuda)
+    assert _build.launcher("w4a8_grouped")(
+        x.data_ptr(), codes.data_ptr(), sx.data_ptr(), raw[1:].data_ptr(), s.data_ptr(),
+        out.data_ptr(), 4, 8, 3, 32, 1, _build.stream_ptr(x)) == 1
+
+
+def _split_i8_inputs(seed, B, T, A, H, Hkv, Dh, dtype, device):
+    r = np.random.default_rng(seed)
+    g = torch.Generator().manual_seed(seed)
+    kq, vq = (torch.randint(-127, 128, (B, T, Hkv, Dh), generator=g, dtype=torch.int8)
+              .to(device) for _ in range(2))
+    ks, vs = (torch.from_numpy((r.random((B, T, Hkv)) * 0.02 + 0.005).astype(np.float32))
+              .to(device) for _ in range(2))
+    q = _rand(seed + 1, (B, 1, H, Dh), dtype, device)
+    kd, vd = (_rand(seed + 2 + i, (B, A, Hkv, Dh), dtype, device) for i in range(2))
+    pre = torch.from_numpy((r.random((B, T)) > 0.2).astype(np.int32)).to(device)
+    pre[:, 0] = 1
+    if B > 1:
+        pre[1, 1:] = 0                                  # a row with BOS alone
+    dec = torch.ones((B, A), dtype=torch.int32, device=device)
+    dec[:, A // 2 + 1:] = 0
+    return q, kq, ks, vq, vs, kd, vd, pre, dec
+
+
+@pytest.mark.parametrize("scores", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,A,H,Hkv,Dh", [
+    (24, 288, 6, 32, 32, 128),      # the turbo_kv8 serving shape
+    (2, 40, 3, 4, 2, 16), (3, 100, 7, 8, 1, 64), (2, 33, 1, 4, 4, 16), (1, 4000, 96, 2, 2, 256),
+])
+def test_split_attention_i8_kernel_matches_plain(cuda, dtype, scores, B, T, A, H, Hkv, Dh):
+    """decode_attention.compare_split_attention_i8 (module docstring of that
+    file): within two code steps of the row's s_p plus one output step."""
+    args = _split_i8_inputs(70, B, T, A, H, Hkv, Dh, dtype, cuda)
+    before = _build.KERNEL_LAUNCHES["split_attention_i8"]
+    got = tdec.split_attention_i8(*args, scores)
+    torch.cuda.synchronize()
+    assert _build.KERNEL_LAUNCHES["split_attention_i8"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, 1, H, Dh)
+    tdec.compare_split_attention_i8(got, *args, scores)
+
+
+def test_split_attention_i8_refuses_what_it_does_not_take(cuda):
+    args = _split_i8_inputs(71, 2, 40, 3, 4, 2, 18, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tdec.split_attention_i8(*args, torch.bfloat16)
+    args = _split_i8_inputs(72, 2, 40, 3, 4, 2, 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdec.split_attention_i8(args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2),
+                                *args[2:], torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        tdec.split_attention_i8(args[0].half(), *args[1:5], args[5].half(), args[6].half(),
+                                *args[7:], torch.bfloat16)

@@ -7,7 +7,12 @@ differentiable route), here on the CPU as on the card; under
 ``flash_attn=False`` (the plain attention, the JAX package's training route)
 and raises with the flash kernels on. ``vit_flash_attention`` takes any
 token count: at N = 1100 it matches the JAX kernel in interpret mode within
-1e-5 (the same fp32 function, sums in another order).
+1e-5 (the same fp32 function, sums in another order). Under grad, the routes
+of mix leaves and of grouped-int4 leaves on the w8a8 route carry their STE:
+a mix leaf's int4 copy (M <= 32) and a grouped-int4 leaf off the kernel gate
+at decode M take ``w4a8_grouped`` with the ``w4a8_dx`` backward, a mix
+leaf's int8 copy (M > 32) the w8a8 STE, and grouped int4 above M = 32 the
+requant route's STE.
 """
 
 import dataclasses
@@ -45,6 +50,7 @@ def _calls():
     nib = tlin.quantize_weight_nibble(_r(16, 32) * 0.05)
     kq = torch.randint(-127, 128, (2, B, T, H * D), dtype=torch.int8)
     ks = torch.rand((2, B, T, H)) + 0.1
+    kq4 = kq[0].reshape(B, T, H, D)
     fc1, fc2 = tlin.quantize_weight(_r(64, 32) * 0.05), tlin.quantize_weight(_r(32, 64) * 0.05)
     return {
         "flash_attention": (tattn.flash_attention,
@@ -68,6 +74,11 @@ def _calls():
         "w4a8_matmul": (tlin.w4a8_matmul, lambda x: (x(4, 128), w4["q"], w4["s"])),
         "w4a8_dx": (tlin.w4a8_dx, lambda x: (x(4, 128), w4["q"], w4["s"])),
         "w4a8_requant": (tlin.w4a8_requant, lambda x: (x(4, 128), w4["q"], w4["s"])),
+        "w4a8_grouped": (tlin.w4a8_grouped, lambda x: (x(4, 128), w4["q"], w4["s"])),
+        "split_attention_i8": (tdec.split_attention_i8,
+                               lambda x: (x(B, 1, H, D), kq4, ks[0], kq4, ks[0], _r(B, 2, H, D),
+                                          _r(B, 2, H, D), valid,
+                                          torch.ones((B, 2), dtype=torch.int32))),
         "rms_norm_quant": (trmsq.rms_norm_quant, lambda x: (x(4, 32), torch.ones(32), 1e-5)),
         "fused_ln_w8a8": (tmlp.fused_ln_w8a8, lambda x: (x(4, 32), w8, torch.zeros(16))),
         "fused_mlp_residual": (tmlp.fused_mlp_residual,
@@ -86,6 +97,30 @@ def test_wrapper_raises_under_grad_and_runs_without(name):
         out = fn(*args)
     assert not (out[0] if isinstance(out, tuple) else out).requires_grad
     fn(*build(_r))                      # no input requires grad: the call runs under grad mode
+
+
+@pytest.mark.parametrize("M", [24, 40])
+@pytest.mark.parametrize("form", ["mix", "int4"])
+def test_slice4_routes_carry_their_ste(form, M):
+    """matmul_t under grad: the kernel forward (its plain version here) and
+    the stated dx for each route of a mix leaf and of grouped int4 on w8a8."""
+    w = _r(128, 256, seed=1) * 0.05
+    leaf = tlin.quantize_weight_mixed(w) if form == "mix" else tlin.quantize_weight_int4(w)
+    q4, s4 = (leaf["q4"], leaf["s4"]) if form == "mix" else (leaf["q"], leaf["s"])
+    x = _r(M, 256, seed=2).requires_grad_(True)
+    g = _r(M, 128, seed=3)
+    y = tlin.matmul_t(x, leaf, "w8a8")
+    (dx,) = torch.autograd.grad(y, x, g)
+    x0 = x.detach()
+    if M <= tlin.NIB_HI_M_MAX:
+        assert torch.equal(y, tlin.w4a8_grouped_plain(x0, q4, s4))
+        assert torch.equal(dx, tlin.w4a8_dx(g, q4, s4))
+    elif form == "mix":
+        assert torch.equal(y, tlin.w8a8_matmul_plain(x0, tlin.int8_copy(leaf)))
+        assert torch.equal(dx, tlin._int8_ste_dx(g, leaf["q"], leaf["s"]))
+    else:
+        assert torch.equal(y, tlin.w4a8_requant_plain(x0, q4, s4))
+        assert torch.equal(dx, tlin._int8_ste_dx(g, *tlin.requant_int4_to_int8(q4, s4)))
 
 
 def test_a_scale_that_requires_grad_raises_too():

@@ -211,11 +211,16 @@ def test_init_params_int4(int4_params):
 
 
 def test_other_bits_raise():
+    """Widths other than 4, 8, "mix" and "nibble" raise; mix (ported since) is
+    the int8 and int4 copies of the trunk, int8 in the towers."""
     with pytest.raises(ValueError):
         tlin.quantize_params({"q_proj": torch.zeros(2, 2)}, bits=3)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        convert.vlm_param_spec(convert.config_from_jax(int4_vlm()), tlin.TURBO_QUANT_SUFFIXES,
-                               bits="mix")
+    tcfg = convert.config_from_jax(int4_vlm())
+    with pytest.raises(ValueError):
+        convert.vlm_param_spec(tcfg, tlin.TURBO_QUANT_SUFFIXES, bits=3)
+    spec = convert.vlm_param_spec(tcfg, tlin.TURBO_QUANT_SUFFIXES, bits="mix")
+    assert set(spec["llm"]["layers"]["down_proj"]) == {"q", "s", "q4", "s4"}
+    assert set(spec["vision"]["dino"]["blocks"]["fc1_w"]) == {"q", "s"}
 
 
 # --- the requant route, w8a8, and the w4a8 kernel's plain version ------------------------
@@ -308,7 +313,7 @@ def test_matmul_t_raises_on_unpacked_int4_codes():
     """The JAX package's emit_codes=True int8 codes are not a port leaf
     (params_from_jax packs them): matmul_t raises instead of misreading them."""
     q = torch.zeros((1, 5, 4), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="unsupported weight"):
         tlin.matmul_t(torch.randn(3, 4), {"q": q, "s": torch.ones(5, 1)})
 
 

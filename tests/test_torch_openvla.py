@@ -15,9 +15,9 @@ weights and the same word tokenizer).
   the same sums in another order).
 * The errors: the parity draft gate and its opt-in, return_first_logits with
   a draft, the unnorm-key errors, a prompt longer than the pad, every serving
-  env knob (the JAX package's ValueErrors word for word, NotImplementedError
-  where the JAX package would apply an unported option), env drift after
-  construction, a JAX kernel-gate knob set at construction, and multi-LoRA.
+  env knob (the JAX package's configs field for field and its ValueErrors
+  word for word), env drift after construction, a JAX kernel-gate knob set
+  at construction, and multi-LoRA.
 """
 
 import contextlib
@@ -255,12 +255,11 @@ TIER_OF = {"parity": "parity", "turbo": "turbo", "pallas": "pallas",
 ], ids=lambda e: "+".join(f"{k[5:]}={v}" for k, v in e.items()))
 @pytest.mark.parametrize("tier", list(TIER_OF))
 def test_env_overrides_act_as_in_jax(tier, env, monkeypatch):
-    """Where the JAX package gives a config the port runs, the port gives the
-    same fields; where its knobs conflict, the port raises the same
-    ValueError word for word; where it applies an unported option (turbo_kv8,
-    split_prefill, flat_cache) or lands on a decode the tier does not run
-    (which the JAX package's own validation may reject too), the port raises
-    NotImplementedError naming ROADMAP Queue 1 item 10."""
+    """Where the JAX package gives a config, the port gives the same fields
+    (every tier, decode and option now runs in the port: turbo_kv8,
+    split_prefill and flat_cache included); where its knobs conflict or its
+    validation rejects the result, the port raises the same ValueError word
+    for word."""
     base = jvlm.VLMConfig.tiny()
     jcfg = jvla.VLAServingConfig.for_tier(base, tier)
     tcfg = convert.config_from_jax(jcfg)
@@ -268,22 +267,14 @@ def test_env_overrides_act_as_in_jax(tier, env, monkeypatch):
         monkeypatch.setenv(k, v)
     want = _outcome(jcfg.with_env_overrides)
     got = _outcome(tcfg.with_env_overrides)
-    if want[0] == "ValueError" and want[1].startswith("OVLA_"):   # a conflict of knobs
+    if want[0] == "ValueError":   # a conflict of knobs, or the JAX package's validation
         assert got == want
         return
-    jfields = None
-    if want[0] == "ok":
-        c = want[1]
-        jfields = (c.tier, c.decode_impl, c.split_prefill, c.flat_cache, c.kv_int8,
-                   c.decode_unroll)
-    if jfields is not None and jfields[:5] in tvla._PORTED_TIERS:
-        assert got[0] == "ok", got
-        c = got[1]
-        assert (c.tier, c.decode_impl, c.split_prefill, c.flat_cache, c.kv_int8,
-                c.decode_unroll) == jfields
-        assert c.vlm == tcfg.vlm
-    else:
-        assert got[0] == "NotImplementedError" and "item 10" in got[1], (want, got)
+    assert want[0] == "ok" and got[0] == "ok", (want, got)
+    fields = [(c.tier, c.decode_impl, c.split_prefill, c.flat_cache, c.kv_int8, c.decode_unroll)
+              for c in (want[1], got[1])]
+    assert fields[1] == fields[0]
+    assert got[1].vlm == tcfg.vlm
 
 
 def test_the_wrapper_applies_the_overrides_once(parts, monkeypatch):

@@ -143,25 +143,41 @@ def test_config_for_tier_matches_jax(models):
         tvla.VLAServingConfig.for_tier(tvlm.VLMConfig.openvla_7b(), "pallas", prompt_pad_len=32)
 
 
-@pytest.mark.parametrize("kw", [{"tier": "pallas", "decode_impl": "stacked"},
-                                {"tier": "pallas", "kv_int8": True},
-                                {"tier": "turbo_kv8", "kv_int8": True},
-                                {"tier": "parity", "decode_impl": "frozen_kv"}])
+@pytest.mark.parametrize("kw", [{"tier": "pallas", "decode_impl": "stacked_kv8"},
+                                {"decode_impl": "stacked", "kv_int8": True},
+                                {"tier": "turbo_kv8"},
+                                {"split_prefill": True}])
 def test_other_knobs_raise(models, kw):
-    with pytest.raises(NotImplementedError, match="pallas"):
+    """Every tier, decode and option of the JAX package runs in the port;
+    knobs that the JAX package's validation rejects raise its ValueError
+    word for word."""
+    with pytest.raises(ValueError) as want:
+        dataclasses.replace(models[0], **kw)
+    with pytest.raises(ValueError) as got:
         dataclasses.replace(models[2], **kw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("tier", ["turbo", "turbo_kv8", "pallas_kv8"])
 def test_unported_for_tier_raises(tier):
-    """turbo_kv8 is not ported; turbo and pallas_kv8 are, but only with their
-    own decodes (the stacked cache; decode_impl='stacked_kv8')."""
-    with pytest.raises(NotImplementedError, match=tier):
-        if tier == "turbo_kv8":
-            tvla.VLAServingConfig.for_tier(tvlm.VLMConfig.tiny(), tier)
-        else:
-            tvla.VLAServingConfig(vlm=tvlm.VLMConfig.tiny().turbo(), tier=tier,
-                                  decode_impl="frozen_kv")
+    """turbo_kv8 is ported and turbo takes the frozen-KV decode as the JAX
+    package's validation allows; pallas_kv8 and decode_impl='stacked_kv8'
+    imply each other, and the frozen-KV decode raises there, in both
+    packages."""
+    if tier == "turbo_kv8":
+        got = tvla.VLAServingConfig.for_tier(tvlm.VLMConfig.tiny(), tier)
+        assert got == convert.config_from_jax(jvla.VLAServingConfig.for_tier(
+            jvlm.VLMConfig.tiny(), tier))
+        return
+    kw = dict(tier=tier, decode_impl="frozen_kv")
+    if tier == "pallas_kv8":
+        with pytest.raises(ValueError, match="imply each other"):
+            jvla.VLAServingConfig(vlm=jvlm.VLMConfig.tiny().turbo(), **kw)
+        with pytest.raises(ValueError, match="imply each other"):
+            tvla.VLAServingConfig(vlm=tvlm.VLMConfig.tiny().turbo(), **kw)
+        return
+    got = tvla.VLAServingConfig(vlm=tvlm.VLMConfig.tiny().turbo(), **kw)
+    assert (got.tier, got.decode_impl) == (tier, "frozen_kv")
 
 
 def test_prefill_and_greedy_decode_match_jax(models):

@@ -105,8 +105,11 @@ def test_quantize_params_turbo_bit_identical(tiny_params):
 
 
 def test_quantize_params_other_bits_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tlin.quantize_params({"q_proj": torch.zeros(2, 2)}, bits="mix")
+    """bits=3 raises; mix (ported since) gives the dual leaf."""
+    with pytest.raises(ValueError, match="bits must be"):
+        tlin.quantize_params({"q_proj": torch.zeros(2, 2)}, bits=3)
+    got = tlin.quantize_params({"q_proj": torch.ones(2, 2)}, bits="mix")
+    assert tlin.is_mixed_quant(got["q_proj"])
 
 
 @pytest.mark.parametrize("name", ["tiny", "openvla_7b"])

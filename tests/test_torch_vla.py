@@ -128,8 +128,20 @@ def test_entry_points_raise_without_cuda(models, monkeypatch):
 @pytest.mark.parametrize("kw", [{"tier": "turbo_kv8"}, {"decode_impl": "frozen_kv"},
                                 {"split_prefill": True}, {"flat_cache": True}])
 def test_unported_tiers_raise(models, kw):
-    with pytest.raises(NotImplementedError, match="parity"):
-        dataclasses.replace(models[2], **kw)
+    """Every tier and option now runs in the port: a config the JAX package
+    rejects (turbo_kv8 without kv_int8) raises its ValueError word for word,
+    the rest build with the JAX package's fields."""
+    want, tcfg = models[0], models[2]
+    try:
+        jcfg = dataclasses.replace(want, **kw)
+    except ValueError as e:
+        with pytest.raises(ValueError, match="mislabel"):
+            dataclasses.replace(tcfg, **kw)
+        assert "mislabel" in str(e)
+        return
+    got = dataclasses.replace(tcfg, **kw)
+    assert (got.tier, got.decode_impl, got.split_prefill, got.flat_cache) == \
+        (jcfg.tier, jcfg.decode_impl, jcfg.split_prefill, jcfg.flat_cache)
 
 
 def test_action_codec_matches_jax():
