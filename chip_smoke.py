@@ -65,7 +65,8 @@ robot-control point and (turbo's int8 weights) the action server:
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
-              all started together (set-up time)
+              all started together (set-up time); then a `resources` line:
+              each kernel's registers a thread and spill bytes (ptxas -v)
   3. kernels  each kernel against its plain PyTorch version at the 7B main-path
               shapes (B=24; B=8 for score_long), with kernel / plain / library
               times: flash_prefill (also at score_short's shape, with its
@@ -95,13 +96,18 @@ Phases, one output line each:
               nib_hi_dot (turbo_nibble), w4a8_dx (train_int4), w4a8_requant
               (pallas_int4's lm_head and SigLIP fc1, train_int4's lm_head;
               beside the two-step route it replaced; edge M, N and group
-              sizes), split_attention_i8 (turbo_kv8; GQA, fp32, a row masked
-              but BOS; decode_attention.compare_split_attention_i8),
+              sizes), split_attention_i8 (turbo_kv8, its ring route; GQA,
+              T = 291, T + A = 4096, fp32 scores, one row timed at the
+              cluster rule beside 1, 2 and 4 CTAs, a row masked but BOS;
+              decode_attention.compare_split_attention_i8),
               w4a8_grouped (turbo_int4 and turbo_mix at decode M: bit-equal;
-              edge M, N and group sizes); vit_attention also at DINOv2's 518 px, N = 1370,
+              its pre-pass and GEMM also timed apart; edge M, N and group
+              sizes, lm_head over three row blocks; the persistent grid's
+              clusters); vit_attention also at DINOv2's 518 px, N = 1370,
               and at ragged N, bf16 (tensor cores) and fp32 (scalar route);
               the scalar routes (the decode attentions' at fp32 and Dh = 72,
-              vit_attention's, flash_prefill's and wi8_matmul's in fp32),
+              vit_attention's, flash_prefill's and wi8_matmul's in fp32,
+              split_attention_i8's in fp32 and at Dh = 64, n_rep 3),
               which no main path takes: a line of their own
               (`scalar_routes`), with the main paths' launches (0) and the
               tiny paths' (`tiny_launches`)
@@ -131,6 +137,7 @@ no CUDA card it exits 1 before printing any result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -1596,9 +1603,12 @@ def check_w4a8_grouped(dev, g):
     each of the six decode steps) and lm_head's 4096 x 32064 (7 a call);
     bf16 x, random codes in [-8, 7], fp32 group scales, group 128. Bit for
     bit equal to the plain version (its fp32 fold order is the kernel's),
-    each call one pre-pass and one GEMM launch. Edge cases bit for bit,
-    untimed, bf16 and fp32: M = 1, 32, 33, 70; group sizes 32, 64, 96, 256;
-    N = 8, 40, 136, 200; rows at the scale floor. Library: cuBLAS bf16 on the
+    each call one pre-pass and one GEMM launch, also timed apart (the C
+    entries kernel_ab.grouped_parts reaches, uncounted). Edge cases bit for
+    bit, untimed, bf16 and fp32: M = 1, 32, 33, 70; group sizes 32, 64, 96,
+    256; N = 8, 40, 136, 200 and 4104 (past a tile edge), lm_head's 1002 tiles
+    over three row blocks (the persistent grid's clusters walking several
+    tiles); rows at the scale floor. Library: cuBLAS bf16 on the
     weight dequantized to bf16 beforehand (it leaves out the quantization and
     streams 4x the weight bytes)."""
     A1 = ACTION_DIM - 1
@@ -1617,8 +1627,12 @@ def check_w4a8_grouped(dev, g):
         lib_sets = [(x, lin.dequantize_weight({"q": q, "s": s}, torch.bfloat16))
                     for _, q, s in sets]
         b, by = bound_ms(_nbytes(*sets[0], got), 2 * M * N * K, "int8")
+        prepass, gemm = kernel_ab.grouped_parts(_build.load("w4a8_grouped"))
         by_shape[f"{M}x{K}x{N}"] = dict(
             launches_per_call=per_call[(M, K, N)], max_abs_err=0.0,
+            prepass_ms=cuda_ms(lambda: kernel_ab.call_grouped_prepass(prepass, x)),
+            gemm_ms=cuda_ms(rotating(lambda *a: kernel_ab.call_grouped_gemm(gemm, *a), [
+                (kernel_ab.call_grouped_prepass(prepass, x), q, s) for _, q, s in sets])),
             ms=cuda_ms(rotating(lin.w4a8_grouped, sets)),
             plain_ms=cuda_ms(rotating(lin.w4a8_grouped_plain, sets), reps=5, warmup=1),
             library_ms=cuda_ms(rotating(lambda a, wd: a @ wd.t(), lib_sets)),
@@ -1629,7 +1643,8 @@ def check_w4a8_grouped(dev, g):
     for (M, N, G, gsz, dtype) in ((1, 200, 32, 128, bf16), (32, 136, 9, 32, fp32),
                                   (33, 40, 3, 64, bf16), (70, 136, 4, 256, fp32),
                                   (5, 200, 9, 96, bf16), (24, 8, 1, 32, bf16),
-                                  (24, 4304, 9, 128, fp32)):
+                                  (24, 4304, 9, 128, fp32), (32, 4104, 3, 128, bf16),
+                                  (70, 32064, 5, 64, bf16)):
         x = torch.randn((M, G * gsz), generator=g, device=dev).to(dtype)
         q, s = _int4_leaf(G, N, gsz, g, dev)
         s[: N // 4] = 1e-8
@@ -1638,46 +1653,59 @@ def check_w4a8_grouped(dev, g):
         assert torch.equal(got, lin.w4a8_grouped_plain(x, q, s)), f"{M}x{N} gsz {gsz} {dtype}"
         edges[f"{M}x{G * gsz}x{N}_gsz{gsz}_{str(dtype)[6:]}"] = "bit_equal"
     mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    n = sum(per_call.values())
+    for key in ("prepass_ms", "gemm_ms"):
+        mix[key] = sum(by_shape[f"{M}x{K}x{N}"][key] * c for (M, K, N), c in per_call.items()) / n
+    resident = _build.load("w4a8_grouped").ovla_w4a8_grouped_resident_clusters
+    resident.argtypes, resident.restype = [ctypes.c_int], ctypes.c_int
     return dict(name="w4a8_grouped", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/w4a8_grouped.cu",
+                resident_clusters=resident(1),
                 replaces="openvla_probe_tpu/ops/linear.py:526", by_shape=by_shape,
                 edge_cases=edges, **mix)
 
 
+def _masked_but_bos(args):
+    """The split inputs with the last batch row's prefill masked but BOS."""
+    pv = args[7].clone()
+    pv[-1, 1:] = 0
+    return (*args[:7], pv, args[8])
+
+
 def check_split_attention_i8(dev, g):
     """The int8 frozen-KV decode attention (the XLA function
-    _split_attention_i8 of the turbo_kv8 tier) at its 7B shape: q [24, 1, 32,
-    128] bf16 over one layer of the int8 prefill K/V [24, 288, 32, 128] with
-    their scales and the bf16 generated K/V [24, 6, 32, 128], bf16 scores,
-    padded prompts, decode step 3; held to the plain version by
-    decode_attention.compare_split_attention_i8 (every element within two
-    steps of its row's p code, s_p · 127, plus one bf16 step: fp32 sums in
-    another order and exp's last bits move a p code only at a rounding tie),
-    one launch a call. Edge cases, untimed: GQA (n_rep 4) at Dh 128, fp32 q at
-    fp32 and bf16 scores, a row masked but BOS, one row. Library: SDPA on the
-    K/V dequantized to bf16 beforehand, the two segments concatenated (it
-    leaves out the quantization of q and p and reads 2x the prefill bytes)."""
+    _split_attention_i8 of the turbo_kv8 tier) on its ring route at its 7B
+    shape: q [24, 1, 32, 128] bf16 over one layer of the int8 prefill K/V
+    [24, 288, 32, 128] with their scales and the bf16 generated K/V [24, 6, 32,
+    128], bf16 scores, padded prompts, decode step 3; held to the plain
+    version by decode_attention.compare_split_attention_i8 (every element
+    within two steps of its row's p code, s_p · 127, plus one bf16 step: fp32
+    sums in another order and exp's last bits move a p code only at a
+    rounding tie), one launch a call. Edge cases, untimed, each with a row
+    masked but BOS: GQA (n_rep 2, 4, 8), T = 291 (no multiple of the 16-key
+    chunk), T + A = 4096 at n_rep 8, fp32 scores, one row (the cluster rule: 4
+    CTAs a (b, kv head)); the one row also timed at the rule and at 1, 2 and 4
+    CTAs (the `_cs` launcher, uncounted). Library: SDPA on the K/V dequantized
+    to bf16 beforehand, the two segments concatenated (it leaves out the
+    quantization of q and p and reads 2x the prefill bytes)."""
     B, T, A, H, Dh = BATCH, T_PREFILL, ACTION_DIM - 1, 32, 128
     sets = kernel_ab.split_i8_sets(B, T, A, 3, H, H, Dh, g, dev,
                                    copies_past_l2(2 * B * T * H * Dh))
-    before = _build.KERNEL_LAUNCHES["split_attention_i8"]
-    got = dattn.split_attention_i8(*sets[0], torch.bfloat16)
-    torch.cuda.synchronize()
-    assert _build.KERNEL_LAUNCHES["split_attention_i8"] == before + 1
+    got = _launched("split_attention_i8", lambda: dattn.split_attention_i8(*sets[0],
+                                                                           torch.bfloat16))
     stats = dattn.compare_split_attention_i8(got, *sets[0], torch.bfloat16)
     q, kq, ks, vq, vs, kd, vd, pre, dec = sets[0]
     edges = {}
-    for name, (b_, h_, hkv, dtype, scores) in {
-            "gqa4": (2, 32, 8, torch.bfloat16, torch.bfloat16),
-            "fp32_fp32_scores": (3, 32, 32, torch.float32, torch.float32),
-            "fp32_bf16_scores": (3, 32, 32, torch.float32, torch.bfloat16),
-            "one_row": (1, 32, 32, torch.bfloat16, torch.bfloat16)}.items():
-        args = kernel_ab.split_i8_sets(b_, T, A, 3, h_, hkv, Dh, g, dev, 1, dtype)[0]
-        pv = args[7].clone()
-        pv[-1, 1:] = 0                               # a row masked but BOS
-        args = (*args[:7], pv, args[8])
-        out = dattn.split_attention_i8(*args, scores)
+    for name, (b_, t_, a_, h_, hkv, scores) in {
+            "gqa2": (3, T, A, 32, 16, torch.bfloat16), "gqa4": (2, T, A, 32, 8, torch.bfloat16),
+            "gqa8_4096_keys": (2, 4090, 6, 32, 4, torch.bfloat16),
+            "t291": (4, 291, A, 32, 32, torch.bfloat16),
+            "fp32_scores": (3, T, A, 32, 32, torch.float32),
+            "one_row": (1, T, A, 32, 32, torch.bfloat16)}.items():
+        args = _masked_but_bos(kernel_ab.split_i8_sets(b_, t_, a_, 3, h_, hkv, Dh, g, dev, 1)[0])
+        out = _launched("split_attention_i8", lambda: dattn.split_attention_i8(*args, scores))
         edges[name] = dattn.compare_split_attention_i8(out, *args, scores)["max_abs_err"]
+    one = kernel_ab.split_i8_sets(1, T, A, 3, H, H, Dh, g, dev, copies_past_l2(2 * T * H * Dh))
     kf = [(s[0].transpose(1, 2),
            torch.cat([(s[1].float() * s[2][..., None]).bfloat16(), s[5]], 1).transpose(1, 2),
            torch.cat([(s[3].float() * s[4][..., None]).bfloat16(), s[6]], 1).transpose(1, 2))
@@ -1696,9 +1724,48 @@ def check_split_attention_i8(dev, g):
                    *a, torch.bfloat16), sets), reps=5, warmup=1),
                library_ms=cuda_ms(rotating(lambda qt, kt, vt: F.scaled_dot_product_attention(
                    qt, kt, vt, attn_mask=mask), kf)),
-               bound_ms=b, bound_by=by, launches_per_call=LAYERS * A, edge_cases=edges)
-    del sets, kf
+               bound_ms=b, bound_by=by, launches_per_call=LAYERS * A, edge_cases=edges,
+               one_row_ms_by_cluster_size=_by_cluster_size(
+                   "split_attention_i8", kernel_ab.call_split_i8, one))
+    del sets, kf, one
     return res
+
+
+def check_split_attention_i8_scalar(dev, g):
+    """Row 13's scalar route (fp32 q, head dims other than 128, n_rep other
+    than 1, 2, 4, 8; the tiny fp32 turbo_kv8 path launches it: the first
+    version of the kernel) at the 7B shape in fp32 with fp32 scores, and at Dh = 64 with
+    n_rep 3 in bf16, each with a row masked but BOS, held by
+    compare_split_attention_i8. Bound: the bytes (fp32 q and decode K/V);
+    library: SDPA in fp32 on the K/V dequantized beforehand."""
+    B, T, A, H, Dh = BATCH, T_PREFILL, ACTION_DIM - 1, 32, 128
+    sets = [_masked_but_bos(a) for a in kernel_ab.split_i8_sets(
+        B, T, A, 3, H, H, Dh, g, dev, copies_past_l2(2 * B * T * H * Dh), torch.float32)]
+    got = _launched("split_attention_i8_scalar",
+                    lambda: dattn.split_attention_i8(*sets[0], torch.float32))
+    stats = dattn.compare_split_attention_i8(got, *sets[0], torch.float32)
+    a64 = _masked_but_bos(kernel_ab.split_i8_sets(3, 40, 5, 3, 12, 4, 64, g, dev, 1)[0])
+    got64 = _launched("split_attention_i8_scalar",
+                      lambda: dattn.split_attention_i8(*a64, torch.bfloat16))
+    err64 = dattn.compare_split_attention_i8(got64, *a64, torch.bfloat16)["max_abs_err"]
+    q, kq, ks, vq, vs, kd, vd, pre, dec = sets[0]
+    kf = [(s[0].transpose(1, 2),
+           torch.cat([s[1].float() * s[2][..., None], s[5]], 1).transpose(1, 2),
+           torch.cat([s[3].float() * s[4][..., None], s[6]], 1).transpose(1, 2)) for s in sets]
+    mask = torch.cat([pre, dec], dim=1).bool()[:, None, None, :]
+    b, by = bound_ms(_nbytes(q, kq, ks, vq, vs, kd, vd, pre, dec, got),
+                     4 * B * H * (T + A) * Dh, "fp32")
+    return dict(name="split_attention_i8_scalar", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/split_attention_i8.cu",
+                replaces="openvla_probe_tpu/models/llama.py:746",
+                max_abs_err=max(stats["max_abs_err"], err64),
+                ms=cuda_ms(rotating(lambda *a: dattn.split_attention_i8(*a, torch.float32),
+                                    sets)),
+                plain_ms=cuda_ms(rotating(lambda *a: dattn.split_attention_i8_plain(
+                    *a, torch.float32), sets), reps=5, warmup=1),
+                bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(rotating(lambda qt, kt, vt: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask), kf)))
 
 
 def _inputs(cfg: vla.VLAServingConfig, batch: int, hw: int, g, dev):
@@ -1806,7 +1873,8 @@ TINY_TOL = {None: 1e-4, 8: 1e-3, 4: 1e-3, "nibble": 1e-3, "mix": 1e-3}
 TINY_ROUTES = {"vit_attention": "vit_attention_scalar", "flash_prefill": "flash_prefill_scalar",
                "wi8_matmul": "wi8_matmul_scalar", "decode_attention": "decode_attention_scalar",
                "decode_split_attention": "decode_split_attention_scalar",
-               "stacked_decode_attention_i8": "stacked_decode_attention_i8_scalar"}
+               "stacked_decode_attention_i8": "stacked_decode_attention_i8_scalar",
+               "split_attention_i8": "split_attention_i8_scalar"}
 
 
 def check_tiny_path(dev, path: str):
@@ -2777,6 +2845,9 @@ def main() -> int:
     ptxas = {n: [l.strip() for l in out.splitlines() if "registers" in l or "spill" in l]
              for n, out in _build.build_report["logs"].items()}
     log("build", seconds=_build.build_report["seconds"], ptxas=ptxas)
+    # each kernel's registers a thread and spill bytes, from ptxas -v
+    log("resources", kernels={n: _build.resource_usage(out)
+                              for n, out in _build.build_report["logs"].items()})
 
     g = torch.Generator(device=dev).manual_seed(1234)
     kernels = [check_flash_prefill(dev, g), check_flash_blockwise(dev, g),
@@ -2791,7 +2862,8 @@ def main() -> int:
     scalar_routes = [check_decode_attention_scalar(dev, g),
                      check_decode_split_attention_scalar(dev, g), check_vit_attention_scalar(dev, g),
                      check_flash_prefill_scalar(dev, g), check_wi8_matmul_scalar(dev, g),
-                     check_stacked_decode_i8_scalar(dev, g)]
+                     check_stacked_decode_i8_scalar(dev, g),
+                     check_split_attention_i8_scalar(dev, g)]
     log("kernels", card=card, results=kernels, scalar_routes=scalar_routes)
 
     tiny = {}

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import threading
 import time
@@ -134,6 +135,10 @@ KERNELS = {
         "split_attention_i8.cu", "ovla_split_attention_i8",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
+    "split_attention_i8_scalar": (
+        "split_attention_i8.cu", "ovla_split_attention_i8_scalar",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
 }
 # GEMM -> the name its activation pre-pass launch is counted under
 PRE_PASSES = {"w4a8_matmul": "w4a8_quant_rows", "w8a8_matmul": "w8a8_quant_rows",
@@ -212,6 +217,29 @@ def build_all() -> Dict[str, Path]:
         os.replace(tmp, lib)
     build_report.update(seconds=time.perf_counter() - t0, logs=logs)
     return {src: lib for src, (lib, _) in libs.items()}
+
+
+def resource_usage(log: str) -> list:
+    """Each entry function's registers a thread and spill bytes from one
+    source's ``nvcc -Xptxas=-v`` output (`build_report`): a list of dicts
+    (function, the mangled name; registers; spill_stores; spill_loads)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1), "registers": None, "spill_stores": 0,
+                   "spill_loads": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -49,6 +49,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -140,6 +141,26 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two int8 codes (bytes `sel` of w ^ 0x80808080) as an exact fp16 pair: the byte permute puts
+// c + 128 under the exponent of 1024 (0x64XX is 1024 + XX), the half2 subtraction takes 1152
+// (stacked_decode_i8.cu, split_attention_i8.cu)
+__device__ __forceinline__ uint32_t codes_h2(uint32_t wx, uint32_t sel) {
+  const uint32_t h = __byte_perm(wx, 0x64646464u, sel);
+  const __half2 v =
+      __hsub2(*reinterpret_cast<const __half2*>(&h), __half2half2(__ushort_as_half(0x6480)));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d (16 x 8 fp32) += a (16 x 16 fp16, row-major fragment) . b (16 x 8 fp16, column fragment)
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -45,21 +45,35 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
                : "memory");
 }
 // wait for the completion of the barrier's phase of parity `parity`; a wait past ~10 s of
-// clocks (a broken ring) traps, so the launch fails instead of hanging the card
+// clocks (a broken ring) traps, so the launch fails instead of hanging the card. kHintNs > 0
+// bounds how long a waiting thread stays suspended before it looks again (try_wait's suspend
+// time hint; w4a8_grouped.cu's ring)
+template <int kHintNs = 0>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   const long long t0 = clock64();
   uint32_t done = 0;
   while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
+    if constexpr (kHintNs > 0)
+      asm volatile(
+          "{\n"
+          ".reg .pred P1;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2, %3;\n"
+          "selp.u32 %0, 1, 0, P1;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity), "n"(kHintNs)
+          : "memory");
+    else
+      asm volatile(
+          "{\n"
+          ".reg .pred P1;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, P1;\n"
+          "}\n"
+          : "=r"(done)
+          : "r"(addr), "r"(parity)
+          : "memory");
     if (done) return;
     if (clock64() - t0 > 20000000000ll) __trap();
   }

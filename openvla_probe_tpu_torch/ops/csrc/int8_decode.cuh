@@ -336,9 +336,10 @@ __global__ void __launch_bounds__(kThreads, kW == W::kInt4 ? 2 : 1)
 // grouped int4 codes q, uint8 [G][N][gsz / 2] with `grp` (K = G · gsz; the epilogue's s unused).
 // Returns the cudaError_t: the tensor maps need K a multiple of 16 (of 32 for packed codes) and
 // 16-byte aligned pointers, which the callers check.
+// `static`: each library's copy keeps its own opt-in state (w4a8_grouped.cu resident_clusters)
 template <W kW, typename T, typename Epi>
-int launch(const int8_t* xq, const uint8_t* q, const uint8_t* lo, const Epi& epi, T* out, int M,
-           int N, int K, cudaStream_t stream, const Groups grp = {}) {
+static int launch(const int8_t* xq, const uint8_t* q, const uint8_t* lo, const Epi& epi, T* out,
+                  int M, int N, int K, cudaStream_t stream, const Groups grp = {}) {
   CUtensorMap tm_a, tm_q, tm_lo;
   const bool packed = kW != W::kInt8;
   const uint64_t qcols = packed ? K / 2 : K;
@@ -353,9 +354,10 @@ int launch(const int8_t* xq, const uint8_t* q, const uint8_t* lo, const Epi& epi
     return int(cudaErrorInvalidValue);
   if (kW != W::kNibble) tm_lo = tm_q;   // unused
   auto kernel = decode_kernel<kW, T, Epi>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem_bytes<kW>()));
-  if (err != cudaSuccess) return int(err);
+  // the shared-memory opt-in once a kernel and process (host time: up to 1351 launches a call)
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_bytes<kW>()));
+  if (opt_in != cudaSuccess) return int(opt_in);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   kernel<<<grid, kThreads, smem_bytes<kW>(), stream>>>(tm_a, tm_q, tm_lo, epi, out, M, N, K, grp);
   return int(cudaGetLastError());

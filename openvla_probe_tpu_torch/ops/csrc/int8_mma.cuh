@@ -103,7 +103,9 @@ __device__ __forceinline__ int stored_offset(int k) {   // k: a multiple of 4
 // when it fits in the 48 KB a launch takes without opting in, beside the kernel's static
 // reduction slots (read twice, a long row missed the L2 at prefill M: 0.138 ms for
 // 6912 x 11008 bf16 rows on an H100, 0.099 read once; PERF.md §6). `fn` maps each value first
-// (the identity, or vit_mlp.cu's activation rounded to T: the codes of act(x)).
+// (the identity, or vit_mlp.cu's activation rounded to T: the codes of act(x)). kThr threads a
+// row: kQThreads, or 512 for w4a8_grouped.cu's decode rows (fewer dependent loads a thread:
+// 0.0062 against 0.0071 ms for 24 x 4096 bf16 rows; PERF.md §6); the codes do not depend on it.
 constexpr int kQThreads = 128;
 constexpr int kQRowBytes = 48 * 1024 - 256;
 
@@ -111,19 +113,23 @@ struct Ident {
   __device__ __forceinline__ float operator()(float v) const { return v; }
 };
 
-template <typename T, bool PERM, bool ROWSUM, class Fn>
-__global__ void __launch_bounds__(kQThreads)
+template <typename T, bool PERM, bool ROWSUM, class Fn, int kThr>
+__global__ void __launch_bounds__(kThr)
     quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx,
                       int* __restrict__ rowsum, int K, int cached, const Fn fn) {
-  __shared__ float red[kQThreads / 32];
-  __shared__ int ired[kQThreads / 32];
+  __shared__ float red[kThr / 32];
+  __shared__ int ired[kThr / 32];
   extern __shared__ __align__(16) uint8_t qr_raw[];
   T* row_s = reinterpret_cast<T*>(qr_raw);   // the row, when `cached`
   const int row = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* xr = x + (long long)row * K;
+  // a grid launched as this one's programmatic dependent (w4a8_grouped.cu's GEMM) may start now:
+  // it waits (griddepcontrol.wait) for this grid's completion before it reads the codes; for a
+  // grid launched without that attribute, a no-op
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   float amax = 0.f;
 #pragma unroll 4
-  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
+  for (int k = 4 * threadIdx.x; k < K; k += 4 * kThr) {
     float v[4];
     load4(xr + k, v);
 #pragma unroll
@@ -136,13 +142,13 @@ __global__ void __launch_bounds__(kQThreads)
   if (lane == 0) red[warp] = amax;
   __syncthreads();
 #pragma unroll
-  for (int w = 0; w < kQThreads / 32; ++w) amax = fmaxf(amax, red[w]);
+  for (int w = 0; w < kThr / 32; ++w) amax = fmaxf(amax, red[w]);
   const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
   int8_t* qr = xq + (long long)row * K;
   int sum = 0;
   const T* src = cached ? row_s : xr;
 #pragma unroll 4
-  for (int k = 4 * threadIdx.x; k < K; k += 4 * kQThreads) {
+  for (int k = 4 * threadIdx.x; k < K; k += 4 * kThr) {
     float v[4];
     load4(src + k, v);
     if (!cached) {
@@ -165,19 +171,19 @@ __global__ void __launch_bounds__(kQThreads)
     if (threadIdx.x == 0) {
       int total = 0;
 #pragma unroll
-      for (int w = 0; w < kQThreads / 32; ++w) total += ired[w];
+      for (int w = 0; w < kThr / 32; ++w) total += ired[w];
       rowsum[row] = total;
     }
   }
   if (threadIdx.x == 0) sx[row] = s;
 }
 
-template <typename T, bool PERM, bool ROWSUM, class Fn = Ident>
+template <typename T, bool PERM, bool ROWSUM, class Fn = Ident, int kThr = kQThreads>
 cudaError_t quant_rows(const void* x, int8_t* xq, float* sx, int* rowsum, int M, int K,
                        cudaStream_t stream, const Fn& fn = Fn{}) {
   const size_t row_bytes = size_t(K) * sizeof(T);
   const int cached = row_bytes <= size_t(kQRowBytes);
-  quant_rows_kernel<T, PERM, ROWSUM, Fn><<<M, kQThreads, cached ? row_bytes : 0, stream>>>(
+  quant_rows_kernel<T, PERM, ROWSUM, Fn, kThr><<<M, kThr, cached ? row_bytes : 0, stream>>>(
       static_cast<const T*>(x), xq, sx, rowsum, K, cached, fn);
   return cudaGetLastError();
 }

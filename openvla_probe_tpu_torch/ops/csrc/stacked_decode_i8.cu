@@ -75,7 +75,9 @@ namespace ovla_sdr {
 
 namespace cg = cooperative_groups;
 using ovla_dec::ceil_div;
+using ovla_dec::codes_h2;
 using ovla_dec::keys_per_cta;
+using ovla_dec::mma_f16;
 using ovla_dec::kRows;
 using ovla_dec::kThreads;
 using ovla_dec::kWarps;
@@ -105,14 +107,6 @@ struct Args {
   int cs;                   // CTAs a (b, kv head): the cluster size
 };
 
-// two codes (bytes `sel` of w ^ 0x80808080) as an exact fp16 pair: 0x64XX is 1024 + XX
-__device__ __forceinline__ uint32_t codes_h2(uint32_t wx, uint32_t sel) {
-  const uint32_t h = __byte_perm(wx, 0x64646464u, sel);
-  const __half2 v =
-      __hsub2(*reinterpret_cast<const __half2*>(&h), __half2half2(__ushort_as_half(0x6480)));
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // 2^E (and 2^-E in `inv`) with mx · 2^E in [2^14, 2^15) for a normal mx > 0, else 1
 __device__ __forceinline__ float pow2_for(float mx, float& inv) {
   const int e = int((__float_as_uint(mx) >> 23) & 0xff) - 127;   // floor(log2 mx)
@@ -130,16 +124,6 @@ __device__ __forceinline__ __half h_term(float x, int t) {
   const __half t1 = __float2half_rn(r);
   const __half t2 = __float2half_rn(r - __half2float(t1));
   return t == 0 ? t0 : t == 1 ? t1 : t2;
-}
-
-// d (16 x 8 fp32) += a (16 x 16 fp16, row-major fragment) . b (16 x 8 fp16, column fragment)
-__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // the ring's bytes, or the warps' partial P·V after it ([kWarps][8 NT][kDh] floats)

@@ -25,7 +25,9 @@ and takes the plain PyTorch version beside it only for a CPU tensor:
   Hkv, Dh]`` in the model's dtype (GQA heads share their kv head in the
   kernel), q row-quantized for an int8 q·K and the probabilities, the V
   scales folded in, row-quantized for an int8 p·V (the JAX package's
-  ``models/llama.py::_split_attention_i8``, an XLA function there).
+  ``models/llama.py::_split_attention_i8``, an XLA function there). bf16 q
+  at Dh = 128 with n_rep 1, 2, 4 or 8 takes the ring route
+  (`split_ring_eligible`), every other call the scalar route, counted apart.
 """
 
 from __future__ import annotations
@@ -208,6 +210,16 @@ def stacked_decode_attention_i8(q, kq, ks, vq, vs, valid, li: int,
 
 SPLIT_I8_MAX_HEAD_DIM = 256    # csrc/split_attention_i8.cu: q held in shared memory
 SPLIT_I8_MAX_KEYS = 4096       # T + A scores per (batch, head) in shared memory
+SPLIT_RING_HEAD_DIM = 128      # the ring route: bf16 q at this head dim, n_rep of STACKED_REPS
+
+
+def split_ring_eligible(q, n_rep: int) -> bool:
+    """The declared rule of `split_attention_i8`'s two routes: bf16 q (and so
+    bf16 kd / vd) at Dh = 128 with n_rep in 1, 2, 4, 8 takes the ring route
+    (``split_attention_i8``); every other call the scalar route
+    (``split_attention_i8_scalar``), each counted under its own name."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] == SPLIT_RING_HEAD_DIM
+            and n_rep in STACKED_REPS)
 
 
 def _repeat_heads(t: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -288,12 +300,15 @@ def split_attention_i8(q, kq, ks, vq, vs, kd, vd, pre_valid, dec_valid,
     """softmax([q·Kp | q·Kd]) @ [Vp; Vd] for one decode token over an int8
     prefill segment and the generated-token buffer -> [B, 1, H, Dh], the
     function of `split_attention_i8_plain` (held to it by
-    `compare_split_attention_i8`). On the card the kernel
-    ``split_attention_i8`` takes q and kd/vd of one dtype, bf16 or fp32, head
-    dims that are multiples of 4 up to 256 (the int8 dots take four codes a
-    word), any n_rep, at most 4096 keys, every tensor contiguous; it raises
-    on anything else and never stands in for the plain version or the
-    reverse."""
+    `compare_split_attention_i8`). On the card it takes q and kd/vd of one
+    dtype, bf16 or fp32, head dims that are multiples of 4 up to 256 (the
+    int8 dots take four codes a word), any n_rep, at most 4096 keys, every
+    tensor contiguous, and raises on anything else; `split_ring_eligible`
+    picks the route: the ring kernel ``split_attention_i8`` (K and V streamed
+    per warp, exact integer dots on the fp16 tensor cores, the GQA heads in
+    one pass, a cluster of CTAs where there are few (b, kv head) pairs) or
+    ``split_attention_i8_scalar``. Neither stands in for the plain version
+    or the reverse."""
     _build.no_grad_guard("split_attention_i8", _DECODE_NO_GRAD, q, ks, vs, kd, vd)
     B, Tq, H, Dh = q.shape
     Bk, T, Hkv, Dk = kq.shape
@@ -332,11 +347,13 @@ def split_attention_i8(q, kq, ks, vq, vs, kd, vd, pre_valid, dec_valid,
     pv = pre_valid.to(torch.int32).contiguous()
     dv = dec_valid.to(torch.int32).contiguous()
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
-    err = _build.launcher("split_attention_i8")(
+    kernel = ("split_attention_i8" if split_ring_eligible(q, H // Hkv)
+              else "split_attention_i8_scalar")
+    err = _build.launcher(kernel)(
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), kd.data_ptr(),
         vd.data_ptr(), pv.data_ptr(), dv.data_ptr(), out.data_ptr(), B, H, Hkv, T, A, Dh,
         _scale(Dh), int(q.dtype == torch.bfloat16), int(scores_dtype == torch.bfloat16),
         _build.stream_ptr(q))
-    _build.check(err, "split_attention_i8")
-    _build.KERNEL_LAUNCHES["split_attention_i8"] += 1
+    _build.check(err, kernel)
+    _build.KERNEL_LAUNCHES[kernel] += 1
     return out

@@ -663,32 +663,33 @@ def w4a8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tens
 # --- w4a8 grouped: the decode-M product of grouped int4 off the kernel gate ---------------
 
 
-GROUPED_CHUNK, GROUPED_WARPS = 128, 8   # csrc/w4a8_grouped.cu: k per chunk, warps taking them in turn
+GROUPED_CHUNK, GROUPED_CLASSES = 128, 8   # csrc/w4a8_grouped.cu: k a chunk; chunk c folds into class c % 8
 
 
 def w4a8_grouped_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """The JAX package's ``_w4a8_dot_grouped`` forward, its fp32 sums in the
     kernel's order: per-row int8 activation codes, s_x = max(max|x| / 127,
-    1e-8); K split into 128-deep chunks, chunk c taken by warp c % 8; each
-    warp folds the exact int32 product of every segment of its chunks (a
-    chunk cut at group boundaries) into its fp32 sum as ``acc + f32(p) ·
-    s[:, g]`` (two roundings), in k order; the 8 warps' sums added in warp
-    order; ``(total · s_x)`` cast to x's dtype. x [M, K], packed q
-    [G, N, gsz/2], s [N, G] -> [M, N]. No term depends on M or N."""
+    1e-8); K split into 128-deep chunks, chunk c in class c % 8; each class
+    folds the exact int32 product of every segment of its chunks (a chunk cut
+    at group boundaries) into its fp32 sum as ``acc + f32(p) · s[:, g]`` (two
+    roundings), in k order; the 8 classes' sums added in class order (the
+    kernel's chain across its two CTAs); ``(total · s_x)`` cast to x's dtype.
+    x [M, K], packed q [G, N, gsz/2], s [N, G] -> [M, N]. No term depends on
+    M or N."""
     M, K = x.shape
     G, N, half = q.shape
     gsz = 2 * half
     codes, sx = quantize_rows(x.float())
     w = unpack_int4(q)
     acc = [torch.zeros((M, N), dtype=torch.float32, device=x.device)
-           for _ in range(GROUPED_WARPS)]
+           for _ in range(GROUPED_CLASSES)]
     for c in range(-(-K // GROUPED_CHUNK)):
         k, end = c * GROUPED_CHUNK, min(K, (c + 1) * GROUPED_CHUNK)
         while k < end:
             g = k // gsz
             seg = min(end, (g + 1) * gsz)
             p = int8_dot(codes[:, k:seg], w[g][:, k - g * gsz:seg - g * gsz])
-            acc[c % GROUPED_WARPS] = acc[c % GROUPED_WARPS] + p * s[:, g]
+            acc[c % GROUPED_CLASSES] = acc[c % GROUPED_CLASSES] + p * s[:, g]
             k = seg
     total = acc[0]
     for part in acc[1:]:
@@ -701,9 +702,10 @@ def w4a8_grouped(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Ten
     [N, G]) with int8 activations, each group's int32 product scaled by its
     own s -> [M, N] in x's dtype: `w4a8_grouped_plain`, bit for bit. The CUDA
     kernel (``csrc/w4a8_grouped.cu``): the activation pre-pass (counted as
-    ``w4a8_grouped_quant_rows``), then the split-K decode core of
-    ``csrc/int8_decode.cuh`` on the int4 codes with each segment's int32
-    partial folded into an fp32 sum. It takes group sizes that are multiples
+    ``w4a8_grouped_quant_rows``), then a persistent grid of two-CTA clusters
+    over 32 x 32 output tiles, K split by fold class across the pair, each
+    segment's int32 product folded into its class's fp32 sum and the classes
+    added in order across the pair. It takes group sizes that are multiples
     of 32 and N a multiple of 8 (lm_head's 32064 included), any M, and raises
     on others."""
     _build.no_grad_guard("w4a8_grouped", "use w4a8_grouped_ste (or matmul_t), its STE", x, s)

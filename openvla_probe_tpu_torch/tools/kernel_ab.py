@@ -34,8 +34,11 @@ replaced (the requant in PyTorch, then its ``w8a8_matmul``);
 ``rms_norm_quant`` by ``rmsnorm_quant.compare_rms_norm_quant``;
 ``stacked_decode_attention_i8`` within 2e-2 of the plain version, a build
 from before its ring route called with its own signature, every slot
-read; ``split_attention_i8`` by ``decode_attention.compare_split_attention_i8``;
-``w4a8_grouped`` bit for bit), then the device
+read; ``split_attention_i8`` by ``decode_attention.compare_split_attention_i8``
+(each build's ``ovla_split_attention_i8``: the ring route, or in an older
+build the one-block-a-row kernel);
+``w4a8_grouped`` bit for bit, its pre-pass and GEMM also timed apart in the
+builds that export them, ``grouped_parts``), then the device
 time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
@@ -1019,15 +1022,23 @@ def split_i8_sets(B, T, A, step, H, Hkv, Dh, g, dev, copies, dtype=torch.bfloat1
 
 def ab_split_attention_i8(fns, g, dev, shapes=None):
     """The turbo_kv8 decode attention at the 7B serving shape, decode step 3
-    (192 launches a call), bf16 scores."""
-    sets = split_i8_sets(BATCH, T_PREFILL, A1, 3, 32, 32, 128, g, dev,
-                         _copies(2 * BATCH * T_PREFILL * 4096))
-    row = dict(kernel="split_attention_i8", shape="serving", launches_per_call=LAYERS * A1,
-               checks={tag: _checked(lambda got, _: dattn.compare_split_attention_i8(
-                   got, *sets[0], torch.bfloat16), call_split_i8(fn, *sets[0]), None)
-                   for tag, fn in fns.items()},
-               ms=_turns(fns, lambda fn: rotating(lambda *a: call_split_i8(fn, *a), sets)))
-    print(json.dumps(row), flush=True)
+    (192 launches a call), bf16 scores; and at one row (a one-observation
+    call), where the port's build is also timed at 1, 2 and 4 CTAs a (b, kv
+    head) beside its cluster rule."""
+    for shape, B in (("serving", BATCH), ("one_row", 1)):
+        sets = split_i8_sets(B, T_PREFILL, A1, 3, 32, 32, 128, g, dev,
+                             _copies(2 * B * T_PREFILL * 4096))
+        row = dict(kernel="split_attention_i8", shape=shape,
+                   launches_per_call=LAYERS * A1 if B == BATCH else 0,
+                   checks={tag: _checked(lambda got, _: dattn.compare_split_attention_i8(
+                       got, *sets[0], torch.bfloat16), call_split_i8(fn, *sets[0]), None)
+                       for tag, fn in fns.items()},
+                   ms=_turns(fns, lambda fn: rotating(lambda *a: call_split_i8(fn, *a), sets)))
+        if B == 1:
+            row["change_ms_by_cluster_size"] = _turns(
+                cluster_launchers("split_attention_i8"),
+                lambda fn: rotating(lambda *a: call_split_i8(fn, *a), sets))
+        print(json.dumps(row), flush=True)
 
 
 def call_grouped(fn, x, q, s):
@@ -1042,10 +1053,48 @@ def call_grouped(fn, x, q, s):
     return out
 
 
-def ab_w4a8_grouped(fns, g, dev, shapes=None):
+def grouped_parts(lib):
+    """The pre-pass and the GEMM of `lib`'s w4a8_grouped build as two
+    launchers (``ovla_w4a8_grouped_quant_rows``, ``ovla_w4a8_grouped_gemm``,
+    uncounted: they time the two launches of a call apart), or None where the
+    build has no such entries (an older one)."""
+    pre, gemm = (getattr(lib, sym, None)
+                 for sym in ("ovla_w4a8_grouped_quant_rows", "ovla_w4a8_grouped_gemm"))
+    if pre is None or gemm is None:
+        return None
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    pre.argtypes, pre.restype = [_P, _P, _P, _I, _I, _I, _P], _I
+    gemm.argtypes, gemm.restype = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I
+    return pre, gemm
+
+
+def call_grouped_prepass(fn, x):
+    """The pre-pass alone: (codes, s_x) of x."""
+    M, K = x.shape
+    codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    _build.check(fn(x.data_ptr(), codes.data_ptr(), sx.data_ptr(), M, K,
+                    int(x.dtype == torch.bfloat16), _build.stream_ptr(x)), "w4a8_grouped")
+    return codes, sx, x.dtype
+
+
+def call_grouped_gemm(fn, pre, q, s):
+    """The GEMM alone on the pre-pass's (codes, s_x, x's dtype)."""
+    codes, sx, dtype = pre
+    M = codes.shape[0]
+    G, N, half = q.shape
+    out = torch.empty((M, N), dtype=dtype, device=codes.device)
+    _build.check(fn(codes.data_ptr(), sx.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                    M, N, G, 2 * half, int(dtype == torch.bfloat16), _build.stream_ptr(codes)),
+                 "w4a8_grouped")
+    return out
+
+
+def ab_w4a8_grouped(fns, g, dev, shapes=None, libs=None):
     """The grouped decode product at the turbo_int4 / turbo_mix shapes (M = 24),
-    beside nib_hi_dot on the same shapes (the same decode core over a 4-bit
-    plane, the port's own build) as a yardstick."""
+    beside nib_hi_dot on the same shapes (the split-K decode core over a 4-bit
+    plane, the port's own build) as a yardstick; for the builds of `libs`
+    that export them, the pre-pass and the GEMM timed apart."""
     rows = []
     for (M, K, N), per_call in nib_hi_shapes().items():
         if per_call == 0 or (shapes and f"{M}x{K}x{N}" not in shapes):
@@ -1057,14 +1106,29 @@ def ab_w4a8_grouped(fns, g, dev, shapes=None):
                  torch.rand((N, G), generator=g, device=dev) * 2e-3 + 2e-3)
                 for _ in range(_copies(N * K // 2))]
         want = lin.w4a8_grouped_plain(*sets[0])
+        failed = {}
+        for tag, fn in list(fns.items()):   # a build whose launch fails is reported, not timed
+            try:
+                call_grouped(fn, *sets[0])
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                failed[tag] = str(e)
+                del fns[tag]
         nib = [(x, *(lambda w: (w["hi"], w["s"]))(lin.quantize_weight_nibble(
             torch.randn((N, K), generator=g, device=dev) * 0.02))) for _ in range(2)]
+        parts = {tag: p for tag, by_src in (libs or {}).items() if tag in fns
+                 and (p := grouped_parts(by_src.get("w4a8_grouped.cu"))) is not None}
         rows.append(dict(kernel="w4a8_grouped", shape=f"{M}x{K}x{N}", launches_per_call=per_call,
                          bit_equal={tag: bool(torch.equal(call_grouped(fn, *sets[0]), want))
                                     for tag, fn in fns.items()},
                          ms=_turns(fns, lambda fn: rotating(lambda *a: call_grouped(fn, *a),
                                                             sets)),
-                         nib_hi_dot_ms=_ms(rotating(lin.nib_hi_dot, nib))))
+                         prepass_ms={tag: _ms(lambda p=p: call_grouped_prepass(p[0], x))
+                                     for tag, p in parts.items()},
+                         gemm_ms={tag: _ms(rotating(lambda *a, p=p: call_grouped_gemm(p[1], *a), [
+                             (call_grouped_prepass(p[0], x), q, s) for _, q, s in sets]))
+                             for tag, p in parts.items()},
+                         nib_hi_dot_ms=_ms(rotating(lin.nib_hi_dot, nib)), failed=failed))
         print(json.dumps(rows[-1]), flush=True)
         del sets, want, nib
     n = sum(r["launches_per_call"] for r in rows)
@@ -1108,7 +1172,8 @@ def main() -> int:
                launchers(libs, name))
         order = [tag for tag in [*[s.split("=", 1)[0] for s in args.lib], "change"] if tag in fns]
         AB[name]({tag: fns[tag] for tag in order}, g, dev,
-                 shapes=set(filter(None, args.shapes.split(","))))
+                 shapes=set(filter(None, args.shapes.split(","))),
+                 **({"libs": libs} if name == "w4a8_grouped" else {}))
         torch.cuda.empty_cache()
     return 0
 

@@ -1030,8 +1030,12 @@ def test_wrappers_refuse_grad_on_the_card(cuda):
 
 GROUPED_SHAPES = [
     (24, 4096, 32, 128), (24, 32064, 32, 128), (24, 4096, 86, 128),    # the 7B decode shapes
+    (24, 11008, 32, 128),
     (1, 200, 2, 128), (32, 136, 9, 32), (33, 40, 3, 64), (5, 200, 9, 96),  # edges, group sizes
     (70, 136, 4, 256), (24, 8, 1, 32),
+    (32, 4104, 3, 128),    # N past a tile edge, fewer chunks than fold classes
+    (70, 32064, 5, 64),    # three row blocks of lm_head's tiles: clusters walk several tiles
+    (1, 40, 13, 32),       # one row, 13 chunks of 32-deep groups
 ]
 
 
@@ -1101,14 +1105,60 @@ def _split_i8_inputs(seed, B, T, A, H, Hkv, Dh, dtype, device):
 ])
 def test_split_attention_i8_kernel_matches_plain(cuda, dtype, scores, B, T, A, H, Hkv, Dh):
     """decode_attention.compare_split_attention_i8 (module docstring of that
-    file): within two code steps of the row's s_p plus one output step."""
+    file): within two code steps of the row's s_p plus one output step. bf16
+    at Dh = 128 (n_rep 1, 2, 4, 8) takes the ring route, everything else the
+    scalar route, each counted under its own name."""
     args = _split_i8_inputs(70, B, T, A, H, Hkv, Dh, dtype, cuda)
-    before = _build.KERNEL_LAUNCHES["split_attention_i8"]
-    got = tdec.split_attention_i8(*args, scores)
-    torch.cuda.synchronize()
-    assert _build.KERNEL_LAUNCHES["split_attention_i8"] == before + 1
+    route = ("split_attention_i8" if dtype == torch.bfloat16 and Dh == 128
+             and H // Hkv in (1, 2, 4, 8) else "split_attention_i8_scalar")
+    got = _count(route, lambda: tdec.split_attention_i8(*args, scores))
     assert got.dtype == dtype and got.shape == (B, 1, H, Dh)
     tdec.compare_split_attention_i8(got, *args, scores)
+
+
+@pytest.mark.parametrize("scores", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,A,H,Hkv", [
+    (24, 291, 6, 32, 32),     # T not a multiple of the 16-key chunk
+    (2, 4090, 6, 32, 4),      # T + A = 4096 at n_rep 8: the ring's largest shared memory
+    (1, 3000, 1096, 16, 8),   # a decode segment of 1096 slots, one row: a cluster of 4
+    (3, 1500, 7, 8, 4),       # GQA (n_rep 2), a warp past 1024 keys (int32 hand-off)
+    (1, 288, 6, 32, 32),      # one row (the cluster rule: 4 CTAs a (b, kv head))
+    (4, 17, 1, 8, 2),         # n_rep 4, a CTA of one chunk and a ragged one
+])
+def test_split_attention_i8_ring_edges(cuda, scores, B, T, A, H, Hkv):
+    """The ring route's edges (bf16 at Dh = 128), every row of the second batch
+    row masked but BOS, held by compare_split_attention_i8."""
+    args = _split_i8_inputs(75, B, T, A, H, Hkv, 128, torch.bfloat16, cuda)
+    got = _count("split_attention_i8", lambda: tdec.split_attention_i8(*args, scores))
+    tdec.compare_split_attention_i8(got, *args, scores)
+
+
+@pytest.mark.parametrize("cs,B,T,A,H,Hkv", [
+    (1, 3, 293, 6, 16, 8), (2, 3, 293, 6, 16, 8), (4, 3, 293, 6, 16, 8),   # ragged key ranges
+    (1, 2, 4090, 6, 32, 4),   # one CTA: n_rep 8 over 4090 keys, 64 chunks a warp (the hand-off)
+    (4, 1, 1, 4095, 8, 1),    # one prefill key, 4095 decode slots: CTAs 1-3 own no key
+])
+def test_split_ring_at_each_cluster_size(cuda, cs, B, T, A, H, Hkv):
+    """The ring launcher at 1, 2 and 4 CTAs a (b, kv head) (uncounted), ragged
+    key ranges and GQA, against compare_split_attention_i8; 3 is refused."""
+    args = _split_i8_inputs(76 + cs, B, T, A, H, Hkv, 128, torch.bfloat16, cuda)
+    fn = kernel_ab.cluster_launchers("split_attention_i8", sizes=(cs, 3))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kernel_ab.call_split_i8(fn[3], *args)
+    got = kernel_ab.call_split_i8(fn[cs], *args)
+    torch.cuda.synchronize()
+    tdec.compare_split_attention_i8(got, *args, torch.bfloat16)
+
+
+def test_split_ring_launcher_refuses_what_it_does_not_take(cuda):
+    """fp32 q, Dh other than 128, n_rep 3 and T + A past 4096: the ring
+    launcher refuses them itself (the wrapper sends them to the scalar route)."""
+    for dtype, H, Hkv, Dh, T in ((torch.float32, 4, 2, 128, 40), (torch.bfloat16, 4, 2, 64, 40),
+                                 (torch.bfloat16, 6, 2, 128, 40),
+                                 (torch.bfloat16, 4, 2, 128, 4093)):
+        args = _split_i8_inputs(80, 2, T, 4, H, Hkv, Dh, dtype, cuda)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            kernel_ab.call_split_i8(_build.launcher("split_attention_i8"), *args)
 
 
 def test_split_attention_i8_refuses_what_it_does_not_take(cuda):
