@@ -62,6 +62,28 @@ robot-control point and (turbo's int8 weights) the action server:
                 requests in the same bucket, /stats; then 4 steps of one
                 speculative stream on a bs = 1 server (n_accepted a step,
                 /stats acceptance, client-side p50 ms)
+and slice 5's loading and multi-LoRA serving:
+  load          after the entry points, on the parity weights: written as the
+                released openvla/openvla-7b repository (catalog.params_to_hf_state,
+                the port's sharded safetensors writer, hf_export's config.json
+                and dataset_statistics.json) into a temporary hub cache, then
+                load.load_vla from it with OVLA_HUB_OFFLINE=1: the config, the
+                parity path's tokens and first logits bit for bit, one
+                predict_action_batch call; then quantize_int8=True: every trunk
+                leaf bit-equal to linear.quantize_params, one call with its
+                exact launches; bytes, write and load seconds, host peak RSS,
+                device peak; the directory removed whatever happens
+  multilora     after serve, on turbo's int8 weights: 4 adapters of rank 32
+                over the all-linear target, rows [bare, 0, 1, 2, 3, ...],
+                the masked then the fused install on turbo and on pallas:
+                exact launches of the served tree, bare rows bit-equal to a
+                zero-adapter call on the same routes (a wrapped leaf stands
+                the fused norm and the fused tower kernels down), each
+                adapter's rows' tokens and first logits bit for bit those of
+                a single-adapter streamed run (masked) or of the fused
+                install with every row on that adapter (fused, whose first
+                logits also stay within ML_FUSED_GAP of the streamed run's);
+                p50, busy ms, idle share, the banks' bytes and the peak
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
@@ -91,7 +113,10 @@ Phases, one output line each:
               its two routes' edge, and its host time a call at decode),
               w8a8_matmul (turbo; also the nibble loader and the prequant
               entry, turbo_nibble's mix, and the routes' edge M = 64 / 65
-              and ragged shapes),
+              and ragged shapes), wi8_matmul and w8a8_matmul also widened by
+              128 rows at M = 24 / 6912, O = 4096 / 11008 (the fused
+              multi-LoRA install: the first O columns bit-equal to the plain
+              launch),
               rms_norm_quant (turbo; also at M = 1, odd D and fp32),
               nib_hi_dot (turbo_nibble), w4a8_dx (train_int4), w4a8_requant
               (pallas_int4's lm_head and SigLIP fc1, train_int4's lm_head;
@@ -116,7 +141,8 @@ Phases, one output line each:
               equal tokens, close logits or scores; the training paths' loss,
               LoRA gradients and adapters after one step; the speculative core
               on turbo and turbo_nibble (drafts correct, partial, wrong): equal
-              tokens and n_accepted
+              tokens and n_accepted; multi-LoRA calls on parity (masked),
+              turbo and pallas (masked and fused): equal tokens
   5. main     each path once with every launch count set to 0 just before and
               read just after (exact per-kernel counts asserted, and no
               torch._int_mm call), then p50 latency over timed calls and,
@@ -139,14 +165,19 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
 import warnings
 import zlib
+from pathlib import Path
 from unittest import mock
 
 import numpy as np
@@ -154,7 +185,9 @@ import torch
 import torch.nn.functional as F
 
 from openvla_probe_tpu_torch import convert
-from openvla_probe_tpu_torch.models import generate, llama, vit, vla, vlm
+from openvla_probe_tpu_torch.models import (catalog, generate, hf_export, llama, multilora,
+                                             safetensors_io, vit, vla, vlm)
+from openvla_probe_tpu_torch.models import load as load_mod
 from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import attention as attn
 from openvla_probe_tpu_torch.ops import decode_attention as dattn
@@ -168,7 +201,7 @@ from openvla_probe_tpu_torch.serving.server import (OpenVLAServer, decode_numpy,
                                                     get_openvla_prompt)
 from openvla_probe_tpu_torch.tools import bench_finetune, kernel_ab, profile_main_path
 from openvla_probe_tpu_torch.tools.kernel_ab import rotating
-from openvla_probe_tpu_torch.training.lora import LoRAConfig, init_lora_params
+from openvla_probe_tpu_torch.training.lora import LoRAConfig, attach_lora, init_lora_params
 from openvla_probe_tpu_torch.training.train_state import tree_leaves
 from openvla_probe_tpu_torch.training.train_step import value_and_grad
 
@@ -192,8 +225,14 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_RANK, TRAIN_LR, TRAIN_TIMED = 8, 64, 32, 5e-4, 3
 TRAIN_ROWS = TRAIN_BATCH * (1 + 256 + TRAIN_SEQ - 1)   # 2560 rows through every trunk linear
 
 
+_START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One output line: the phase, its fields, and the script's seconds so far
+    (where the time limit goes)."""
+    print(json.dumps({"phase": phase, "elapsed_s": round(time.perf_counter() - _START, 1),
+                      **fields}), flush=True)
 
 
 SPIN_CYCLES = 4_000_000   # ~2 ms of a spin kernel at the H100's clocks
@@ -724,6 +763,29 @@ def _launch_weighted(by_shape: dict, per_call: dict) -> dict:
     return out
 
 
+# the fused multi-LoRA install's widened products (ROADMAP hazard "bare-base bits"): the
+# first O columns of an [O + N·r]-row launch must be the O-row launch's bit for bit, at
+# the decode and prefill M, for q/k/v/o (O = 4096) and gate/up (O = 11008), N·r = 128
+WIDENED_RANKS = 128
+
+
+def _widened_first_columns(kernel: str, fn, g, dev) -> dict:
+    """`fn(x, q, s)` over q [O + N·r, K] and over its first O rows: the first
+    O columns torch.equal, each launch counted once."""
+    out = {}
+    for M in (BATCH, BATCH * T_PREFILL):
+        for O in (4096, 11008):
+            x = torch.randn((M, 4096), generator=g, device=dev).bfloat16()
+            q = torch.randint(-127, 128, (O + WIDENED_RANKS, 4096), generator=g, device=dev,
+                              dtype=torch.int8)
+            s = torch.rand((O + WIDENED_RANKS,), generator=g, device=dev) * 1e-3 + 1e-3
+            wide = _launched(kernel, lambda: fn(x, q, s))
+            plain = _launched(kernel, lambda: fn(x, q[:O], s[:O]))
+            assert torch.equal(wide[:, :O], plain), f"{kernel} {M}x4096x{O}: widened columns"
+            out[f"{M}x4096x{O}+{WIDENED_RANKS}"] = "first O columns bit-equal"
+    return out
+
+
 def check_wi8_matmul(dev, g):
     """Row 7 at every (M, K, N) of the pallas path: prefill M = 24 x 288 = 6912
     and decode / lm_head M = 24; and SigLIP's fc2 on pallas_int4, M = 6144,
@@ -761,9 +823,11 @@ def check_wi8_matmul(dev, g):
             bound_ms=b, bound_by=by)
         del sets, w_bf16, got
     mix = _launch_weighted(by_shape, {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()})
+    widened = _widened_first_columns("wi8_matmul", lin.wi8_matmul, g, dev)
     return dict(name="wi8_matmul", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/wi8_matmul.cu",
-                replaces="openvla_probe_tpu/ops/linear.py:327", by_shape=by_shape, **mix)
+                replaces="openvla_probe_tpu/ops/linear.py:327", by_shape=by_shape,
+                widened=widened, **mix)
 
 
 def _int_mm_dot(codes, q):
@@ -1343,10 +1407,13 @@ def check_w8a8_matmul(dev, g):
                               for s, n in prefill.items())) / n_nib
                   for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     nibble_mix["launches_per_call"] = n_nib
+    widened = _widened_first_columns(
+        "w8a8_matmul", lambda x, q, s: lin.w8a8_matmul(x, {"q": q, "s": s}), g, dev)
     return dict(name="w8a8_matmul", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/w8a8_matmul.cu",
                 replaces="openvla_probe_tpu/ops/linear.py:413", by_shape=by_shape,
-                edge_cases=edges, train_mix=train, nibble_mix=nibble_mix, **mix)
+                edge_cases=edges, train_mix=train, nibble_mix=nibble_mix, widened=widened,
+                **mix)
 
 
 def check_rms_norm_quant(dev, g):
@@ -2057,9 +2124,18 @@ def _to(tree, dev):
     return None if tree is None else tree.to(dev)
 
 
-def _linear_route(leaf, int8_matmul: str, M: int) -> str:
-    """The kernel matmul_t launches for a quantized leaf's layout (a spec
-    `Leaf` per tensor), on the config's int8 route, at M rows."""
+def _linear_route(leaf, int8_matmul: str, M: int):
+    """The kernel matmul_t launches for a leaf's layout (a spec `Leaf` per
+    tensor, or the tensors themselves), on the config's int8 route, at M
+    rows; None for a float leaf (a PyTorch product). A multi-LoRA or LoRA
+    wrapper launches its base's kernel (the rank products are PyTorch's); a
+    fused multi-LoRA leaf its widened int8 product ("qf") or none ("wf")."""
+    if isinstance(leaf, dict) and "base" in leaf:       # LoRA / masked multi-LoRA
+        return _linear_route(leaf["base"], int8_matmul, M)
+    if isinstance(leaf, dict) and "qf" in leaf:         # fused multi-LoRA over int8
+        return "wi8_matmul" if int8_matmul == "wi8" else "w8a8_matmul"
+    if not isinstance(leaf, dict) or "wf" in leaf:      # a float product
+        return None
     if "hi" in leaf:                                    # nibble planes
         return "nib_hi_dot" if M <= lin.NIB_HI_M_MAX else "w8a8_matmul"
     if "q4" in leaf:                                    # mix: the row count picks the copy
@@ -2073,53 +2149,71 @@ def _linear_route(leaf, int8_matmul: str, M: int) -> str:
 
 def _takes_int8_codes(leaf, M: int) -> bool:
     """A consumer the fused norm serves at M rows: an int8 leaf, or a mix leaf
-    above M = 32 (llama._norm_maybe_quant)."""
+    above M = 32 (llama._norm_maybe_quant); never a wrapped leaf."""
+    if not isinstance(leaf, dict):
+        return False
     if "q4" in leaf:
         return M > lin.NIB_HI_M_MAX
-    return "q" in leaf and leaf["q"].dtype == torch.int8
+    return lin.is_int8_per_channel(leaf)
 
 
-def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH):
-    """Exact per-kernel launches of one call, from the weight layout
-    (convert.vlm_param_spec) and the routes of the port, with the activation
-    pre-pass of each int8 GEMM call (_build.PRE_PASSES) counted apart: every
-    call but w8a8's on the fused norm's codes launches one. A fused path runs
-    one product for q/k/v and one for gate/up."""
+def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH, spec=None):
+    """Exact per-kernel launches of one call, from the weight layout (the
+    path's convert.vlm_param_spec, or `spec`: the tree a call serves, its
+    multi-LoRA wrappers included) and the routes of the port, with the
+    activation pre-pass of each int8 GEMM call (_build.PRE_PASSES) counted
+    apart: every call but w8a8's on the fused norm's codes launches one. A
+    fused path runs one product for q/k/v and one for gate/up."""
     c = cfg.vlm
     L, A1 = c.llm.num_hidden_layers, cfg.action_dim - 1
-    bits = PATHS[path][1]
     kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
     blocks = sum(v.num_layers - 1 for v in c.vision)       # 23 + 26 tower blocks run
     kernels.update(flash_prefill=L, vit_attention=blocks)
     attn = {"stacked": "decode_attention", "stacked_kv8": "stacked_decode_attention_i8",
             "frozen_kv": "split_attention_i8" if cfg.kv_int8 else "decode_split_attention"}
     kernels[attn[cfg.decode_impl]] = L * A1
-    if bits is None:
-        return kernels
-    spec = convert.vlm_param_spec(c, lin.TURBO_QUANT_SUFFIXES, bits)
+    if spec is None:
+        bits = PATHS[path][1]
+        if bits is None:
+            return kernels
+        spec = convert.vlm_param_spec(c, lin.TURBO_QUANT_SUFFIXES, bits)
+
+    def add(kernel, n):
+        if kernel is not None:
+            kernels[kernel] += n
+
     for name, v in zip(c.vision_names, c.vision):
         b, n = spec["vision"][name]["blocks"], v.num_layers - 1
-        # the fused kernels: one GEMM launch per linear of the pair (fc1's counted as
-        # fused_mlp_fc1), each with its pre-pass
+        # the fused kernels where a pair's leaves are int8 on "wi8": one GEMM launch per
+        # linear of the pair (fc1's counted as fused_mlp_fc1), each with its pre-pass
         for pair, fused in ((("qkv_w", "proj_w"), ("fused_ln_w8a8", "fused_ln_w8a8")),
                             (("fc1_w", "fc2_w"), ("fused_mlp_fc1", "fused_mlp_residual"))):
-            if all(_linear_route(b[w], v.int8_matmul, 2 ** 20) == "wi8_matmul" for w in pair):
+            if v.int8_matmul == "wi8" and all(lin.is_int8_per_channel(b[w]) for w in pair):
                 for gemm in fused:
                     kernels[gemm] += n
             else:
                 for w in pair:
-                    kernels[_linear_route(b[w], v.int8_matmul, 2 ** 20)] += n
+                    add(_linear_route(b[w], v.int8_matmul, 2 ** 20), n)
+    for fc in spec["projector"].values():
+        add(_linear_route(fc["w"], "wi8", 2 ** 20), 1)
     layers, route = spec["llm"]["layers"], c.llm.int8_matmul
-    fused_leaves = path in FUSED_PATHS
+    fused_leaves = path in FUSED_PATHS or "qkv_proj" in layers
     # the products of a layer (q/k/v and gate/up one each when fused) at prefill (M = B x T)
     # and at each step (M = B); lm_head 1 + A1 times
     groups = (("q_proj", "k_proj", "v_proj"), ("o_proj",), ("gate_proj", "up_proj"),
               ("down_proj",))
+    fused_name = {groups[0]: "qkv_proj", groups[2]: "gate_up_proj"}
+
+    def leaves_of(group):   # the leaves a group runs: one when fused (its layout the first's)
+        if not fused_leaves:
+            return [layers[w] for w in group]
+        return [layers.get(fused_name.get(group), layers.get(group[0]))]
+
     for group in groups:
-        for w in group[:1] if fused_leaves else group:
-            kernels[_linear_route(layers[w], route, batch * T_PREFILL)] += L
-            kernels[_linear_route(layers[w], route, batch)] += L * A1
-    kernels[_linear_route(spec["llm"]["lm_head"], route, batch)] += 1 + A1
+        for leaf in leaves_of(group):
+            add(_linear_route(leaf, route, batch * T_PREFILL), L)
+            add(_linear_route(leaf, route, batch), L * A1)
+    add(_linear_route(spec["llm"]["lm_head"], route, batch), 1 + A1)
     # the fused norm: both sites of every layer whose consumers all take int8 codes, in the
     # prefill and, on the stacked decode, in every step of more than 8 rows (the frozen-KV
     # and int8-cache decode steps keep the plain norm)
@@ -2128,9 +2222,10 @@ def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH)
         steps = A1 if cfg.decode_impl == "stacked" and batch > llama.RMSQ_MIN_M - 1 else 0
         for M, n in ((batch * T_PREFILL, 1), (batch, steps)):
             for site in (groups[0], groups[2]):
-                if n and all(_takes_int8_codes(layers[w], M) for w in site):
+                leaves = leaves_of(site)
+                if n and all(_takes_int8_codes(leaf, M) for leaf in leaves):
                     kernels["rms_norm_quant"] += L * n
-                    prequant += (1 if fused_leaves else len(site)) * L * n
+                    prequant += len(leaves) * L * n
     for gemm, pre_pass in _build.PRE_PASSES.items():
         kernels[pre_pass] = kernels[gemm] - (prequant if gemm == "w8a8_matmul" else 0)
     return kernels
@@ -2173,7 +2268,7 @@ def run_main_path(dev, path: str, weights: dict):
     params = weights[bits]
     torch.cuda.reset_peak_memory_stats()   # the serving peak, not the init's transients
     n_params = sum(t.numel() for t in _leaves(params))
-    param_gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    param_gb = _tree_bytes(params) / 1e9
     img_cfg = ImageTransformConfig.dinosiglip_224()
     # the requests from a generator of their own: every path sees the same ones, whether or
     # not it built its weights
@@ -2382,14 +2477,16 @@ def _expected_train_launches(quant: str, cfg: vlm.VLMConfig) -> dict:
     return kernels
 
 
-def _random_b(lora, g):
-    """The adapters with B drawn N(0, 0.02) from `g`, so that every factor
-    has a gradient in the first step."""
+def _random_b(lora, g, scale: float = 0.02):
+    """The adapters with B drawn N(0, scale) from `g` (on B's device), so
+    that every factor has a gradient in the first step and every adapter
+    changes its rows."""
     if lora is None:
         return None
     if set(lora) == {"A", "B"}:
-        return {"A": lora["A"], "B": torch.randn(lora["B"].shape, generator=g) * 0.02}
-    return {k: _random_b(v, g) for k, v in lora.items()}
+        return {"A": lora["A"], "B": torch.randn(lora["B"].shape, generator=g,
+                                                 device=lora["B"].device) * scale}
+    return {k: _random_b(v, g, scale) for k, v in lora.items()}
 
 
 def _leaf_apart(got, want) -> float:
@@ -2787,6 +2884,339 @@ def run_serve(dev, params):
     return dict(batched=served, stream=stream)
 
 
+# --- multi-LoRA serving (models/multilora.py) -------------------------------------------
+
+# the JAX package's deployment point: N = 4 adapters of rank 32 over the all-linear target
+# (the reference's PEFT target: every Llama projection, the towers' linears, the projector),
+# on turbo's and pallas's int8 weights; the B = 24 rows take adapters [bare, 0, 1, 2, 3, ...]
+ML_ADAPTERS, ML_RANK, ML_PATHS = 4, 32, ("turbo", "pallas")
+# first-logit tolerance of a tiny multi-LoRA path, card vs CPU: parity TINY_TOL's; int8
+# weights 4e-3 (TINY_TOL's reason, with every linear's rank products summed in another
+# order on the card: more activation codes sit one step apart at a tie; measured 1.4e-3
+# and 2.7e-3 on turbo's masked and fused installs, 2e-7 on parity)
+ML_TINY_TOL = {None: TINY_TOL[None], 8: 4e-3}
+# the most a fused install's adapter rows' first logits may sit from the single-adapter
+# streamed run's (bf16 x·Aᵀ there, the base's int8 product of int8 A rows here): measured
+# 0.69 on turbo and 0.23 on pallas (w8a8 also quantizes the activations), where an adapter
+# moves its rows by 5.8 to 6.3, so a missing or wrong adapter sits far past it
+ML_FUSED_GAP = 1.5
+
+
+def _ml_ids(batch: int) -> np.ndarray:
+    return np.array(([-1] + list(range(ML_ADAPTERS))) * batch)[:batch]
+
+
+def _margin_rule(got, want, margins, gap: float) -> int:
+    """tests/test_torch_turbo_kv8.assert_tokens: each row's tokens equal up to
+    its first token whose margin (in `want`'s run) is below 2 · gap; the count
+    compared."""
+    n = 0
+    for b in range(want.shape[0]):
+        for t in range(want.shape[1]):
+            if margins[b, t] < 2 * gap:
+                break
+            assert got[b, t] == want[b, t], (b, t, got[b].tolist(), want[b].tolist())
+            n += 1
+    return n
+
+
+def _zero_b(lora):
+    """An adapter whose B is 0: attached with training.lora.attach_lora, the
+    base's function on the routes a wrapped leaf takes."""
+    if lora is None:
+        return None
+    if set(lora) == {"A", "B"}:
+        return {"A": lora["A"], "B": torch.zeros_like(lora["B"])}
+    return {k: _zero_b(v) for k, v in lora.items()}
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree) if t is not None)
+
+
+def check_tiny_multilora(dev, path: str, install: str):
+    """A multi-LoRA call at tiny fp32 size (4 adapters of rank 4 over the
+    all-linear target, rows [bare, 0, 1, 2]) on the card vs the CPU run of the
+    plain versions: equal tokens, first logits within TINY_TOL; the wrapped
+    leaves stand the fused norm and the fused tower kernels down (0
+    launches)."""
+    tvlm = _tiny_vlm(path)
+    cfg = _serving(path, tvlm, prompt_pad_len=64, codec_vocab_size=tvlm.llm.vocab_size)
+    params = _init(path, cfg.vlm, torch.Generator().manual_seed(1), "cpu")
+    lcfg = LoRAConfig(r=4)
+    adapters = [_random_b(init_lora_params(params, lcfg, torch.Generator().manual_seed(5 + i)),
+                          torch.Generator().manual_seed(9 + i), 0.05) for i in range(4)]
+    bank = multilora.stack_adapter_banks(adapters, lcfg, dtype=cfg.vlm.llm.dtype)
+    ids = np.array([-1, 0, 1, 2])
+    img_cfg = ImageTransformConfig(specs=(
+        BackboneTransformSpec((28, 28), "bicubic", (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+        BackboneTransformSpec((28, 28), "bicubic", (0.5, 0.5, 0.5), (0.5, 0.5, 0.5))))
+    inputs = _inputs(cfg, 4, 40, torch.Generator().manual_seed(2), "cpu")
+
+    def tree(p, b, device):
+        sel = multilora.adapter_one_hot(ids, 4, device=device)
+        if install == "fused":
+            return multilora.attach_multilora_fused(multilora.fuse_bank_into_base(p, b), sel)
+        return multilora.attach_multilora(p, b, sel)
+
+    ref = vla.predict_action_from_image(tree(params, bank, "cpu"), cfg, inputs[0], img_cfg,
+                                        *inputs[1:], return_first_logits=True, device="cpu")
+    params_d, bank_d = _to(params, dev), _to(bank, dev)
+    _build.reset_launch_counts()
+    out = vla.predict_action_from_image(tree(params_d, bank_d, dev), cfg, inputs[0].to(dev),
+                                        img_cfg, *(x.to(dev) for x in inputs[1:]),
+                                        return_first_logits=True, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _build.KERNEL_LAUNCHES.items() if n}
+    for stood_down in ("rms_norm_quant", "fused_ln_w8a8", "fused_mlp_residual"):
+        assert stood_down not in launches, (path, install, launches)
+    assert torch.equal(out["action_tokens"].cpu(), ref["action_tokens"]), (path, install)
+    err = (out["first_logits"].cpu() - ref["first_logits"]).abs().max().item()
+    assert err < ML_TINY_TOL[PATHS[path][1]], err
+    return dict(path=path, entry="multilora", install=install, tokens_equal=True,
+                first_logits_max_abs_err=err, launches=launches)
+
+
+def run_multilora(dev, params):
+    """N = 4 adapters at r = 32 over turbo's int8 weights (the all-linear
+    target), rows [bare, 0, 1, 2, 3, ...] at B = 24, on the turbo and pallas
+    tiers, masked install then fused install: four runs. Each: exact launch
+    counts from the served tree; the bare rows' tokens and first logits bit
+    for bit those of the same tier's call with a zero-B adapter attached
+    (training.lora.attach_lora: the base on the routes a wrapped leaf takes:
+    no fused norm, no fused tower kernel), and, reported, how far they sit
+    from the plain path's (MAIN_OUT, which takes both); each adapter's rows'
+    tokens and first logits: on the masked install bit for bit those of a
+    single-adapter streamed run of it (training.lora.attach_lora); on the
+    fused install bit for bit those of the fused install with every row on
+    that adapter (rows do not depend on each other), and within
+    ML_FUSED_GAP of the streamed run (the rank projection is the base's int8
+    product there), whose tokens they equal up to the margin rule
+    (`_margin_rule`, reported); p50, busy ms and idle share; the banks'
+    bytes and the peak."""
+    lcfg = LoRAConfig(r=ML_RANK)
+    g = torch.Generator(device=dev).manual_seed(31)
+    t0 = time.perf_counter()
+    adapters = [_random_b(init_lora_params(params, lcfg, g), g) for _ in range(ML_ADAPTERS)]
+    bank = multilora.stack_adapter_banks(adapters, lcfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ids = _ml_ids(BATCH)
+    bare = torch.as_tensor(ids == -1, device=dev)
+    sel = multilora.adapter_one_hot(ids, ML_ADAPTERS, device=dev)
+    img_cfg = ImageTransformConfig.dinosiglip_224()
+    fused_tree, fuse_s, runs = None, None, []
+    for path in ML_PATHS:
+        cfg = _serving(path, vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
+                       prompt_pad_len=PROMPT_PAD)
+        image, tok, plen, q01, q99, mask = _inputs(
+            cfg, BATCH, IMG_HW, torch.Generator(device=dev).manual_seed(1), dev)
+
+        def run(tree):
+            out = vla.predict_action_from_image(tree, cfg, image, img_cfg, tok, plen, q01, q99,
+                                                mask, return_first_logits=True, device=dev)
+            torch.cuda.synchronize()
+            return out
+
+        ref = run(attach_lora(params, _zero_b(adapters[0]), lcfg))
+        single = [run(attach_lora(params, a, lcfg)) for a in adapters]
+        for install in ("masked", "fused"):
+            if install == "fused" and fused_tree is None:
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                fused_tree = multilora.fuse_bank_into_base(params, bank)
+                torch.cuda.synchronize()
+                fuse_s = time.perf_counter() - t0
+            tree = (multilora.attach_multilora(params, bank, sel) if install == "masked"
+                    else multilora.attach_multilora_fused(fused_tree, sel))
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            out = run(tree)
+            launches = {k: n for k, n in _build.KERNEL_LAUNCHES.items()}
+            expect = _expected_launches(path, cfg, spec=tree)
+            assert launches == expect, (path, install, launches, expect)
+            toks, logits = out["action_tokens"], out["first_logits"]
+            assert torch.isfinite(logits).all() and torch.isfinite(out["actions"]).all()
+            assert torch.equal(toks[bare], ref["action_tokens"][bare]), (path, install)
+            assert torch.equal(logits[bare], ref["first_logits"][bare]), (path, install)
+            main_toks, main_logits = MAIN_OUT[path]
+            per_adapter = []
+            for k in range(ML_ADAPTERS):
+                rows = torch.as_tensor(ids == k, device=dev)
+                streamed = single[k]
+                gap = (logits[rows] - streamed["first_logits"][rows]).abs().max().item()
+                moved = (streamed["first_logits"][rows] - ref["first_logits"][rows]).abs()
+                moved = moved.max().item()
+                assert moved > 2 * ML_FUSED_GAP, (path, k, moved)   # the checks can fail
+                if install == "masked":
+                    want, n = streamed, streamed["action_tokens"][rows].numel()
+                else:
+                    assert gap < ML_FUSED_GAP, (path, install, k, gap)
+                    n = _margin_rule(toks[rows].cpu(), streamed["action_tokens"][rows].cpu(),
+                                     streamed["logit_margins"][rows].cpu(), gap)
+                    one = multilora.adapter_one_hot(k, ML_ADAPTERS, BATCH, device=dev)
+                    want = run(multilora.attach_multilora_fused(fused_tree, one))
+                assert torch.equal(toks[rows], want["action_tokens"][rows]), (path, install, k)
+                assert torch.equal(logits[rows], want["first_logits"][rows]), (path, install, k)
+                per_adapter.append(dict(
+                    adapter=k, rows=int(rows.sum()),
+                    bit_equal_to="streamed" if install == "masked" else "fused, every row k",
+                    first_logits_gap_streamed=gap, tokens_compared_streamed=n,
+                    rows_tokens_equal_streamed=int((toks[rows] == streamed["action_tokens"][rows])
+                                                   .all(1).sum()),
+                    adapter_moves_logits_by=moved))
+            times = []
+            for _ in range(TIMED_CALLS):
+                t0 = time.perf_counter()
+                run(tree)
+                times.append(time.perf_counter() - t0)
+            busy = profile_main_path.device_time(lambda: run(tree), 1)
+            runs.append(dict(
+                path=path, tier=cfg.tier, install=install, adapters=ML_ADAPTERS, rank=ML_RANK,
+                rows=ids.tolist(), launches_per_call=launches,
+                bare_rows_bit_equal_to_zero_adapter=True,
+                bare_rows_tokens_equal_main=int((toks[bare] == main_toks[bare]).all(1).sum()),
+                bare_rows_first_logits_from_main=(logits[bare] - main_logits[bare]).abs()
+                .max().item(),
+                per_adapter=per_adapter, p50_ms=statistics.median(times) * 1e3,
+                call_ms=[t * 1e3 for t in times],
+                device_ms_per_call=busy["device_ms_per_call_total"],
+                device_ms_by_class=busy["device_ms_per_call_by_class"],
+                device_idle_share=busy["device_idle_share"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
+            del out, tree
+        del ref, single
+    result = dict(banks_bytes=_tree_bytes(bank), fused_extra_bytes=_tree_bytes(fused_tree)
+                  - _tree_bytes(params), setup_s=setup_s, fuse_s=fuse_s, runs=runs)
+    del fused_tree, bank, adapters
+    return result
+
+
+# --- loading a checkpoint (models/load.py) ----------------------------------------------
+
+LOAD_REPO, LOAD_SHA = "openvla/openvla-7b", "0" * 40
+LOAD_SHARD_BYTES = 5 << 30   # the released repository's shard size (model-0000i-of-00003)
+
+
+def _peak_rss_gb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6   # KiB on Linux
+
+
+def run_load(dev, params):
+    """The parity path's bf16 weights written as a released HF repository
+    (params_to_hf_state, the port's sharded safetensors writer, hf_export's
+    config.json and dataset_statistics.json) into a temporary hub cache, then
+    load_vla("openvla/openvla-7b") from it with OVLA_HUB_OFFLINE=1: its config
+    VLMConfig.openvla_7b(), the parity path's tokens and first logits bit for
+    bit over the loaded weights, one predict_action_batch call through the
+    wrapper; then quantize_int8=True: every trunk leaf torch.equal to
+    linear.quantize_params(bits=8) of the in-memory tree, one call with the
+    exact launches of its tree. Bytes written, write and load seconds (to the
+    card, synchronised), host peak RSS (the process's, before and after),
+    device peak; the directory removed in a finally."""
+    vcfg = vlm.VLMConfig.openvla_7b()
+    A = ACTION_DIM
+    stats = {"bridge_orig": {"action": {"q01": [-0.5] * A, "q99": [0.5] * A,
+                                        "mask": [True] * (A - 1) + [False]}}}
+    root = Path(tempfile.mkdtemp(prefix="ovla_hub_"))
+    env_was = os.environ.get("OVLA_HUB_OFFLINE")
+    try:
+        repo = root / f"models--{LOAD_REPO.replace('/', '--')}"
+        snap = repo / "snapshots" / LOAD_SHA
+        (repo / "refs").mkdir(parents=True)
+        (repo / "refs" / "main").write_text(LOAD_SHA)
+        free_gb = shutil.disk_usage(root).free / 1e9
+        rss0 = _peak_rss_gb()
+        t0 = time.perf_counter()
+        written = safetensors_io.save_sharded(catalog.params_to_hf_state(params, vcfg), snap,
+                                              max_shard_bytes=LOAD_SHARD_BYTES,
+                                              dtype=torch.bfloat16)
+        hf_export.write_export_sidecars(snap, vcfg, ImageTransformConfig.dinosiglip_224(),
+                                        "dinosiglip-vit-so-224px", "llama2-7b-pure",
+                                        vcfg.arch_specifier, "resize-naive", norm_stats=stats)
+        write_s = time.perf_counter() - t0
+        rss_write = _peak_rss_gb()
+        os.environ["OVLA_HUB_OFFLINE"] = "1"
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = load_mod.load_vla(LOAD_REPO, cache_dir=root, tokenizer=StubTok(),
+                                  prompt_pad_len=PROMPT_PAD, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rss_load, dev_peak = _peak_rss_gb(), torch.cuda.max_memory_allocated() / 1e9
+        assert model.cfg.vlm == vcfg, model.cfg.vlm
+        assert model.cfg.tier == "parity" and model.cfg.codec_vocab_size == 32000
+        img_cfg = ImageTransformConfig.dinosiglip_224()
+        assert model.image_cfg == img_cfg, model.image_cfg
+        cfg = _serving("parity", vcfg, action_dim=A, prompt_pad_len=PROMPT_PAD)
+        image, ids, plen, q01, q99, mask = _inputs(
+            cfg, BATCH, IMG_HW, torch.Generator(device=dev).manual_seed(1), dev)
+        out = vla.predict_action_from_image(model.params, cfg, image, img_cfg, ids, plen, q01,
+                                            q99, mask, return_first_logits=True, device=dev)
+        assert torch.equal(out["action_tokens"], MAIN_OUT["parity"][0]), "loaded parity tokens"
+        assert torch.equal(out["first_logits"], MAIN_OUT["parity"][1]), "loaded parity logits"
+        rng = np.random.default_rng(7)
+        frames = rng.integers(0, 256, (BATCH, IMG_HW, IMG_HW, 3), dtype=np.uint8)
+        prompts = [get_openvla_prompt(f"pick up object {i} and place it in bin {i % 3}")
+                   for i in range(BATCH)]
+        t0 = time.perf_counter()
+        batch = model.predict_action_batch(frames, prompts)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        assert len(batch) == BATCH and all(np.isfinite(r["actions"]).all() for r in batch)
+        del model, out
+        torch.cuda.empty_cache()
+
+        # quantize_int8: each trunk leaf quantized on the card as it is read
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        qmodel = load_mod.load_vla(LOAD_REPO, cache_dir=root, tokenizer=StubTok(),
+                                   prompt_pad_len=PROMPT_PAD, quantize_int8=True, device=dev)
+        torch.cuda.synchronize()
+        qload_s = time.perf_counter() - t0
+        qdev_peak = torch.cuda.max_memory_allocated() / 1e9
+        assert qmodel.cfg.tier == "turbo"
+        qllm, n_leaves = qmodel.params["llm"], 0
+        trunk = [(("layers", k), v) for k, v in params["llm"]["layers"].items()]
+        for key, leaf in trunk + [((k,), params["llm"][k]) for k in ("embed_tokens", "norm",
+                                                                     "lm_head")]:
+            name = key[-1]
+            got = qllm["layers"][name] if key[0] == "layers" else qllm[name]
+            want = lin.quantize_params({name: leaf}, bits=8)[name]
+            if isinstance(want, dict):
+                assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want), \
+                    name
+                n_leaves += 1
+            else:
+                assert torch.equal(got, want), name
+            del want
+        _build.reset_launch_counts()
+        qout = vla.predict_action_from_image(qmodel.params, qmodel.cfg, image, qmodel.image_cfg,
+                                             ids, plen, q01, q99, mask, return_first_logits=True,
+                                             device=dev)
+        torch.cuda.synchronize()
+        qlaunches = dict(_build.KERNEL_LAUNCHES)
+        qexpect = _expected_launches("turbo", qmodel.cfg, spec=qmodel.params)
+        assert qlaunches == qexpect, (qlaunches, qexpect)
+        assert torch.isfinite(qout["first_logits"]).all()
+        qtoks = qout["action_tokens"]
+        del qmodel, qout
+        torch.cuda.empty_cache()
+        return dict(repo=LOAD_REPO, disk_free_gb=free_gb, files=written["files"],
+                    bytes_written=written["total_size"], write_s=write_s, load_s=load_s,
+                    host_peak_rss_gb=dict(before_write=rss0, after_write=rss_write,
+                                          after_load=rss_load, after_int8_load=_peak_rss_gb()),
+                    device_peak_gb=dev_peak, parity_tokens_and_logits_bit_equal=True,
+                    batch_call_ms=batch_ms, int8_load_s=qload_s, int8_device_peak_gb=qdev_peak,
+                    int8_leaves_bit_equal=n_leaves, int8_launches_per_call=qlaunches,
+                    int8_first_tokens=qtoks[0].tolist())
+    finally:
+        if env_was is None:
+            os.environ.pop("OVLA_HUB_OFFLINE", None)
+        else:
+            os.environ["OVLA_HUB_OFFLINE"] = env_was
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def check_tiny_spec(dev, path: str):
     """The speculative core at tiny fp32 size on the card vs the CPU run on the
     same weights: drafts correct, right for 3 tokens, and wrong, from the CPU's
@@ -2877,6 +3307,9 @@ def main() -> int:
         log("tiny", **check_tiny_train(dev, path))
     for path in BS1_PATHS:
         log("tiny", **check_tiny_spec(dev, path))
+    for path, install in (("parity", "masked"), ("turbo", "masked"), ("turbo", "fused"),
+                          ("pallas", "masked"), ("pallas", "fused")):
+        log("tiny", **check_tiny_multilora(dev, path, install))
 
     launches, weights = {}, {}
     # pallas, pallas_kv8, turbo, turbo_kv8 and turbo_fused share one build of the int8 weights
@@ -2894,11 +3327,17 @@ def main() -> int:
         if path == "turbo":        # the action server on turbo's int8 weights
             log("serve", card=card, **run_serve(dev, weights[PATHS[path][1]]))
             torch.cuda.empty_cache()
+            # multi-LoRA on the same weights, turbo and pallas (after pallas's main path)
+            log("multilora", card=card, **run_multilora(dev, weights[PATHS[path][1]]))
+            torch.cuda.empty_cache()
         if path == "parity":   # the base VLM's entry points on the same bf16 weights
             for vpath in VLM_PATHS:
                 launches[vpath], vstats = run_vlm_path(dev, vpath, weights[None])
                 log("main", card=card, launches_per_call=launches[vpath], **vstats)
                 torch.cuda.empty_cache()
+            # a released-layout checkpoint of the same weights, written and loaded back
+            log("load", card=card, **run_load(dev, weights[None]))
+            torch.cuda.empty_cache()
     weights.clear()
     for path in TRAIN_PATHS:
         launches[path], train_stats = run_train_path(dev, path)

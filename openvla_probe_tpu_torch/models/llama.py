@@ -52,7 +52,8 @@ from ..ops.attention import NEG_INF, attention_plain, decode_attention, flash_at
 from ..ops.decode_attention import (decode_flash_attention, split_attention_i8,
                                     stacked_decode_attention_i8)
 from ..ops.linear import (NIB_HI_M_MAX, PrequantActivation, div127, index_layer,
-                          is_grouped_int4, is_int8_per_channel, is_mixed_quant, matmul_t)
+                          is_grouped_int4, is_int8_per_channel, is_mixed_quant, is_multilora_fused,
+                          matmul_t, matmul_t_grouped)
 from ..ops.rmsnorm_quant import rms_norm, rms_norm_quant
 
 Params = Dict[str, Any]
@@ -95,6 +96,15 @@ class LlamaConfig:
     @staticmethod
     def llama2_7b(**kw) -> "LlamaConfig":
         return LlamaConfig(**kw)
+
+    @staticmethod
+    def llama2_13b(**kw) -> "LlamaConfig":
+        """Llama-2-13B dims (catalog llama2-13b-*): 40 layers x 5120, 40
+        heads, ffn 13824."""
+        d = dict(hidden_size=5120, intermediate_size=13824, num_hidden_layers=40,
+                 num_attention_heads=40, num_key_value_heads=40)
+        d.update(kw)
+        return LlamaConfig(**d)
 
     @staticmethod
     def tiny(**kw) -> "LlamaConfig":
@@ -233,6 +243,15 @@ def _norm_maybe_quant(cfg: LlamaConfig, x: torch.Tensor, norm_w: torch.Tensor, l
     return rms_norm(x, norm_w, cfg.rms_norm_eps)
 
 
+def _products(h, leaves, route: str):
+    """[matmul_t(h, w) for w in leaves] (q/k/v or gate/up), through
+    ``matmul_t_grouped`` where the leaves are fused multi-LoRA leaves (which
+    may group their second products)."""
+    if all(is_multilora_fused(w) for w in leaves):
+        return matmul_t_grouped(h, leaves, route)
+    return [matmul_t(h, w, route) for w in leaves]
+
+
 def _layer_forward(
     cfg: LlamaConfig,
     lp: Params,               # single-layer params
@@ -245,7 +264,8 @@ def _layer_forward(
     """One decoder block. `attend` stores the new tokens' K/V where the
     caller's cache layout wants them and attends over that layer's keys. The
     fused ``qkv_proj`` / ``gate_up_proj`` leaves of `fuse_serving_params` are
-    taken where present (one product, then a split)."""
+    taken where present (one product, then a split); fused multi-LoRA q/k/v
+    and gate/up leaves go through ``matmul_t_grouped``."""
     B, T, D = x.shape
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     route = cfg.int8_matmul
@@ -256,7 +276,7 @@ def _layer_forward(
         q, k, v = torch.split(matmul_t(h, lp["qkv_proj"], route), [H * Dh, Hkv * Dh, Hkv * Dh],
                               dim=-1)
     else:
-        q, k, v = (matmul_t(h, w, route) for w in qkv_leaves)
+        q, k, v = _products(h, qkv_leaves, route)
     q, k = apply_rope(q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), cos, sin, cfg.rope_dtype)
     x = x + matmul_t(attend(q, k, v.reshape(B, T, Hkv, Dh)).reshape(B, T, D), lp["o_proj"], route)
     mlp_leaves = ((lp["gate_up_proj"],) if "gate_up_proj" in lp
@@ -266,8 +286,8 @@ def _layer_forward(
         g, up = torch.chunk(matmul_t(h, lp["gate_up_proj"], route), 2, dim=-1)
         gate = F.silu(g.float()).to(h.dtype)
     else:
-        gate = F.silu(matmul_t(h, lp["gate_proj"], route).float()).to(h.dtype)
-        up = matmul_t(h, lp["up_proj"], route)
+        g, up = _products(h, mlp_leaves, route)
+        gate = F.silu(g.float()).to(h.dtype)
     return x + matmul_t(gate * up, lp["down_proj"], route)
 
 
@@ -638,6 +658,55 @@ def fuse_serving_params(llm_params: Params) -> Params:
     if "router" not in layers:
         cat(("gate_proj", "up_proj"), "gate_up_proj")
     return {**llm_params, "layers": layers}
+
+
+_HF_LAYER_KEYS = {
+    "self_attn.q_proj.weight": "q_proj",
+    "self_attn.k_proj.weight": "k_proj",
+    "self_attn.v_proj.weight": "v_proj",
+    "self_attn.o_proj.weight": "o_proj",
+    "mlp.gate_proj.weight": "gate_proj",
+    "mlp.up_proj.weight": "up_proj",
+    "mlp.down_proj.weight": "down_proj",
+    "input_layernorm.weight": "input_layernorm",
+    "post_attention_layernorm.weight": "post_attention_layernorm",
+}
+
+
+def params_from_hf(state, cfg: LlamaConfig, prefix: str = "model.", device="cuda",
+                   bits=None) -> Params:
+    """An HF LlamaForCausalLM state (name -> tensor or numpy array, e.g. a
+    lazy `safetensors_io` state) -> the layer-stacked tree on `device` in
+    ``cfg.dtype``, one layer of one leaf on the host at a time
+    (`safetensors_io.stack`). With `bits` (4, 8, "mix" or "nibble"), the
+    leaves `ops.linear.quantize_params(..., bits=bits)` quantizes come out
+    quantized, one layer at a time on `device`: the codes of quantize_params
+    over the loaded tree, bit for bit."""
+    from ..ops.linear import _DEFAULT_QUANT_SUFFIXES, leaf_bits, quantize_leaf
+    from .safetensors_io import stack, to_tensor
+
+    if bits not in (None, 4, 8, "mix", "nibble"):
+        raise ValueError(f"bits must be 4, 8, 'mix' or 'nibble', got {bits!r}")
+
+    def quant(name):
+        if bits is None or name not in _DEFAULT_QUANT_SUFFIXES:
+            return None
+        return lambda w: quantize_leaf(w, leaf_bits(name, bits))
+
+    def one(key, name):
+        w = to_tensor(state[key]).to(device=device, dtype=cfg.dtype)
+        q = quant(name)
+        return w if q is None or w.dim() < 2 else q(w)
+
+    layers = {ours: stack(lambda i, k=hf_key: state[f"{prefix}layers.{i}.{k}"],
+                          cfg.num_hidden_layers, cfg.dtype, device, quant(ours))
+              for hf_key, ours in _HF_LAYER_KEYS.items()}
+    return {
+        "embed_tokens": one(f"{prefix}embed_tokens.weight", "embed_tokens"),
+        "layers": layers,
+        "norm": one(f"{prefix}norm.weight", "norm"),
+        "lm_head": one("lm_head.weight", "lm_head"),
+    }
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,11 @@ LayerScale + residual, and the whole MLP half each as one fused w8a8 kernel
 kernels down, as in the JAX package, and go through ``matmul_t``: an MLP half
 with an int4 fc1 and an int8 fc2 (SigLIP's ungroupable mlp dim) runs unfused.
 On the route "w8a8" (the ``turbo`` tier: the tower kernel gates off) every
-block runs the unfused chain, each int8 linear through ``w8a8_matmul``.
+block runs the unfused chain, each int8 linear through ``w8a8_matmul``. A
+leaf wrapped for LoRA or multi-LoRA is not a per-channel int8 leaf, so its
+pair stands the fused kernels down on either route and runs the unfused
+chain, its base on the route (the JAX package's rule: it fuses a leaf only
+where ``is_quantized`` holds).
 """
 
 from __future__ import annotations
@@ -239,3 +243,67 @@ def forward_features(
         x2 = checkpoint(_block, cfg, bp, x2, B, N, use_reentrant=False) if remat else \
             _block(cfg, bp, x2, B, N)
     return x2.reshape(B, N, D)[:, cfg.num_prefix_tokens:, :]
+
+
+_TIMM_BLOCK_KEYS = {
+    "norm1.weight": "norm1_scale",
+    "norm1.bias": "norm1_bias",
+    "attn.qkv.weight": "qkv_w",
+    "attn.qkv.bias": "qkv_b",
+    "attn.proj.weight": "proj_w",
+    "attn.proj.bias": "proj_b",
+    "norm2.weight": "norm2_scale",
+    "norm2.bias": "norm2_bias",
+    "mlp.fc1.weight": "fc1_w",
+    "mlp.fc1.bias": "fc1_b",
+    "mlp.fc2.weight": "fc2_w",
+    "mlp.fc2.bias": "fc2_b",
+    "ls1.gamma": "ls1",
+    "ls2.gamma": "ls2",
+    # the HF export renames LayerScale gamma -> scale_factor
+    "ls1.scale_factor": "ls1",
+    "ls2.scale_factor": "ls2",
+}
+
+
+def params_from_timm(state, cfg: ViTConfig, prefix: str = "", device="cuda") -> Params:
+    """A timm VisionTransformer state (name -> tensor or numpy array) -> the
+    layer-stacked tree on `device` in ``cfg.dtype``, one layer of one leaf on
+    the host at a time (`safetensors_io.stack`)."""
+    from .safetensors_io import stack, to_tensor
+
+    if cfg.num_register_tokens and not cfg.no_embed_class and cfg.use_cls_token:
+        # timm's reg-token models put pos_embed over [cls, reg, patches]; this
+        # config family implements the HF Dinov2WithRegisters layout (pos over
+        # [cls, patches], registers inserted after): a timm checkpoint would
+        # load with a silently wrong pos table
+        raise NotImplementedError(
+            "timm import for register tokens with no_embed_class=False is a "
+            "positional-embedding layout mismatch; use no_embed_class=True "
+            "(timm dinov2-reg convention) or the HF import path"
+        )
+
+    def get(k):
+        return to_tensor(state[prefix + k]).to(device=device, dtype=cfg.dtype)
+
+    blocks: Params = {}
+    for timm_key, ours in _TIMM_BLOCK_KEYS.items():
+        if f"{prefix}blocks.0.{timm_key}" not in state:
+            continue
+        blocks[ours] = stack(lambda i, k=timm_key: state[f"{prefix}blocks.{i}.{k}"],
+                             cfg.num_layers, cfg.dtype, device)
+    p: Params = {
+        "patch_embed": {"weight": get("patch_embed.proj.weight").reshape(cfg.hidden_size, -1)},
+        "pos_embed": get("pos_embed"),
+        "blocks": blocks,
+    }
+    if cfg.patch_bias:
+        p["patch_embed"]["bias"] = get("patch_embed.proj.bias")
+    if cfg.use_cls_token:
+        p["cls_token"] = get("cls_token")
+    if cfg.num_register_tokens:
+        p["reg_token"] = get("reg_token")
+    if cfg.pre_norm:
+        p["norm_pre_scale"] = get("norm_pre.weight")
+        p["norm_pre_bias"] = get("norm_pre.bias")
+    return p

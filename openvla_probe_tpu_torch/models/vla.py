@@ -60,7 +60,15 @@ config fields or fixed rules here: set when an ``OpenVLA`` is built, one
 raises and names what replaces it (`KERNEL_GATE_FIELDS`).
 ``OVLA_PALLAS_INTERPRET`` (the TPU kernels' interpret mode) has no
 counterpart and is not read. After construction every knob of
-`_serving_env_snapshot` is watched: a change raises on the next call.
+`_serving_env_snapshot` is watched: a change raises on the next call. The
+multi-LoRA A/B knobs ``OVLA_MULTILORA_IMPL`` and ``OVLA_MULTILORA_GROUPED``
+are arguments of `OpenVLA.set_adapters` (``impl``, ``grouped``) and raise the
+same way.
+
+Multi-LoRA serving (`OpenVLA.set_adapters`, ``models/multilora.py``): N
+adapter banks over the frozen base, each request row picking its adapter
+(``adapter=`` / ``adapters=``, None for the bare base), in one call of the
+same entry points, speculative calls included.
 """
 
 from __future__ import annotations
@@ -74,9 +82,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..ops.image import ImageTransformConfig, apply_image_transform
-from ..ops.linear import matmul_t
+from ..ops.linear import MULTILORA_IMPLS, matmul_t
 from ..vla.action_tokenizer import ActionCodec
-from . import llama, vlm
+from . import llama, multilora, vlm
 
 Params = Dict[str, Any]
 
@@ -116,6 +124,8 @@ KERNEL_GATE_FIELDS = {
     "OVLA_W4A8_GROUP_M_MAX": "the fixed rule M <= ops.linear.NIB_HI_M_MAX (32)",
     "OVLA_VITMLP_BM": "nothing: the fused tower kernels choose their own tiles",
     "OVLA_FLASH_ONESHOT": "the fixed rule Tk <= ops.attention.ONESHOT_MAX_TK",
+    "OVLA_MULTILORA_IMPL": "OpenVLA.set_adapters(..., impl='masked' | 'einsum')",
+    "OVLA_MULTILORA_GROUPED": "OpenVLA.set_adapters(..., grouped=True)",
 }
 
 
@@ -569,12 +579,9 @@ def predict_action_speculative_from_image(
         q99, action_mask, collect_hidden_states, device=dev)
 
 
-_MULTILORA = "multi-LoRA serving (models/multilora.py) is ROADMAP Queue 1 item 11"
-
-
 class OpenVLA:
-    """Stateful serving wrapper (the JAX package's `OpenVLA`, without
-    multi-LoRA): tokenized prompts, norm-stats lookup, batching and the
+    """Stateful serving wrapper (the JAX package's `OpenVLA`): tokenized
+    prompts, norm-stats lookup, batching, multi-LoRA adapter banks and the
     env-drift guard, over the eager entry points on `device`.
 
     `tokenizer` is the caller's (``.encode(str) -> List[int]`` with BOS).
@@ -600,7 +607,11 @@ class OpenVLA:
         self.norm_stats = norm_stats
         self.image_cfg = image_cfg or ImageTransformConfig.dinosiglip_224()
         self._env_snapshot = _serving_env_snapshot()
-        self.adapter_names: List[str] = []   # multi-LoRA banks: none (item 11)
+        # multi-LoRA serving state (set_adapters): N adapter banks resident
+        # next to the frozen base; requests pick adapters per row
+        self.lora_bank: Optional[Any] = None
+        self.adapter_names: List[str] = []
+        self._ml_options = ("masked", False)
 
     def _check_env_drift(self) -> None:
         now = dict(_serving_env_snapshot())
@@ -648,14 +659,105 @@ class OpenVLA:
         out[: len(ids)] = ids
         return out, len(ids)
 
-    # --- multi-LoRA (not ported) ----------------------------------------------------
+    # --- multi-LoRA serving (models/multilora.py) -----------------------------------
     def set_adapters(self, adapters: Any, lora_cfg: Any, dtype: Any = None,
-                     fused: bool = False) -> None:
-        raise NotImplementedError(_MULTILORA)
+                     fused: bool = False, impl: str = "masked", grouped: bool = False) -> None:
+        """Install N LoRA adapter banks over the (frozen, possibly quantized)
+        base: `adapters` is a {name: lora_tree} dict or a sequence of trees
+        (``training.lora.init_lora_params`` layout, e.g.
+        ``multilora.load_adapter_checkpoint`` per finetune run), moved to the
+        model's device in `dtype` (the LLM's by default). After this,
+        ``predict_action(..., adapter=...)`` and ``predict_action_batch(...,
+        adapters=...)`` serve any mixture of adapters in one call;
+        ``adapter=None`` rows serve the bare base.
+
+        `fused=True` installs the concat-fused form (int8 and bf16 bases only):
+        the A banks are quantized onto the base weight rows, the fused tree
+        replaces the base trunk, and every request then rides the fused form.
+        Its int8 leaves give the plain base leaf's outputs bit for bit, but a
+        bare-base row is the base on the routes a wrapped leaf takes, not the
+        plain tier's call: a wrapped leaf stands the fused RMSNorm -> int8
+        kernel and the fused tower kernels down, as in the JAX package. The
+        base cannot be restored in place: a second install raises.
+        `impl` ("masked" or "einsum") and `grouped` are the JAX package's
+        ``OVLA_MULTILORA_IMPL`` / ``OVLA_MULTILORA_GROUPED`` A/B knobs (its
+        defaults here), kept in the wrapper leaves each call attaches."""
+        if self.lora_bank == "fused":
+            raise ValueError(
+                "adapters were installed with fused=True — the base trunk "
+                "was consumed by the fused tree, so banks cannot be swapped "
+                "in place. Rebuild the OpenVLA (load_vla) to change the "
+                "adapter set; the masked install (fused=False) supports "
+                "same-geometry hot-swap.")
+        if impl not in MULTILORA_IMPLS:
+            raise ValueError(f"multi-LoRA impl must be one of {MULTILORA_IMPLS}, got {impl!r}")
+        if isinstance(adapters, dict):
+            names = list(adapters)
+            trees = [adapters[n] for n in names]
+        else:
+            trees = list(adapters)
+            names = [str(i) for i in range(len(trees))]
+        if fused and self.cfg.tier == "parity":
+            # the fused form's bitwise bare-base argument holds for int8
+            # bases (exact int32 accumulation); the parity tier's contract is
+            # bit-equality for no-adapter rows
+            raise ValueError(
+                "fused adapter install requires a turbo-tier base (int8): "
+                "widened bf16 dots cannot promise the parity tier's "
+                "bit-equality for bare-base requests. Load with "
+                "quantize_int8=True, or install with fused=False.")
+        bank = multilora.stack_adapter_banks(
+            trees, lora_cfg, dtype=dtype or self.cfg.vlm.llm.dtype, device=self.device)
+        if fused:
+            # fuse BEFORE changing any state: an unsupported base (mix/int4)
+            # raises here and the model keeps serving what it had
+            self.params = multilora.fuse_bank_into_base(self.params, bank)
+            self.lora_bank = "fused"   # sentinel: the banks live inside params
+        else:
+            self.lora_bank = bank
+        self.adapter_names = names
+        self._ml_options = (impl, bool(grouped))
 
     @property
     def n_adapters(self) -> int:
         return len(self.adapter_names)
+
+    def _resolve_adapter_ids(self, adapter: Any, batch: int) -> np.ndarray:
+        """name | id | per-row sequence -> [B] int ids (-1 = bare base)."""
+        if self.lora_bank is None:
+            raise ValueError("no adapter banks installed; call set_adapters first")
+
+        def one(a) -> int:
+            if a is None:
+                return -1
+            if isinstance(a, str):
+                try:
+                    return self.adapter_names.index(a)
+                except ValueError:
+                    raise ValueError(f"unknown adapter {a!r}; have {self.adapter_names}")
+            i = int(a)
+            if not -1 <= i < self.n_adapters:
+                raise ValueError(f"adapter id {i} out of range [-1, {self.n_adapters})")
+            return i
+
+        if isinstance(adapter, (str, int)) or adapter is None:
+            return np.full((batch,), one(adapter), np.int32)
+        ids = np.asarray([one(a) for a in adapter], np.int32)
+        if ids.shape != (batch,):
+            raise ValueError(f"need one adapter per request row ({batch}), got {ids.shape}")
+        return ids
+
+    def _serving_params(self, ids: Optional[np.ndarray]) -> Params:
+        """The tree one call serves: the base, or with adapter ids [B] (-1 a
+        bare row) the banks attached per row (every call rides the fused
+        tree after a fused install)."""
+        if ids is None:
+            return self.params
+        sel = multilora.adapter_one_hot(ids, self.n_adapters, device=self.device)
+        impl, grouped = self._ml_options
+        if self.lora_bank == "fused":
+            return multilora.attach_multilora_fused(self.params, sel, grouped=grouped)
+        return multilora.attach_multilora(self.params, self.lora_bank, sel, impl=impl)
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.array(x, dtype), device=self.device)
@@ -694,8 +796,6 @@ class OpenVLA:
                 "parity tier's bit-equality contract. Build the config via "
                 "VLAServingConfig.for_tier(vlm_cfg, 'turbo'), or set "
                 "speculative_in_parity='allow' for measurement harnesses.")
-        if adapter is not None:
-            raise NotImplementedError(_MULTILORA)
         stats = self.get_action_stats(unnorm_key)
         image = np.asarray(image)
         squeeze = image.ndim == 3
@@ -703,6 +803,10 @@ class OpenVLA:
             image = image[None]
         B = image.shape[0]
         ids, plen = self.prepare_ids(prompt)
+        # fused install: every request rides the fused tree (bare-base rows are
+        # the base on the routes a wrapped leaf takes)
+        params = self._serving_params(self._resolve_adapter_ids(adapter, B) if (
+            adapter is not None or self.lora_bank == "fused") else None)
         q01, q99, mask = self._stats_rows([stats])
         common = dict(
             input_ids=self._tensor(np.broadcast_to(ids, (B, ids.shape[0]))),
@@ -721,11 +825,11 @@ class OpenVLA:
             if draft.ndim == 1:
                 draft = np.broadcast_to(draft, (B, draft.shape[0]))
             out = predict_action_speculative_from_image(
-                self.params, self.cfg, image_t, self.image_cfg, draft_tokens=self._tensor(draft),
+                params, self.cfg, image_t, self.image_cfg, draft_tokens=self._tensor(draft),
                 collect_hidden_states=return_hidden_states, device=self.device, **common)
         else:
             out = predict_action_from_image(
-                self.params, self.cfg, image_t, self.image_cfg,
+                params, self.cfg, image_t, self.image_cfg,
                 collect_hidden_states=return_hidden_states,
                 return_first_logits=return_first_logits, device=self.device, **common)
         result = {k: v.cpu().numpy() for k, v in out.items()}
@@ -741,13 +845,12 @@ class OpenVLA:
         batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 24, 32),
         adapters: Optional[Sequence[Any]] = None,
     ) -> List[Dict[str, np.ndarray]]:
-        """Heterogeneous requests in one call: per-row prompts and per-row norm
-        stats. The batch pads up to the next bucket by repeating row 0, so the
-        card sees a few batch sizes only (each row's tokens do not depend on
-        the others'). Returns one result dict per request."""
+        """Heterogeneous requests in one call: per-row prompts, per-row norm
+        stats and (after `set_adapters`) per-row adapters. The batch pads up
+        to the next bucket by repeating row 0 (its adapter too), so the card
+        sees a few batch sizes only (each row's tokens do not depend on the
+        others'). Returns one result dict per request."""
         self._check_env_drift()
-        if adapters is not None:
-            raise NotImplementedError(_MULTILORA)
         images = np.asarray(images)
         B = len(prompts)
         assert images.shape[0] == B, "one image per prompt"
@@ -763,12 +866,20 @@ class OpenVLA:
             raise ValueError(f"Batch {B} exceeds largest bucket {batch_buckets[-1]}")
         pad = bucket - B
 
-        def pad_rows(x):
-            return self._tensor(np.concatenate([x, np.repeat(x[:1], pad, axis=0)]) if pad else x)
+        def padded(x):
+            return np.concatenate([x, np.repeat(x[:1], pad, axis=0)]) if pad else x
 
+        def pad_rows(x):
+            return self._tensor(padded(x))
+
+        aids = None
+        if adapters is not None or self.lora_bank == "fused":
+            aids = padded(self._resolve_adapter_ids(
+                list(adapters) if adapters is not None else None, B))
         out = predict_action_from_image(
-            self.params, self.cfg, pad_rows(images.astype(np.uint8)), self.image_cfg,
-            input_ids=pad_rows(ids), prompt_len=pad_rows(lens), q01=pad_rows(q01),
-            q99=pad_rows(q99), action_mask=pad_rows(mask), device=self.device)
+            self._serving_params(aids), self.cfg, pad_rows(images.astype(np.uint8)),
+            self.image_cfg, input_ids=pad_rows(ids), prompt_len=pad_rows(lens),
+            q01=pad_rows(q01), q99=pad_rows(q99), action_mask=pad_rows(mask),
+            device=self.device)
         host = {k: v.cpu().numpy() for k, v in out.items()}
         return [{k: v[i] for k, v in host.items()} for i in range(B)]

@@ -50,6 +50,15 @@ class VLMConfig:
                     vit.ViTConfig.siglip_so400m(dtype=torch.bfloat16)),
         )
 
+    @staticmethod
+    def openvla_13b() -> "VLMConfig":
+        """prism-dinosiglip-224px+13b dims: the same dual ViT, a Llama-2-13B trunk."""
+        return VLMConfig(
+            llm=llama.LlamaConfig.llama2_13b(),
+            vision=(vit.ViTConfig.dinov2_vit_l(dtype=torch.bfloat16),
+                    vit.ViTConfig.siglip_so400m(dtype=torch.bfloat16)),
+        )
+
     def turbo(self) -> "VLMConfig":
         """The turbo serving numerics: bf16 attention scores in trunk and
         towers, bf16 RoPE, and tanh-approximated GELU where a tower specifies

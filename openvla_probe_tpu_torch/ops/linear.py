@@ -46,6 +46,27 @@ A streamed-LoRA wrapper ``{"base": leaf, "A": [r, K], "B": [O, r]}``
 (``training.lora.attach_lora``) computes ``matmul_t(x, base) + (x Aᵀ) Bᵀ``
 with the adapters cast to x's dtype, so no merged weight ever exists.
 
+**Multi-LoRA serving** (``models/multilora.py``): N adapters over one frozen
+base, each request row picking its own through a one-hot ``sel`` [Bex, N]
+(rows batch-major, T = rows / Bex a request). A masked wrapper ``{"base",
+"A": [N, r, K], "Bt": [N, r, O], "sel"}`` computes ``matmul_t(x, base) +
+((x Aᵀ) ∘ repeat(sel, r)) Bt`` (`is_multilora`; the ``"einsum"`` variant
+folds sel into one contraction); a fused wrapper ``{"qf": int8 [O + N·r, K],
+"sf", "Bt", "sel"}`` (int8 base, the A rows quantized onto its output rows)
+or ``{"wf": [O + N·r, K], "Bt", "sel"}`` (float base) computes the base and
+the rank projection in one widened product (`is_multilora_fused`): on the
+int8 leaf's own route (``wi8_matmul`` or ``w8a8_matmul``, whose first O
+columns are the plain leaf's bit for bit), on a float leaf as two products
+(the base rows, then the rank rows: the same function, and the base rows'
+bits whatever algorithm cuBLAS picks for a wider product). The rank products
+and the delta are plain PyTorch products, as the JAX package computes them
+outside any Pallas kernel. `matmul_t_grouped` batches the second products of
+same-input fused leaves into one ``torch.bmm``. The variant and the grouping
+are keys of the wrapper leaves themselves (``"impl": "einsum"`` on a masked
+leaf, ``"grouped": True`` on a fused one, absent by default), set by
+``models.multilora``'s attach functions: the JAX package's
+``OVLA_MULTILORA_IMPL`` / ``OVLA_MULTILORA_GROUPED``.
+
 **Gradients.** Every kernel wrapper refuses an input that requires grad while
 autograd records (`_build.no_grad_guard`). Under grad, `matmul_t` takes the
 straight-through (STE) ``torch.autograd.Function`` of the quantized leaf's
@@ -68,7 +89,7 @@ codes and scales directly (the JAX package's benchmark initializer).
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -121,6 +142,26 @@ def is_nibble_quant(w: Any) -> bool:
     return isinstance(w, dict) and set(w) == {"hi", "lo", "s"} and w["hi"].dtype == torch.uint8
 
 
+def is_multilora(w: Any) -> bool:
+    """A masked multi-LoRA wrapper ``{"base": W, "A": [N, r, I], "Bt": [N, r,
+    O], "sel": [Bex, N]}`` (``models.multilora.attach_multilora``): B stored
+    transposed and scaled, `sel` the per-row one-hot; ``"impl": "einsum"``
+    picks the einsum variant of the delta."""
+    return isinstance(w, dict) and "base" in w and "A" in w and "sel" in w
+
+
+def is_multilora_fused(w: Any) -> bool:
+    """A fused multi-LoRA wrapper (``models.multilora.fuse_bank_into_base``):
+    ``{"qf": int8 [O + N·r, K], "sf": [O + N·r], "Bt": [N, r, O], "sel"}``, or
+    ``{"wf": [O + N·r, K], "Bt", "sel"}`` over a float base; ``"grouped":
+    True`` lets `matmul_t_grouped` batch its second product with its
+    siblings'."""
+    return isinstance(w, dict) and "Bt" in w and "sel" in w and ("qf" in w or "wf" in w)
+
+
+MULTILORA_IMPLS = ("masked", "einsum")
+
+
 class PrequantActivation(NamedTuple):
     """Activation rows already RMS-normed and quantized by the fused kernel
     (``ops.rmsnorm_quant``): int8 codes ``q8 [..., K]``, fp32 row scales
@@ -136,8 +177,10 @@ class PrequantActivation(NamedTuple):
 
 def index_layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer `i` of a layer-stacked parameter tree (quantized leaves are
-    {q, s} dicts whose tensors all carry the layer axis)."""
-    return {k: index_layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+    {q, s} dicts whose tensors all carry the layer axis; a wrapper's option
+    keys, which are not tensors, pass through)."""
+    return {k: index_layer(v, i) if isinstance(v, dict)
+            else v[i] if isinstance(v, torch.Tensor) else v for k, v in tree.items()}
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -988,12 +1031,80 @@ def is_lora_wrapped(w: Any) -> bool:
     return isinstance(w, dict) and set(w) == {"base", "A", "B"}
 
 
+def _rank_mask(u: torch.Tensor, sel: torch.Tensor, r: int) -> torch.Tensor:
+    """u [Bex·T, N·r] with the columns of each row's unselected adapters
+    zeroed (the one-hot repeated r times: columns n-major in blocks of r)."""
+    Bex = sel.shape[0]
+    mask = sel.to(u.dtype).repeat_interleave(r, dim=1)                  # [Bex, N·r]
+    return (u.reshape(Bex, -1, u.shape[-1]) * mask[:, None, :]).reshape(u.shape)
+
+
+def _multilora_delta(x: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
+    """The masked wrapper's delta [..., O] for x [..., K] (rows batch-major)."""
+    dt = x.dtype
+    A, Bt, sel = w["A"], w["Bt"], w["sel"]
+    N, r, I = A.shape
+    O = Bt.shape[-1]
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K)
+    u = torch.matmul(x2, A.reshape(N * r, I).to(dt).t())               # [Bex·T, N·r]
+    if w.get("impl", "masked") == "einsum":
+        Bex = sel.shape[0]
+        u4 = u.reshape(Bex, -1, N, r)
+        delta = torch.einsum("btnr,bn,nro->bto", u4, sel.to(dt), Bt.to(dt))
+        return delta.reshape(*lead, O)
+    delta = torch.matmul(_rank_mask(u, sel, r), Bt.reshape(N * r, O).to(dt))
+    return delta.reshape(*lead, O)
+
+
+def _mlf_widened_dot(x2: torch.Tensor, w: Dict[str, Any], int8_matmul: str):
+    """(base rows [M, O], rank rows [M, N·r]) of a fused wrapper's widened
+    product, on the plain leaf's route: an int8 leaf's one widened launch
+    ("wi8": `wi8_matmul`, "w8a8": `w8a8_matmul`), a float leaf's two
+    products."""
+    O = w["Bt"].shape[-1]
+    if "qf" in w:
+        if int8_matmul not in INT8_ROUTES:
+            raise ValueError(f"int8_matmul must be one of {INT8_ROUTES}, got {int8_matmul!r}")
+        y_u = (wi8_matmul(x2, w["qf"], w["sf"]) if int8_matmul == "wi8"
+               else w8a8_matmul_ste(x2, {"q": w["qf"], "s": w["sf"]}))
+        return y_u[:, :O], y_u[:, O:]
+    wf = w["wf"].to(x2.dtype)
+    return torch.matmul(x2, wf[:O].t()), torch.matmul(x2, wf[O:].t())
+
+
+def _mlf_delta(u: torch.Tensor, w: Dict[str, Any]) -> torch.Tensor:
+    N, r, O = w["Bt"].shape
+    return torch.matmul(_rank_mask(u, w["sel"], r), w["Bt"].reshape(N * r, O).to(u.dtype))
+
+
+def matmul_t_grouped(x: torch.Tensor, leaves: Sequence[Any], int8_matmul: str = "wi8") -> List:
+    """[matmul_t(x, w) for w in leaves], with the second products of fused
+    multi-LoRA leaves batched into one ``torch.bmm`` (q/k/v, gate/up) where
+    every leaf is fused with the grouped option (``"grouped": True``) and
+    their Bt shapes agree (GQA's k/v differ from q); per leaf otherwise."""
+    leaves = list(leaves)
+    if (len(leaves) < 2
+            or not all(is_multilora_fused(w) and w.get("grouped", False) for w in leaves)
+            or any(w["Bt"].shape != leaves[0]["Bt"].shape for w in leaves)):
+        return [matmul_t(x, w, int8_matmul) for w in leaves]
+    lead, K = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
+    N, r, O = leaves[0]["Bt"].shape
+    ys, us = zip(*(_mlf_widened_dot(x2, w, int8_matmul) for w in leaves))
+    u3 = torch.stack([_rank_mask(u, w["sel"], r) for u, w in zip(us, leaves)])   # [G, M, N·r]
+    Bt3 = torch.stack([w["Bt"].reshape(N * r, O) for w in leaves]).to(x.dtype)   # [G, N·r, O]
+    delta3 = torch.bmm(u3, Bt3)
+    return [(y + delta3[i]).reshape(*lead, O) for i, y in enumerate(ys)]
+
+
 def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
     """x [..., K] @ w[O, K].T -> [..., O] for a float weight tensor, a
     per-channel int8 leaf (on the route `int8_matmul` names: "wi8" or
     "w8a8"), a nibble leaf, a grouped-int4 leaf (by the route too), a mix
-    leaf or a streamed-LoRA wrapper over any of them; x may be a
-    `PrequantActivation` for a leaf with an int8 copy. Quantized leaves are
+    leaf, a streamed-LoRA wrapper over any of them, or a multi-LoRA wrapper
+    (masked over any of them, or fused over an int8 or float leaf); x may be
+    a `PrequantActivation` for a leaf with an int8 copy. Quantized leaves are
     differentiable in x through their STE."""
     if isinstance(x, PrequantActivation):
         if not (is_int8_per_channel(w) or is_mixed_quant(w)):
@@ -1004,6 +1115,15 @@ def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
         return w8a8_matmul(x2, int8_copy(w)).reshape(*lead, -1)
     if isinstance(w, torch.Tensor):
         return torch.matmul(x, w.t())
+    if is_multilora(w):
+        # the base product, then the rank projection onto all N·r ranks, the
+        # unselected columns zeroed (exactly: their terms are 0 · w), and the
+        # projection back: row b computes adapter sel[b]'s LoRA
+        return matmul_t(x, w["base"], int8_matmul) + _multilora_delta(x, w)
+    if is_multilora_fused(w):
+        lead, K = x.shape[:-1], x.shape[-1]
+        y, u = _mlf_widened_dot(x.reshape(-1, K).contiguous(), w, int8_matmul)
+        return (y + _mlf_delta(u, w)).reshape(*lead, -1)
     if is_lora_wrapped(w):
         # the low-rank side path: two thin products, never a merged weight.
         # Its order is part of the train step's launch count: with the base
@@ -1036,7 +1156,4 @@ def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
         else:
             raise ValueError(f"int8_matmul must be one of {INT8_ROUTES}, got {int8_matmul!r}")
         return out.reshape(*lead, -1)
-    if isinstance(w, dict) and "base" in w:
-        raise NotImplementedError(
-            "multi-LoRA weight wrappers are not ported yet: ROADMAP Queue 1 item 11")
     raise TypeError(f"matmul_t: unsupported weight {type(w)}")

@@ -1,36 +1,68 @@
-"""OpenVLA-specific eval helpers: train-matched preprocessing and the action
-query (the port's copy of ``openvla_probe_tpu/robot/openvla_utils.py``).
+"""OpenVLA-specific eval helpers: loading, train-matched preprocessing and
+the action query (the port's copy of ``openvla_probe_tpu/robot/openvla_utils.py``).
 
 `get_vla_action(..., return_embeddings=True)` costs one prefill: the
 reference runs a second full forward just for hidden-state capture.
 `crop_and_resize` is TensorFlow's ``tf.image.crop_and_resize`` (bilinear, one
-centered box) written in PyTorch. Loading (`get_vla`, `get_processor`) waits
-for ``models/load.py``.
+centered box) written in PyTorch. `get_vla` loads through ``models/load.py``
+with the caller's tokenizer (the argument, or ``cfg.tokenizer``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from pathlib import Path
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..models.load import load_vla
 from ..models.vla import OpenVLA
+from ..overwatch import initialize_overwatch
+from ..vla.norm_stats import load_dataset_statistics
+
+overwatch = initialize_overwatch(__name__)
 
 # constants matching the reference
 OPENVLA_IMAGE_SIZE = 224
 
-_LOAD = "loading a checkpoint (models/load.py) is ROADMAP Queue 1 item 12"
+
+def get_vla(cfg: Any, tokenizer: Any = None) -> OpenVLA:
+    """Load the serving model from cfg.pretrained_checkpoint (a local dir, a
+    registry id or a cached hub id; `cfg` may be that path itself) with
+    `tokenizer` (default ``cfg.tokenizer``), int8 where ``cfg.load_in_8bit``,
+    on ``cfg.device`` (default the card)."""
+    ckpt = cfg if isinstance(cfg, (str, Path)) else cfg.pretrained_checkpoint
+    model = load_vla(
+        ckpt,
+        quantize_int8=getattr(cfg, "load_in_8bit", False),
+        tokenizer=tokenizer if tokenizer is not None else getattr(cfg, "tokenizer", None),
+        device=getattr(cfg, "device", "cuda"),
+    )
+    if getattr(cfg, "speculative_decode", False) and model.cfg.tier == "parity":
+        # the eval harness makes this trade explicitly and loudly: in the parity
+        # tier, speculative greedy equality is margin-certified, not
+        # bit-guaranteed; callers wanting the hard bit-equality contract should
+        # disable speculative_decode or serve int8 (load_in_8bit=True)
+        overwatch.warning(
+            "speculative_decode with a bf16 parity-tier model: greedy "
+            "equality is margin-certified, not bit-guaranteed; opting in "
+            "via speculative_in_parity='allow'")
+        model.cfg = dataclasses.replace(model.cfg, speculative_in_parity="allow")
+    # optional stats override sidecar next to the checkpoint (reference :60-72)
+    sidecar = Path(ckpt) / "dataset_statistics.json"
+    if sidecar.exists():
+        model.norm_stats = load_dataset_statistics(sidecar)
+    return model
 
 
-def get_vla(cfg: Any) -> OpenVLA:
-    """Load the serving model from cfg.pretrained_checkpoint: not ported."""
-    raise NotImplementedError(_LOAD)
-
-
-def get_processor(cfg: Any):
-    """The fused model owns preprocessing; loading is not ported."""
-    raise NotImplementedError(_LOAD)
+def get_processor(cfg: Any, tokenizer: Any = None):
+    """The fused model owns preprocessing; exposed for API parity (the JAX
+    package's rule: a checkpoint path loads the model, anything else gives
+    None; the JAX package's get_vla would read a path's
+    ``.pretrained_checkpoint`` and fail)."""
+    return get_vla(cfg, tokenizer) if isinstance(cfg, (str, Path)) else None
 
 
 def _crop_and_resize_bilinear(img: torch.Tensor, box: torch.Tensor, out_hw) -> torch.Tensor:

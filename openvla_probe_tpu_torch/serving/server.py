@@ -135,8 +135,8 @@ class OpenVLAServer:
         prompt = get_openvla_prompt(str(payload["instruction"]), self.base_vlm)
         stream_id = payload.get("stream_id")
         # multi-LoRA: optional per-request adapter name/id (deploy.py
-        # --adapters). The port's OpenVLA raises on it: multi-LoRA serving is
-        # ROADMAP Queue 1 item 11.
+        # --adapters; models/multilora.py). Requests with different adapters
+        # still micro-batch together — the selection is a per-row one-hot.
         adapter = payload.get("adapter")
         akw = {"adapter": adapter} if adapter is not None else {}
         if self.batcher is not None:

@@ -26,9 +26,11 @@ from openvla_probe_tpu_torch.ops.linear import (matmul_t, nib_hi_dot_plain, quan
 ROOT = Path(__file__).resolve().parents[1]
 # sklearn and optax: the probe bank's metrics and optimizer are the port's own (numpy,
 # training/train_state.py); tensorflow: robot/openvla_utils.crop_and_resize is the port's
-# own (PyTorch); the machine with the card has none of them
+# own (PyTorch); safetensors and huggingface_hub: the loaders read safetensors files and
+# the hub cache themselves (models/safetensors_io.py, models/load.py); the machine with
+# the card has none of them
 FORBIDDEN = ("jax", "jaxlib", "openvla_probe_tpu", "transformers", "timm", "PIL", "flax",
-             "sklearn", "optax", "tensorflow")
+             "sklearn", "optax", "tensorflow", "safetensors", "huggingface_hub")
 
 
 @pytest.fixture(scope="module")
@@ -125,10 +127,10 @@ def test_config_from_jax():
 
 
 def test_matmul_t_float_only():
-    """Float, per-channel int8, (packed) nibble and mix leaves and streamed-LoRA
-    wrappers multiply; multi-LoRA leaves still raise, and so do unpacked int8
-    planes or int4 copies (the JAX package's emit_codes form, which
-    params_from_jax packs)."""
+    """Float, per-channel int8, (packed) nibble and mix leaves, streamed-LoRA
+    wrappers and multi-LoRA wrappers multiply; unpacked int8 planes or int4
+    copies (the JAX package's emit_codes form, which params_from_jax packs)
+    raise."""
     x, w = torch.randn(3, 4), torch.randn(5, 4)
     torch.testing.assert_close(matmul_t(x, w), x @ w.T)
     q = torch.randint(-127, 128, (5, 4), dtype=torch.int8)
@@ -146,8 +148,10 @@ def test_matmul_t_float_only():
     a, bm = torch.randn(2, 4), torch.randn(5, 2)
     torch.testing.assert_close(matmul_t(x, {"base": w, "A": a, "B": bm}),
                                x @ w.T + (x @ a.T) @ bm.T)
-    with pytest.raises(NotImplementedError, match="Queue 1"):      # multi-LoRA
-        matmul_t(x, {"base": w, "A": a[None], "Bt": bm.T[None], "sel": torch.ones(3, 1)})
+    # multi-LoRA: one adapter selected for every row is the streamed wrapper
+    torch.testing.assert_close(
+        matmul_t(x, {"base": w, "A": a[None], "Bt": bm.T[None], "sel": torch.ones(3, 1)}),
+        x @ w.T + (x @ a.T) @ bm.T)
 
 
 def test_resolve_device(monkeypatch):
@@ -192,6 +196,23 @@ def test_importing_the_port_loads_no_jax():
             "openvla_probe_tpu_torch.training.checkpointing, "
             "openvla_probe_tpu_torch.training.preemption, "
             "openvla_probe_tpu_torch.tools.bench_finetune, openvla_probe_tpu_torch.probe; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_the_scan_covers_the_loading_slice():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in ("models/catalog", "models/load", "models/safetensors_io", "models/hf_export",
+                 "models/multilora", "models/prompting", "conf/registry", "conf/models",
+                 "conf/vla", "conf/datasets", "overwatch/overwatch", "vla/norm_stats"):
+        assert f"openvla_probe_tpu_torch/{name}.py" in scanned
+
+
+def test_importing_the_loading_slice_loads_no_jax():
+    code = ("import sys; import openvla_probe_tpu_torch.models.load, "
+            "openvla_probe_tpu_torch.models.catalog, openvla_probe_tpu_torch.models.multilora, "
+            "openvla_probe_tpu_torch.models.hf_export, openvla_probe_tpu_torch.conf.models; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)

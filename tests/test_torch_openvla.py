@@ -17,7 +17,7 @@ weights and the same word tokenizer).
   a draft, the unnorm-key errors, a prompt longer than the pad, every serving
   env knob (the JAX package's configs field for field and its ValueErrors
   word for word), env drift after construction, a JAX kernel-gate knob set
-  at construction, and multi-LoRA.
+  at construction, and an adapter request with no banks installed.
 """
 
 import contextlib
@@ -329,14 +329,15 @@ def test_the_interpret_knob_is_not_read(parts, monkeypatch):
 
 
 def test_multi_lora_raises_naming_item_11(parts):
-    _, tm = _pair(parts)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.set_adapters({"x": None}, None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.predict_action(parts[4][0], PROMPT, unnorm_key="a", adapter="x")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.predict_action_batch(parts[4][:1], [PROMPT], ["a"], adapters=["x"])
-    assert tm.n_adapters == 0 and tm.adapter_names == []
+    """Multi-LoRA is ported (tests/test_torch_multilora.py): without banks an
+    adapter request raises the JAX package's error, in both entries."""
+    jm, tm = _pair(parts)
+    for m in (tm, jm):
+        with pytest.raises(ValueError, match="no adapter banks installed; call set_adapters"):
+            m.predict_action(parts[4][0], PROMPT, unnorm_key="a", adapter="x")
+        with pytest.raises(ValueError, match="no adapter banks installed; call set_adapters"):
+            m.predict_action_batch(parts[4][:1], [PROMPT], ["a"], adapters=["x"])
+    assert tm.n_adapters == 0 and tm.adapter_names == [] and tm.lora_bank is None
 
 
 def test_the_wrapper_defaults_to_the_card(parts, monkeypatch):

@@ -401,8 +401,10 @@ def test_speculative_stream_over_the_port_model(port_model):
 
 
 def test_adapter_requests_fail_with_item_11(port_model):
+    """Multi-LoRA is ported: an adapter request to a model with no banks fails
+    with the wrapper's ValueError (HTTP 400), as in the JAX package."""
     with serving(port_model) as srv:
         status, out = _post(srv.port, "/act", {"image": np.zeros((40, 40, 3), np.uint8),
                                                "instruction": "go", "unnorm_key": "a",
                                                "adapter": "x"})
-    assert status == 500 and "item 11" in out["error"]
+    assert status == 400 and "no adapter banks installed" in out["error"]   # a ValueError
