@@ -84,6 +84,29 @@ and slice 5's loading and multi-LoRA serving:
                 install with every row on that adapter (fused, whose first
                 logits also stay within ML_FUSED_GAP of the streamed run's);
                 p50, busy ms, idle share, the banks' bytes and the peak
+and slice 5b's command line, last, on the load phase's repository:
+  cli           the port's six scripts as subprocesses (python -m
+                openvla_probe_tpu_torch.scripts.<name>, no OVLA_* in their
+                environment), each to exit code 0 within CLI_TIMEOUT_S: a
+                seeded 32000-entry tokenizer.json written into the repository;
+                deploy --quantize_int8 true --dynamic_batching true on a free
+                port (seconds to listen and to the first 200 from /act, the
+                kernel libraries reused within CLI_REUSE_S, CLI_SEQUENTIAL
+                requests each bit-equal to an in-process
+                load_vla(quantize_int8=True) wrapper's predict_action, the
+                wrapper reading the tokenizer.json, the server's own kernel
+                launches from its /stats equal to the wrapper's, then
+                CLI_CONCURRENT at once with /stats's batches, each bit-equal
+                to the wrapper's row at a bucket its batch can pad to;
+                stopped with a deadline); generate (its output equal
+                to the REPL run in this process over load()); evaluate --task
+                closed on seeded PNGs (its report equal to the harness's here);
+                convert_weights_to_hf on a trainer checkpoint cut to
+                CLI_CONVERT_LAYERS layers (tensors bit-equal, loaded back with
+                load bit for bit); train_probes then analyze_probes on seeded
+                episodes at 33 x 4096 with the suite's 481 labels (every file
+                the JAX scripts write; bare *_matrix.png heatmaps without
+                matplotlib)
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
@@ -155,8 +178,10 @@ Phases, one output line each:
               check that the loss stays finite, the base is bit-unchanged
               and every B factor moved off zero; the bs1 and serve phases
               (above) after turbo and turbo_nibble
-then a JSON line of per-kernel figures (each kernel's launches from the main
-path's run), a JSON line of the scalar routes' figures, and a last line
+then a `phases` line (each phase's wall seconds, the whole script's), the
+card's name and power limit, a JSON line of per-kernel figures (each kernel's
+launches from the main path's run), a JSON line of the scalar routes'
+figures, and a last line
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero; with
 no CUDA card it exits 1 before printing any result.
 """
@@ -168,6 +193,7 @@ import json
 import os
 import resource
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -186,7 +212,7 @@ import torch.nn.functional as F
 
 from openvla_probe_tpu_torch import convert
 from openvla_probe_tpu_torch.models import (catalog, generate, hf_export, llama, multilora,
-                                             safetensors_io, vit, vla, vlm)
+                                             safetensors_io, tokenization, vit, vla, vlm)
 from openvla_probe_tpu_torch.models import load as load_mod
 from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import attention as attn
@@ -197,13 +223,17 @@ from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
 from openvla_probe_tpu_torch.ops.image import (BackboneTransformSpec, ImageTransformConfig,
                                                apply_image_transform)
 from openvla_probe_tpu_torch.probe import train_probes
+from openvla_probe_tpu_torch.scripts import ON_HOST
+from openvla_probe_tpu_torch.scripts import _cli as cli
 from openvla_probe_tpu_torch.serving.server import (OpenVLAServer, decode_numpy, encode_numpy,
                                                     get_openvla_prompt)
 from openvla_probe_tpu_torch.tools import bench_finetune, kernel_ab, profile_main_path
 from openvla_probe_tpu_torch.tools.kernel_ab import rotating
+from openvla_probe_tpu_torch.tools.synthetic_tokenizer import write_llama_tokenizer
 from openvla_probe_tpu_torch.training.lora import LoRAConfig, attach_lora, init_lora_params
 from openvla_probe_tpu_torch.training.train_state import tree_leaves
 from openvla_probe_tpu_torch.training.train_step import value_and_grad
+from openvla_probe_tpu_torch.utils import image_io
 
 # published H100 SXM peaks (dense): HBM bytes/s; bf16 and int8 tensor-core and
 # fp32 FMA operations/s
@@ -2337,7 +2367,7 @@ def run_probe_tap(dev, params):
     """pallas_kv8 at 7B width, B = 24, with collect_hidden_states=True:
     hidden_pooled [24, 33, 4096] fp32 and finite, the action tokens those of
     the same call without the tap, the card's busy ms a call with the tap and
-    without it (torch.profiler, in turns: tap, none, none, tap)."""
+    without it (torch.profiler, one call each: tap, then none)."""
     cfg = _serving("pallas_kv8", vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
                    prompt_pad_len=PROMPT_PAD)
     g = torch.Generator(device=dev).manual_seed(7)
@@ -2358,7 +2388,7 @@ def run_probe_tap(dev, params):
     assert "hidden_pooled" not in plain
     assert torch.equal(tapped["action_tokens"], plain["action_tokens"])
     busy = {True: [], False: []}
-    for tap in (True, False, False, True):
+    for tap in (True, False):
         busy[tap].append(profile_main_path.device_time(lambda: call(tap), 1)[
             "device_ms_per_call_total"])
     return dict(hidden_pooled_shape=list(hp.shape), action_tokens_equal=True,
@@ -2619,15 +2649,17 @@ def run_train_path(dev, path: str):
 
 # --- the bs = 1 robot-control point and the action server ------------------------------------
 
-BS1_TIMED = 5
+BS1_TIMED = 3
 BS1_PATHS = ("turbo", "turbo_nibble")
 SERVE_REQUESTS, SERVE_STREAM_STEPS = 6, 4
 
 
-def _bs1_measure(fn):
+def _bs1_measure(fn, busy: bool = True):
     """A warm-up call, then BS1_TIMED calls each with every count set to 0
-    just before and read just after (the same counts every call), then the
-    card's busy ms of one more call (torch.profiler)."""
+    just before and read just after (the same counts every call), then, with
+    `busy`, the card's busy ms of one more call (torch.profiler; ~10 s of
+    the profiler's own host work a call, so only the sequential and the
+    steady-state calls take it)."""
     fn()
     times, launches, out = [], None, None
     for _ in range(BS1_TIMED):
@@ -2638,10 +2670,10 @@ def _bs1_measure(fn):
         counts = {k: n for k, n in _build.KERNEL_LAUNCHES.items() if n}
         assert launches is None or counts == launches, (counts, launches)
         launches = counts
-    busy = profile_main_path.device_time(fn, 1)
+    prof = profile_main_path.device_time(fn, 1) if busy else {}
     return out, dict(p50_ms=statistics.median(times) * 1e3, call_ms=[t * 1e3 for t in times],
-                     busy_ms_per_call=busy["device_ms_per_call_total"],
-                     device_idle_share=busy["device_idle_share"], launches_per_call=launches)
+                     busy_ms_per_call=prof.get("device_ms_per_call_total"),
+                     device_idle_share=prof.get("device_idle_share"), launches_per_call=launches)
 
 
 def _bs1_check_launches(path: str, launches: dict, decode_steps: int):
@@ -2726,7 +2758,7 @@ def run_bs1(dev, path: str, params):
         drafted = spec(seq_tokens)
     margins = _margin_check(seq_logits, verify_logits[0], seq_tokens[0].tolist(),
                             drafted["action_tokens"][0].tolist())
-    out, rows["spec_sequential_draft"] = _bs1_measure(lambda: spec(seq_tokens))
+    out, rows["spec_sequential_draft"] = _bs1_measure(lambda: spec(seq_tokens), busy=False)
     n_acc = int(out["n_accepted"][0])
     rows["spec_sequential_draft"].update(n_accepted=n_acc, margin_check=margins,
                                          tokens_equal_sequential=bool(torch.equal(
@@ -2757,7 +2789,7 @@ def run_bs1(dev, path: str, params):
 
     # a draft wrong everywhere: greedy token 0 is the steady state's token 0, so n_accepted 0
     wrong = (state["draft"] + 1) % cfg.codec_vocab_size
-    out, rows["spec_wrong_draft"] = _bs1_measure(lambda: spec(wrong))
+    out, rows["spec_wrong_draft"] = _bs1_measure(lambda: spec(wrong), busy=False)
     assert int(out["n_accepted"][0]) == 0, out["n_accepted"]
     rows["spec_wrong_draft"].update(n_accepted=0)
     _bs1_check_launches(path, rows["spec_wrong_draft"]["launches_per_call"], A - 1)
@@ -2890,6 +2922,8 @@ def run_serve(dev, params):
 # (the reference's PEFT target: every Llama projection, the towers' linears, the projector),
 # on turbo's and pallas's int8 weights; the B = 24 rows take adapters [bare, 0, 1, 2, 3, ...]
 ML_ADAPTERS, ML_RANK, ML_PATHS = 4, 32, ("turbo", "pallas")
+# timed calls an install, and the busy time (torch.profiler) on the first tier only
+ML_TIMED_CALLS = 3
 # first-logit tolerance of a tiny multi-LoRA path, card vs CPU: parity TINY_TOL's; int8
 # weights 4e-3 (TINY_TOL's reason, with every linear's rank products summed in another
 # order on the card: more activation codes sit one step apart at a tie; measured 1.4e-3
@@ -3066,11 +3100,13 @@ def run_multilora(dev, params):
                                                    .all(1).sum()),
                     adapter_moves_logits_by=moved))
             times = []
-            for _ in range(TIMED_CALLS):
+            for _ in range(ML_TIMED_CALLS):
                 t0 = time.perf_counter()
                 run(tree)
                 times.append(time.perf_counter() - t0)
-            busy = profile_main_path.device_time(lambda: run(tree), 1)
+            busy = (profile_main_path.device_time(lambda: run(tree), 1) if path == ML_PATHS[0]
+                    else dict.fromkeys(("device_ms_per_call_total", "device_ms_per_call_by_class",
+                                        "device_idle_share")))
             runs.append(dict(
                 path=path, tier=cfg.tier, install=install, adapters=ML_ADAPTERS, rank=ML_RANK,
                 rows=ids.tolist(), launches_per_call=launches,
@@ -3102,7 +3138,7 @@ def _peak_rss_gb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6   # KiB on Linux
 
 
-def run_load(dev, params):
+def run_load(dev, params, root: Path):
     """The parity path's bf16 weights written as a released HF repository
     (params_to_hf_state, the port's sharded safetensors writer, hf_export's
     config.json and dataset_statistics.json) into a temporary hub cache, then
@@ -3113,12 +3149,12 @@ def run_load(dev, params):
     linear.quantize_params(bits=8) of the in-memory tree, one call with the
     exact launches of its tree. Bytes written, write and load seconds (to the
     card, synchronised), host peak RSS (the process's, before and after),
-    device peak; the directory removed in a finally."""
+    device peak. The repository stays under `root` for the cli phase (main
+    removes `root` whatever happens)."""
     vcfg = vlm.VLMConfig.openvla_7b()
     A = ACTION_DIM
     stats = {"bridge_orig": {"action": {"q01": [-0.5] * A, "q99": [0.5] * A,
                                         "mask": [True] * (A - 1) + [False]}}}
-    root = Path(tempfile.mkdtemp(prefix="ovla_hub_"))
     env_was = os.environ.get("OVLA_HUB_OFFLINE")
     try:
         repo = root / f"models--{LOAD_REPO.replace('/', '--')}"
@@ -3201,7 +3237,7 @@ def run_load(dev, params):
         qtoks = qout["action_tokens"]
         del qmodel, qout
         torch.cuda.empty_cache()
-        return dict(repo=LOAD_REPO, disk_free_gb=free_gb, files=written["files"],
+        return dict(repo=LOAD_REPO, snapshot=str(snap), disk_free_gb=free_gb, files=written["files"],
                     bytes_written=written["total_size"], write_s=write_s, load_s=load_s,
                     host_peak_rss_gb=dict(before_write=rss0, after_write=rss_write,
                                           after_load=rss_load, after_int8_load=_peak_rss_gb()),
@@ -3214,7 +3250,370 @@ def run_load(dev, params):
             os.environ.pop("OVLA_HUB_OFFLINE", None)
         else:
             os.environ["OVLA_HUB_OFFLINE"] = env_was
-        shutil.rmtree(root, ignore_errors=True)
+
+
+# --- the command line (openvla_probe_tpu_torch/scripts) -----------------------------------
+
+ROOT = Path(__file__).resolve().parent
+CLI_TIMEOUT_S = 300          # each subprocess, and the server's readiness
+CLI_SEQUENTIAL, CLI_CONCURRENT = 5, 6
+CLI_REUSE_S = 2.0            # the most a script may spend loading the built kernel libraries
+# the batch buckets a group of 1 .. CLI_CONCURRENT concurrent requests pads to
+# (OpenVLA.predict_action_batch's batch_buckets)
+CLI_BUCKETS = (1, 2, 4, 8)
+# the deploy path's kernels, each launched by every request
+CLI_DEPLOY_KERNELS = ("flash_prefill", "vit_attention", "decode_attention", "w8a8_matmul",
+                      "rms_norm_quant")
+CLI_GEN_NEW, CLI_EVAL_ROWS = 16, 8
+CLI_CONVERT_LAYERS = 2       # the trainer checkpoint's depth at 7B width
+CLI_PROBE_EPISODES, CLI_PROBE_T, CLI_SUITE = 8, 32, "object"
+CLI_TASKS = ["pick up the red block", "open the top drawer", "put the cup on the plate",
+             "close the drawer", "move the bowl to the left", "lift the black cup",
+             "push the blue block", "place the pot on the stove", "turn the object",
+             "grasp the white bowl", "pull the door", "put it in the bin"]
+
+
+def _cli_env() -> dict:
+    """The scripts' environment: this one without any OVLA_* knob, with the
+    checkout on the path."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("OVLA_")}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
+    return env
+
+
+def _cli_cmd(name: str, dev, *args) -> list:
+    """The script's command line on `dev` (a host-only script has no --device)."""
+    on = [] if name in ON_HOST else ["--device", dev.type]
+    return [sys.executable, "-m", f"openvla_probe_tpu_torch.scripts.{name}", *on,
+            *map(str, args)]
+
+
+def _run_script(name: str, dev, *args, input_text=None):
+    """One script to its end within CLI_TIMEOUT_S: (its output, wall seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(_cli_cmd(name, dev, *args), cwd=ROOT, env=_cli_env(), input=input_text,
+                         capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    assert out.returncode == 0, (name, out.returncode, out.stderr[-6000:])
+    return out, secs
+
+
+def _kernel_report(stderr: str, dev):
+    """The kernel libraries' load as the script logged it: on the card the
+    libraries the build phase wrote are reused (same sources, flags and nvcc),
+    within CLI_REUSE_S; on the CPU there is none to load."""
+    for line in stderr.splitlines():
+        if cli.KERNEL_LINE in line:
+            report = json.loads(line.split(cli.KERNEL_LINE, 1)[1])
+            assert dev.type == "cuda", report
+            assert report["reused"] is True and report["seconds"] < CLI_REUSE_S, report
+            return report
+    assert dev.type != "cuda", "the script logged no kernel libraries"
+    return None
+
+
+def _server_launches(after: dict, before: dict) -> dict:
+    """The kernel launches a server made between two /stats reads."""
+    a, b = after["kernel_launches"], before["kernel_launches"]
+    return {k: n - b.get(k, 0) for k, n in a.items() if n - b.get(k, 0)}
+
+
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def _flat(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    return {k2: v2 for k, v in tree.items() for k2, v2 in _flat(v, f"{prefix}/{k}").items()}
+
+
+def _cli_deploy(dev, repo: Path, work: Path) -> dict:
+    """deploy --quantize_int8 true --dynamic_batching true on a free port:
+    the seconds from spawn to the server listening and to the first 200 from
+    /act, the kernel libraries reused within CLI_REUSE_S; CLI_SEQUENTIAL
+    requests one after another, each action bit-equal to an in-process
+    load_vla(quantize_int8=True) wrapper's predict_action (the wrapper reads
+    the repository's tokenizer.json); the server's own kernel launches over
+    those requests (its /stats before and after) equal to the wrapper's over
+    the same requests, each of CLI_DEPLOY_KERNELS launched; then
+    CLI_CONCURRENT requests at once, all answered, /stats counting the
+    batches, each action bit-equal to the wrapper's predict_action_batch of
+    its row at one of the buckets its batch can pad to (a row's result
+    depends on its bucket, not on the other rows: the kernels do no
+    cross-row reduction); the server stopped with a deadline whatever
+    happens."""
+    port, err_path = _free_port(), work / "deploy.stderr"
+    rng = np.random.default_rng(17)
+    n = CLI_SEQUENTIAL + CLI_CONCURRENT
+    frames = rng.integers(0, 256, (n, IMG_HW, IMG_HW, 3), dtype=np.uint8)
+    payloads = [{"image": frames[i], "instruction": CLI_TASKS[i], "unnorm_key": "bridge_orig"}
+                for i in range(n)]
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            _cli_cmd("deploy", dev, "--openvla_path", repo, "--host", "127.0.0.1", "--port", port,
+                     "--quantize_int8", "true", "--dynamic_batching", "true"),
+            cwd=ROOT, env=_cli_env(), stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        while True:
+            assert proc.poll() is None, ("deploy exited", proc.returncode,
+                                         err_path.read_text()[-6000:])
+            assert time.perf_counter() - t0 < CLI_TIMEOUT_S, "deploy: no server in time"
+            try:
+                stats0 = _get_stats(port)
+                break
+            except OSError:
+                time.sleep(0.25)
+        listen_s = time.perf_counter() - t0
+        replies, act_ms = [], []
+        for i in range(CLI_SEQUENTIAL):
+            out, ms = _post_act(port, payloads[i])
+            replies.append(out["action"])
+            act_ms.append(ms)
+            if i == 0:
+                serve_s = time.perf_counter() - t0
+        stats_seq = _get_stats(port)
+        conc, conc_ms = [None] * CLI_CONCURRENT, [None] * CLI_CONCURRENT
+
+        def call(j):
+            conc[j], conc_ms[j] = _post_act(port, payloads[CLI_SEQUENTIAL + j])
+
+        threads = [threading.Thread(target=call, args=(j,)) for j in range(CLI_CONCURRENT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=CLI_TIMEOUT_S)
+        stats = _get_stats(port)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+    server_s = time.perf_counter() - t0
+    kernels = _kernel_report(err_path.read_text(), dev)
+    assert all(c is not None and c["action"].shape == (ACTION_DIM,) for c in conc), conc
+    assert stats["requests"] == n and stats["batches"] >= 1, stats
+    seq_launches = _server_launches(stats_seq, stats0)
+    conc_launches = _server_launches(stats, stats_seq)
+
+    t1 = time.perf_counter()
+    model = load_mod.load_vla(repo, quantize_int8=True, device=dev)
+    wrapper_load_s = time.perf_counter() - t1
+    assert isinstance(model.tokenizer, tokenization.HostTokenizer), type(model.tokenizer)
+    assert model.tokenizer.vocab_size == 32001
+    _build.reset_launch_counts()
+    for i, got in enumerate(replies):
+        want = model.predict_action(frames[i], get_openvla_prompt(CLI_TASKS[i]), "bridge_orig")
+        assert np.array_equal(got, want["actions"]), (i, got, want["actions"])
+    wrapper_launches = {k: n for k, n in _build.KERNEL_LAUNCHES.items() if n}
+    assert seq_launches == wrapper_launches, (seq_launches, wrapper_launches)
+    if dev.type == "cuda":
+        for k in CLI_DEPLOY_KERNELS:
+            assert seq_launches.get(k, 0) >= CLI_SEQUENTIAL, (k, seq_launches)
+
+    # the concurrent rows: each reply is its row's result at the bucket its batch padded to
+    images = frames[CLI_SEQUENTIAL:]
+    prompts = [get_openvla_prompt(t) for t in CLI_TASKS[CLI_SEQUENTIAL:n]]
+    keys = ["bridge_orig"] * CLI_CONCURRENT
+    by_bucket = {}
+    for b in CLI_BUCKETS:
+        rows = []
+        for s0 in range(0, CLI_CONCURRENT, b):
+            rows += model.predict_action_batch(images[s0:s0 + b], prompts[s0:s0 + b],
+                                               keys[s0:s0 + b], batch_buckets=(b,))
+        by_bucket[b] = [r["actions"] for r in rows]
+    conc_buckets = []
+    for j, c in enumerate(conc):
+        match = [b for b in CLI_BUCKETS if np.array_equal(c["action"], by_bucket[b][j])]
+        assert match, (j, c["action"], {b: v[j] for b, v in by_bucket.items()})
+        conc_buckets.append(match)
+    del model
+    _sync(dev)
+    return dict(seconds=server_s, seconds_to_listen=listen_s, seconds_to_first_act=serve_s,
+                kernel_libraries=kernels,
+                launches_per_request={k: v / CLI_SEQUENTIAL for k, v in seq_launches.items()},
+                server_launches_sequential=seq_launches,
+                server_launches_equal_in_process=True,
+                server_launches_concurrent=conc_launches,
+                sequential=CLI_SEQUENTIAL,
+                sequential_bit_equal_in_process=CLI_SEQUENTIAL, first_act_ms=act_ms[0],
+                act_ms=act_ms[1:], act_p50_ms=statistics.median(act_ms[1:]),
+                concurrent=CLI_CONCURRENT, concurrent_bit_equal_in_process=CLI_CONCURRENT,
+                concurrent_matching_buckets=conc_buckets, concurrent_client_ms=conc_ms,
+                stats={k: stats[k] for k in ("requests", "batches", "mean_batch", "latency_ms")
+                       if k in stats},
+                wrapper_load_s=wrapper_load_s)
+
+
+def run_cli(dev, repo: Path, work: Path, probe_shape=(LAYERS + 1, 4096)) -> dict:
+    """The port's six scripts as subprocesses over `repo` (the released-layout
+    repository the load phase wrote), each to its end with exit code 0:
+    a seeded Llama-2-layout tokenizer.json written into the repository
+    (tools/synthetic_tokenizer.py: 32000 entries and <PAD> = 32000); deploy
+    (`_cli_deploy`); generate (two prompts on stdin, a seeded PNG: its whole
+    output equal to the REPL's run in this process through
+    generate.generate_text over load(repo)); evaluate --task closed over
+    CLI_EVAL_ROWS JSONL rows with seeded PNGs (its report equal to the
+    harness's in this process); convert_weights_to_hf on a trainer checkpoint
+    of load(repo)'s parameters cut to CLI_CONVERT_LAYERS layers (every
+    exported tensor equal to the checkpoint's, the export loaded back by
+    load with its depth, its tokenizer and its parameters bit for bit);
+    train_probes then analyze_probes on seeded episodes at the 7B tap's
+    shape with the suite's labels (every file the JAX scripts write, a
+    heatmap PNG readable; without matplotlib the bare matrices in place of
+    the heatmaps, under their `_matrix.png` names). Each script's wall seconds and, where it loads
+    the kernels, its build seconds."""
+    from openvla_probe_tpu_torch.eval import evaluate_closed_set, load_jsonl_dataset
+    from openvla_probe_tpu_torch.models.prompting import PromptBuilder
+    from openvla_probe_tpu_torch.scripts import analyze_probes
+    from openvla_probe_tpu_torch.training import checkpointing as ckpt
+
+    work.mkdir(parents=True, exist_ok=True)
+    write_llama_tokenizer(repo, seed=0)
+    rows = {"deploy": _cli_deploy(dev, repo, work)}
+    rng = np.random.default_rng(23)
+
+    # generate: the REPL over two prompts, and the same turns in this process
+    png = image_io.write_png(work / "frame.png",
+                             rng.integers(0, 256, (IMG_HW, IMG_HW, 3), dtype=np.uint8))
+    prompts = ["what is on the table?", "describe the scene"]
+    out, secs = _run_script("generate", dev, "--model_path", repo, "--image", png,
+                            "--max_new_tokens", CLI_GEN_NEW, input_text="\n".join(prompts) + "\n")
+    t0 = time.perf_counter()
+    bundle = load_mod.load(repo, device=dev)
+    bundle_load_s = time.perf_counter() - t0
+    tok = bundle["tokenizer"]
+    assert isinstance(tok, tokenization.HostTokenizer), type(tok)
+    pixels = apply_image_transform(torch.as_tensor(image_io.read_image(png), device=dev),
+                                   bundle["image_cfg"])[None]
+    builder, texts = bundle["prompt_builder"](), []
+    for msg in prompts:
+        ids = tok.encode(builder.get_potential_prompt(msg))
+        texts.append(generate.generate_text(bundle["params"], bundle["cfg"], tok, ids,
+                                            pixel_values=pixels, max_new_tokens=CLI_GEN_NEW,
+                                            device=dev))
+        builder.add_turn("human", msg)
+        builder.add_turn("gpt", texts[-1])
+    want = ("|=> Enter prompts (ctrl-D to exit)\n"
+            + "".join(f"|=> Enter Prompt: |=> {t}\n" for t in texts) + "|=> Enter Prompt: \n")
+    assert out.stdout == want, (out.stdout, want)
+    rows["generate"] = dict(seconds=secs, kernel_libraries=_kernel_report(out.stderr, dev),
+                            replies=texts, replies_equal_in_process=True)
+
+    # evaluate: closed-set rows with seeded PNGs
+    lines = []
+    for i in range(CLI_EVAL_ROWS):
+        image_io.write_png(work / f"eval{i}.png",
+                           rng.integers(0, 256, (IMG_HW, IMG_HW, 3), dtype=np.uint8))
+        lines.append(json.dumps({"question": f"what is object {i}?", "image": f"eval{i}.png",
+                                 "choices": ["a red block", "a cup", "a drawer"],
+                                 "answer_idx": i % 3}))
+    ds = work / "eval.jsonl"
+    ds.write_text("\n".join(lines))
+    out, secs = _run_script("evaluate", dev, "--checkpoint", repo, "--dataset", ds, "--task",
+                            "closed", "--image_root", work, "--output", work / "eval_report.json")
+    examples = load_jsonl_dataset(str(ds), str(work), None, image_loader=image_io.read_image)
+    report = evaluate_closed_set(params=bundle["params"], cfg=bundle["cfg"], tokenizer=tok,
+                                 examples=examples, image_cfg=bundle["image_cfg"],
+                                 prompt_builder_factory=lambda: PromptBuilder("pure"),
+                                 device=dev)
+    report.update(checkpoint=str(repo), dataset=str(ds))
+    got = json.loads((work / "eval_report.json").read_text())
+    assert got == json.loads(json.dumps(report)), (got, report)
+    rows["evaluate"] = dict(seconds=secs, kernel_libraries=_kernel_report(out.stderr, dev),
+                            rows=CLI_EVAL_ROWS, accuracy=got["accuracy"],
+                            report_equal_in_process=True)
+
+    # convert_weights_to_hf: a trainer checkpoint of the same weights, cut in depth
+    p = bundle["params"]
+    cut = {**p, "llm": {**p["llm"], "layers": {k: v[:CLI_CONVERT_LAYERS]
+                                               for k, v in p["llm"]["layers"].items()}}}
+    run_dir = work / "run"
+    ckpt.save_checkpoint(run_dir, {"params": cut}, step=1)
+    shutil.copy(repo / "dataset_statistics.json", run_dir / "dataset_statistics.json")
+    del bundle, p, cut
+    _sync(dev)
+    hf_cfg = json.loads((repo / "config.json").read_text())
+    ids = [a for k in ("vision_backbone_id", "llm_backbone_id", "arch_specifier",
+                       "image_resize_strategy") for a in (f"--{k}", hf_cfg[k])]
+    out, secs = _run_script("convert_weights_to_hf", dev, "--run_dir", run_dir, "--output_dir",
+                            work / "hf", "--tokenizer_path", repo, *ids)
+    saved = ckpt.load_checkpoint(ckpt.latest_checkpoint(run_dir))["params"]
+    back = load_mod.load(work / "hf", device=dev)
+    assert back["cfg"].llm.num_hidden_layers == CLI_CONVERT_LAYERS
+    # the checkpoint's tensors under the export's names (the loaded config sets only the depth)
+    want_state = catalog.params_to_hf_state(saved, back["cfg"])
+    exported = safetensors_io.read_dir(work / "hf")
+    assert set(exported) == set(want_state), set(exported) ^ set(want_state)
+    for k, v in want_state.items():
+        assert torch.equal(exported[k], v), k
+    assert isinstance(back["tokenizer"], tokenization.HostTokenizer)
+    got_leaves, want_leaves = _flat(back["params"]), _flat(saved)
+    assert got_leaves.keys() == want_leaves.keys()
+    for k, v in want_leaves.items():
+        assert torch.equal(got_leaves[k].cpu(), v), k
+    rows["convert_weights_to_hf"] = dict(
+        seconds=secs, layers=CLI_CONVERT_LAYERS, tensors=len(want_state),
+        bytes=sum(t.numel() * t.element_size() for t in want_state.values()),
+        tensors_bit_equal=True, loaded_back_bit_equal=True)
+    del back, saved, want_state, exported, got_leaves, want_leaves
+    _sync(dev)
+
+    # train_probes, then analyze_probes, on episodes at the 7B tap's shape
+    names = analyze_probes.label_names(CLI_SUITE)
+    logs = work / "episodes"
+    logs.mkdir()
+    n_layers, hidden = probe_shape
+    eps = _probe_episodes(CLI_PROBE_EPISODES, CLI_PROBE_T, n_layers, hidden, len(names),
+                          min(PROBE_LAYER, n_layers - 1), torch.Generator().manual_seed(29), "cpu")
+    for i, ep in enumerate(eps):
+        np.savez(logs / f"episode_{i}.npz", **ep)
+    del eps
+    probes = work / "probes"
+    out, secs = _run_script("train_probes", dev, "--log_dir", logs, "--out_dir", probes,
+                            "--suite", CLI_SUITE, "--epochs", 2)
+    rows["train_probes"] = dict(seconds=secs, kernel_libraries=_kernel_report(out.stderr, dev))
+    bank = probes / f"probe_bank_{CLI_SUITE}_binary.npz"
+    analysis_dir = work / "analysis"
+    out, secs = _run_script("analyze_probes", dev, "--bank", bank, "--log_dir", logs,
+                            "--out_dir", analysis_dir, "--suite", CLI_SUITE)
+    has_mpl = "matplotlib is not installed" not in out.stderr
+    rows["analyze_probes"] = dict(seconds=secs, matplotlib=has_mpl)
+    # the JAX script's heatmaps where the subprocess had matplotlib, else the bare matrices
+    # under their own names
+    heatmaps = [f"heatmap_f1_{CLI_SUITE}.png", f"heatmap_recall_{CLI_SUITE}.png",
+                f"heatmap_f1_weighted_{CLI_SUITE}.png"]
+    if not has_mpl:
+        heatmaps = [analyze_probes.matrix_name(h) for h in heatmaps]
+    want_files = {probes: [bank.name, f"probe_metrics_{CLI_SUITE}.csv",
+                           f"probe_metrics_{CLI_SUITE}_reference_schema.csv"],
+                  analysis_dir: ["per_label_metrics_reference_schema.csv",
+                                 "per_label_metrics_experiment_images_schema.csv",
+                                 "per_label_metrics.csv", "family_auprc_reference_schema.csv",
+                                 "family_auprc.csv", "label_stats.csv", *heatmaps]}
+    for d, files in want_files.items():
+        for f in files:
+            assert (d / f).is_file() and (d / f).stat().st_size > 0, d / f
+            if f.endswith(".png"):
+                assert image_io.read_image(d / f).ndim == 3, f
+    with open(analysis_dir / "label_stats.csv") as f:
+        assert sum(1 for _ in f) == len(names) + 1
+    rows["train_probes"].update(episodes=CLI_PROBE_EPISODES, steps=CLI_PROBE_T,
+                                layers=n_layers, hidden=hidden, labels=len(names))
+    rows["analyze_probes"].update(files=sum(len(v) for v in want_files.values()))
+    return dict(scripts=sorted(rows), seconds={k: v["seconds"] for k, v in rows.items()},
+                bundle_load_s=bundle_load_s, **rows)
 
 
 def check_tiny_spec(dev, path: str):
@@ -3260,6 +3659,22 @@ def _ab_leaves(tree):
     return [leaf for v in tree.values() for leaf in _ab_leaves(v)]
 
 
+PHASE_S: dict = {}   # phase -> wall seconds (the `phases` line)
+
+
+class _phase:
+    """Adds the wall seconds of its block to PHASE_S[name]."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        PHASE_S[self.name] = PHASE_S.get(self.name, 0.0) + time.perf_counter() - self.t0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3271,7 +3686,8 @@ def main() -> int:
     log("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count())
 
-    _build.build_all()
+    with _phase("build"):
+        _build.build_all()
     ptxas = {n: [l.strip() for l in out.splitlines() if "registers" in l or "spill" in l]
              for n, out in _build.build_report["logs"].items()}
     log("build", seconds=_build.build_report["seconds"], ptxas=ptxas)
@@ -3280,70 +3696,95 @@ def main() -> int:
                               for n, out in _build.build_report["logs"].items()})
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    kernels = [check_flash_prefill(dev, g), check_flash_blockwise(dev, g),
-               check_vit_attention(dev, g),
-               check_decode_attention(dev, g), check_wi8_matmul(dev, g),
-               check_fused_ln_w8a8(dev, g), check_fused_mlp_residual(dev, g),
-               check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
-               check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g), check_rms_norm_quant(dev, g),
-               check_nib_hi_dot(dev, g), check_w4a8_dx(dev, g), check_w8a8_requant(dev, g),
-               check_split_attention_i8(dev, g), check_w4a8_grouped(dev, g)]
-    # the scalar routes: no main path takes them (the tiny fp32 paths do)
-    scalar_routes = [check_decode_attention_scalar(dev, g),
-                     check_decode_split_attention_scalar(dev, g), check_vit_attention_scalar(dev, g),
-                     check_flash_prefill_scalar(dev, g), check_wi8_matmul_scalar(dev, g),
-                     check_stacked_decode_i8_scalar(dev, g),
-                     check_split_attention_i8_scalar(dev, g)]
+    with _phase("kernels"):
+        kernels = [check_flash_prefill(dev, g), check_flash_blockwise(dev, g),
+                   check_vit_attention(dev, g),
+                   check_decode_attention(dev, g), check_wi8_matmul(dev, g),
+                   check_fused_ln_w8a8(dev, g), check_fused_mlp_residual(dev, g),
+                   check_decode_split_attention(dev, g), check_stacked_decode_i8(dev, g),
+                   check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g),
+                   check_rms_norm_quant(dev, g), check_nib_hi_dot(dev, g),
+                   check_w4a8_dx(dev, g), check_w8a8_requant(dev, g),
+                   check_split_attention_i8(dev, g), check_w4a8_grouped(dev, g)]
+        # the scalar routes: no main path takes them (the tiny fp32 paths do)
+        scalar_routes = [check_decode_attention_scalar(dev, g),
+                         check_decode_split_attention_scalar(dev, g),
+                         check_vit_attention_scalar(dev, g), check_flash_prefill_scalar(dev, g),
+                         check_wi8_matmul_scalar(dev, g), check_stacked_decode_i8_scalar(dev, g),
+                         check_split_attention_i8_scalar(dev, g)]
     log("kernels", card=card, results=kernels, scalar_routes=scalar_routes)
 
     tiny = {}
-    for path in PATHS:
-        row = check_tiny_path(dev, path)
-        tiny[path] = row["launches"]
-        log("tiny", **row)
-    for path in VLM_PATHS:
-        log("tiny", **check_tiny_vlm(dev, path))
-    for path in TRAIN_PATHS:
-        log("tiny", **check_tiny_train(dev, path))
-    for path in BS1_PATHS:
-        log("tiny", **check_tiny_spec(dev, path))
-    for path, install in (("parity", "masked"), ("turbo", "masked"), ("turbo", "fused"),
-                          ("pallas", "masked"), ("pallas", "fused")):
-        log("tiny", **check_tiny_multilora(dev, path, install))
+    with _phase("tiny"):
+        for path in PATHS:
+            row = check_tiny_path(dev, path)
+            tiny[path] = row["launches"]
+            log("tiny", **row)
+        for path in VLM_PATHS:
+            log("tiny", **check_tiny_vlm(dev, path))
+        for path in TRAIN_PATHS:
+            log("tiny", **check_tiny_train(dev, path))
+        for path in BS1_PATHS:
+            log("tiny", **check_tiny_spec(dev, path))
+        for path, install in (("parity", "masked"), ("turbo", "masked"), ("turbo", "fused"),
+                              ("pallas", "masked"), ("pallas", "fused")):
+            log("tiny", **check_tiny_multilora(dev, path, install))
 
-    launches, weights = {}, {}
-    # pallas, pallas_kv8, turbo, turbo_kv8 and turbo_fused share one build of the int8 weights
-    # (fused in place after turbo's phases), pallas_int4 and turbo_int4 one of the int4 weights
-    for path in PATHS:
-        launches[path], main_stats = run_main_path(dev, path, weights)
-        log("main", card=card, batch=BATCH, launches_per_call=launches[path], **main_stats)
-        torch.cuda.empty_cache()
-        if path == "pallas_kv8":   # the probe tap on the same weights
-            log("probe", card=card, tap=run_probe_tap(dev, weights[PATHS[path][1]]))
-            torch.cuda.empty_cache()
-        if path in BS1_PATHS:      # the bs = 1 point on the same weights
-            log("bs1", card=card, **run_bs1(dev, path, weights[PATHS[path][1]]))
-            torch.cuda.empty_cache()
-        if path == "turbo":        # the action server on turbo's int8 weights
-            log("serve", card=card, **run_serve(dev, weights[PATHS[path][1]]))
-            torch.cuda.empty_cache()
-            # multi-LoRA on the same weights, turbo and pallas (after pallas's main path)
-            log("multilora", card=card, **run_multilora(dev, weights[PATHS[path][1]]))
-            torch.cuda.empty_cache()
-        if path == "parity":   # the base VLM's entry points on the same bf16 weights
-            for vpath in VLM_PATHS:
-                launches[vpath], vstats = run_vlm_path(dev, vpath, weights[None])
-                log("main", card=card, launches_per_call=launches[vpath], **vstats)
+    # the load phase's repository stays here for the cli phase; removed whatever happens
+    hub = Path(tempfile.mkdtemp(prefix="ovla_hub_"))
+    try:
+        launches, weights, snap = {}, {}, None
+        # pallas, pallas_kv8, turbo, turbo_kv8 and turbo_fused share one build of the int8
+        # weights (fused in place after turbo's phases), pallas_int4 and turbo_int4 one of the
+        # int4 weights
+        for path in PATHS:
+            with _phase(f"main:{path}"):
+                launches[path], main_stats = run_main_path(dev, path, weights)
+                log("main", card=card, batch=BATCH, launches_per_call=launches[path],
+                    **main_stats)
                 torch.cuda.empty_cache()
-            # a released-layout checkpoint of the same weights, written and loaded back
-            log("load", card=card, **run_load(dev, weights[None]))
-            torch.cuda.empty_cache()
-    weights.clear()
-    for path in TRAIN_PATHS:
-        launches[path], train_stats = run_train_path(dev, path)
-        log("main", card=card, launches_per_step=launches[path], **train_stats)
+            if path == "pallas_kv8":   # the probe tap on the same weights
+                with _phase("probe"):
+                    log("probe", card=card, tap=run_probe_tap(dev, weights[PATHS[path][1]]))
+                    torch.cuda.empty_cache()
+            if path in BS1_PATHS:      # the bs = 1 point on the same weights
+                with _phase(f"bs1:{path}"):
+                    log("bs1", card=card, **run_bs1(dev, path, weights[PATHS[path][1]]))
+                    torch.cuda.empty_cache()
+            if path == "turbo":        # the action server on turbo's int8 weights
+                with _phase("serve"):
+                    log("serve", card=card, **run_serve(dev, weights[PATHS[path][1]]))
+                    torch.cuda.empty_cache()
+                # multi-LoRA on the same weights, turbo and pallas (after pallas's main path)
+                with _phase("multilora"):
+                    log("multilora", card=card, **run_multilora(dev, weights[PATHS[path][1]]))
+                    torch.cuda.empty_cache()
+            if path == "parity":   # the base VLM's entry points on the same bf16 weights
+                for vpath in VLM_PATHS:
+                    with _phase(f"main:{vpath}"):
+                        launches[vpath], vstats = run_vlm_path(dev, vpath, weights[None])
+                        log("main", card=card, launches_per_call=launches[vpath], **vstats)
+                        torch.cuda.empty_cache()
+                # a released-layout checkpoint of the same weights, written and loaded back
+                with _phase("load"):
+                    loaded = run_load(dev, weights[None], hub)
+                    snap = Path(loaded["snapshot"])
+                    log("load", card=card, **loaded)
+                    torch.cuda.empty_cache()
+        weights.clear()
+        for path in TRAIN_PATHS:
+            with _phase(f"train:{path}"):
+                launches[path], train_stats = run_train_path(dev, path)
+                log("main", card=card, launches_per_step=launches[path], **train_stats)
+                torch.cuda.empty_cache()
+        with _phase("bank"):
+            log("probe", card=card, bank=run_probe_bank(dev))
+        # the command line over the load phase's repository, the card otherwise empty
         torch.cuda.empty_cache()
-    log("probe", card=card, bank=run_probe_bank(dev))
+        with _phase("cli"):
+            log("cli", card=card, **run_cli(dev, snap, hub / "cli"))
+    finally:
+        shutil.rmtree(hub, ignore_errors=True)
 
     # each kernel's launches: from the main path whose slice ported it; a scalar route's from
     # every main path (none takes one) and, apart, from the tiny paths that run it
@@ -3354,6 +3795,7 @@ def main() -> int:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in launches.values())
         k["tiny_launches"] = sum(counts.get(k["name"], 0) for counts in tiny.values())
         assert k["tiny_launches"] > 0, k["name"]
+    log("phases", card=card, seconds=PHASE_S, total_s=time.perf_counter() - _START)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(smi, flush=True)

@@ -417,10 +417,12 @@ def load_openvla_hf_checkpoint(
     cfg, img_cfg, prompt_cls = build_vlm_config(vision_id, llm_id,
                                                 hf_cfg.get("arch_specifier", "no-align+fused-gelu-mlp"),
                                                 resize, dtype=dtype)
-    # the HF text config carries the padded vocab (32064)
-    text_vocab = hf_cfg.get("text_config", {}).get("vocab_size")
-    if text_vocab:
-        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, vocab_size=text_vocab))
+    # the HF text config carries the padded vocab (32064) and the depth (an
+    # export of a depth-cut checkpoint; the JAX package takes the catalog's)
+    text = hf_cfg.get("text_config", {})
+    over = {k: int(text[k]) for k in ("vocab_size", "num_hidden_layers") if text.get(k)}
+    if over:
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, **over))
     state = read_dir(path)
     params = params_from_hf_state(state, cfg, device=device, llm_bits=llm_bits)
     norm_stats = hf_cfg.get("norm_stats", {})

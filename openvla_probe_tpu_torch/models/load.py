@@ -22,10 +22,15 @@ Three deliberate differences from the JAX package (ROADMAP Queue 3):
     ``OVLA_HUB_OFFLINE=1``: ``<cache>/models--{org}--{name}/refs/main`` names
     the snapshot, ``snapshots/<sha>/<file>`` holds the file, and a file that
     is not there raises and names it. There is no download.
-  * **The tokenizer is the caller's** (``tokenizer=``, any object with
-    ``.encode(str) -> List[int]`` that adds BOS): the port does not import
-    ``transformers``. `load` returns the bundle with ``tokenizer: None``
-    without one, and `load_vla` raises naming the argument.
+  * **The tokenizer is the checkpoint's ``tokenizer.json``, read by the
+    port's own reader** (`models.tokenization`, no ``tokenizers`` or
+    ``transformers``), unless the caller passes ``tokenizer=`` (any object
+    with ``.encode(str) -> List[int]`` that adds BOS), which wins. Without
+    either, `load` returns the bundle with ``tokenizer: None`` and a warning,
+    as the JAX package does, and `load_vla` raises naming both before it
+    reads any weight. A file the reader does not implement, or a directory
+    with only ``tokenizer.model``, raises (the JAX package falls back to
+    ``transformers`` there).
   * **Quantization runs on the card, one leaf at a time**: each bf16 leaf is
     read, moved to `device` one layer at a time and quantized there by
     ``ops.linear.quantize_params``' rule (codes bit-equal to quantize_params
@@ -45,14 +50,14 @@ from ..device import DeviceLike, resolve_device
 from ..overwatch import initialize_overwatch
 from ..vla.norm_stats import load_dataset_statistics
 from . import catalog, vla, vlm
+from .tokenization import load_tokenizer
 
 overwatch = initialize_overwatch(__name__)
 
 HF_HUB_REPO = "TRI-ML/prismatic-vlms"       # base-VLM run dirs
 VLA_HF_HUB_REPO = "openvla/openvla-dev"     # VLA run dirs
-_NO_TOKENIZER = ("load_vla needs the caller's tokenizer: pass tokenizer= (an object whose "
-                 ".encode(str) returns the ids with BOS); the port does not load "
-                 "tokenizer files")
+_NO_TOKENIZER = ("load_vla needs a tokenizer: pass tokenizer= (an object whose .encode(str) "
+                 "returns the ids with BOS), or put the checkpoint's tokenizer.json in {}")
 
 
 def _hub_offline() -> bool:
@@ -148,8 +153,9 @@ def load(
     of TRI-ML/prismatic-vlms; an `org/name` id reads that repo's snapshot.
     `llm_bits` quantizes the LLM leaves on the way (`load_vla`).
 
-    Returns {params, cfg, image_cfg, prompt_builder, norm_stats, tokenizer}
-    with the caller's `tokenizer` (None without one)."""
+    Returns {params, cfg, image_cfg, prompt_builder, norm_stats, tokenizer}:
+    the caller's `tokenizer`, else the checkpoint's tokenizer.json, else None
+    with a warning."""
     dev = resolve_device(device)
     kw = dict(dtype=dtype, device=dev, llm_bits=llm_bits)
     path = Path(model_path)
@@ -161,7 +167,7 @@ def load(
                 path / "dataset_statistics.json", **kw)
         else:
             bundle = catalog.load_openvla_hf_checkpoint(path, **kw)
-        bundle["tokenizer"] = tokenizer
+        bundle["tokenizer"] = _tokenizer_for(path, tokenizer)
         return bundle
 
     model_id = str(model_path)
@@ -172,7 +178,7 @@ def load(
             # HF-layout repos, not TRI-ML run dirs
             snap = _hub_snapshot(meta["hf_repo"], cache_dir, hf_token)
             bundle = catalog.load_openvla_hf_checkpoint(snap, **kw)
-            bundle["tokenizer"] = tokenizer
+            bundle["tokenizer"] = _tokenizer_for(snap, tokenizer)
             return bundle
         hub_id = meta.get("model_id", model_id)
         overwatch.info(f"Reading `{hub_id}` of {HF_HUB_REPO} from the local hub cache")
@@ -180,12 +186,12 @@ def load(
         checkpoint_pt = _hub_download(
             HF_HUB_REPO, f"{hub_id}/checkpoints/latest-checkpoint.pt", cache_dir, hf_token)
         bundle = catalog.load_prismatic_checkpoint(config_json, checkpoint_pt, **kw)
-        bundle["tokenizer"] = tokenizer
+        bundle["tokenizer"] = _tokenizer_for(config_json.parent, tokenizer)
         return bundle
     if "/" in model_id:
         snap = _hub_snapshot(model_id, cache_dir, hf_token)
         bundle = catalog.load_openvla_hf_checkpoint(snap, **kw)
-        bundle["tokenizer"] = tokenizer
+        bundle["tokenizer"] = _tokenizer_for(snap, tokenizer)
         return bundle
     raise ValueError(
         f"`{model_id}` is neither a local checkpoint dir, a registry id "
@@ -206,7 +212,8 @@ def load_vla(
     device: DeviceLike = "cuda",
 ) -> vla.OpenVLA:
     """Load an OpenVLA policy ready to serve on `device`, from disk or the
-    local hub cache, with the caller's `tokenizer`.
+    local hub cache, with the caller's `tokenizer` or the checkpoint's
+    tokenizer.json (read before any weight: with neither, it raises).
 
     Mirrors the reference `load_vla()` discovery (prismatic/models/load.py:
     122-226): a direct `.pt` path under `<run>/checkpoints/`, an HF-layout or
@@ -221,7 +228,13 @@ def load_vla(
     is the JAX package's (`tier="turbo"` over the checkpoint's numerics) with
     the turbo tier's kernel routes (`vla.turbo_routes`)."""
     if tokenizer is None:
-        raise ValueError(_NO_TOKENIZER)
+        try:
+            tok_dir = _tokenizer_dir(checkpoint_path, model_type, cache_dir, hf_token)
+        except FileNotFoundError:    # nowhere to read a file from
+            tok_dir = None
+        tokenizer = _tokenizer_for(tok_dir, None) if tok_dir is not None else None
+        if tokenizer is None:
+            raise ValueError(_NO_TOKENIZER.format(tok_dir or checkpoint_path))
     if quantize_bits != 8 and not quantize_int8:
         # conflicting knobs RAISE (the with_env_overrides convention):
         # silently serving bf16 parity after the caller asked for an int4/mix
@@ -245,13 +258,14 @@ def load_vla(
                or str(checkpoint_path) in catalog.MODEL_REGISTRY)):
         # registry ids route through load() (which honors hf_repo for
         # released standalone policies like openvla-7b)
-        bundle = load(checkpoint_path, cache_dir=cache_dir, hf_token=hf_token, **kw)
+        bundle = load(checkpoint_path, cache_dir=cache_dir, hf_token=hf_token,
+                      tokenizer=tokenizer, **kw)
     elif not path.is_dir() and "/" not in str(checkpoint_path):
         # openvla-dev run id: {model_type}/{id}/... with step discovery
         bundle, path = _load_vla_from_hub(str(checkpoint_path), model_type, step_to_load,
                                           cache_dir, hf_token, **kw)
     else:
-        bundle = load(path, cache_dir=cache_dir, hf_token=hf_token, **kw)
+        bundle = load(path, cache_dir=cache_dir, hf_token=hf_token, tokenizer=tokenizer, **kw)
     norm_stats = bundle.get("norm_stats") or {}
     sidecar = Path(path) / "dataset_statistics.json"
     if sidecar.exists():
@@ -269,6 +283,43 @@ def load_vla(
     )
     return vla.OpenVLA(bundle["params"], serving, tokenizer, norm_stats, bundle["image_cfg"],
                        device=dev)
+
+
+def _tokenizer_for(path: Path, tokenizer: Any = None):
+    """The caller's `tokenizer`, else `path`'s tokenizer.json through the
+    port's reader, else None with a warning (the JAX package's _tokenizer_for;
+    a file the reader does not implement raises)."""
+    if tokenizer is not None:
+        return tokenizer
+    path = Path(path)
+    if not (path / "tokenizer.json").is_file() and not (path / "tokenizer.model").exists():
+        overwatch.warning(
+            f"No tokenizer files under {path}; pass/attach one explicitly before serving "
+            "— predict_action needs .encode")
+        return None
+    return load_tokenizer(path)
+
+
+def _tokenizer_dir(checkpoint_path, model_type: str, cache_dir, hf_token) -> Path:
+    """The directory whose tokenizer files `load_vla(checkpoint_path)` reads:
+    the run dir of a `.pt` path, a local dir, the snapshot of a released
+    policy or `org/name` repo, or the directory of a hub run's config.json."""
+    path = Path(checkpoint_path)
+    if path.is_file():
+        return path.parents[1]
+    if path.is_dir():
+        return path
+    model_id = str(checkpoint_path)
+    if model_id in catalog.GLOBAL_REGISTRY or model_id in catalog.MODEL_REGISTRY:
+        meta = catalog.GLOBAL_REGISTRY.get(model_id) or catalog.MODEL_REGISTRY[model_id]
+        if meta.get("hf_repo"):
+            return _hub_snapshot(meta["hf_repo"], cache_dir, hf_token)
+        hub_id = meta.get("model_id", model_id)
+        return _hub_download(HF_HUB_REPO, f"{hub_id}/config.json", cache_dir, hf_token).parent
+    if "/" not in model_id:
+        return _hub_download(VLA_HF_HUB_REPO, f"{model_type}/{model_id}/config.json", cache_dir,
+                             hf_token).parent
+    return _hub_snapshot(model_id, cache_dir, hf_token)
 
 
 def _load_vla_from_hub(

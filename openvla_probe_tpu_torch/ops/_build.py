@@ -4,10 +4,16 @@ Each source exports plain C launchers and is compiled by its own ``nvcc``
 into ``openvla_probe_tpu_torch/_build/lib<source>.so`` (git-ignored), all
 sources at once, for ``sm_90a``; the libraries are loaded with ``ctypes``.
 Sources that include PyTorch's headers take minutes per build, a plain C
-interface a few seconds, and every fresh machine builds anew.
+interface a few seconds.
 
-The build happens at the first CUDA launch of any kernel (nothing is built or
-loaded at import), so running the port on a card builds everything it needs.
+The libraries are made at the first CUDA launch of any kernel (nothing is
+built or loaded at import), so running the port on a card builds everything
+it needs. A build is reused across processes: beside each library,
+``lib<source>.key`` holds the build key it was made with, a hash of every file
+under ``ops/csrc/``, ``NVCC_FLAGS`` and ``nvcc --version``. `load` loads the
+existing libraries when every stored key equals the current one and builds
+all of them otherwise, so a changed source, header, flag or compiler always
+rebuilds. A library that fails to load raises.
 
 ``KERNEL_LAUNCHES`` is the one launch registry: every wrapper adds one to its
 kernel's count where it launches it, and nowhere else, so a run can show that
@@ -27,13 +33,15 @@ route (an STE ``torch.autograd.Function``, or the plain attention).
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import json
 import os
 import re
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -152,7 +160,8 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}   # source -> loaded library
-build_report: Dict[str, object] = {}   # seconds and nvcc/ptxas output of the last build
+# the last build or reuse: seconds, reused, key, and a build's nvcc/ptxas output (logs)
+build_report: Dict[str, object] = {}
 
 
 def no_grad_guard(kernel: str, route: str, *tensors) -> None:
@@ -190,14 +199,59 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every kernel source concurrently (one nvcc each); raise with the
-    compiler's output if any fails. Returns source -> library path."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def sources() -> list:
+    return sorted({src for src, _, _ in KERNELS.values()})
+
+
+def build_key(nvcc: str) -> str:
+    """The hash a build is reused under: every file under `CSRC` (path and
+    bytes), `NVCC_FLAGS` and the compiler's ``--version`` output."""
+    h = hashlib.sha256()
+    for f in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(f.relative_to(CSRC).as_posix().encode() + b"\0" + f.read_bytes() + b"\0")
+    h.update(json.dumps(NVCC_FLAGS).encode() + b"\0")
+    h.update(subprocess.run([nvcc, "--version"], capture_output=True, text=True,
+                            check=True, timeout=60).stdout.encode())
+    return h.hexdigest()
+
+
+def _key_file(lib: Path) -> Path:
+    return lib.with_suffix(".key")
+
+
+def _write_atomic(path: Path, text: str) -> None:
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
+def libraries() -> Dict[str, Path]:
+    """source -> library path: the existing libraries when each one's stored
+    key equals `build_key`, else a fresh `build_all`. `build_report` says
+    which (``reused``) and the seconds it took."""
+    t0 = time.perf_counter()
     nvcc = _nvcc()
+    key = build_key(nvcc)
+    libs = {src: BUILD_DIR / f"lib{Path(src).stem}.so" for src in sources()}
+    if all(lib.is_file() and _key_file(lib).is_file() and _key_file(lib).read_text() == key
+           for lib in libs.values()):
+        build_report.update(seconds=time.perf_counter() - t0, reused=True, key=key)
+        return libs
+    out = build_all(nvcc, key)
+    build_report.update(seconds=time.perf_counter() - t0)
+    return out
+
+
+def build_all(nvcc: Optional[str] = None, key: Optional[str] = None) -> Dict[str, Path]:
+    """Compile every kernel source concurrently (one nvcc each); raise with the
+    compiler's output if any fails. Each library is written atomically, then
+    its build key beside it. Returns source -> library path."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc or _nvcc()
+    key = key or build_key(nvcc)
     t0 = time.perf_counter()
     procs, libs = {}, {}
-    for src in sorted({src for src, _, _ in KERNELS.values()}):
+    for src in sources():
         stem = Path(src).stem
         lib = BUILD_DIR / f"lib{stem}.so"
         tmp = BUILD_DIR / f"lib{stem}.{os.getpid()}.tmp.so"
@@ -215,7 +269,9 @@ def build_all() -> Dict[str, Path]:
                            + "\n".join(logs[n] for n in failed))
     for lib, tmp in libs.values():
         os.replace(tmp, lib)
-    build_report.update(seconds=time.perf_counter() - t0, logs=logs)
+        _write_atomic(_key_file(lib), key)
+    build_report.clear()
+    build_report.update(seconds=time.perf_counter() - t0, logs=logs, reused=False, key=key)
     return {src: lib for src, (lib, _) in libs.items()}
 
 
@@ -243,15 +299,17 @@ def resource_usage(log: str) -> list:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building all kernels on first use."""
+    """The loaded library of kernel `name`, all of them loaded (built when no
+    build under the current key exists) on first use."""
     with _lock:
         if not _loaded:
-            for src, path in build_all().items():
-                _loaded[src] = ctypes.CDLL(str(path))
+            # all or nothing: a library that fails to load leaves none loaded
+            libs = {src: ctypes.CDLL(str(path)) for src, path in libraries().items()}
             for src, sym, argtypes in KERNELS.values():
-                fn = getattr(_loaded[src], sym)
+                fn = getattr(libs[src], sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            _loaded.update(libs)
         return _loaded[KERNELS[name][0]]
 
 

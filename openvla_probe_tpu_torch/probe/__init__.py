@@ -2,7 +2,8 @@
 
 Ported: episode storage, the rollout capture session, the all-layer probe
 trainer and evaluator, the analysis and log utilities, their metrics in
-numpy. Not ported: ``plots.py`` (matplotlib).
+numpy, and the figures (`plots.py`, matplotlib imported inside its plot
+functions).
 """
 
 from .analysis import collect_logits, family_auprc, per_label_metrics

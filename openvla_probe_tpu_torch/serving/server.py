@@ -246,6 +246,13 @@ class OpenVLAServer:
                             "count": int(lat.size), "p50": round(float(p50), 2),
                             "p95": round(float(p95), 2), "p99": round(float(p99), 2),
                         }
+                    # this process's kernel launches so far (ops/_build.py: each
+                    # wrapper counts where it launches; the CPU's plain versions do
+                    # not): a client reads which kernels its requests went through
+                    from ..ops import _build
+
+                    stats["kernel_launches"] = {k: n for k, n in _build.KERNEL_LAUNCHES.items()
+                                                if n}
                     if server_self.batcher is not None:
                         b = server_self.batcher
                         stats.update(b.stats)

@@ -17,7 +17,7 @@ import torch
 
 from openvla_probe_tpu.models import vla as jvla
 from openvla_probe_tpu.models import vlm as jvlm
-from openvla_probe_tpu_torch import convert
+from openvla_probe_tpu_torch import convert, scripts
 from openvla_probe_tpu_torch.device import resolve_device
 from openvla_probe_tpu_torch.models import vlm as tvlm
 from openvla_probe_tpu_torch.ops.linear import (matmul_t, nib_hi_dot_plain, quantize_weight_mixed,
@@ -28,9 +28,12 @@ ROOT = Path(__file__).resolve().parents[1]
 # training/train_state.py); tensorflow: robot/openvla_utils.crop_and_resize is the port's
 # own (PyTorch); safetensors and huggingface_hub: the loaders read safetensors files and
 # the hub cache themselves (models/safetensors_io.py, models/load.py); the machine with
-# the card has none of them
+# the card has none of them;
+# tokenizers and sentencepiece: the port reads tokenizer.json itself
+# (models/tokenization.py)
 FORBIDDEN = ("jax", "jaxlib", "openvla_probe_tpu", "transformers", "timm", "PIL", "flax",
-             "sklearn", "optax", "tensorflow", "safetensors", "huggingface_hub")
+             "sklearn", "optax", "tensorflow", "safetensors", "huggingface_hub", "tokenizers",
+             "sentencepiece")
 
 
 @pytest.fixture(scope="module")
@@ -233,3 +236,49 @@ def test_importing_the_serving_slice_loads_no_jax():
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+SCRIPTS = ("deploy", "generate", "evaluate", "train_probes", "analyze_probes",
+           "convert_weights_to_hf")
+
+
+def test_the_scan_covers_the_scripts():
+    scanned = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    for name in (*SCRIPTS, "_cli", "__init__"):
+        assert f"openvla_probe_tpu_torch/scripts/{name}.py" in scanned
+    for name in ("models/tokenization", "utils/image_io", "probe/plots",
+                 "tools/synthetic_tokenizer"):
+        assert f"openvla_probe_tpu_torch/{name}.py" in scanned
+
+
+# a finder that makes every forbidden package fail to import, as on the card's machine
+_BLOCK = ("import importlib.abc, sys\n"
+          "class _Block(importlib.abc.MetaPathFinder):\n"
+          "    def find_spec(self, name, path=None, target=None):\n"
+          f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+          "            raise ImportError('blocked: ' + name)\n"
+          "sys.meta_path.insert(0, _Block())\n")
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_each_script_helps_with_no_forbidden_package(script):
+    """`--help` runs with every forbidden package unimportable; importing the
+    script's module (every module it imports at call time too) loads none."""
+    code = (_BLOCK + "import runpy\n"
+            f"sys.argv = ['{script}', '--help']\n"
+            "try:\n"
+            f"    runpy.run_module('openvla_probe_tpu_torch.scripts.{script}', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code in (0, None), e.code\n"
+            "import openvla_probe_tpu_torch.models.load, openvla_probe_tpu_torch.models.generate, "
+            "openvla_probe_tpu_torch.eval, openvla_probe_tpu_torch.serving.server, "
+            "openvla_probe_tpu_torch.probe.plots, openvla_probe_tpu_torch.utils.image_io, "
+            "openvla_probe_tpu_torch.training.checkpointing\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    # a script that runs a model runs on the card by default; a host-only one has no device
+    assert ("--device str (default: 'cuda')" in out.stdout) == (script not in scripts.ON_HOST)
+    assert ("\n  --device " in out.stdout) == (script not in scripts.ON_HOST)

@@ -559,3 +559,44 @@ def test_overwatch_ranks_without_a_group(tmp_path):
     assert a.read_bytes() == b.read_bytes()
     assert json.dumps(jax.tree.map(np.ndarray.tolist, tns.load_dataset_statistics(b))) == \
         json.dumps(jax.tree.map(np.ndarray.tolist, jns.load_dataset_statistics(a)))
+
+
+# --- the checkpoint's tokenizer.json (models/tokenization.py) ------------------------------
+
+
+def test_load_reads_the_checkpoints_tokenizer(tiny_run_dir, tmp_path):  # noqa: F811
+    """A run dir with a tokenizer.json: load and load_vla (no tokenizer=) read
+    it with the port's reader, equal on prompts to the JAX bundle's tokenizer;
+    a caller's tokenizer still wins; an unsupported file raises."""
+    import shutil
+
+    from openvla_probe_tpu_torch.models import tokenization as ttok
+    from tests.test_torch_tokenization import build_spec
+
+    src, _, _ = tiny_run_dir
+    run = tmp_path / "run"
+    shutil.copytree(src, run)
+    (run / "tokenizer.json").write_text(json.dumps(build_spec("legacy")))
+    tb, jb = tload.load(run, device="cpu"), jload.load(run)
+    assert isinstance(tb["tokenizer"], ttok.HostTokenizer)
+    prompts = ["In: What action should the robot take to pick up the cup?\nOut:",
+               "a <s> b </s> c", "über 😀  two  spaces\nnew line"]
+    for p in prompts:
+        assert tb["tokenizer"].encode(p) == jb["tokenizer"].encode(p)
+    assert tb["tokenizer"].vocab_size == jb["tokenizer"].vocab_size
+    pt = run / "checkpoints" / "latest-checkpoint.pt"
+    model = tload.load_vla(pt, device="cpu")
+    assert isinstance(model.tokenizer, ttok.HostTokenizer)
+    assert [model.tokenizer.encode(p) for p in prompts] == [jb["tokenizer"].encode(p)
+                                                            for p in prompts]
+    tok = Tok()
+    assert tload.load(run, tokenizer=tok, device="cpu")["tokenizer"] is tok
+    assert tload.load_vla(pt, tokenizer=tok, device="cpu").tokenizer is tok
+    spec = build_spec("legacy")
+    spec["normalizer"] = {"type": "NFKC"}
+    (run / "tokenizer.json").write_text(json.dumps(spec))
+    with pytest.raises(ttok.UnsupportedTokenizer, match="NFKC"):
+        tload.load_vla(pt, device="cpu")
+    (run / "tokenizer.json").unlink()
+    with pytest.raises(ValueError, match="pass tokenizer=.*tokenizer.json"):
+        tload.load_vla(pt, device="cpu")

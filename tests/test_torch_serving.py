@@ -7,7 +7,8 @@
 * The server: POST /act round trip, 400 on a payload without image or
   instruction, 404 on another path, /health; with dynamic batching the
   concurrent requests batch and each gets its own result, /stats reports
-  the batches and the client-side latency percentiles; per-stream drafts
+  the batches, the client-side latency percentiles and the process's kernel
+  launches; per-stream drafts
   only on the bs = 1 path and never on a parity-tier model, the acceptance
   telemetry, the stream table's eviction.
 * The batcher: strict oldest-first across image shapes (no starvation), no
@@ -35,6 +36,7 @@ from openvla_probe_tpu.models.vit import ViTConfig
 from openvla_probe_tpu.serving import server as jserver
 from openvla_probe_tpu_torch import convert
 from openvla_probe_tpu_torch.models import vla as tvla
+from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import image as timage
 from openvla_probe_tpu_torch.serving.batcher import DynamicBatcher
 from openvla_probe_tpu_torch.serving.server import (
@@ -136,6 +138,33 @@ def test_missing_keys_is_400_and_unknown_path_404():
             assert json.loads(r.read())["status"] == "ok"
         with pytest.raises(urllib.error.HTTPError):
             urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/elsewhere")
+
+
+class LaunchingStubModel(StubModel):
+    """A stub whose every call counts one launch of a kernel, as a wrapper
+    on the card does where it launches."""
+
+    def predict_action(self, image, prompt, unnorm_key=None):
+        _build.KERNEL_LAUNCHES["w8a8_matmul"] += 1
+        _build.KERNEL_LAUNCHES["rms_norm_quant"] += 2
+        return super().predict_action(image, prompt, unnorm_key)
+
+
+def test_stats_reports_the_processs_kernel_launches():
+    """/stats carries ops/_build.py's launch counts of the serving process,
+    the kernels that launched and only those: what a client reads to see
+    which kernels its requests went through."""
+    _build.reset_launch_counts()
+    try:
+        with serving(LaunchingStubModel()) as srv:
+            assert _stats(srv.port)["kernel_launches"] == {}
+            img = np.zeros((32, 32, 3), np.uint8)
+            for _ in range(3):
+                assert _post(srv.port, "/act", {"image": img, "instruction": "x"})[0] == 200
+            got = _stats(srv.port)["kernel_launches"]
+    finally:
+        _build.reset_launch_counts()
+    assert got == {"w8a8_matmul": 3, "rms_norm_quant": 6}
 
 
 class BatchStubModel:
