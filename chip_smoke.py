@@ -107,6 +107,17 @@ and slice 5b's command line, last, on the load phase's repository:
                 episodes at 33 x 4096 with the suite's 481 labels (every file
                 the JAX scripts write; bare *_matrix.png heatmaps without
                 matplotlib)
+and slice 7's other models, after everything else, on a card that holds
+nothing else (B = 8, P = 32, A = 7):
+  moe_turbo     dinosiglip-vit-so-224px + mixtral-8x7b-v0.1 at full width and
+                depth (32 layers, E = 8, top-2, GQA 32 / 8 heads) on the turbo
+                tier, every TURBO_QUANT_SUFFIXES leaf int8 drawn directly on
+                the card (47.7 GB, 45.1 GB of expert codes): 672
+                expert_ragged launches a call (3 a layer and pass), two calls'
+                tokens equal, p50, busy ms, the device peak
+  moe_parity    the same VLM in bf16 at 4 layers (the kernel's bf16 form)
+  phi           phi-2+3b (CLIP ViT-L/336, N = 577 at Dh 64 on vit_attention's
+                tensor cores; Phi-2 at 32 layers) in bf16: score_short's 8 rows
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
@@ -144,7 +155,12 @@ Phases, one output line each:
               nib_hi_dot (turbo_nibble), w4a8_dx (train_int4), w4a8_requant
               (pallas_int4's lm_head and SigLIP fc1, train_int4's lm_head;
               beside the two-step route it replaced; edge M, N and group
-              sizes), split_attention_i8 (turbo_kv8, its ring route; GQA,
+              sizes), expert_ragged (moe_turbo's int8 and moe_parity's bf16
+              grouped products at the prefill's 4608 top-2 rows and a decode
+              step's 16, E = 8; skewed sizes with an empty expert, one-row
+              groups, rows past the groups' sum) and expert_ragged_scalar
+              (fp32 x; its launches in the kernels line are the tiny fp32
+              MoE path's, the one path that takes it), split_attention_i8 (turbo_kv8, its ring route; GQA,
               T = 291, T + A = 4096, fp32 scores, one row timed at the
               cluster rule beside 1, 2 and 4 CTAs, a row masked but BOS;
               decode_attention.compare_split_attention_i8),
@@ -161,7 +177,8 @@ Phases, one output line each:
               tiny paths' (`tiny_launches`)
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package):
-              equal tokens, close logits or scores; the training paths' loss,
+              equal tokens, close logits or scores (tiny_moe: the mixtral-tiny
+              trunk in fp32 and in bf16); the training paths' loss,
               LoRA gradients and adapters after one step; the speculative core
               on turbo and turbo_nibble (drafts correct, partial, wrong): equal
               tokens and n_accepted; multi-LoRA calls on parity (masked),
@@ -189,6 +206,7 @@ no CUDA card it exits 1 before printing any result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import resource
@@ -217,6 +235,7 @@ from openvla_probe_tpu_torch.models import load as load_mod
 from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import attention as attn
 from openvla_probe_tpu_torch.ops import decode_attention as dattn
+from openvla_probe_tpu_torch.ops import expert_ragged as ragged
 from openvla_probe_tpu_torch.ops import linear as lin
 from openvla_probe_tpu_torch.ops import rmsnorm_quant as rmsq
 from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
@@ -1917,7 +1936,8 @@ PORTED_ON = {"flash_prefill": "parity", "flash_blockwise": "score_long",
              "stacked_decode_attention_i8": "pallas_kv8", "w4a8_matmul": "pallas_int4",
              "w8a8_matmul": "turbo", "rms_norm_quant": "turbo", "nib_hi_dot": "turbo_nibble",
              "w4a8_dx": "train_int4", "w4a8_requant": "pallas_int4",
-             "split_attention_i8": "turbo_kv8", "w4a8_grouped": "turbo_int4"}
+             "split_attention_i8": "turbo_kv8", "w4a8_grouped": "turbo_int4",
+             "expert_ragged": "moe_turbo", "expert_ragged_scalar": "tiny_moe_float32"}
 
 
 def _serving(path: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
@@ -2229,10 +2249,14 @@ def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH,
     layers, route = spec["llm"]["layers"], c.llm.int8_matmul
     fused_leaves = path in FUSED_PATHS or "qkv_proj" in layers
     # the products of a layer (q/k/v and gate/up one each when fused) at prefill (M = B x T)
-    # and at each step (M = B); lm_head 1 + A1 times
-    groups = (("q_proj", "k_proj", "v_proj"), ("o_proj",), ("gate_proj", "up_proj"),
-              ("down_proj",))
-    fused_name = {groups[0]: "qkv_proj", groups[2]: "gate_up_proj"}
+    # and at each step (M = B); lm_head 1 + A1 times. A MoE trunk's FFN is three grouped
+    # expert products a layer and pass (gate, up, down) in any weight form
+    moe = "router" in layers
+    groups = (("q_proj", "k_proj", "v_proj"), ("o_proj",)) + (
+        () if moe else (("gate_proj", "up_proj"), ("down_proj",)))
+    fused_name = {groups[0]: "qkv_proj", ("gate_proj", "up_proj"): "gate_up_proj"}
+    if moe:
+        kernels["expert_ragged"] = 3 * L * (1 + A1)
 
     def leaves_of(group):   # the leaves a group runs: one when fused (its layout the first's)
         if not fused_leaves:
@@ -2244,14 +2268,15 @@ def _expected_launches(path: str, cfg: vla.VLAServingConfig, batch: int = BATCH,
             add(_linear_route(leaf, route, batch * T_PREFILL), L)
             add(_linear_route(leaf, route, batch), L * A1)
     add(_linear_route(spec["llm"]["lm_head"], route, batch), 1 + A1)
-    # the fused norm: both sites of every layer whose consumers all take int8 codes, in the
-    # prefill and, on the stacked decode, in every step of more than 8 rows (the frozen-KV
-    # and int8-cache decode steps keep the plain norm)
+    # the fused norm: both sites of every layer whose consumers all take int8 codes (the
+    # input norm only on a MoE trunk: the router reads the float norm), in the prefill and,
+    # on the stacked decode, in every step of more than 8 rows (the frozen-KV and int8-cache
+    # decode steps keep the plain norm)
     prequant = 0   # w8a8 calls on the fused norm's codes: no pre-pass
     if c.llm.fused_rmsq and route == "w8a8":
         steps = A1 if cfg.decode_impl == "stacked" and batch > llama.RMSQ_MIN_M - 1 else 0
         for M, n in ((batch * T_PREFILL, 1), (batch, steps)):
-            for site in (groups[0], groups[2]):
+            for site in (groups[0],) + (() if moe else (groups[2],)):
                 leaves = leaves_of(site)
                 if n and all(_takes_int8_codes(leaf, M) for leaf in leaves):
                     kernels["rms_norm_quant"] += L * n
@@ -3659,6 +3684,354 @@ def _ab_leaves(tree):
     return [leaf for v in tree.values() for leaf in _ab_leaves(v)]
 
 
+# --- slice 7: the Mixtral MoE trunk, the Phi-2 trunk, the CLIP tower ------------------------
+
+MOE_BATCH = 8                  # moe_turbo and moe_parity: B = 8, P = 32, A = 7
+MOE_ROWS = 2 * MOE_BATCH * T_PREFILL   # the prefill's top-2 rows through each grouped product
+MOE_PARITY_LAYERS = 4          # moe_parity's depth at full width (11.3 GB of bf16 experts)
+MOE_TIMED_CALLS = 3
+MIXTRAL_E, MIXTRAL_D, MIXTRAL_F = 8, 4096, 14336
+MOE_TINY_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # first logits, card vs CPU
+
+
+def _top2_sizes(tokens: int, g, dev, weights=None) -> torch.Tensor:
+    """int32 group sizes of `tokens` top-2 picks (two distinct experts a
+    token, drawn with `weights`, uniform by default), made on the card."""
+    w = torch.ones(MIXTRAL_E, device=dev) if weights is None else torch.tensor(
+        weights, dtype=torch.float32, device=dev)
+    picks = torch.multinomial(w.expand(tokens, MIXTRAL_E), 2, replacement=False, generator=g)
+    return torch.bincount(picks.reshape(-1), minlength=MIXTRAL_E).int()
+
+
+def _ragged_operands(M, I, O, int8: bool, g, dev, dtype=torch.bfloat16):
+    x = torch.randn((M, I), generator=g, device=dev).to(dtype)
+    if int8:
+        w = torch.randint(-127, 128, (MIXTRAL_E, O, I), generator=g, device=dev,
+                          dtype=torch.int8)
+        return x, w, torch.rand((MIXTRAL_E, O), generator=g, device=dev) * 1e-3 + 1e-3
+    return x, (torch.randn((MIXTRAL_E, O, I), generator=g, device=dev) * 0.02).to(dtype), None
+
+
+def _ragged_leaf(w, s):
+    return w if s is None else {"q": w, "s": s}
+
+
+def _ragged_library(x, w, s, gs):
+    """One cuBLAS product over each expert's rows (bf16, or fp32 x on fp32
+    weights), the weights dequantized and the group sizes read beforehand."""
+    wd = (w if s is None else w.float() * s[..., None]).to(x.dtype)
+    bounds = np.cumsum([0] + gs.tolist())
+    out = torch.empty((x.shape[0], w.shape[1]), dtype=x.dtype, device=x.device)
+
+    def call():
+        for e in range(len(bounds) - 1):
+            a, b = int(bounds[e]), int(bounds[e + 1])
+            if b > a:
+                torch.matmul(x[a:b], wd[e].t(), out=out[a:b])
+        return out
+    return call
+
+
+def _ragged_bound(x, w, s, gs, out, kind: str):
+    """The bytes the product must move (x, the weights and scales of the
+    experts this run's groups use, the group sizes, the output) and its
+    operations."""
+    used = int((gs > 0).sum())
+    E, O, I = w.shape
+    nbytes = (_nbytes(x, out, gs) + used * O * I * w.element_size()
+              + (0 if s is None else used * O * 4))
+    return bound_ms(nbytes, 2 * x.shape[0] * O * I, kind)
+
+
+def _ragged_shape(x, w, s, gs, kernel: str, kind: str, launches: int) -> dict:
+    leaf = _ragged_leaf(w, s)
+    got = _launched(kernel, lambda: ragged.expert_ragged(x, leaf, gs))
+    want = ragged.expert_ragged_plain(x, w, s, gs)
+    stats = ragged.compare_expert_ragged(got, want)
+    b, by = _ragged_bound(x, w, s, gs, got, kind)
+    return dict(launches_per_call=launches, group_sizes=gs.tolist(),
+                max_abs_err=stats["max_abs_err"], n_apart=stats["n_apart"],
+                ms=cuda_ms(lambda: ragged.expert_ragged(x, leaf, gs)),
+                plain_ms=cuda_ms(lambda: ragged.expert_ragged_plain(x, w, s, gs), reps=5,
+                                 warmup=1),
+                library_ms=cuda_ms(_ragged_library(x, w, s, gs)), bound_ms=b, bound_by=by)
+
+
+def check_expert_ragged(dev, g):
+    """The grouped expert product (models/moe.py:218 `_expert_ragged`,
+    lax.ragged_dot_general) at Mixtral-8x7B's shapes, E = 8: the prefill's
+    M = 2·B·T = 4608 top-2 rows × 4096 -> 14336 (gate, up) and 14336 -> 4096
+    (down), and a decode step's M = 2·B = 16, in both weight forms (int8 codes
+    with per-(expert, channel) scales: moe_turbo; bf16: moe_parity), group
+    sizes from uniform top-2 picks, held to the plain version by
+    compare_expert_ragged (one bf16 step). Edge cases untimed: skewed sizes
+    with one empty expert, one-row groups, rows past the groups' sum (0).
+    Library: cuBLAS bf16 over each expert's rows, weights dequantized
+    beforehand. The row's figures are launch-weighted over moe_turbo's and
+    moe_parity's calls."""
+    A, L, Lp = ACTION_DIM, LAYERS, MOE_PARITY_LAYERS
+    D, F_ = MIXTRAL_D, MIXTRAL_F
+    prefill = _top2_sizes(MOE_ROWS // 2, g, dev)
+    decode = _top2_sizes(MOE_BATCH, g, dev)
+    # (form, M, I, O) -> launches a call: moe_turbo (int8, 32 layers), moe_parity (bf16, 4)
+    per_call = {}
+    for form, layers in (("int8", L), ("bf16", Lp)):
+        per_call.update({(form, MOE_ROWS, D, F_): 2 * layers, (form, MOE_ROWS, F_, D): layers,
+                         (form, 2 * MOE_BATCH, D, F_): 2 * layers * (A - 1),
+                         (form, 2 * MOE_BATCH, F_, D): layers * (A - 1)})
+    by_shape = {}
+    for (form, M, I, O), n in per_call.items():
+        x, w, s = _ragged_operands(M, I, O, form == "int8", g, dev)
+        gs = prefill if M == MOE_ROWS else decode
+        by_shape[f"{form} {M}x{I}x{O}"] = _ragged_shape(x, w, s, gs, "expert_ragged", "bf16", n)
+        del x, w, s
+    edges = {}
+    for name, sizes, M, I, O in (
+            ("skewed_one_empty", [1200, 0, 3, 1, 900, 1500, 700, 304], 4608, D, 2048),
+            ("one_row_groups", [1, 1, 1, 5, 0, 1, 40, 1], 50, F_, 1024),
+            ("decode_one_empty", [2, 2, 3, 1, 0, 4, 2, 2], 16, D, F_),
+            ("rows_past_sum", [3, 0, 9, 1, 0, 0, 20, 2], 64, 1024, 512)):
+        gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        for form in ("int8", "bf16"):
+            x, w, s = _ragged_operands(M, I, O, form == "int8", g, dev)
+            got = _launched("expert_ragged",
+                            lambda: ragged.expert_ragged(x, _ragged_leaf(w, s), gs))
+            stats = ragged.compare_expert_ragged(got, ragged.expert_ragged_plain(x, w, s, gs))
+            assert bool((got[sum(sizes):] == 0).all()), name
+            edges[f"{name} {form}"] = stats["max_abs_err"]
+            del x, w, s, got
+    weighted = _launch_weighted(by_shape, {f"{f} {M}x{I}x{O}": n
+                                           for (f, M, I, O), n in per_call.items()})
+    return dict(name="expert_ragged", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/expert_ragged.cu",
+                replaces="openvla_probe_tpu/models/moe.py:218", by_shape=by_shape,
+                edge_cases=edges, **weighted)
+
+
+def check_expert_ragged_scalar(dev, g):
+    """The scalar route (fp32 x, or a shape the tensor-core rule refuses; the
+    tiny fp32 MoE path launches it) at a decode step's shape in fp32, x
+    [16, 4096] against int8 experts 4096 -> 14336, by compare_expert_ragged
+    (fp32 within 1e-5 of the largest |want|); a bf16 x at I = 20 (not a
+    multiple of 8) untimed. Bound: fp32 operations; library: fp32 cuBLAS over
+    each expert's rows on weights dequantized beforehand."""
+    x, w, s = _ragged_operands(2 * MOE_BATCH, MIXTRAL_D, MIXTRAL_F, True, g, dev, torch.float32)
+    gs = _top2_sizes(MOE_BATCH, g, dev)
+    row = _ragged_shape(x, w, s, gs, "expert_ragged_scalar", "fp32", 0)
+    xe, we, se = _ragged_operands(40, 20, 24, True, g, dev)
+    edge = torch.tensor([7, 0, 1, 30, 0, 0, 0, 2], dtype=torch.int32, device=dev)
+    got = _launched("expert_ragged_scalar", lambda: ragged.expert_ragged(xe, {"q": we, "s": se},
+                                                                          edge))
+    ragged.compare_expert_ragged(got, ragged.expert_ragged_plain(xe, we, se, edge))
+    return dict(name="expert_ragged_scalar", route="cuda",
+                source="openvla_probe_tpu_torch/ops/csrc/expert_ragged.cu",
+                replaces="openvla_probe_tpu/models/moe.py:218",
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")})
+
+
+def _tiny_moe_vlm(dtype) -> vlm.VLMConfig:
+    """VLMConfig.tiny() over the `mixtral-tiny` trunk (4 experts, top-2), in `dtype`."""
+    c = vlm.VLMConfig.tiny(llm=catalog.LLM_BACKBONES["mixtral-tiny"]["cfg"])
+    return dataclasses.replace(c, llm=dataclasses.replace(c.llm, dtype=dtype),
+                               vision=tuple(dataclasses.replace(v, dtype=dtype)
+                                            for v in c.vision))
+
+
+def check_tiny_moe(dev, dtype):
+    """A tiny MoE VLA on the parity tier (T = 68, so the flash gate engages)
+    on the card vs the CPU run of the plain versions (which
+    tests/test_torch_moe.py holds to the JAX package): fp32 takes
+    expert_ragged_scalar, bf16 the tensor-core route, each exactly 3 launches
+    a layer and pass. fp32: equal tokens, first logits within 1e-4; bf16
+    (every product rounds its fp32 sums once, in another order): tokens equal
+    up to each row's first token whose CPU margin is below twice the
+    first-logit gap, first logits within 5e-2."""
+    c = _tiny_moe_vlm(dtype)
+    cfg = vla.VLAServingConfig.for_tier(c, "parity", prompt_pad_len=64,
+                                        codec_vocab_size=c.llm.vocab_size)
+    params = convert.init_params(cfg.vlm, torch.Generator().manual_seed(1), device="cpu")
+    img_cfg = ImageTransformConfig(specs=(
+        BackboneTransformSpec((28, 28), "bicubic", (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+        BackboneTransformSpec((28, 28), "bicubic", (0.5, 0.5, 0.5), (0.5, 0.5, 0.5))))
+    inputs = _inputs(cfg, 4, 40, torch.Generator().manual_seed(2), "cpu")
+    ref = vla.predict_action_from_image(params, cfg, inputs[0], img_cfg, *inputs[1:],
+                                        return_first_logits=True, device="cpu")
+    params_d = _to(params, dev)
+    _build.reset_launch_counts()
+    out = vla.predict_action_from_image(params_d, cfg, inputs[0].to(dev), img_cfg,
+                                        *(x.to(dev) for x in inputs[1:]),
+                                        return_first_logits=True, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _build.KERNEL_LAUNCHES.items() if n}
+    route = "expert_ragged" if dtype == torch.bfloat16 else "expert_ragged_scalar"
+    other = "expert_ragged_scalar" if route == "expert_ragged" else "expert_ragged"
+    assert launches.get(route) == 3 * c.llm.num_hidden_layers * cfg.action_dim, launches
+    assert other not in launches, launches
+    err = (out["first_logits"].cpu() - ref["first_logits"]).abs().max().item()
+    assert err < MOE_TINY_TOL[dtype], err
+    got, want = out["action_tokens"].cpu(), ref["action_tokens"]
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+        compared = want.numel()
+    else:
+        compared = 0
+        for b in range(want.shape[0]):
+            for t in range(want.shape[1]):
+                if ref["logit_margins"][b, t] < 2 * err:
+                    break
+                assert got[b, t] == want[b, t], (b, t, got, want)
+                compared += 1
+    return dict(path="tiny_moe", dtype=str(dtype)[6:], tokens_compared=compared,
+                tokens=want.numel(), first_logits_max_abs_err=err, launches=launches)
+
+
+def _mixtral_vlm() -> vlm.VLMConfig:
+    """dinosiglip-vit-so-224px + mixtral-8x7b-v0.1 (32 layers, D 4096, F 14336,
+    E 8, top-2, 32 / 8 heads, theta 1e6), OpenVLA's projector, bf16."""
+    return catalog.build_vlm_config("dinosiglip-vit-so-224px", "mixtral-8x7b-v0.1")[0]
+
+
+def _expert_gb(params) -> float:
+    layers = params["llm"]["layers"]
+    return sum(_tree_bytes({k: layers[k]}) for k in ("gate_proj", "up_proj", "down_proj")) / 1e9
+
+
+def run_moe_path(dev, path: str):
+    """moe_turbo: the Mixtral VLM at full width and depth on the turbo tier,
+    every TURBO_QUANT_SUFFIXES leaf int8 drawn directly on the card
+    (linear.random_params_like over convert.vlm_param_spec: the expert codes
+    [32, 8, O, I] never have a float twin); moe_parity: the same VLM in bf16
+    at MOE_PARITY_LAYERS layers (convert.init_params). B = 8, P = 32, A = 7:
+    exact launches of one call (3 expert_ragged a layer and pass), two calls'
+    tokens equal, p50 over MOE_TIMED_CALLS calls, busy ms a call (moe_turbo),
+    the device peak; the tree freed at the end."""
+    c = _mixtral_vlm()
+    if path == "moe_parity":
+        c = dataclasses.replace(c, llm=dataclasses.replace(c.llm,
+                                                           num_hidden_layers=MOE_PARITY_LAYERS))
+    tier = "turbo" if path == "moe_turbo" else "parity"
+    cfg = vla.VLAServingConfig.for_tier(c, tier, action_dim=ACTION_DIM, prompt_pad_len=PROMPT_PAD)
+    g = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if tier == "turbo":
+        spec = convert.vlm_param_spec(cfg.vlm, lin.TURBO_QUANT_SUFFIXES, 8)
+        params = lin.random_params_like(spec, g, device=dev)
+    else:
+        spec = convert.vlm_param_spec(cfg.vlm)
+        params = convert.init_params(cfg.vlm, g, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb, expert_gb = _tree_bytes(params) / 1e9, _expert_gb(params)
+    torch.cuda.reset_peak_memory_stats()
+    image, ids, plen, q01, q99, mask = _inputs(cfg, MOE_BATCH, IMG_HW,
+                                               torch.Generator(device=dev).manual_seed(1), dev)
+
+    def call():
+        out = vla.predict_action_from_image(params, cfg, image, ImageTransformConfig.dinosiglip_224(),
+                                            ids, plen, q01, q99, mask, return_first_logits=True,
+                                            device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.KERNEL_LAUNCHES)
+    expect = _expected_launches(path, cfg, batch=MOE_BATCH, spec=spec)
+    assert launches == expect, (path, launches, expect)
+    L = c.llm.num_hidden_layers
+    assert launches["expert_ragged"] == 3 * L * ACTION_DIM, launches
+    toks, logits = out["action_tokens"], out["first_logits"]
+    assert toks.shape == (MOE_BATCH, ACTION_DIM) and int(toks.min()) >= 0
+    assert int(toks.max()) < c.llm.vocab_size and torch.isfinite(out["actions"]).all()
+    assert torch.isfinite(logits).all() and logits.shape == (MOE_BATCH, c.llm.vocab_size)
+    times = []
+    for _ in range(MOE_TIMED_CALLS):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        again = call()
+        times.append(time.perf_counter() - t0)
+        assert _build.KERNEL_LAUNCHES == expect, _build.KERNEL_LAUNCHES
+        assert torch.equal(again["action_tokens"], toks), (path, "tokens differ between calls")
+    p50 = statistics.median(times)
+    busy = profile_main_path.device_time(call, 1) if tier == "turbo" else None
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params, out, again
+    torch.cuda.empty_cache()
+    return launches, dict(
+        path=path, tier=tier, layers=L, experts=c.llm.moe_experts, top_k=c.llm.moe_top_k,
+        weights="int8 (random_params_like)" if tier == "turbo" else "bf16",
+        param_gb=param_gb, expert_gb=expert_gb, init_s=init_s, first_call_s=first_s,
+        p50_ms=p50 * 1e3, calls_per_s=MOE_BATCH / p50, call_ms=[t * 1e3 for t in times],
+        device_ms_per_call=None if busy is None else busy["device_ms_per_call_total"],
+        device_ms_by_class=None if busy is None else busy["device_ms_per_call_by_class"],
+        device_idle_share=None if busy is None else busy["device_idle_share"],
+        peak_mem_gb=peak, tokens_equal_across_calls=True, first_tokens=toks[0].tolist())
+
+
+def run_phi(dev):
+    """phi-2+3b (CLIP ViT-L/336 at N = 577 and Dh = 64 on vit_attention's
+    tensor-core route, the gelu-mlp projector, Phi-2 at 32 layers, D 2560,
+    Dh 80) in bf16 at full width and depth: score_continuation_rows over 8
+    rows of 33-64 tokens with 336 px letterboxed pixels (T = 640). Exact
+    launches (23 vit_attention: the Phi trunk's products and attention are
+    PyTorch's, as the JAX package's XLA path), finite log-probabilities,
+    p50 over TIMED_VLM_CALLS calls."""
+    from openvla_probe_tpu_torch.conf.models import ModelConfig
+
+    mc = ModelConfig.get_choice_class("phi-2+3b")()
+    c, img_cfg, _ = catalog.build_vlm_config(mc.vision_backbone_id, mc.llm_backbone_id,
+                                             mc.arch_specifier, mc.image_resize_strategy)
+    g = torch.Generator(device=dev).manual_seed(7)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = convert.init_params(c, g, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    image = torch.randint(0, 256, (VLM_BATCH, IMG_HW, IMG_HW, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    pixels = apply_image_transform(image, img_cfg).to(c.llm.dtype)
+    requests = _vlm_requests("score_short", c.llm.vocab_size, seed=6)
+    torch.cuda.reset_peak_memory_stats()
+
+    def call():
+        out = generate.score_continuation_rows(params, c, requests, pixels, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = call()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.KERNEL_LAUNCHES)
+    expect = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
+    expect["vit_attention"] = c.vision[0].num_layers - 1
+    assert launches == expect, launches
+    assert scores.shape == (VLM_BATCH,) and bool(np.isfinite(scores).all()) and \
+        bool((scores <= 0).all()), scores
+    times = []
+    for _ in range(TIMED_VLM_CALLS):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        call()
+        times.append(time.perf_counter() - t0)
+        assert _build.KERNEL_LAUNCHES == expect, _build.KERNEL_LAUNCHES
+    p50 = statistics.median(times)
+    n_params = sum(t.numel() for t in _leaves(params))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    return {k: n for k, n in launches.items() if n}, dict(
+        path="phi", model="phi-2+3b", entry="score_continuation_rows", rows=VLM_BATCH,
+        T=1 + c.num_patches + SCORE_L["score_short"] - 1, vision_tokens=c.num_patches + 1,
+        params=n_params, init_s=init_s, first_call_s=first_s, p50_ms=p50 * 1e3,
+        rows_per_s=VLM_BATCH / p50, call_ms=[t * 1e3 for t in times], peak_mem_gb=peak,
+        scores=scores.tolist())
+
+
 PHASE_S: dict = {}   # phase -> wall seconds (the `phases` line)
 
 
@@ -3705,7 +4078,8 @@ def main() -> int:
                    check_w4a8_matmul(dev, g), check_w8a8_matmul(dev, g),
                    check_rms_norm_quant(dev, g), check_nib_hi_dot(dev, g),
                    check_w4a8_dx(dev, g), check_w8a8_requant(dev, g),
-                   check_split_attention_i8(dev, g), check_w4a8_grouped(dev, g)]
+                   check_split_attention_i8(dev, g), check_w4a8_grouped(dev, g),
+                   check_expert_ragged(dev, g), check_expert_ragged_scalar(dev, g)]
         # the scalar routes: no main path takes them (the tiny fp32 paths do)
         scalar_routes = [check_decode_attention_scalar(dev, g),
                          check_decode_split_attention_scalar(dev, g),
@@ -3729,6 +4103,10 @@ def main() -> int:
         for path, install in (("parity", "masked"), ("turbo", "masked"), ("turbo", "fused"),
                               ("pallas", "masked"), ("pallas", "fused")):
             log("tiny", **check_tiny_multilora(dev, path, install))
+        for dtype in (torch.float32, torch.bfloat16):
+            row = check_tiny_moe(dev, dtype)
+            tiny[f"tiny_moe_{row['dtype']}"] = row["launches"]
+            log("tiny", **row)
 
     # the load phase's repository stays here for the cli phase; removed whatever happens
     hub = Path(tempfile.mkdtemp(prefix="ovla_hub_"))
@@ -3785,11 +4163,24 @@ def main() -> int:
             log("cli", card=card, **run_cli(dev, snap, hub / "cli"))
     finally:
         shutil.rmtree(hub, ignore_errors=True)
+    # slice 7 on a card that holds nothing else: the Mixtral VLM (47.7 GB at int8), then in
+    # bf16 at 4 layers, then phi-2+3b
+    torch.cuda.empty_cache()
+    for path in ("moe_turbo", "moe_parity"):
+        with _phase(f"main:{path}"):
+            launches[path], moe_stats = run_moe_path(dev, path)
+            log("main", card=card, batch=MOE_BATCH, launches_per_call=launches[path],
+                **moe_stats)
+    with _phase("main:phi"):
+        launches["phi"], phi_stats = run_phi(dev)
+        log("main", card=card, launches_per_call=launches["phi"], **phi_stats)
 
-    # each kernel's launches: from the main path whose slice ported it; a scalar route's from
-    # every main path (none takes one) and, apart, from the tiny paths that run it
+    # each kernel's launches: from the main path whose slice ported it (expert_ragged_scalar:
+    # the tiny fp32 MoE path, the one path that takes it); a scalar route's from every main
+    # path (none takes one) and, apart, from the tiny paths that run it
     for k in kernels:
-        k["launches"] = launches[PORTED_ON.get(k["name"], "pallas")][k["name"]]
+        counts = tiny if k["name"] == "expert_ragged_scalar" else launches
+        k["launches"] = counts[PORTED_ON.get(k["name"], "pallas")][k["name"]]
         assert k["launches"] > 0, k["name"]
     for k in scalar_routes:
         k["launches"] = sum(counts.get(k["name"], 0) for counts in launches.values())

@@ -4,10 +4,10 @@ The JAX package beside it is the reference; this package keeps its module
 layout and function names, imports neither JAX nor anything of the JAX
 package, and replaces each Pallas TPU kernel on its path with a CUDA kernel
 written for ``sm_90a`` (``ops/csrc``). Ported so far: serving through
-``models.vla.predict_action_from_image`` on the parity, pallas, pallas_kv8
-and turbo tiers, over bf16, int8, grouped-int4 and nibble weights; the base
-VLM's generation and candidate scoring (``models.generate``) and the eval
-harness (``eval``).
+``models.vla.predict_action_from_image`` on every tier and weight form, over
+Llama and Mixtral (sparse-MoE) trunks; the Phi-2 trunk; the base VLM's
+generation and candidate scoring (``models.generate``), the eval harness
+(``eval``), training, loading, multi-LoRA and the command line.
 
 Entry points run on ``device="cuda"`` unless the caller passes ``"cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
-from .models import llama, vit, vla, vlm
+from .models import llama, phi, vit, vla, vlm
 from .ops.linear import int4_group_size, leaf_bits, pack_int4, quantize_leaf
 from .training.train_state import OptState
 
@@ -121,22 +121,41 @@ def llama_param_spec(cfg: llama.LlamaConfig) -> Dict[str, Any]:
     def nrm(*shape):
         return Leaf(shape, dt, "normal", 0.02)
 
-    return {
-        "embed_tokens": nrm(V, D),
-        "layers": {
-            "q_proj": nrm(L, H * Dh, D),
-            "k_proj": nrm(L, Hkv * Dh, D),
-            "v_proj": nrm(L, Hkv * Dh, D),
-            "o_proj": nrm(L, D, H * Dh),
-            "input_layernorm": Leaf((L, D), dt, "ones"),
-            "post_attention_layernorm": Leaf((L, D), dt, "ones"),
-            "gate_proj": nrm(L, F, D),
-            "up_proj": nrm(L, F, D),
-            "down_proj": nrm(L, D, F),
-        },
-        "norm": Leaf((D,), dt, "ones"),
-        "lm_head": nrm(V, D),
+    layers = {
+        "q_proj": nrm(L, H * Dh, D),
+        "k_proj": nrm(L, Hkv * Dh, D),
+        "v_proj": nrm(L, Hkv * Dh, D),
+        "o_proj": nrm(L, D, H * Dh),
+        "input_layernorm": Leaf((L, D), dt, "ones"),
+        "post_attention_layernorm": Leaf((L, D), dt, "ones"),
     }
+    E = cfg.moe_experts
+    if E:   # expert stacks [L, E, ...] and the router in place of the dense MLP
+        layers.update(router=nrm(L, E, D), gate_proj=nrm(L, E, F, D), up_proj=nrm(L, E, F, D),
+                      down_proj=nrm(L, E, D, F))
+    else:
+        layers.update(gate_proj=nrm(L, F, D), up_proj=nrm(L, F, D), down_proj=nrm(L, D, F))
+    return {"embed_tokens": nrm(V, D), "layers": layers, "norm": Leaf((D,), dt, "ones"),
+            "lm_head": nrm(V, D)}
+
+
+def phi_param_spec(cfg: phi.PhiConfig) -> Dict[str, Any]:
+    D, F, V, L, dt = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                      cfg.num_hidden_layers, cfg.dtype)
+
+    def nrm(*shape):
+        return Leaf(shape, dt, "normal", 0.02)
+
+    def zeros(*shape):
+        return Leaf(shape, dt, "zeros")
+
+    layers = {"ln_scale": Leaf((L, D), dt, "ones"), "ln_bias": zeros(L, D)}
+    for name, out_dim, in_dim in (("q", D, D), ("k", D, D), ("v", D, D), ("dense", D, D),
+                                  ("fc1", F, D), ("fc2", D, F)):
+        layers[f"{name}_w"], layers[f"{name}_b"] = nrm(L, out_dim, in_dim), zeros(L, out_dim)
+    return {"embed_tokens": nrm(V, D), "layers": layers,
+            "final_ln_scale": Leaf((D,), dt, "ones"), "final_ln_bias": zeros(D),
+            "lm_head_w": nrm(V, D), "lm_head_b": zeros(V)}
 
 
 def vlm_param_spec(cfg: vlm.VLMConfig, quant_suffixes: Tuple[str, ...] = (),
@@ -145,7 +164,7 @@ def vlm_param_spec(cfg: vlm.VLMConfig, quant_suffixes: Tuple[str, ...] = (),
         "vision": {name: vit_param_spec(v) for name, v in zip(cfg.vision_names, cfg.vision)},
         "projector": projector_param_spec(cfg.projector_arch, cfg.vision_dim,
                                           cfg.llm.hidden_size, cfg.llm.dtype),
-        "llm": llama_param_spec(cfg.llm),
+        "llm": phi_param_spec(cfg.llm) if vlm.is_phi(cfg) else llama_param_spec(cfg.llm),
     }
     return _quantized_spec(spec, quant_suffixes, bits)
 
@@ -329,16 +348,14 @@ def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:
 def config_from_jax(cfg: Any) -> Any:
     """A JAX-package VLMConfig / VLAServingConfig -> the port's (the turbo
     numerics' bf16 scores and RoPE included; the kernel routes of the turbo
-    and turbo_kv8 tiers). Raises on what the port does not run (MoE
-    trunks)."""
+    and turbo_kv8 tiers), over a Llama (dense or MoE) or Phi-2 trunk."""
     if hasattr(cfg, "vlm"):   # VLAServingConfig
         vlm_cfg = config_from_jax(cfg.vlm)
         if cfg.tier in ("turbo", "turbo_kv8"):
             vlm_cfg = vla.turbo_routes(vlm_cfg)
         return vla.VLAServingConfig(**_fields(cfg, vla.VLAServingConfig, vlm=vlm_cfg))
-    if getattr(cfg.llm, "moe_experts", 0):
-        raise NotImplementedError("MoE trunks are not ported yet: ROADMAP Queue 1 item 15")
-    llm = llama.LlamaConfig(**_fields(cfg.llm, llama.LlamaConfig))
+    trunk = phi.PhiConfig if type(cfg.llm).__name__ == "PhiConfig" else llama.LlamaConfig
+    llm = trunk(**_fields(cfg.llm, trunk))
     vision = tuple(vit.ViTConfig(**_fields(v, vit.ViTConfig)) for v in cfg.vision)
     return vlm.VLMConfig(**_fields(cfg, vlm.VLMConfig, llm=llm, vision=vision))
 

@@ -15,11 +15,12 @@ HF key layout (fused dual backbone):
   projector.fc{1,2,3}.{weight,bias}
   language_model.model.* / language_model.lm_head.weight
 
-Ids whose towers or trunk the port lacks resolve to their names, and
-building them raises NotImplementedError citing the ROADMAP item: the CLIP
-and ImageNet-21k towers (``clip-vit-l*``, ``in1k-vit-l``, ``dinoclip-*``,
-item 3) and the Phi-2 and Mixtral trunks (``phi-2-3b``, ``mixtral-*``,
-item 15).
+Every id of the JAX package's catalog resolves to the port's config of the
+same dims: the DINOv2, SigLIP, CLIP and ImageNet ViT-L towers, the Llama-2,
+Vicuna and Mistral trunks, the Mixtral-8x7B MoE trunk (``mixtral-*``, the
+HF Mixtral layout in `llama.params_from_hf`) and the Phi-2 trunk
+(``phi-2-3b``). `params_to_hf_state` exports dense Llama trunks only and
+raises on a MoE or Phi trunk.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from ..ops.image import (
     BackboneTransformSpec,
     ImageTransformConfig,
 )
-from . import llama, vit, vlm
+from . import llama, phi, vit, vlm
 from .prompting import (
     LLaMa2ChatPromptBuilder,
     MistralInstructPromptBuilder,
@@ -52,9 +53,6 @@ from .prompting import (
 )
 from .safetensors_io import read_dir, to_tensor
 
-_TOWERS = "the CLIP and ImageNet-21k ViT-L towers are ROADMAP Queue 1 item 3"
-_TRUNKS = "the Phi-2 and Mixtral trunks are ROADMAP Queue 1 item 15"
-
 # --- vision backbone catalog (reference models/materialize.py:19-44) --------
 
 
@@ -62,31 +60,28 @@ def _spec(size, interp, mean, std):
     return BackboneTransformSpec((size, size), interp, mean, std)
 
 
-def _missing(reason: str, specs, names=None) -> Dict[str, Any]:
-    """An entry whose configs the port lacks: its specs resolve, building raises."""
-    entry = {"missing": reason, "specs": specs}
-    if names:
-        entry["names"] = names
-    return entry
-
-
 VISION_BACKBONES: Dict[str, Dict[str, Any]] = {
-    "clip-vit-l": _missing(_TOWERS, [_spec(224, "bicubic", OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)]),
-    "clip-vit-l-336px": _missing(_TOWERS,
-                                 [_spec(336, "bicubic", OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)]),
+    "clip-vit-l": {"cfgs": [vit.ViTConfig.clip_vit_l(image_size=224)],
+                   "specs": [_spec(224, "bicubic", OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)]},
+    "clip-vit-l-336px": {"cfgs": [vit.ViTConfig.clip_vit_l(image_size=336)],
+                         "specs": [_spec(336, "bicubic", OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)]},
     "dinov2-vit-l": {"cfgs": [vit.ViTConfig.dinov2_vit_l()],
                      "specs": [_spec(224, "bicubic", IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD)]},
-    "in1k-vit-l": _missing(_TOWERS,
-                           [_spec(224, "bicubic", IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD)]),
+    "in1k-vit-l": {"cfgs": [vit.ViTConfig.in1k_vit_l()],
+                   "specs": [_spec(224, "bicubic", IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD)]},
     "siglip-vit-so400m": {"cfgs": [vit.ViTConfig.siglip_so400m()],
                           "specs": [_spec(224, "bicubic", SIGLIP_MEAN, SIGLIP_STD)]},
     "siglip-vit-so400m-224px": {"cfgs": [vit.ViTConfig.siglip_so400m()],
                                 "specs": [_spec(224, "bicubic", SIGLIP_MEAN, SIGLIP_STD)]},
     "siglip-vit-so400m-384px": {"cfgs": [vit.ViTConfig.siglip_so400m(image_size=384)],
                                 "specs": [_spec(384, "bicubic", SIGLIP_MEAN, SIGLIP_STD)]},
-    "dinoclip-vit-l-336px": _missing(
-        _TOWERS, [_spec(336, "bicubic", IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD),
-                  _spec(336, "bicubic", OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)], ("dino", "clip")),
+    "dinoclip-vit-l-336px": {
+        "cfgs": [vit.ViTConfig.dinov2_vit_l(image_size=336),
+                 vit.ViTConfig.clip_vit_l(image_size=336)],
+        "specs": [_spec(336, "bicubic", IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD),
+                  _spec(336, "bicubic", OPENAI_CLIP_MEAN, OPENAI_CLIP_STD)],
+        "names": ("dino", "clip"),
+    },
     "dinosiglip-vit-so-224px": {
         "cfgs": [vit.ViTConfig.dinov2_vit_l(), vit.ViTConfig.siglip_so400m()],
         "specs": [_spec(224, "bicubic", IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD),
@@ -115,6 +110,8 @@ VISION_BACKBONES: Dict[str, Dict[str, Any]] = {
 
 _MISTRAL = dict(vocab_size=32000, num_key_value_heads=8, intermediate_size=14336,
                 max_position_embeddings=4096)
+_MIXTRAL = dict(_MISTRAL, rope_theta=1e6, max_position_embeddings=32768, moe_experts=8,
+                moe_top_k=2, moe_capacity_factor=4.0)
 
 LLM_BACKBONES: Dict[str, Dict[str, Any]] = {
     "llama2-7b-pure": {"cfg": llama.LlamaConfig.llama2_7b(), "prompt": PurePromptBuilder},
@@ -128,12 +125,17 @@ LLM_BACKBONES: Dict[str, Dict[str, Any]] = {
                              "prompt": PurePromptBuilder},
     "mistral-v0.1-7b-instruct": {"cfg": llama.LlamaConfig(**_MISTRAL),
                                  "prompt": MistralInstructPromptBuilder},
-    "phi-2-3b": {"missing": _TRUNKS, "prompt": PhiPromptBuilder},
-    "mixtral-8x7b-v0.1": {"missing": _TRUNKS, "prompt": PurePromptBuilder},
-    "mixtral-8x7b-instruct-v0.1": {"missing": _TRUNKS, "prompt": MistralInstructPromptBuilder},
+    # the Phi-2 architecture (parallel attention + MLP, partial rotary, LayerNorm + biases)
+    "phi-2-3b": {"cfg": phi.PhiConfig(), "prompt": PhiPromptBuilder},
+    # HF Mixtral-8x7B: Mistral attention (GQA, 8 kv heads) x 8 experts, top-2, 32k context;
+    # capacity factor E / top_k = 4 makes the dispatch dropless (the sorted dispatch)
+    "mixtral-8x7b-v0.1": {"cfg": llama.LlamaConfig(**_MIXTRAL), "prompt": PurePromptBuilder},
+    "mixtral-8x7b-instruct-v0.1": {"cfg": llama.LlamaConfig(**_MIXTRAL),
+                                   "prompt": MistralInstructPromptBuilder},
     # test/smoke-scale LLMs
     "llama-tiny": {"cfg": llama.LlamaConfig.tiny(vocab_size=512), "prompt": PurePromptBuilder},
-    "mixtral-tiny": {"missing": _TRUNKS, "prompt": PurePromptBuilder},
+    "mixtral-tiny": {"cfg": llama.LlamaConfig.tiny(vocab_size=512, moe_experts=4),
+                     "prompt": PurePromptBuilder},
 }
 
 
@@ -141,8 +143,6 @@ def get_vision_backbone_and_transform(
     vision_backbone_id: str, image_resize_strategy: str
 ) -> Tuple[Tuple[vit.ViTConfig, ...], Tuple[str, ...], ImageTransformConfig]:
     entry = VISION_BACKBONES[vision_backbone_id]
-    if "missing" in entry:
-        raise NotImplementedError(f"vision backbone {vision_backbone_id!r}: {entry['missing']}")
     cfgs = tuple(entry["cfgs"])
     names = tuple(entry.get(
         "names",
@@ -154,8 +154,6 @@ def get_vision_backbone_and_transform(
 
 def get_llm_backbone_and_prompt(llm_backbone_id: str) -> Tuple[llama.LlamaConfig, type]:
     entry = LLM_BACKBONES[llm_backbone_id]
-    if "missing" in entry:
-        raise NotImplementedError(f"LLM backbone {llm_backbone_id!r}: {entry['missing']}")
     return entry["cfg"], entry["prompt"]
 
 
@@ -260,8 +258,14 @@ def params_from_hf_state(state: Mapping, cfg: vlm.VLMConfig, device: DeviceLike 
         for fc in ["fc1", "fc2", "fc3"]
         if f"{fc}.weight" in proj
     }
-    params["llm"] = llama.params_from_hf(_Prefixed(state, "language_model."), cfg.llm,
-                                         device=dev, bits=llm_bits)
+    llm_state = _Prefixed(state, "language_model.")
+    if vlm.is_phi(cfg):
+        if llm_bits is not None:
+            raise NotImplementedError("quantizing a Phi trunk: the JAX package's Phi layers "
+                                      "are float only")
+        params["llm"] = phi.params_from_hf(llm_state, cfg.llm, device=dev)
+    else:
+        params["llm"] = llama.params_from_hf(llm_state, cfg.llm, device=dev, bits=llm_bits)
     return params
 
 
@@ -269,7 +273,17 @@ def params_to_hf_state(params: Dict[str, Any], cfg: vlm.VLMConfig) -> Dict[str, 
     """Inverse of params_from_hf_state: the port's tree -> the HF-layout flat
     state (the convert_openvla_weights_to_hf.py export schema), each entry a
     view of the tree's tensor (its dtype and device: nothing is copied; a
-    writer moves and casts one tensor at a time)."""
+    writer moves and casts one tensor at a time). Dense Llama trunks only:
+    the schema has no router and no expert keys (the JAX package's export
+    would write a MoE trunk's [E, F, D] expert stacks under the dense
+    ``mlp.*_proj`` names and drop its router), nor Phi's."""
+    if vlm.is_phi(cfg) or getattr(cfg.llm, "moe_experts", 0):
+        kind = "Phi-2" if vlm.is_phi(cfg) else "MoE"
+        raise NotImplementedError(
+            f"exporting a {kind} trunk: the OpenVLA HF export schema "
+            "(convert_openvla_weights_to_hf.py) holds dense Llama trunk keys only"
+            + ("" if kind == "Phi-2" else "; a MoE trunk's router and [E, F, D] expert stacks "
+               "have no place in it"))
     state: Dict[str, torch.Tensor] = {}
     for prefix, name in _featurizer_prefixes(cfg):
         vp = params["vision"][name]

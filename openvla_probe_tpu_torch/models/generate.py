@@ -71,6 +71,11 @@ def _generate(
     position, then one cached decode step per token; once a row has emitted
     EOS every later token of the row is EOS (the first token is never
     replaced)."""
+    if vlm.is_phi(cfg):
+        raise NotImplementedError(
+            "generation on a Phi-2 trunk: the JAX package's generate runs the Llama trunk's "
+            "cached forward only (llama.forward over a KVCache); score with "
+            "score_continuation_rows, which takes either trunk")
     dev = resolve_device(device)
     c = cfg.llm
     input_ids = torch.as_tensor(input_ids, device=dev).long()

@@ -6,7 +6,11 @@ scores in `attn_scores_dtype` with an fp32 softmax, SwiGLU with silu in fp32:
 fp32 RoPE and scores are the parity numerics, bf16 the turbo ones. Weights
 are layer-stacked ``[L, ...]`` as in the JAX package (bf16, or quantized
 leaves through ``matmul_t`` on the config's int8 route); a Python loop over
-the layers takes the place of its ``lax.scan``. `fuse_serving_params` fuses
+the layers takes the place of its ``lax.scan``. A layer with a router (a
+Mixtral trunk, ``moe_experts`` > 0) runs the sparse-MoE FFN of
+``models/moe.py`` in place of the SwiGLU, in every forward and decode below;
+the uncached forward returns the router losses averaged over layers
+(``moe_aux``, ``moe_z``). `fuse_serving_params` fuses
 q/k/v into ``qkv_proj`` and gate/up into ``gate_up_proj`` (4 products a layer
 instead of 7), which every forward and decode takes where present. Where the
 config turns on the fused RMSNorm -> int8 kernel and every consumer of a
@@ -55,6 +59,7 @@ from ..ops.linear import (NIB_HI_M_MAX, PrequantActivation, div127, index_layer,
                           is_grouped_int4, is_int8_per_channel, is_mixed_quant, is_multilora_fused,
                           matmul_t, matmul_t_grouped)
 from ..ops.rmsnorm_quant import rms_norm, rms_norm_quant
+from . import moe
 
 Params = Dict[str, Any]
 
@@ -88,6 +93,15 @@ class LlamaConfig:
     flash_attn: bool = True
     # recompute each decoder layer in backward (uncached forward under grad)
     remat: bool = False
+    # sparse-MoE FFN (Mixtral-style, models/moe.py): 0 = the dense SwiGLU
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0     # >= E / top_k: dropless
+    moe_aux_coef: float = 0.01           # load-balance loss weight (training)
+    moe_z_coef: float = 1e-3             # router z-loss weight (training)
+    # "einsum" (one-hot, honours capacity drops), "sorted" (the grouped expert
+    # product, dropless only) or "auto" (sorted exactly when dropless)
+    moe_dispatch: str = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -252,6 +266,26 @@ def _products(h, leaves, route: str):
     return [matmul_t(h, w, route) for w in leaves]
 
 
+def _moe_mlp(cfg: LlamaConfig, lp: Params, h: torch.Tensor,
+             token_valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sparse-MoE FFN -> (y, fp32 [2] aux). `moe_dispatch` "auto" takes
+    the sorted dispatch exactly when the capacity at this token count is
+    dropless, the einsum dispatch otherwise; "sorted" raises where it would
+    drop."""
+    S = h.shape[0] * h.shape[1]
+    cap = moe.capacity(cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity_factor, S)
+    mode = cfg.moe_dispatch
+    if mode == "auto":
+        mode = "sorted" if cap >= S else "einsum"
+    if mode == "sorted":
+        if cap < S:
+            raise ValueError(
+                f"moe_dispatch='sorted' is dropless-only but capacity {cap} < {S} tokens would "
+                "drop; use 'einsum' or 'auto', or raise moe_capacity_factor")
+        return moe.moe_ffn_sorted(lp, h, top_k=cfg.moe_top_k, token_valid=token_valid)
+    return moe.moe_ffn(lp, h, top_k=cfg.moe_top_k, capacity=cap, token_valid=token_valid)
+
+
 def _layer_forward(
     cfg: LlamaConfig,
     lp: Params,               # single-layer params
@@ -260,12 +294,17 @@ def _layer_forward(
     sin: torch.Tensor,
     attend: Attend,           # (q [B,T,H,Dh], k, v [B,T,Hkv,Dh] post-RoPE) -> [B,T,H,Dh]
     fused_norm: bool = True,  # the fused RMSNorm -> int8 kernel may serve the norms
+    token_valid: Optional[torch.Tensor] = None,   # [B, T] the MoE router's pad mask
+    moe_aux: Optional[list] = None,               # a MoE layer appends its fp32 [2] aux
 ) -> torch.Tensor:
     """One decoder block. `attend` stores the new tokens' K/V where the
     caller's cache layout wants them and attends over that layer's keys. The
     fused ``qkv_proj`` / ``gate_up_proj`` leaves of `fuse_serving_params` are
     taken where present (one product, then a split); fused multi-LoRA q/k/v
-    and gate/up leaves go through ``matmul_t_grouped``."""
+    and gate/up leaves go through ``matmul_t_grouped``. A layer with a router
+    runs the MoE FFN on the float RMSNorm (never the fused norm-quantize:
+    the router reads the normed activation), PAD tokens (`token_valid` 0)
+    kept out of routing."""
     B, T, D = x.shape
     H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     route = cfg.int8_matmul
@@ -279,6 +318,12 @@ def _layer_forward(
         q, k, v = _products(h, qkv_leaves, route)
     q, k = apply_rope(q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), cos, sin, cfg.rope_dtype)
     x = x + matmul_t(attend(q, k, v.reshape(B, T, Hkv, Dh)).reshape(B, T, D), lp["o_proj"], route)
+    if "router" in lp:
+        y, aux = _moe_mlp(cfg, lp, rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps),
+                          token_valid)
+        if moe_aux is not None:
+            moe_aux.append(aux)
+        return x + y
     mlp_leaves = ((lp["gate_up_proj"],) if "gate_up_proj" in lp
                   else (lp["gate_proj"], lp["up_proj"]))
     h = _norm_maybe_quant(cfg, x, lp["post_attention_layernorm"], mlp_leaves, fused_norm)
@@ -344,8 +389,14 @@ def forward(
                              cfg.flash_attn)
         return attend
 
+    # the router's pad mask: this call's tokens' validity, None at a decode step
+    # (a decoded token is real) and at a cached call without a known zero offset
+    token_valid = None if (kv_valid is None or (cache is not None and T == 1)) else kv_valid[:, :T]
+    moe_aux = [] if (cfg.moe_experts and cache is None) else None
+
     def layer(li: int, x: torch.Tensor) -> torch.Tensor:
-        return _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li))
+        return _layer_forward(cfg, _layer(params, li), x, cos, sin, attend_layer(li),
+                              token_valid=token_valid, moe_aux=moe_aux)
 
     pool = None
     if collect_hidden_states:
@@ -370,6 +421,10 @@ def forward(
             pooled.append(pool(x))
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     out: Dict[str, Any] = {"last_hidden_state": x}
+    if moe_aux:
+        # the router losses averaged over layers (uncached forwards, as the JAX package's)
+        aux = torch.stack(moe_aux).mean(0)
+        out["moe_aux"], out["moe_z"] = aux[0], aux[1]
     if pool is not None:
         pooled.append(pool(x))
         out["hidden_pooled"] = torch.stack(pooled, dim=1)   # [B, L+1, D]
@@ -673,15 +728,22 @@ _HF_LAYER_KEYS = {
 }
 
 
+# the HF Mixtral expert weights (MixtralBlockSparseTop2MLP): w1 = gate, w3 = up, w2 = down
+_HF_EXPERT_KEYS = (("w1", "gate_proj"), ("w3", "up_proj"), ("w2", "down_proj"))
+
+
 def params_from_hf(state, cfg: LlamaConfig, prefix: str = "model.", device="cuda",
                    bits=None) -> Params:
     """An HF LlamaForCausalLM state (name -> tensor or numpy array, e.g. a
     lazy `safetensors_io` state) -> the layer-stacked tree on `device` in
     ``cfg.dtype``, one layer of one leaf on the host at a time
-    (`safetensors_io.stack`). With `bits` (4, 8, "mix" or "nibble"), the
+    (`safetensors_io.stack`). With ``cfg.moe_experts`` the dense MLP keys are
+    the HF Mixtral layout's: ``block_sparse_moe.gate`` -> router [L, E, D] and
+    ``experts.{j}.w1 / w3 / w2`` -> gate / up / down stacked [L, E, ...], one
+    expert on the host at a time. With `bits` (4, 8, "mix" or "nibble"), the
     leaves `ops.linear.quantize_params(..., bits=bits)` quantizes come out
-    quantized, one layer at a time on `device`: the codes of quantize_params
-    over the loaded tree, bit for bit."""
+    quantized, one layer (one expert) at a time on `device`: the codes of
+    quantize_params over the loaded tree, bit for bit."""
     from ..ops.linear import _DEFAULT_QUANT_SUFFIXES, leaf_bits, quantize_leaf
     from .safetensors_io import stack, to_tensor
 
@@ -698,9 +760,22 @@ def params_from_hf(state, cfg: LlamaConfig, prefix: str = "model.", device="cuda
         q = quant(name)
         return w if q is None or w.dim() < 2 else q(w)
 
+    L, E = cfg.num_hidden_layers, cfg.moe_experts
+    keys = dict(_HF_LAYER_KEYS)
+    if E:
+        for k in ("mlp.gate_proj.weight", "mlp.up_proj.weight", "mlp.down_proj.weight"):
+            del keys[k]
+        keys["block_sparse_moe.gate.weight"] = "router"
     layers = {ours: stack(lambda i, k=hf_key: state[f"{prefix}layers.{i}.{k}"],
-                          cfg.num_hidden_layers, cfg.dtype, device, quant(ours))
-              for hf_key, ours in _HF_LAYER_KEYS.items()}
+                          L, cfg.dtype, device, quant(ours))
+              for hf_key, ours in keys.items()}
+    for w, ours in _HF_EXPERT_KEYS if E else ():
+        # [L·E, ...] one expert at a time, then viewed as [L, E, ...]
+        flat = stack(lambda i, w=w: state[f"{prefix}layers.{i // E}.block_sparse_moe."
+                                          f"experts.{i % E}.{w}.weight"],
+                     L * E, cfg.dtype, device, quant(ours))
+        layers[ours] = ({k: v.view(L, E, *v.shape[1:]) for k, v in flat.items()}
+                        if isinstance(flat, dict) else flat.view(L, E, *flat.shape[1:]))
     return {
         "embed_tokens": one(f"{prefix}embed_tokens.weight", "embed_tokens"),
         "layers": layers,

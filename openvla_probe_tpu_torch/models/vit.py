@@ -1,4 +1,4 @@
-"""Vision Transformers (DINOv2 / SigLIP) for the port (counterpart of ``openvla_probe_tpu/models/vit.py``).
+"""Vision Transformers (DINOv2, SigLIP, CLIP, ImageNet ViT-L) for the port (counterpart of ``openvla_probe_tpu/models/vit.py``).
 
 timm parameter layout (fused qkv, LayerScale gamma vectors, token order
 [cls, reg, patches]), layer-stacked ``[L, ...]`` leaves and a Python loop over
@@ -97,6 +97,22 @@ class ViTConfig:
         """vit_so400m_patch14_siglip_224"""
         d = dict(hidden_size=1152, num_layers=27, num_heads=16, mlp_dim=4304,
                  use_cls_token=False, num_register_tokens=0, act="gelu_tanh")
+        d.update(kw)
+        return ViTConfig(**d)
+
+    @staticmethod
+    def clip_vit_l(**kw) -> "ViTConfig":
+        """vit_large_patch14_clip_224 (quick_gelu override, pre-norm, no patch bias)"""
+        d = dict(hidden_size=1024, num_layers=24, num_heads=16, mlp_dim=4096,
+                 use_cls_token=True, pre_norm=True, patch_bias=False, act="quick_gelu")
+        d.update(kw)
+        return ViTConfig(**d)
+
+    @staticmethod
+    def in1k_vit_l(**kw) -> "ViTConfig":
+        """vit_large_patch16_224.augreg_in21k_ft_in1k"""
+        d = dict(patch_size=16, hidden_size=1024, num_layers=24, num_heads=16, mlp_dim=4096,
+                 use_cls_token=True, act="gelu")
         d.update(kw)
         return ViTConfig(**d)
 

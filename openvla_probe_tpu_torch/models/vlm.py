@@ -1,11 +1,12 @@
-"""Prismatic VLM: dual-ViT vision + projector + Llama (counterpart of ``openvla_probe_tpu/models/vlm.py``).
+"""Prismatic VLM: dual-ViT vision + projector + Llama or Phi-2 trunk
+(counterpart of ``openvla_probe_tpu/models/vlm.py``).
 
 Vision features are each backbone's second-to-last-block patch tokens,
 concatenated on the channel axis; projected patches are spliced in after the
 BOS token, with IGNORE_INDEX labels. `forward` is the uncached
 training / eval forward (multimodal, unimodal or mixed) that the candidate
-scorer runs, with the hidden-state probe tap on request. The Llama trunk
-only: Phi is not ported (ROADMAP Queue 1, item 15).
+scorer runs, with the hidden-state probe tap on request (Llama trunks only,
+as in the JAX package).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from . import llama, projector, vit
+from . import llama, phi, projector, vit
 
 Params = Dict[str, Any]
 IGNORE_INDEX = -100
@@ -23,7 +24,7 @@ IGNORE_INDEX = -100
 
 @dataclasses.dataclass(frozen=True)
 class VLMConfig:
-    llm: llama.LlamaConfig
+    llm: Any   # llama.LlamaConfig or phi.PhiConfig
     vision: Tuple[vit.ViTConfig, ...]
     vision_names: Tuple[str, ...] = ("dino", "siglip")
     arch_specifier: str = "no-align+fused-gelu-mlp"
@@ -114,7 +115,7 @@ def build_multimodal_inputs(
     unspliced unimodal row)."""
     patches = project_patches(params, cfg, vision_features(params, cfg, pixel_values))
     patches = patches.to(cfg.llm.dtype)
-    embeds = llama.embed_tokens(params["llm"], input_ids)   # Llama trunk only (no Phi)
+    embeds = _llm_embed(cfg)(params["llm"], input_ids)
     B, N = patches.shape[:2]
     mm_embeds = torch.cat([embeds[:, :1], patches, embeds[:, 1:]], dim=1)
     if multimodal_mask is None:
@@ -149,12 +150,8 @@ def forward(
     with the logits when `labels` is given, and with `collect_hidden_states`
     the probe tap hidden_pooled [B, L+1, D] (`llama.forward`'s, pooled over
     the attention mask)."""
-    if not isinstance(cfg.llm, llama.LlamaConfig):
-        raise NotImplementedError(
-            f"vlm.forward on a {type(cfg.llm).__name__} trunk: the port has the Llama trunk "
-            "only (Phi: ROADMAP Queue 1 item 15)")
     if pixel_values is None:
-        embeds = llama.embed_tokens(params["llm"], input_ids)
+        embeds = _llm_embed(cfg)(params["llm"], input_ids)
         mask, lbls = attn_mask, labels
     else:
         mm = build_multimodal_inputs(params, cfg, input_ids, attn_mask, pixel_values, labels,
@@ -167,8 +164,28 @@ def forward(
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
     else:
         positions = torch.arange(T, device=embeds.device).expand(B, T)
-    out = llama.forward(params["llm"], cfg.llm, embeds, mask, positions,
-                        collect_hidden_states=collect_hidden_states)
+    if is_phi(cfg):
+        if collect_hidden_states:
+            raise NotImplementedError("hidden-state taps are a Llama-trunk feature (as in the "
+                                      "JAX package)")
+        out = phi.forward(params["llm"], cfg.llm, embeds, mask, positions)
+    else:
+        out = llama.forward(params["llm"], cfg.llm, embeds, mask, positions,
+                            collect_hidden_states=collect_hidden_states)
     if lbls is not None:
         out["labels"] = lbls
     return out
+
+
+def is_phi(cfg: VLMConfig) -> bool:
+    return isinstance(cfg.llm, phi.PhiConfig)
+
+
+def _llm_embed(cfg: VLMConfig):
+    """The trunk's embedding lookup; any trunk but Llama and Phi raises."""
+    if is_phi(cfg):
+        return phi.embed_tokens
+    if isinstance(cfg.llm, llama.LlamaConfig):
+        return llama.embed_tokens
+    raise NotImplementedError(f"a {type(cfg.llm).__name__} trunk: the port has the Llama "
+                              "(dense and MoE) and Phi-2 trunks")

@@ -147,6 +147,14 @@ KERNELS = {
         "split_attention_i8.cu", "ovla_split_attention_i8_scalar",
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     ),
+    "expert_ragged": (
+        "expert_ragged.cu", "ovla_expert_ragged",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "expert_ragged_scalar": (
+        "expert_ragged.cu", "ovla_expert_ragged_scalar",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
 }
 # GEMM -> the name its activation pre-pass launch is counted under
 PRE_PASSES = {"w4a8_matmul": "w4a8_quant_rows", "w8a8_matmul": "w8a8_quant_rows",

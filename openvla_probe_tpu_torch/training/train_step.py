@@ -142,6 +142,10 @@ def make_train_step(
     `grad_accum_steps` > 1 splits the batch into that many micro-batches along
     dim 0 and averages their gradients (fp32 sums), losses and metrics; the
     per-example metrics are dropped there."""
+    if getattr(getattr(cfg, "llm", None), "moe_experts", 0):   # cfg may be None with a loss_fn
+        raise NotImplementedError(
+            "training a MoE trunk (the router's load-balance and z losses in the step's loss, "
+            "a backward of the grouped expert product) is ROADMAP Queue 1 item 13")
     codec = codec or ActionCodec()
     loss_fn = loss_fn or functools.partial(vla_loss_fn, codec=codec)
 

@@ -120,13 +120,15 @@ def test_config_from_jax():
     t = convert.config_from_jax(serving)
     assert t.vlm == tvlm.VLMConfig.openvla_7b()
     assert (t.prompt_pad_len, t.prefill_len, t.cache_len) == (32, 288, 295)
-    # the turbo numerics now carry over; a MoE trunk still raises
+    # the turbo numerics carry over, and so does a MoE trunk (its router fields)
     assert convert.config_from_jax(jvlm.VLMConfig.openvla_7b().turbo()) == \
         tvlm.VLMConfig.openvla_7b().turbo()
     moe = jvlm.VLMConfig.tiny()
     moe = jvlm.VLMConfig(llm=jvlm.llama.LlamaConfig.tiny(moe_experts=4), vision=moe.vision)
-    with pytest.raises(NotImplementedError):
-        convert.config_from_jax(moe)
+    t_moe = convert.config_from_jax(moe)
+    assert t_moe == tvlm.VLMConfig.tiny(llm=tvlm.llama.LlamaConfig.tiny(moe_experts=4))
+    assert (t_moe.llm.moe_experts, t_moe.llm.moe_top_k, t_moe.llm.moe_capacity_factor,
+            t_moe.llm.moe_dispatch) == (4, 2, 2.0, "auto")
 
 
 def test_matmul_t_float_only():

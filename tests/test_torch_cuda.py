@@ -47,7 +47,11 @@ inside a 16-key chunk, a query far before the last key (decode_attention's
 ring reads the keys up to it), a row whose keys are all masked but BOS (its
 output is V's first row) and a row masked everywhere (the mean of all of V),
 at the cluster rule and at each cluster size (tools/kernel_ab.py's
-``cluster_launchers``).
+``cluster_launchers``). expert_ragged (the tensor-core route for bf16 x with
+I and O multiples of 8, the scalar route otherwise, counted apart): by
+expert_ragged.compare_expert_ragged, every element within one bf16 step of
+the plain version (fp32 within 1e-5 of the largest |want|); the LoRA form
+within two steps (three roundings).
 """
 
 import numpy as np
@@ -57,6 +61,7 @@ import torch
 from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import attention as tattn
 from openvla_probe_tpu_torch.ops import decode_attention as tdec
+from openvla_probe_tpu_torch.ops import expert_ragged as texr
 from openvla_probe_tpu_torch.ops import linear as tlin
 from openvla_probe_tpu_torch.ops import vit_mlp as tmlp
 from openvla_probe_tpu_torch.tools import kernel_ab
@@ -1172,3 +1177,115 @@ def test_split_attention_i8_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="bf16 or fp32"):
         tdec.split_attention_i8(args[0].half(), *args[1:5], args[5].half(), args[6].half(),
                                 *args[7:], torch.bfloat16)
+
+
+# --- expert_ragged: the grouped expert product of the MoE trunk ---------------------------
+
+
+def _ragged_inputs(seed, sizes, I, O, dtype, int8, device, M=None):
+    """Expert-sorted rows x [M, I] (M = sum(sizes) unless given: rows past the
+    groups' sum), an expert stack [E, O, I] of x's dtype or int8 codes with
+    positive scales, int32 group sizes."""
+    r = np.random.default_rng(seed)
+    E = len(sizes)
+    M = sum(sizes) if M is None else M
+    x = torch.from_numpy(r.normal(size=(M, I)).astype(np.float32)).to(device, dtype)
+    if int8:
+        w = torch.from_numpy(r.integers(-127, 128, size=(E, O, I), dtype=np.int8)).to(device)
+        s = torch.from_numpy((r.uniform(0.5, 1.5, size=(E, O)) * 1e-3).astype(np.float32)).to(device)
+    else:
+        w = torch.from_numpy((r.normal(size=(E, O, I)) * 0.05).astype(np.float32)).to(device, dtype)
+        s = None
+    gs = torch.tensor(sizes, dtype=torch.int32, device=device)
+    return x, w, s, gs
+
+
+def _ragged_leaf(w, s):
+    return w if s is None else {"q": w, "s": s}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("sizes,I,O", [
+    ([576] * 8, 4096, 1024),                 # a prefill's even split (9 row tiles an expert)
+    ([700, 0, 3, 1, 129, 64, 65, 190], 1024, 512),   # skewed, an empty expert, one-row groups
+    ([2, 2, 3, 1, 0, 4, 2, 2], 4096, 2048),  # decode: 16 rows over 8 experts
+    ([5, 9, 0, 30], 200, 136),               # I and O past the 32-k chunk and 128-column tile
+])
+def test_expert_ragged_matches_plain(cuda, int8, sizes, I, O):
+    """The tensor-core route against the plain version: every element within
+    one bf16 step (compare_expert_ragged), one launch counted."""
+    x, w, s, gs = _ragged_inputs(90 + len(sizes) + I, sizes, I, O, torch.bfloat16, int8, cuda)
+    assert texr.ragged_mma_eligible(x, w)
+    got = _count("expert_ragged", lambda: texr.expert_ragged(x, _ragged_leaf(w, s), gs))
+    want = texr.expert_ragged_plain(x, w, s, gs)
+    texr.compare_expert_ragged(got, want)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_expert_ragged_rows_past_the_groups_are_zero(cuda, int8):
+    """Rows past the sum of the group sizes come out 0 (ragged_dot's rule),
+    on both routes."""
+    for dtype, I in ((torch.bfloat16, 64), (torch.float32, 64)):
+        x, w, s, gs = _ragged_inputs(95, [3, 0, 70], I, 24, dtype, int8, cuda, M=200)
+        kernel = "expert_ragged" if dtype == torch.bfloat16 else "expert_ragged_scalar"
+        got = _count(kernel, lambda: texr.expert_ragged(x, _ragged_leaf(w, s), gs))
+        assert torch.all(got[73:] == 0)
+        texr.compare_expert_ragged(got, texr.expert_ragged_plain(x, w, s, gs))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype,I,O", [
+    (torch.float32, 64, 128),     # the tiny MoE trunk's fp32 shapes
+    (torch.float32, 4096, 640),
+    (torch.bfloat16, 20, 24),     # I not a multiple of 8: the rule refuses the tensor cores
+    (torch.bfloat16, 64, 12),     # O not a multiple of 8
+])
+def test_expert_ragged_scalar_route(cuda, int8, dtype, I, O):
+    """fp32 x and the shapes the tensor-core rule refuses take the scalar
+    route, counted as expert_ragged_scalar: fp32 within 1e-5 of the largest
+    |want|, bf16 within one bf16 step."""
+    x, w, s, gs = _ragged_inputs(97 + I, [7, 0, 1, 40], I, O, dtype, int8, cuda)
+    assert not texr.ragged_mma_eligible(x, w)
+    got = _count("expert_ragged_scalar", lambda: texr.expert_ragged(x, _ragged_leaf(w, s), gs))
+    texr.compare_expert_ragged(got, texr.expert_ragged_plain(x, w, s, gs))
+
+
+def test_expert_ragged_int4_and_lora_forms(cuda):
+    """Grouped int4 (dequantized, then the bf16 launch) and streamed LoRA
+    (the base plus two launches) on the card against the same forms on the
+    CPU: int4 within one bf16 step; LoRA within two steps at the largest
+    |want| (the base and the delta are each one rounding, then their bf16
+    sum is another)."""
+    x, w, _, gs = _ragged_inputs(99, [40, 0, 3, 85], 256, 128, torch.bfloat16, False, cuda)
+    w4 = tlin.quantize_weight_int4(w)
+    r = np.random.default_rng(100)
+    lora = {"base": w, "A": torch.from_numpy(r.normal(size=(4, 8, 256)).astype(np.float32) * 0.1),
+            "B": torch.from_numpy(r.normal(size=(4, 128, 8)).astype(np.float32) * 0.1)}
+    for leaf, launches in ((w4, 1), (lora, 3)):
+        on_card = {k: v.to(cuda) for k, v in leaf.items()}
+        before = _build.KERNEL_LAUNCHES["expert_ragged"]
+        got = texr.expert_ragged(x, on_card, gs)
+        torch.cuda.synchronize()
+        assert _build.KERNEL_LAUNCHES["expert_ragged"] == before + launches
+        want = texr.expert_ragged(x.cpu(), {k: v.cpu() for k, v in leaf.items()}, gs.cpu())
+        if launches == 1:
+            texr.compare_expert_ragged(got.cpu(), want)
+        else:
+            d = (got.cpu().float() - want.float()).abs().max().item()
+            assert d <= 2 ** -6 * want.float().abs().max().item(), d
+
+
+def test_expert_ragged_launcher_refuses_what_it_does_not_take(cuda):
+    """The tensor-core launcher refuses O or I not a multiple of 8, no
+    experts and int8 codes without scales; the wrapper raises on a bad
+    group-size dtype."""
+    x, w, s, gs = _ragged_inputs(101, [4, 4], 64, 64, torch.bfloat16, True, cuda)
+    out = torch.empty(8, 64, dtype=torch.bfloat16, device=cuda)
+    fn = _build.launcher("expert_ragged")
+    stream = _build.stream_ptr(x)
+    base = (x.data_ptr(), w.data_ptr(), s.data_ptr(), gs.data_ptr(), out.data_ptr())
+    for M, O, I, E, int8, s_ptr in ((8, 60, 64, 2, 1, s.data_ptr()), (8, 64, 60, 2, 1, s.data_ptr()),
+                                    (8, 64, 64, 0, 1, s.data_ptr()), (8, 64, 64, 2, 1, None)):
+        assert fn(base[0], base[1], s_ptr, base[3], base[4], M, O, I, E, int8, stream) != 0
+    with pytest.raises(TypeError, match="int32"):
+        texr.expert_ragged(x, {"q": w, "s": s}, gs.long())

@@ -33,6 +33,7 @@ from openvla_probe_tpu.ops import image as jimage
 from openvla_probe_tpu_torch import convert
 from openvla_probe_tpu_torch.eval import harness as tharness
 from openvla_probe_tpu_torch.models import generate as tgen
+from openvla_probe_tpu_torch.models import phi as tphi
 from openvla_probe_tpu_torch.models import vlm as tvlm
 from openvla_probe_tpu_torch.ops import attention as tattn
 from openvla_probe_tpu_torch.ops import image as timage
@@ -138,13 +139,22 @@ def test_vlm_forward_mixed_text_row_equals_unimodal(models):
 
 
 def test_vlm_forward_unported_options_raise(models):
-    """A trunk other than Llama (Phi) still raises; the probe tap, unported
-    before, now returns hidden_pooled (tests/test_torch_probe_taps.py holds it
-    to the JAX package)."""
+    """A trunk other than Llama or Phi-2 still raises; a real Phi-2 trunk runs
+    vlm.forward (tests/test_torch_phi.py holds it to the JAX package) and
+    raises in generation only, which the JAX package runs on the Llama trunk
+    only; the probe tap returns hidden_pooled (tests/test_torch_probe_taps.py
+    holds it to the JAX package)."""
     _, _, tcfg, tparams = models
     ids = torch.ones((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="Llama .*and Phi-2 trunks"):
         tvlm.forward(tparams, dataclasses.replace(tcfg, llm=object()), ids, torch.ones_like(ids))
+    pcfg = dataclasses.replace(tcfg, llm=tphi.PhiConfig.tiny(vocab_size=tcfg.llm.vocab_size))
+    pparams = convert.init_params(pcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert tvlm.forward(pparams, pcfg, ids, torch.ones_like(ids))["logits"].shape == \
+        (1, 4, tcfg.llm.vocab_size)
+    with pytest.raises(NotImplementedError, match="Phi-2 trunk"):
+        tgen.generate_greedy_batch(pparams, pcfg, None, [[1, 5, 9]], max_new_tokens=2,
+                                   device="cpu")
     out = tvlm.forward(tparams, tcfg, ids, torch.ones_like(ids), collect_hidden_states=True)
     L, D = tcfg.llm.num_hidden_layers, tcfg.llm.hidden_size
     assert out["hidden_pooled"].shape == (1, L + 1, D)
