@@ -157,8 +157,12 @@ Phases, one output line each:
               beside the two-step route it replaced; edge M, N and group
               sizes), expert_ragged (moe_turbo's int8 and moe_parity's bf16
               grouped products at the prefill's 4608 top-2 rows and a decode
-              step's 16, E = 8; skewed sizes with an empty expert, one-row
-              groups, rows past the groups' sum) and expert_ragged_scalar
+              step's 16, E = 8, its two routes; skewed sizes with an empty
+              expert, one-row groups, rows past the groups' sum, the route
+              boundary M = 64 / 65, one expert holding every row, a group of
+              129 rows; at the int8 prefill the outputs off an fp64
+              reference's rounding counted for the kernel and the plain
+              version, the kernel's at most 1.5x) and expert_ragged_scalar
               (fp32 x; its launches in the kernels line are the tiny fp32
               MoE path's, the one path that takes it), split_attention_i8 (turbo_kv8, its ring route; GQA,
               T = 291, T + A = 4096, fp32 scores, one row timed at the
@@ -3764,8 +3768,14 @@ def check_expert_ragged(dev, g):
     (down), and a decode step's M = 2·B = 16, in both weight forms (int8 codes
     with per-(expert, channel) scales: moe_turbo; bf16: moe_parity), group
     sizes from uniform top-2 picks, held to the plain version by
-    compare_expert_ragged (one bf16 step). Edge cases untimed: skewed sizes
-    with one empty expert, one-row groups, rows past the groups' sum (0).
+    compare_expert_ragged (one bf16 step). At the int8 4608 x 4096 -> 14336
+    the outputs off the correctly rounded value of an fp64 reference
+    (ragged.misrounded) are counted for the kernel and the plain version: the
+    kernel's count at most 1.5x the plain version's. Edge cases untimed:
+    skewed sizes with one empty expert, one-row groups, rows past the groups'
+    sum (0), the route boundary (M = 64 with a group over two row blocks,
+    M = 65), one expert holding all 4608 rows, a group of 129 rows (one past
+    a 128-row tile).
     Library: cuBLAS bf16 over each expert's rows, weights dequantized
     beforehand. The row's figures are launch-weighted over moe_turbo's and
     moe_parity's calls."""
@@ -3779,18 +3789,30 @@ def check_expert_ragged(dev, g):
         per_call.update({(form, MOE_ROWS, D, F_): 2 * layers, (form, MOE_ROWS, F_, D): layers,
                          (form, 2 * MOE_BATCH, D, F_): 2 * layers * (A - 1),
                          (form, 2 * MOE_BATCH, F_, D): layers * (A - 1)})
-    by_shape = {}
+    by_shape, misrounded = {}, {}
     for (form, M, I, O), n in per_call.items():
         x, w, s = _ragged_operands(M, I, O, form == "int8", g, dev)
         gs = prefill if M == MOE_ROWS else decode
         by_shape[f"{form} {M}x{I}x{O}"] = _ragged_shape(x, w, s, gs, "expert_ragged", "bf16", n)
+        if (form, M, I, O) == ("int8", MOE_ROWS, D, F_):
+            got = _launched("expert_ragged",
+                            lambda: ragged.expert_ragged(x, _ragged_leaf(w, s), gs))
+            misrounded = dict(kernel=ragged.misrounded(got, x, w, s, gs),
+                              plain=ragged.misrounded(ragged.expert_ragged_plain(x, w, s, gs),
+                                                      x, w, s, gs))
+            assert misrounded["kernel"] <= 1.5 * misrounded["plain"], misrounded
+            del got
         del x, w, s
     edges = {}
     for name, sizes, M, I, O in (
             ("skewed_one_empty", [1200, 0, 3, 1, 900, 1500, 700, 304], 4608, D, 2048),
             ("one_row_groups", [1, 1, 1, 5, 0, 1, 40, 1], 50, F_, 1024),
             ("decode_one_empty", [2, 2, 3, 1, 0, 4, 2, 2], 16, D, F_),
-            ("rows_past_sum", [3, 0, 9, 1, 0, 0, 20, 2], 64, 1024, 512)):
+            ("rows_past_sum", [3, 0, 9, 1, 0, 0, 20, 2], 64, 1024, 512),
+            ("decode_64_rows", [34, 2, 0, 28, 0, 0, 0, 0], 64, D, 2048),
+            ("prefill_65_rows", [1, 0, 60, 2, 0, 0, 0, 2], 65, D, 2048),
+            ("one_expert_all_rows", [0, 0, 0, 4608, 0, 0, 0, 0], 4608, D, 2048),
+            ("group_of_129", [129, 300, 0, 5, 0, 0, 0, 66], 500, D, 2048)):
         gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
         for form in ("int8", "bf16"):
             x, w, s = _ragged_operands(M, I, O, form == "int8", g, dev)
@@ -3805,7 +3827,7 @@ def check_expert_ragged(dev, g):
     return dict(name="expert_ragged", route="cuda",
                 source="openvla_probe_tpu_torch/ops/csrc/expert_ragged.cu",
                 replaces="openvla_probe_tpu/models/moe.py:218", by_shape=by_shape,
-                edge_cases=edges, **weighted)
+                edge_cases=edges, misrounded=misrounded, **weighted)
 
 
 def check_expert_ragged_scalar(dev, g):

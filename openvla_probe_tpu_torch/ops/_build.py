@@ -149,7 +149,7 @@ KERNELS = {
     ),
     "expert_ragged": (
         "expert_ragged.cu", "ovla_expert_ragged",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
     "expert_ragged_scalar": (
         "expert_ragged.cu", "ovla_expert_ragged_scalar",

@@ -9,97 +9,556 @@
 // lax.ragged_dot_general (XLA; a Mosaic grouped matmul on the TPU) over the expert-sorted rows
 // of moe_ffn_sorted: three launches a MoE layer (gate, up, down). Function kept: bf16 products
 // are exact in fp32 and the sums are fp32 (only their order differs); int8 codes widen to bf16
-// exactly (|q| <= 127), the scale multiplies the fp32 sum, and one cast to x's type ends it.
+// exactly (|q| <= 128, `widen2`, wi8_matmul.cu's), the scale multiplies the fp32 sum, and one
+// cast to x's type ends it.
 //
-// The group sizes stay on the device: every CTA reads group_sizes itself and finds its tile from
-// their running sum, so the host never waits on the card for them (one read a product would be
-// 96 host syncs a forward at 32 layers). The grid covers ceil(M / BM) + E + 1 row tiles: each
-// expert's rows split into ceil(n_e / BM) tiles starting at its first row (no tile spans two
-// experts), then the tiles of the rows past the groups' sum, which write zeros; a CTA left
-// without a tile returns. Row tiles run along grid x, so the CTAs that run together share a
-// column tile of one expert's weights, which then comes from L2.
+// The group sizes stay on the device: every CTA reads group_sizes itself, so the host never
+// waits on the card for them (one read a product would be 96 host syncs a forward at 32
+// layers), and no pre-pass is launched. Group sizes are clamped so the rows never pass M.
 //
 // Bound on the H100 at the Mixtral-8x7B shapes (E = 8, top-2, D = 4096, F = 14336):
 //   * prefill, M = 2·B·T rows (4608 at B = 8, T = 288): 0.54 TFLOP a launch against 0.47 GB
 //     (int8) or 0.94 GB (bf16) of weights, so bound by bf16 tensor-core operations (0.55 ms at
 //     989 TFLOP/s);
-//   * decode, M = 2·B (16 rows over 8 experts): bound by the weight stream, every expert's
-//     [O, I] read once (0.47 GB int8, 0.14 ms at 3.35 TB/s).
-// A simple kernel first (PERF.md §6 has its times): mma.sync m16n8k16 (bf16 x bf16 -> fp32)
-// with a 3-stage cp.async ring of 32-deep k chunks, 64 x 128 output tiles of 8 warps (32 x 32
-// each), ldmatrix fragments for x and bf16 weights, int8 codes widened in registers. wgmma,
-// TMA and a persistent grid are later work.
+//   * decode, M = 2·B (16 rows over 8 experts): bound by the weight stream, every used expert's
+//     [O, I] read once (0.47 GB int8, 0.14 ms at 3.35 TB/s; bf16 twice that).
 //
-// The sums: each 32-deep chunk goes into fresh mma accumulators, then into the running fp32
-// sums by ordinary adds. An mma.sync aligns its products to its largest addend, the running
-// sum included, and drops their low bits: with one running accumulator over K = 4096 the
-// kernel left 5-14x as many outputs off the correctly rounded value as the fp32 plain
-// version, some two bf16 steps from it (an fp64 reference on the H100, PERF.md §6); with
-// the chunks promoted it is on a par with the plain version.
+// The wrapper picks the route from M alone (ops/expert_ragged.py::ragged_prefill_route):
 //
-// Any other input (fp32 x, I or O not a multiple of 8) takes the scalar route,
-// ovla_expert_ragged_scalar (fp32 FMAs over 16 x 16 tiles, the same tile map), which the
-// wrapper counts as expert_ragged_scalar.
+// M > 64, the prefill route: bf16 wgmma fed by TMA on a persistent grid (one CTA an SM), in the
+// shape of wi8_matmul.cu's M > 64 route. Every CTA builds the work list from the group sizes
+// (a warp scan over E <= 1024 sizes into shared memory) and walks its items with stride
+// gridDim.x: (expert, n-tile, m-tile), the m-tiles of an n-tile fastest, so the CTAs in flight
+// share each n-tile of one expert's weights through L2 and every weight comes from HBM about
+// once; then the zero tiles of the rows past the sum. A tile is 128 weight rows (output
+// channels) x 128 rows of x, computed as outᵀ: the weights are wgmma's operand A, x its operand
+// B. A tile never spans two experts: it starts at its expert's row, and the rows of the next
+// expert it holds are computed and never stored (~11 % of the rows at 576 an expert). 384
+// threads:
+//   * a producer warpgroup that gives its registers away (setmaxnreg), in which one thread
+//     keeps a 6-stage ring of 64-deep k chunks full on full / empty mbarriers and runs on into
+//     the CTA's next item while the consumers store the last: x [128 rows][64 k] (a TMA box,
+//     128-byte swizzle, rows past M zero-filled) and the weights [128 n][64 k] of a map over
+//     [E·O, I] (int8: 64-byte swizzle; bf16: 128-byte);
+//   * two consumer warpgroups of 64 weight rows x 128 rows of x (m64n128k16). int8 codes are
+//     loaded from the stage with 16-bit loads, widened in registers into the register-A
+//     fragment (wgmma rs) between groups, so no register of an in-flight wgmma is written
+//     (ptxas C7513); bf16 weights are read from shared memory (wgmma ss).
+//   * The sums: each 128-deep chunk (kPPromote = 2 stages) goes into fresh accumulators
+//     (scale-d = 0), is waited for and added to the running fp32 sums; one warpgroup's adds
+//     run under the other's products. A tensor-core accumulator aligns its products to its
+//     largest addend, the running sum included, and drops their low bits: with one running
+//     accumulator over K = 4096 the kernel left 52432 of 66M int8 outputs off the correctly
+//     rounded value of an fp64 reference, the fp32 plain version 11012, the promoted kernel
+//     6615 (PERF.md §6). 64 + 64 accumulators, the fragments and the addressing take the 168
+//     registers ptxas gives a 384-thread block, no spill.
+//   * The epilogue multiplies by the scale in fp32, casts once to bf16 and stores masked by
+//     the tile's rows and by O.
+//   What bounds it (H100 80GB HBM3 at 700 W, 4608 x 4096 -> 14336 int8, 1.19 ms against a 0.55 ms
+//   operations bound; knock-out copies of this file timed by tools/kernel_ab.py): the data path.
+//   With no product, no widening and no promotion the stream of x and codes through the ring alone
+//   takes 0.94 ms (~57 GB/s into each SM); the products add 0.28, the widening 0.21, the promotion
+//   0.12, the stores 0.04. x multicast to a two-CTA cluster (half the L2 reads) gained 1 % in int8
+//   and 0-9 % in bf16; with a cluster-scope release on each remote arrival it ran 2x slower. Larger
+//   tiles would move fewer bytes a product but leave no registers for the promotion.
+// M <= 64, the decode route: the used experts' weights streamed with K split across warps, in the
+// shape of wi8_matmul.cu's M <= 64 route. A block owns (expert, 32 weight rows, 16 rows of the
+// expert's group) over all of K; a block whose expert has no rows there returns before it issues
+// any load, so an unused expert's weights are never read. 8 consumer warps take the k chunks in
+// turn (chunk c to warp c % 8; 128 bytes of each weight row a chunk: 128 k of codes, 64 of bf16),
+// each from one stage of its own, which one producer thread fills by TMA: the weights [32 n][128
+// bytes] and x [16 rows][64 k] boxes from the block's first row. One stage a warp keeps a block
+// (int8 / bf16) at 65 / 49 KB of shared memory and 84 / 78 registers, so two blocks share an SM and
+// one's set-up and fold run under the other's stream (two stages a warp and 32-row blocks, one
+// block an SM: 0.239 ms against 0.159). mma.sync m16n8k16 in a permuted k order (wi8_matmul.cu's),
+// each chunk into fresh accumulators added to the running sums (the promotion at no extra cost); at
+// the end the warps' fp32 partials are added in warp order 0..7 through shared memory, then times
+// s. Bound by the used experts' bytes: 0.159 ms weighted over moe_turbo's decode launches against
+// 0.123; with no product it still takes 0.150 (the stream). A fixed summation order and no atomics
+// on either route: two runs give the same bits.
+//
+// Any other input (fp32 x, int8 codes with I not a multiple of 16, bf16 with I not a multiple
+// of 8, O not a multiple of 8) takes the scalar route, ovla_expert_ragged_scalar (fp32 FMAs
+// over 16 x 16 tiles), which the wrapper counts as expert_ragged_scalar.
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace ovla_er {
 
-constexpr int kMaxE = 1024;     // experts a launch takes
-constexpr int kBM = 64;         // rows of x a tile
-constexpr int kBN = 128;        // output channels a tile
-constexpr int kBK = 32;         // k a stage
-constexpr int kStages = 3;
-constexpr int kThreads = 256;   // 8 warps: 2 (rows) x 4 (columns) of 32 x 32
-constexpr int kXPitch = kBK + 8;          // bf16 elements: 80-byte rows, conflict-free ldmatrix
-constexpr int kWPitchB = kBK + 8;         // bf16 weights, the same
-constexpr int kWPitchQ = kBK + 16;        // int8 codes: 48-byte rows
-constexpr int kXStage = kBM * kXPitch;    // bf16 elements
-constexpr int kWStageBytes = kBN * kWPitchB * 2;   // >= kBN * kWPitchQ
+namespace hp = ovla_hp;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16- and 8-byte copies into shared memory; src_bytes = 0 zero-fills (a ragged edge)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// two int8 codes (bytes 0 and 1 of w) -> bf16x2, the first code in the low half; exact for
-// every code (wi8_matmul.cu's widening: 128 + (c & 0x7F) minus 128 or 256)
+constexpr int kMaxE = 1024;      // experts a launch takes
+constexpr int kDecodeRows = 64;  // the most rows the decode route takes
+
+// two int8 codes (byte sel & 0xF and (sel >> 8) & 0xF of w: 0x5140 the low pair, 0x7362 the
+// high pair) -> bf16x2, the first code in the low half; exact (wi8_matmul.cu's widening)
+template <uint32_t SEL>
 __device__ __forceinline__ uint32_t widen2(uint32_t w) {
-  const uint32_t a = __byte_perm(w, 0x43434343u, 0x5140);
-  const uint32_t lo = a & 0xFF7FFF7Fu, hi = a & 0xFF80FF80u;
+  const uint32_t a = __byte_perm(w, 0x43434343u, SEL);   // [c0, 0x43, c1, 0x43]
+  const uint32_t lo = a & 0xFF7FFF7Fu;                     // 128 + (c & 0x7F)
+  const uint32_t hi = a & 0xFF80FF80u;                     // 128, or 256 where c < 0
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
                              *reinterpret_cast<const __nv_bfloat162*>(&hi));
   return *reinterpret_cast<uint32_t*>(&r);
 }
+
 __device__ __forceinline__ uint32_t lds_u16(const uint8_t* p) {
   return *reinterpret_cast<const uint16_t*>(p);
 }
+
+__device__ __forceinline__ long long warp_scan(long long v, int lane) {   // inclusive
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long t = __shfl_up_sync(0xFFFFFFFFu, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// M > 64: wgmma on a persistent grid of (expert, n-tile, m-tile) items
+
+constexpr int kPBN = 128;                     // weight rows a tile: two warpgroups of 64
+constexpr int kPBM = 128;                     // rows of x a tile: wgmma's n
+constexpr int kPBK = 64;                      // k a stage: one 128-byte row of x
+constexpr int kPStages = 6;
+constexpr int kPPromote = 2;                  // stages a chunk in fresh accumulators
+constexpr int kPConsumers = 256;
+constexpr int kPThreads = kPConsumers + 128;  // a producer warpgroup (setmaxnreg)
+constexpr int kPAcc = kPBM / 2;               // fp32 accumulators a thread
+constexpr int kPXBytes = kPBM * kPBK * 2;     // x of a stage, 16 KB
+
+template <bool kInt8>
+struct Prefill {
+  static constexpr int kWBytes = kPBN * kPBK * (kInt8 ? 1 : 2);   // weights of a stage
+  static constexpr int kStage = kPXBytes + kWBytes;                // a multiple of 1024
+  // the ring, its barriers, the work list (item_start [E + 2], row_start [E + 1])
+  static constexpr size_t kSmem =
+      1024 + size_t(kPStages) * kStage + 2 * kPStages * 8 + (2 * kMaxE + 3) * 4;
+};
+
+struct Work {
+  int e;      // expert, or -1: rows past the groups' sum (zeros)
+  int row0;   // first row of x
+  int rows;   // rows of the tile
+  int n0;     // first weight row (output channel)
+};
+
+// Warp 0: every expert's first row (row_start, clamped to M) and first item (item_start:
+// ceil(rows / kPBM) m-tiles x NT n-tiles an expert), then the zero tiles of the rows past the
+// sum up to item_start[E + 1]
+__device__ void plan(const int* __restrict__ gs, int E, int M, int NT, int* item_start,
+                     int* row_start) {
+  const int lane = threadIdx.x & 31;
+  long long rows = 0, items = 0;
+  for (int base = 0; base < E; base += 32) {
+    const int e = base + lane;
+    const long long g = e < E ? max(gs[e], 0) : 0;
+    const long long p = rows + warp_scan(g, lane);
+    const int begin = int(min(p - g, (long long)M)), end = int(min(p, (long long)M));
+    const long long n = (long long)((end - begin + kPBM - 1) / kPBM) * NT;
+    const long long ip = items + warp_scan(n, lane);
+    if (e < E) row_start[e] = begin, item_start[e] = int(ip - n);
+    rows = __shfl_sync(0xFFFFFFFFu, p, 31);
+    items = __shfl_sync(0xFFFFFFFFu, ip, 31);
+  }
+  if (lane == 0) {
+    const int S = int(min(rows, (long long)M));
+    row_start[E] = S;
+    item_start[E] = int(items);
+    item_start[E + 1] = int(items) + (M - S + kPBM - 1) / kPBM * NT;
+  }
+}
+
+// item i of the list: the last e in [0, E] with item_start[e] <= i (e = E: a zero tile)
+__device__ __forceinline__ Work work_at(int i, const int* item_start, const int* row_start, int E,
+                                        int M) {
+  int lo = 0, hi = E;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (item_start[mid] <= i) lo = mid;
+    else hi = mid - 1;
+  }
+  const int begin = row_start[lo], end = lo < E ? row_start[lo + 1] : M;
+  const int mtiles = (end - begin + kPBM - 1) / kPBM, j = i - item_start[lo];
+  const int row0 = begin + (j % mtiles) * kPBM;
+  return Work{lo < E ? lo : -1, row0, min(kPBM, end - row0), (j / mtiles) * kPBN};
+}
+
+// The codes of row r (bytes k, k + 1) in a [rows][64 bytes] tile with the 64-byte swizzle
+// (16-byte chunk c of row r stored at chunk c ^ ((r >> 1) & 3))
+__device__ __forceinline__ const uint8_t* code_at(const uint8_t* qs, int r, int k) {
+  return qs + r * 64 + ((((k >> 4) ^ (r >> 1)) & 3) << 4) + (k & 15);
+}
+
+// One stage's products into d (fresh: d dropped first) by a consumer warpgroup, waited for:
+// x [128 rows][64 k] at xs (128-byte swizzle) is operand B; the weights at ws are operand A,
+// int8 codes widened in registers (the fragments built before the group, so no register of an
+// in-flight wgmma is written), or bf16 from shared memory.
+template <bool kInt8>
+__device__ __forceinline__ void stage_products(float (&d)[kPAcc], const uint8_t* xs,
+                                               const uint8_t* ws, int wg, int r0, int t4,
+                                               bool fresh) {
+  if constexpr (kInt8) {
+    // A fragments of the stage's four k16 steps: a0 / a1 rows r0 / r0 + 8 at k 2 t4, 2 t4 + 1,
+    // a2 / a3 the same rows at k 2 t4 + 8, 2 t4 + 9 (x's k order)
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = kk * 16 + 2 * t4;
+      af[kk][0] = widen2<0x5140>(lds_u16(code_at(ws, r0, k)));
+      af[kk][1] = widen2<0x5140>(lds_u16(code_at(ws, r0 + 8, k)));
+      af[kk][2] = widen2<0x5140>(lds_u16(code_at(ws, r0, k + 8)));
+      af[kk][3] = widen2<0x5140>(lds_u16(code_at(ws, r0 + 8, k + 8)));
+    }
+    hp::fence_operands(d);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)   // k16 step kk: 32 bytes along each 128-byte x row
+      hp::wgmma_bf16_rs_m64n128k16<0>(d, af[kk], hp::desc_sw128(xs + kk * 32),
+                                      !(fresh && kk == 0));
+  } else {
+    hp::fence_operands(d);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hp::wgmma_bf16_ss_m64n128k16(d, hp::desc_sw128(ws + wg * 64 * 128 + kk * 32),
+                                   hp::desc_sw128(xs + kk * 32), !(fresh && kk == 0));
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait<0>();
+  hp::fence_operands(d);
+}
+
+template <bool kInt8>
+__global__ void __launch_bounds__(kPThreads, 1)
+    expert_ragged_prefill(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ s,
+                          const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int M,
+                          int O, int I, int E) {
+  using P = Prefill<kInt8>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kPStages * P::kStage);
+  uint64_t* empty = full + kPStages;
+  int* item_start = reinterpret_cast<int*>(empty + kPStages);
+  int* row_start = item_start + kMaxE + 2;
+  const int NT = (O + kPBN - 1) / kPBN, KT = (I + kPBK - 1) / kPBK;
+  const int tid = threadIdx.x;
+
+  if (tid < 32) plan(gs, E, M, NT, item_start, row_start);
+  if (tid == 32) {
+    for (int i = 0; i < kPStages; ++i) {
+      hp::mbar_init(full + i, 1);    // the producer's arrival, then the stage's bytes
+      hp::mbar_init(empty + i, 2);   // one thread of each consumer warpgroup
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+  const int items = item_start[E + 1];
+
+  if (tid >= kPConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // ---- producer: one thread keeps the ring full across the CTA's items ----
+    if (tid == kPConsumers) {
+      int c = 0;
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const Work wk = work_at(i, item_start, row_start, E, M);
+        if (wk.e < 0) continue;
+        const int wrow = wk.e * O + wk.n0;
+        for (int kc = 0; kc < KT; ++kc, ++c) {
+          const int slot = c % kPStages;
+          hp::mbar_wait(empty + slot, ((c / kPStages) & 1) ^ 1);   // the first round passes
+          uint8_t* st = ring + slot * P::kStage;
+          hp::mbar_expect_tx(full + slot, P::kStage);
+          hp::tma_load_2d(st, &tm_x, kc * kPBK, wk.row0, full + slot);
+          hp::tma_load_2d(st + kPXBytes, &tm_w, kc * kPBK, wrow, full + slot);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups: weight rows 64 wg .. 64 wg + 63 of the tile x kPBM rows of x
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = tid / 128, wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + g;   // this thread's fragment rows r0, r0 + 8
+  int c = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const Work wk = work_at(i, item_start, row_start, E, M);
+    if (wk.e < 0) {
+      for (int j = tid; j < wk.rows * kPBN; j += kPConsumers) {
+        const int n = wk.n0 + j % kPBN;
+        if (n < O) out[(long long)(wk.row0 + j / kPBN) * O + n] = __float2bfloat16(0.f);
+      }
+      continue;
+    }
+    float acc[kPAcc];
+#pragma unroll
+    for (int j = 0; j < kPAcc; ++j) acc[j] = 0.f;
+    float part[kPAcc];
+    for (int kc = 0; kc < KT; ++kc, ++c) {
+      const int slot = c % kPStages;
+      hp::mbar_wait(full + slot, (c / kPStages) & 1);
+      const uint8_t* xs = ring + slot * P::kStage;
+      stage_products<kInt8>(part, xs, xs + kPXBytes, wg, r0, t4, kc % kPPromote == 0);
+      if (wt == 0) hp::mbar_arrive(empty + slot);
+      if (kc % kPPromote == kPPromote - 1 || kc == KT - 1) {
+#pragma unroll
+        for (int j = 0; j < kPAcc; ++j) acc[j] += part[j];
+      }
+    }
+
+    // accumulator block j (rows of x 8 j .. 8 j + 7): weight rows r0 (e < 2), r0 + 8; rows of x
+    // 8 j + 2 t4 + (e & 1)
+    const int n = wk.n0 + r0;
+    float s0 = 1.f, s8 = 1.f;
+    if constexpr (kInt8) {
+      const float* se = s + (long long)wk.e * O;
+      s0 = n < O ? se[n] : 0.f;
+      s8 = n + 8 < O ? se[n + 8] : 0.f;
+    }
+    __nv_bfloat16* ot = out + (long long)wk.row0 * O;
+#pragma unroll
+    for (int j = 0; j < kPBM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 8 * j + 2 * t4 + (e & 1), nn = n + 8 * (e >> 1);
+        if (m < wk.rows && nn < O) {
+          const float v = kInt8 ? acc[4 * j + e] * ((e >> 1) ? s8 : s0) : acc[4 * j + e];
+          ot[(long long)m * O + nn] = __float2bfloat16(v);
+        }
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// M <= 64: the used experts' weights streamed by TMA, K split across warps, mma.sync
+
+constexpr int kDBN = 32;                      // weight rows a block
+constexpr int kDBM = 16;                      // rows of x a block: one m16 tile
+constexpr int kDRowBytes = 128;               // bytes of each weight row a stage
+constexpr int kDWarps = 8;                    // consumer warps, chunk c to warp c % 8
+constexpr int kDConsumers = 32 * kDWarps;
+constexpr int kDThreads = kDConsumers + 32;
+constexpr int kDXBox = kDBM * 128;            // x [16 rows][64 k] bf16, 2 KB
+constexpr int kDWBytes = kDBN * kDRowBytes;   // weights of a stage, 4 KB
+constexpr int kDPitch = kDBN + 8;             // partial sums' row pitch (floats)
+
+template <bool kInt8>
+struct Decode {
+  static constexpr int kBK = kInt8 ? 128 : 64;             // k a stage
+  static constexpr int kXBoxes = kBK / 64;                 // x boxes a stage
+  static constexpr int kStage = kDWBytes + kXBoxes * kDXBox;   // 8 / 6 KB, 1024-aligned
+  // one stage a warp: two blocks an SM, whose set-up and fold run under each other's stream
+  static constexpr size_t kSmem = 1024 + size_t(kDWarps) * kStage + 2 * kDWarps * 8;
+  static_assert(kDWarps * kDBM * kDPitch * 4 <= kDWarps * kStage, "partials fit the ring");
+};
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0, uint32_t a1,
+                                               uint32_t a2, uint32_t a3, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <bool kInt8>
+__global__ void __launch_bounds__(kDThreads, 2)
+    expert_ragged_decode(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ s,
+                         const int* __restrict__ gs, __nv_bfloat16* __restrict__ out, int M,
+                         int O, int I, int E) {
+  using D = Decode<kInt8>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kDWarps * D::kStage);
+  uint64_t* empty = full + kDWarps;
+  __shared__ int blk[2];   // the block's first row of x and its rows
+  const int e = blockIdx.y, n0 = blockIdx.x * kDBN, tid = threadIdx.x;
+
+  if (tid < 32) {   // rows before expert e (e = E: the rows past the groups' sum), clamped to M
+    long long p = 0;
+    for (int j = tid; j < e; j += 32) p += max(gs[j], 0);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xFFFFFFFFu, p, o);
+    if (tid == 0) {
+      const long long n = e < E ? max(gs[e], 0) : (long long)M;
+      const int begin = int(min(p, (long long)M)), end = int(min(p + n, (long long)M));
+      const int row0 = begin + kDBM * blockIdx.z;
+      blk[0] = row0;
+      blk[1] = min(kDBM, end - row0);
+    }
+  }
+  __syncthreads();
+  const int row0 = blk[0], rows = blk[1];
+  if (rows <= 0) return;   // no rows here: none of the expert's weights are read
+  if (e == E) {
+    for (int j = tid; j < rows * kDBN; j += kDThreads) {
+      const int n = n0 + j % kDBN;
+      if (n < O) out[(long long)(row0 + j / kDBN) * O + n] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+
+  if (tid == 0) {
+    for (int i = 0; i < kDWarps; ++i) {
+      hp::mbar_init(full + i, 1);
+      hp::mbar_init(empty + i, 1);   // lane 0 of the warp that owns the stage
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+  const int KT = (I + D::kBK - 1) / D::kBK;
+
+  if (tid >= kDConsumers) {
+    if (tid == kDConsumers) {
+      const int wrow = e * O + n0;
+      for (int c = 0; c < KT; ++c) {   // chunk c: warp c % 8, its stage
+        const int slot = c % kDWarps, r = c / kDWarps;
+        hp::mbar_wait(empty + slot, (r & 1) ^ 1);
+        uint8_t* st = ring + slot * D::kStage;
+        hp::mbar_expect_tx(full + slot, D::kStage);
+        hp::tma_load_2d(st, &tm_w, c * D::kBK, wrow, full + slot);
+#pragma unroll
+        for (int h = 0; h < D::kXBoxes; ++h)
+          hp::tma_load_2d(st + kDWBytes + h * kDXBox, &tm_x, c * D::kBK + 64 * h, row0,
+                          full + slot);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  float acc[4][4];   // n8 tiles 0..3
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+
+  for (int r = 0; warp + kDWarps * r < KT; ++r) {
+    hp::mbar_wait(full + warp, r & 1);
+    const uint8_t* ws = ring + warp * D::kStage;
+    const uint8_t* xs = ws + kDWBytes;
+    float part[4][4];   // this chunk's sums, added to the running sums after it
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) part[nt][v] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D::kBK / 16; ++i) {
+      // k 16 i + 4 t4 .. + 3 at the fragment's slots 2 t4, 2 t4 + 1, 2 t4 + 8, 2 t4 + 9 of both
+      // operands; x rows g, g + 8: box i / 4, 16-byte chunk 2 (i % 4) + t4 / 2 stored at
+      // chunk ^ (row % 8), bytes 8 (t4 % 2) ..
+      const int chunk = 2 * (i % 4) + (t4 >> 1);
+      uint2 xa[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = g + 8 * h;
+        xa[h] = *reinterpret_cast<const uint2*>(xs + (i / 4) * kDXBox + row * 128 +
+                                                ((chunk ^ (row & 7)) << 4) + 8 * (t4 & 1));
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        // weight row nt * 8 + g (128-byte rows, 16-byte chunk c stored at c ^ (n % 8)): codes
+        // at k 16 i + 4 t4 .. + 3 (chunk i, bytes 4 t4 ..), bf16 at the same k as x's
+        const int n = nt * 8 + g;
+        uint32_t b0, b1;
+        if constexpr (kInt8) {
+          const uint32_t w =
+              *reinterpret_cast<const uint32_t*>(ws + n * 128 + ((i ^ (n & 7)) << 4) + 4 * t4);
+          b0 = widen2<0x5140>(w), b1 = widen2<0x7362>(w);
+        } else {
+          const uint2 w = *reinterpret_cast<const uint2*>(
+              ws + n * 128 + ((chunk ^ (n & 7)) << 4) + 8 * (t4 & 1));
+          b0 = w.x, b1 = w.y;
+        }
+        mma_bf16_16816(part[nt], xa[0].x, xa[1].x, xa[0].y, xa[1].y, b0, b1);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(empty + warp);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[nt][v] += part[nt][v];
+  }
+
+  // every warp's stages consumed: the ring takes the partial sums [warp][16 rows][pitch]
+  hp::named_barrier(1, kDConsumers);
+  float* part = reinterpret_cast<float*>(ring);
+  float* pw = part + warp * kDBM * kDPitch;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(pw + (g + 8 * h) * kDPitch + nt * 8 + 2 * t4) =
+          make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+  hp::named_barrier(1, kDConsumers);
+#pragma unroll
+  for (int k = 0; k < kDBM * kDBN / kDConsumers; ++k) {
+    const int idx = tid + kDConsumers * k, row = idx / kDBN, col = idx % kDBN, n = n0 + col;
+    if (row >= rows || n >= O) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDWarps; ++w) sum += part[(w * kDBM + row) * kDPitch + col];
+    if constexpr (kInt8) sum *= s[(long long)e * O + n];
+    out[(long long)(row0 + row) * O + n] = __float2bfloat16(sum);
+  }
+}
+
+template <bool kInt8>
+int launch_prefill(const void* x, const void* w, const float* s, const int* gs, void* out, int M,
+                   int O, int I, int E, cudaStream_t st) {
+  CUtensorMap tm_x, tm_w;
+  if (!hp::encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, I, uint64_t(I) * 2, kPBM, kPBK,
+                     CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hp::encode_2d(&tm_w,
+                     kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w,
+                     uint64_t(E) * O, I, uint64_t(I) * (kInt8 ? 1 : 2), kPBN, kPBK,
+                     kInt8 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B))
+    return int(cudaErrorInvalidValue);
+  auto kernel = expert_ragged_prefill<kInt8>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(Prefill<kInt8>::kSmem));
+  if (err != cudaSuccess) return int(err);
+  const long long NT = (O + kPBN - 1) / kPBN;
+  const long long most = ((M + kPBM - 1) / kPBM + (long long)E + 1) * NT;   // items, at most
+  const dim3 grid(unsigned(most < hp::sm_count() ? most : hp::sm_count()));
+  kernel<<<grid, kPThreads, Prefill<kInt8>::kSmem, st>>>(tm_x, tm_w, s, gs,
+                                                          static_cast<__nv_bfloat16*>(out), M, O,
+                                                          I, E);
+  return int(cudaGetLastError());
+}
+
+template <bool kInt8>
+int launch_decode(const void* x, const void* w, const float* s, const int* gs, void* out, int M,
+                  int O, int I, int E, cudaStream_t st) {
+  using D = Decode<kInt8>;
+  CUtensorMap tm_x, tm_w;
+  if (!hp::encode_2d(&tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, M, I, uint64_t(I) * 2, kDBM,
+                     64, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hp::encode_2d(&tm_w,
+                     kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w,
+                     uint64_t(E) * O, I, uint64_t(I) * (kInt8 ? 1 : 2), kDBN, D::kBK,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+    return int(cudaErrorInvalidValue);
+  auto kernel = expert_ragged_decode<kInt8>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(D::kSmem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((O + kDBN - 1) / kDBN, E + 1, (M + kDBM - 1) / kDBM);
+  kernel<<<grid, kDThreads, D::kSmem, st>>>(tm_x, tm_w, s, gs, static_cast<__nv_bfloat16*>(out),
+                                            M, O, I, E);
+  return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// any other input: scalar fp32 FMAs, 16 x 16 outputs a block, one a thread, k staged by 16
 
 struct Tile {
   int e;      // expert, or -1 for a tile of rows past the groups' sum (zeros)
@@ -107,8 +566,10 @@ struct Tile {
   int rows;   // rows of the tile (<= 0: no tile)
 };
 
-// Tile `t` of the map (thread 0 of a CTA computes it; E reads of group_sizes). Rows are clamped
-// to M, so group sizes that sum past M never send a read or a write out of bounds.
+// Tile `t` of the scalar route's map (thread 0 of a CTA computes it; E reads of group_sizes):
+// each expert's rows in ceil(n_e / bm) tiles from its first row, then the rows past the sum.
+// Rows are clamped to M, so group sizes that sum past M never send a read or a write out of
+// bounds.
 __device__ Tile find_tile(const int* __restrict__ gs, int E, int M, int bm, int t) {
   int start = 0;
   for (int e = 0; e < E; ++e) {
@@ -124,168 +585,6 @@ __device__ Tile find_tile(const int* __restrict__ gs, int E, int M, int bm, int 
   const int row0 = min(start, M) + t * bm;
   return Tile{-1, row0, min(bm, M - row0)};
 }
-
-template <typename T>
-__device__ __forceinline__ void zero_tile(T* out, const Tile& tl, int n0, int bn, int O) {
-  for (int i = threadIdx.x; i < tl.rows * bn; i += blockDim.x) {
-    const int r = i / bn, n = n0 + i % bn;
-    if (n < O) out[(long long)(tl.row0 + r) * O + n] = T(0.f);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 x, bf16 or int8 weights: mma.sync
-
-template <bool kInt8>
-__global__ void __launch_bounds__(kThreads)
-    expert_ragged_mma(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
-                      const float* __restrict__ s, const int* __restrict__ gs,
-                      __nv_bfloat16* __restrict__ out, int M, int O, int I, int E) {
-  __shared__ __align__(16) __nv_bfloat16 xs[kStages][kXStage];
-  __shared__ __align__(16) uint8_t ws[kStages][kWStageBytes];
-  __shared__ Tile tile;
-  const int tid = threadIdx.x;
-  if (tid == 0) tile = find_tile(gs, E, M, kBM, blockIdx.x);
-  __syncthreads();
-  const Tile tl = tile;
-  if (tl.rows <= 0) return;
-  const int n0 = blockIdx.y * kBN;
-  if (tl.e < 0) {
-    zero_tile(out, tl, n0, kBN, O);
-    return;
-  }
-
-  const long long w_off = (long long)tl.e * O * I;
-  const __nv_bfloat16* wb = static_cast<const __nv_bfloat16*>(w) + w_off;
-  const uint8_t* wq = static_cast<const uint8_t*>(w) + w_off;
-  const __nv_bfloat16* xr = x + (long long)tl.row0 * I;
-  const int KT = (I + kBK - 1) / kBK;
-
-  // one stage: x [64 rows][32 k] (a 16-byte chunk a thread), weights [128 n][32 k] (two
-  // 16-byte chunks of bf16 or two 8-byte chunks of codes a thread); rows past the tile, n past
-  // O and k past I zero-filled
-  auto load_stage = [&](int slot, int kt) {
-    const int k0 = kt * kBK;
-    {
-      const int r = tid >> 2, c = tid & 3, k = k0 + c * 8;
-      const bool ok = r < tl.rows && k < I;
-      cp_async16(&xs[slot][r * kXPitch + c * 8], ok ? xr + (long long)r * I + k : x,
-                 ok ? 16 : 0);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = (tid >> 2) + 64 * i, c = tid & 3, k = k0 + c * 8, n = n0 + r;
-      const bool ok = n < O && k < I;
-      if (kInt8) {
-        cp_async8(&ws[slot][r * kWPitchQ + c * 8], ok ? wq + (long long)n * I + k : wq,
-                  ok ? 8 : 0);
-      } else {
-        cp_async16(&ws[slot][(r * kWPitchB + c * 8) * 2], ok ? wb + (long long)n * I + k : wb,
-                   ok ? 16 : 0);
-      }
-    }
-  };
-
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;   // rows wm * 32 .. + 31, columns wn * 32 .. + 31
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < KT) load_stage(st, st);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();   // stage kt has landed (this thread's copies)
-    __syncthreads();                // everyone's; and the slot refilled below is consumed
-    const int nk = kt + kStages - 1;
-    if (nk < KT) load_stage(nk % kStages, nk);
-    cp_async_commit();
-    const int slot = kt % kStages;
-    const __nv_bfloat16* xsl = xs[slot];
-    const uint8_t* wsl = ws[slot];
-    // this chunk's sums in fresh accumulators, then added to the running sums in fp32 FADDs:
-    // an mma's accumulator aligns its products to the largest term, so a running sum of
-    // thousands of products would truncate each new chunk's low bits
-    float part[2][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) part[mt][nt][v] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        // matrices: rows 0-7 / 8-15 x k 0-7 / 8-15 -> a0, a1, a2, a3
-        const int r = wm * 32 + mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
-        ldmatrix_x4(a[mt], xsl + r * kXPitch + kk + 8 * (lane >> 4));
-      }
-      uint32_t b[4][2];
-      if (kInt8) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const uint8_t* p = wsl + (wn * 32 + nt * 8 + g) * kWPitchQ + kk + 2 * t4;
-          b[nt][0] = widen2(lds_u16(p));
-          b[nt][1] = widen2(lds_u16(p + 8));
-        }
-      } else {
-        const __nv_bfloat16* wsb = reinterpret_cast<const __nv_bfloat16*>(wsl);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-          // matrices: n 0-7 / 8-15 of the pair x k 0-7 / 8-15 -> b0, b1 of nt 2p, 2p + 1
-          const int j = lane >> 3;
-          const int n = wn * 32 + p * 16 + (lane & 7) + 8 * (j >> 1);
-          uint32_t r[4];
-          ldmatrix_x4(r, wsb + n * kWPitchB + kk + 8 * (j & 1));
-          b[2 * p][0] = r[0], b[2 * p][1] = r[1], b[2 * p + 1][0] = r[2], b[2 * p + 1][1] = r[3];
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16_16816(part[mt][nt], a[mt], b[nt][0], b[nt][1]);
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[mt][nt][v] += part[mt][nt][v];
-  }
-  cp_async_wait<0>();
-
-  const float* se = kInt8 ? s + (long long)tl.e * O : nullptr;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int n = n0 + wn * 32 + nt * 8 + 2 * t4;   // O % 8 == 0: n and n + 1 are both in or out
-    if (n >= O) continue;
-    float s0 = 1.f, s1 = 1.f;
-    if (kInt8) s0 = se[n], s1 = se[n + 1];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + mt * 16 + g + 8 * h;
-        if (r >= tl.rows) continue;
-        float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if (kInt8) v0 *= s0, v1 *= s1;
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)(tl.row0 + r) * O + n) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// any other input: scalar fp32 FMAs, 16 x 16 outputs a block, one a thread, k staged by 16
 
 constexpr int kSTile = 16;
 
@@ -362,31 +661,35 @@ bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) !=
 
 }  // namespace ovla_er
 
-// The tensor-core route: x bf16 [M, I], w [E, O, I] bf16 (w_int8 = 0) or int8 codes with
+// The tensor-core routes: x bf16 [M, I], w [E, O, I] bf16 (w_int8 = 0) or int8 codes with
 // s fp32 [E, O] (w_int8 = 1), group_sizes int32 [E] on the device, out bf16 [M, O]; all
-// contiguous and 16-byte aligned, I and O multiples of 8. Refuses anything else
-// (cudaErrorInvalidValue). Returns the launch's cudaError_t.
+// contiguous, x, w and out 16-byte aligned, O a multiple of 8, I a multiple of 16 (int8: the
+// TMA map's 16-byte rows of codes) or 8 (bf16). prefill = 1 takes the wgmma route on a
+// persistent grid, prefill = 0 the split-K decode route (M <= kDecodeRows). Refuses anything
+// else (cudaErrorInvalidValue). Returns the launch's cudaError_t.
 extern "C" int ovla_expert_ragged(const void* x, const void* w, const void* s,
                                   const void* group_sizes, void* out, int M, int O, int I, int E,
-                                  int w_int8, void* stream) {
+                                  int w_int8, int prefill, void* stream) {
   namespace r = ovla_er;
-  const long long tiles = (M + r::kBM - 1) / r::kBM + (long long)E + 1;
-  if (M < 1 || O < 8 || I < 8 || O % 8 || I % 8 || E < 1 || E > r::kMaxE ||
-      tiles > 2147483647LL || (O + r::kBN - 1) / r::kBN > 65535 || r::misaligned(x) ||
-      r::misaligned(w) || r::misaligned(out) || (w_int8 && s == nullptr))
+  const long long items = ((M + r::kPBM - 1) / r::kPBM + (long long)E + 1) *
+                          ((O + r::kPBN - 1) / r::kPBN);
+  if (M < 1 || O < 8 || O % 8 || I < 8 || I % (w_int8 ? 16 : 8) || E < 1 || E > r::kMaxE ||
+      (long long)E * O > 2147483647LL || items > 2147483647LL ||
+      (!prefill && M > r::kDecodeRows) || r::misaligned(x) || r::misaligned(w) ||
+      r::misaligned(out) || (w_int8 && s == nullptr))
     return int(cudaErrorInvalidValue);
-  const dim3 grid(unsigned(tiles), (O + r::kBN - 1) / r::kBN);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* sf = static_cast<const float*>(s);
   const auto* gi = static_cast<const int*>(group_sizes);
-  auto* ob = static_cast<__nv_bfloat16*>(out);
-  if (w_int8)
-    r::expert_ragged_mma<true><<<grid, r::kThreads, 0, st>>>(xb, w, sf, gi, ob, M, O, I, E);
-  else
-    r::expert_ragged_mma<false><<<grid, r::kThreads, 0, st>>>(xb, w, sf, gi, ob, M, O, I, E);
-  return int(cudaGetLastError());
+  if (prefill)
+    return w_int8 ? r::launch_prefill<true>(x, w, sf, gi, out, M, O, I, E, st)
+                  : r::launch_prefill<false>(x, w, sf, gi, out, M, O, I, E, st);
+  return w_int8 ? r::launch_decode<true>(x, w, sf, gi, out, M, O, I, E, st)
+                : r::launch_decode<false>(x, w, sf, gi, out, M, O, I, E, st);
 }
+
+// The most rows the decode route takes (ops/expert_ragged.py::DECODE_ROWS mirrors it).
+extern "C" int ovla_expert_ragged_decode_rows() { return ovla_er::kDecodeRows; }
 
 // The scalar route: x fp32 (x_bf16 = 0) or bf16 [M, I]; w [E, O, I] of x's type (w_int8 = 0,
 // s null) or int8 codes with s fp32 [E, O]; out of x's type [M, O]; any M, O, I >= 1.

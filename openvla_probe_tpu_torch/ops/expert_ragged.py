@@ -20,11 +20,16 @@ find each row's expert from the group sizes):
   two more launches of the same kernel (x · Aᵀ, then · Bᵀ).
 
 On the card each weight tensor is one launch of ``csrc/expert_ragged.cu``:
-the tensor-core route (``expert_ragged``) where `ragged_mma_eligible` holds,
-the scalar route (``expert_ragged_scalar``, counted apart) otherwise. The
-group sizes stay on the device (int32): the kernel reads them itself, so no
-product waits on the card. `expert_ragged_plain` is the function on a CPU
-tensor (a loop over experts, which reads the group sizes on the host).
+the tensor-core routes (``expert_ragged``) where `ragged_mma_eligible` holds,
+the scalar route (``expert_ragged_scalar``, counted apart) otherwise. Of the
+two tensor-core routes the wrapper picks one from M alone
+(`ragged_prefill_route`): wgmma on a persistent grid above `DECODE_ROWS`
+rows, the split-K weight stream at or below it; both count as
+``expert_ragged``. The group sizes stay on the device (int32): the kernel
+reads them itself, so no product waits on the card. `expert_ragged_plain` is
+the function on a CPU tensor (a loop over experts, which reads the group
+sizes on the host); `misrounded` counts a result's outputs off the correctly
+rounded value of an fp64 reference.
 """
 
 from __future__ import annotations
@@ -41,15 +46,27 @@ _NO_VJP = ("the grouped expert product has no backward: MoE training (the router
            "the grouped product's gradients) is ROADMAP Queue 1 item 13")
 
 
+# the most rows the decode route takes (csrc/expert_ragged.cu's kDecodeRows)
+DECODE_ROWS = 64
+
+
 def ragged_mma_eligible(x: torch.Tensor, w: torch.Tensor) -> bool:
-    """The tensor-core route's rule: bf16 x, bf16 weights or int8 codes, the
-    in-dim I and out-dim O multiples of 8 (16-byte rows of x and of bf16
+    """The tensor-core routes' rule: bf16 x, bf16 weights or int8 codes, the
+    out-dim O a multiple of 8, the in-dim I a multiple of 16 for int8 codes
+    or of 8 for bf16 weights (the TMA maps' 16-byte rows of x and of the
     weights), x and w 16-byte aligned. Everything else takes the scalar
     route."""
     I, O = x.shape[-1], w.shape[-2]
     return (x.dtype == torch.bfloat16 and w.dtype in (torch.bfloat16, torch.int8)
-            and I % 8 == 0 and O % 8 == 0 and x.data_ptr() % 16 == 0
-            and w.data_ptr() % 16 == 0)
+            and I % (16 if w.dtype == torch.int8 else 8) == 0 and O % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def ragged_prefill_route(M: int) -> bool:
+    """The tensor-core route for M rows: the wgmma route on a persistent grid
+    above DECODE_ROWS (a prefill), the split-K weight stream at or below it
+    (a decode step's 2·B rows)."""
+    return M > DECODE_ROWS
 
 
 def expert_ragged_plain(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
@@ -110,7 +127,8 @@ def _ragged(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
             group_sizes.data_ptr(), out.data_ptr(), M, O, I, E)
     if ragged_mma_eligible(x, w):
         kernel = "expert_ragged"
-        err = _build.launcher(kernel)(*ptrs, int8, _build.stream_ptr(x))
+        err = _build.launcher(kernel)(*ptrs, int8, int(ragged_prefill_route(M)),
+                                      _build.stream_ptr(x))
     else:
         kernel = "expert_ragged_scalar"
         err = _build.launcher(kernel)(*ptrs, int(x.dtype == torch.bfloat16), int8,
@@ -152,3 +170,26 @@ def compare_expert_ragged(got: torch.Tensor, want: torch.Tensor, max_share: floa
     route): within 1e-5 of the largest |want| (`linear._within_one_bf16_step`).
     Raises AssertionError; returns the distances."""
     return _within_one_bf16_step(got, want, 1 / 1024, max_share, "expert_ragged")
+
+
+def misrounded(out: torch.Tensor, x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
+               group_sizes: torch.Tensor) -> int:
+    """The outputs of a bf16 result `out` of the kernel's function that are
+    not the correctly rounded value: against an fp64 reference computed one
+    expert at a time (x · w[e]ᵀ [· s[e]], exact to far below a bf16 step), an
+    output counts where it lies more than half a bf16 step from the
+    reference (a bf16 value nearer to it exists; a tie counts as rounded).
+    Rows past the groups' sum are not counted."""
+    M, n_off, start = x.shape[0], 0, 0
+    for e, n in enumerate(group_sizes.tolist()):
+        n = max(0, min(int(n), M - start))
+        if n:
+            ref = torch.matmul(x[start:start + n].double(), w[e].double().t())
+            if s is not None:
+                ref = ref * s[e].double()
+            # |ref| in [2^(p-1), 2^p): bf16 steps of 2^(p-8) there, half a step 2^(p-9)
+            half = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 9)
+            d = (out[start:start + n].double() - ref).abs()
+            n_off += int(torch.where(ref == 0, d > 0, d > half).sum())
+        start += n
+    return n_off

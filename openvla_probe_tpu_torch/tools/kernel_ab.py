@@ -4,7 +4,8 @@
         [--kernels flash_prefill,wi8_matmul,w4a8_matmul,flash_blockwise,w4a8_dx,
                    decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot,
                    fused_ln_w8a8,fused_mlp_residual,w4a8_requant,rms_norm_quant,
-                   stacked_decode_attention_i8,split_attention_i8,w4a8_grouped]
+                   stacked_decode_attention_i8,split_attention_i8,w4a8_grouped,
+                   expert_ragged]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -38,7 +39,10 @@ read; ``split_attention_i8`` by ``decode_attention.compare_split_attention_i8``
 (each build's ``ovla_split_attention_i8``: the ring route, or in an older
 build the one-block-a-row kernel);
 ``w4a8_grouped`` bit for bit, its pre-pass and GEMM also timed apart in the
-builds that export them, ``grouped_parts``), then the device
+builds that export them, ``grouped_parts``; ``expert_ragged`` by
+``expert_ragged.compare_expert_ragged``, a build from before its two routes
+called with its own signature, and at the int8 prefill each build's count of
+outputs off an fp64 reference's rounding, ``expert_ragged.misrounded``), then the device
 time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
@@ -56,8 +60,9 @@ routes apart, the turbo_nibble mix of ``nib_hi_dot``, the pallas mixes of
 the two fused tower kernels, the pallas_int4 and train_int4 mixes of
 ``w4a8_requant``, the turbo mix of ``rms_norm_quant`` and the pallas_kv8 mix
 of ``stacked_decode_attention_i8`` (its six decode steps), the turbo_kv8 mix
-of ``split_attention_i8`` and the turbo_int4 / turbo_mix mix of
-``w4a8_grouped``, as ``chip_smoke.py`` weighs them).
+of ``split_attention_i8``, the turbo_int4 / turbo_mix mix of
+``w4a8_grouped`` and the moe_turbo and moe_parity mixes of ``expert_ragged``
+with its two routes apart, as ``chip_smoke.py`` weighs them).
 """
 
 from __future__ import annotations
@@ -76,6 +81,7 @@ import torch
 from ..ops import _build
 from ..ops import attention as attn
 from ..ops import decode_attention as dattn
+from ..ops import expert_ragged as texr
 from ..ops import linear as lin
 
 SPIN_CYCLES = 4_000_000
@@ -1138,6 +1144,112 @@ def ab_w4a8_grouped(fns, g, dev, shapes=None, libs=None):
             for tag in fns}}), flush=True)
 
 
+def ragged_launchers(libs: dict) -> dict:
+    """tag -> (launcher, takes the route) of ``expert_ragged`` in each build: a
+    build that exports ``ovla_expert_ragged_decode_rows`` has the two routes
+    and takes the wrapper's route argument; an older one picks its one
+    route itself."""
+    out = {}
+    for tag, fn in launchers(libs, "expert_ragged").items():
+        lib = libs[tag].get("expert_ragged.cu") or next(iter(libs[tag].values()))
+        routes = getattr(lib, "ovla_expert_ragged_decode_rows", None) is not None
+        if not routes:
+            fn.argtypes = _build.KERNELS["expert_ragged"][2][:-2] + [ctypes.c_void_p]
+        out[tag] = (fn, routes)
+    return out
+
+
+def call_ragged(fn, x, w, s, gs):
+    """`fn`, a (launcher, takes the route) pair of ``expert_ragged``, on the
+    wrapper's tensors (the route by ``ragged_prefill_route``)."""
+    launcher, routes = fn
+    M, I = x.shape
+    E, O = w.shape[:2]
+    out = torch.empty((M, O), dtype=x.dtype, device=x.device)
+    args = (x.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(), gs.data_ptr(),
+            out.data_ptr(), M, O, I, E, int(w.dtype == torch.int8))
+    route = (int(texr.ragged_prefill_route(M)),) if routes else ()
+    _build.check(launcher(*args, *route, _build.stream_ptr(x)), "expert_ragged")
+    return out
+
+
+MOE_E, MOE_D, MOE_F, MOE_BATCH = 8, 4096, 14336, 8
+MOE_PARITY_LAYERS = 4
+
+
+def top2_sizes(tokens: int, g, dev) -> torch.Tensor:
+    """int32 group sizes of `tokens` uniform top-2 picks over the 8 experts
+    (two distinct experts a token), made on the card (chip_smoke.py's)."""
+    picks = torch.multinomial(torch.ones(MOE_E, device=dev).expand(tokens, MOE_E), 2,
+                              replacement=False, generator=g)
+    return torch.bincount(picks.reshape(-1), minlength=MOE_E).int()
+
+
+def ragged_shapes() -> dict:
+    """(form, M, I, O) -> launches per call: moe_turbo's int8 experts (32
+    layers), moe_parity's bf16 (4); the prefill's M = 2·B·T = 4608 top-2 rows,
+    each decode step's 2·B = 16 (chip_smoke.py's check_expert_ragged)."""
+    out = {}
+    for form, layers in (("int8", LAYERS), ("bf16", MOE_PARITY_LAYERS)):
+        pre, dec = 2 * MOE_BATCH * T_PREFILL, 2 * MOE_BATCH
+        out.update({(form, pre, MOE_D, MOE_F): 2 * layers, (form, pre, MOE_F, MOE_D): layers,
+                    (form, dec, MOE_D, MOE_F): 2 * layers * A1,
+                    (form, dec, MOE_F, MOE_D): layers * A1})
+    return out
+
+
+def ab_expert_ragged(fns, g, dev, shapes=None):
+    """The eight shape x form pairs of `ragged_shapes` with uniform top-2 group
+    sizes, each build held to ``expert_ragged_plain`` by
+    ``compare_expert_ragged`` (reported, not asserted) and timed in turns; at
+    the int8 prefill 4608 x 4096 -> 14336 also each build's and the plain
+    version's count of outputs off the correctly rounded value
+    (``expert_ragged.misrounded``, an fp64 reference). Then the launch-weighted
+    means over moe_turbo's and moe_parity's mixes, the prefill and decode
+    routes apart."""
+    prefill = top2_sizes(MOE_BATCH * T_PREFILL, g, dev)
+    decode = top2_sizes(MOE_BATCH, g, dev)
+    rows = []
+    for (form, M, I, O), per_call in ragged_shapes().items():
+        if shapes and f"{M}x{I}x{O}" not in shapes:
+            continue
+        gs = prefill if M > texr.DECODE_ROWS else decode
+        x = torch.randn((M, I), generator=g, device=dev).bfloat16()
+        if form == "int8":
+            w = torch.randint(-127, 128, (MOE_E, O, I), generator=g, device=dev,
+                              dtype=torch.int8)
+            s = torch.rand((MOE_E, O), generator=g, device=dev) * 1e-3 + 1e-3
+        else:
+            w = (torch.randn((MOE_E, O, I), generator=g, device=dev) * 0.02).bfloat16()
+            s = None
+        want = texr.expert_ragged_plain(x, w, s, gs)
+        got = {tag: call_ragged(fn, x, w, s, gs) for tag, fn in fns.items()}
+        row = dict(kernel="expert_ragged", form=form, shape=f"{M}x{I}x{O}",
+                   launches_per_call=per_call, group_sizes=gs.tolist(),
+                   route="prefill" if texr.ragged_prefill_route(M) else "decode",
+                   check={tag: _checked(texr.compare_expert_ragged, out, want)
+                          for tag, out in got.items()})
+        if form == "int8" and M > texr.DECODE_ROWS and I == MOE_D:
+            row["misrounded"] = {tag: texr.misrounded(out, x, w, s, gs)
+                                 for tag, out in {**got, "plain": want}.items()}
+        del got, want
+        row["ms"] = _turns(fns, lambda fn: lambda: call_ragged(fn, x, w, s, gs))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del x, w, s
+        torch.cuda.empty_cache()
+    for path, form in (("moe_turbo", "int8"), ("moe_parity", "bf16")):
+        for mix, keep in ((path, lambda r: True),
+                          (f"{path}_prefill", lambda r: r["route"] == "prefill"),
+                          (f"{path}_decode", lambda r: r["route"] == "decode")):
+            sel = [r for r in rows if r["form"] == form and keep(r)]
+            n = sum(r["launches_per_call"] for r in sel)
+            if n:
+                print(json.dumps({"kernel": "expert_ragged", "mix": mix, "launches": n, "ms": {
+                    tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_call"]
+                             for r in sel) / n for tag in fns}}), flush=True)
+
+
 AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
       "w4a8_dx": ab_w4a8_dx, "decode_split_attention": ab_decode_split_attention,
@@ -1146,7 +1258,8 @@ AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "fused_mlp_residual": ab_fused_mlp_residual, "w4a8_requant": ab_w4a8_requant,
       "rms_norm_quant": ab_rms_norm_quant,
       "stacked_decode_attention_i8": ab_stacked_decode_attention_i8,
-      "split_attention_i8": ab_split_attention_i8, "w4a8_grouped": ab_w4a8_grouped}
+      "split_attention_i8": ab_split_attention_i8, "w4a8_grouped": ab_w4a8_grouped,
+      "expert_ragged": ab_expert_ragged}
 
 
 def main() -> int:
@@ -1169,6 +1282,7 @@ def main() -> int:
     for name in args.kernels.split(","):
         fns = (requant_routes(libs) if name == "w4a8_requant" else
                stacked_launchers(libs) if name == "stacked_decode_attention_i8" else
+               ragged_launchers(libs) if name == "expert_ragged" else
                launchers(libs, name))
         order = [tag for tag in [*[s.split("=", 1)[0] for s in args.lib], "change"] if tag in fns]
         AB[name]({tag: fns[tag] for tag in order}, g, dev,

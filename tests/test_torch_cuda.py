@@ -47,11 +47,13 @@ inside a 16-key chunk, a query far before the last key (decode_attention's
 ring reads the keys up to it), a row whose keys are all masked but BOS (its
 output is V's first row) and a row masked everywhere (the mean of all of V),
 at the cluster rule and at each cluster size (tools/kernel_ab.py's
-``cluster_launchers``). expert_ragged (the tensor-core route for bf16 x with
-I and O multiples of 8, the scalar route otherwise, counted apart): by
+``cluster_launchers``). expert_ragged (the tensor-core routes for bf16 x with
+O a multiple of 8 and I a multiple of 16 for int8 codes or of 8 for bf16
+weights, the prefill route above 64 rows and the decode route at or below;
+the scalar route otherwise, counted apart): by
 expert_ragged.compare_expert_ragged, every element within one bf16 step of
 the plain version (fp32 within 1e-5 of the largest |want|); the LoRA form
-within two steps (three roundings).
+within two steps (three roundings); two runs bit-equal.
 """
 
 import numpy as np
@@ -1209,7 +1211,7 @@ def _ragged_leaf(w, s):
     ([576] * 8, 4096, 1024),                 # a prefill's even split (9 row tiles an expert)
     ([700, 0, 3, 1, 129, 64, 65, 190], 1024, 512),   # skewed, an empty expert, one-row groups
     ([2, 2, 3, 1, 0, 4, 2, 2], 4096, 2048),  # decode: 16 rows over 8 experts
-    ([5, 9, 0, 30], 200, 136),               # I and O past the 32-k chunk and 128-column tile
+    ([5, 9, 0, 30], 208, 136),               # I and O past a k chunk and a 128-column tile
 ])
 def test_expert_ragged_matches_plain(cuda, int8, sizes, I, O):
     """The tensor-core route against the plain version: every element within
@@ -1276,16 +1278,78 @@ def test_expert_ragged_int4_and_lora_forms(cuda):
 
 
 def test_expert_ragged_launcher_refuses_what_it_does_not_take(cuda):
-    """The tensor-core launcher refuses O or I not a multiple of 8, no
-    experts and int8 codes without scales; the wrapper raises on a bad
-    group-size dtype."""
+    """The tensor-core launcher refuses O not a multiple of 8, int8 codes with
+    I not a multiple of 16, bf16 weights with I not a multiple of 8, no
+    experts, int8 codes without scales and the decode route above
+    DECODE_ROWS rows, on either route where the route is free; the wrapper
+    raises on a bad group-size dtype."""
     x, w, s, gs = _ragged_inputs(101, [4, 4], 64, 64, torch.bfloat16, True, cuda)
     out = torch.empty(8, 64, dtype=torch.bfloat16, device=cuda)
     fn = _build.launcher("expert_ragged")
     stream = _build.stream_ptr(x)
     base = (x.data_ptr(), w.data_ptr(), s.data_ptr(), gs.data_ptr(), out.data_ptr())
-    for M, O, I, E, int8, s_ptr in ((8, 60, 64, 2, 1, s.data_ptr()), (8, 64, 60, 2, 1, s.data_ptr()),
-                                    (8, 64, 64, 0, 1, s.data_ptr()), (8, 64, 64, 2, 1, None)):
-        assert fn(base[0], base[1], s_ptr, base[3], base[4], M, O, I, E, int8, stream) != 0
+    for prefill in (0, 1):
+        for M, O, I, E, int8, s_ptr in (
+                (8, 60, 64, 2, 1, s.data_ptr()), (8, 64, 60, 2, 1, s.data_ptr()),
+                (8, 64, 56, 2, 1, s.data_ptr()), (8, 64, 60, 2, 0, None),
+                (8, 64, 64, 0, 1, s.data_ptr()), (8, 64, 64, 2, 1, None)):
+            assert fn(base[0], base[1], s_ptr, base[3], base[4], M, O, I, E, int8, prefill,
+                      stream) != 0
+    assert fn(*base, texr.DECODE_ROWS + 1, 64, 64, 2, 1, 0, stream) != 0
     with pytest.raises(TypeError, match="int32"):
         texr.expert_ragged(x, {"q": w, "s": s}, gs.long())
+
+
+def test_expert_ragged_int8_with_i_off_16_takes_the_scalar_route(cuda):
+    """int8 codes at I = 200 (a multiple of 8, not of 16: the TMA map needs
+    16-byte rows of codes) take the scalar route by the rule, within one bf16
+    step of the plain version; bf16 weights at the same I take the
+    tensor-core route."""
+    for int8, kernel in ((True, "expert_ragged_scalar"), (False, "expert_ragged")):
+        x, w, s, gs = _ragged_inputs(102, [5, 9, 0, 30], 200, 136, torch.bfloat16, int8, cuda)
+        assert texr.ragged_mma_eligible(x, w) is not int8
+        got = _count(kernel, lambda: texr.expert_ragged(x, _ragged_leaf(w, s), gs))
+        texr.compare_expert_ragged(got, texr.expert_ragged_plain(x, w, s, gs))
+
+
+def test_expert_ragged_decode_rows_match_the_kernel(cuda):
+    """The wrapper's route rule mirrors the launcher's limit of the decode route."""
+    assert _build.load("expert_ragged").ovla_expert_ragged_decode_rows() == texr.DECODE_ROWS
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("M", [64, 65], ids=["decode_64", "prefill_65"])
+def test_expert_ragged_route_boundary(cuda, int8, M):
+    """M = 64 (the last on the decode route) and 65 (the first on the
+    prefill route), a group of 64 rows at M = 64 (both m16 tiles of two row
+    blocks) and one expert past a 64-row group at 65, rows past the sum 0."""
+    sizes = [64, 0, 0, 0] if M == 64 else [1, 0, 60, 2]
+    x, w, s, gs = _ragged_inputs(103 + M, sizes, 1024, 520, torch.bfloat16, int8, cuda, M=M)
+    got = _count("expert_ragged", lambda: texr.expert_ragged(x, _ragged_leaf(w, s), gs))
+    texr.compare_expert_ragged(got, texr.expert_ragged_plain(x, w, s, gs))
+    assert torch.all(got[sum(sizes):] == 0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_expert_ragged_one_expert_holds_every_row(cuda, int8):
+    """One expert holds all 4608 rows of a prefill, the other seven are
+    empty; and at a decode step all 16 rows."""
+    for M, O in ((4608, 1024), (16, 2048)):
+        sizes = [0, 0, 0, M, 0, 0, 0, 0]
+        x, w, s, gs = _ragged_inputs(104 + M, sizes, 4096, O, torch.bfloat16, int8, cuda)
+        got = _count("expert_ragged", lambda: texr.expert_ragged(x, _ragged_leaf(w, s), gs))
+        texr.compare_expert_ragged(got, texr.expert_ragged_plain(x, w, s, gs))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("M,sizes", [(1200, [300, 129, 0, 700]), (16, [2, 9, 0, 5])],
+                         ids=["prefill", "decode"])
+def test_expert_ragged_two_runs_give_the_same_bits(cuda, int8, M, sizes):
+    """No atomics and a fixed summation order on both routes: two launches on
+    the same inputs give equal bits."""
+    x, w, s, gs = _ragged_inputs(105 + M, sizes, 4096, 1024, torch.bfloat16, int8, cuda)
+    first = texr.expert_ragged(x, _ragged_leaf(w, s), gs)
+    second = texr.expert_ragged(x, _ragged_leaf(w, s), gs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+

@@ -9,6 +9,10 @@ form within two such steps (the base, the delta and their bf16 sum are three
 roundings). Rows past the groups' sum are 0 on both sides.
 """
 
+import inspect
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,6 +162,11 @@ def test_grad_raises():
     (torch.float32, torch.int8, 64, 128, False),
     (torch.bfloat16, torch.bfloat16, 60, 128, False),       # I not a multiple of 8
     (torch.bfloat16, torch.int8, 64, 12, False),            # O not a multiple of 8
+    (torch.bfloat16, torch.int8, 200, 136, False),          # int8 codes: I % 16 != 0 (TMA rows)
+    (torch.bfloat16, torch.int8, 24, 64, False),
+    (torch.bfloat16, torch.int8, 208, 136, True),
+    (torch.bfloat16, torch.bfloat16, 200, 136, True),       # bf16 weights: I % 8 == 0 is enough
+    (torch.bfloat16, torch.bfloat16, 24, 64, True),
 ])
 def test_ragged_mma_eligible(x_dtype, w_dtype, I, O, want):
     """The tensor-core route's declared rule (meta tensors: no data)."""
@@ -172,3 +181,73 @@ def test_ragged_mma_eligible_needs_alignment():
     x = torch.zeros((4, 64), dtype=torch.bfloat16)
     assert texr.ragged_mma_eligible(x, buf[:-1].view(2, 8, 64))
     assert not texr.ragged_mma_eligible(x, buf[1:].view(2, 8, 64))
+
+
+@pytest.mark.parametrize("M,want", [(1, False), (16, False), (64, False), (65, True),
+                                    (4608, True)])
+def test_route_by_rows(M, want):
+    """The wrapper's choice between the two tensor-core routes, from M alone:
+    the split-K decode route up to DECODE_ROWS = 64 rows, the persistent wgmma
+    route above; the wrapper takes it from `ragged_prefill_route`."""
+    assert texr.ragged_prefill_route(M) is want
+    assert "ragged_prefill_route(M)" in inspect.getsource(texr._ragged)
+
+
+def _csrc(name):
+    return (Path(texr.__file__).parent / "csrc" / name).read_text()
+
+
+def test_decode_rows_match_the_kernel_source():
+    """DECODE_ROWS mirrors the launcher's limit of the decode route."""
+    m = re.search(r"constexpr int kDecodeRows = (\d+);", _csrc("expert_ragged.cu"))
+    assert int(m.group(1)) == texr.DECODE_ROWS
+
+
+def test_widening_is_wi8_matmuls():
+    """expert_ragged.cu widens codes with wi8_matmul.cu's widen2, character for
+    character, so the all-256-codes check of test_torch_kernel_arith_oneshot
+    covers it."""
+    def body(src):
+        i = src.index("__device__ __forceinline__ uint32_t widen2(uint32_t w) {")
+        return src[i:src.index("\n}\n", i)]
+    assert body(_csrc("expert_ragged.cu")) == body(_csrc("wi8_matmul.cu"))
+
+
+def _exact_case(seed, sizes, M):
+    """Small integer x and codes and power-of-two scales: every output is
+    exact in bf16, so the plain version is the correctly rounded value."""
+    r = np.random.default_rng(seed)
+    E = len(sizes)
+    x = torch.from_numpy(r.integers(-3, 4, size=(M, 16)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(r.integers(-3, 4, size=(E, 24, 16)).astype(np.int8))
+    s = torch.from_numpy(2.0 ** r.integers(-4, 2, size=(E, 24))).float()
+    return x, w, s, torch.tensor(sizes, dtype=torch.int32)
+
+
+def test_misrounded_counts_outputs_off_the_rounded_value():
+    """The fp64 count: 0 for the correctly rounded result, one for each output
+    moved by one bf16 step or more; rows past the groups' sum not counted."""
+    x, w, s, gs = _exact_case(7, [5, 0, 9], M=17)
+    want = texr.expert_ragged_plain(x, w, s, gs)
+    assert texr.misrounded(want, x, w, s, gs) == 0
+    bits = want.clone().view(torch.int16)
+    bits[2, 3] += 1        # one step from its value
+    bits[10, 0] -= 3
+    bits[15, 7] += 40      # a row past the sum: not counted
+    assert texr.misrounded(bits.view(torch.bfloat16), x, w, s, gs) == 2
+    assert texr.misrounded(want, x, w.float().bfloat16(), None, gs) > 0   # scales left out
+
+
+def test_misrounded_takes_half_a_step_as_rounded():
+    """An output within half a bf16 step of the reference counts as rounded,
+    one past it as misrounded, at every binade (a [1, 1] product x · w)."""
+    for v in (1.0, 3.0, 200.0, 0.015625):
+        ref = v * (1 + 2.0 ** -9)   # less than half a bf16 step above v
+        x = torch.tensor([[ref]], dtype=torch.float64)
+        w = torch.ones((1, 1, 1), dtype=torch.float64)
+        gs = torch.tensor([1], dtype=torch.int32)
+        near = torch.tensor([[v]], dtype=torch.bfloat16)
+        far = near.view(torch.int16).add(1).view(torch.bfloat16)
+        assert texr.misrounded(near, x, w, None, gs) == 0
+        assert texr.misrounded(far, x, w, None, gs) == 1
+
