@@ -115,6 +115,15 @@ nothing else (B = 8, P = 32, A = 7):
                 the card (47.7 GB, 45.1 GB of expert codes): 672
                 expert_ragged launches a call (3 a layer and pass), two calls'
                 tokens equal, p50, busy ms, the device peak
+  moe_train     slice 8a, right after moe_turbo has freed its tree: QLoRA
+                steps of the same VLM (tools/bench_finetune's Finetune, int8
+                trunk and lm_head on the w8a8 STE route drawn on the card,
+                towers bf16, streamed LoRA r = 32 on every linear with the
+                expert stacks, the router frozen; AdamW 5e-4, remat, B = 8,
+                T = 320): exact launches of one step (per MoE layer 18
+                expert_ragged, 9 expert_ragged_dx, 6 expert_ragged_dw),
+                finite losses and router losses, the base unchanged, B
+                factors moved, step ms, examples/s, host syncs, peak memory
   moe_parity    the same VLM in bf16 at 4 layers (the kernel's bf16 form)
   phi           phi-2+3b (CLIP ViT-L/336, N = 577 at Dh 64 on vit_attention's
                 tensor cores; Phi-2 at 32 layers) in bf16: score_short's 8 rows
@@ -164,7 +173,15 @@ Phases, one output line each:
               reference's rounding counted for the kernel and the plain
               version, the kernel's at most 1.5x) and expert_ragged_scalar
               (fp32 x; its launches in the kernels line are the tiny fp32
-              MoE path's, the one path that takes it), split_attention_i8 (turbo_kv8, its ring route; GQA,
+              MoE path's, the one path that takes it), expert_ragged_dx and
+              expert_ragged_dw (moe_train's backward at M = 5120, E = 8, r =
+              32: the int8 base's dx and the adapters' dx, dA and dB, run
+              twice bit-equal; dW of a full bf16 stack; at the int8 5120 x
+              14336 -> 4096 dx the fp64 count, the kernel's at most 1.5x the
+              plain version's; edge cases: an empty expert, one expert with
+              every row, M off the tile, rows past the sum, r = 8 and 32) and
+              their scalar routes (fp32; launches from the tiny fp32 MoE
+              training step), split_attention_i8 (turbo_kv8, its ring route; GQA,
               T = 291, T + A = 4096, fp32 scores, one row timed at the
               cluster rule beside 1, 2 and 4 CTAs, a row masked but BOS;
               decode_attention.compare_split_attention_i8),
@@ -182,7 +199,9 @@ Phases, one output line each:
   4. tiny     each path at tiny fp32 size on the card vs the CPU run (plain
               versions, which the CPU tests hold against the JAX package):
               equal tokens, close logits or scores (tiny_moe: the mixtral-tiny
-              trunk in fp32 and in bf16); the training paths' loss,
+              trunk in fp32 and in bf16; tiny_moe_train: one QLoRA step of
+              it, loss, router losses, gradients, adapters and launches);
+              the training paths' loss,
               LoRA gradients and adapters after one step; the speculative core
               on turbo and turbo_nibble (drafts correct, partial, wrong): equal
               tokens and n_accepted; multi-LoRA calls on parity (masked),
@@ -1941,7 +1960,12 @@ PORTED_ON = {"flash_prefill": "parity", "flash_blockwise": "score_long",
              "w8a8_matmul": "turbo", "rms_norm_quant": "turbo", "nib_hi_dot": "turbo_nibble",
              "w4a8_dx": "train_int4", "w4a8_requant": "pallas_int4",
              "split_attention_i8": "turbo_kv8", "w4a8_grouped": "turbo_int4",
-             "expert_ragged": "moe_turbo", "expert_ragged_scalar": "tiny_moe_float32"}
+             "expert_ragged": "moe_turbo", "expert_ragged_scalar": "tiny_moe_float32",
+             "expert_ragged_dx": "moe_train", "expert_ragged_dw": "moe_train",
+             "expert_ragged_dx_scalar": "tiny_moe_train_float32",
+             "expert_ragged_dw_scalar": "tiny_moe_train_float32"}
+# kernels whose only launches come from a tiny path (the scalar routes of fp32)
+TINY_PORTED = ("expert_ragged_scalar", "expert_ragged_dx_scalar", "expert_ragged_dw_scalar")
 
 
 def _serving(path: str, vlm_cfg: vlm.VLMConfig, **kw) -> vla.VLAServingConfig:
@@ -3994,6 +4018,398 @@ def run_moe_path(dev, path: str):
         peak_mem_gb=peak, tokens_equal_across_calls=True, first_tokens=toks[0].tolist())
 
 
+# --- slice 8a: MoE training -------------------------------------------------------------------
+
+MOE_TRAIN_ROWS = 2 * TRAIN_ROWS   # the step's top-2 rows through each grouped product: 5120
+# card vs CPU, one step of the tiny MoE VLM: fp32 TRAIN_TINY_TOL's rules; bf16 (every grouped
+# product and every STE rounds its fp32 sums to bf16 once, in another order on each device, and
+# the chain carries a moved rounding on): the loss 1e-2 relative, every gradient 5e-2 in norm,
+# the adapters after one AdamW step within 2 lr, 90 % within 0.1 lr and 99 % within 0.5 lr
+MOE_TRAIN_TINY_TOL = {torch.float32: dict(loss=TRAIN_TINY_TOL["loss"], grad=TRAIN_TINY_TOL["grad"],
+                                          p90=1e-2, p99=1e-1),
+                      torch.bfloat16: dict(loss=1e-2, grad=5e-2, p90=1e-1, p99=5e-1)}
+
+
+def _dx_operands(M, O, I, int8: bool, g, dev, dtype=torch.bfloat16):
+    """dy [M, O] and an expert stack [E, O, I] (int8 codes with scales, or
+    dtype at 0.02)."""
+    dy = torch.randn((M, O), generator=g, device=dev).to(dtype)
+    _, w, s = _ragged_operands(1, I, O, int8, g, dev, dtype)
+    return dy, w, s
+
+
+def _dx_library(dy, w, s, gs):
+    """One cuBLAS product a used expert over its rows, dy_e · W_e, the weights
+    dequantized to dy's dtype and the group sizes read beforehand."""
+    wd = (w if s is None else w.float() * s[..., None]).to(dy.dtype)
+    bounds = np.cumsum([0] + gs.tolist())
+    out = torch.empty((dy.shape[0], w.shape[2]), dtype=dy.dtype, device=dy.device)
+
+    def call():
+        for e in range(len(bounds) - 1):
+            a, b = int(bounds[e]), int(bounds[e + 1])
+            if b > a:
+                torch.matmul(dy[a:b], wd[e], out=out[a:b])
+        return out
+    return call
+
+
+def _dw_library(dy, x, gs, E):
+    """One cuBLAS product a used expert over its rows, dy_eᵀ · x_e."""
+    bounds = np.cumsum([0] + gs.tolist())
+    out = torch.zeros((E, dy.shape[1], x.shape[1]), dtype=x.dtype, device=x.device)
+
+    def call():
+        for e in range(E):
+            a, b = int(bounds[e]), int(bounds[e + 1])
+            if b > a:
+                torch.matmul(dy[a:b].t(), x[a:b], out=out[e])
+        return out
+    return call
+
+
+def _dx_shape(dy, w, s, gs, kernel: str, kind: str, launches: int, reps: int = 25) -> dict:
+    got = _launched(kernel, lambda: ragged.expert_ragged_dx(dy, w, s, gs))
+    stats = ragged.compare_expert_ragged(got, ragged.expert_ragged_dx_plain(dy, w, s, gs))
+    assert torch.equal(got, ragged.expert_ragged_dx(dy, w, s, gs)), "dx: two runs differ"
+    used = int((gs > 0).sum())
+    E, O, I = w.shape
+    nbytes = (_nbytes(dy, got, gs) + used * O * I * w.element_size()
+              + (0 if s is None else used * O * 4))
+    b, by = bound_ms(nbytes, 2 * int(gs.sum()) * O * I, kind)
+    return dict(launches_per_step=launches, max_abs_err=stats["max_abs_err"],
+                n_apart=stats["n_apart"],
+                ms=cuda_ms(lambda: ragged.expert_ragged_dx(dy, w, s, gs), reps=reps),
+                plain_ms=cuda_ms(lambda: ragged.expert_ragged_dx_plain(dy, w, s, gs), reps=3,
+                                 warmup=1),
+                library_ms=cuda_ms(_dx_library(dy, w, s, gs), reps=reps), bound_ms=b,
+                bound_by=by, host_us=host_us(lambda: ragged.expert_ragged_dx(dy, w, s, gs),
+                                             reps=20))
+
+
+def _dw_shape(dy, x, gs, kernel: str, kind: str, launches: int, reps: int = 25) -> dict:
+    E = gs.numel()
+    got = _launched(kernel, lambda: ragged.expert_ragged_dw(dy, x, gs, E))
+    stats = ragged.compare_expert_ragged(got, ragged.expert_ragged_dw_plain(dy, x, gs, E))
+    assert torch.equal(got, ragged.expert_ragged_dw(dy, x, gs, E)), "dW: two runs differ"
+    rows = int(gs.sum())
+    b, by = bound_ms(_nbytes(got, gs) + rows * (dy.shape[1] + x.shape[1]) * dy.element_size(),
+                     2 * rows * dy.shape[1] * x.shape[1], kind)
+    return dict(launches_per_step=launches, max_abs_err=stats["max_abs_err"],
+                n_apart=stats["n_apart"], split_rows=ragged.dw_split_rows(
+                    dy.shape[0], dy.shape[1], x.shape[1]),
+                ms=cuda_ms(lambda: ragged.expert_ragged_dw(dy, x, gs, E), reps=reps),
+                plain_ms=cuda_ms(lambda: ragged.expert_ragged_dw_plain(dy, x, gs, E), reps=3,
+                                 warmup=1),
+                library_ms=cuda_ms(_dw_library(dy, x, gs, E), reps=reps), bound_ms=b,
+                bound_by=by, host_us=host_us(lambda: ragged.expert_ragged_dw(dy, x, gs, E),
+                                             reps=20))
+
+
+def check_expert_ragged_bwd(dev, g):
+    """The backward of the grouped expert product (XLA's transpose of
+    models/moe.py:218 `_expert_ragged`) at moe_train's shapes: M = 2·B·T =
+    5120 top-2 rows, E = 8, D = 4096, F = 14336, r = 32, group sizes from
+    uniform top-2 picks. expert_ragged_dx: the int8 base's dx (gate / up
+    14336 -> 4096, down 4096 -> 14336) and the adapters' dy · B and dt · A;
+    expert_ragged_dw: the adapters' dB and dA. Each held to its plain
+    version by compare_expert_ragged's rule and run twice, bit-equal; ms
+    (behind the spin kernel, median of 25), the plain version's, cuBLAS per
+    expert over its rows (dy_e · W_e on weights dequantized beforehand, dy_eᵀ
+    x_e), the bound, host µs a call. At the int8 5120 x 14336 -> 4096 dx the
+    outputs off an fp64 reference's rounding, kernel and plain: the
+    kernel's at most 1.5x. dW of a full bf16 stack [8, 14336, 4096] from 5120
+    rows (full fine-tuning; no moe_train launch). Edge cases untimed: an
+    empty expert, one expert holding every row, M off the 128-row tile, rows
+    past the groups' sum, r = 8 and r = 32. Both rows launch-weighted over
+    one moe_train step."""
+    M, D, F_, r = MOE_TRAIN_ROWS, MIXTRAL_D, MIXTRAL_F, TRAIN_RANK
+    dx_per, dw_per = kernel_ab.ragged_bwd_shapes()   # launches per step by shape
+    gs = _top2_sizes(M // 2, g, dev)
+    dx_rows, dw_rows, misrounded = {}, {}, {}
+    for (form, O, I), n in dx_per.items():
+        dy, w, s = _dx_operands(M, O, I, form == "int8", g, dev)
+        dx_rows[f"{form} {M}x{O}->{I}"] = _dx_shape(dy, w, s, gs, "expert_ragged_dx", "bf16", n)
+        if (form, O, I) == ("int8", F_, D):
+            got = ragged.expert_ragged_dx(dy, w, s, gs)
+            misrounded = dict(kernel=ragged.misrounded_dx(got, dy, w, s, gs),
+                              plain=ragged.misrounded_dx(ragged.expert_ragged_dx_plain(
+                                  dy, w, s, gs), dy, w, s, gs))
+            assert misrounded["kernel"] <= 1.5 * misrounded["plain"], misrounded
+            del got
+        del dy, w, s
+    for (O, I), n in dw_per.items():
+        dy = torch.randn((M, O), generator=g, device=dev).bfloat16()
+        x = torch.randn((M, I), generator=g, device=dev).bfloat16()
+        dw_rows[f"{M}x({O}, {I})"] = _dw_shape(dy, x, gs, "expert_ragged_dw", "bf16", n)
+        del dy, x
+    dy = torch.randn((M, F_), generator=g, device=dev).bfloat16()
+    x = torch.randn((M, D), generator=g, device=dev).bfloat16()
+    full = _dw_shape(dy, x, gs, "expert_ragged_dw", "bf16", 0, reps=5)
+    del dy, x
+    torch.cuda.empty_cache()
+    edges = {}
+    for name, sizes, M_, O, I in (
+            ("one_empty", [1200, 0, 3, 1, 900, 1500, 700, 304], 4608, 2048, 1024),
+            ("one_expert_all_rows", [0, 0, 0, 5120, 0, 0, 0, 0], 5120, 2048, 1024),
+            ("m_off_the_tile", [129, 300, 0, 5, 0, 0, 0, 66], 500, 1024, 512),
+            ("rows_past_sum", [3, 0, 9, 1, 0, 0, 20, 2], 64, 1024, 512),
+            ("r8_dt_a", [700, 0, 3, 1, 900, 1500, 700, 304], 4608, 8, D),
+            ("r8_dy_b", [700, 0, 3, 1, 900, 1500, 700, 304], 4608, D, 8),
+            ("r32_one_expert", [0, 0, 0, 5120, 0, 0, 0, 0], 5120, r, D)):
+        gse = torch.tensor(sizes, dtype=torch.int32, device=dev)
+        for form in ("int8", "bf16"):
+            if form == "int8" and I % 16:
+                continue
+            dy, w, s = _dx_operands(M_, O, I, form == "int8", g, dev)
+            got = _launched("expert_ragged_dx", lambda: ragged.expert_ragged_dx(dy, w, s, gse))
+            st = ragged.compare_expert_ragged(got, ragged.expert_ragged_dx_plain(dy, w, s, gse))
+            assert bool((got[sum(sizes):] == 0).all()), name
+            edges[f"dx {name} {form}"] = st["max_abs_err"]
+            del dy, w, s, got
+        dy = torch.randn((M_, O), generator=g, device=dev).bfloat16()
+        x = torch.randn((M_, I), generator=g, device=dev).bfloat16()
+        got = _launched("expert_ragged_dw", lambda: ragged.expert_ragged_dw(dy, x, gse, 8))
+        st = ragged.compare_expert_ragged(got, ragged.expert_ragged_dw_plain(dy, x, gse, 8))
+        assert all(bool((got[e] == 0).all()) for e, n in enumerate(sizes) if n == 0), name
+        assert torch.equal(got, ragged.expert_ragged_dw(dy, x, gse, 8)), name
+        edges[f"dw {name}"] = st["max_abs_err"]
+        del dy, x, got
+    out = []
+    for name, rows, per in (("expert_ragged_dx", dx_rows, dx_per),
+                            ("expert_ragged_dw", dw_rows, dw_per)):
+        keys = {k: n for k, n in zip(rows, per.values())}
+        weighted = _launch_weighted(rows, keys)
+        weighted["host_us"] = sum(rows[k]["host_us"] * n for k, n in keys.items()) / sum(
+            keys.values())
+        out.append(dict(name=name, route="cuda",
+                        source="openvla_probe_tpu_torch/ops/csrc/expert_ragged_bwd.cu",
+                        replaces="openvla_probe_tpu/models/moe.py:218", by_shape=rows,
+                        launches_per_step=sum(per.values()), group_sizes=gs.tolist(),
+                        edge_cases=edges, **weighted))
+    out[0]["misrounded"] = misrounded
+    out[1]["full_stack_8x14336x4096"] = full
+    return out
+
+
+def check_expert_ragged_bwd_scalar(dev, g):
+    """The backward's scalar routes (fp32, or shapes the tensor-core rules
+    refuse; the tiny fp32 MoE training step launches them): dx of fp32 dy
+    [64, 4096] against int8 experts 4096 -> 1024 and dW of fp32 dy [64, 1024],
+    x [64, 4096], by compare_expert_ragged (fp32 within 1e-5 of the largest
+    |want|). Bound: fp32 operations; library: fp32 cuBLAS per expert."""
+    gs = torch.tensor([20, 0, 9, 30, 1, 0, 0, 4], dtype=torch.int32, device=dev)
+    dy, w, s = _dx_operands(64, 1024, MIXTRAL_D, True, g, dev, torch.float32)
+    dx = _dx_shape(dy, w, s, gs, "expert_ragged_dx_scalar", "fp32", 0)
+    x = torch.randn((64, MIXTRAL_D), generator=g, device=dev)
+    dw = _dw_shape(dy, x, gs, "expert_ragged_dw_scalar", "fp32", 0)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [dict(name=name, route="cuda",
+                 source="openvla_probe_tpu_torch/ops/csrc/expert_ragged_bwd.cu",
+                 replaces="openvla_probe_tpu/models/moe.py:218", **{k: row[k] for k in keys})
+            for name, row in (("expert_ragged_dx_scalar", dx), ("expert_ragged_dw_scalar", dw))]
+
+
+def _expected_moe_train_launches(cfg: vlm.VLMConfig, spec) -> dict:
+    """Exact per-kernel launches of one MoE train step (tools/bench_finetune
+    routes over an int8 trunk with streamed LoRA on every linear): each
+    dense linear's forward kernel in the forward and again in the remat
+    recompute (the layer's router losses come last, so the non-reentrant
+    checkpoint recomputes every product of the layer), lm_head's once; per
+    MoE layer the forward's 9 grouped products (3 a projection: the base,
+    x · Aᵀ, t · Bᵀ) twice, 9 expert_ragged_dx and 6 expert_ragged_dw (the
+    routes by the dtype: fp32 takes the scalar ones); each GEMM's pre-pass
+    apart; no attention kernel."""
+    kernels = dict.fromkeys(_build.KERNEL_LAUNCHES, 0)
+    route, L = cfg.llm.int8_matmul, cfg.llm.num_hidden_layers
+    layers = spec["llm"]["layers"]
+    for w in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        kernels[_linear_route(layers[w], route, 2 ** 20)] += 2 * L
+    kernels[_linear_route(spec["llm"]["lm_head"], route, 2 ** 20)] += 1
+    sfx = "" if cfg.llm.dtype == torch.bfloat16 else "_scalar"
+    kernels[f"expert_ragged{sfx}"] += 18 * L
+    kernels[f"expert_ragged_dx{sfx}"] += 9 * L
+    kernels[f"expert_ragged_dw{sfx}"] += 6 * L
+    for gemm, pre_pass in _build.PRE_PASSES.items():
+        kernels[pre_pass] = kernels[gemm]
+    return kernels
+
+
+def check_tiny_moe_train(dev, dtype):
+    """One train step of the mixtral-tiny VLM (int8 trunk on the w8a8 STE
+    route, streamed LoRA r = 8 on every linear with B drawn as _random_b,
+    remat, plain attention) on the card vs the CPU (the plain versions, which
+    tests/test_torch_moe_train.py holds to the JAX package), from the same
+    base, batch and adapters: the loss with the router losses, moe_aux and
+    moe_z, every gradient, the adapters after one AdamW step
+    (MOE_TRAIN_TINY_TOL), the exact launch counts (fp32: the scalar routes;
+    bf16: the tensor-core ones), and two backward passes on the card
+    bit-equal or not (index_add's atomics in x[tok]'s backward)."""
+    cfg = bench_finetune.train_config(_tiny_moe_vlm(dtype), "int8")
+    tol = MOE_TRAIN_TINY_TOL[dtype]
+    base = bench_finetune.base_params(cfg, "int8", torch.Generator().manual_seed(1), "cpu")
+    batch = bench_finetune.synthetic_batch(cfg, 4, 16, 2, "cpu")
+    lora = _random_b(init_lora_params(base, LoRAConfig(r=8), torch.Generator().manual_seed(3)),
+                     torch.Generator().manual_seed(4))
+
+    def run(device):
+        ft = bench_finetune.Finetune(cfg, _to(base, device), _to(batch, device), rank=8,
+                                     lr=TRAIN_LR, lora=_to(lora, device))
+        _build.reset_launch_counts()
+        (loss, metrics), grads = value_and_grad(ft.loss_fn, ft.state.params, cfg, ft.batch)
+        launches = dict(_build.KERNEL_LAUNCHES)
+        same = None
+        if device != "cpu":
+            again = value_and_grad(ft.loss_fn, ft.state.params, cfg, ft.batch)[1]
+            same = all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(again)))
+        ft.step()
+        return (float(loss), float(metrics["moe_aux"]), float(metrics["moe_z"]), grads,
+                ft.state.params, launches, same)
+
+    ref_loss, ref_aux, ref_z, ref_grads, ref_lora, _, _ = run("cpu")
+    loss, aux, z, grads, new_lora, launches, same = run(dev)
+    torch.cuda.synchronize()
+    expect = _expected_moe_train_launches(cfg, base)
+    assert launches == expect, (dtype, {k: (v, expect[k]) for k, v in launches.items()
+                                        if v != expect[k]})
+    for got, want in ((loss, ref_loss), (aux, ref_aux), (z, ref_z)):
+        assert abs(got - want) <= tol["loss"] * abs(want), (got, want)
+    apart = [_leaf_apart(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(ref_grads))]
+    assert len(apart) > 20 and max(apart) <= tol["grad"], max(apart)
+    deltas = torch.cat([(a.cpu() - b).abs().ravel()
+                        for a, b in zip(tree_leaves(new_lora), tree_leaves(ref_lora))])
+    q = torch.quantile(deltas, torch.tensor([0.9, 0.99]))
+    assert (deltas.max() <= 2 * TRAIN_LR and q[0] <= tol["p90"] * TRAIN_LR
+            and q[1] <= tol["p99"] * TRAIN_LR), q
+    return dict(path="tiny_moe_train", dtype=str(dtype)[6:], loss=loss, loss_cpu=ref_loss,
+                moe_aux=aux, moe_aux_cpu=ref_aux, moe_z=z, moe_z_cpu=ref_z,
+                grads_max_rel_apart=max(apart),
+                adapters_max_apart_lr=float(deltas.max()) / TRAIN_LR,
+                adapters_p90_apart_lr=float(q[0]) / TRAIN_LR,
+                adapters_p99_apart_lr=float(q[1]) / TRAIN_LR,
+                grads_bit_equal_across_two_backwards=same,
+                launches={k: n for k, n in launches.items() if n})
+
+
+def _fingerprint(t: torch.Tensor) -> torch.Tensor:
+    """A leaf's bytes summed, and summed weighted by (position mod 65521) + 1,
+    in int64 (exact), 2^27 bytes at a time: a copy of the 47 GB base does not
+    fit beside it on the card."""
+    b = t.reshape(-1).view(torch.uint8)
+    out = []
+    for i in range(0, b.numel(), 1 << 27):
+        c = b[i:i + (1 << 27)].to(torch.int64)
+        w = torch.arange(i, i + c.numel(), device=c.device, dtype=torch.int64) % 65521 + 1
+        out.append(torch.stack([c.sum(), (c * w).sum()]))
+    return torch.stack(out)
+
+
+def run_moe_train(dev):
+    """moe_train: one QLoRA step after another of the Mixtral VLM
+    (dinosiglip-vit-so-224px + mixtral-8x7b-v0.1, 32 layers, E = 8, top-2)
+    through tools/bench_finetune's build_moe and Finetune (make_train_step
+    over make_lora_loss_fn(stream=True)): trunk and lm_head int8 per channel
+    on the w8a8 STE route drawn directly on the card, towers and projector
+    bf16; LoRA r = 32, alpha 16, on every linear, the expert
+    stacks included, the router frozen and not adapted; AdamW at a constant
+    5e-4, remat, plain attention; B = 8 rows of 64 text tokens, T = 320.
+    As run_train_path: launches of one step asserted exactly, a warm-up step,
+    TRAIN_TIMED timed steps (host clock, CUDA events, host syncs counted
+    with the Python lines that made them),
+    the loss and the router losses finite at every step, the base unchanged
+    (each leaf's `_fingerprint`), every B factor moved off zero; two backward
+    passes compared bit for bit; peak memory and the base, adapter and
+    optimizer-state bytes (where a step's time goes: python -m
+    openvla_probe_tpu_torch.tools.profile_main_path --entry train_moe)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ft = bench_finetune.build_moe(TRAIN_BATCH, TRAIN_SEQ, TRAIN_RANK, 2 + TRAIN_TIMED, dev,
+                                  seed=0, lr=TRAIN_LR)
+    cfg, base, batch = ft.cfg, ft.base, ft.batch
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frozen = [_fingerprint(t) for t in tree_leaves(base)]
+    losses, aux = [], []
+
+    def step():
+        metrics = ft.step()
+        losses.append(float(metrics["loss"]))
+        aux.append((float(metrics["moe_aux"]), float(metrics["moe_z"])))
+
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.KERNEL_LAUNCHES)
+    expect = _expected_moe_train_launches(cfg, base)
+    assert launches == expect, {k: (v, expect[k]) for k, v in launches.items() if v != expect[k]}
+    step()
+    times, event_ms, timed, host_syncs, sync_sites = [], [], [], [], set()
+    for _ in range(TRAIN_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            start.record()
+            m = ft.step()
+            end.record()
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        event_ms.append(start.elapsed_time(end))
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        host_syncs.append(len(syncs))
+        sync_sites.update(f"{Path(w.filename).name}:{w.lineno}" for w in syncs)
+        timed.append(m)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9   # the steps' peak, base included
+    losses += [float(m["loss"]) for m in timed]
+    aux += [(float(m["moe_aux"]), float(m["moe_z"])) for m in timed]
+    assert all(np.isfinite(losses)) and all(np.isfinite(aux).ravel()), (losses, aux)
+    assert all(torch.equal(_fingerprint(t), f) for t, f in zip(tree_leaves(base), frozen)), \
+        "the base moved"
+    del frozen
+    # two backward passes over the same adapters and batch, bit-equal or not: the kernels are
+    # deterministic, the gathers' backward (x[tok], y_s[pos]) is PyTorch's
+    first = value_and_grad(ft.loss_fn, ft.state.params, cfg, batch)[1]
+    second = value_and_grad(ft.loss_fn, ft.state.params, cfg, batch)[1]
+    grads_equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(first), tree_leaves(second)))
+    del first, second
+    lora = ft.state.params
+    layers = lora["llm"]["layers"]
+    assert layers["router"] is None
+    b_leaves = [lw["B"] for lw in _ab_leaves(lora)]
+    assert b_leaves and all(bool((b != 0).any()) for b in b_leaves), "a B factor stayed at zero"
+    # the (layer, expert) blocks of the expert stacks' B that moved (an expert no token picked
+    # in a layer takes no gradient there)
+    moved = torch.stack([(layers[k]["B"] != 0).flatten(2).any(-1)
+                         for k in ("gate_proj", "up_proj", "down_proj")]).float().mean()
+    p50 = statistics.median(times)
+    state = ft.state.opt_state
+    expert_ad = sum(bench_finetune.tree_bytes(layers[k]) for k in
+                    ("gate_proj", "up_proj", "down_proj"))
+    out = dict(
+        path="moe_train", base_quant="int8", layers=cfg.llm.num_hidden_layers,
+        experts=cfg.llm.moe_experts, top_k=cfg.llm.moe_top_k, batch=TRAIN_BATCH,
+        seq=1 + cfg.num_patches + TRAIN_SEQ - 1, rank=TRAIN_RANK, init_s=init_s,
+        first_step_s=first_s, step_ms_p50=p50 * 1e3, examples_per_s=TRAIN_BATCH / p50,
+        step_ms=[t * 1e3 for t in times], event_ms_per_step=event_ms,
+        event_ms_p50=statistics.median(event_ms), host_syncs_per_step=host_syncs,
+        host_sync_sites=sorted(sync_sites), grads_bit_equal_across_two_backwards=grads_equal,
+        losses=losses, moe_aux_z=aux, peak_mem_gb=peak_gb,
+        base_gb=bench_finetune.tree_bytes(base) / 1e9, expert_gb=_expert_gb(base),
+        adapters_gb=bench_finetune.tree_bytes(lora) / 1e9, expert_adapters_gb=expert_ad / 1e9,
+        opt_state_gb=(bench_finetune.tree_bytes(state.mu)
+                      + bench_finetune.tree_bytes(state.nu)) / 1e9,
+        adapter_leaves=len(b_leaves), expert_b_blocks_moved_share=float(moved))
+    del ft, base, lora, state, batch
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def run_phi(dev):
     """phi-2+3b (CLIP ViT-L/336 at N = 577 and Dh = 64 on vit_attention's
     tensor-core route, the gelu-mlp projector, Phi-2 at 32 layers, D 2560,
@@ -4101,7 +4517,8 @@ def main() -> int:
                    check_rms_norm_quant(dev, g), check_nib_hi_dot(dev, g),
                    check_w4a8_dx(dev, g), check_w8a8_requant(dev, g),
                    check_split_attention_i8(dev, g), check_w4a8_grouped(dev, g),
-                   check_expert_ragged(dev, g), check_expert_ragged_scalar(dev, g)]
+                   check_expert_ragged(dev, g), check_expert_ragged_scalar(dev, g),
+                   *check_expert_ragged_bwd(dev, g), *check_expert_ragged_bwd_scalar(dev, g)]
         # the scalar routes: no main path takes them (the tiny fp32 paths do)
         scalar_routes = [check_decode_attention_scalar(dev, g),
                          check_decode_split_attention_scalar(dev, g),
@@ -4128,6 +4545,9 @@ def main() -> int:
         for dtype in (torch.float32, torch.bfloat16):
             row = check_tiny_moe(dev, dtype)
             tiny[f"tiny_moe_{row['dtype']}"] = row["launches"]
+            log("tiny", **row)
+            row = check_tiny_moe_train(dev, dtype)
+            tiny[f"tiny_moe_train_{row['dtype']}"] = row["launches"]
             log("tiny", **row)
 
     # the load phase's repository stays here for the cli phase; removed whatever happens
@@ -4193,6 +4613,10 @@ def main() -> int:
             launches[path], moe_stats = run_moe_path(dev, path)
             log("main", card=card, batch=MOE_BATCH, launches_per_call=launches[path],
                 **moe_stats)
+        if path == "moe_turbo":   # slice 8a: training the same VLM, its tree freed
+            with _phase("train:moe_train"):
+                launches["moe_train"], train_stats = run_moe_train(dev)
+                log("main", card=card, launches_per_step=launches["moe_train"], **train_stats)
     with _phase("main:phi"):
         launches["phi"], phi_stats = run_phi(dev)
         log("main", card=card, launches_per_call=launches["phi"], **phi_stats)
@@ -4201,7 +4625,7 @@ def main() -> int:
     # the tiny fp32 MoE path, the one path that takes it); a scalar route's from every main
     # path (none takes one) and, apart, from the tiny paths that run it
     for k in kernels:
-        counts = tiny if k["name"] == "expert_ragged_scalar" else launches
+        counts = tiny if k["name"] in TINY_PORTED else launches
         k["launches"] = counts[PORTED_ON.get(k["name"], "pallas")][k["name"]]
         assert k["launches"] > 0, k["name"]
     for k in scalar_routes:

@@ -425,6 +425,9 @@ def forward(
         # the router losses averaged over layers (uncached forwards, as the JAX package's)
         aux = torch.stack(moe_aux).mean(0)
         out["moe_aux"], out["moe_z"] = aux[0], aux[1]
+    # a remat recompute in the backward runs `layer` again: with the list gone it appends
+    # nothing, and the aux above keeps its gradient through the checkpointed layers
+    moe_aux = None
     if pool is not None:
         pooled.append(pool(x))
         out["hidden_pooled"] = torch.stack(pooled, dim=1)   # [B, L+1, D]

@@ -85,6 +85,17 @@ def _route(lp: Params, x: torch.Tensor, top_k: int):
     return idx_k, gate_k, probs, logits
 
 
+def _counts(idx: torch.Tensor, E: int, weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``torch.bincount(idx, weights, minlength=E)`` for ids in [0, E) without
+    its host sync (bincount reads max(idx) on the host): int32 counts, or the
+    fp32 sums of 0/1 weights (exact in any order)."""
+    if weights is None:
+        return torch.zeros(E, dtype=torch.int32, device=idx.device).index_add_(
+            0, idx, torch.ones_like(idx, dtype=torch.int32))
+    return torch.zeros(E, dtype=torch.float32, device=idx.device).index_add_(
+        0, idx, weights.float())
+
+
 def _aux_losses(idx_k: torch.Tensor, probs: torch.Tensor, logits: torch.Tensor,
                 valid: Optional[torch.Tensor], E: int, top_k: int) -> torch.Tensor:
     """fp32 [2]: the load-balance loss E · Σ_e f_e · P_e (1 at perfect
@@ -94,13 +105,12 @@ def _aux_losses(idx_k: torch.Tensor, probs: torch.Tensor, logits: torch.Tensor,
     z = torch.logsumexp(logits, dim=-1) ** 2
     if valid is None:
         n_tok = float(S)
-        f = torch.bincount(idx_k.reshape(-1), minlength=E).float() / (n_tok * top_k)
+        f = _counts(idx_k.reshape(-1), E).float() / (n_tok * top_k)
         p = probs.mean(0)
         z_loss = z.mean()
     else:
         n_tok = torch.clamp(valid.sum(), min=1.0)
-        f = torch.bincount(idx_k.reshape(-1), weights=valid.repeat(top_k),
-                           minlength=E).float() / (n_tok * top_k)
+        f = _counts(idx_k.reshape(-1), E, valid.repeat(top_k)) / (n_tok * top_k)
         p = (probs * valid[:, None]).sum(0) / n_tok
         z_loss = (z * valid).sum() / n_tok
     return torch.stack([E * torch.sum(f * p), z_loss])
@@ -165,7 +175,7 @@ def moe_ffn_sorted(lp: Params, h: torch.Tensor, *, top_k: int,
     order = torch.argsort(e_flat, stable=True)
     tok = order % S                                                 # t_flat[order]
     gates = gate_k.reshape(-1)[order]
-    group_sizes = torch.bincount(e_flat, minlength=E).int()
+    group_sizes = _counts(e_flat, E)
 
     xs = x[tok]
     g = expert_ragged(xs, lp["gate_proj"], group_sizes)

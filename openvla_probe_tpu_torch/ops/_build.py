@@ -155,6 +155,22 @@ KERNELS = {
         "expert_ragged.cu", "ovla_expert_ragged_scalar",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     ),
+    "expert_ragged_dx": (
+        "expert_ragged_bwd.cu", "ovla_expert_ragged_dx",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "expert_ragged_dx_scalar": (
+        "expert_ragged_bwd.cu", "ovla_expert_ragged_dx_scalar",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    ),
+    "expert_ragged_dw": (
+        "expert_ragged_bwd.cu", "ovla_expert_ragged_dw",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "expert_ragged_dw_scalar": (
+        "expert_ragged_bwd.cu", "ovla_expert_ragged_dw_scalar",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
 }
 # GEMM -> the name its activation pre-pass launch is counted under
 PRE_PASSES = {"w4a8_matmul": "w4a8_quant_rows", "w8a8_matmul": "w8a8_quant_rows",

@@ -22,6 +22,8 @@ The base, random from a seeded generator on the card:
 * ``int8`` (the JAX script's default; all ``OVLA_*`` unset): per-channel int8,
   every trunk linear on ``w8a8_matmul`` with its STE, the fused norm off.
 
+`build_moe` sets up the same trainer over the Mixtral VLM (dinosiglip +
+mixtral-8x7b-v0.1, int8 trunk drawn on the card, LoRA on the expert stacks).
 Attention takes the plain branch (the kernels have no backward). Prints one
 JSON line, the JAX script's fields with ``backend: "cuda"``; ``compile_s`` is
 the first step's time, the kernels' build included.
@@ -41,8 +43,8 @@ import torch
 
 from .. import convert
 from ..device import DeviceLike, resolve_device
-from ..models import vlm
-from ..ops.linear import _DEFAULT_QUANT_SUFFIXES
+from ..models import catalog, vlm
+from ..ops.linear import _DEFAULT_QUANT_SUFFIXES, random_params_like
 from ..training.lora import LoRAConfig, init_lora_params, make_lora_loss_fn
 from ..training.train_state import OptimizerConfig, TrainState, make_optimizer, tree_leaves
 from ..training.train_step import make_train_step, vla_loss_fn
@@ -136,6 +138,24 @@ def build(scale: str = "full", quant: str = "int4", batch: int = 8, seq: int = 6
     seq = min(seq, 16) if scale == "tiny" else seq
     base = base_params(cfg, quant, torch.Generator(device=dev).manual_seed(seed), dev)
     return Finetune(cfg, base, synthetic_batch(cfg, batch, seq, seed, dev), rank=rank,
+                    max_steps=steps, seed=seed + 1)
+
+
+def build_moe(batch: int = 8, seq: int = 64, rank: int = 32, steps: int = 10,
+              device: DeviceLike = "cuda", seed: int = 0, lr: float = 5e-4) -> Finetune:
+    """QLoRA over dinosiglip-vit-so-224px + mixtral-8x7b-v0.1 at full width and
+    depth (32 layers, E = 8, top-2): the trunk and lm_head per-channel int8 on
+    the w8a8 STE route, drawn directly on `device` by
+    ``linear.random_params_like`` over ``convert.vlm_param_spec`` (no float
+    twin of the [32, 8, 14336, 4096] expert stacks: `base_params` would make
+    one), towers and projector bf16; streamed LoRA on every linear, the expert
+    stacks included, the router not adapted; the rest as `build`."""
+    dev = resolve_device(device)
+    cfg = train_config(catalog.build_vlm_config("dinosiglip-vit-so-224px",
+                                                "mixtral-8x7b-v0.1")[0], "int8")
+    spec = convert.vlm_param_spec(cfg, _DEFAULT_QUANT_SUFFIXES, QUANTS["int8"])
+    base = random_params_like(spec, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return Finetune(cfg, base, synthetic_batch(cfg, batch, seq, seed, dev), rank=rank, lr=lr,
                     max_steps=steps, seed=seed + 1)
 
 

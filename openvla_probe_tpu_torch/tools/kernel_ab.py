@@ -5,7 +5,7 @@
                    decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot,
                    fused_ln_w8a8,fused_mlp_residual,w4a8_requant,rms_norm_quant,
                    stacked_decode_attention_i8,split_attention_i8,w4a8_grouped,
-                   expert_ragged]
+                   expert_ragged,expert_ragged_dx,expert_ragged_dw]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -42,7 +42,10 @@ build the one-block-a-row kernel);
 builds that export them, ``grouped_parts``; ``expert_ragged`` by
 ``expert_ragged.compare_expert_ragged``, a build from before its two routes
 called with its own signature, and at the int8 prefill each build's count of
-outputs off an fp64 reference's rounding, ``expert_ragged.misrounded``), then the device
+outputs off an fp64 reference's rounding, ``expert_ragged.misrounded``;
+``expert_ragged_dx`` and ``expert_ragged_dw`` at moe_train's backward shapes,
+by ``compare_expert_ragged``, dx's fp64 count at the int8 base, dW also bit
+for bit against the first build), then the device
 time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
@@ -61,8 +64,9 @@ the two fused tower kernels, the pallas_int4 and train_int4 mixes of
 ``w4a8_requant``, the turbo mix of ``rms_norm_quant`` and the pallas_kv8 mix
 of ``stacked_decode_attention_i8`` (its six decode steps), the turbo_kv8 mix
 of ``split_attention_i8``, the turbo_int4 / turbo_mix mix of
-``w4a8_grouped`` and the moe_turbo and moe_parity mixes of ``expert_ragged``
-with its two routes apart, as ``chip_smoke.py`` weighs them).
+``w4a8_grouped``, the moe_turbo and moe_parity mixes of ``expert_ragged``
+with its two routes apart, and a moe_train step's mix of its backward, as
+``chip_smoke.py`` weighs them).
 """
 
 from __future__ import annotations
@@ -1250,6 +1254,121 @@ def ab_expert_ragged(fns, g, dev, shapes=None):
                              for r in sel) / n for tag in fns}}), flush=True)
 
 
+MOE_TRAIN_ROWS, MOE_RANK = 2 * TRAIN_ROWS, 32   # moe_train: 5120 top-2 rows, LoRA r = 32
+
+
+def ragged_bwd_shapes() -> tuple:
+    """moe_train's backward by shape, launches per step (chip_smoke.py weighs
+    its rows by them): dx (form, O, I) and dW (O, I), each MoE layer's gate
+    and up (D -> F) and down (F -> D) over the int8 base with streamed LoRA:
+    the base's dx, the adapter's dt = dy · B and dt · A; dB = dyᵀ t and
+    dA = dtᵀ x."""
+    D, F_, r, L = MOE_D, MOE_F, MOE_RANK, LAYERS
+    dx = {("int8", F_, D): 2 * L, ("int8", D, F_): L, ("bf16", F_, r): 2 * L,
+          ("bf16", D, r): L, ("bf16", r, D): 2 * L, ("bf16", r, F_): L}
+    dw = {(F_, r): 2 * L, (D, r): L, (r, D): 2 * L, (r, F_): L}
+    return dx, dw
+
+
+def call_ragged_dx(fn, dy, w, s, gs):
+    M, (E, O, I) = dy.shape[0], w.shape
+    dx = torch.empty((M, I), dtype=dy.dtype, device=dy.device)
+    _build.check(fn(dy.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
+                    gs.data_ptr(), dx.data_ptr(), M, O, I, E, int(s is not None),
+                    _build.stream_ptr(dy)), "expert_ragged_dx")
+    return dx
+
+
+def call_ragged_dw(fn, dy, x, gs, ws, rows):
+    M, O, I, E = dy.shape[0], dy.shape[1], x.shape[1], gs.numel()
+    dw = torch.empty((E, O, I), dtype=x.dtype, device=x.device)
+    _build.check(fn(dy.data_ptr(), x.data_ptr(), gs.data_ptr(),
+                    None if ws is None else ws.data_ptr(), dw.data_ptr(), M, O, I, E, rows,
+                    _build.stream_ptr(dy)), "expert_ragged_dw")
+    return dw
+
+
+def _mix(kernel: str, rows: list, fns) -> None:
+    n = sum(r["launches_per_step"] for r in rows)
+    print(json.dumps({"kernel": kernel, "mix": "moe_train", "launches": n, "ms": {
+        tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_step"] for r in rows) / n
+        for tag in fns}}), flush=True)
+
+
+def ab_expert_ragged_dx(fns, g, dev, shapes=None):
+    """moe_train's dx shapes (`ragged_bwd_shapes`, M = 5120, uniform top-2
+    group sizes), each build held to ``expert_ragged_dx_plain`` by
+    ``compare_expert_ragged`` (reported) and timed in turns; at the int8
+    5120 x 14336 -> 4096 each build's and the plain version's count of
+    outputs off an fp64 reference's rounding (``misrounded_dx``); then the
+    launch-weighted mean over a step."""
+    gs = top2_sizes(MOE_TRAIN_ROWS // 2, g, dev)
+    rows = []
+    for (form, O, I), per_step in ragged_bwd_shapes()[0].items():
+        if shapes and f"{MOE_TRAIN_ROWS}x{O}x{I}" not in shapes:
+            continue
+        dy = torch.randn((MOE_TRAIN_ROWS, O), generator=g, device=dev).bfloat16()
+        if form == "int8":
+            w = torch.randint(-127, 128, (MOE_E, O, I), generator=g, device=dev,
+                              dtype=torch.int8)
+            s = torch.rand((MOE_E, O), generator=g, device=dev) * 1e-3 + 1e-3
+        else:
+            w = (torch.randn((MOE_E, O, I), generator=g, device=dev) * 0.02).bfloat16()
+            s = None
+        want = texr.expert_ragged_dx_plain(dy, w, s, gs)
+        got = {tag: call_ragged_dx(fn, dy, w, s, gs) for tag, fn in fns.items()}
+        row = dict(kernel="expert_ragged_dx", form=form, shape=f"{MOE_TRAIN_ROWS}x{O}x{I}",
+                   launches_per_step=per_step,
+                   check={tag: _checked(texr.compare_expert_ragged, out, want)
+                          for tag, out in got.items()})
+        if form == "int8" and O == MOE_F:
+            row["misrounded"] = {tag: texr.misrounded_dx(out, dy, w, s, gs)
+                                 for tag, out in {**got, "plain": want}.items()}
+        del got, want
+        row["ms"] = _turns(fns, lambda fn: lambda: call_ragged_dx(fn, dy, w, s, gs))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del dy, w, s
+        torch.cuda.empty_cache()
+    if rows:
+        _mix("expert_ragged_dx", rows, fns)
+
+
+def ab_expert_ragged_dw(fns, g, dev, shapes=None):
+    """moe_train's dW shapes (`ragged_bwd_shapes`) and a full bf16 stack
+    [8, 14336, 4096] (no launch in a step), each build held to
+    ``expert_ragged_dw_plain`` and to the first build bit for bit, the rows
+    split at the wrapper's ``dw_split_rows``, timed in turns; then the
+    launch-weighted mean over a step."""
+    gs = top2_sizes(MOE_TRAIN_ROWS // 2, g, dev)
+    M, rows = MOE_TRAIN_ROWS, []
+    for (O, I), per_step in {**ragged_bwd_shapes()[1], (MOE_F, MOE_D): 0}.items():
+        if shapes and f"{M}x{O}x{I}" not in shapes:
+            continue
+        dy = torch.randn((M, O), generator=g, device=dev).bfloat16()
+        x = torch.randn((M, I), generator=g, device=dev).bfloat16()
+        split = texr.dw_split_rows(M, O, I)
+        ws = (torch.empty((-(-M // split) + MOE_E) * O * I, dtype=torch.float32, device=dev)
+              if split < M else None)
+        want = texr.expert_ragged_dw_plain(dy, x, gs, MOE_E)
+        got = {tag: call_ragged_dw(fn, dy, x, gs, ws, split) for tag, fn in fns.items()}
+        first = next(iter(got.values()))
+        row = dict(kernel="expert_ragged_dw", shape=f"{M}x{O}x{I}", launches_per_step=per_step,
+                   split_rows=split,
+                   check={tag: _checked(texr.compare_expert_ragged, out, want)
+                          for tag, out in got.items()},
+                   equal_to_first={tag: bool(torch.equal(out, first)) for tag, out in got.items()})
+        del got, want, first
+        row["ms"] = _turns(fns, lambda fn: lambda: call_ragged_dw(fn, dy, x, gs, ws, split))
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        del dy, x, ws
+        torch.cuda.empty_cache()
+    step = [r for r in rows if r["launches_per_step"]]
+    if step:
+        _mix("expert_ragged_dw", step, fns)
+
+
 AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
       "w4a8_dx": ab_w4a8_dx, "decode_split_attention": ab_decode_split_attention,
@@ -1259,7 +1378,8 @@ AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "rms_norm_quant": ab_rms_norm_quant,
       "stacked_decode_attention_i8": ab_stacked_decode_attention_i8,
       "split_attention_i8": ab_split_attention_i8, "w4a8_grouped": ab_w4a8_grouped,
-      "expert_ragged": ab_expert_ragged}
+      "expert_ragged": ab_expert_ragged, "expert_ragged_dx": ab_expert_ragged_dx,
+      "expert_ragged_dw": ab_expert_ragged_dw}
 
 
 def main() -> int:

@@ -3,7 +3,7 @@
     python -m openvla_probe_tpu_torch.tools.profile_main_path
         [--tier parity|pallas|pallas_kv8|turbo|turbo_kv8] [--weights int8|int4|mix|nibble]
         [--fused] [--batch 24] [--calls 3]
-        [--entry vla|generate|score_short|score_long|train_int4|train_int8]
+        [--entry vla|generate|score_short|score_long|train_int4|train_int8|train_moe]
 
 Drives the same call as chip_smoke.py (random weights from a seeded
 generator: bf16 for the parity tier, TURBO_QUANT_SUFFIXES leaves for the
@@ -33,7 +33,9 @@ stages: towers, projector, the uncached 32-layer forward, lm_head, the fp32
 log-softmax and gather). ``--entry train_int4`` / ``train_int8`` profiles one
 step of tools/bench_finetune.py at OpenVLA-7B width (B = 8 rows of 64 text
 tokens by default, streamed LoRA r = 32 over the int4 or int8 base; stages:
-the forward alone, forward and backward, the AdamW update, the whole step).
+the forward alone, forward and backward, the AdamW update, the whole step);
+``--entry train_moe`` the same over the Mixtral VLM (`bench_finetune.build_moe`:
+an int8 trunk with streamed LoRA on the expert stacks, 48 GB of weights).
 """
 
 from __future__ import annotations
@@ -175,8 +177,10 @@ def profile_vlm_entry(entry: str, batch: int, calls: int, card: str) -> None:
 
 
 def profile_train(quant: str, batch: int, calls: int, card: str) -> None:
-    """Stages and device time of one train step of tools/bench_finetune.py."""
-    ft = bench_finetune.build("full", quant, batch=batch, device="cuda")
+    """Stages and device time of one train step of tools/bench_finetune.py
+    (`quant` "moe": `bench_finetune.build_moe`, the Mixtral VLM)."""
+    ft = (bench_finetune.build_moe(batch, device="cuda") if quant == "moe" else
+          bench_finetune.build("full", quant, batch=batch, device="cuda"))
     reps = max(3, calls)
     lora, cfg = ft.state.params, ft.cfg
 
@@ -220,7 +224,7 @@ def main() -> None:
                     help="rows of a call: 24 for the VLA call, 8 for the other entries")
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--entry", choices=("vla", "generate", "score_short", "score_long",
-                                        "train_int4", "train_int8"),
+                                        "train_int4", "train_int8", "train_moe"),
                     default="vla", help="the VLA serving call, a base-VLM entry point, or "
                                         "a train step")
     args = ap.parse_args()

@@ -34,6 +34,8 @@ from ..ops.linear import (dequantize_weight, is_grouped_int4, is_nibble_quant, i
 _LINEAR_SUFFIXES = (
     "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
     "qkv_w", "proj_w", "fc1_w", "fc2_w", "w",
+    # the Phi trunk (models/phi.py layout)
+    "q_w", "k_w", "v_w", "dense_w",
 )
 
 

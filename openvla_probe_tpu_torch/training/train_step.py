@@ -88,14 +88,23 @@ def vla_loss_fn(params: Any, cfg: vlm.VLMConfig, batch: Dict[str, torch.Tensor],
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The loss of one batch (``input_ids``, ``attention_mask``, ``labels``
     [B, T]; ``pixel_values`` [B, 3K, S, S] or absent) and its metrics; the
-    metrics are detached."""
+    metrics are detached. A MoE trunk's router losses join the loss
+    (``moe_aux_coef · moe_aux + moe_z_coef · moe_z``, their gradients through
+    the router) and the metrics; ``metrics["loss"]`` stays the cross entropy."""
     out = vlm.forward(params, cfg, input_ids=batch["input_ids"],
                       attn_mask=batch["attention_mask"], pixel_values=batch.get("pixel_values"),
                       labels=batch["labels"])
     logits, labels = out["logits"], out["labels"]
-    loss = cross_entropy_loss(logits, labels)
+    ce = cross_entropy_loss(logits, labels)
+    loss = ce
+    if "moe_aux" in out:
+        loss = (ce + getattr(cfg.llm, "moe_aux_coef", 0.0) * out["moe_aux"]
+                + getattr(cfg.llm, "moe_z_coef", 0.0) * out["moe_z"])
     with torch.no_grad():
-        metrics: Dict[str, Any] = {"loss": loss.detach(), **action_metrics(logits, labels, codec)}
+        metrics: Dict[str, Any] = {"loss": ce.detach(), **action_metrics(logits, labels, codec)}
+        if "moe_aux" in out:
+            metrics["moe_aux"] = out["moe_aux"].detach()
+            metrics["moe_z"] = out["moe_z"].detach()
         if with_per_example:
             metrics["per_example"] = per_example_metrics(logits, labels, codec)
     return loss, metrics
@@ -142,10 +151,6 @@ def make_train_step(
     `grad_accum_steps` > 1 splits the batch into that many micro-batches along
     dim 0 and averages their gradients (fp32 sums), losses and metrics; the
     per-example metrics are dropped there."""
-    if getattr(getattr(cfg, "llm", None), "moe_experts", 0):   # cfg may be None with a loss_fn
-        raise NotImplementedError(
-            "training a MoE trunk (the router's load-balance and z losses in the step's loss, "
-            "a backward of the grouped expert product) is ROADMAP Queue 1 item 13")
     codec = codec or ActionCodec()
     loss_fn = loss_fn or functools.partial(vla_loss_fn, codec=codec)
 

@@ -1353,3 +1353,125 @@ def test_expert_ragged_two_runs_give_the_same_bits(cuda, int8, M, sizes):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
 
+
+
+# --- expert_ragged's backward: dx and dW --------------------------------------------------
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("sizes,O,I,M", [
+    ([640] * 8, 1024, 512, None),                  # an even split, 5 row tiles an expert
+    ([700, 0, 3, 1, 129, 64, 65, 190], 512, 1024, None),   # skewed, empty, one-row groups
+    ([0, 0, 0, 1000, 0, 0, 0, 0], 2048, 256, None),        # one expert holds every row
+    ([5, 9, 0, 30], 136, 208, 300),                # O and I off the tiles, rows past the sum
+    ([50, 40, 0, 38], 32, 512, None),              # a LoRA dt · A (K = r = 32)
+    ([50, 40, 0, 38], 512, 16, None),              # a LoRA dy · B at r = 16 (N off the tile)
+])
+def test_expert_ragged_dx_matches_plain(cuda, int8, sizes, O, I, M):
+    """dx on the tensor cores against expert_ragged_dx_plain by
+    compare_expert_ragged's rule (every element within one bf16 step, the
+    int8 form's scaled weights exact as three bf16 terms); rows past the sum
+    0; one launch counted; two runs bit-equal."""
+    if int8 and I % 16:
+        pytest.skip("int8 codes need I % 16 == 0 on the tensor-core route")
+    dy, _, _, gs = _ragged_inputs(110 + O + I, sizes, O, 0, torch.bfloat16, False, cuda, M=M)
+    _, w, s, _ = _ragged_inputs(111 + O, sizes, I, O, torch.bfloat16, int8, cuda, M=M)
+    assert texr.ragged_dx_mma_eligible(dy, w)
+    got = _count("expert_ragged_dx", lambda: texr.expert_ragged_dx(dy, w, s, gs))
+    texr.compare_expert_ragged(got, texr.expert_ragged_dx_plain(dy, w, s, gs))
+    assert torch.all(got[sum(sizes):] == 0)
+    assert torch.equal(got, texr.expert_ragged_dx(dy, w, s, gs))
+
+
+@pytest.mark.parametrize("sizes,O,I,M", [
+    ([640] * 8, 32, 1024, None),                   # a LoRA dA: split rows, fp32 partials
+    ([640] * 8, 1024, 32, None),                   # a LoRA dB
+    ([0, 0, 0, 5120, 0, 0, 0, 0], 8, 512, None),   # one expert holds every row, r = 8
+    ([700, 0, 3, 1, 129, 64, 65, 190], 512, 8, 1300),   # skewed, rows past the sum
+    ([300, 129, 0, 700], 1024, 1024, None),        # a float stack: one pass
+    ([5, 9, 0, 30], 136, 200, None),               # O and I off the tiles
+])
+def test_expert_ragged_dw_matches_plain(cuda, sizes, O, I, M):
+    """dW on the tensor cores against expert_ragged_dw_plain by
+    compare_expert_ragged's rule; an empty expert's dW written 0; one launch
+    counted (the reduce grid of a split included); two runs bit-equal."""
+    M = sum(sizes) if M is None else M
+    dy, _, _, gs = _ragged_inputs(120 + O, sizes, O, 0, torch.bfloat16, False, cuda, M=M)
+    x, _, _, _ = _ragged_inputs(121 + I, sizes, I, 0, torch.bfloat16, False, cuda, M=M)
+    assert texr.ragged_dw_mma_eligible(dy, x)
+    got = _count("expert_ragged_dw", lambda: texr.expert_ragged_dw(dy, x, gs, len(sizes)))
+    texr.compare_expert_ragged(got, texr.expert_ragged_dw_plain(dy, x, gs, len(sizes)))
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert torch.all(got[e] == 0)
+    assert torch.equal(got, texr.expert_ragged_dw(dy, x, gs, len(sizes)))
+
+
+@pytest.mark.parametrize("dtype,O,I", [(torch.float32, 64, 128), (torch.float32, 128, 8),
+                                       (torch.bfloat16, 20, 24)])
+def test_expert_ragged_bwd_scalar_routes(cuda, dtype, O, I):
+    """fp32 and the shapes the tensor-core rules refuse take the scalar
+    routes, counted apart: fp32 within 1e-5 of the largest |want|, bf16
+    within one bf16 step."""
+    sizes = [7, 0, 1, 40]
+    dy, _, _, gs = _ragged_inputs(130 + O, sizes, O, 0, dtype, False, cuda, M=50)
+    x, w, s, _ = _ragged_inputs(131 + I, sizes, I, O, dtype, dtype == torch.float32, cuda, M=50)
+    assert not texr.ragged_dx_mma_eligible(dy, w)
+    got = _count("expert_ragged_dx_scalar", lambda: texr.expert_ragged_dx(dy, w, s, gs))
+    texr.compare_expert_ragged(got, texr.expert_ragged_dx_plain(dy, w, s, gs))
+    assert not texr.ragged_dw_mma_eligible(dy, x)
+    got = _count("expert_ragged_dw_scalar", lambda: texr.expert_ragged_dw(dy, x, gs, 4))
+    texr.compare_expert_ragged(got, texr.expert_ragged_dw_plain(dy, x, gs, 4))
+
+
+def test_expert_ragged_lora_backward_on_the_card(cuda):
+    """Autograd through the LoRA form over int8 codes on the card: 3
+    expert_ragged, then 3 expert_ragged_dx and 2 expert_ragged_dw; dx and the
+    adapters' gradients against the same graph on the CPU (the plain
+    versions): dx within two bf16 steps at the largest |want| (base and
+    adapter contributions added in bf16), dA and dB within 1e-2 in norm
+    (each rounds to bf16 before the fp32 master takes it)."""
+    x, q, s, gs = _ragged_inputs(140, [300, 0, 129, 211], 512, 1024, torch.bfloat16, True, cuda)
+    r = np.random.default_rng(141)
+    A = torch.from_numpy(r.normal(size=(4, 32, 512)).astype(np.float32) * 0.05)
+    B = torch.from_numpy(r.normal(size=(4, 1024, 32)).astype(np.float32) * 0.05)
+    dy = torch.from_numpy(r.normal(size=(640, 1024)).astype(np.float32)).bfloat16()
+
+    def grads(dev):
+        xa = x.to(dev).requires_grad_(True)
+        a, b = A.to(dev).requires_grad_(True), B.to(dev).requires_grad_(True)
+        y = texr.expert_ragged(xa, {"base": {"q": q.to(dev), "s": s.to(dev)}, "A": a, "B": b},
+                               gs.to(dev))
+        return torch.autograd.grad(y, [xa, a, b], dy.to(dev))
+
+    _build.reset_launch_counts()
+    got = grads(cuda)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in _build.KERNEL_LAUNCHES.items() if n}
+    assert launches == {"expert_ragged": 3, "expert_ragged_dx": 3, "expert_ragged_dw": 2}
+    want = grads("cpu")
+    d = (got[0].cpu().float() - want[0].float()).abs().max().item()
+    assert d <= 2 ** -6 * want[0].float().abs().max().item(), d
+    for g, w_ in zip(got[1:], want[1:]):
+        assert g.dtype == torch.float32
+        assert (g.cpu() - w_).norm() <= 1e-2 * w_.norm()
+
+
+def test_expert_ragged_bwd_launchers_refuse_what_they_do_not_take(cuda):
+    """dx refuses O off 8, int8 codes with I off 16, no experts and codes
+    without scales; dW refuses I off 8, a split without its workspace or
+    with rows off the 64-row stage."""
+    dy, w, s, gs = _ragged_inputs(150, [4, 4], 64, 64, torch.bfloat16, True, cuda)
+    out = torch.empty(8, 64, dtype=torch.bfloat16, device=cuda)
+    dx = _build.launcher("expert_ragged_dx")
+    st = _build.stream_ptr(dy)
+    p = (dy.data_ptr(), w.data_ptr(), s.data_ptr(), gs.data_ptr(), out.data_ptr())
+    for M, O, I, E, int8, s_ptr in ((8, 60, 64, 2, 1, p[2]), (8, 64, 56, 2, 1, p[2]),
+                                    (8, 64, 64, 0, 1, p[2]), (8, 64, 64, 2, 1, None)):
+        assert dx(p[0], p[1], s_ptr, p[3], p[4], M, O, I, E, int8, st) != 0
+    dw = _build.launcher("expert_ragged_dw")
+    wsp = torch.empty(1 << 16, dtype=torch.float32, device=cuda)
+    q = (dy.data_ptr(), dy.data_ptr(), gs.data_ptr())
+    assert dw(*q, None, out.data_ptr(), 8, 64, 60, 2, 8, st) != 0
+    assert dw(*q, None, out.data_ptr(), 128, 64, 64, 2, 64, st) != 0
+    assert dw(*q, wsp.data_ptr(), out.data_ptr(), 128, 64, 64, 2, 32, st) != 0

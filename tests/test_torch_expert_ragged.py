@@ -147,13 +147,6 @@ def test_nibble_experts_raise():
         texr.expert_ragged(x, w, torch.tensor([2, 2], dtype=torch.int32))
 
 
-def test_grad_raises():
-    """No backward (MoE training is a later slice): an input under grad raises."""
-    x = torch.zeros(4, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="item 13"):
-        texr.expert_ragged(x, torch.zeros(2, 8, 8), torch.tensor([2, 2], dtype=torch.int32))
-
-
 @pytest.mark.parametrize("x_dtype,w_dtype,I,O,want", [
     (torch.bfloat16, torch.bfloat16, 4096, 14336, True),    # Mixtral gate / up
     (torch.bfloat16, torch.int8, 14336, 4096, True),        # Mixtral down, int8

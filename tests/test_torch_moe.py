@@ -43,8 +43,6 @@ from openvla_probe_tpu_torch.models import vlm as tvlm
 from openvla_probe_tpu_torch.ops import _build
 from openvla_probe_tpu_torch.ops import image as timage
 from openvla_probe_tpu_torch.ops import linear as tlin
-from openvla_probe_tpu_torch.training import train_step as ttrain
-from openvla_probe_tpu_torch.training.train_state import OptimizerConfig, make_optimizer
 
 from tests.test_torch_openvla import Tok, clean_ovla_env
 from tests.test_torch_openvla import _vlm_cfg as _openvla_cfg
@@ -580,13 +578,6 @@ def test_moe_openvla_matches_jax():
 
 
 # --- what stays out of this slice ---------------------------------------------------
-
-
-def test_moe_training_raises():
-    cfg = tvlm.VLMConfig.tiny(llm=tllama.LlamaConfig.tiny(moe_experts=4))
-    opt = make_optimizer(OptimizerConfig(), {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.make_train_step(cfg, opt)
 
 
 def test_moe_export_raises():
