@@ -176,10 +176,12 @@ Phases, one output line each:
               MoE path's, the one path that takes it), expert_ragged_dx and
               expert_ragged_dw (moe_train's backward at M = 5120, E = 8, r =
               32: the int8 base's dx and the adapters' dx, dA and dB, run
-              twice bit-equal; dW of a full bf16 stack; at the int8 5120 x
-              14336 -> 4096 dx the fp64 count, the kernel's at most 1.5x the
-              plain version's; edge cases: an empty expert, one expert with
-              every row, M off the tile, rows past the sum, r = 8 and 32) and
+              twice bit-equal; dW of a full bf16 stack; at both int8 dx
+              shapes the fp64 count, the kernel's at most 1.5x the plain
+              version's; edge cases: an empty expert, one expert with every
+              row, M off the tile, rows past the sum, r = 8, 16, 32 and 64,
+              both sides of dx_tiling's split switch, one-row experts, O =
+              8) and
               their scalar routes (fp32; launches from the tiny fp32 MoE
               training step), split_attention_i8 (turbo_kv8, its ring route; GQA,
               T = 291, T + A = 4096, fp32 scores, one row timed at the
@@ -4116,13 +4118,14 @@ def check_expert_ragged_bwd(dev, g):
     version by compare_expert_ragged's rule and run twice, bit-equal; ms
     (behind the spin kernel, median of 25), the plain version's, cuBLAS per
     expert over its rows (dy_e · W_e on weights dequantized beforehand, dy_eᵀ
-    x_e), the bound, host µs a call. At the int8 5120 x 14336 -> 4096 dx the
-    outputs off an fp64 reference's rounding, kernel and plain: the
-    kernel's at most 1.5x. dW of a full bf16 stack [8, 14336, 4096] from 5120
-    rows (full fine-tuning; no moe_train launch). Edge cases untimed: an
-    empty expert, one expert holding every row, M off the 128-row tile, rows
-    past the groups' sum, r = 8 and r = 32. Both rows launch-weighted over
-    one moe_train step."""
+    x_e), the bound, host µs a call. At both int8 dx shapes (5120 x 14336 ->
+    4096 and 4096 -> 14336) the outputs off an fp64 reference's rounding,
+    kernel and plain: the kernel's at most 1.5x. dW of a full bf16 stack [8,
+    14336, 4096] from 5120 rows (full fine-tuning; no moe_train launch).
+    Edge cases untimed: an empty expert, one expert holding every row, M off
+    the 128-row tile, rows past the groups' sum, r = 8, 16, 32 and 64, dy ·
+    B on both sides of dx_tiling's split switch (131 and 132 tiles), experts
+    of one row, O = 8. Both rows launch-weighted over one moe_train step."""
     M, D, F_, r = MOE_TRAIN_ROWS, MIXTRAL_D, MIXTRAL_F, TRAIN_RANK
     dx_per, dw_per = kernel_ab.ragged_bwd_shapes()   # launches per step by shape
     gs = _top2_sizes(M // 2, g, dev)
@@ -4130,12 +4133,13 @@ def check_expert_ragged_bwd(dev, g):
     for (form, O, I), n in dx_per.items():
         dy, w, s = _dx_operands(M, O, I, form == "int8", g, dev)
         dx_rows[f"{form} {M}x{O}->{I}"] = _dx_shape(dy, w, s, gs, "expert_ragged_dx", "bf16", n)
-        if (form, O, I) == ("int8", F_, D):
+        if form == "int8":
             got = ragged.expert_ragged_dx(dy, w, s, gs)
-            misrounded = dict(kernel=ragged.misrounded_dx(got, dy, w, s, gs),
-                              plain=ragged.misrounded_dx(ragged.expert_ragged_dx_plain(
-                                  dy, w, s, gs), dy, w, s, gs))
-            assert misrounded["kernel"] <= 1.5 * misrounded["plain"], misrounded
+            count = misrounded[f"{M}x{O}->{I}"] = dict(
+                kernel=ragged.misrounded_dx(got, dy, w, s, gs),
+                plain=ragged.misrounded_dx(ragged.expert_ragged_dx_plain(dy, w, s, gs), dy, w,
+                                           s, gs))
+            assert count["kernel"] <= 1.5 * count["plain"], misrounded
             del got
         del dy, w, s
     for (O, I), n in dw_per.items():
@@ -4148,7 +4152,9 @@ def check_expert_ragged_bwd(dev, g):
     full = _dw_shape(dy, x, gs, "expert_ragged_dw", "bf16", 0, reps=5)
     del dy, x
     torch.cuda.empty_cache()
-    edges = {}
+    edges = {}   # dy · B at 131 tiles splits the contraction, at 132 it does not
+    assert ragged.dx_tiling(16768, 256, r, False)[1] > 1
+    assert ragged.dx_tiling(16769, 256, r, False)[1] == 1
     for name, sizes, M_, O, I in (
             ("one_empty", [1200, 0, 3, 1, 900, 1500, 700, 304], 4608, 2048, 1024),
             ("one_expert_all_rows", [0, 0, 0, 5120, 0, 0, 0, 0], 5120, 2048, 1024),
@@ -4156,7 +4162,14 @@ def check_expert_ragged_bwd(dev, g):
             ("rows_past_sum", [3, 0, 9, 1, 0, 0, 20, 2], 64, 1024, 512),
             ("r8_dt_a", [700, 0, 3, 1, 900, 1500, 700, 304], 4608, 8, D),
             ("r8_dy_b", [700, 0, 3, 1, 900, 1500, 700, 304], 4608, D, 8),
-            ("r32_one_expert", [0, 0, 0, 5120, 0, 0, 0, 0], 5120, r, D)):
+            ("r32_one_expert", [0, 0, 0, 5120, 0, 0, 0, 0], 5120, r, D),
+            ("r16_dy_b", [700, 0, 3, 1, 900, 1500, 700, 304], 4608, 1024, 16),
+            ("r64_dy_b", [700, 0, 3, 1, 900, 1500, 700, 304], 4608, 1024, 64),
+            ("r64_dt_a", [700, 0, 3, 1, 900, 1500, 700, 304], 4608, 64, 1024),
+            ("split_131_tiles", [2096] * 8, 16768, 256, r),
+            ("one_pass_132_tiles", [2096] * 7 + [2097], 16769, 256, r),
+            ("one_row_experts", [1, 0, 3000, 1, 700, 1, 0, 905], 4608, 2048, 1024),
+            ("o8", [700, 0, 3, 1, 900, 1500, 700, 304], 4608, 8, 1024)):
         gse = torch.tensor(sizes, dtype=torch.int32, device=dev)
         for form in ("int8", "bf16"):
             if form == "int8" and I % 16:

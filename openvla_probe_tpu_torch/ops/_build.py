@@ -157,7 +157,7 @@ KERNELS = {
     ),
     "expert_ragged_dx": (
         "expert_ragged_bwd.cu", "ovla_expert_ragged_dx",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     ),
     "expert_ragged_dx_scalar": (
         "expert_ragged_bwd.cu", "ovla_expert_ragged_dx_scalar",

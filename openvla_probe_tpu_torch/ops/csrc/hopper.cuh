@@ -1,5 +1,5 @@
 // The Hopper pieces shared by the wgmma / TMA kernels (w4a8_dx.cu, w4a8_matmul.cu,
-// wi8_matmul.cu, expert_ragged.cu, flash_blockwise.cu, flash_prefill.cu, int8_wgmma.cuh for
+// wi8_matmul.cu, expert_ragged.cu, expert_ragged_bwd.cu, flash_blockwise.cu, flash_prefill.cu, int8_wgmma.cuh for
 // w8a8_matmul.cu and vit_mlp.cu, int8_decode.cuh, decode_common.cuh): mbarriers, TMA
 // tensor-map and bulk loads, the run-time lookup of the tensor-map encoder
 // (cudaGetDriverEntryPoint: no -lcuda), shared-memory matrix descriptors for wgmma, the wgmma
@@ -153,8 +153,9 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// d[32] (+)= A (64 x 16 bf16 at `da`, K-major) . B (16 x 64 bf16 at `db`, K-major); scale_d = 0
-// drops d
+// d[32] (+)= A (64 x 16 bf16 at `da`) . B (16 x 64 bf16 at `db`), each K-major, or MN-major
+// where its transpose bit (kTransA, kTransB) is 1; scale_d = 0 drops d
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_bf16_ss_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
                                                       int scale_d) {
   asm volatile(
@@ -163,14 +164,14 @@ __device__ __forceinline__ void wgmma_bf16_ss_m64n64k16(float (&d)[32], uint64_t
       "setp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n"
+      " %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // d[32] (+)= A (4 registers: this thread's 16 x 16 bf16 fragment of its warp's rows) .
@@ -219,17 +220,17 @@ __device__ __forceinline__ void wgmma_bf16_rs_m64n128k16(float (&d)[64], const u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(kTransB));
 }
 
-// d[64] (+)= A (64 x 16 bf16 at `da`, K-major) . B (16 x 128 bf16 at `db`, K-major); scale_d = 0
-// drops d
-__device__ __forceinline__ void wgmma_bf16_ss_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                                       int scale_d) {
+// d[64] (+)= A (4 registers: this thread's 16 x 16 fp16 fragment of its warp's rows) .
+// B (16 x 128 fp16 at `db`, MN-major: the transpose bit); scale_d = 0 drops d
+__device__ __forceinline__ void wgmma_f16_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t db, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
       "}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -240,7 +241,32 @@ __device__ __forceinline__ void wgmma_bf16_ss_m64n128k16(float (&d)[64], uint64_
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[64] (+)= A (64 x 16 bf16 at `da`) . B (16 x 128 bf16 at `db`), each K-major, or MN-major
+// where its transpose bit (kTransA, kTransB) is 1; scale_d = 0 drops d
+template <int kTransA = 0, int kTransB = 0>
+__device__ __forceinline__ void wgmma_bf16_ss_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
 }
 
 // keep the compiler from moving accesses of an accumulator across an asynchronous wgmma (an

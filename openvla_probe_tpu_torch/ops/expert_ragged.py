@@ -33,13 +33,20 @@ rounded value of an fp64 reference.
 
 Under grad each weight tensor's product is `_ExpertRaggedFn`, whose backward
 is two more kernels of ``csrc/expert_ragged_bwd.cu`` (the counterpart of
-XLA's transpose of ``ragged_dot_general``):
+XLA's transpose of ``ragged_dot_general``), wgmma fed by TMA on a persistent
+grid:
 
 * `expert_ragged_dx`: dx [M, I] = dy[m] · w[e(m)], for codes
-  (dy[m] ⊙ s[e(m)]) · q[e(m)], fp32 sums, one cast to dy's dtype;
+  (dy[m] ⊙ s[e(m)]) · q[e(m)] (the fp32 scaled cotangent as two fp16 terms,
+  scaled by a power of two a row and stage, against the codes widened once
+  a stage), fp32 sums, one cast to dy's dtype; tiled by `dx_tiling` (the
+  contraction split across CTAs where the tiles alone leave the card short:
+  a LoRA dy · B);
 * `expert_ragged_dw`: dW [E, O, I] = Σ over expert e's rows of dy[m]ᵀ x[m],
   fp32 sums, one cast to x's dtype; only for a float weight that requires
-  grad (a LoRA factor, or a float stack under full fine-tuning).
+  grad (a LoRA factor, or a float stack under full fine-tuning); tiled by
+  `dw_tiling` (128 channels of the wider operand x 64 or 128 of the other),
+  the rows split by `dw_split_rows`.
 
 int8 codes and their scales take no gradient (the dense STEs' rule: the
 quantized base is frozen). The LoRA form's three products are three
@@ -49,7 +56,7 @@ Functions, whose backwards autograd composes. `expert_ragged_dx_plain` and
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -181,9 +188,13 @@ def _product(x: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor],
 
 # --- the backward: dx and dW --------------------------------------------------------
 
-# dW's row split: output tiles of 128 x 128; experts' rows are cut into chunks of a common
-# size so that about this many blocks have work even when one expert holds every row
+# the backward's tiles (csrc/expert_ragged_bwd.cu): 128 rows of dy (dx) or channels of the
+# wider operand (dW) a tile, the contraction in stages of DX_STAGE; where the output's tiles
+# alone leave the card short, the contraction is cut into chunks across CTAs so that about
+# DW_TARGET_BLOCKS items have work (dW: even when one expert holds every row)
 DW_TILE = 128
+DX_STAGE = 64      # csrc kBK, ovla_expert_ragged_bwd_stage()
+DX_FULL_TILES = 132   # dx tiles that fill the card's SMs without a split
 DW_TARGET_BLOCKS = 264
 DW_ROW_STEP = 64   # a chunk is a whole number of the kernel's 64-row stages
 
@@ -229,10 +240,11 @@ def _aligned(*ts) -> bool:
 
 
 def ragged_dx_mma_eligible(dy: torch.Tensor, w: torch.Tensor) -> bool:
-    """`expert_ragged_dx`'s tensor-core rule: bf16 dy, bf16 weights or int8
-    codes, O a multiple of 8 (dy's 16-byte rows), I a multiple of 16 for
-    codes or of 8 for bf16 (the weights' 16-byte rows), dy and w 16-byte
-    aligned. Everything else takes ``expert_ragged_dx_scalar``."""
+    """`expert_ragged_dx`'s tensor-core rule, what its TMA maps need: bf16 dy,
+    bf16 weights or int8 codes, O a multiple of 8 (dy's rows a multiple of
+    16 bytes), I a multiple of 16 for codes or of 8 for bf16 (the weights'),
+    dy and w 16-byte aligned. Everything else takes
+    ``expert_ragged_dx_scalar``."""
     O, I = w.shape[-2], w.shape[-1]
     return (dy.dtype == torch.bfloat16 and w.dtype in (torch.bfloat16, torch.int8)
             and O % 8 == 0 and I % (16 if w.dtype == torch.int8 else 8) == 0
@@ -240,20 +252,47 @@ def ragged_dx_mma_eligible(dy: torch.Tensor, w: torch.Tensor) -> bool:
 
 
 def ragged_dw_mma_eligible(dy: torch.Tensor, x: torch.Tensor) -> bool:
-    """`expert_ragged_dw`'s tensor-core rule: bf16 dy and x, O and I
-    multiples of 8, both 16-byte aligned. Everything else takes
-    ``expert_ragged_dw_scalar``."""
+    """`expert_ragged_dw`'s tensor-core rule, what its TMA maps need: bf16 dy
+    and x, O and I multiples of 8 (rows a multiple of 16 bytes), both
+    16-byte aligned. Everything else takes ``expert_ragged_dw_scalar``."""
     return (dy.dtype == torch.bfloat16 and x.dtype == torch.bfloat16
             and dy.shape[-1] % 8 == 0 and x.shape[-1] % 8 == 0 and _aligned(dy, x))
+
+
+def dx_tiling(M: int, O: int, I: int, codes: bool) -> Tuple[int, int]:
+    """(tile_n, splits) of `expert_ragged_dx`'s tensor-core route, a pure
+    function of the shapes (so two calls sum in the same order): tiles of
+    128 rows x tile_n columns of I, tile_n = 64 for bf16 weights with I <= 64
+    (a LoRA dy · B, N = r), else 128 (int8 codes always); the contraction O
+    in one pass (splits = 1) where ceil(M / 128) row tiles x the column tiles
+    reach DX_FULL_TILES, else cut into `splits` chunks (at least two stages
+    each) for about DW_TARGET_BLOCKS items, whose fp32 partials a second grid
+    adds in chunk order."""
+    tile_n = 128 if codes or I > 64 else 64
+    tiles = -(-M // DW_TILE) * -(-I // tile_n)
+    if tiles >= DX_FULL_TILES:
+        return tile_n, 1
+    return tile_n, max(1, min(-(-DW_TARGET_BLOCKS // tiles), -(-O // DX_STAGE) // 2))
+
+
+def dw_tiling(O: int, I: int) -> Tuple[bool, int]:
+    """(transposed, tile_n) of `expert_ragged_dw`'s tensor-core route
+    (csrc's ovla_expert_ragged_dw picks the same): tiles of 128 channels of
+    the wider operand (dy where O >= I; x where O < I, dW's transpose
+    computed and stored transposed) x tile_n of the other, 64 where that side
+    is <= 64 (a LoRA factor's r), else 128."""
+    transposed = O < I
+    return transposed, 64 if min(O, I) <= 64 else 128
 
 
 def dw_split_rows(M: int, O: int, I: int) -> int:
     """The rows of one chunk of dW's split (a pure function of the shapes, so
     two calls sum in the same order): M, one pass written straight to dW,
-    where the output's tiles alone give DW_TARGET_BLOCKS blocks; else the
-    fewest chunks (a multiple of DW_ROW_STEP rows each) that do, each chunk's
-    fp32 partials added in chunk order by a second pass."""
-    tiles = -(-O // DW_TILE) * -(-I // DW_TILE)
+    where the output's tiles (`dw_tiling`) alone give DW_TARGET_BLOCKS
+    blocks; else the fewest chunks (a multiple of DW_ROW_STEP rows each) that
+    do, each chunk's fp32 partials added in chunk order by a second pass."""
+    _, tile_n = dw_tiling(O, I)
+    tiles = -(-max(O, I) // DW_TILE) * -(-min(O, I) // tile_n)
     chunks = min(-(-DW_TARGET_BLOCKS // tiles), -(-M // DW_TILE))
     if chunks <= 1:
         return M
@@ -274,7 +313,10 @@ def expert_ragged_dx(dy: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor
     `expert_ragged_dx_plain`): dy [M, O] bf16 or fp32, w [E, O, I] in dy's
     dtype or int8 codes with s fp32 [E, O], group_sizes int32 [E] on dy's
     device. On the card the tensor-core route where `ragged_dx_mma_eligible`
-    holds (``expert_ragged_dx``), ``expert_ragged_dx_scalar`` otherwise."""
+    holds (``expert_ragged_dx``, tiled by `dx_tiling`: with splits > 1 a
+    second grid adds the chunks' fp32 partials in chunk order; one count a
+    call), ``expert_ragged_dx_scalar`` otherwise. No atomics: two runs give
+    the same bits."""
     _build.no_grad_guard("expert_ragged_dx", _NO_VJP, dy, w)
     if dy.device.type == "cpu":
         return expert_ragged_dx_plain(dy, w, s, group_sizes)
@@ -296,14 +338,20 @@ def expert_ragged_dx(dy: torch.Tensor, w: torch.Tensor, s: Optional[torch.Tensor
     if M == 0:
         return dx
     int8 = int(w.dtype == torch.int8)
-    ptrs = (dy.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
-            group_sizes.data_ptr(), dx.data_ptr(), M, O, I, E)
+    heads = (dy.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
+             group_sizes.data_ptr())
     if ragged_dx_mma_eligible(dy, w):
         kernel = "expert_ragged_dx"
-        err = _build.launcher(kernel)(*ptrs, int8, _build.stream_ptr(dy))
+        tile_n, splits = dx_tiling(M, O, I, bool(int8))
+        ws = (torch.empty(splits * M * I, dtype=torch.float32, device=dy.device)
+              if splits > 1 else None)
+        err = _build.launcher(kernel)(*heads, None if ws is None else ws.data_ptr(),
+                                      dx.data_ptr(), M, O, I, E, int8, tile_n, splits,
+                                      _build.stream_ptr(dy))
     else:
         kernel = "expert_ragged_dx_scalar"
-        err = _build.launcher(kernel)(*ptrs, int(dy.dtype == torch.bfloat16), int8,
+        err = _build.launcher(kernel)(*heads, dx.data_ptr(), M, O, I, E,
+                                      int(dy.dtype == torch.bfloat16), int8,
                                       _build.stream_ptr(dy))
     _build.check(err, kernel)
     _build.KERNEL_LAUNCHES[kernel] += 1

@@ -1270,12 +1270,39 @@ def ragged_bwd_shapes() -> tuple:
     return dx, dw
 
 
+def ragged_dx_launchers(libs: dict) -> dict:
+    """tag -> (launcher, tiled) of ``expert_ragged_dx`` in each build: a build
+    that exports ``ovla_expert_ragged_bwd_stage`` takes the wrapper's tile,
+    split count and workspace (`expert_ragged.dx_tiling`); an older one
+    (one tile shape, no split) takes neither."""
+    out = {}
+    for tag, fn in launchers(libs, "expert_ragged_dx").items():
+        lib = libs[tag].get("expert_ragged_bwd.cu") or next(iter(libs[tag].values()))
+        tiled = getattr(lib, "ovla_expert_ragged_bwd_stage", None) is not None
+        if not tiled:
+            args = _build.KERNELS["expert_ragged_dx"][2]
+            fn.argtypes = args[:4] + args[5:10] + [ctypes.c_int, ctypes.c_void_p]
+        out[tag] = (fn, tiled)
+    return out
+
+
 def call_ragged_dx(fn, dy, w, s, gs):
+    """`fn`, a (launcher, tiled) pair of ``expert_ragged_dx``, on the
+    wrapper's tensors."""
+    launcher, tiled = fn
     M, (E, O, I) = dy.shape[0], w.shape
+    int8 = int(s is not None)
     dx = torch.empty((M, I), dtype=dy.dtype, device=dy.device)
-    _build.check(fn(dy.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
-                    gs.data_ptr(), dx.data_ptr(), M, O, I, E, int(s is not None),
-                    _build.stream_ptr(dy)), "expert_ragged_dx")
+    heads = (dy.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(), gs.data_ptr())
+    if tiled:
+        tile_n, splits = texr.dx_tiling(M, O, I, bool(int8))
+        ws = (torch.empty(splits * M * I, dtype=torch.float32, device=dy.device)
+              if splits > 1 else None)
+        err = launcher(*heads, None if ws is None else ws.data_ptr(), dx.data_ptr(), M, O, I, E,
+                       int8, tile_n, splits, _build.stream_ptr(dy))
+    else:
+        err = launcher(*heads, dx.data_ptr(), M, O, I, E, int8, _build.stream_ptr(dy))
+    _build.check(err, "expert_ragged_dx")
     return dx
 
 
@@ -1298,10 +1325,10 @@ def _mix(kernel: str, rows: list, fns) -> None:
 def ab_expert_ragged_dx(fns, g, dev, shapes=None):
     """moe_train's dx shapes (`ragged_bwd_shapes`, M = 5120, uniform top-2
     group sizes), each build held to ``expert_ragged_dx_plain`` by
-    ``compare_expert_ragged`` (reported) and timed in turns; at the int8
-    5120 x 14336 -> 4096 each build's and the plain version's count of
-    outputs off an fp64 reference's rounding (``misrounded_dx``); then the
-    launch-weighted mean over a step."""
+    ``compare_expert_ragged`` (reported) and timed in turns; at both int8
+    shapes each build's and the plain version's count of outputs off an
+    fp64 reference's rounding (``misrounded_dx``); then the launch-weighted
+    mean over a step."""
     gs = top2_sizes(MOE_TRAIN_ROWS // 2, g, dev)
     rows = []
     for (form, O, I), per_step in ragged_bwd_shapes()[0].items():
@@ -1321,7 +1348,7 @@ def ab_expert_ragged_dx(fns, g, dev, shapes=None):
                    launches_per_step=per_step,
                    check={tag: _checked(texr.compare_expert_ragged, out, want)
                           for tag, out in got.items()})
-        if form == "int8" and O == MOE_F:
+        if form == "int8":
             row["misrounded"] = {tag: texr.misrounded_dx(out, dy, w, s, gs)
                                  for tag, out in {**got, "plain": want}.items()}
         del got, want
@@ -1403,6 +1430,7 @@ def main() -> int:
         fns = (requant_routes(libs) if name == "w4a8_requant" else
                stacked_launchers(libs) if name == "stacked_decode_attention_i8" else
                ragged_launchers(libs) if name == "expert_ragged" else
+               ragged_dx_launchers(libs) if name == "expert_ragged_dx" else
                launchers(libs, name))
         order = [tag for tag in [*[s.split("=", 1)[0] for s in args.lib], "change"] if tag in fns]
         AB[name]({tag: fns[tag] for tag in order}, g, dev,

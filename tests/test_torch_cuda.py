@@ -1407,6 +1407,75 @@ def test_expert_ragged_dw_matches_plain(cuda, sizes, O, I, M):
     assert torch.equal(got, texr.expert_ragged_dw(dy, x, gs, len(sizes)))
 
 
+@pytest.mark.parametrize("sizes,O,I,M,want", [
+    ([4192] * 4, 256, 32, None, (64, 2)),          # dy · B, 131 tiles: the contraction split
+    ([4192] * 3 + [4193], 256, 32, None, (64, 1)),   # 132 tiles: one pass
+    ([700, 0, 3, 1, 900, 1500, 700, 304], 1024, 16, None, (64, 8)),   # r = 16
+    ([700, 0, 3, 1, 900, 1500, 700, 304], 1024, 64, None, (64, 8)),   # r = 64
+    ([1, 0, 300, 1, 77], 512, 32, 400, (64, 4)),     # one-row experts, rows past the sum
+    ([1, 0, 300, 1, 77], 512, 1024, 400, (128, 4)),
+    ([700, 0, 3, 1, 900, 1500, 700, 304], 8, 1024, None, (128, 1)),   # O = 8: one stage
+])
+def test_expert_ragged_dx_new_tilings(cuda, sizes, O, I, M, want):
+    """bf16 dx at `dx_tiling`'s boundaries and narrow shapes: the split-K
+    switch of dy · B, r = 16 and 64 (64-column tiles), experts of one row,
+    O = 8; held to the plain version, rows past the sum 0, one launch
+    counted, two runs bit-equal."""
+    M = sum(sizes) if M is None else M
+    dy, _, _, gs = _ragged_inputs(160 + O + I, sizes, O, 0, torch.bfloat16, False, cuda, M=M)
+    _, w, _, _ = _ragged_inputs(161 + I, sizes, I, O, torch.bfloat16, False, cuda, M=M)
+    assert texr.dx_tiling(M, O, I, False) == want
+    got = _count("expert_ragged_dx", lambda: texr.expert_ragged_dx(dy, w, None, gs))
+    texr.compare_expert_ragged(got, texr.expert_ragged_dx_plain(dy, w, None, gs))
+    assert torch.all(got[sum(sizes):] == 0)
+    assert torch.equal(got, texr.expert_ragged_dx(dy, w, None, gs))
+
+
+@pytest.mark.parametrize("sizes,O,I,M", [
+    ([700, 0, 3, 1, 900, 1500, 700, 304], 1024, 16, None),   # dB at r = 16
+    ([700, 0, 3, 1, 900, 1500, 700, 304], 64, 1024, None),   # dA at r = 64: transposed
+    ([1, 0, 300, 1, 77], 32, 512, 400),            # one-row experts, rows past the sum
+    ([1, 0, 300, 1, 77], 512, 32, 400),
+    ([300, 129, 0, 700], 256, 1024, None),         # a float stack, transposed (O < I)
+    ([300, 129, 0, 700], 72, 136, None),           # 128-column tiles off both edges
+])
+def test_expert_ragged_dw_new_tilings(cuda, sizes, O, I, M):
+    """dW over `dw_tiling`'s tiles (64 or 128 columns of the narrow side, dW's
+    transpose where O < I) and `dw_split_rows`' pieces: held to the plain
+    version, empty experts 0, one launch counted, two runs bit-equal."""
+    M = sum(sizes) if M is None else M
+    dy, _, _, gs = _ragged_inputs(170 + O, sizes, O, 0, torch.bfloat16, False, cuda, M=M)
+    x, _, _, _ = _ragged_inputs(171 + I, sizes, I, 0, torch.bfloat16, False, cuda, M=M)
+    got = _count("expert_ragged_dw", lambda: texr.expert_ragged_dw(dy, x, gs, len(sizes)))
+    texr.compare_expert_ragged(got, texr.expert_ragged_dw_plain(dy, x, gs, len(sizes)))
+    for e, n in enumerate(sizes):
+        if n == 0:
+            assert torch.all(got[e] == 0)
+    assert torch.equal(got, texr.expert_ragged_dw(dy, x, gs, len(sizes)))
+
+
+@pytest.mark.parametrize("route,O,I", [
+    ("dx int8", 2048, 1024), ("dx bf16 128 columns", 2048, 1024),
+    ("dx bf16 64 columns, split", 2048, 32), ("dx bf16 one k step", 32, 2048),
+    ("dW 64 columns, split", 2048, 32), ("dW transposed, split", 32, 2048),
+    ("dW 128 columns", 1024, 512),
+])
+def test_expert_ragged_bwd_routes_two_runs_give_the_same_bits(cuda, route, O, I):
+    """No atomics and a fixed summation order on every route of the
+    backward (the split ones' reduce grids included): two launches on the
+    same inputs give equal bits."""
+    sizes = [640, 512, 0, 768, 1, 640, 700, 355]
+    dy, _, _, gs = _ragged_inputs(180 + O, sizes, O, 0, torch.bfloat16, False, cuda)
+    if route.startswith("dx"):
+        _, w, s, _ = _ragged_inputs(181 + I, sizes, I, O, torch.bfloat16, "int8" in route, cuda)
+        runs = [texr.expert_ragged_dx(dy, w, s, gs) for _ in range(2)]
+    else:
+        x, _, _, _ = _ragged_inputs(182 + I, sizes, I, 0, torch.bfloat16, False, cuda)
+        runs = [texr.expert_ragged_dw(dy, x, gs, len(sizes)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
 @pytest.mark.parametrize("dtype,O,I", [(torch.float32, 64, 128), (torch.float32, 128, 8),
                                        (torch.bfloat16, 20, 24)])
 def test_expert_ragged_bwd_scalar_routes(cuda, dtype, O, I):
@@ -1457,18 +1526,53 @@ def test_expert_ragged_lora_backward_on_the_card(cuda):
         assert (g.cpu() - w_).norm() <= 1e-2 * w_.norm()
 
 
+def test_expert_ragged_bwd_launches_from_a_fresh_thread(cuda):
+    """Autograd runs the backward on a thread of its own, where nothing may
+    have touched the card yet: after the libraries are loaded and used on
+    this thread, dx and dW launch from a new thread (the launchers make a
+    runtime call, which makes the device's context current there, before
+    the driver encodes their tensor maps)."""
+    import threading
+
+    sizes = [300, 0, 129, 211]
+    dy, _, _, gs = _ragged_inputs(190, sizes, 1024, 0, torch.bfloat16, False, cuda)
+    x, w, _, _ = _ragged_inputs(191, sizes, 32, 1024, torch.bfloat16, False, cuda)
+    want_dx = texr.expert_ragged_dx(dy, w, None, gs)
+    want_dw = texr.expert_ragged_dw(dy, x, gs, len(sizes))
+    got, errors = {}, []
+
+    def run():
+        try:
+            got["dx"] = texr.expert_ragged_dx(dy, w, None, gs)
+            got["dw"] = texr.expert_ragged_dw(dy, x, gs, len(sizes))
+            torch.cuda.synchronize()
+        except RuntimeError as e:   # reported below, with the thread's result
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and not errors, errors
+    assert torch.equal(got["dx"], want_dx) and torch.equal(got["dw"], want_dw)
+
+
 def test_expert_ragged_bwd_launchers_refuse_what_they_do_not_take(cuda):
-    """dx refuses O off 8, int8 codes with I off 16, no experts and codes
-    without scales; dW refuses I off 8, a split without its workspace or
-    with rows off the 64-row stage."""
+    """dx refuses O off 8, int8 codes with I off 16, no experts, codes
+    without scales, a tile other than 128 columns (or 64 for bf16), and a
+    split without its workspace; dW refuses I off 8, a split without its
+    workspace or with rows off the 64-row stage."""
     dy, w, s, gs = _ragged_inputs(150, [4, 4], 64, 64, torch.bfloat16, True, cuda)
     out = torch.empty(8, 64, dtype=torch.bfloat16, device=cuda)
     dx = _build.launcher("expert_ragged_dx")
     st = _build.stream_ptr(dy)
     p = (dy.data_ptr(), w.data_ptr(), s.data_ptr(), gs.data_ptr(), out.data_ptr())
-    for M, O, I, E, int8, s_ptr in ((8, 60, 64, 2, 1, p[2]), (8, 64, 56, 2, 1, p[2]),
-                                    (8, 64, 64, 0, 1, p[2]), (8, 64, 64, 2, 1, None)):
-        assert dx(p[0], p[1], s_ptr, p[3], p[4], M, O, I, E, int8, st) != 0
+    for M, O, I, E, int8, s_ptr, tile_n, splits in (
+            (8, 60, 64, 2, 1, p[2], 128, 1), (8, 64, 56, 2, 1, p[2], 128, 1),
+            (8, 64, 64, 0, 1, p[2], 128, 1), (8, 64, 64, 2, 1, None, 128, 1),
+            (8, 64, 64, 2, 1, p[2], 64, 1), (8, 64, 64, 2, 0, None, 96, 1),
+            (8, 64, 64, 2, 0, None, 64, 2), (8, 64, 64, 2, 0, None, 64, 0)):
+        assert dx(p[0], p[1], s_ptr, p[3], None, p[4], M, O, I, E, int8, tile_n, splits,
+                  st) != 0
     dw = _build.launcher("expert_ragged_dw")
     wsp = torch.empty(1 << 16, dtype=torch.float32, device=cuda)
     q = (dy.data_ptr(), dy.data_ptr(), gs.data_ptr())
