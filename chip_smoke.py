@@ -127,6 +127,28 @@ nothing else (B = 8, P = 32, A = 7):
   moe_parity    the same VLM in bf16 at 4 layers (the kernel's bf16 form)
   phi           phi-2+3b (CLIP ViT-L/336, N = 577 at Dh 64 on vit_attention's
                 tensor cores; Phi-2 at 32 layers) in bf16: score_short's 8 rows
+and slice 6a's sharded serving, last, each rank a process spawned on the one
+card (parallel.distributed.run_ranks: gloo, as the backend rule says for ranks
+that share a card; a rank that raises, exits without a result or outlives
+RANK_TIMEOUT_S fails the run; two processes time-sliced on one card give no
+multi-card figure):
+  tp2_turbo     OpenVLA-7B turbo at full width and depth, tp = 2, through
+                vla.make_sharded_predict: turbo's int8 weights drawn on the
+                card from the turbo path's seed in each rank, B = 24, P = 32,
+                A = 7; each rank's exact launches at the shard shapes
+                (row-parallel products on w8a8_quant_given, w8a8_matmul_i32
+                and w8a8_epilogue), no torch._int_mm call; the sharded
+                projector's output swapped for one process's projected
+                patches (its float products sum fp32 partials across ranks:
+                the distance printed), so that the towers' features, the
+                action tokens, the first logits and every logit margin are
+                held bit-equal to the one-process turbo call's; per rank one
+                call's time (gloo's host path makes it seconds), busy ms,
+                peak memory, the collectives' bytes
+  ep2_moe_turbo Mixtral-8x7B's int8 trunk at full width cut to EP_LAYERS
+                layers, ep = 2 (four experts a rank, the router whole): the
+                prefill's and a decode step's trunk outputs bit-equal to one
+                process's
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
@@ -192,6 +214,12 @@ Phases, one output line each:
               sizes, lm_head over three row blocks; the persistent grid's
               clusters); vit_attention also at DINOv2's 518 px, N = 1370,
               and at ragged N, bf16 (tensor cores) and fp32 (scalar route);
+              the row-parallel product's three launches (w8a8_quant_given,
+              w8a8_matmul_i32, w8a8_epilogue; tp2_turbo) bit for bit at the
+              tp = 2 shapes (o_proj K = 2048 and down_proj K = 5504 at M =
+              6912 and 24, the towers' proj and fc2, SigLIP's fc2 K = 2152
+              padded to 2160), with torch._int_mm's time and each wrapper's
+              host time;
               the scalar routes (the decode attentions' at fp32 and Dh = 72,
               vit_attention's, flash_prefill's and wi8_matmul's in fp32,
               split_attention_i8's in fp32 and at Dh = 64, n_rep 3),
@@ -207,7 +235,12 @@ Phases, one output line each:
               LoRA gradients and adapters after one step; the speculative core
               on turbo and turbo_nibble (drafts correct, partial, wrong): equal
               tokens and n_accepted; multi-LoRA calls on parity (masked),
-              turbo and pallas (masked and fused): equal tokens
+              turbo and pallas (masked and fused): equal tokens;
+              tiny_parallel (TINY_PARALLEL: parity, turbo and pallas_int4 at
+              dp = 2 x tp = 2, turbo at fsdp = 4, multi-LoRA on turbo at dp =
+              2 x tp = 2, four ranks) against the same tiny path on one card:
+              tokens equal, or within the margin rule, the counts printed;
+              nccl_world_1: the sharded forward's collectives on NCCL
   5. main     each path once with every launch count set to 0 just before and
               read just after (exact per-kernel counts asserted, and no
               torch._int_mm call), then p50 latency over timed calls and,
@@ -230,6 +263,7 @@ no CUDA card it exits 1 before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import json
@@ -264,6 +298,10 @@ from openvla_probe_tpu_torch.ops import expert_ragged as ragged
 from openvla_probe_tpu_torch.ops import linear as lin
 from openvla_probe_tpu_torch.ops import rmsnorm_quant as rmsq
 from openvla_probe_tpu_torch.ops import vit_mlp as vmlp
+from openvla_probe_tpu_torch.parallel import distributed as pdist
+from openvla_probe_tpu_torch.parallel import mesh as pmesh
+from openvla_probe_tpu_torch.parallel import sharding as psharding
+from openvla_probe_tpu_torch.parallel import tensor_parallel as tp
 from openvla_probe_tpu_torch.ops.image import (BackboneTransformSpec, ImageTransformConfig,
                                                apply_image_transform)
 from openvla_probe_tpu_torch.probe import train_probes
@@ -286,7 +324,7 @@ PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 BATCH, PROMPT_PAD, ACTION_DIM, IMG_HW = 24, 32, 7, 256
 LAYERS, T_PREFILL = 32, 288            # Llama-2-7B layers; 1 + 256 patches + 31 prompt tokens
 TOWER_LAUNCHES = {"dinov2": 23, "siglip": 26}   # blocks 0..L-2 of each tower run
-TIMED_CALLS = 5
+TIMED_CALLS = 3
 L2_BYTES = 50e6
 # the base VLM's entry points: rows, new tokens, row buckets (T = 1 + 256 + L - 1)
 VLM_PATHS = ("generate", "score_short", "score_long")
@@ -1965,7 +2003,9 @@ PORTED_ON = {"flash_prefill": "parity", "flash_blockwise": "score_long",
              "expert_ragged": "moe_turbo", "expert_ragged_scalar": "tiny_moe_float32",
              "expert_ragged_dx": "moe_train", "expert_ragged_dw": "moe_train",
              "expert_ragged_dx_scalar": "tiny_moe_train_float32",
-             "expert_ragged_dw_scalar": "tiny_moe_train_float32"}
+             "expert_ragged_dw_scalar": "tiny_moe_train_float32",
+             "w8a8_quant_given": "tp2_turbo", "w8a8_matmul_i32": "tp2_turbo",
+             "w8a8_epilogue": "tp2_turbo"}
 # kernels whose only launches come from a tiny path (the scalar routes of fp32)
 TINY_PORTED = ("expert_ragged_scalar", "expert_ragged_dx_scalar", "expert_ragged_dw_scalar")
 
@@ -2326,6 +2366,9 @@ def _counting_int_mm(counter: list):
 
 
 MAIN_OUT = {}   # path -> (action tokens, first logits) of its driven call
+MAIN_MARGINS = {}   # path -> its driven call's logit margins
+MAIN_TOWERS = {}    # turbo's driven call: its tower features and projected patches
+MAIN_P50 = {}       # path -> p50 ms
 
 
 def run_main_path(dev, path: str, weights: dict):
@@ -2367,12 +2410,21 @@ def run_main_path(dev, path: str, weights: dict):
         return out
 
     int_mm_calls = []                      # the port calls no library GEMM on any path
-    with mock.patch.object(torch, "_int_mm", _counting_int_mm(int_mm_calls)):
+    towers, project = {}, vlm.project_patches
+
+    def recording(p, c, feats):            # turbo's features and patches, for tp2_turbo
+        towers["features"], towers["patches"] = feats, project(p, c, feats)
+        return towers["patches"]
+
+    with mock.patch.object(torch, "_int_mm", _counting_int_mm(int_mm_calls)), \
+            mock.patch.object(vlm, "project_patches", recording):
         _build.reset_launch_counts()       # counts from 0 around one driven call
         t0 = time.perf_counter()
         out = call()
         first_s = time.perf_counter() - t0
         launches = dict(_build.KERNEL_LAUNCHES)
+    if path == "turbo":
+        MAIN_TOWERS.update({k: v.cpu() for k, v in towers.items()})
     expect = _expected_launches(path, cfg)
     assert launches == expect, (path, launches, expect)
     assert not int_mm_calls, (path, len(int_mm_calls))
@@ -2383,6 +2435,7 @@ def run_main_path(dev, path: str, weights: dict):
     assert actions.shape == (BATCH, ACTION_DIM) and torch.isfinite(actions).all()
     assert logits.shape == (BATCH, cfg.vlm.llm.vocab_size) and torch.isfinite(logits).all()
     MAIN_OUT[path] = (toks, logits)
+    MAIN_MARGINS[path] = out["logit_margins"]
     equal_to = None
     if path in FUSED_PATHS:
         equal_to = "turbo"
@@ -2397,6 +2450,7 @@ def run_main_path(dev, path: str, weights: dict):
         times.append(time.perf_counter() - t0)
         assert _build.KERNEL_LAUNCHES == expect, _build.KERNEL_LAUNCHES
     p50 = statistics.median(times)
+    MAIN_P50[path] = p50 * 1e3
     busy = profile_main_path.device_time(call, 1)   # the card's busy time a call
     return launches, dict(
         path=path, tier=cfg.tier, weight_bits=bits, fused=path in FUSED_PATHS,
@@ -2704,7 +2758,7 @@ def run_train_path(dev, path: str):
 
 # --- the bs = 1 robot-control point and the action server ------------------------------------
 
-BS1_TIMED = 3
+BS1_TIMED = 2
 BS1_PATHS = ("turbo", "turbo_nibble")
 SERVE_REQUESTS, SERVE_STREAM_STEPS = 6, 4
 
@@ -2978,7 +3032,7 @@ def run_serve(dev, params):
 # on turbo's and pallas's int8 weights; the B = 24 rows take adapters [bare, 0, 1, 2, 3, ...]
 ML_ADAPTERS, ML_RANK, ML_PATHS = 4, 32, ("turbo", "pallas")
 # timed calls an install, and the busy time (torch.profiler) on the first tier only
-ML_TIMED_CALLS = 3
+ML_TIMED_CALLS = 2
 # first-logit tolerance of a tiny multi-LoRA path, card vs CPU: parity TINY_TOL's; int8
 # weights 4e-3 (TINY_TOL's reason, with every linear's rank products summed in another
 # order on the card: more activation codes sit one step apart at a tie; measured 1.4e-3
@@ -3311,7 +3365,7 @@ def run_load(dev, params, root: Path):
 
 ROOT = Path(__file__).resolve().parent
 CLI_TIMEOUT_S = 300          # each subprocess, and the server's readiness
-CLI_SEQUENTIAL, CLI_CONCURRENT = 5, 6
+CLI_SEQUENTIAL, CLI_CONCURRENT = 3, 6
 CLI_REUSE_S = 2.0            # the most a script may spend loading the built kernel libraries
 # the batch buckets a group of 1 .. CLI_CONCURRENT concurrent requests pads to
 # (OpenVLA.predict_action_batch's batch_buckets)
@@ -3511,6 +3565,56 @@ def _cli_deploy(dev, repo: Path, work: Path) -> dict:
                 wrapper_load_s=wrapper_load_s)
 
 
+def _cli_probes(dev, work: Path, probe_shape) -> dict:
+    """train_probes, then analyze_probes, on seeded episodes at the 7B tap's
+    shape with the suite's labels (run_cli's rows for the two scripts)."""
+    from openvla_probe_tpu_torch.scripts import analyze_probes
+
+    rows = {}
+    names = analyze_probes.label_names(CLI_SUITE)
+    logs = work / "episodes"
+    logs.mkdir()
+    n_layers, hidden = probe_shape
+    eps = _probe_episodes(CLI_PROBE_EPISODES, CLI_PROBE_T, n_layers, hidden, len(names),
+                          min(PROBE_LAYER, n_layers - 1), torch.Generator().manual_seed(29), "cpu")
+    for i, ep in enumerate(eps):
+        np.savez(logs / f"episode_{i}.npz", **ep)
+    del eps
+    probes = work / "probes"
+    out, secs = _run_script("train_probes", dev, "--log_dir", logs, "--out_dir", probes,
+                            "--suite", CLI_SUITE, "--epochs", 2)
+    rows["train_probes"] = dict(seconds=secs, kernel_libraries=_kernel_report(out.stderr, dev))
+    bank = probes / f"probe_bank_{CLI_SUITE}_binary.npz"
+    analysis_dir = work / "analysis"
+    out, secs = _run_script("analyze_probes", dev, "--bank", bank, "--log_dir", logs,
+                            "--out_dir", analysis_dir, "--suite", CLI_SUITE)
+    has_mpl = "matplotlib is not installed" not in out.stderr
+    rows["analyze_probes"] = dict(seconds=secs, matplotlib=has_mpl)
+    # the JAX script's heatmaps where the subprocess had matplotlib, else the bare matrices
+    # under their own names
+    heatmaps = [f"heatmap_f1_{CLI_SUITE}.png", f"heatmap_recall_{CLI_SUITE}.png",
+                f"heatmap_f1_weighted_{CLI_SUITE}.png"]
+    if not has_mpl:
+        heatmaps = [analyze_probes.matrix_name(h) for h in heatmaps]
+    want_files = {probes: [bank.name, f"probe_metrics_{CLI_SUITE}.csv",
+                           f"probe_metrics_{CLI_SUITE}_reference_schema.csv"],
+                  analysis_dir: ["per_label_metrics_reference_schema.csv",
+                                 "per_label_metrics_experiment_images_schema.csv",
+                                 "per_label_metrics.csv", "family_auprc_reference_schema.csv",
+                                 "family_auprc.csv", "label_stats.csv", *heatmaps]}
+    for d, files in want_files.items():
+        for f in files:
+            assert (d / f).is_file() and (d / f).stat().st_size > 0, d / f
+            if f.endswith(".png"):
+                assert image_io.read_image(d / f).ndim == 3, f
+    with open(analysis_dir / "label_stats.csv") as f:
+        assert sum(1 for _ in f) == len(names) + 1
+    rows["train_probes"].update(episodes=CLI_PROBE_EPISODES, steps=CLI_PROBE_T,
+                                layers=n_layers, hidden=hidden, labels=len(names))
+    rows["analyze_probes"].update(files=sum(len(v) for v in want_files.values()))
+    return rows
+
+
 def run_cli(dev, repo: Path, work: Path, probe_shape=(LAYERS + 1, 4096)) -> dict:
     """The port's six scripts as subprocesses over `repo` (the released-layout
     repository the load phase wrote), each to its end with exit code 0:
@@ -3524,14 +3628,14 @@ def run_cli(dev, repo: Path, work: Path, probe_shape=(LAYERS + 1, 4096)) -> dict
     of load(repo)'s parameters cut to CLI_CONVERT_LAYERS layers (every
     exported tensor equal to the checkpoint's, the export loaded back by
     load with its depth, its tokenizer and its parameters bit for bit);
-    train_probes then analyze_probes on seeded episodes at the 7B tap's
-    shape with the suite's labels (every file the JAX scripts write, a
+    train_probes then analyze_probes (`_cli_probes`) on seeded episodes at
+    the 7B tap's shape with the suite's labels (every file the JAX scripts
+    write, a
     heatmap PNG readable; without matplotlib the bare matrices in place of
     the heatmaps, under their `_matrix.png` names). Each script's wall seconds and, where it loads
     the kernels, its build seconds."""
     from openvla_probe_tpu_torch.eval import evaluate_closed_set, load_jsonl_dataset
     from openvla_probe_tpu_torch.models.prompting import PromptBuilder
-    from openvla_probe_tpu_torch.scripts import analyze_probes
     from openvla_probe_tpu_torch.training import checkpointing as ckpt
 
     work.mkdir(parents=True, exist_ok=True)
@@ -3625,48 +3729,7 @@ def run_cli(dev, repo: Path, work: Path, probe_shape=(LAYERS + 1, 4096)) -> dict
     del back, saved, want_state, exported, got_leaves, want_leaves
     _sync(dev)
 
-    # train_probes, then analyze_probes, on episodes at the 7B tap's shape
-    names = analyze_probes.label_names(CLI_SUITE)
-    logs = work / "episodes"
-    logs.mkdir()
-    n_layers, hidden = probe_shape
-    eps = _probe_episodes(CLI_PROBE_EPISODES, CLI_PROBE_T, n_layers, hidden, len(names),
-                          min(PROBE_LAYER, n_layers - 1), torch.Generator().manual_seed(29), "cpu")
-    for i, ep in enumerate(eps):
-        np.savez(logs / f"episode_{i}.npz", **ep)
-    del eps
-    probes = work / "probes"
-    out, secs = _run_script("train_probes", dev, "--log_dir", logs, "--out_dir", probes,
-                            "--suite", CLI_SUITE, "--epochs", 2)
-    rows["train_probes"] = dict(seconds=secs, kernel_libraries=_kernel_report(out.stderr, dev))
-    bank = probes / f"probe_bank_{CLI_SUITE}_binary.npz"
-    analysis_dir = work / "analysis"
-    out, secs = _run_script("analyze_probes", dev, "--bank", bank, "--log_dir", logs,
-                            "--out_dir", analysis_dir, "--suite", CLI_SUITE)
-    has_mpl = "matplotlib is not installed" not in out.stderr
-    rows["analyze_probes"] = dict(seconds=secs, matplotlib=has_mpl)
-    # the JAX script's heatmaps where the subprocess had matplotlib, else the bare matrices
-    # under their own names
-    heatmaps = [f"heatmap_f1_{CLI_SUITE}.png", f"heatmap_recall_{CLI_SUITE}.png",
-                f"heatmap_f1_weighted_{CLI_SUITE}.png"]
-    if not has_mpl:
-        heatmaps = [analyze_probes.matrix_name(h) for h in heatmaps]
-    want_files = {probes: [bank.name, f"probe_metrics_{CLI_SUITE}.csv",
-                           f"probe_metrics_{CLI_SUITE}_reference_schema.csv"],
-                  analysis_dir: ["per_label_metrics_reference_schema.csv",
-                                 "per_label_metrics_experiment_images_schema.csv",
-                                 "per_label_metrics.csv", "family_auprc_reference_schema.csv",
-                                 "family_auprc.csv", "label_stats.csv", *heatmaps]}
-    for d, files in want_files.items():
-        for f in files:
-            assert (d / f).is_file() and (d / f).stat().st_size > 0, d / f
-            if f.endswith(".png"):
-                assert image_io.read_image(d / f).ndim == 3, f
-    with open(analysis_dir / "label_stats.csv") as f:
-        assert sum(1 for _ in f) == len(names) + 1
-    rows["train_probes"].update(episodes=CLI_PROBE_EPISODES, steps=CLI_PROBE_T,
-                                layers=n_layers, hidden=hidden, labels=len(names))
-    rows["analyze_probes"].update(files=sum(len(v) for v in want_files.values()))
+    rows.update(_cli_probes(dev, work, probe_shape))
     return dict(scripts=sorted(rows), seconds={k: v["seconds"] for k, v in rows.items()},
                 bundle_load_s=bundle_load_s, **rows)
 
@@ -3719,7 +3782,7 @@ def _ab_leaves(tree):
 MOE_BATCH = 8                  # moe_turbo and moe_parity: B = 8, P = 32, A = 7
 MOE_ROWS = 2 * MOE_BATCH * T_PREFILL   # the prefill's top-2 rows through each grouped product
 MOE_PARITY_LAYERS = 4          # moe_parity's depth at full width (11.3 GB of bf16 experts)
-MOE_TIMED_CALLS = 3
+MOE_TIMED_CALLS = 2
 MIXTRAL_E, MIXTRAL_D, MIXTRAL_F = 8, 4096, 14336
 MOE_TINY_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}   # first logits, card vs CPU
 
@@ -4483,6 +4546,452 @@ def run_phi(dev):
         scores=scores.tolist())
 
 
+# --- slice 6a: sharded serving, one process a rank on the one card --------------------------
+#
+# Each phase spawns its ranks (parallel.distributed.run_ranks: a file:// rendezvous, gloo, as
+# the backend rule says for ranks that share a card) and fails the run if any rank raises,
+# exits without a result or outlives RANK_TIMEOUT_S. Two processes time-sliced on one card
+# are no multi-card measurement: their times say what a rank's work costs beside the other's.
+
+TP = 2
+RANK_TIMEOUT_S = 300
+EP = 2
+EP_LAYERS = 4            # ep2_moe_turbo's depth, cut to fit the time cap (each rank draws the
+                         # whole trunk to slice it, beside the one-process reference)
+ROW_PARALLEL_LAUNCHES = ("w8a8_quant_given", "w8a8_matmul_i32", "w8a8_epilogue")
+
+
+def _row_parallel_shapes() -> dict:
+    """(M, K_local, N) -> launches in one tp2_turbo rank's call: the row-parallel
+    products at tp = 2 (o_proj K 2048 and down_proj K 5504 at prefill and each
+    decode step; each tower block's proj_w and fc2_w, SigLIP's fc2 K = 2152,
+    padded to 2160)."""
+    M_pre, M_dec, A1 = BATCH * T_PREFILL, BATCH, ACTION_DIM - 1
+    M_dino, M_sig = BATCH * 261, BATCH * 256
+    return {(M_pre, 2048, 4096): LAYERS, (M_pre, 5504, 4096): LAYERS,
+            (M_dec, 2048, 4096): LAYERS * A1, (M_dec, 5504, 4096): LAYERS * A1,
+            (M_dino, 512, 1024): 23, (M_dino, 2048, 1024): 23,
+            (M_sig, 576, 1152): 26, (M_sig, 2152, 1152): 26}
+
+
+def check_row_parallel(dev, g):
+    """The row-parallel w8a8 product's three launches at the tp = 2 shapes
+    (`_row_parallel_shapes`), each bit-equal to its plain version: the codes
+    from a given row scale (the MAX all-reduce's; zero codes in SigLIP fc2's
+    padded columns), the int32 GEMM (wgmma above M = 64, split-K at M = 24)
+    and the epilogue; the three composed equal `w8a8_matmul_plain` over the
+    unpadded weight. Library: torch._int_mm on the same codes for the GEMM,
+    none for the pre-pass and the epilogue. Each with its host µs a call."""
+    per_call = _row_parallel_shapes()
+    rows = {name: {} for name in ROW_PARALLEL_LAUNCHES}
+    host = {name: {} for name in ROW_PARALLEL_LAUNCHES}
+    for (M, K, N) in per_call:
+        kp = -(-K // 16) * 16
+        key = f"{M}x{K}x{N}"
+        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        sx = torch.clamp(lin.div127(x.abs().amax(-1, keepdim=True).float()), min=1e-8)
+        sets = []
+        for _ in range(copies_past_l2(N * kp)):
+            w = lin.quantize_weight(torch.randn((N, K), generator=g, device=dev) * 0.02)
+            sets.append({"q": F.pad(w["q"], (0, kp - K)), "s": w["s"]})
+        codes = lin.w8a8_quant_given(x, sx, kp)
+        torch.cuda.synchronize()
+        assert torch.equal(codes, lin.w8a8_quant_given_plain(x, sx, kp)), (key, "codes")
+        acc = lin.w8a8_matmul_i32(codes, sets[0])
+        torch.cuda.synchronize()
+        assert torch.equal(acc, lin.w8a8_matmul_i32_plain(codes, sets[0])), (key, "int32")
+        out = lin.w8a8_epilogue(acc, sx, sets[0]["s"], x.dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(out, lin.w8a8_epilogue_plain(acc, sx, sets[0]["s"], x.dtype)), key
+        whole = {"q": sets[0]["q"][:, :K].contiguous(), "s": sets[0]["s"]}
+        assert torch.equal(out, lin.w8a8_matmul_plain(x, whole)), (key, "composed")
+        b, by = bound_ms(_nbytes(x, sx, codes), 0, "int8")
+        rows["w8a8_quant_given"][key] = dict(
+            max_abs_err=0.0, ms=cuda_ms(lambda: lin.w8a8_quant_given(x, sx, kp)),
+            plain_ms=cuda_ms(lambda: lin.w8a8_quant_given_plain(x, sx, kp), reps=5, warmup=1),
+            library_ms=None, bound_ms=b, bound_by=by, k_pad=kp)
+        b, by = bound_ms(_nbytes(codes, sets[0]["q"], acc), 2 * M * N * kp, "int8")
+        rows["w8a8_matmul_i32"][key] = dict(
+            max_abs_err=0.0, ms=cuda_ms(rotating(lambda w: lin.w8a8_matmul_i32(codes, w),
+                                                 [(w,) for w in sets])),
+            plain_ms=cuda_ms(rotating(lambda w: lin.w8a8_matmul_i32_plain(codes, w),
+                                      [(w,) for w in sets]), reps=3, warmup=1),
+            library_ms=cuda_ms(rotating(lambda w: torch._int_mm(codes, w["q"].t()),
+                                        [(w,) for w in sets])),
+            bound_ms=b, bound_by=by)
+        b, by = bound_ms(_nbytes(acc, sx, sets[0]["s"], out), 2 * M * N, "fp32")
+        rows["w8a8_epilogue"][key] = dict(
+            max_abs_err=0.0, ms=cuda_ms(lambda: lin.w8a8_epilogue(acc, sx, sets[0]["s"], x.dtype)),
+            plain_ms=cuda_ms(lambda: lin.w8a8_epilogue_plain(acc, sx, sets[0]["s"], x.dtype),
+                             reps=5, warmup=1),
+            library_ms=None, bound_ms=b, bound_by=by)
+        host["w8a8_quant_given"][key] = host_us(lambda: lin.w8a8_quant_given(x, sx, kp))
+        host["w8a8_matmul_i32"][key] = host_us(lambda: lin.w8a8_matmul_i32(codes, sets[0]))
+        host["w8a8_epilogue"][key] = host_us(
+            lambda: lin.w8a8_epilogue(acc, sx, sets[0]["s"], x.dtype))
+        del sets, codes, acc, out
+    weights = {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()}
+    out = []
+    for name in ROW_PARALLEL_LAUNCHES:
+        mix = _launch_weighted({k: {**r, "library_ms": r["library_ms"] or 0.0}
+                                for k, r in rows[name].items()}, weights)
+        if name != "w8a8_matmul_i32":
+            mix["library_ms"] = None
+        out.append(dict(name=name, route="cuda",
+                        source="openvla_probe_tpu_torch/ops/csrc/w8a8_matmul.cu",
+                        replaces="openvla_probe_tpu/ops/linear.py:413", by_shape=rows[name],
+                        host_us=host[name], **mix))
+    return out
+
+
+def _local_gb(tree) -> float:
+    """A rank's local tree's bytes (placed leaves' local tensors), GB."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size() / 1e9
+    if tp.is_placed(tree):
+        return _local_gb(tree["local"])
+    if isinstance(tree, dict):
+        return sum(_local_gb(v) for v in tree.values())
+    return 0.0
+
+
+def _expected_tp_launches(cfg: vla.VLAServingConfig, local) -> dict:
+    """One tp rank's exact launches a turbo call: the one-process table with
+    every row-parallel product (o_proj and down_proj at prefill and each
+    decode step, each tower block's proj_w and fc2_w) moved from w8a8_matmul
+    and its pre-pass to the row-parallel product's three launches."""
+    expect = _expected_launches("turbo", cfg)
+    c = cfg.vlm
+    L, A1 = c.llm.num_hidden_layers, cfg.action_dim - 1
+    moved = sum(L * (1 + A1) for name in ("o_proj", "down_proj")
+                if tp.tp_role(local["llm"]["layers"][name]) == "row")
+    moved += sum(v.num_layers - 1 for name, v in zip(c.vision_names, c.vision)
+                 for leaf in ("proj_w", "fc2_w")
+                 if tp.tp_role(local["vision"][name]["blocks"][leaf]) == "row")
+    for k in ("w8a8_matmul", "w8a8_quant_rows"):
+        expect[k] -= moved
+    for k in ROW_PARALLEL_LAUNCHES:
+        expect[k] += moved
+    return expect
+
+
+def _tp2_rank(rank: int, world: int, ref_path: str):
+    """One rank of tp2_turbo: turbo's int8 weights drawn on the card from the
+    turbo path's seed, this rank's tree placed (`make_sharded_predict`, tp),
+    the whole tree freed; the path's requests (B = 24) through the sharded
+    call once (gloo's host path makes a call take seconds), under the
+    profiler (busy ms), with exact launches at the shard shapes, no
+    torch._int_mm and the collectives' bytes; its time, peak memory. In that
+    call the sharded projector runs on the sharded towers' features, and its
+    output is then swapped for one process's projected patches (`ref_path`,
+    from MAIN_TOWERS): the projector's sum is the one step that is not one
+    process's bit for bit (fp32 partials across ranks), so that the trunk,
+    the KV caches, decode and the greedy head are held to one process's bit
+    for bit. The features and the sharded projector's output come back
+    beside the outputs."""
+    dev = _rank_dev("cuda")
+    cfg = _serving("turbo", vlm.VLMConfig.openvla_7b(), action_dim=ACTION_DIM,
+                   prompt_pad_len=PROMPT_PAD)
+    t0 = time.perf_counter()
+    params = _init("turbo", cfg.vlm, torch.Generator(device=dev).manual_seed(0), dev)
+    mesh = pmesh.make_mesh({"tp": world})
+    call, local = vla.make_sharded_predict(params, cfg, mesh,
+                                           image_cfg=ImageTransformConfig.dinosiglip_224(),
+                                           strategy="tp", device=dev, return_first_logits=True)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    ref_patches = torch.load(ref_path)["patches"].to(dev)
+    image, ids, plen, q01, q99, mask = _inputs(cfg, BATCH, IMG_HW,
+                                               torch.Generator(device=dev).manual_seed(1), dev)
+    times, outs, seen = [], [], {}
+    sharded_projector = vlm.project_patches
+
+    def one_process_patches(p, c, feats):
+        seen["features"], seen["patches"] = feats, sharded_projector(p, c, feats)
+        return ref_patches
+
+    def run():
+        t0 = time.perf_counter()
+        outs.append(call(local, image, ids, plen, q01, q99, mask))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    int_mm_calls = []
+    with mock.patch.object(torch, "_int_mm", _counting_int_mm(int_mm_calls)), \
+            mock.patch.object(vlm, "project_patches", one_process_patches):
+        _build.reset_launch_counts()
+        pdist.reset_collective_counts()
+        busy = profile_main_path.device_time(run, 1, warmup=False)
+        launches = dict(_build.KERNEL_LAUNCHES)
+        coll_bytes, coll_calls = dict(pdist.COLLECTIVE_BYTES), dict(pdist.COLLECTIVE_CALLS)
+    expect = _expected_tp_launches(cfg, local)
+    assert launches == expect, (rank, {k: (launches[k], expect[k]) for k in expect
+                                       if launches[k] != expect[k]})
+    assert not int_mm_calls
+    out = outs[0]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return dict(rank=rank, tokens=out["action_tokens"].cpu(),
+                first_logits=out["first_logits"].cpu(), margins=out["logit_margins"].cpu(),
+                features=seen["features"].cpu(), patches=seen["patches"].cpu(),
+                launches=launches, local_gb=_local_gb(local), init_s=init_s,
+                p50_ms=statistics.median(times) * 1e3, call_ms=[t * 1e3 for t in times],
+                device_ms_per_call=busy["device_ms_per_call_total"],
+                device_ms_by_class=busy["device_ms_per_call_by_class"],
+                device_idle_share=busy["device_idle_share"], peak_mem_gb=peak,
+                collective_bytes_per_call=coll_bytes, collective_calls_per_call=coll_calls)
+
+
+def run_tp2_turbo(dev):
+    """tp2_turbo: OpenVLA-7B on the turbo tier at full width and depth, tp = 2
+    (`_tp2_rank` in two processes on the one card), each rank's call with the
+    one-process turbo call's projected patches in place of its own
+    (MAIN_TOWERS). Each rank's tower features bit-equal to one process's, and its action
+    tokens, first logits and every token's logit margin bit-equal to the
+    one-process turbo call's (MAIN_OUT, MAIN_MARGINS: the same weights and
+    requests): every product of turbo's towers, trunk and head sums int8
+    codes in int32, and attention runs per head. The sharded projector's
+    distance from one process's patches is printed: its bf16 products sum
+    fp32 partials across ranks (PERF.md §6)."""
+    want, want_logits = (t.cpu() for t in MAIN_OUT["turbo"])
+    want_margins = MAIN_MARGINS["turbo"].cpu()
+    ref = MAIN_TOWERS
+    with tempfile.TemporaryDirectory(prefix="ovla_tp2_") as tmp:
+        ref_path = str(Path(tmp) / "reference.pt")
+        torch.save({"patches": ref["patches"]}, ref_path)
+        ranks = pdist.run_ranks(_tp2_rank, TP, args=(ref_path,), timeout=RANK_TIMEOUT_S)
+    rows = []
+    for r in ranks:
+        assert torch.equal(r["features"], ref["features"]), (r["rank"], "tower features")
+        assert torch.equal(r["tokens"], want), (r["rank"], r["tokens"].tolist(), want.tolist())
+        assert torch.equal(r["first_logits"], want_logits), (r["rank"], "first logits")
+        assert torch.equal(r["margins"], want_margins), (r["rank"], "logit margins")
+        patches = (r["patches"].float() - ref["patches"].float()).abs()
+        kept = {k: v for k, v in r.items()
+                if k not in ("tokens", "first_logits", "margins", "features", "patches")}
+        rows.append({**kept, "features_bit_equal": True, "tokens_bit_equal": True,
+                     "first_logits_bit_equal": True, "margins_bit_equal": True,
+                     "tokens": int(want.numel()),
+                     "projector_max_abs_diff": patches.max().item(),
+                     "projector_share_differing": (patches > 0).float().mean().item(),
+                     "patches_scale": ref["patches"].float().abs().max().item()})
+    return ranks[0]["launches"], dict(path="tp2_turbo", tp=TP, batch=BATCH, ranks=rows,
+                                      one_process_p50_ms=MAIN_P50["turbo"])
+
+
+def _ep_trunk_inputs(cfg, dev):
+    """The MoE trunk's inputs: the prefill's (B = 8 x T_PREFILL embeddings of
+    random ids, the last rows of two prompts padded) and one decode-shaped
+    token a row (M = 8: 16 expert rows, the split-K route)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    ids = torch.randint(1000, 20000, (MOE_BATCH, T_PREFILL), generator=g, device=dev)
+    mask = torch.ones((MOE_BATCH, T_PREFILL), dtype=torch.int32, device=dev)
+    mask[1, -9:] = 0
+    mask[5, -30:] = 0
+    return ids, mask
+
+
+def _ep_trunk(params, cfg, ids, mask):
+    """(prefill trunk output [B, T, D], one-token trunk output [B, 1, D]) of
+    the uncached `llama.forward` (the prefill's and a decode step's shapes)."""
+    out = []
+    for i, m in ((ids, mask), (ids[:, -1:], torch.ones_like(mask[:, -1:]))):
+        B, T = i.shape
+        pos = torch.arange(T, device=i.device).expand(B, T)
+        x = llama.embed_tokens(params, i)
+        out.append(llama.forward(params, cfg, x, m, pos, compute_logits=False)
+                   ["last_hidden_state"])
+    torch.cuda.synchronize()
+    return out
+
+
+def _ep_config():
+    c = _mixtral_vlm()
+    c = dataclasses.replace(c, llm=dataclasses.replace(c.llm, num_hidden_layers=EP_LAYERS))
+    return vla.VLAServingConfig.for_tier(c, "turbo").vlm.llm
+
+
+def _ep_params(cfg, dev):
+    spec = convert.vlm_param_spec(dataclasses.replace(_mixtral_vlm(), llm=cfg),
+                                  lin.TURBO_QUANT_SUFFIXES, 8)["llm"]
+    return lin.random_params_like(spec, torch.Generator(device=dev).manual_seed(0), device=dev)
+
+
+def _ep2_rank(rank: int, world: int):
+    """One rank of ep2_moe_turbo: the int8 Mixtral trunk drawn from the
+    reference's seed, this rank's experts placed (E / ep a rank, everything
+    else whole), the trunk's outputs and launches."""
+    dev = _rank_dev("cuda")
+    cfg = _ep_config()
+    params = _ep_params(cfg, dev)
+    mesh = pmesh.make_mesh({"ep": world})
+    local = tp.resolve_tree(psharding.place_params({"llm": params}, mesh, "tp"))["llm"]
+    del params
+    torch.cuda.empty_cache()
+    ids, mask = _ep_trunk_inputs(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    pdist.reset_collective_counts()
+    t0 = time.perf_counter()
+    outs = _ep_trunk(local, cfg, ids, mask)
+    s = time.perf_counter() - t0
+    return dict(rank=rank, outs=[o.cpu() for o in outs], launches={
+        k: n for k, n in _build.KERNEL_LAUNCHES.items() if n}, seconds=s,
+        local_gb=_local_gb(local), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        collective_bytes=dict(pdist.COLLECTIVE_BYTES))
+
+
+def run_ep2_moe(dev):
+    """ep2_moe_turbo: Mixtral-8x7B's int8 trunk at full width (D 4096, F
+    14336, E 8, top-2) cut to EP_LAYERS layers, ep = 2 (four experts a rank):
+    each rank's trunk outputs at the prefill's and a decode step's shapes
+    bit-equal to the one-process trunk's on the same weights and inputs."""
+    cfg = _ep_config()
+    params = _ep_params(cfg, dev)
+    ids, mask = _ep_trunk_inputs(cfg, dev)
+    _build.reset_launch_counts()
+    want = [o.cpu() for o in _ep_trunk(params, cfg, ids, mask)]
+    one_launches = {k: n for k, n in _build.KERNEL_LAUNCHES.items() if n}
+    del params
+    torch.cuda.empty_cache()
+    ranks = pdist.run_ranks(_ep2_rank, EP, timeout=RANK_TIMEOUT_S)
+    for r in ranks:
+        for got, ref in zip(r["outs"], want):
+            assert torch.equal(got, ref), (r["rank"], "not bit-equal to one process")
+        assert r["launches"]["expert_ragged"] == one_launches["expert_ragged"], r["launches"]
+    return dict(path="ep2_moe_turbo", ep=EP, layers=EP_LAYERS,
+                cut=f"depth {EP_LAYERS} of 32 layers (two ranks each draw the whole trunk to "
+                    "slice it, beside the one-process reference)",
+                bit_equal=True, one_process_launches=one_launches,
+                ranks=[{k: v for k, v in r.items() if k != "outs"} for r in ranks])
+
+
+# tiny_parallel: the tiny fp32 paths (chip_smoke's tiny configs) on four ranks, each case's
+# outputs held to the same tiny path on one card
+TINY_PARALLEL = (("parity", {"dp": 2, "tp": 2}, "tp", None),
+                 ("turbo", {"dp": 2, "tp": 2}, "tp", None),
+                 ("pallas_int4", {"dp": 2, "tp": 2}, "tp", None),
+                 ("turbo", {"fsdp": 4}, "fsdp", None),
+                 ("turbo", {"dp": 2, "tp": 2}, "tp", "multilora"))
+
+
+def _tiny_case(path: str, lora: bool):
+    """(config, CPU weights, CPU bank or None, image config, inputs) of a tiny
+    path (check_tiny_path's), with 4 adapters of rank 4 for `lora`."""
+    tvlm = _tiny_vlm(path)
+    cfg = _serving(path, tvlm, prompt_pad_len=64, codec_vocab_size=tvlm.llm.vocab_size)
+    params = _init(path, cfg.vlm, torch.Generator().manual_seed(1), "cpu")
+    bank = None
+    if lora:
+        lcfg = LoRAConfig(r=4)
+        adapters = [_random_b(init_lora_params(params, lcfg, torch.Generator().manual_seed(5 + i)),
+                              torch.Generator().manual_seed(9 + i), 0.05) for i in range(4)]
+        bank = multilora.stack_adapter_banks(adapters, lcfg, dtype=cfg.vlm.llm.dtype)
+    img_cfg = ImageTransformConfig(specs=(
+        BackboneTransformSpec((28, 28), "bicubic", (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)),
+        BackboneTransformSpec((28, 28), "bicubic", (0.5, 0.5, 0.5), (0.5, 0.5, 0.5))))
+    return cfg, params, bank, img_cfg, _inputs(cfg, 4, 40, torch.Generator().manual_seed(2), "cpu")
+
+
+def _tiny_sel(dev):
+    return multilora.adapter_one_hot(np.array([-1, 0, 1, 2]), 4, device=dev)
+
+
+def _rank_dev(kind: str) -> torch.device:
+    """A rank's device: its card (the one `initialize_distributed` set), or the host."""
+    return torch.device("cuda", torch.cuda.current_device()) if kind == "cuda" else \
+        torch.device("cpu")
+
+
+def _tiny_parallel_rank(rank: int, world: int, kind: str = "cuda"):
+    """Every TINY_PARALLEL case on this rank: its tree placed, its sharded
+    call over the whole batch (tokens, first logits)."""
+    dev = _rank_dev(kind)
+    out = []
+    for path, axes, strategy, case in TINY_PARALLEL:
+        cfg, params, bank, img_cfg, inputs = _tiny_case(path, case == "multilora")
+        mesh = pmesh.make_mesh(dict(axes))
+        params = _to(params, dev)
+        args = tuple(x.to(dev) for x in inputs)
+        if case == "multilora":
+            call, local, lbank = vla.make_sharded_multilora_predict(
+                params, _to(bank, dev), cfg, mesh, image_cfg=img_cfg, strategy=strategy,
+                device=dev)
+            res = call(local, lbank, _tiny_sel(dev), *args)
+        else:
+            call, local = vla.make_sharded_predict(params, cfg, mesh, image_cfg=img_cfg,
+                                                   strategy=strategy, device=dev,
+                                                   return_first_logits=True)
+            res = call(local, *args)
+        out.append({k: v.cpu() for k, v in res.items()})
+    return out
+
+
+def check_tiny_parallel(dev):
+    """tiny_parallel: each TINY_PARALLEL case at tiny fp32 size on four ranks
+    against the same tiny path on one card (this process): tokens equal on
+    every rank (or within the margin rule, the count printed), actions
+    finite."""
+    ranks = pdist.run_ranks(_tiny_parallel_rank, 4, (dev.type,), timeout=RANK_TIMEOUT_S,
+                            device=dev.type)
+    rows = []
+    for i, (path, axes, strategy, kind) in enumerate(TINY_PARALLEL):
+        cfg, params, bank, img_cfg, inputs = _tiny_case(path, kind == "multilora")
+        p = _to(params, dev)
+        if kind == "multilora":
+            p = multilora.attach_multilora(p, _to(bank, dev), _tiny_sel(dev))
+        want = vla.predict_action_from_image(p, cfg, inputs[0].to(dev), img_cfg,
+                                             *(x.to(dev) for x in inputs[1:]),
+                                             return_first_logits=True, device=dev)
+        want = {k: v.cpu() for k, v in want.items()}
+        compared = []
+        for r in ranks:
+            got = r[i]
+            assert torch.isfinite(got["actions"]).all()
+            gap = ((got["first_logits"] - want["first_logits"]).abs().max().item()
+                   if "first_logits" in got else 0.0)
+            compared.append(_margin_rule(got["action_tokens"], want["action_tokens"],
+                                         want["logit_margins"], gap))
+        rows.append(dict(path=path, mesh=axes, strategy=strategy, kind=kind or "predict",
+                         tokens=int(want["action_tokens"].numel()),
+                         tokens_equal=[int((r[i]["action_tokens"] == want["action_tokens"]).sum())
+                                       for r in ranks],
+                         margin_rule_compared=compared))
+    return dict(entry="tiny_parallel", ranks=4, cases=rows)
+
+
+def _nccl_rank(rank: int, world: int):
+    """A rank of a world of one on NCCL (a card a rank): each collective the
+    sharded forward issues, on CUDA tensors."""
+    dev = _rank_dev("cuda")
+    group = torch.distributed.group.WORLD
+    t = torch.arange(4, dtype=torch.int32, device=dev)
+    pdist.all_reduce(t, "sum", group)
+    m = torch.arange(4, dtype=torch.float32, device=dev)
+    pdist.all_reduce(m, "max", group)
+    b = torch.full((4,), 1.5, dtype=torch.bfloat16, device=dev)
+    pdist.all_reduce(b, "sum", group)
+    g = pdist.all_gather(m, 0, group)
+    pdist.barrier()
+    return dict(backend=torch.distributed.get_backend(), int32_sum=t.tolist(), fp32_max=m.tolist(),
+                bf16_sum=b.float().tolist(), gathered=g.tolist(),
+                broadcast=pdist.broadcast_host_value(np.arange(3)).tolist(),
+                calls=dict(pdist.COLLECTIVE_CALLS))
+
+
+def check_nccl_one(dev):
+    """One NCCL run at world size 1 (the backend rule's other branch): the
+    collectives of the sharded forward on the card, each the identity."""
+    (r,) = pdist.run_ranks(_nccl_rank, 1, timeout=RANK_TIMEOUT_S)
+    assert r["backend"] == "nccl", r["backend"]
+    assert r["int32_sum"] == [0, 1, 2, 3] and r["fp32_max"] == [0.0, 1.0, 2.0, 3.0]
+    assert r["bf16_sum"] == [1.5] * 4 and r["gathered"] == r["fp32_max"]
+    assert r["broadcast"] == [0, 1, 2] and r["calls"] == {"all_reduce": 3, "all_gather": 1}
+    return dict(entry="nccl_world_1", **r)
+
+
 PHASE_S: dict = {}   # phase -> wall seconds (the `phases` line)
 
 
@@ -4531,7 +5040,8 @@ def main() -> int:
                    check_w4a8_dx(dev, g), check_w8a8_requant(dev, g),
                    check_split_attention_i8(dev, g), check_w4a8_grouped(dev, g),
                    check_expert_ragged(dev, g), check_expert_ragged_scalar(dev, g),
-                   *check_expert_ragged_bwd(dev, g), *check_expert_ragged_bwd_scalar(dev, g)]
+                   *check_expert_ragged_bwd(dev, g), *check_expert_ragged_bwd_scalar(dev, g),
+                   *check_row_parallel(dev, g)]
         # the scalar routes: no main path takes them (the tiny fp32 paths do)
         scalar_routes = [check_decode_attention_scalar(dev, g),
                          check_decode_split_attention_scalar(dev, g),
@@ -4562,6 +5072,12 @@ def main() -> int:
             row = check_tiny_moe_train(dev, dtype)
             tiny[f"tiny_moe_train_{row['dtype']}"] = row["launches"]
             log("tiny", **row)
+        # slice 6a: the tiny paths sharded over four ranks, and beside them NCCL at world
+        # size 1 (its own process group)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            nccl = pool.submit(check_nccl_one, dev)
+            log("tiny", **check_tiny_parallel(dev))
+            log("tiny", **nccl.result())
 
     # the load phase's repository stays here for the cli phase; removed whatever happens
     hub = Path(tempfile.mkdtemp(prefix="ovla_hub_"))
@@ -4633,6 +5149,14 @@ def main() -> int:
     with _phase("main:phi"):
         launches["phi"], phi_stats = run_phi(dev)
         log("main", card=card, launches_per_call=launches["phi"], **phi_stats)
+    # slice 6a on the freed card: OpenVLA-7B turbo at tp = 2, Mixtral's trunk at ep = 2, each
+    # rank a process (two processes time-sliced on one card: no multi-card figure)
+    torch.cuda.empty_cache()
+    with _phase("main:tp2_turbo"):
+        launches["tp2_turbo"], tp_stats = run_tp2_turbo(dev)
+        log("main", card=card, launches_per_rank_call=launches["tp2_turbo"], **tp_stats)
+    with _phase("main:ep2_moe_turbo"):
+        log("main", card=card, **run_ep2_moe(dev))
 
     # each kernel's launches: from the main path whose slice ported it (expert_ragged_scalar:
     # the tiny fp32 MoE path, the one path that takes it); a scalar route's from every main

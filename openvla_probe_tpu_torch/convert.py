@@ -327,8 +327,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 _DTYPE_FIELDS = ("dtype", "attn_scores_dtype", "rope_dtype")
 # the port's fields for what the JAX package reads from its environment (the
 # kernel gates): left at their defaults here, set by the serving tier or, for
-# training, by the caller (flash_attn=False: the JAX OVLA_PALLAS_ATTN=0)
-_ROUTE_FIELDS = ("int8_matmul", "fused_rmsq", "flash_attn")
+# training, by the caller (flash_attn=False: the JAX OVLA_PALLAS_ATTN=0); and
+# tp_heads and row_split, a rank's local config in sharded serving (GSPMD's business in JAX)
+_ROUTE_FIELDS = ("int8_matmul", "fused_rmsq", "flash_attn", "tp_heads", "row_split")
 
 
 def _fields(obj: Any, cls: type, **override) -> Dict[str, Any]:

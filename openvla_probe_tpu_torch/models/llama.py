@@ -55,10 +55,11 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import NEG_INF, attention_plain, decode_attention, flash_attention
 from ..ops.decode_attention import (decode_flash_attention, split_attention_i8,
                                     stacked_decode_attention_i8)
-from ..ops.linear import (NIB_HI_M_MAX, PrequantActivation, div127, index_layer,
-                          is_grouped_int4, is_int8_per_channel, is_mixed_quant, is_multilora_fused,
-                          matmul_t, matmul_t_grouped)
+from ..ops.linear import (NIB_HI_M_MAX, PrequantActivation, div127, is_grouped_int4,
+                          is_int8_per_channel, is_mixed_quant, is_multilora_fused, matmul_t,
+                          matmul_t_grouped)
 from ..ops.rmsnorm_quant import rms_norm, rms_norm_quant
+from ..parallel import tensor_parallel as tp
 from . import moe
 
 Params = Dict[str, Any]
@@ -102,10 +103,26 @@ class LlamaConfig:
     # "einsum" (one-hot, honours capacity drops), "sorted" (the grouped expert
     # product, dropless only) or "auto" (sorted exactly when dropless)
     moe_dispatch: str = "auto"
+    # the tensor-parallel ranks the attention heads are split over (a rank's config in
+    # sharded serving, vla.make_sharded_predict): its attention and its KV caches hold
+    # num_attention_heads / tp_heads query and num_key_value_heads / tp_heads kv heads
+    tp_heads: int = 1
+    # the data-parallel ranks a batch's rows are split over (a rank's config in sharded
+    # serving): the row-count route rules compare a product's rows times this, the whole
+    # batch's, as the JAX package's jit sees global shapes (ops.linear.matmul_t)
+    row_split: int = 1
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @property
+    def local_heads(self) -> int:
+        return self.num_attention_heads // self.tp_heads
+
+    @property
+    def local_kv_heads(self) -> int:
+        return self.num_key_value_heads // self.tp_heads
 
     @staticmethod
     def llama2_7b(**kw) -> "LlamaConfig":
@@ -138,7 +155,7 @@ class KVCache(NamedTuple):
 
     @staticmethod
     def zeros(cfg: LlamaConfig, batch: int, max_len: int, dtype=None, device=None) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        shape = (cfg.num_hidden_layers, batch, max_len, cfg.local_kv_heads, cfg.head_dim)
         dtype = dtype or cfg.dtype
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
@@ -149,7 +166,7 @@ class KVCache(NamedTuple):
         """The flat [L, B, S, Hkv·Dh] layout (the JAX package's, which denies
         XLA two cache layouts); `forward` reads it as a 5-D view of the same
         bytes. `max_len` should be a multiple of 8, as the JAX package pads it."""
-        shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads * cfg.head_dim)
+        shape = (cfg.num_hidden_layers, batch, max_len, cfg.local_kv_heads * cfg.head_dim)
         dtype = dtype or cfg.dtype
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device))
@@ -246,9 +263,10 @@ def _norm_maybe_quant(cfg: LlamaConfig, x: torch.Tensor, norm_w: torch.Tensor, l
     nibble or int4 leaves, nor for mix leaves at decode M, which read the int4
     copy). Returns the normed activation or a `PrequantActivation` its
     consumers take."""
-    M = x.shape[0] * x.shape[1]
+    M = x.shape[0] * x.shape[1] * cfg.row_split
 
     def w8a8_leaf(w) -> bool:
+        w = tp.consumer_leaf(w)
         return is_int8_per_channel(w) or (is_mixed_quant(w) and M > NIB_HI_M_MAX)
 
     if (fused and cfg.fused_rmsq and cfg.int8_matmul == "w8a8" and M >= RMSQ_MIN_M
@@ -257,13 +275,21 @@ def _norm_maybe_quant(cfg: LlamaConfig, x: torch.Tensor, norm_w: torch.Tensor, l
     return rms_norm(x, norm_w, cfg.rms_norm_eps)
 
 
-def _products(h, leaves, route: str):
+def _matmul(x, w, route: str, row_split: int) -> torch.Tensor:
+    """x @ w's weight: a placed leaf by its tp role (`tensor_parallel.matmul`),
+    any other through ``matmul_t``; `row_split` the config's."""
+    if tp.is_placed(w):
+        return tp.matmul(x, w, route, row_split)
+    return matmul_t(x, w, route, row_split)
+
+
+def _products(h, leaves, route: str, row_split: int):
     """[matmul_t(h, w) for w in leaves] (q/k/v or gate/up), through
     ``matmul_t_grouped`` where the leaves are fused multi-LoRA leaves (which
     may group their second products)."""
     if all(is_multilora_fused(w) for w in leaves):
         return matmul_t_grouped(h, leaves, route)
-    return [matmul_t(h, w, route) for w in leaves]
+    return [_matmul(h, w, route, row_split) for w in leaves]
 
 
 def _moe_mlp(cfg: LlamaConfig, lp: Params, h: torch.Tensor,
@@ -306,18 +332,21 @@ def _layer_forward(
     the router reads the normed activation), PAD tokens (`token_valid` 0)
     kept out of routing."""
     B, T, D = x.shape
-    H, Hkv, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    route = cfg.int8_matmul
+    H, Hkv, Dh = cfg.local_heads, cfg.local_kv_heads, cfg.head_dim
+    route, rs = cfg.int8_matmul, cfg.row_split
     qkv_leaves = ((lp["qkv_proj"],) if "qkv_proj" in lp
                   else (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
     h = _norm_maybe_quant(cfg, x, lp["input_layernorm"], qkv_leaves, fused_norm)
     if "qkv_proj" in lp:
-        q, k, v = torch.split(matmul_t(h, lp["qkv_proj"], route), [H * Dh, Hkv * Dh, Hkv * Dh],
-                              dim=-1)
+        q, k, v = torch.split(_matmul(h, lp["qkv_proj"], route, rs),
+                              [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
     else:
-        q, k, v = _products(h, qkv_leaves, route)
+        q, k, v = _products(h, qkv_leaves, route, rs)
+    if cfg.tp_heads > 1:   # a product tp leaves whole: its output cut to this rank's heads
+        q, k, v = (tp.rank_cols(t, n * Dh, qkv_leaves[0]) for t, n in ((q, H), (k, Hkv), (v, Hkv)))
     q, k = apply_rope(q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), cos, sin, cfg.rope_dtype)
-    x = x + matmul_t(attend(q, k, v.reshape(B, T, Hkv, Dh)).reshape(B, T, D), lp["o_proj"], route)
+    a = attend(q, k, v.reshape(B, T, Hkv, Dh)).reshape(B, T, H * Dh)
+    x = x + _matmul(tp.input_for(a, lp["o_proj"], qkv_leaves[0]), lp["o_proj"], route, rs)
     if "router" in lp:
         y, aux = _moe_mlp(cfg, lp, rms_norm(x, lp["post_attention_layernorm"], cfg.rms_norm_eps),
                           token_valid)
@@ -328,16 +357,17 @@ def _layer_forward(
                   else (lp["gate_proj"], lp["up_proj"]))
     h = _norm_maybe_quant(cfg, x, lp["post_attention_layernorm"], mlp_leaves, fused_norm)
     if "gate_up_proj" in lp:
-        g, up = torch.chunk(matmul_t(h, lp["gate_up_proj"], route), 2, dim=-1)
+        g, up = torch.chunk(_matmul(h, lp["gate_up_proj"], route, rs), 2, dim=-1)
         gate = F.silu(g.float()).to(h.dtype)
     else:
-        g, up = _products(h, mlp_leaves, route)
+        g, up = _products(h, mlp_leaves, route, rs)
         gate = F.silu(g.float()).to(h.dtype)
-    return x + matmul_t(gate * up, lp["down_proj"], route)
+    return x + _matmul(tp.input_for(gate * up, lp["down_proj"], mlp_leaves[0]), lp["down_proj"],
+                       route, rs)
 
 
 def _layer(params: Params, li: int) -> Params:
-    return index_layer(params["layers"], li)
+    return tp.index_layer(params["layers"], li)
 
 
 def forward(
@@ -376,7 +406,7 @@ def forward(
         kv_valid = attn_mask if ((static_zero_offset and T > 1) or T == 1) else None
     kv5 = cache
     if cache is not None and cache.k.dim() == 4:   # the flat layout: a 5-D view, same bytes
-        kv5 = KVCache(*(t.view(*t.shape[:3], cfg.num_key_value_heads, cfg.head_dim)
+        kv5 = KVCache(*(t.view(*t.shape[:3], cfg.local_kv_heads, cfg.head_dim)
                         for t in cache))
 
     def attend_layer(li: int) -> Attend:
@@ -434,7 +464,7 @@ def forward(
     if cache is not None:
         out["cache"] = cache
     if compute_logits:
-        out["logits"] = matmul_t(x, params["lm_head"], cfg.int8_matmul).float()
+        out["logits"] = _matmul(x, params["lm_head"], cfg.int8_matmul, cfg.row_split).float()
     return out
 
 
@@ -500,7 +530,7 @@ def prefill(
     With `collect_hidden_states`, also the probe tap hidden_pooled [B, L+1, D],
     pooled over `pool_mask`, else over attn_mask."""
     B, T, _ = inputs_embeds.shape
-    shape = (cfg.num_hidden_layers, B, T, cfg.num_key_value_heads, cfg.head_dim)
+    shape = (cfg.num_hidden_layers, B, T, cfg.local_kv_heads, cfg.head_dim)
     kv = PrefillKV(torch.empty(shape, dtype=inputs_embeds.dtype, device=inputs_embeds.device),
                    torch.empty(shape, dtype=inputs_embeds.dtype, device=inputs_embeds.device))
     out = forward(params, cfg, inputs_embeds, attn_mask, positions, cache=KVCache(kv.k, kv.v),
@@ -579,7 +609,7 @@ def greedy_decode(
     if n_steps == 0:
         return (torch.zeros((B, 0), dtype=torch.long, device=dev),
                 torch.zeros((B, 0), dtype=torch.float32, device=dev))
-    shape = (cfg.num_hidden_layers, B, n_steps, cfg.num_key_value_heads, cfg.head_dim)
+    shape = (cfg.num_hidden_layers, B, n_steps, cfg.local_kv_heads, cfg.head_dim)
     dec_dtype = cfg.dtype if isinstance(kv_pre, PrefillKVQ) else kv_pre.k.dtype
     dec_k = torch.zeros(shape, dtype=dec_dtype, device=dev)
     dec_v = torch.zeros(shape, dtype=dec_dtype, device=dev)
@@ -588,10 +618,10 @@ def greedy_decode(
         e = embed_tokens(params, tok[:, None])
         hidden = decode_step(params, cfg, e, (start_pos + t)[:, None], kv_pre, pre_mask,
                              dec_k, dec_v, t)
-        logits = matmul_t(hidden, params["lm_head"], cfg.int8_matmul).float()
-        tok = logits.argmax(-1)
+        logits = _matmul(hidden, params["lm_head"], cfg.int8_matmul, cfg.row_split).float()
+        tok, margin = tp.greedy(logits, params["lm_head"])
         toks.append(tok)
-        margins.append(top2_margin(logits, tok))
+        margins.append(margin)
     return torch.stack(toks, dim=1), torch.stack(margins, dim=1)
 
 
@@ -788,7 +818,8 @@ def params_from_hf(state, cfg: LlamaConfig, prefix: str = "model.", device="cuda
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed_tokens"][input_ids]
+    """The embedding rows of `input_ids` (over vocab-sharded rows: `tp.embed`)."""
+    return tp.embed(params["embed_tokens"], input_ids)
 
 
 def top2_margin(logits: torch.Tensor, argmax_idx: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,16 @@ JAX package:
 Layer-stacked params (the leading L axis indexed away by the caller):
 router [E, D]; gate_proj / up_proj [E, F, D]; down_proj [E, D, F], each a
 float stack or a quantized / LoRA-wrapped leaf (`ops.expert_ragged` forms).
+
+Expert parallelism (`parallel.sharding`'s expert rule: placed expert stacks
+holding E / ep experts, the router whole): every ep rank routes all tokens
+and runs its own experts only, each on that expert's rows. The sorted
+dispatch SUM-reduces its combine's partials (zero for the other ranks'
+experts) over ep in the combine's dtype: with top-2 an output has at most
+two non-zero terms, so one rounding, as in one process. The einsum
+dispatch's combine is one fp32 contraction over every expert's slots, whose
+order of terms a partial sum would change: its slot outputs are all-gathered
+over ep and the combine runs whole.
 """
 
 from __future__ import annotations
@@ -33,6 +43,8 @@ import torch.nn.functional as F
 
 from ..ops.expert_ragged import expert_ragged
 from ..ops.linear import dequantize_weight, is_grouped_int4, is_lora_wrapped, is_quantized
+from ..parallel import distributed as dist_
+from ..parallel import tensor_parallel as tp
 
 Params = Dict[str, Any]
 
@@ -144,10 +156,17 @@ def moe_ffn(lp: Params, h: torch.Tensor, *, top_k: int, capacity: int,
     combine = torch.einsum("kse,ksc->sec", de * gate_k.to(cdt)[..., None], slot_oh)
 
     xin = _einsum("sec,sd->ecd", dispatch, x)                       # [E, C, D]
-    g = _expert_einsum("ecd,efd->ecf", xin, lp["gate_proj"])
-    u = _expert_einsum("ecd,efd->ecf", xin, lp["up_proj"])
+    ep = tp.ep_range(lp["gate_proj"])
+    gw, uw, dw = (tp.ep_local(lp[k]) if ep else lp[k]
+                  for k in ("gate_proj", "up_proj", "down_proj"))
+    if ep:   # this rank's experts
+        xin = xin[ep[0]:ep[0] + ep[1]]
+    g = _expert_einsum("ecd,efd->ecf", xin, gw)
+    u = _expert_einsum("ecd,efd->ecf", xin, uw)
     act = F.silu(g.float()).to(cdt) * u
-    y_e = _expert_einsum("ecf,edf->ecd", act, lp["down_proj"])      # [E, C, D]
+    y_e = _expert_einsum("ecf,edf->ecd", act, dw)                   # [E, C, D]
+    if ep:   # every expert's slots, for the combine as one process computes it
+        y_e = dist_.all_gather(y_e, 0, ep[2])
     y = _einsum("sec,ecd->sd", combine, y_e)
     return y.reshape(B, T, D), _aux_losses(idx_k, probs, logits, valid, E, top_k)
 
@@ -178,10 +197,15 @@ def moe_ffn_sorted(lp: Params, h: torch.Tensor, *, top_k: int,
     group_sizes = _counts(e_flat, E)
 
     xs = x[tok]
-    g = expert_ragged(xs, lp["gate_proj"], group_sizes)
-    u = expert_ragged(xs, lp["up_proj"], group_sizes)
-    act = F.silu(g.float()).to(cdt) * u
-    y_s = expert_ragged(act, lp["down_proj"], group_sizes) * gates.to(cdt)[:, None]
+    ep = tp.ep_range(lp["gate_proj"])
+    if ep:
+        y_s = _local_experts(lp, xs, group_sizes, ep)
+    else:
+        g = expert_ragged(xs, lp["gate_proj"], group_sizes)
+        u = expert_ragged(xs, lp["up_proj"], group_sizes)
+        act = F.silu(g.float()).to(cdt) * u
+        y_s = expert_ragged(act, lp["down_proj"], group_sizes)
+    y_s = y_s * gates.to(cdt)[:, None]
 
     # each token's K rows in sorted order: their sorted positions, ascending
     inv = torch.empty_like(order)
@@ -190,5 +214,28 @@ def moe_ffn_sorted(lp: Params, h: torch.Tensor, *, top_k: int,
     y = y_s[pos[0]]
     for k in range(1, top_k):
         y = y + y_s[pos[k]]
+    if ep:   # the other ranks' experts' terms
+        y = dist_.all_reduce(y, "sum", ep[2])
     return y.reshape(B, T, D), _aux_losses(idx_k, probs, logits, valid, E, top_k)
 
+
+def _local_experts(lp: Params, xs: torch.Tensor, group_sizes: torch.Tensor, ep) -> torch.Tensor:
+    """The expert FFN of this ep rank's experts [e0, e0 + n) on their rows of
+    the expert-sorted xs [K·S, D], zero on every other row: the rows rotated
+    so that the rank's come first (the offset stays on the device), the three
+    grouped products over the local group sizes (rows past their sum come
+    out 0; the row count, and so the kernel route, is the whole call's), and
+    rotated back."""
+    e0, n, _ = ep
+    M = xs.shape[0]
+    start = torch.cumsum(group_sizes, 0)[e0 - 1] if e0 else 0
+    idx = (torch.arange(M, device=xs.device) + start) % M
+    gs = group_sizes[e0:e0 + n]
+    xl = xs[idx]
+    g = expert_ragged(xl, tp.ep_local(lp["gate_proj"]), gs)
+    u = expert_ragged(xl, tp.ep_local(lp["up_proj"]), gs)
+    act = F.silu(g.float()).to(xs.dtype) * u
+    yl = expert_ragged(act, tp.ep_local(lp["down_proj"]), gs)
+    y = torch.empty_like(yl)
+    y[idx] = yl
+    return y

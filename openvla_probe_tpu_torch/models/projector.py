@@ -12,7 +12,7 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from ..ops.linear import matmul_t
+from ..parallel import tensor_parallel as tp
 
 Params = Dict[str, Any]
 
@@ -21,17 +21,23 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float(), approximate="none").to(x.dtype)
 
 
+def _fc(x: torch.Tensor, fc: Params, prev: Any = None) -> torch.Tensor:
+    """x @ w.T + b; under tp (placed leaves) x may hold the local columns of
+    `prev`'s output, and the output this product's local columns."""
+    w = fc["w"]
+    return tp.matmul(tp.input_for(x, w, prev), w) + tp.col_slice(fc["b"], w)
+
+
 def forward(params: Params, arch: str, patches: torch.Tensor) -> torch.Tensor:
     """[B, N, vision_dim] -> [B, N, llm_dim]."""
-    x = matmul_t(patches, params["fc1"]["w"]) + params["fc1"]["b"]
+    x = _fc(patches, params["fc1"])
     if arch == "linear":
-        return x
+        return tp.gather_cols(x, params["fc1"]["w"])
     if arch.endswith("fused-gelu-mlp"):
-        x = _gelu(x)
-        x = matmul_t(x, params["fc2"]["w"]) + params["fc2"]["b"]
-        x = _gelu(x)
-        return matmul_t(x, params["fc3"]["w"]) + params["fc3"]["b"]
+        x = _fc(_gelu(x), params["fc2"], params["fc1"]["w"])
+        x = _fc(_gelu(x), params["fc3"], params["fc2"]["w"])
+        return tp.gather_cols(x, params["fc3"]["w"])
     if arch.endswith("gelu-mlp"):
-        x = _gelu(x)
-        return matmul_t(x, params["fc2"]["w"]) + params["fc2"]["b"]
+        return tp.gather_cols(_fc(_gelu(x), params["fc2"], params["fc1"]["w"]),
+                              params["fc2"]["w"])
     raise ValueError(f"Projector arch `{arch}` is not supported!")

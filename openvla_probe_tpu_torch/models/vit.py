@@ -33,8 +33,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_plain, vit_flash_attention
-from ..ops.linear import index_layer, is_int8_per_channel, matmul_t
 from ..ops.vit_mlp import fused_ln_w8a8, fused_mlp_residual
+from ..parallel import tensor_parallel as tp
 
 Params = Dict[str, Any]
 
@@ -158,7 +158,7 @@ def patchify(pixels: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
 def embed_patches(params: Params, cfg: ViTConfig, pixels: torch.Tensor) -> torch.Tensor:
     """Patch-embed as one matmul (not conv2d: cuDNN convolutions default to TF32)."""
     w = params["patch_embed"]["weight"]           # [D, 3*p*p]
-    out = matmul_t(patchify(pixels.to(w.dtype), cfg), w)
+    out = tp.matmul(patchify(pixels.to(w.dtype), cfg), w)
     if cfg.patch_bias:
         out = out + params["patch_embed"]["bias"]
     return out
@@ -170,13 +170,18 @@ def _block(cfg: ViTConfig, bp: Params, x: torch.Tensor, B: int, N: int) -> torch
     fc1 + fc2 leaves take `fused_mlp_residual` (the JAX package's routes under
     its kernel gates); the rest, and every leaf on the "w8a8" route, the
     unfused chain through `matmul_t`."""
-    H, Dh = cfg.num_heads, cfg.head_dim
+    bp = dict(bp)
+    Dh = cfg.head_dim
     D = x.shape[-1]
     eps = cfg.layer_norm_eps
     route = cfg.int8_matmul
 
     def fusable(*names):
-        return route == "wi8" and all(is_int8_per_channel(bp[n]) for n in names)
+        if route != "wi8" or not all(tp.int8_form(bp[n]) for n in names):
+            return False
+        # the fused kernels take no shard: a tp-placed pair is gathered whole first
+        bp.update({n: tp.whole(bp[n]) for n in names})
+        return True
 
     fused_linears = fusable("qkv_w", "proj_w")
     if fused_linears:
@@ -184,19 +189,20 @@ def _block(cfg: ViTConfig, bp: Params, x: torch.Tensor, B: int, N: int) -> torch
                             ln=(bp["norm1_scale"], bp["norm1_bias"]), eps=eps)
     else:
         h = layer_norm(x, bp["norm1_scale"], bp["norm1_bias"], eps)
-        qkv = matmul_t(h, bp["qkv_w"], route) + bp["qkv_b"]      # [B*N, 3D]
+        # [B*N, 3D], or under tp this rank's heads of each of q, k and v
+        qkv = tp.matmul(h, bp["qkv_w"], route) + tp.col_slice(bp["qkv_b"], bp["qkv_w"])
     # q/k/v stay strided views of qkv: the kernel reads them in place
-    q, k, v = (t.reshape(B, N, H, Dh) for t in qkv.split(D, dim=-1))
+    q, k, v = (t.reshape(B, N, -1, Dh) for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
     if cfg.flash_attn:
         attn = vit_flash_attention(q, k, v)
     else:   # the JAX block's XLA branch: no mask
         attn = attention_plain(q, k, v, q.new_zeros(()), cfg.attn_scores_dtype)
-    attn = attn.reshape(B * N, D)
+    attn = tp.input_for(attn.reshape(B * N, -1), bp["proj_w"], bp["qkv_w"])
     if fused_linears:
         x = fused_ln_w8a8(attn, bp["proj_w"], bp["proj_b"], res=x,
                           ls=bp["ls1"] if cfg.use_layerscale else None)
     else:
-        attn = matmul_t(attn, bp["proj_w"], route) + bp["proj_b"]
+        attn = tp.matmul(attn, bp["proj_w"], route) + bp["proj_b"]
         if cfg.use_layerscale:
             attn = attn * bp["ls1"]
         x = x + attn
@@ -206,8 +212,8 @@ def _block(cfg: ViTConfig, bp: Params, x: torch.Tensor, B: int, N: int) -> torch
                                   bp["fc1_b"], bp["fc2_w"], bp["fc2_b"], ls2, eps=eps,
                                   act=cfg.act)
     h = layer_norm(x, bp["norm2_scale"], bp["norm2_bias"], eps)
-    h = _act(matmul_t(h, bp["fc1_w"], route) + bp["fc1_b"], cfg.act)
-    h = matmul_t(h, bp["fc2_w"], route) + bp["fc2_b"]
+    h = _act(tp.matmul(h, bp["fc1_w"], route) + tp.col_slice(bp["fc1_b"], bp["fc1_w"]), cfg.act)
+    h = tp.matmul(tp.input_for(h, bp["fc2_w"], bp["fc1_w"]), bp["fc2_w"], route) + bp["fc2_b"]
     if cfg.use_layerscale:
         h = h * bp["ls2"]
     return x + h
@@ -255,7 +261,7 @@ def forward_features(
     x2 = x.reshape(B * N, D)
     remat = cfg.remat and torch.is_grad_enabled()
     for li in range(layer_index % cfg.num_layers + 1):
-        bp = index_layer(blocks, li)
+        bp = tp.index_layer(blocks, li)
         x2 = checkpoint(_block, cfg, bp, x2, B, N, use_reentrant=False) if remat else \
             _block(cfg, bp, x2, B, N)
     return x2.reshape(B, N, D)[:, cfg.num_prefix_tokens:, :]

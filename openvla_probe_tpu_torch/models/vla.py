@@ -83,6 +83,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..ops.image import ImageTransformConfig, apply_image_transform
 from ..ops.linear import MULTILORA_IMPLS, matmul_t
+from ..parallel import tensor_parallel as tp
 from ..vla.action_tokenizer import ActionCodec
 from . import llama, multilora, vlm
 
@@ -369,9 +370,10 @@ def predict_action_core(
 
     # hidden state at the last REAL token -> lm_head -> first generated token
     last_hidden = out["last_hidden_state"][torch.arange(B, device=dev), mm_len - 1]
-    last_logits = matmul_t(last_hidden, params["llm"]["lm_head"], c.llm.int8_matmul).float()
-    first_tok = last_logits.argmax(-1)
-    margins = [llama.top2_margin(last_logits, first_tok)]
+    lm_head = params["llm"]["lm_head"]
+    last_logits = tp.matmul(last_hidden, lm_head, c.llm.int8_matmul, c.llm.row_split).float()
+    first_tok, margin = tp.greedy(last_logits, lm_head)   # over the whole vocabulary
+    margins = [margin]
 
     # --- greedy decode of the remaining A-1 tokens ---------------------------------
     if frozen_kv:
@@ -391,14 +393,14 @@ def predict_action_core(
             if stacked8:
                 hidden = llama.decode_step_stacked_i8(params["llm"], c.llm, e, pos, cache,
                                                       valid.int(), slot0 + t)
-                lg = matmul_t(hidden, params["llm"]["lm_head"], c.llm.int8_matmul).float()
+                lg = tp.matmul(hidden, lm_head, c.llm.int8_matmul, c.llm.row_split).float()
             else:
                 step_out = llama.forward(params["llm"], c.llm, e, valid.int(), pos,
                                          cache=cache, cache_index=slot0 + t)
                 lg = step_out["logits"][:, -1]
-            tok = lg.argmax(-1)
+            tok, margin = tp.greedy(lg, lm_head)
             toks.append(tok)
-            margins.append(llama.top2_margin(lg, tok))
+            margins.append(margin)
         action_tokens = torch.stack(toks, dim=1).int()                 # [B, A]
 
     # --- de-tokenize + un-normalize --------------------------------------------------
@@ -411,7 +413,7 @@ def predict_action_core(
         "logit_margins": torch.stack(margins, dim=1),   # top1 - top2 per token
     }
     if return_first_logits:
-        result["first_logits"] = last_logits
+        result["first_logits"] = tp.gather_cols(last_logits, lm_head)
     if collect_hidden_states:
         result["hidden_pooled"] = out["hidden_pooled"]                 # [B, L+1, D]
     return result
@@ -577,6 +579,154 @@ def predict_action_speculative_from_image(
     return predict_action_speculative_core(
         params, cfg, pixels.to(cfg.vlm.llm.dtype), input_ids, prompt_len, draft_tokens, q01,
         q99, action_mask, collect_hidden_states, device=dev)
+
+
+# --- sharded serving (slice 6a): one process a rank ----------------------------------
+
+
+def local_serving_config(cfg: VLAServingConfig, local_params: Params, mesh) -> VLAServingConfig:
+    """A rank's serving config over its local tree: the trunk's attention on
+    this rank's heads (``tp_heads``) where tp splits q_proj by heads, and the
+    row-count route rules over the whole batch's rows (``row_split``: the
+    ranks on dp)."""
+    llm = dataclasses.replace(cfg.vlm.llm, row_split=mesh.axis_size("dp"))
+    q = local_params["llm"]["layers"].get("q_proj")
+    if q is not None and tp.tp_role(q) == "col":
+        n = q["mesh"].axis_size("tp")
+        if llm.num_attention_heads % n or llm.num_key_value_heads % n:
+            raise ValueError(f"q_proj splits over tp={n}, which does not divide "
+                             f"{llm.num_attention_heads} query / {llm.num_key_value_heads} kv "
+                             "heads")
+        llm = dataclasses.replace(llm, tp_heads=n)
+    return dataclasses.replace(cfg, vlm=dataclasses.replace(cfg.vlm, llm=llm))
+
+
+def _dp_rows(mesh, batch: int) -> slice:
+    """This rank's rows of the batch over dp (the JAX package's divisibility error)."""
+    dp = mesh.axis_size("dp")
+    if batch % dp:
+        raise ValueError(f"the batch's sharding over dp={dp} implies that the global size of its "
+                         f"dimension 0 should be divisible by {dp}, but it is equal to {batch}")
+    n = batch // dp
+    return slice(mesh.coord("dp") * n, (mesh.coord("dp") + 1) * n)
+
+
+def _batch_rows(x, rows: slice, dev):
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                           device=dev)[rows]
+
+
+def _gather_dp(out: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Every rank's rows of each output, in rank order (the whole batch)."""
+    from ..parallel import distributed
+
+    g = mesh.group("dp")
+    return {k: distributed.all_gather(v, 0, g) for k, v in out.items()}
+
+
+def make_sharded_predict(
+    params: Params,
+    cfg: VLAServingConfig,
+    mesh,                                   # parallel.mesh.Mesh with tp/fsdp/dp/ep axes
+    image_cfg: Optional[ImageTransformConfig] = None,
+    strategy: str = "tp",
+    collect_hidden_states: bool = False,
+    device: DeviceLike = "cuda",
+    return_first_logits: bool = False,
+) -> Tuple[Any, Params]:
+    """Multi-rank serving, the JAX function's signature and strategies (tp,
+    fsdp, fsdp+tp; dp and ep by mesh axis): returns (call, local_params),
+    where local_params is this rank's tree (`parallel.place_params`) and
+    call(p, image_u8, input_ids, prompt_len, q01, q99, action_mask) serves
+    one batch. Every rank of the mesh calls it for itself, with the same
+    whole batch: the rank runs its dp rows (the batch must divide by dp)
+    with its shards, and returns the whole batch's outputs, as the JAX call
+    returns global arrays. Greedy tokens equal the one-process run's
+    (`parallel.tensor_parallel` says which collective each placement takes).
+    On the card unless `device` is "cpu". `return_first_logits` (the port's
+    option, as on `predict_action_from_image`) adds the whole vocabulary's
+    first logits, gathered over tp."""
+    from ..parallel.sharding import place_params
+
+    if vlm.is_phi(cfg.vlm):
+        raise NotImplementedError("sharded serving runs the Llama trunk")
+    dev = resolve_device(device)
+    image_cfg = image_cfg or ImageTransformConfig.dinosiglip_224()
+    local = place_params(params, mesh, strategy)
+    lcfg = local_serving_config(cfg, local, mesh)
+
+    def call(p, image_u8, input_ids, prompt_len, q01, q99, action_mask):
+        rows = _dp_rows(mesh, int(np.shape(input_ids)[0]))
+        out = predict_action_from_image(
+            tp.resolve_tree(p), lcfg, _batch_rows(image_u8, rows, dev), image_cfg,
+            _batch_rows(input_ids, rows, dev), _batch_rows(prompt_len, rows, dev),
+            q01, q99, action_mask, collect_hidden_states, return_first_logits, device=dev)
+        return _gather_dp(out, mesh)
+
+    return call, local
+
+
+def _attach_placed(params: Params, bank: Any, sel: torch.Tensor) -> Params:
+    """`multilora.attach_multilora` over local trees: a target whose base or
+    factors are placed becomes one placed wrapper {"base", "A", "Bt", "sel"}
+    with the base's spec (its tp role) and the factors' specs beside it."""
+    def attach(bw, w):
+        if bw is None:
+            return w
+        A, Bt = bw["A"], bw["Bt"]
+        if not any(tp.is_placed(t) for t in (w, A, Bt)):
+            return multilora.attach_multilora(w, bw, sel)
+        ref = next(t for t in (w, A, Bt) if tp.is_placed(t))
+        locs = {k: tp.local_leaf(t) for k, t in (("base", w), ("A", A), ("Bt", Bt))}
+        lead = locs["A"].shape[:-3]
+        locs["sel"] = sel if not lead else sel.expand(*lead, *sel.shape)
+        spec = {k: t["spec"] if tp.is_placed(t) else () for k, t in (("base", w), ("A", A),
+                                                                        ("Bt", Bt))}
+        out = {"local": locs, "spec": spec, "mesh": ref["mesh"], "path": ref["path"],
+               "parts": w["parts"] if tp.is_placed(w) else 1}
+        if tp.is_placed(w) and "k_valid" in w:
+            out["k_valid"] = w["k_valid"]
+        return out
+
+    return multilora._zip(attach, bank, params)
+
+
+def make_sharded_multilora_predict(
+    params: Params,
+    lora_bank: Any,
+    cfg: VLAServingConfig,
+    mesh,
+    image_cfg: Optional[ImageTransformConfig] = None,
+    strategy: str = "tp",
+    device: DeviceLike = "cuda",
+) -> Tuple[Any, Params, Any]:
+    """Multi-rank multi-LoRA serving: the N adapter banks placed with the base
+    (the JAX rules: an out-sharded base splits Bt's O, a contraction-sharded
+    base A's I, whose rank projection is then a partial SUM-reduced in fp32
+    over tp). Returns (call, local_params, local_bank);
+    call(p, bank, sel, image_u8, input_ids, prompt_len, q01, q99, action_mask),
+    `sel` [B, N] riding dp with the batch. Each rank calls it for itself."""
+    from ..parallel.sharding import place_params
+
+    if vlm.is_phi(cfg.vlm):
+        raise NotImplementedError("sharded serving runs the Llama trunk")
+    dev = resolve_device(device)
+    image_cfg = image_cfg or ImageTransformConfig.dinosiglip_224()
+    local = place_params(params, mesh, strategy)
+    local_bank = place_params(lora_bank, mesh, strategy)
+    lcfg = local_serving_config(cfg, local, mesh)
+
+    def call(p, bank, sel, image_u8, input_ids, prompt_len, q01, q99, action_mask):
+        rows = _dp_rows(mesh, int(np.shape(input_ids)[0]))
+        adapted = _attach_placed(tp.resolve_tree(p), bank,
+                                 _batch_rows(sel, rows, dev))
+        out = predict_action_from_image(
+            adapted, lcfg, _batch_rows(image_u8, rows, dev), image_cfg,
+            _batch_rows(input_ids, rows, dev), _batch_rows(prompt_len, rows, dev),
+            q01, q99, action_mask, device=dev)
+        return _gather_dp(out, mesh)
+
+    return call, local, local_bank
 
 
 class OpenVLA:

@@ -119,6 +119,18 @@ KERNELS = {
         "w8a8_matmul.cu", "ovla_w8a8_matmul",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "w8a8_quant_given": (
+        "w8a8_matmul.cu", "ovla_w8a8_quant_given",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    ),
+    "w8a8_matmul_i32": (
+        "w8a8_matmul.cu", "ovla_w8a8_matmul_i32",
+        [_P, _P, _P, _P, _I, _I, _I, _P],
+    ),
+    "w8a8_epilogue": (
+        "w8a8_matmul.cu", "ovla_w8a8_epilogue",
+        [_P, _P, _P, _P, _I, _I, _I, _P],
+    ),
     "w4a8_requant": (
         "w8a8_matmul.cu", "ovla_w4a8_requant",
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -209,10 +221,17 @@ def reset_launch_counts() -> None:
 def stream_ptr(t) -> int:
     """PyTorch's current CUDA stream on tensor `t`'s device, as the launchers
     take it (the raw getter: ``torch.cuda.current_stream`` costs ~7 us of host
-    time per call, more than a decode-sized kernel)."""
+    time per call, more than a decode-sized kernel). The calling thread's
+    current device is made `t`'s where it is another, since a launch goes to
+    the current device: a new thread starts on device 0, whatever card its
+    tensors are on (a rank's serving thread on cuda:1, say); the thread stays
+    on that card after."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
+    dev = t.get_device()
+    if torch._C._cuda_getDevice() != dev:
+        torch._C._cuda_setDevice(dev)
+    return torch._C._cuda_getCurrentRawStream(dev)
 
 
 def _nvcc() -> str:

@@ -22,6 +22,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace ovla_hp {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -296,6 +298,27 @@ inline int sm_count() {
   return n;
 }
 
+// A kernel attribute set by cudaFuncSetAttribute holds on the current device only, so a
+// launcher that opts in once keeps the result for each device it has run on (a process may
+// launch on several cards: a rank's thread on cuda:1). Keep one as a function-local static of a
+// function with internal linkage, so that each library's copy has its own. Two threads that
+// race both make the call, which is harmless.
+constexpr int kMaxDevices = 64;
+struct PerDevice {
+  std::atomic<bool> ready[kMaxDevices] = {};
+  std::atomic<int> value[kMaxDevices] = {};
+  template <typename F>
+  int get(F&& f) {
+    int d = 0;
+    if (cudaGetDevice(&d) != cudaSuccess || d < 0 || d >= kMaxDevices) return f();
+    if (!ready[d].load(std::memory_order_acquire)) {
+      value[d].store(f(), std::memory_order_relaxed);
+      ready[d].store(true, std::memory_order_release);
+    }
+    return value[d].load(std::memory_order_relaxed);
+  }
+};
+
 // ---- tensor maps (host) ----
 // cuTensorMapEncodeTiled, looked up at run time through cudaGetDriverEntryPoint
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -321,6 +344,23 @@ inline EncodeTiled encoder() {
 inline bool encode(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
                    const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
                    CUtensorMapSwizzle swizzle) {
+#ifndef OVLA_NO_CONTEXT_BIND
+  // cuTensorMapEncodeTiled needs a current context, which the runtime binds to a thread only at
+  // its first runtime call: a thread that never made one (autograd's backward thread, a serving
+  // or rank thread) would be refused. Bind the primary context of the card that holds `base`
+  // (a fresh thread's current device is 0, whatever card the tensor is on), which also makes
+  // that card current for the launch that follows.
+  static thread_local bool bound = false;
+  cudaPointerAttributes attr;
+  int cur = -1;
+  if (cudaPointerGetAttributes(&attr, base) != cudaSuccess || attr.device < 0 ||
+      cudaGetDevice(&cur) != cudaSuccess)
+    return false;
+  if (!bound || cur != attr.device) {
+    if (cudaSetDevice(attr.device) != cudaSuccess) return false;
+    bound = true;
+  }
+#endif
   EncodeTiled fn = encoder();
   if (!fn) return false;
   cuuint64_t d[5], s[4];

@@ -88,6 +88,7 @@ static_assert(kWarps * kBM * kPitch * 4 <= kStages * stage_bytes<W::kHi>(), "par
 
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store1(int* p, int v) { *p = v; }
 
 // The epilogues, each product rounded once (the _rn intrinsics keep nvcc from contracting)
 struct EpiW8 {   // w8a8: (f32(acc) · s_x) · s; int8_wgmma.cuh's functor interface, stored direct
@@ -107,6 +108,15 @@ struct EpiW8 {   // w8a8: (f32(acc) · s_x) · s; int8_wgmma.cuh's functor inter
   __device__ __forceinline__ float operator()(int acc, int m, int n) const {
     return head(acc, row(m), col(n));
   }
+};
+struct EpiI32 {   // the exact int32 sum itself, stored direct (a row-parallel product's partial)
+  static constexpr bool kStaged = false;
+  struct Col {};
+  __device__ __forceinline__ Col col(int) const { return {}; }
+  __device__ __forceinline__ float row(int) const { return 0.f; }
+  __device__ __forceinline__ int head(int acc, float, const Col&) const { return acc; }
+  __device__ __forceinline__ int tail(int y, long long) const { return y; }
+  __device__ __forceinline__ int operator()(int acc, int, int) const { return acc; }
 };
 struct EpiHi {   // nib_hi_dot: ((f32(acc) · 16 + f32(rowsum) · 7.5) · s_x) · s
   const float* sx;
@@ -354,10 +364,13 @@ static int launch(const int8_t* xq, const uint8_t* q, const uint8_t* lo, const E
     return int(cudaErrorInvalidValue);
   if (kW != W::kNibble) tm_lo = tm_q;   // unused
   auto kernel = decode_kernel<kW, T, Epi>;
-  // the shared-memory opt-in once a kernel and process (host time: up to 1351 launches a call)
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem_bytes<kW>()));
-  if (opt_in != cudaSuccess) return int(opt_in);
+  // the shared-memory opt-in once a kernel and device (host time: up to 1351 launches a call)
+  static hp::PerDevice opt_in;
+  const int opted = opt_in.get([&] {
+    return int(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    int(smem_bytes<kW>())));
+  });
+  if (opted != cudaSuccess) return opted;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   kernel<<<grid, kThreads, smem_bytes<kW>(), stream>>>(tm_a, tm_q, tm_lo, epi, out, M, N, K, grp);
   return int(cudaGetLastError());

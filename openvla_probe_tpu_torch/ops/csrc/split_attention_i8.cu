@@ -508,10 +508,13 @@ static int launch(const Args& a, cudaStream_t stream) {
   auto kernel = split_ring_kernel<NREP>;
   const size_t smem = smem_bytes(a.T, a.A, a.cs, NREP);
   if (smem > kMaxSmem) return int(cudaErrorInvalidValue);
-  // the shared-memory opt-in once a kernel and process, at the most any launch takes
-  static const cudaError_t opt_in =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kMaxSmem));
-  if (opt_in != cudaSuccess) return int(opt_in);
+  // the shared-memory opt-in once a kernel and device, at the most any launch takes
+  static ovla_hp::PerDevice opt_in;
+  const int opted = opt_in.get([&] {
+    return int(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    int(kMaxSmem)));
+  });
+  if (opted != cudaSuccess) return opted;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.Hkv * a.cs, a.B);
   cfg.blockDim = dim3(kThreads);

@@ -366,14 +366,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// once a process: the shared-memory opt-in, then the clusters the card holds at once (the
+// once a device: the shared-memory opt-in, then the clusters the card holds at once (the
 // persistent grid's size), or minus the cudaError_t of a failed query. `static`: each library's
 // copy keeps its own state (a function-local static of a function with external linkage is one
 // object across every loaded library, GNU_UNIQUE, so another build's kernel would skip its
 // opt-in)
 template <typename T>
 static int resident_clusters() {
-  static const int n = [] {
+  static hp::PerDevice n;   // the opt-in, like the count, is the current device's
+  return n.get([] {
     auto kernel = grouped_kernel<T>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kSmem));
@@ -393,8 +394,7 @@ static int resident_clusters() {
     err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
     if (err != cudaSuccess) return -int(err);
     return count > 0 ? count : -int(cudaErrorInvalidConfiguration);
-  }();
-  return n;
+  });
 }
 
 template <typename T>

@@ -80,6 +80,48 @@ int run_requant(const int8_t* xq, const float* sx, const uint8_t* q, const ovla_
   return ovla_wg::launch_wgmma<T, d::W::kInt4, 192>(xq, q, nullptr, epi, o, M, N, K, stream, grp);
 }
 
+// The row-parallel product (tensor parallelism with the contraction split over ranks, which XLA
+// partitions _w8a8_dot into): codes from a row scale given after the ranks' MAX all-reduce, the
+// exact int32 partial of the rank's K slice (summed across ranks in int32), then the epilogue.
+
+// xq[m, k] = clip(rint(x[m, k] / sx[m]), -127, 127) for k < Kv, 0 for Kv <= k < Kp (zero codes
+// against a weight padded with zero codes: the int32 sum unchanged); PERM stores each 32-code
+// block in the packed fragments' k order (nibble planes). One thread a code.
+template <typename T, bool PERM>
+__global__ void quant_given_kernel(const T* __restrict__ x, const float* __restrict__ sx,
+                                   int8_t* __restrict__ xq, int Kv, int Kp) {
+  const int row = blockIdx.y;
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= Kp) return;
+  int c = 0;
+  if (k < Kv) c = ovla_i8::quant_code(ovla_i8::to_f32(x[(long long)row * Kv + k]), __ldg(sx + row));
+  const int o = PERM ? ovla_i8::stored_offset(k & ~3) + (k & 3) : k;
+  xq[(long long)row * Kp + o] = static_cast<int8_t>(c);
+}
+
+// out[i] = cast((f32(acc[i]) · sx[m]) · s[n]), each product rounded once: EpiW8's arithmetic
+template <typename T>
+__global__ void epilogue_kernel(const int* __restrict__ acc, const float* __restrict__ sx,
+                                const float* __restrict__ s, T* __restrict__ out, int N,
+                                long long total) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int m = int(i / N), n = int(i % N);
+  ovla_i8d::store1(out + i, __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), __ldg(sx + m)),
+                                      __ldg(s + n)));
+}
+
+int run_i32(const int8_t* xq, const uint8_t* q, const uint8_t* lo, int* acc, int M, int N, int K,
+            cudaStream_t stream) {
+  namespace d = ovla_i8d;
+  const d::EpiI32 epi{};
+  if (M <= 64)
+    return lo ? d::launch<d::W::kNibble>(xq, q, lo, epi, acc, M, N, K, stream)
+              : d::launch<d::W::kInt8>(xq, q, lo, epi, acc, M, N, K, stream);
+  return lo ? ovla_wg::launch_wgmma<int, d::W::kNibble, 192>(xq, q, lo, epi, acc, M, N, K, stream)
+            : ovla_wg::launch_wgmma<int, d::W::kInt8, 256>(xq, q, lo, epi, acc, M, N, K, stream);
+}
+
 }  // namespace ovla_w8
 
 namespace {
@@ -151,4 +193,66 @@ extern "C" int ovla_w4a8_requant(const void* x, void* xq, void* sx, const void* 
   if (is_bf16)
     return ovla_w8::run_requant<__nv_bfloat16>(codes, scales, qp, grp, out, M, N, int(K), st);
   return ovla_w8::run_requant<float>(codes, scales, qp, grp, out, M, N, int(K), st);
+}
+
+// The row-parallel product's pre-pass: codes xq int8 [M, Kp] of x [M, Kv] (bf16 when x_bf16,
+// else fp32) from the given row scales sx fp32 [M] (zero past Kv; for nibble planes, `perm`,
+// in the packed fragments' k order). Kv a multiple of 4, Kp >= Kv a multiple of 16 (of 32 with
+// perm, and then Kp = Kv); M up to 65535. Returns the launch's cudaError_t.
+extern "C" int ovla_w8a8_quant_given(const void* x, const void* sx, void* xq, int M, int Kv,
+                                     int Kp, int x_bf16, int perm, void* stream) {
+  if (M < 1 || M > 65535 || Kv < 4 || Kv % 4 != 0 || Kp < Kv || Kp % (perm ? 32 : 16) != 0 ||
+      (perm && Kp != Kv) || !x || !sx || !xq)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((Kp + 255) / 256, M);
+  const float* s = static_cast<const float*>(sx);
+  int8_t* c = static_cast<int8_t*>(xq);
+  using ovla_w8::quant_given_kernel;
+  if (x_bf16) {
+    const auto* xp = static_cast<const __nv_bfloat16*>(x);
+    if (perm) quant_given_kernel<__nv_bfloat16, true><<<grid, 256, 0, st>>>(xp, s, c, Kv, Kp);
+    else quant_given_kernel<__nv_bfloat16, false><<<grid, 256, 0, st>>>(xp, s, c, Kv, Kp);
+  } else {
+    const auto* xp = static_cast<const float*>(x);
+    if (perm) quant_given_kernel<float, true><<<grid, 256, 0, st>>>(xp, s, c, Kv, Kp);
+    else quant_given_kernel<float, false><<<grid, 256, 0, st>>>(xp, s, c, Kv, Kp);
+  }
+  return int(cudaGetLastError());
+}
+
+// The row-parallel product's GEMM: acc int32 [M, N] = xq int8 [M, K] · q[N, K]ᵀ exactly, on the
+// w8a8_matmul routes (wgmma above M = 64, the split-K decode route at and below) with the
+// epilogue left out. q: int8 codes [N, K] when lo is null, else the hi plane and lo the lo plane,
+// packed uint8 [N, K / 2] (xq then in the packed k order). xq, q and lo 16-byte aligned; K a
+// multiple of 16 (of 32 for planes), N of 8. Returns the launch's cudaError_t.
+extern "C" int ovla_w8a8_matmul_i32(const void* xq, const void* q, const void* lo, void* acc,
+                                    int M, int N, int K, void* stream) {
+  if (M < 1 || N < 8 || N % 8 != 0 || K < 16 || K % (lo ? 32 : 16) != 0 ||
+      (M + 191) / 192 > 65535 || misaligned(xq) || misaligned(q) || misaligned(lo) || !acc)
+    return int(cudaErrorInvalidValue);
+  return ovla_w8::run_i32(static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(q),
+                          static_cast<const uint8_t*>(lo), static_cast<int*>(acc), M, N, K,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The row-parallel product's epilogue after the ranks' int32 SUM: out [M, N] (bf16 when
+// out_bf16, else fp32) = cast((f32(acc) · sx[m]) · s[n]). Returns the launch's cudaError_t.
+extern "C" int ovla_w8a8_epilogue(const void* acc, const void* sx, const void* s, void* out,
+                                  int M, int N, int out_bf16, void* stream) {
+  const long long total = (long long)M * N;
+  if (M < 1 || N < 1 || !acc || !sx || !s || !out || (total + 255) / 256 > 2147483647LL)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = unsigned((total + 255) / 256);
+  const int* a = static_cast<const int*>(acc);
+  const float* sxp = static_cast<const float*>(sx);
+  const float* sp = static_cast<const float*>(s);
+  if (out_bf16)
+    ovla_w8::epilogue_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        a, sxp, sp, static_cast<__nv_bfloat16*>(out), N, total);
+  else
+    ovla_w8::epilogue_kernel<float><<<blocks, 256, 0, st>>>(a, sxp, sp, static_cast<float*>(out),
+                                                            N, total);
+  return int(cudaGetLastError());
 }

@@ -202,6 +202,13 @@ def quantize_rows(hf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.clamp(torch.round(hf / sx), -127, 127).to(torch.int8), sx
 
 
+def int8_dot_i32(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact integer accumulators codes [M, K] · q [N, K]ᵀ as int32: float64
+    products of int8 codes are exact (|acc| <= 127² · K < 2⁵³), and the sums
+    fit int32 for K < 133,000."""
+    return torch.matmul(codes.double(), q.double().t()).to(torch.int32)
+
+
 def int8_dot(codes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Exact integer accumulators codes [M, K] · q [N, K]ᵀ, as fp32 (the
     int32 -> fp32 conversion's rounding): float64 products of int8 codes are
@@ -534,6 +541,119 @@ def w8a8_matmul(x, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     return out
 
 
+# --- the row-parallel w8a8 product's three launches (parallel.tensor_parallel) --------
+#
+# With the contraction split over tp ranks, XLA partitions _w8a8_dot into the row absmax
+# (a local max, then a MAX all-reduce), the codes from that scale, the exact int32 product
+# of each rank's K slice, a SUM all-reduce in int32 and the scale epilogue. The kernels
+# below are those steps on the card (csrc/w8a8_matmul.cu), each bit-equal to its plain
+# version; the reduced sum equals one card's accumulator, so the output does too.
+
+
+def w8a8_quant_given_plain(x: torch.Tensor, sx: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """Codes clip(round(x / s_x), -127, 127) of x [M, K] from given row scales
+    sx fp32 [M, 1], zero codes appended up to `k_pad` columns."""
+    codes = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
+    return torch.nn.functional.pad(codes, (0, k_pad - x.shape[-1]))
+
+
+def w8a8_quant_given(x: torch.Tensor, sx: torch.Tensor, k_pad: int,
+                     nibble: bool = False) -> torch.Tensor:
+    """x [M, K] (bf16 or fp32) -> int8 codes [M, k_pad] from the given row
+    scales sx fp32 [M, 1] (`w8a8_quant_given_plain`, bit for bit; the columns
+    past K zero). On the card (``w8a8_quant_given``) for `nibble` weights the
+    codes of each 32-code block are stored in the packed fragments' k order,
+    the order `w8a8_matmul_i32` reads them in for a nibble leaf."""
+    _build.no_grad_guard("w8a8_quant_given", "the row-parallel product serves; train on one "
+                         "card", x)
+    M, K = x.shape
+    if x.device.type == "cpu":
+        return w8a8_quant_given_plain(x, sx, k_pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"w8a8_quant_given: unsupported device {x.device}")
+    _check_matmul_inputs("w8a8_quant_given", x, {"x": (x, (M, K), x.dtype),
+                                                 "sx": (sx, (M, 1), torch.float32)})
+    if K % 4 or k_pad < K or k_pad % (32 if nibble else 16) or (nibble and k_pad != K):
+        raise ValueError(f"w8a8_quant_given: K={K} must be a multiple of 4 and k_pad={k_pad} "
+                         f"a multiple of {32 if nibble else 16} at least K (K itself for nibble "
+                         "codes)")
+    codes = torch.empty((M, k_pad), dtype=torch.int8, device=x.device)
+    err = _build.launcher("w8a8_quant_given")(
+        x.data_ptr(), sx.data_ptr(), codes.data_ptr(), M, K, k_pad,
+        int(x.dtype == torch.bfloat16), int(nibble), _build.stream_ptr(x))
+    _build.check(err, "w8a8_quant_given")
+    _build.KERNEL_LAUNCHES["w8a8_quant_given"] += 1
+    return codes
+
+
+def w8a8_matmul_i32_plain(codes: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The exact int32 accumulators codes [M, K] · q [N, K]ᵀ of a per-channel
+    int8 or nibble leaf's codes."""
+    q = nibble_reconstruct_q8(w) if is_nibble_quant(w) else w["q"]
+    return int8_dot_i32(codes, q)
+
+
+def w8a8_matmul_i32(codes: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """int8 codes [M, K] @ the int8 codes of w [N, K]ᵀ -> the exact int32
+    accumulators [M, N] (`w8a8_matmul_i32_plain`, bit for bit): the
+    w8a8_matmul kernel's routes (wgmma above M = 64, split-K at and below)
+    with the epilogue left out (``w8a8_matmul_i32``). w is a per-channel int8
+    leaf or a nibble leaf (its codes then from `w8a8_quant_given` with
+    ``nibble=True``)."""
+    if codes.device.type == "cpu":
+        return w8a8_matmul_i32_plain(codes, w)
+    if codes.device.type != "cuda":
+        raise ValueError(f"w8a8_matmul_i32: unsupported device {codes.device}")
+    M, K = codes.shape
+    nibble = is_nibble_quant(w)
+    N = (w["hi"] if nibble else w["q"]).shape[0]
+    named = {"hi": (w["hi"], (N, K // 2), torch.uint8), "lo": (w["lo"], (N, K // 2), torch.uint8)} \
+        if nibble else {"q": (w["q"], (N, K), torch.int8)}
+    _check_tensors("w8a8_matmul_i32", codes.device,
+                   {"codes": (codes, (M, K), torch.int8), **named})
+    if K % (32 if nibble else 16) or N % 8:
+        raise ValueError(f"w8a8_matmul_i32: K={K} must be a multiple of {32 if nibble else 16} "
+                         f"and N={N} of 8")
+    acc = torch.empty((M, N), dtype=torch.int32, device=codes.device)
+    err = _build.launcher("w8a8_matmul_i32")(
+        codes.data_ptr(), (w["hi"] if nibble else w["q"]).data_ptr(),
+        w["lo"].data_ptr() if nibble else 0, acc.data_ptr(), M, N, K, _build.stream_ptr(codes))
+    _build.check(err, "w8a8_matmul_i32")
+    _build.KERNEL_LAUNCHES["w8a8_matmul_i32"] += 1
+    return acc
+
+
+def w8a8_epilogue_plain(acc: torch.Tensor, sx: torch.Tensor, s: torch.Tensor,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """``(f32(acc) · s_x) · s`` in fp32, cast to `dtype` (w8a8_matmul_plain's
+    epilogue)."""
+    return (acc.float() * sx * s[None, :]).to(dtype)
+
+
+def w8a8_epilogue(acc: torch.Tensor, sx: torch.Tensor, s: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """int32 acc [M, N], row scales sx fp32 [M, 1], channel scales s fp32 [N]
+    -> [M, N] in `dtype` (bf16 or fp32): `w8a8_epilogue_plain`, bit for bit
+    (``w8a8_epilogue``)."""
+    if acc.device.type == "cpu":
+        return w8a8_epilogue_plain(acc, sx, s, dtype)
+    if acc.device.type != "cuda":
+        raise ValueError(f"w8a8_epilogue: unsupported device {acc.device}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"w8a8_epilogue: dtype must be bf16 or fp32, got {dtype}")
+    M, N = acc.shape
+    _check_tensors("w8a8_epilogue", acc.device, {
+        "acc": (acc, (M, N), torch.int32), "sx": (sx, (M, 1), torch.float32),
+        "s": (s, (N,), torch.float32)})
+    out = torch.empty((M, N), dtype=dtype, device=acc.device)
+    err = _build.launcher("w8a8_epilogue")(
+        acc.data_ptr(), sx.data_ptr(), s.data_ptr(), out.data_ptr(), M, N,
+        int(dtype == torch.bfloat16), _build.stream_ptr(acc))
+    _build.check(err, "w8a8_epilogue")
+    _build.KERNEL_LAUNCHES["w8a8_epilogue"] += 1
+    return out
+
+
 # --- nibble planes at decode M: the hi plane alone ------------------------------------
 
 
@@ -579,10 +699,11 @@ def nib_hi_dot(x: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tens
     return out
 
 
-def nib_matmul(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+def nib_matmul(x: torch.Tensor, w: Dict[str, torch.Tensor], row_split: int = 1) -> torch.Tensor:
     """The JAX package's ``_nib_matmul``: the hi plane at M <= 32 (decode),
-    the exact int8 codes through w8a8 above (prefill), each with its STE."""
-    if x.shape[0] <= NIB_HI_M_MAX:
+    the exact int8 codes through w8a8 above (prefill), each with its STE;
+    M counts the rows of all `row_split` ranks (see `matmul_t`)."""
+    if x.shape[0] * row_split <= NIB_HI_M_MAX:
         return nib_hi_dot_ste(x, w["hi"], w["s"])
     return w8a8_matmul_ste(x, w)
 
@@ -1098,14 +1219,18 @@ def matmul_t_grouped(x: torch.Tensor, leaves: Sequence[Any], int8_matmul: str = 
     return [(y + delta3[i]).reshape(*lead, O) for i, y in enumerate(ys)]
 
 
-def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
+def matmul_t(x, w: Any, int8_matmul: str = "wi8", row_split: int = 1) -> torch.Tensor:
     """x [..., K] @ w[O, K].T -> [..., O] for a float weight tensor, a
     per-channel int8 leaf (on the route `int8_matmul` names: "wi8" or
     "w8a8"), a nibble leaf, a grouped-int4 leaf (by the route too), a mix
     leaf, a streamed-LoRA wrapper over any of them, or a multi-LoRA wrapper
     (masked over any of them, or fused over an int8 or float leaf); x may be
     a `PrequantActivation` for a leaf with an int8 copy. Quantized leaves are
-    differentiable in x through their STE."""
+    differentiable in x through their STE. The row-count rules (a mix
+    leaf's copy, a nibble leaf's plane, grouped int4 at decode) compare x's
+    rows times `row_split`: a data-parallel rank's caller passes its ranks on
+    dp, so that they see the whole batch's rows, as the JAX package's jit
+    sees global shapes."""
     if isinstance(x, PrequantActivation):
         if not (is_int8_per_channel(w) or is_mixed_quant(w)):
             raise TypeError("a PrequantActivation takes a per-channel int8 leaf or a mix leaf's "
@@ -1119,7 +1244,7 @@ def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
         # the base product, then the rank projection onto all N·r ranks, the
         # unselected columns zeroed (exactly: their terms are 0 · w), and the
         # projection back: row b computes adapter sel[b]'s LoRA
-        return matmul_t(x, w["base"], int8_matmul) + _multilora_delta(x, w)
+        return matmul_t(x, w["base"], int8_matmul, row_split) + _multilora_delta(x, w)
     if is_multilora_fused(w):
         lead, K = x.shape[:-1], x.shape[-1]
         y, u = _mlf_widened_dot(x.reshape(-1, K).contiguous(), w, int8_matmul)
@@ -1130,7 +1255,7 @@ def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
         # product issued last, the remat recompute of a layer stops before
         # down_proj's base kernel (its STE saves no activation)
         delta = torch.matmul(torch.matmul(x, w["A"].to(x.dtype).t()), w["B"].to(x.dtype).t())
-        return matmul_t(x, w["base"], int8_matmul) + delta
+        return matmul_t(x, w["base"], int8_matmul, row_split) + delta
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
     if is_int8_per_channel(w):
@@ -1139,8 +1264,8 @@ def matmul_t(x, w: Any, int8_matmul: str = "wi8") -> torch.Tensor:
         out = wi8_matmul(x2, w["q"], w["s"]) if int8_matmul == "wi8" else w8a8_matmul_ste(x2, w)
         return out.reshape(*lead, -1)
     if is_nibble_quant(w):
-        return nib_matmul(x2, w).reshape(*lead, -1)
-    decode_m = x2.shape[0] <= NIB_HI_M_MAX
+        return nib_matmul(x2, w, row_split).reshape(*lead, -1)
+    decode_m = x2.shape[0] * row_split <= NIB_HI_M_MAX
     if is_mixed_quant(w):
         # the row count picks the copy, on every route (so the verify trunk and the
         # decode steps of one call read the same grid at the same M)

@@ -81,10 +81,12 @@ def _kernel_class(name: str) -> str:
     return "elementwise / reduction / copy"
 
 
-def device_time(call, calls: int) -> dict:
+def device_time(call, calls: int, warmup: bool = True) -> dict:
     """torch.profiler device time per call by kernel name and class, beside
-    the host-clock time of the profiled calls."""
-    call()
+    the host-clock time of the profiled calls (after one unprofiled call
+    unless `warmup` is off: the caller has run it)."""
+    if warmup:
+        call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -30,6 +30,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..parallel.distributed import is_primary
+
 _CKPT_RE = re.compile(r"step-(\d+)-epoch-(\d+)-loss=(-?[0-9.]+|nan|inf|-inf)\.?$")
 STATE_FILE = "state.pt"
 PathLike = Union[str, Path]
@@ -48,15 +50,10 @@ def parse_checkpoint_name(name: str) -> Optional[Tuple[int, int, float]]:
     return int(m.group(1)), int(m.group(2)), float(m.group(3))
 
 
-def _is_primary() -> bool:
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
-
-
 def _prune_checkpoints(ckpt_dir: Path, keep_limit: int, just_written: Path) -> None:
     # process 0 only (a shared filesystem), and never the checkpoint just
     # written (a reused run_dir may hold higher steps from an earlier run)
-    if not _is_primary():
+    if not is_primary():
         return
     ckpts = sorted((p for p in ckpt_dir.iterdir() if parse_checkpoint_name(p.name)),
                    key=lambda p: parse_checkpoint_name(p.name)[0])
@@ -117,7 +114,7 @@ def save_checkpoint(run_dir: PathLike, state: Any, step: int, epoch: int = 0,
     ckpt_dir = Path(run_dir) / "checkpoints"
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = (ckpt_dir / checkpoint_name(step, epoch, loss)).absolute()
-    if _is_primary():
+    if is_primary():
         _write(path, _to_plain(state))
     if keep_limit:
         _prune_checkpoints(ckpt_dir, keep_limit, path)
@@ -150,7 +147,7 @@ class AsyncCheckpointWriter:
 
         def run():
             try:
-                if _is_primary():
+                if is_primary():
                     _write(path, plain)
                 done.set_result(path)
             except Exception as exc:   # handed to the caller by wait()
@@ -204,7 +201,7 @@ def save_run_config(run_dir: PathLike, config: Dict[str, Any]) -> Path:
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     out = run_dir / "config.json"
-    if _is_primary():   # concurrent writes to one shared file can interleave
+    if is_primary():   # concurrent writes to one shared file can interleave
         with open(out, "w") as f:
             json.dump(config, f, indent=2, default=str)
     return out

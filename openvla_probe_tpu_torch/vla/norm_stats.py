@@ -142,10 +142,10 @@ def save_dataset_statistics(
     run_dir.mkdir(parents=True, exist_ok=True)
     out_path = run_dir / "dataset_statistics.json"
     # rank-zero write (multi-process runs call this with identical global
-    # statistics on every process): the torch.distributed rank, 0 without a group
-    from ..overwatch.overwatch import process_index
+    # statistics on every process; see parallel.distributed.is_primary)
+    from ..parallel.distributed import is_primary
 
-    if process_index() == 0:
+    if is_primary():
         with open(out_path, "w") as f:
             json.dump(_to_jsonable(statistics), f, indent=2)
     return out_path

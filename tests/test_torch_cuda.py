@@ -1579,3 +1579,213 @@ def test_expert_ragged_bwd_launchers_refuse_what_they_do_not_take(cuda):
     assert dw(*q, None, out.data_ptr(), 8, 64, 60, 2, 8, st) != 0
     assert dw(*q, None, out.data_ptr(), 128, 64, 64, 2, 64, st) != 0
     assert dw(*q, wsp.data_ptr(), out.data_ptr(), 128, 64, 64, 2, 32, st) != 0
+
+
+# --- tensor maps encoded on a thread that never touched the card ---------------------------
+
+# the launches that encode a TMA tensor map before any CUDA runtime call on their thread, and
+# so were refused on a fresh thread until hopper.cuh's encode bound the device's primary
+# context itself (measured on an H100: where the wrapper's own PyTorch work on the card, a
+# transpose or a zero fill, or the launcher's pre-pass kernel, or its cudaFuncSetAttribute
+# as expert_ragged_bwd.cu's, comes first, it binds the context on the way)
+ENCODE_FIRST = ("flash_prefill", "flash_blockwise", "wi8_matmul", "w8a8_matmul",
+                "w8a8_matmul_i32")
+
+
+def _tma_calls(dev):
+    """kernel -> a call of its wrapper on a route that encodes tensor maps."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    x = rnd(128, 256).bfloat16()
+    w8 = tlin.quantize_weight(rnd(256, 256))
+    w4 = tlin.quantize_weight_int4(rnd(256, 256), 128)
+    nib = tlin.quantize_weight_nibble(rnd(256, 256))
+    codes, sx = tlin.quantize_rows(x.float())
+    pre = tlin.PrequantActivation(codes, sx, torch.bfloat16)
+    q, k, v = (rnd(1, 128, 2, 128).bfloat16() for _ in range(3))
+    valid = torch.ones(1, 128, dtype=torch.int32, device=dev)
+    ql, kl, vl = (rnd(1, 1100, 2, 128).bfloat16() for _ in range(3))
+    valid_l = torch.ones(1, 1100, dtype=torch.int32, device=dev)
+    gs = torch.tensor([40, 0, 60, 28], dtype=torch.int32, device=dev)
+    we, xe, dy = rnd(4, 64, 256).bfloat16(), x, rnd(128, 64).bfloat16()
+    return {
+        "flash_prefill": lambda: tattn.flash_attention(q, k, v, valid),
+        "flash_blockwise": lambda: tattn.flash_attention_blockwise(ql, kl, vl, valid_l),
+        "wi8_matmul": lambda: tlin.wi8_matmul(x, w8["q"], w8["s"]),
+        "w8a8_matmul": lambda: tlin.w8a8_matmul(pre, w8),
+        "w8a8_matmul_i32": lambda: tlin.w8a8_matmul_i32(codes, w8),
+        "w4a8_matmul": lambda: tlin.w4a8_matmul(x, w4["q"], w4["s"]),
+        "w4a8_dx": lambda: tlin.w4a8_dx(x, w4["q"], w4["s"]),
+        "w4a8_requant": lambda: tlin.w4a8_requant(x, w4["q"], w4["s"]),
+        "w4a8_grouped": lambda: tlin.w4a8_grouped(x[:8].contiguous(), w4["q"], w4["s"]),
+        "nib_hi_dot": lambda: tlin.nib_hi_dot(x[:8].contiguous(), nib["hi"], nib["s"]),
+        "fused_ln_w8a8": lambda: tmlp.fused_ln_w8a8(
+            x, w8, rnd(256).bfloat16(), ln=(torch.ones(256, device=dev).bfloat16(),
+                                           torch.zeros(256, device=dev).bfloat16())),
+        "expert_ragged": lambda: texr.expert_ragged(xe, we, gs),
+        "expert_ragged_dx": lambda: texr.expert_ragged_dx(dy, we, None, gs),
+        "expert_ragged_dw": lambda: texr.expert_ragged_dw(dy, xe, gs, 4),
+    }
+
+
+def _build_without_bind(out_dir: str, kernels) -> dict:
+    """The sources of `kernels` built with hopper.cuh's context bind left out
+    (-DOVLA_NO_CONTEXT_BIND): source -> library path."""
+    import subprocess
+
+    nvcc = _build._nvcc()
+    srcs = sorted({_build.KERNELS[k][0] for k in kernels})
+    procs = {}
+    for src in srcs:
+        lib = f"{out_dir}/lib{src[:-3]}.so"
+        procs[src] = (lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-DOVLA_NO_CONTEXT_BIND", "-I", str(_build.CSRC), "-o",
+             lib, str(_build.CSRC / src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    for src, (lib, p) in procs.items():
+        log = p.communicate()[0]
+        assert p.returncode == 0, log[-3000:]
+    return {src: lib for src, (lib, _) in procs.items()}
+
+
+def _launch_on_a_fresh_thread(variant: dict = None, index: int = 0) -> dict:
+    """In this process: inputs made on this thread on card `index`, then
+    every `_tma_calls` launch from a new thread; kernel -> "ok" or the error
+    (an output on another card is an error too). `variant` (source ->
+    library) replaces those libraries' launchers first."""
+    import ctypes
+    import threading
+
+    dev = torch.device("cuda", index)
+    _build.load("w8a8_matmul")
+    if variant:
+        for src, path in variant.items():
+            lib = ctypes.CDLL(path)
+            for s, sym, argtypes in _build.KERNELS.values():
+                if s == src:
+                    fn = getattr(lib, sym)
+                    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _build._loaded[src] = lib
+        _build._launchers.clear()
+    calls = _tma_calls(dev)
+    torch.cuda.synchronize()
+    res = {}
+
+    def body():
+        for name, fn in calls.items():
+            try:
+                out = fn()
+                torch.cuda.synchronize(dev)
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                on = {t.device for t in outs if isinstance(t, torch.Tensor)}
+                res[name] = "ok" if on == {dev} else f"output on {on}"
+            except RuntimeError as e:
+                res[name] = str(e)[:200]
+
+    t = threading.Thread(target=body)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive()
+    return res
+
+
+def _in_a_fresh_process(variant=None, index: int = 0) -> dict:
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return pool.submit(_launch_on_a_fresh_thread, variant, index).result(timeout=900)
+
+
+def test_tma_launchers_from_a_fresh_thread_and_process(cuda, tmp_path):
+    """Every TMA launcher launches from a thread that never touched the card,
+    in this process and in a freshly spawned one (hopper.cuh's encode binds
+    the device's primary context first); built without that bind, the
+    launchers that encode before any runtime call of their own
+    (ENCODE_FIRST) are refused there, the others not."""
+    calls = set(_tma_calls(cuda))
+    for res in (_launch_on_a_fresh_thread(), _in_a_fresh_process()):
+        assert set(res) == calls, res
+        assert all(r == "ok" for r in res.values()), {k: r for k, r in res.items() if r != "ok"}
+    res = _in_a_fresh_process(_build_without_bind(str(tmp_path), calls))
+    refused = {k for k, r in res.items() if r != "ok"}
+    assert refused == set(ENCODE_FIRST), res
+
+
+def test_tma_launchers_from_a_fresh_thread_on_a_second_card(cuda):
+    """Every TMA launcher launches from a fresh thread whose tensors are on
+    cuda:1, in this process and in a freshly spawned one: a new thread's
+    current device is 0, so encode binds the primary context of the card
+    that holds the tensor, and `_build.stream_ptr` makes that card current
+    for the launch (run where the machine has two cards or more)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    calls = set(_tma_calls(cuda))
+    for res in (_launch_on_a_fresh_thread(index=1), _in_a_fresh_process(index=1)):
+        assert set(res) == calls, res
+        assert all(r == "ok" for r in res.values()), {k: r for k, r in res.items() if r != "ok"}
+
+
+# --- the row-parallel w8a8 product (slice 6a) ------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N,k_pad,nibble,dtype", [
+    (24, 2048, 4096, 2048, False, torch.bfloat16),     # o_proj at tp = 2, decode
+    (65, 5504, 512, 5504, False, torch.bfloat16),      # down_proj's K, the wgmma route's edge
+    (64, 512, 1024, 512, False, torch.bfloat16),       # the split-K route's edge
+    (300, 2152, 1152, 2160, False, torch.bfloat16),    # SigLIP fc2 at tp = 2, padded
+    (7, 2152, 64, 2160, False, torch.float32),
+    (200, 1024, 256, 1024, True, torch.bfloat16),      # nibble planes, packed k order
+    (9, 1024, 256, 1024, True, torch.bfloat16)])
+def test_row_parallel_w8a8_kernels_bit_equal(cuda, M, K, N, k_pad, nibble, dtype):
+    """w8a8_quant_given, w8a8_matmul_i32 and w8a8_epilogue each bit-equal to
+    their plain versions (a nibble leaf's codes compared through its int32
+    sums: the card stores them in the packed k order), the three composed
+    equal to w8a8_matmul_plain over the unpadded weight, one launch each."""
+    x = (_rand(400 + M, (M, K), torch.float32, cuda) * 3).to(dtype)
+    w = tlin.quantize_weight(_rand(401 + M, (N, K), torch.float32, cuda))
+    leaf = tlin.quantize_weight_nibble(tlin.dequantize_weight(w, torch.float32)) if nibble else {
+        "q": torch.nn.functional.pad(w["q"], (0, k_pad - K)), "s": w["s"]}
+    sx = torch.clamp(tlin.div127(x.abs().amax(-1, keepdim=True).float()), min=1e-8)
+    before = dict(_build.KERNEL_LAUNCHES)
+    codes = tlin.w8a8_quant_given(x, sx, k_pad, nibble=nibble)
+    acc = tlin.w8a8_matmul_i32(codes, leaf)
+    out = tlin.w8a8_epilogue(acc, sx, leaf["s"], dtype)
+    torch.cuda.synchronize()
+    for name in ("w8a8_quant_given", "w8a8_matmul_i32", "w8a8_epilogue"):
+        assert _build.KERNEL_LAUNCHES[name] == before[name] + 1, name
+    want_codes = tlin.w8a8_quant_given_plain(x, sx, k_pad)
+    if not nibble:
+        assert torch.equal(codes, want_codes)
+    assert torch.equal(acc, tlin.w8a8_matmul_i32_plain(want_codes, leaf))
+    assert torch.equal(out, tlin.w8a8_epilogue_plain(acc, sx, leaf["s"], dtype))
+    whole = leaf if nibble else {"q": leaf["q"][:, :K].contiguous(), "s": leaf["s"]}
+    assert torch.equal(out, tlin.w8a8_matmul_plain(x, whole))
+
+
+def test_row_parallel_w8a8_launchers_refuse_what_they_do_not_take(cuda):
+    """The pre-pass refuses K off 4, a pad below K or off 16 (32 and equal to
+    K for nibble codes); the GEMM K off 16 and N off 8; the wrappers raise
+    before any launch."""
+    x = torch.ones(4, 48, dtype=torch.bfloat16, device=cuda)
+    sx = torch.ones(4, 1, device=cuda)
+    for k_pad, nibble in ((40, False), (50, False), (64, True)):
+        with pytest.raises(ValueError, match="k_pad"):
+            tlin.w8a8_quant_given(x, sx, k_pad, nibble=nibble)
+    codes = torch.zeros(4, 40, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        tlin.w8a8_matmul_i32(codes, {"q": torch.zeros(8, 40, dtype=torch.int8, device=cuda),
+                                     "s": torch.ones(8, device=cuda)})
+    pre = _build.launcher("w8a8_quant_given")
+    st = _build.stream_ptr(x)
+    out = torch.empty(4, 48, dtype=torch.int8, device=cuda)
+    assert pre(x.data_ptr(), sx.data_ptr(), out.data_ptr(), 4, 46, 48, 1, 0, st) != 0
+    gemm = _build.launcher("w8a8_matmul_i32")
+    acc = torch.empty(4, 12, dtype=torch.int32, device=cuda)
+    q = torch.zeros(12, 48, dtype=torch.int8, device=cuda)
+    codes = torch.zeros(4, 48, dtype=torch.int8, device=cuda)
+    assert gemm(codes.data_ptr(), q.data_ptr(), None, acc.data_ptr(), 4, 12, 48, st) != 0

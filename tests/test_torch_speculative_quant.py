@@ -58,9 +58,9 @@ class _JaxNibbleSpy:
             hi_calls.append(1)
             return real_hi(*a, **kw)
 
-        def nib(x2, w):
+        def nib(x2, w, *a):
             n = len(hi_calls)
-            out = real_matmul(x2, w)
+            out = real_matmul(x2, w, *a)
             self.seen.add((int(x2.shape[0]), "hi" if len(hi_calls) > n else "exact"))
             return out
 
@@ -80,9 +80,9 @@ class _PortNibbleSpy:
             hi_calls.append(1)
             return real_hi(*a, **kw)
 
-        def nib(x2, w):
+        def nib(x2, w, *a):
             n = len(hi_calls)
-            out = real_matmul(x2, w)
+            out = real_matmul(x2, w, *a)
             self.seen.add((int(x2.shape[0]), "hi" if len(hi_calls) > n else "exact"))
             return out
 
