@@ -136,8 +136,8 @@ multi-card figure):
                 vla.make_sharded_predict: turbo's int8 weights drawn on the
                 card from the turbo path's seed in each rank, B = 24, P = 32,
                 A = 7; each rank's exact launches at the shard shapes
-                (row-parallel products on w8a8_quant_given, w8a8_matmul_i32
-                and w8a8_epilogue), no torch._int_mm call; the sharded
+                (row-parallel products on w8a8_row_absmax, w8a8_quant_given,
+                w8a8_matmul_i32 and w8a8_epilogue), no torch._int_mm call; the sharded
                 projector's output swapped for one process's projected
                 patches (its float products sum fp32 partials across ranks:
                 the distance printed), so that the towers' features, the
@@ -214,12 +214,14 @@ Phases, one output line each:
               sizes, lm_head over three row blocks; the persistent grid's
               clusters); vit_attention also at DINOv2's 518 px, N = 1370,
               and at ragged N, bf16 (tensor cores) and fp32 (scalar route);
-              the row-parallel product's three launches (w8a8_quant_given,
-              w8a8_matmul_i32, w8a8_epilogue; tp2_turbo) bit for bit at the
-              tp = 2 shapes (o_proj K = 2048 and down_proj K = 5504 at M =
-              6912 and 24, the towers' proj and fc2, SigLIP's fc2 K = 2152
-              padded to 2160), with torch._int_mm's time and each wrapper's
-              host time;
+              the row-parallel product's four launches (w8a8_row_absmax,
+              w8a8_quant_given, w8a8_matmul_i32, w8a8_epilogue; tp2_turbo)
+              bit for bit at the tp = 2 shapes (o_proj K = 2048 and
+              down_proj K = 5504 at M = 6912 and 24, the towers' proj and
+              fc2, SigLIP's fc2 K = 2152 padded to 2160), with the library
+              calls' times (torch.linalg.vector_norm, torch._int_mm; for the
+              codes torch.quantize_per_channel where it gives the same
+              codes) and each wrapper's host time;
               the scalar routes (the decode attentions' at fp32 and Dh = 72,
               vit_attention's, flash_prefill's and wi8_matmul's in fp32,
               split_attention_i8's in fp32 and at Dh = 64, n_rep 3),
@@ -2004,8 +2006,8 @@ PORTED_ON = {"flash_prefill": "parity", "flash_blockwise": "score_long",
              "expert_ragged_dx": "moe_train", "expert_ragged_dw": "moe_train",
              "expert_ragged_dx_scalar": "tiny_moe_train_float32",
              "expert_ragged_dw_scalar": "tiny_moe_train_float32",
-             "w8a8_quant_given": "tp2_turbo", "w8a8_matmul_i32": "tp2_turbo",
-             "w8a8_epilogue": "tp2_turbo"}
+             "w8a8_row_absmax": "tp2_turbo", "w8a8_quant_given": "tp2_turbo",
+             "w8a8_matmul_i32": "tp2_turbo", "w8a8_epilogue": "tp2_turbo"}
 # kernels whose only launches come from a tiny path (the scalar routes of fp32)
 TINY_PORTED = ("expert_ragged_scalar", "expert_ragged_dx_scalar", "expert_ragged_dw_scalar")
 
@@ -4558,42 +4560,47 @@ RANK_TIMEOUT_S = 300
 EP = 2
 EP_LAYERS = 4            # ep2_moe_turbo's depth, cut to fit the time cap (each rank draws the
                          # whole trunk to slice it, beside the one-process reference)
-ROW_PARALLEL_LAUNCHES = ("w8a8_quant_given", "w8a8_matmul_i32", "w8a8_epilogue")
+ROW_PARALLEL_LAUNCHES = ("w8a8_row_absmax", "w8a8_quant_given", "w8a8_matmul_i32",
+                         "w8a8_epilogue")
 
 
 def _row_parallel_shapes() -> dict:
-    """(M, K_local, N) -> launches in one tp2_turbo rank's call: the row-parallel
-    products at tp = 2 (o_proj K 2048 and down_proj K 5504 at prefill and each
-    decode step; each tower block's proj_w and fc2_w, SigLIP's fc2 K = 2152,
-    padded to 2160)."""
-    M_pre, M_dec, A1 = BATCH * T_PREFILL, BATCH, ACTION_DIM - 1
-    M_dino, M_sig = BATCH * 261, BATCH * 256
-    return {(M_pre, 2048, 4096): LAYERS, (M_pre, 5504, 4096): LAYERS,
-            (M_dec, 2048, 4096): LAYERS * A1, (M_dec, 5504, 4096): LAYERS * A1,
-            (M_dino, 512, 1024): 23, (M_dino, 2048, 1024): 23,
-            (M_sig, 576, 1152): 26, (M_sig, 2152, 1152): 26}
+    """(M, K_local, N) -> launches in one tp2_turbo rank's call
+    (`kernel_ab.row_parallel_shapes`: o_proj K 2048 and down_proj K 5504 at
+    prefill and each decode step; each tower block's proj_w and fc2_w,
+    SigLIP's fc2 K = 2152, padded to 2160)."""
+    return kernel_ab.row_parallel_shapes()
 
 
 def check_row_parallel(dev, g):
-    """The row-parallel w8a8 product's three launches at the tp = 2 shapes
-    (`_row_parallel_shapes`), each bit-equal to its plain version: the codes
-    from a given row scale (the MAX all-reduce's; zero codes in SigLIP fc2's
-    padded columns), the int32 GEMM (wgmma above M = 64, split-K at M = 24)
-    and the epilogue; the three composed equal `w8a8_matmul_plain` over the
-    unpadded weight. Library: torch._int_mm on the same codes for the GEMM,
-    none for the pre-pass and the epilogue. Each with its host µs a call."""
+    """The row-parallel w8a8 product's four launches at the tp = 2 shapes
+    (`_row_parallel_shapes`), each bit-equal to its plain version: the local
+    row absmax, the codes from a given row scale (the MAX all-reduce's; zero
+    codes in SigLIP fc2's padded columns), the int32 GEMM (wgmma above M =
+    64, split-K at M = 24) and the epilogue; the four composed equal
+    `w8a8_matmul_plain` over the unpadded weight. Library: one
+    torch.linalg.vector_norm (ord inf, fp32) for the absmax, torch._int_mm
+    on the same codes for the GEMM, none for the epilogue; for the codes
+    torch.quantize_per_channel on the same row scales (fp32 x made
+    beforehand) where its codes equal the kernel's at every shape, else none
+    and the count of codes apart (`library_codes_apart`). Each with its host
+    µs a call."""
     per_call = _row_parallel_shapes()
     rows = {name: {} for name in ROW_PARALLEL_LAUNCHES}
     host = {name: {} for name in ROW_PARALLEL_LAUNCHES}
+    qpc = {}
     for (M, K, N) in per_call:
         kp = -(-K // 16) * 16
         key = f"{M}x{K}x{N}"
         x = torch.randn((M, K), generator=g, device=dev).bfloat16()
-        sx = torch.clamp(lin.div127(x.abs().amax(-1, keepdim=True).float()), min=1e-8)
         sets = []
         for _ in range(copies_past_l2(N * kp)):
             w = lin.quantize_weight(torch.randn((N, K), generator=g, device=dev) * 0.02)
             sets.append({"q": F.pad(w["q"], (0, kp - K)), "s": w["s"]})
+        amax = lin.w8a8_row_absmax(x)
+        torch.cuda.synchronize()
+        assert torch.equal(amax, lin.w8a8_row_absmax_plain(x)), (key, "absmax")
+        sx = torch.clamp(lin.div127(amax), min=1e-8)
         codes = lin.w8a8_quant_given(x, sx, kp)
         torch.cuda.synchronize()
         assert torch.equal(codes, lin.w8a8_quant_given_plain(x, sx, kp)), (key, "codes")
@@ -4605,11 +4612,32 @@ def check_row_parallel(dev, g):
         assert torch.equal(out, lin.w8a8_epilogue_plain(acc, sx, sets[0]["s"], x.dtype)), key
         whole = {"q": sets[0]["q"][:, :K].contiguous(), "s": sets[0]["s"]}
         assert torch.equal(out, lin.w8a8_matmul_plain(x, whole)), (key, "composed")
+        norm = torch.linalg.vector_norm(x, float("inf"), dim=-1, keepdim=True,
+                                        dtype=torch.float32)
+        assert torch.equal(norm, amax), (key, "vector_norm")
+        b, by = bound_ms(_nbytes(x, amax), 0, "int8")
+        rows["w8a8_row_absmax"][key] = dict(
+            max_abs_err=0.0, ms=cuda_ms(lambda: lin.w8a8_row_absmax(x)),
+            plain_ms=cuda_ms(lambda: lin.w8a8_row_absmax_plain(x)),
+            library_ms=cuda_ms(lambda: torch.linalg.vector_norm(
+                x, float("inf"), dim=-1, keepdim=True, dtype=torch.float32)),
+            bound_ms=b, bound_by=by)
+        # the codes' library call: fp32 x, fp64 row scales, zero points, made beforehand
+        xf, qargs = x.float(), (sx[:, 0].double(), torch.zeros(M, dtype=torch.long, device=dev))
+        qpc_call = lambda: torch.quantize_per_channel(xf, *qargs, 0, torch.qint8)
+        try:
+            q, why = qpc_call(), None
+        except (RuntimeError, NotImplementedError) as e:   # a yardstick's refusal, recorded
+            q, why = None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        qpc[key] = dict(apart=None if q is None else int((q.int_repr() != codes[:, :K]).sum()))
         b, by = bound_ms(_nbytes(x, sx, codes), 0, "int8")
         rows["w8a8_quant_given"][key] = dict(
             max_abs_err=0.0, ms=cuda_ms(lambda: lin.w8a8_quant_given(x, sx, kp)),
             plain_ms=cuda_ms(lambda: lin.w8a8_quant_given_plain(x, sx, kp), reps=5, warmup=1),
-            library_ms=None, bound_ms=b, bound_by=by, k_pad=kp)
+            library_ms=None if q is None else cuda_ms(qpc_call),
+            library_codes_apart=qpc[key]["apart"], library_refused=why,
+            bound_ms=b, bound_by=by, k_pad=kp)
+        del q, xf
         b, by = bound_ms(_nbytes(codes, sets[0]["q"], acc), 2 * M * N * kp, "int8")
         rows["w8a8_matmul_i32"][key] = dict(
             max_abs_err=0.0, ms=cuda_ms(rotating(lambda w: lin.w8a8_matmul_i32(codes, w),
@@ -4625,22 +4653,27 @@ def check_row_parallel(dev, g):
             plain_ms=cuda_ms(lambda: lin.w8a8_epilogue_plain(acc, sx, sets[0]["s"], x.dtype),
                              reps=5, warmup=1),
             library_ms=None, bound_ms=b, bound_by=by)
+        host["w8a8_row_absmax"][key] = host_us(lambda: lin.w8a8_row_absmax(x))
         host["w8a8_quant_given"][key] = host_us(lambda: lin.w8a8_quant_given(x, sx, kp))
         host["w8a8_matmul_i32"][key] = host_us(lambda: lin.w8a8_matmul_i32(codes, sets[0]))
         host["w8a8_epilogue"][key] = host_us(
             lambda: lin.w8a8_epilogue(acc, sx, sets[0]["s"], x.dtype))
         del sets, codes, acc, out
     weights = {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()}
+    # the codes' library call counts only where its codes are the kernel's at every shape
+    library_codes = all(r["apart"] == 0 for r in qpc.values())
     out = []
     for name in ROW_PARALLEL_LAUNCHES:
         mix = _launch_weighted({k: {**r, "library_ms": r["library_ms"] or 0.0}
                                 for k, r in rows[name].items()}, weights)
-        if name != "w8a8_matmul_i32":
+        if name == "w8a8_epilogue" or (name == "w8a8_quant_given" and not library_codes):
             mix["library_ms"] = None
         out.append(dict(name=name, route="cuda",
                         source="openvla_probe_tpu_torch/ops/csrc/w8a8_matmul.cu",
-                        replaces="openvla_probe_tpu/ops/linear.py:413", by_shape=rows[name],
-                        host_us=host[name], **mix))
+                        replaces=("openvla_probe_tpu/ops/linear.py:406"
+                                  if name == "w8a8_row_absmax"
+                                  else "openvla_probe_tpu/ops/linear.py:413"),
+                        by_shape=rows[name], host_us=host[name], **mix))
     return out
 
 
@@ -4659,7 +4692,7 @@ def _expected_tp_launches(cfg: vla.VLAServingConfig, local) -> dict:
     """One tp rank's exact launches a turbo call: the one-process table with
     every row-parallel product (o_proj and down_proj at prefill and each
     decode step, each tower block's proj_w and fc2_w) moved from w8a8_matmul
-    and its pre-pass to the row-parallel product's three launches."""
+    and its pre-pass to the row-parallel product's four launches."""
     expect = _expected_launches("turbo", cfg)
     c = cfg.vlm
     L, A1 = c.llm.num_hidden_layers, cfg.action_dim - 1

@@ -119,6 +119,10 @@ KERNELS = {
         "w8a8_matmul.cu", "ovla_w8a8_matmul",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "w8a8_row_absmax": (
+        "w8a8_matmul.cu", "ovla_w8a8_row_absmax",
+        [_P, _P, _I, _I, _I, _P],
+    ),
     "w8a8_quant_given": (
         "w8a8_matmul.cu", "ovla_w8a8_quant_given",
         [_P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -541,13 +541,40 @@ def w8a8_matmul(x, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     return out
 
 
-# --- the row-parallel w8a8 product's three launches (parallel.tensor_parallel) --------
+# --- the row-parallel w8a8 product's four launches (parallel.tensor_parallel) ---------
 #
 # With the contraction split over tp ranks, XLA partitions _w8a8_dot into the row absmax
 # (a local max, then a MAX all-reduce), the codes from that scale, the exact int32 product
 # of each rank's K slice, a SUM all-reduce in int32 and the scale epilogue. The kernels
 # below are those steps on the card (csrc/w8a8_matmul.cu), each bit-equal to its plain
 # version; the reduced sum equals one card's accumulator, so the output does too.
+
+
+def w8a8_row_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """max |x| over each row of x [M, K], fp32 [M, 1]."""
+    return x.abs().amax(dim=-1, keepdim=True).float()
+
+
+def w8a8_row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (bf16 or fp32) -> fp32 [M, 1], the max of |x| over each row
+    (`w8a8_row_absmax_plain`, bit for bit; a max is exact): on the card one
+    launch that reads x once (``w8a8_row_absmax``), K a multiple of 4."""
+    _build.no_grad_guard("w8a8_row_absmax", "the row-parallel product serves; train on one "
+                         "card", x)
+    if x.device.type == "cpu":
+        return w8a8_row_absmax_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"w8a8_row_absmax: unsupported device {x.device}")
+    M, K = x.shape
+    _check_matmul_inputs("w8a8_row_absmax", x, {"x": (x, (M, K), x.dtype)})
+    if K % 4:
+        raise ValueError(f"w8a8_row_absmax: K={K} must be a multiple of 4")
+    amax = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    err = _build.launcher("w8a8_row_absmax")(
+        x.data_ptr(), amax.data_ptr(), M, K, int(x.dtype == torch.bfloat16), _build.stream_ptr(x))
+    _build.check(err, "w8a8_row_absmax")
+    _build.KERNEL_LAUNCHES["w8a8_row_absmax"] += 1
+    return amax
 
 
 def w8a8_quant_given_plain(x: torch.Tensor, sx: torch.Tensor, k_pad: int) -> torch.Tensor:

@@ -20,9 +20,10 @@ What each role costs:
   reduce fp32 partials and cast after. Per-channel int8 codes on the w8a8
   route (and a nibble leaf's codes at prefill M, a mix leaf's int8 copy) do
   what XLA does with ``_w8a8_dot``: the row absmax over the whole K (local
-  max, MAX all-reduce), codes from that scale (`linear.w8a8_quant_given`),
-  int32 partials (`linear.w8a8_matmul_i32`) summed in int32, then the
-  epilogue (`linear.w8a8_epilogue`): bit-equal to one card. Every other
+  max `linear.w8a8_row_absmax`, MAX all-reduce), codes from that scale
+  (`linear.w8a8_quant_given`), int32 partials (`linear.w8a8_matmul_i32`)
+  summed in int32, then the epilogue (`linear.w8a8_epilogue`): bit-equal to
+  one card. Every other
   quantized route (wi8, grouped int4, a mix leaf's int4 copy, the nibble hi
   plane) computes its activation scale inside its kernel, so its leaf's K
   shards and the input are all-gathered and the whole product runs on each
@@ -387,7 +388,7 @@ def _row_exact(x2: torch.Tensor, local: dict, w: dict) -> torch.Tensor:
     """The exact row-parallel w8a8 product of x2 [M, k] (the rank's columns)
     and per-channel int8 or nibble codes: XLA's partition of ``_w8a8_dot``."""
     _, _, g = tp_coord(w)
-    amax = x2.abs().amax(dim=-1, keepdim=True).float()
+    amax = lin.w8a8_row_absmax(x2)
     D.all_reduce(amax, "max", g)
     sx = torch.clamp(lin.div127(amax), min=1e-8)
     k_pad = local["q"].shape[-1] if "q" in local else 2 * local["hi"].shape[-1]

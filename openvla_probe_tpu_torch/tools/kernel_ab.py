@@ -5,7 +5,7 @@
                    decode_split_attention,decode_attention,w8a8_matmul,nib_hi_dot,
                    fused_ln_w8a8,fused_mlp_residual,w4a8_requant,rms_norm_quant,
                    stacked_decode_attention_i8,split_attention_i8,w4a8_grouped,
-                   expert_ragged,expert_ragged_dx,expert_ragged_dw]
+                   expert_ragged,expert_ragged_dx,expert_ragged_dw,row_parallel]
         [--shapes MxKxN,...] [--out DIR]
 
 Builds the port's kernels (``ops/_build.py``, tagged ``change``) and every
@@ -45,7 +45,11 @@ called with its own signature, and at the int8 prefill each build's count of
 outputs off an fp64 reference's rounding, ``expert_ragged.misrounded``;
 ``expert_ragged_dx`` and ``expert_ragged_dw`` at moe_train's backward shapes,
 by ``compare_expert_ragged``, dx's fp64 count at the int8 base, dW also bit
-for bit against the first build), then the device
+for bit against the first build; ``row_parallel``: the row-parallel product's
+``w8a8_quant_given`` and ``w8a8_epilogue`` at the eight tp = 2 shapes of a
+tp2_turbo rank's call (`row_parallel_shapes`), bit for bit against the plain
+versions and across the builds, and ``w8a8_row_absmax`` of the builds that
+have it timed in turns with the PyTorch expression it replaced), then the device
 time of one
 launch (median of 25, each queued behind a spin kernel, inputs rotated past
 the L2) in turns: every build, then every build in reverse order, so that a
@@ -65,8 +69,8 @@ the two fused tower kernels, the pallas_int4 and train_int4 mixes of
 of ``stacked_decode_attention_i8`` (its six decode steps), the turbo_kv8 mix
 of ``split_attention_i8``, the turbo_int4 / turbo_mix mix of
 ``w4a8_grouped``, the moe_turbo and moe_parity mixes of ``expert_ragged``
-with its two routes apart, and a moe_train step's mix of its backward, as
-``chip_smoke.py`` weighs them).
+with its two routes apart, a moe_train step's mix of its backward, and the
+tp2_turbo mixes of the row-parallel steps, as ``chip_smoke.py`` weighs them).
 """
 
 from __future__ import annotations
@@ -1396,6 +1400,119 @@ def ab_expert_ragged_dw(fns, g, dev, shapes=None):
         _mix("expert_ragged_dw", step, fns)
 
 
+def row_parallel_shapes() -> dict:
+    """(M, K_local, N) -> launches in one tp2_turbo rank's call: the row-parallel
+    products at tp = 2 (o_proj K 2048 and down_proj K 5504 at prefill and each
+    decode step; each tower block's proj_w and fc2_w, SigLIP's fc2 K = 2152,
+    padded to 2160)."""
+    M_pre, M_dino, M_sig = BATCH * T_PREFILL, BATCH * 261, BATCH * 256
+    return {(M_pre, 2048, 4096): LAYERS, (M_pre, 5504, 4096): LAYERS,
+            (BATCH, 2048, 4096): LAYERS * A1, (BATCH, 5504, 4096): LAYERS * A1,
+            (M_dino, 512, 1024): 23, (M_dino, 2048, 1024): 23,
+            (M_sig, 576, 1152): 26, (M_sig, 2152, 1152): 26}
+
+
+ROW_PARALLEL_STEPS = ("w8a8_row_absmax", "w8a8_quant_given", "w8a8_epilogue")
+
+
+def row_parallel_launchers(libs: dict) -> dict:
+    """tag -> {step: C launcher} of the row-parallel steps each build exports."""
+    out = {}
+    for step in ROW_PARALLEL_STEPS:
+        for tag, fn in launchers(libs, step).items():
+            out.setdefault(tag, {})[step] = fn
+    return out
+
+
+def call_row_absmax(fn, x):
+    amax = torch.empty((x.shape[0], 1), dtype=torch.float32, device=x.device)
+    _build.check(fn(x.data_ptr(), amax.data_ptr(), x.shape[0], x.shape[1],
+                    int(x.dtype == torch.bfloat16), _build.stream_ptr(x)), "w8a8_row_absmax")
+    return amax
+
+
+def call_quant_given(fn, x, sx, k_pad):
+    M, K = x.shape
+    codes = torch.empty((M, k_pad), dtype=torch.int8, device=x.device)
+    _build.check(fn(x.data_ptr(), sx.data_ptr(), codes.data_ptr(), M, K, k_pad,
+                    int(x.dtype == torch.bfloat16), 0, _build.stream_ptr(x)), "w8a8_quant_given")
+    return codes
+
+
+def call_epilogue(fn, acc, sx, s, dtype):
+    M, N = acc.shape
+    out = torch.empty((M, N), dtype=dtype, device=acc.device)
+    _build.check(fn(acc.data_ptr(), sx.data_ptr(), s.data_ptr(), out.data_ptr(), M, N,
+                    int(dtype == torch.bfloat16), _build.stream_ptr(acc)), "w8a8_epilogue")
+    return out
+
+
+def ab_row_parallel(fns, g, dev, shapes=None):
+    """The row-parallel product's pre-pass (``w8a8_quant_given``) and epilogue
+    (``w8a8_epilogue``) at the tp = 2 shapes (`row_parallel_shapes`, bf16 x,
+    row scales from the plain absmax, zero codes past SigLIP fc2's 2152), each
+    build held bit for bit to the plain versions and to the first build,
+    timed in turns on inputs rotated past the L2; the local absmax
+    (``w8a8_row_absmax``, in the builds that export it) in turns with the
+    PyTorch expression it replaced (``w8a8_row_absmax_plain``: abs, amax,
+    float). Then the launch-weighted tp2_turbo mix of each step."""
+    rows = {step: [] for step in ROW_PARALLEL_STEPS}
+    for (M, K, N), per_call in row_parallel_shapes().items():
+        key = f"{M}x{K}x{N}"
+        if shapes and key not in shapes:
+            continue
+        kp = -(-K // 16) * 16
+        xs = [torch.randn((M, K), generator=g, device=dev).bfloat16()
+              for _ in range(_copies(M * (2 * K + kp)))]
+        sxs = [torch.clamp(lin.div127(lin.w8a8_row_absmax_plain(x)), min=1e-8) for x in xs]
+        absmax = {tag: f["w8a8_row_absmax"] for tag, f in fns.items() if "w8a8_row_absmax" in f}
+        row = dict(kernel="w8a8_row_absmax", shape=key, launches_per_call=per_call,
+                   equal={tag: bool(torch.equal(call_row_absmax(fn, xs[0]),
+                                                lin.w8a8_row_absmax_plain(xs[0])))
+                          for tag, fn in absmax.items()})
+        turns = {"torch_expression": None, **absmax}
+        row["ms"] = _turns(turns, lambda fn: rotating(
+            (lambda x: call_row_absmax(fn, x)) if fn else lin.w8a8_row_absmax_plain,
+            [(x,) for x in xs]))
+        rows["w8a8_row_absmax"].append(row)
+        print(json.dumps(row), flush=True)
+        pre = {tag: f["w8a8_quant_given"] for tag, f in fns.items()}
+        want = lin.w8a8_quant_given_plain(xs[0], sxs[0], kp)
+        got = {tag: call_quant_given(fn, xs[0], sxs[0], kp) for tag, fn in pre.items()}
+        first = next(iter(got.values()))
+        row = dict(kernel="w8a8_quant_given", shape=key, launches_per_call=per_call,
+                   equal={tag: bool(torch.equal(c, want)) for tag, c in got.items()},
+                   equal_to_first={tag: bool(torch.equal(c, first)) for tag, c in got.items()},
+                   ms=_turns(pre, lambda fn: rotating(
+                       lambda x, sx: call_quant_given(fn, x, sx, kp), list(zip(xs, sxs)))))
+        rows["w8a8_quant_given"].append(row)
+        print(json.dumps(row), flush=True)
+        del xs, got, want, first
+        epi = {tag: f["w8a8_epilogue"] for tag, f in fns.items()}
+        sets = [(torch.randint(-2 ** 20, 2 ** 20, (M, N), generator=g, device=dev,
+                               dtype=torch.int32), sxs[i % len(sxs)][:M],
+                 torch.rand((N,), generator=g, device=dev) * 1e-3)
+                for i in range(_copies(M * N * 6))]
+        want = lin.w8a8_epilogue_plain(*sets[0], torch.bfloat16)
+        got = {tag: call_epilogue(fn, *sets[0], torch.bfloat16) for tag, fn in epi.items()}
+        first = next(iter(got.values()))
+        row = dict(kernel="w8a8_epilogue", shape=key, launches_per_call=per_call,
+                   equal={tag: bool(torch.equal(o, want)) for tag, o in got.items()},
+                   equal_to_first={tag: bool(torch.equal(o, first)) for tag, o in got.items()},
+                   ms=_turns(epi, lambda fn: rotating(
+                       lambda a, sx, s: call_epilogue(fn, a, sx, s, torch.bfloat16), sets)))
+        rows["w8a8_epilogue"].append(row)
+        print(json.dumps(row), flush=True)
+        del sets, sxs, got, want, first
+        torch.cuda.empty_cache()
+    for step, rs in rows.items():
+        n = sum(r["launches_per_call"] for r in rs)
+        if n:
+            print(json.dumps({"kernel": step, "mix": "tp2_turbo", "launches": n, "ms": {
+                tag: sum(statistics.mean(r["ms"][tag]) * r["launches_per_call"] for r in rs) / n
+                for tag in rs[0]["ms"]}}), flush=True)
+
+
 AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "w4a8_matmul": ab_w4a8_matmul, "flash_blockwise": ab_flash_blockwise,
       "w4a8_dx": ab_w4a8_dx, "decode_split_attention": ab_decode_split_attention,
@@ -1406,7 +1523,7 @@ AB = {"flash_prefill": ab_flash_prefill, "wi8_matmul": ab_wi8_matmul,
       "stacked_decode_attention_i8": ab_stacked_decode_attention_i8,
       "split_attention_i8": ab_split_attention_i8, "w4a8_grouped": ab_w4a8_grouped,
       "expert_ragged": ab_expert_ragged, "expert_ragged_dx": ab_expert_ragged_dx,
-      "expert_ragged_dw": ab_expert_ragged_dw}
+      "expert_ragged_dw": ab_expert_ragged_dw, "row_parallel": ab_row_parallel}
 
 
 def main() -> int:
@@ -1414,8 +1531,8 @@ def main() -> int:
     ap.add_argument("--lib", action="append", default=[], help="TAG=DIR or TAG=FILE.cu")
     ap.add_argument("--kernels", default=",".join(AB))
     ap.add_argument("--shapes", default="",
-                    help="w4a8_matmul / wi8_matmul / w8a8_matmul / nib_hi_dot / w4a8_requant "
-                         "MxKxN (rms_norm_quant MxD) shapes to time (all)")
+                    help="w4a8_matmul / wi8_matmul / w8a8_matmul / nib_hi_dot / w4a8_requant / "
+                         "row_parallel MxKxN (rms_norm_quant MxD) shapes to time (all)")
     ap.add_argument("--out", default=str(_build.BUILD_DIR / "kernel_ab"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1431,6 +1548,7 @@ def main() -> int:
                stacked_launchers(libs) if name == "stacked_decode_attention_i8" else
                ragged_launchers(libs) if name == "expert_ragged" else
                ragged_dx_launchers(libs) if name == "expert_ragged_dx" else
+               row_parallel_launchers(libs) if name == "row_parallel" else
                launchers(libs, name))
         order = [tag for tag in [*[s.split("=", 1)[0] for s in args.lib], "change"] if tag in fns]
         AB[name]({tag: fns[tag] for tag in order}, g, dev,

@@ -1733,31 +1733,41 @@ def test_tma_launchers_from_a_fresh_thread_on_a_second_card(cuda):
 # --- the row-parallel w8a8 product (slice 6a) ------------------------------------------------
 
 
-@pytest.mark.parametrize("M,K,N,k_pad,nibble,dtype", [
-    (24, 2048, 4096, 2048, False, torch.bfloat16),     # o_proj at tp = 2, decode
-    (65, 5504, 512, 5504, False, torch.bfloat16),      # down_proj's K, the wgmma route's edge
-    (64, 512, 1024, 512, False, torch.bfloat16),       # the split-K route's edge
-    (300, 2152, 1152, 2160, False, torch.bfloat16),    # SigLIP fc2 at tp = 2, padded
-    (7, 2152, 64, 2160, False, torch.float32),
-    (200, 1024, 256, 1024, True, torch.bfloat16),      # nibble planes, packed k order
-    (9, 1024, 256, 1024, True, torch.bfloat16)])
-def test_row_parallel_w8a8_kernels_bit_equal(cuda, M, K, N, k_pad, nibble, dtype):
-    """w8a8_quant_given, w8a8_matmul_i32 and w8a8_epilogue each bit-equal to
-    their plain versions (a nibble leaf's codes compared through its int32
-    sums: the card stores them in the packed k order), the three composed
+@pytest.mark.parametrize("M,K,N,k_pad,nibble,dtype,n_epi", [
+    (24, 2048, 4096, 2048, False, torch.bfloat16, 4096),     # o_proj at tp = 2, decode
+    (65, 5504, 512, 5504, False, torch.bfloat16, 509),       # down_proj's K, the wgmma route's edge
+    (64, 512, 1024, 512, False, torch.bfloat16, 1024),       # the split-K route's edge
+    (300, 2152, 1152, 2160, False, torch.bfloat16, 1149),    # SigLIP fc2 at tp = 2, padded
+    (7, 2152, 64, 2160, False, torch.float32, 61),
+    (70, 1028, 64, 1040, False, torch.float32, 64),          # fp32 rows, K % 8 = 4
+    (37, 2148, 96, 2160, False, torch.bfloat16, 93),         # bf16 K % 8 = 4: 8-byte loads
+    (1, 2048, 64, 2048, False, torch.bfloat16, 64),          # one row
+    (70000, 48, 16, 48, False, torch.bfloat16, 13),          # M past 65535
+    (200, 1024, 256, 1024, True, torch.bfloat16, 256),       # nibble planes, packed k order
+    (9, 1024, 256, 1024, True, torch.bfloat16, 250)])
+def test_row_parallel_w8a8_kernels_bit_equal(cuda, M, K, N, k_pad, nibble, dtype, n_epi):
+    """w8a8_row_absmax, w8a8_quant_given, w8a8_matmul_i32 and w8a8_epilogue
+    each bit-equal to their plain versions (a nibble leaf's codes compared
+    through its int32 sums: the card stores them in the packed k order), one
+    row all zeros (its scale clamps to 1e-8), the epilogue also over the
+    first `n_epi` columns (N % 8 != 0: its element route), the four composed
     equal to w8a8_matmul_plain over the unpadded weight, one launch each."""
     x = (_rand(400 + M, (M, K), torch.float32, cuda) * 3).to(dtype)
+    x[M // 2] = 0
     w = tlin.quantize_weight(_rand(401 + M, (N, K), torch.float32, cuda))
     leaf = tlin.quantize_weight_nibble(tlin.dequantize_weight(w, torch.float32)) if nibble else {
         "q": torch.nn.functional.pad(w["q"], (0, k_pad - K)), "s": w["s"]}
-    sx = torch.clamp(tlin.div127(x.abs().amax(-1, keepdim=True).float()), min=1e-8)
     before = dict(_build.KERNEL_LAUNCHES)
+    amax = tlin.w8a8_row_absmax(x)
+    sx = torch.clamp(tlin.div127(amax), min=1e-8)
     codes = tlin.w8a8_quant_given(x, sx, k_pad, nibble=nibble)
     acc = tlin.w8a8_matmul_i32(codes, leaf)
     out = tlin.w8a8_epilogue(acc, sx, leaf["s"], dtype)
     torch.cuda.synchronize()
-    for name in ("w8a8_quant_given", "w8a8_matmul_i32", "w8a8_epilogue"):
+    for name in ("w8a8_row_absmax", "w8a8_quant_given", "w8a8_matmul_i32", "w8a8_epilogue"):
         assert _build.KERNEL_LAUNCHES[name] == before[name] + 1, name
+    assert torch.equal(amax, tlin.w8a8_row_absmax_plain(x))
+    assert float(sx[M // 2]) == np.float32(1e-8)
     want_codes = tlin.w8a8_quant_given_plain(x, sx, k_pad)
     if not nibble:
         assert torch.equal(codes, want_codes)
@@ -1765,12 +1775,34 @@ def test_row_parallel_w8a8_kernels_bit_equal(cuda, M, K, N, k_pad, nibble, dtype
     assert torch.equal(out, tlin.w8a8_epilogue_plain(acc, sx, leaf["s"], dtype))
     whole = leaf if nibble else {"q": leaf["q"][:, :K].contiguous(), "s": leaf["s"]}
     assert torch.equal(out, tlin.w8a8_matmul_plain(x, whole))
+    acc_n, s_n = acc[:, :n_epi].contiguous(), leaf["s"][:n_epi].contiguous()
+    assert torch.equal(tlin.w8a8_epilogue(acc_n, sx, s_n, dtype),
+                       tlin.w8a8_epilogue_plain(acc_n, sx, s_n, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K", [4, 12, 2152, 5504])
+def test_row_absmax_bit_equal_on_edge_values(cuda, dtype, K):
+    """w8a8_row_absmax against x.abs().amax(-1): rows of -0, of negatives
+    only, with -inf, with a NaN (which propagates, as in amax), and rows of
+    every magnitude, at K % 8 = 4 and 0."""
+    x = (_rand(900 + K, (9, K), torch.float32, cuda) * 5).to(dtype)
+    x[0] = -0.0
+    x[1] = -x[1].abs()
+    x[2, K // 2] = float("-inf")
+    x[3, K - 1] = float("nan")
+    x[4] *= 1e-30
+    got, want = tlin.w8a8_row_absmax(x), tlin.w8a8_row_absmax_plain(x)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    keep = ~torch.isnan(want)
+    assert torch.equal(got[keep], want[keep])
+    assert float(got[0]) == 0.0 and not torch.signbit(got[0])
 
 
 def test_row_parallel_w8a8_launchers_refuse_what_they_do_not_take(cuda):
     """The pre-pass refuses K off 4, a pad below K or off 16 (32 and equal to
-    K for nibble codes); the GEMM K off 16 and N off 8; the wrappers raise
-    before any launch."""
+    K for nibble codes); the absmax K off 4 and no rows; the GEMM K off 16
+    and N off 8; the wrappers raise before any launch."""
     x = torch.ones(4, 48, dtype=torch.bfloat16, device=cuda)
     sx = torch.ones(4, 1, device=cuda)
     for k_pad, nibble in ((40, False), (50, False), (64, True)):
@@ -1780,10 +1812,16 @@ def test_row_parallel_w8a8_launchers_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         tlin.w8a8_matmul_i32(codes, {"q": torch.zeros(8, 40, dtype=torch.int8, device=cuda),
                                      "s": torch.ones(8, device=cuda)})
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tlin.w8a8_row_absmax(x[:, :46].contiguous())
     pre = _build.launcher("w8a8_quant_given")
     st = _build.stream_ptr(x)
     out = torch.empty(4, 48, dtype=torch.int8, device=cuda)
     assert pre(x.data_ptr(), sx.data_ptr(), out.data_ptr(), 4, 46, 48, 1, 0, st) != 0
+    amax = torch.empty(4, 1, device=cuda)
+    absmax = _build.launcher("w8a8_row_absmax")
+    assert absmax(x.data_ptr(), amax.data_ptr(), 4, 46, 1, st) != 0
+    assert absmax(x.data_ptr(), amax.data_ptr(), 0, 48, 1, st) != 0
     gemm = _build.launcher("w8a8_matmul_i32")
     acc = torch.empty(4, 12, dtype=torch.int32, device=cuda)
     q = torch.zeros(12, 48, dtype=torch.int8, device=cuda)
