@@ -149,6 +149,22 @@ multi-card figure):
                 layers, ep = 2 (four experts a rank, the router whole): the
                 prefill's and a decode step's trunk outputs bit-equal to one
                 process's
+and slice 6b's sharded training, after them:
+  tp2_train_int8 train_int8's QLoRA step (OpenVLA-7B, the int8 trunk and
+                lm_head on the w8a8 STE route, bf16 towers and projector,
+                remat; B = 8, T = 64 text tokens, r = 32, B factors drawn
+                small and nonzero) at tp = 2 through
+                training.train_step.make_sharded_train_step: each rank's
+                exact launches (o_proj and down_proj on the four row-parallel
+                kernels, forward and remat recompute), no torch._int_mm call,
+                the collectives' bytes forward and backward, busy ms, the
+                step's wall time, peak memory, the base bit-unchanged; the
+                loss, grad norm and every adapter gradient's direction and
+                norm held within TRAIN_TP_TOL to one process's step from the
+                same base, adapters and batch with its products rounded as
+                two tp ranks round them (tools/tp_reference.py); the
+                distances from it and from one process's plain step printed
+                first
 Phases, one output line each:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    compiles every CUDA kernel from ops/csrc, one nvcc per source,
@@ -218,7 +234,8 @@ Phases, one output line each:
               w8a8_quant_given, w8a8_matmul_i32, w8a8_epilogue; tp2_turbo)
               bit for bit at the tp = 2 shapes (o_proj K = 2048 and
               down_proj K = 5504 at M = 6912 and 24, the towers' proj and
-              fc2, SigLIP's fc2 K = 2152 padded to 2160), with the library
+              fc2, SigLIP's fc2 K = 2152 padded to 2160) and at SigLIP's fc2
+              at tp = 8 (K = 538, its columns zero-padded to 540), with the library
               calls' times (torch.linalg.vector_norm, torch._int_mm; for the
               codes torch.quantize_per_channel where it gives the same
               codes) and each wrapper's host time;
@@ -242,6 +259,10 @@ Phases, one output line each:
               dp = 2 x tp = 2, turbo at fsdp = 4, multi-LoRA on turbo at dp =
               2 x tp = 2, four ranks) against the same tiny path on one card:
               tokens equal, or within the margin rule, the counts printed;
+              and its training cases (TINY_TRAIN_PARALLEL: one QLoRA step of
+              the tiny int8 trainer at dp x tp, zero2 on dp x fsdp, fsdp+tp,
+              sp x tp) against one process's step on the card by
+              check_tiny_train's rules (loss, each LoRA gradient, adapters);
               nccl_world_1: the sharded forward's collectives on NCCL
   5. main     each path once with every launch count set to 0 just before and
               read just after (exact per-kernel counts asserted, and no
@@ -268,6 +289,7 @@ from __future__ import annotations
 import concurrent.futures
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import resource
@@ -311,12 +333,18 @@ from openvla_probe_tpu_torch.scripts import ON_HOST
 from openvla_probe_tpu_torch.scripts import _cli as cli
 from openvla_probe_tpu_torch.serving.server import (OpenVLAServer, decode_numpy, encode_numpy,
                                                     get_openvla_prompt)
-from openvla_probe_tpu_torch.tools import bench_finetune, kernel_ab, profile_main_path
+from openvla_probe_tpu_torch.tools import (bench_finetune, kernel_ab, profile_main_path,
+                                           tp_reference)
 from openvla_probe_tpu_torch.tools.kernel_ab import rotating
 from openvla_probe_tpu_torch.tools.synthetic_tokenizer import write_llama_tokenizer
-from openvla_probe_tpu_torch.training.lora import LoRAConfig, attach_lora, init_lora_params
-from openvla_probe_tpu_torch.training.train_state import tree_leaves
-from openvla_probe_tpu_torch.training.train_step import value_and_grad
+from openvla_probe_tpu_torch.training.lora import (LoRAConfig, attach_lora, init_lora_params,
+                                                   make_lora_loss_fn)
+from openvla_probe_tpu_torch.training.train_state import (OptimizerConfig, TrainState,
+                                                          make_optimizer, tree_leaves)
+from openvla_probe_tpu_torch.training.train_step import (make_sharded_train_step,
+                                                         make_train_step, place_train_state,
+                                                         value_and_grad, vla_loss_fn)
+from openvla_probe_tpu_torch.vla.action_tokenizer import ActionCodec
 from openvla_probe_tpu_torch.utils import image_io
 
 # published H100 SXM peaks (dense): HBM bytes/s; bf16 and int8 tensor-core and
@@ -2618,16 +2646,21 @@ def _expected_train_launches(quant: str, cfg: vlm.VLMConfig) -> dict:
     return kernels
 
 
+def _map_ab(lora, fn):
+    """fn over each {"A", "B"} adapter of a LoRA tree (None stays None)."""
+    if lora is None:
+        return None
+    if set(lora) == {"A", "B"}:
+        return fn(lora)
+    return {k: _map_ab(v, fn) for k, v in lora.items()}
+
+
 def _random_b(lora, g, scale: float = 0.02):
     """The adapters with B drawn N(0, scale) from `g` (on B's device), so
     that every factor has a gradient in the first step and every adapter
     changes its rows."""
-    if lora is None:
-        return None
-    if set(lora) == {"A", "B"}:
-        return {"A": lora["A"], "B": torch.randn(lora["B"].shape, generator=g,
-                                                 device=lora["B"].device) * scale}
-    return {k: _random_b(v, g, scale) for k, v in lora.items()}
+    return _map_ab(lora, lambda lw: {"A": lw["A"], "B": torch.randn(
+        lw["B"].shape, generator=g, device=lw["B"].device) * scale})
 
 
 def _leaf_apart(got, want) -> float:
@@ -3033,8 +3066,9 @@ def run_serve(dev, params):
 # (the reference's PEFT target: every Llama projection, the towers' linears, the projector),
 # on turbo's and pallas's int8 weights; the B = 24 rows take adapters [bare, 0, 1, 2, 3, ...]
 ML_ADAPTERS, ML_RANK, ML_PATHS = 4, 32, ("turbo", "pallas")
-# timed calls an install, and the busy time (torch.profiler) on the first tier only
-ML_TIMED_CALLS = 2
+# timed calls an install (one, to leave tp2_train_int8 room in the time cap), and the busy
+# time (torch.profiler) on the first tier only
+ML_TIMED_CALLS = 1
 # first-logit tolerance of a tiny multi-LoRA path, card vs CPU: parity TINY_TOL's; int8
 # weights 4e-3 (TINY_TOL's reason, with every linear's rank products summed in another
 # order on the card: more activation codes sit one step apart at a tie; measured 1.4e-3
@@ -3375,7 +3409,9 @@ CLI_BUCKETS = (1, 2, 4, 8)
 # the deploy path's kernels, each launched by every request
 CLI_DEPLOY_KERNELS = ("flash_prefill", "vit_attention", "decode_attention", "w8a8_matmul",
                       "rms_norm_quant")
-CLI_GEN_NEW, CLI_EVAL_ROWS = 16, 8
+# new tokens a generate reply, rows of the evaluate script (cut to leave tp2_train_int8 room
+# in the time cap: the same checks on fewer tokens and rows)
+CLI_GEN_NEW, CLI_EVAL_ROWS = 8, 4
 CLI_CONVERT_LAYERS = 2       # the trainer checkpoint's depth at 7B width
 CLI_PROBE_EPISODES, CLI_PROBE_T, CLI_SUITE = 8, 32, "object"
 CLI_TASKS = ["pick up the red block", "open the top drawer", "put the cup on the plate",
@@ -4572,6 +4608,11 @@ def _row_parallel_shapes() -> dict:
     return kernel_ab.row_parallel_shapes()
 
 
+# SigLIP's fc2 at tp = 8 (4304 / 8 = 538 a rank, at a B = 24 call's rows): a local K that
+# is not a multiple of 4, held beside the launch mix (no tp = 8 path runs here)
+ROW_PARALLEL_TP8 = (24 * 256, 538, 1152)
+
+
 def check_row_parallel(dev, g):
     """The row-parallel w8a8 product's four launches at the tp = 2 shapes
     (`_row_parallel_shapes`), each bit-equal to its plain version: the local
@@ -4589,21 +4630,23 @@ def check_row_parallel(dev, g):
     rows = {name: {} for name in ROW_PARALLEL_LAUNCHES}
     host = {name: {} for name in ROW_PARALLEL_LAUNCHES}
     qpc = {}
-    for (M, K, N) in per_call:
+    for (M, K, N) in (*per_call, ROW_PARALLEL_TP8):
         kp = -(-K // 16) * 16
         key = f"{M}x{K}x{N}"
-        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        x0 = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        # the pre-pass kernels' input: zero columns up to a multiple of 4 (`_row_exact_chain`)
+        x = F.pad(x0, (0, -K % 4))
         sets = []
         for _ in range(copies_past_l2(N * kp)):
             w = lin.quantize_weight(torch.randn((N, K), generator=g, device=dev) * 0.02)
             sets.append({"q": F.pad(w["q"], (0, kp - K)), "s": w["s"]})
         amax = lin.w8a8_row_absmax(x)
         torch.cuda.synchronize()
-        assert torch.equal(amax, lin.w8a8_row_absmax_plain(x)), (key, "absmax")
+        assert torch.equal(amax, lin.w8a8_row_absmax_plain(x0)), (key, "absmax")
         sx = torch.clamp(lin.div127(amax), min=1e-8)
         codes = lin.w8a8_quant_given(x, sx, kp)
         torch.cuda.synchronize()
-        assert torch.equal(codes, lin.w8a8_quant_given_plain(x, sx, kp)), (key, "codes")
+        assert torch.equal(codes, lin.w8a8_quant_given_plain(x0, sx, kp)), (key, "codes")
         acc = lin.w8a8_matmul_i32(codes, sets[0])
         torch.cuda.synchronize()
         assert torch.equal(acc, lin.w8a8_matmul_i32_plain(codes, sets[0])), (key, "int32")
@@ -4611,7 +4654,7 @@ def check_row_parallel(dev, g):
         torch.cuda.synchronize()
         assert torch.equal(out, lin.w8a8_epilogue_plain(acc, sx, sets[0]["s"], x.dtype)), key
         whole = {"q": sets[0]["q"][:, :K].contiguous(), "s": sets[0]["s"]}
-        assert torch.equal(out, lin.w8a8_matmul_plain(x, whole)), (key, "composed")
+        assert torch.equal(out, lin.w8a8_matmul_plain(x0, whole)), (key, "composed")
         norm = torch.linalg.vector_norm(x, float("inf"), dim=-1, keepdim=True,
                                         dtype=torch.float32)
         assert torch.equal(norm, amax), (key, "vector_norm")
@@ -4629,7 +4672,8 @@ def check_row_parallel(dev, g):
             q, why = qpc_call(), None
         except (RuntimeError, NotImplementedError) as e:   # a yardstick's refusal, recorded
             q, why = None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
-        qpc[key] = dict(apart=None if q is None else int((q.int_repr() != codes[:, :K]).sum()))
+        qpc[key] = dict(apart=None if q is None else int((q.int_repr() != codes[:, :x.shape[1]])
+                                                         .sum()))
         b, by = bound_ms(_nbytes(x, sx, codes), 0, "int8")
         rows["w8a8_quant_given"][key] = dict(
             max_abs_err=0.0, ms=cuda_ms(lambda: lin.w8a8_quant_given(x, sx, kp)),
@@ -4658,7 +4702,7 @@ def check_row_parallel(dev, g):
         host["w8a8_matmul_i32"][key] = host_us(lambda: lin.w8a8_matmul_i32(codes, sets[0]))
         host["w8a8_epilogue"][key] = host_us(
             lambda: lin.w8a8_epilogue(acc, sx, sets[0]["s"], x.dtype))
-        del sets, codes, acc, out
+        del sets, codes, acc, out, x0
     weights = {f"{M}x{K}x{N}": n for (M, K, N), n in per_call.items()}
     # the codes' library call counts only where its codes are the kernel's at every shape
     library_codes = all(r["apart"] == 0 for r in qpc.values())
@@ -4901,6 +4945,176 @@ def run_ep2_moe(dev):
                 ranks=[{k: v for k, v in r.items() if k != "outs"} for r in ranks])
 
 
+# --- tp2_train_int8 (slice 6b): train_int8's QLoRA step at tp = 2 ----------------------------
+
+# tp2_train_int8 against one process's step rounded as two tp ranks round it
+# (`tp_reference.rounded_as_tp`): the loss and global grad norm relative, each adapter leaf's
+# gradient 1 - cosine and its norm relative (read from the first step's Adam moment). One
+# process's plain step is no reference here: at random weights the 7B int8 QLoRA step
+# amplifies one bf16 rounding of the forward's partial sums to ~2e-2 in 1 - cosine (PERF.md
+# §6); its distances are printed beside
+TRAIN_TP_TOL = dict(loss=1e-3, grad_norm=1e-2, cosine=1e-3, leaf_norm=1e-2)
+
+
+def _train_int8_inputs(dev):
+    """train_int8's trainer at full width and depth on `dev`: its config and
+    base (the train path's seed), LoRA r = TRAIN_RANK with B drawn small and
+    nonzero (`_random_b`), its batch (B = 8, 64 text tokens: 2560 rows)."""
+    cfg = bench_finetune.train_config(vlm.VLMConfig.openvla_7b(), "int8")
+    base = bench_finetune.base_params(cfg, "int8", torch.Generator(device=dev).manual_seed(0), dev)
+    lora = _random_b(init_lora_params(base, LoRAConfig(r=TRAIN_RANK),
+                                      torch.Generator(device=dev).manual_seed(1)),
+                     torch.Generator(device=dev).manual_seed(2))
+    return cfg, base, lora, bench_finetune.synthetic_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, dev)
+
+
+def _expected_tp_train_launches(cfg: vlm.VLMConfig, local_base) -> dict:
+    """One tp rank's exact launches a train_int8 step: the one-process table
+    (`_expected_train_launches`) with every row-parallel trunk product moved
+    from w8a8_matmul and its pre-pass to the row-parallel product's four
+    launches: o_proj in the forward and the remat recompute, down_proj in
+    the forward only (its base chain is issued after its LoRA side path and
+    `_RowExactSTE` saves no tensor, so the recompute stops before it)."""
+    expect = _expected_train_launches("int8", cfg)
+    L = cfg.llm.num_hidden_layers
+    moved = sum(L * (1 if name == "down_proj" else 2) for name in ("o_proj", "down_proj")
+                if tp.tp_role(local_base["llm"]["layers"][name]) == "row")
+    for k in ("w8a8_matmul", "w8a8_quant_rows"):
+        expect[k] -= moved
+    for k in ROW_PARALLEL_LAUNCHES:
+        expect[k] += moved
+    return expect
+
+
+def _tp2_train_rank(rank: int, world: int):
+    """One rank of tp2_train_int8: train_int8's base, adapters and batch
+    (`_train_int8_inputs`), the base placed on tp and the whole tree freed,
+    the adapters and AdamW moments placed (`place_train_state`); one sharded
+    step under the profiler (busy ms) with exact launches, no torch._int_mm,
+    the collectives' bytes forward and backward; its wall time, peak memory,
+    the base's fingerprint before and after, the local moments."""
+    dev = _rank_dev("cuda")
+    t0 = time.perf_counter()
+    cfg, base, lora, batch = _train_int8_inputs(dev)
+    mesh = pmesh.make_mesh({"tp": world})
+    step, state, lbase = _train_setup(cfg, base, lora, mesh, "tp", batch)
+    del base, lora
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    frozen = [_fingerprint(t) for t in tree_leaves(tp.local_tree(lbase))]
+    torch.cuda.reset_peak_memory_stats()
+    times, outs, int_mm_calls = [], [], []
+
+    def run():
+        t0 = time.perf_counter()
+        outs.append(step(state, batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+    with mock.patch.object(torch, "_int_mm", _counting_int_mm(int_mm_calls)):
+        _build.reset_launch_counts()
+        pdist.reset_collective_counts()
+        busy = profile_main_path.device_time(run, 1, warmup=False)
+        launches = dict(_build.KERNEL_LAUNCHES)
+        coll_bytes, coll_calls = dict(pdist.COLLECTIVE_BYTES), dict(pdist.COLLECTIVE_CALLS)
+    expect = _expected_tp_train_launches(cfg, lbase)
+    assert launches == expect, (rank, {k: (launches[k], expect[k]) for k in expect
+                                       if launches[k] != expect[k]})
+    assert not int_mm_calls
+    new, m = outs[0]
+    base_unchanged = all(torch.equal(_fingerprint(t), f)
+                         for t, f in zip(tree_leaves(tp.local_tree(lbase)), frozen))
+    assert base_unchanged, (rank, "the base moved")
+    return dict(rank=rank, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                mu=_to(tp.local_tree(new.opt_state.mu), "cpu"), launches=launches,
+                local_base_gb=_local_gb(lbase), init_s=init_s, step_s=times[0],
+                device_ms_per_step=busy["device_ms_per_call_total"],
+                device_ms_by_class=busy["device_ms_per_call_by_class"],
+                device_idle_share=busy["device_idle_share"],
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                collective_bytes_per_step=coll_bytes, collective_calls_per_step=coll_calls,
+                base_bit_unchanged=base_unchanged)
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().ravel(), b.double().ravel()
+    return float((a @ b) / (a.norm() * b.norm()).clamp(min=1e-300))
+
+
+def _step_result(step, state, batch) -> dict:
+    state, m = step(state, batch)
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                mu=_to(state.opt_state.mu, "cpu"))
+
+
+def _apart(got: dict, want: dict) -> dict:
+    """Relative loss and grad-norm distances, and over the adapter leaves the
+    largest 1 - cosine and relative distance of the norms of their gradients
+    (read from the first step's Adam moment, mu = (1 - b1) · the clipped
+    gradient), with the four leaves farthest in direction."""
+    paths = [k for k, v in _flat(want["mu"]).items() if v is not None]
+    pairs = list(zip(paths, tree_leaves(got["mu"]), tree_leaves(want["mu"])))
+    assert len(pairs) == len(tree_leaves(got["mu"])) > 0
+    off = {k: 1 - _cosine(a, b) for k, a, b in pairs}
+    norm = {k: abs(float(a.double().norm() / b.double().norm()) - 1) for k, a, b in pairs}
+    return dict(loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                grad_norm=abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+                cosine=max(off.values()), leaf_norm=max(norm.values()), leaves=len(off),
+                farthest=sorted(off.items(), key=lambda kv: -kv[1])[:4])
+
+
+def run_tp2_train_int8(dev):
+    """tp2_train_int8: train_int8's QLoRA step (OpenVLA-7B, the int8 trunk
+    and lm_head on the w8a8 STE route, the bf16 towers and projector, remat,
+    the plain attention; B = 8, T = 64 text tokens, r = TRAIN_RANK) at tp = 2
+    (`_tp2_train_rank` in two processes on the one card) against one
+    process's step from the same base, adapters and batch with its products
+    rounded as two tp ranks round them (`tp_reference.rounded_as_tp`), run
+    here first: each rank's loss, global grad norm and every adapter
+    gradient's direction and norm within TRAIN_TP_TOL, the base bit-unchanged
+    (each rank). The distances, and those from one process's plain step,
+    are printed before they are held."""
+    cfg, base, lora, batch = _train_int8_inputs(dev)
+    step, state, _ = _train_setup(cfg, base, lora, None, None, batch)
+    t0 = time.perf_counter()
+    plain = _step_result(step, state, batch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    with tp_reference.rounded_as_tp(base, TP) as calls:
+        want = _step_result(step, state, batch)
+    calls = dict(calls)
+    del cfg, base, lora, batch, step, state
+    torch.cuda.empty_cache()
+    ranks = pdist.run_ranks(_tp2_train_rank, TP, timeout=RANK_TIMEOUT_S)
+    rows = []
+    for r in ranks:
+        mesh = pmesh.Mesh({"tp": TP}, rank=r["rank"])
+        local = {k: {**v, "mu": tp.local_tree(psharding.place_params(v["mu"], mesh, "tp",
+                                                                     _path="mu"))}
+                 for k, v in (("rounded", want), ("plain", plain))}
+        rows.append({**{k: v for k, v in r.items() if k != "mu"},
+                     **{f"{k}_apart": v for k, v in _apart(r, local["rounded"]).items()},
+                     "plain_apart": _apart(r, local["plain"])})
+    out = dict(path="tp2_train_int8", tp=TP, batch=TRAIN_BATCH, rank_r=TRAIN_RANK,
+               seq=1 + 256 + TRAIN_SEQ - 1, reference_loss=want["loss"],
+               reference_grad_norm=want["grad_norm"], reference_calls=calls,
+               one_process_loss=plain["loss"], one_process_grad_norm=plain["grad_norm"],
+               one_process_step_s=one_s, tolerance=TRAIN_TP_TOL, ranks=rows)
+    held = ("loss", "grad_norm", "cosine", "leaf_norm")
+    log("tp2_train_int8", **{k: v for k, v in out.items() if k != "ranks"},
+        apart=[{"rank": r["rank"], **{f"{k}_apart": r[f"{k}_apart"] for k in held},
+                "farthest_apart": r["farthest_apart"],
+                "plain_apart": {k: r["plain_apart"][k] for k in held + ("farthest",)}}
+               for r in rows])
+    assert calls["col"] and calls["row"] and calls["attention"], calls
+    for r in rows:   # the distances, printed above, held
+        for k in held:
+            assert r[f"{k}_apart"] <= TRAIN_TP_TOL[k], (r["rank"], k, r[f"{k}_apart"],
+                                                        TRAIN_TP_TOL[k])
+    return ranks[0]["launches"], out
+
+
 # tiny_parallel: the tiny fp32 paths (chip_smoke's tiny configs) on four ranks, each case's
 # outputs held to the same tiny path on one card
 TINY_PARALLEL = (("parity", {"dp": 2, "tp": 2}, "tp", None),
@@ -4932,6 +5146,61 @@ def _tiny_sel(dev):
     return multilora.adapter_one_hot(np.array([-1, 0, 1, 2]), 4, device=dev)
 
 
+# tiny_parallel's training cases (slice 6b): QLoRA over the tiny int8 trunk on the w8a8 STE
+# route (the row-parallel products through the four row kernels and `_RowExactSTE`), rank 64
+# so that the rules split the factors, one sharded step a case on the four ranks
+TINY_TRAIN_PARALLEL = (({"dp": 2, "tp": 2}, "tp"), ({"dp": 2, "fsdp": 2}, "zero2"),
+                       ({"fsdp": 2, "tp": 2}, "fsdp+tp"), ({"sp": 2, "tp": 2}, "tp"))
+TINY_TRAIN_R = 64
+
+
+def _tiny_train_case():
+    """(config, CPU base, CPU adapters, CPU batch) of the tiny training cases:
+    bench_finetune's int8 trainer over VLMConfig.tiny(), 4 rows of 16 text
+    tokens (20 spliced), B drawn small and nonzero."""
+    cfg = bench_finetune.train_config(vlm.VLMConfig.tiny(), "int8")
+    base = bench_finetune.base_params(cfg, "int8", torch.Generator().manual_seed(1), "cpu")
+    lora = _random_b(init_lora_params(base, LoRAConfig(r=TINY_TRAIN_R),
+                                      torch.Generator().manual_seed(3)),
+                     torch.Generator().manual_seed(4))
+    batch = bench_finetune.synthetic_batch(cfg, 4, 16, 2, "cpu")
+    batch["labels"][0, -9:-5] = -100   # the dp shards' valid counts unequal
+    return cfg, base, lora, batch
+
+
+def _train_setup(cfg, base, lora, mesh, strategy, batch, lr=TRAIN_LR):
+    """(step, local state, local base) of a sharded QLoRA step over `base`
+    (bench_finetune's optimizer: constant lr, no decay; the batch's tokens on
+    sp where the mesh has it), or the one-process step where `mesh` is None."""
+    codec = ActionCodec(vocab_size=min(cfg.llm.vocab_size, 32000))
+    opt = make_optimizer(OptimizerConfig(learning_rate=lr, lr_schedule_type="constant",
+                                         max_steps=2, weight_decay=0.0), lora)
+    state = TrainState.create(lora, opt)
+    lcfg = LoRAConfig(r=int(next(iter(_ab_leaves(lora)))["A"].shape[-2]))
+    if mesh is None:
+        loss_fn = make_lora_loss_fn(functools.partial(vla_loss_fn, codec=codec), base, lcfg,
+                                    stream=True)
+        return make_train_step(cfg, opt, codec, loss_fn=loss_fn), state, base
+    lbase = psharding.place_params(base, mesh, strategy)
+    loss_fn = make_lora_loss_fn(functools.partial(vla_loss_fn, codec=codec), lbase, lcfg,
+                                stream=True)
+    specs = psharding.shard_train_state(state, mesh, strategy)
+    bspecs = pmesh.sequence_sharding(mesh, batch) if "sp" in mesh.axis_names else \
+        pmesh.data_sharding(mesh)
+    step = make_sharded_train_step(cfg, opt, mesh, specs, bspecs, codec, loss_fn=loss_fn)
+    return step, place_train_state(state, mesh, strategy), lbase
+
+
+def _train_adapters_apart(got, want) -> dict:
+    """The adapters after one AdamW step: the largest distance and the 90th
+    and 99th percentiles, in lr."""
+    d = torch.cat([(a.float().cpu() - b.float().cpu()).abs().ravel()
+                   for a, b in zip(tree_leaves(got), tree_leaves(want))])
+    q = torch.quantile(d[:2 ** 24], torch.tensor([0.9, 0.99]))
+    return dict(max_lr=float(d.max()) / TRAIN_LR, p90_lr=float(q[0]) / TRAIN_LR,
+                p99_lr=float(q[1]) / TRAIN_LR)
+
+
 def _rank_dev(kind: str) -> torch.device:
     """A rank's device: its card (the one `initialize_distributed` set), or the host."""
     return torch.device("cuda", torch.cuda.current_device()) if kind == "cuda" else \
@@ -4940,7 +5209,9 @@ def _rank_dev(kind: str) -> torch.device:
 
 def _tiny_parallel_rank(rank: int, world: int, kind: str = "cuda"):
     """Every TINY_PARALLEL case on this rank: its tree placed, its sharded
-    call over the whole batch (tokens, first logits)."""
+    call over the whole batch (tokens, first logits); then every
+    TINY_TRAIN_PARALLEL case: one sharded step (loss, grad norm, the local
+    adapters after it)."""
     dev = _rank_dev(kind)
     out = []
     for path, axes, strategy, case in TINY_PARALLEL:
@@ -4959,6 +5230,14 @@ def _tiny_parallel_rank(rank: int, world: int, kind: str = "cuda"):
                                                    return_first_logits=True)
             res = call(local, *args)
         out.append({k: v.cpu() for k, v in res.items()})
+    cfg, base, lora, batch = _tiny_train_case()
+    for axes, strategy in TINY_TRAIN_PARALLEL:
+        mesh = pmesh.make_mesh(dict(axes))
+        step, state, _ = _train_setup(cfg, _to(base, dev), _to(lora, dev), mesh, strategy, batch)
+        state, m = step(state, _to(batch, dev))
+        out.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                        adapters=_to(tp.local_tree(state.params), "cpu"),
+                        mu=_to(tp.local_tree(state.opt_state.mu), "cpu")))
     return out
 
 
@@ -4992,6 +5271,39 @@ def check_tiny_parallel(dev):
                          tokens_equal=[int((r[i]["action_tokens"] == want["action_tokens"]).sum())
                                        for r in ranks],
                          margin_rule_compared=compared))
+    # the training cases against one process's step on this card, by check_tiny_train's rules
+    # (TRAIN_TINY_TOL): the loss; every LoRA gradient in norm (read from the first Adam moment,
+    # (1 - b1) times the clipped gradient) and the grad norm by the gradient rule; the adapters
+    # within 2 lr everywhere, 90 % within 1e-2 lr and 99 % within 1e-1 lr
+    cfg, base, lora, batch = _tiny_train_case()
+    step, state, _ = _train_setup(cfg, _to(base, dev), _to(lora, dev), None, None, batch)
+    state, m = step(state, _to(batch, dev))
+    want_loss, want_gn = float(m["loss"]), float(m["grad_norm"])
+    for j, (axes, strategy) in enumerate(TINY_TRAIN_PARALLEL):
+        apart = []
+        for rank, r in enumerate(ranks):
+            got = r[len(TINY_PARALLEL) + j]
+            assert abs(got["loss"] - want_loss) <= TRAIN_TINY_TOL["loss"] * abs(want_loss), (
+                axes, rank, got["loss"], want_loss)
+            assert abs(got["grad_norm"] - want_gn) <= TRAIN_TINY_TOL["grad"] * want_gn, (
+                axes, rank, got["grad_norm"], want_gn)
+            mesh = pmesh.Mesh(dict(axes), rank=rank)
+            want = tp.local_tree(psharding.place_params(_to(state.params, "cpu"), mesh, strategy))
+            a = _train_adapters_apart(got["adapters"], want)
+            assert a["max_lr"] <= 2 and a["p90_lr"] <= 1e-2 and a["p99_lr"] <= 1e-1, (
+                axes, rank, a)
+            mu_spec = psharding.shard_train_state(state, mesh, strategy).opt_state.mu
+            want_mu = tp.local_tree(psharding.place_params(_to(state.opt_state.mu, "cpu"), mesh,
+                                                           _path="mu", _spec=mu_spec))
+            grads = [_leaf_apart(g, w) for g, w in zip(tree_leaves(got["mu"]),
+                                                       tree_leaves(want_mu))]
+            assert len(grads) > 20 and max(grads) <= TRAIN_TINY_TOL["grad"], (
+                axes, rank, max(grads))
+            apart.append(dict(loss_rel=abs(got["loss"] - want_loss) / want_loss,
+                              grad_norm_rel=abs(got["grad_norm"] - want_gn) / want_gn,
+                              grads_max_rel_apart=max(grads), **a))
+        rows.append(dict(kind="train", mesh=axes, strategy=strategy, rank_r=TINY_TRAIN_R,
+                         loss=want_loss, grad_norm=want_gn, ranks_apart=apart))
     return dict(entry="tiny_parallel", ranks=4, cases=rows)
 
 
@@ -5190,6 +5502,11 @@ def main() -> int:
         log("main", card=card, launches_per_rank_call=launches["tp2_turbo"], **tp_stats)
     with _phase("main:ep2_moe_turbo"):
         log("main", card=card, **run_ep2_moe(dev))
+    # slice 6b: train_int8's QLoRA step at tp = 2 on the freed card
+    torch.cuda.empty_cache()
+    with _phase("train:tp2_train_int8"):
+        launches["tp2_train_int8"], tp_train = run_tp2_train_int8(dev)
+        log("main", card=card, launches_per_rank_step=launches["tp2_train_int8"], **tp_train)
 
     # each kernel's launches: from the main path whose slice ported it (expert_ragged_scalar:
     # the tiny fp32 MoE path, the one path that takes it); a scalar route's from every main

@@ -60,6 +60,7 @@ from ..ops.linear import (NIB_HI_M_MAX, PrequantActivation, div127, is_grouped_i
                           matmul_t_grouped)
 from ..ops.rmsnorm_quant import rms_norm, rms_norm_quant
 from ..parallel import tensor_parallel as tp
+from ..parallel.distributed import all_gather, group_rank
 from . import moe
 
 Params = Dict[str, Any]
@@ -382,6 +383,7 @@ def forward(
     pool_mask: Optional[torch.Tensor] = None,   # [B, T] override for the tap pooling
     compute_logits: bool = True,
     static_zero_offset: bool = False,       # caller knows cache_index == 0 (prefill)
+    seq_group: Any = None,                  # sequence parallelism: the sp process group
 ) -> Dict[str, Any]:
     """Run the decoder stack. Returns last_hidden_state, logits [B, T, V] in
     fp32 when `compute_logits`, the (in-place updated) cache if given, and with
@@ -389,10 +391,19 @@ def forward(
     masked mean over T of the embeddings, of layers 1..L-1's outputs and of the
     final-normed last layer (HF's output_hidden_states convention). The
     pooling weights are `pool_mask`, else attn_mask[:, :T] without a cache and
-    ones with one."""
+    ones with one.
+
+    With `seq_group` (an uncached forward under sequence parallelism) the
+    rank holds tokens [r T, (r + 1) T) of a sequence of attn_mask.shape[1], r
+    its rank in the group; each layer's K and V are all-gathered over the group
+    (their cotangents reduce-scattered back) and attended by the plain
+    branch under the global causal mask."""
     B, T, D = inputs_embeds.shape
     x = inputs_embeds
-    offset = 0 if cache is None else int(cache_index)
+    if cache is not None:
+        offset = int(cache_index)
+    else:
+        offset = 0 if seq_group is None else group_rank(seq_group) * T
     mask = make_causal_mask(attn_mask, T, attn_mask.shape[1], offset=offset)
     # cast once per call, not per layer (apply_rope's own cast is then a no-op)
     cos, sin = (t.to(cfg.rope_dtype) for t in rope_tables(cfg, positions))
@@ -401,7 +412,7 @@ def forward(
     # validity row are their rule. Other cached calls (short prefills at a
     # nonzero offset) take the plain branch.
     if cache is None:
-        kv_valid = attn_mask[:, :T]
+        kv_valid = None if seq_group is not None else attn_mask[:, :T]
     else:
         kv_valid = attn_mask if ((static_zero_offset and T > 1) or T == 1) else None
     kv5 = cache
@@ -415,6 +426,8 @@ def forward(
                 kv5.k[li, :, offset:offset + T] = k
                 kv5.v[li, :, offset:offset + T] = v
                 k, v = kv5.k[li], kv5.v[li]
+            elif seq_group is not None:
+                k, v = (all_gather(t, 1, seq_group) for t in (k, v))
             return attention(q, k, v, mask, cfg.attn_scores_dtype, kv_valid, offset,
                              cfg.flash_attn)
         return attend

@@ -584,13 +584,13 @@ def predict_action_speculative_from_image(
 # --- sharded serving (slice 6a): one process a rank ----------------------------------
 
 
-def local_serving_config(cfg: VLAServingConfig, local_params: Params, mesh) -> VLAServingConfig:
-    """A rank's serving config over its local tree: the trunk's attention on
-    this rank's heads (``tp_heads``) where tp splits q_proj by heads, and the
-    row-count route rules over the whole batch's rows (``row_split``: the
-    ranks on dp)."""
-    llm = dataclasses.replace(cfg.vlm.llm, row_split=mesh.axis_size("dp"))
-    q = local_params["llm"]["layers"].get("q_proj")
+def local_llm_config(llm: llama.LlamaConfig, local_llm: Params,
+                     row_split: int) -> llama.LlamaConfig:
+    """A rank's trunk config over its local trunk tree: the attention on this
+    rank's heads (``tp_heads``) where tp splits q_proj by heads, and the
+    row-count route rules over `row_split` times a rank's rows."""
+    llm = dataclasses.replace(llm, row_split=row_split)
+    q = local_llm["layers"].get("q_proj")
     if q is not None and tp.tp_role(q) == "col":
         n = q["mesh"].axis_size("tp")
         if llm.num_attention_heads % n or llm.num_key_value_heads % n:
@@ -598,6 +598,13 @@ def local_serving_config(cfg: VLAServingConfig, local_params: Params, mesh) -> V
                              f"{llm.num_attention_heads} query / {llm.num_key_value_heads} kv "
                              "heads")
         llm = dataclasses.replace(llm, tp_heads=n)
+    return llm
+
+
+def local_serving_config(cfg: VLAServingConfig, local_params: Params, mesh) -> VLAServingConfig:
+    """A rank's serving config over its local tree (`local_llm_config`, the
+    ranks on dp splitting the rows)."""
+    llm = local_llm_config(cfg.vlm.llm, local_params["llm"], mesh.axis_size("dp"))
     return dataclasses.replace(cfg, vlm=dataclasses.replace(cfg.vlm, llm=llm))
 
 

@@ -15,8 +15,30 @@ Gloo takes CUDA tensors in every collective the sharded forward issues
 (all_reduce: int32 SUM, fp32 MAX, bf16 SUM; all_gather; broadcast: checked
 on an H100 with PyTorch 2.11), so nothing is staged through host memory.
 Every collective adds the bytes it moves to `COLLECTIVE_BYTES` (the tensor's
-bytes on each rank) and one to `COLLECTIVE_CALLS`, so a caller can show what
-a call exchanged.
+bytes on each rank) and one to `COLLECTIVE_CALLS`, under its tag, so a caller
+can show what a call exchanged.
+
+Under autograd (the sharded train step) the collectives of the forward are
+``torch.autograd.Function``s, each backward the transpose of its forward:
+
+* `reduce_from`: a SUM all-reduce of partials whose result every rank of the
+  group then uses as its own (a row-parallel product's sum): identity
+  backward;
+* `copy_to`: the identity into a region whose ranks each use part of the
+  tensor (a column-parallel product's input): a SUM all-reduce of the
+  cotangent in fp32 backward (tag ``all_reduce_bwd``);
+* `all_gather`: backward the rank's slice of the SUM-reduced cotangent (a
+  reduce-scatter's result) where the ranks' uses of the gathered tensor are
+  terms of one sum (fsdp leaves, sequence-parallel K/V), or the rank's slice
+  alone (``backward="split"``) where every rank of the group runs the same
+  computation on it (tp activations). Gloo has no reduce-scatter, so the
+  first is a SUM all-reduce of the whole cotangent and then the slice, world
+  times a reduce-scatter's bytes, counted as such under its own tag
+  ``all_reduce_slice_bwd``;
+* a MAX all-reduce (the activation scale) takes no gradient: it runs on a
+  detached tensor.
+
+Without grad every one of them is today's in-place call, counted as before.
 
 `run_ranks` starts one process a rank (spawned, so each has its own CUDA
 context), each joining a ``file://`` rendezvous (no TCP port to race for),
@@ -152,28 +174,102 @@ def _count(op: str, t: torch.Tensor) -> None:
     COLLECTIVE_BYTES[op] += t.numel() * t.element_size()
 
 
-def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+def all_reduce(t: torch.Tensor, op: str, group, tag: str = "all_reduce") -> torch.Tensor:
     """In-place SUM / MAX / MIN all-reduce of `t` over `group` (None: a group
-    of one, nothing to do). Returns `t`."""
+    of one, nothing to do), counted under `tag`. Returns `t`."""
     if group is None:
         return t
-    _count("all_reduce", t)
+    _count(tag, t)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
     dist.all_reduce(t, op=red, group=group)
     return t
 
 
-def all_gather(t: torch.Tensor, dim: int, group, tag: str = "all_gather") -> torch.Tensor:
-    """The group's tensors concatenated along `dim` in rank order (None: `t`),
-    counted under `tag`."""
-    if group is None:
-        return t
+def _gather(t: torch.Tensor, dim: int, group, tag: str) -> torch.Tensor:
     _count(tag, t)
     n = dist.get_world_size(group)
     src = t.contiguous()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim)
+
+
+def _records(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def group_rank(group) -> int:
+    """This process's rank in `group` (None: a group of one, 0)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def _rank_slice(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = g.shape[dim] // dist.get_world_size(group)
+    return g.narrow(dim, group_rank(group) * n, n)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t.clone(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a copy: autograd may hand the same cotangent to another branch
+        red = all_reduce(g.to(torch.float32, copy=True), "sum", ctx.group, "all_reduce_bwd")
+        return red.to(g.dtype), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, tag, backward):
+        ctx.dim, ctx.group, ctx.backward = dim, group, backward
+        return _gather(t, dim, group, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.backward == "reduce_scatter":
+            g = all_reduce(g.contiguous().clone(), "sum", ctx.group, "all_reduce_slice_bwd")
+        return _rank_slice(g, ctx.dim, ctx.group), None, None, None, None
+
+
+def all_gather(t: torch.Tensor, dim: int, group, tag: str = "all_gather",
+               backward: str = "reduce_scatter") -> torch.Tensor:
+    """The group's tensors concatenated along `dim` in rank order (None: `t`),
+    counted under `tag`; under autograd its backward is `backward`:
+    "reduce_scatter" or "split" (the module docstring)."""
+    if group is None:
+        return t
+    if _records(t):
+        return _AllGather.apply(t, dim, group, tag, backward)
+    return _gather(t, dim, group, tag)
+
+
+def reduce_from(t: torch.Tensor, group) -> torch.Tensor:
+    """SUM all-reduce of `t` over `group`: in place without autograd, else a
+    new tensor whose backward is the identity."""
+    if group is None:
+        return t
+    return _ReduceFrom.apply(t, group) if _records(t) else all_reduce(t, "sum", group)
+
+
+def copy_to(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` itself; under autograd its cotangent is SUM all-reduced over
+    `group` (in fp32, cast back)."""
+    if group is None or not _records(t):
+        return t
+    return _CopyTo.apply(t, group)
 
 
 # --- one process a rank -------------------------------------------------------------

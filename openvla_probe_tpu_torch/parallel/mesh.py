@@ -122,7 +122,8 @@ def sequence_sharding(mesh: Mesh, batch, seq_axis: str = "sp", batch_axis: str =
     """Sequence-parallel splits of a batch tree: [B, T] token arrays split T
     over `seq_axis` (and B over `batch_axis`) where T divides by its size;
     every other leaf splits the batch only (the JAX function's choice, its
-    fallback included). The train step's use of it is slice 6b's."""
+    fallback included). ``training.train_step.make_sharded_train_step``
+    reads it: its ranks on sp split the spliced sequence."""
     def spec(x):
         if seq_axis in mesh.axis_names and getattr(x, "ndim", 0) == 2 \
                 and x.shape[1] % mesh.shape[seq_axis] == 0:

@@ -19,7 +19,8 @@ no axis splits stays bare. Two placements differ from a plain slice:
 
 * the ViT's fused ``qkv_w`` [L, 3D, D] on tp: contiguous halves would cut
   across q, k and v, so the rank's slice holds its heads of each of the
-  three (``"parts": 3``);
+  three (``"parts": 3``), and so does a LoRA factor of it split on its out
+  dim (``qkv_w/B``, a multi-LoRA ``qkv_w/Bt``);
 * a per-channel int8 leaf whose tp-local contraction is not a multiple of
   16 (the w8a8 kernels' rule; SigLIP's fc2 at tp = 2: 4304 / 2 = 2152) gets
   zero codes appended to its local K (``"k_valid"`` the true width): the
@@ -228,7 +229,8 @@ def place_leaf(path: str, leaf: Any, spec, mesh: Mesh):
     placed leaf (see the module docstring)."""
     if not any(mesh.axis_size(a) > 1 for a in sharded_axes(spec)):
         return leaf
-    parts = 3 if path.rsplit("/", 1)[-1] == "qkv_w" else 1
+    # the fused qkv, and its LoRA factors and moments (".../qkv_w/B"), cut by parts
+    parts = 3 if "qkv_w" in path.rsplit("/", 2)[-2:] else 1
     if isinstance(leaf, dict):
         local = {k: local_tensor(v, spec[k], mesh, parts) for k, v in leaf.items()}
     else:
@@ -259,7 +261,8 @@ def shard_train_state(state: Any, mesh: Mesh, strategy: str = "fsdp") -> Any:
     """The spec trees of a train state (``training.train_state.TrainState``:
     step, params, opt_state): ``zero2`` (parameters whole, or tp-sharded with
     "zero2+tp"; optimizer moments fsdp-sharded), any other strategy applied
-    uniformly (the JAX function's rule). Its use is the sharded train step's."""
+    uniformly (the JAX function's rule). The sharded train step reads it
+    (``training.train_step.make_sharded_train_step``)."""
     if "zero2" in strategy:
         p_strategy = strategy.replace("zero2", "").strip("+") or "none"
         o_strategy = strategy.replace("zero2", "fsdp")

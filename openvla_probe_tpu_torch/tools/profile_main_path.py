@@ -84,11 +84,14 @@ def _kernel_class(name: str) -> str:
 def device_time(call, calls: int, warmup: bool = True) -> dict:
     """torch.profiler device time per call by kernel name and class, beside
     the host-clock time of the profiled calls (after one unprofiled call
-    unless `warmup` is off: the caller has run it)."""
+    unless `warmup` is off: the caller has run it). Only the card's activity
+    is recorded: every figure here is its kernels', and recording the host's
+    ops beside them slowed the profiled calls and took tens of seconds to
+    process for a training step's trace."""
     if warmup:
         call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             call()

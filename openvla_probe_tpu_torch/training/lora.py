@@ -29,6 +29,7 @@ import torch
 
 from ..ops.linear import (dequantize_weight, is_grouped_int4, is_nibble_quant, is_quantized,
                           quantize_weight, quantize_weight_int4)
+from ..parallel import tensor_parallel as tp
 
 # weight-leaf names that count as "linear" (the all-linear target)
 _LINEAR_SUFFIXES = (
@@ -126,10 +127,13 @@ def _delta(lw, scale: float) -> torch.Tensor:
 def attach_lora(params: Any, lora: Any, cfg: LoRAConfig) -> Any:
     """Zero-copy streamed LoRA: wrap the target leaves as ``{"base", "A",
     "B"}`` with the scale folded into B; `matmul_t` computes base(x) +
-    (x Aᵀ)(Bᵀ) per use. Layer-stacked wrappers slice with ``index_layer``."""
+    (x Aᵀ)(Bᵀ) per use. Layer-stacked wrappers slice with ``index_layer``.
+    Over a rank's local trees (``parallel.place_params``) a wrapper whose
+    base or factors are placed is one placed leaf
+    (``parallel.tensor_parallel.lora_wrapper``)."""
     scale = cfg.scaling
-    return _zip_lora(lambda lw, w: w if lw is None else {"base": w, "A": lw["A"],
-                                                         "B": lw["B"] * scale}, lora, params)
+    return _zip_lora(lambda lw, w: w if lw is None else tp.lora_wrapper(
+        w, lw["A"], tp.map_local(lambda b: b * scale, lw["B"])), lora, params)
 
 
 def merge_lora(params: Any, lora: Any, cfg: LoRAConfig) -> Any:

@@ -134,11 +134,15 @@ class AdamW:
                          if p.is_floating_point() else None, params)
         return OptState(0, zeros, tree_map(torch.clone, zeros))
 
-    def update(self, grads: Tree, state: OptState, params: Tree) -> Tuple[Tree, OptState]:
+    def update(self, grads: Tree, state: OptState, params: Tree,
+               norm: torch.Tensor = None) -> Tuple[Tree, OptState]:
+        """`norm`: the global norm the clip reads, where the trees hold a
+        rank's shards (``make_sharded_train_step``); by default the trees'
+        own."""
         cfg = self.cfg
         b1, b2 = cfg.betas
         g = tree_map(lambda t: t.float(), grads)
-        norm = global_norm(g)
+        norm = global_norm(g) if norm is None else norm
         # optax's select on the device: no host sync inside the step
         keep = norm < cfg.max_grad_norm
         g = tree_map(lambda t: torch.where(keep, t, (t / norm) * cfg.max_grad_norm), g)

@@ -8,20 +8,58 @@ label is past ``codec.action_token_begin_idx``. The step differentiates the
 loss with ``torch.autograd.grad`` with respect to the trained tree's float
 leaves only (a frozen base passed beside it stays out of the graph's
 leaves), masks frozen leaves' gradients and updates, and applies the update
-in fp32. ``make_sharded_train_step`` waits for the parallel slice (ROADMAP
-Queue 1 item 14).
+in fp32.
+
+``make_sharded_train_step`` is the step over a rank mesh, one process a rank
+(the JAX function's signature; its strategies tp, fsdp, fsdp+tp, zero2 and
+zero2+tp, with dp and sp by mesh axis). Every rank calls it with its local
+state (`place_train_state`) and the whole batch:
+
+* **Rows and tokens.** The rank takes the rows its batch axes give it (dp);
+  under sp it builds its rows' multimodal inputs whole, shifts the labels
+  over the whole spliced sequence, and runs the trunk on its contiguous
+  token slice (``llama.forward``'s `seq_group`: K / V all-gathered over sp).
+* **One loss.** Each rank's loss is its NLL sum over the global batch's
+  valid-label count (SUM all-reduced over the axes that split the data, never
+  a mean of means), over a vocab-sharded lm_head a vocab-parallel log-softmax
+  (``tensor_parallel.token_nll``); it is divided by the data axes' ranks that
+  hold the same rows and tokens, so that the rank losses over the data axes
+  (every axis but tp) sum to the global loss.
+* **Gradients.** The placed leaves' collectives are differentiable
+  (``parallel.tensor_parallel``): a leaf tp splits keeps its local gradient,
+  an fsdp-gathered one comes back to its shard through the gather's
+  reduce-scatter, and each leaf's gradient is then SUM all-reduced over the
+  data axes that do not split it (dp, sp, fsdp for a whole leaf).
+* **Update.** AdamW on each rank's shard of every leaf, the layout of the
+  moments (`state_specs`): under zero2 the parameters stay whole (or
+  tp-split) and the moments are fsdp shards, so the rank updates its shard of
+  each leaf and all-gathers the new parameters. The clip reads the global
+  norm: each leaf's squared norm summed over the shards it is split into,
+  then one sqrt. Metrics (loss, action accuracy, L1, grad norm) are the
+  global batch's; ``per_example`` comes back for every row.
+
+Not ported (ROADMAP Queue 1 item 14, slice 6c), each raising
+NotImplementedError: an ep axis larger than 1, a MoE or Phi trunk,
+``grad_accum_steps`` > 1, a pp axis.
 """
 
 from __future__ import annotations
 
+import contextvars
+import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..models import vlm
+from ..models import llama, vla, vlm
+from ..parallel import distributed as D
+from ..parallel import tensor_parallel as tp
+from ..parallel.sharding import place_params, shard_train_state
 from ..vla.action_tokenizer import ActionCodec
-from .train_state import AdamW, TrainState, apply_updates, global_norm, tree_leaves, tree_map
+from .train_state import (AdamW, OptState, TrainState, apply_updates, global_norm, tree_leaves,
+                          tree_map)
 
 IGNORE_INDEX = -100
 
@@ -90,7 +128,14 @@ def vla_loss_fn(params: Any, cfg: vlm.VLMConfig, batch: Dict[str, torch.Tensor],
     [B, T]; ``pixel_values`` [B, 3K, S, S] or absent) and its metrics; the
     metrics are detached. A MoE trunk's router losses join the loss
     (``moe_aux_coef · moe_aux + moe_z_coef · moe_z``, their gradients through
-    the router) and the metrics; ``metrics["loss"]`` stays the cross entropy."""
+    the router) and the metrics; ``metrics["loss"]`` stays the cross entropy.
+    Inside a sharded step (`make_sharded_train_step`) a rank's share of the
+    global loss (`_sharded_loss`), and the step is told that it ran."""
+    ctx = _SHARD.get()
+    if ctx is not None:
+        shard, entered = ctx
+        entered.append(True)
+        return _sharded_loss(params, cfg, batch, codec, with_per_example, shard)
     out = vlm.forward(params, cfg, input_ids=batch["input_ids"],
                       attn_mask=batch["attention_mask"], pixel_values=batch.get("pixel_values"),
                       labels=batch["labels"])
@@ -184,6 +229,305 @@ def make_train_step(
                                opt_state=new_opt)
         metrics = dict(metrics)
         metrics["grad_norm"] = global_norm(grads)
+        return new_state, metrics
+
+    return step
+
+
+# --- the sharded step (slice 6b): one process a rank ---------------------------------
+
+
+class _Shard(NamedTuple):
+    """A sharded loss's view of the mesh: `split` the axes that split the
+    data (its rows; "sp" its tokens), `sp` the sequence-parallel size, `rep`
+    the ranks of the data axes that hold the same rows and tokens."""
+
+    mesh: Any
+    split: Tuple[str, ...]
+    sp: int
+    rep: int
+
+
+_SHARD: contextvars.ContextVar = contextvars.ContextVar("sharded_loss", default=None)
+_ITEM = "ROADMAP Queue 1 item 14 (slice 6c)"
+
+
+def _sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """In-place SUM all-reduce of `t` over each of `axes` in turn."""
+    for a in axes:
+        D.all_reduce(t, "sum", mesh.group(a))
+    return t
+
+
+def _sharded_loss(params, cfg: vlm.VLMConfig, batch, codec: ActionCodec,
+                  with_per_example: bool, sh: _Shard):
+    """`vla_loss_fn` on a rank: its share of the global loss (the module
+    docstring) and the global batch's metrics."""
+    mesh = sh.mesh
+    params = tp.resolve_tree(params)
+    cfg = dataclasses.replace(cfg, llm=vla.local_llm_config(
+        cfg.llm, params["llm"], math.prod(mesh.axis_size(a) for a in sh.split)))
+    ids, attn, labels = batch["input_ids"], batch["attention_mask"], batch["labels"]
+    if batch.get("pixel_values") is None:
+        embeds, mask, lbls = llama.embed_tokens(params["llm"], ids), attn, labels
+    else:
+        mm = vlm.build_multimodal_inputs(params, cfg, ids, attn, batch["pixel_values"], labels)
+        embeds, mask, lbls = mm["inputs_embeds"], mm["attn_mask"], mm["labels"]
+    B, T = embeds.shape[:2]
+    # next-token targets over the whole spliced sequence, before any slicing
+    tgt = torch.cat([lbls[:, 1:], torch.full_like(lbls[:, :1], IGNORE_INDEX)], dim=1)
+    positions = torch.arange(T, device=embeds.device).expand(B, T)
+    group = None
+    if sh.sp > 1:
+        if T % sh.sp:
+            raise ValueError(f"sequence parallelism: the spliced length {T} (the prompt's tokens "
+                             f"and the patches) does not divide by sp={sh.sp}; pad the batch's "
+                             "token dim")
+        tl = T // sh.sp
+        off = mesh.coord("sp") * tl
+        embeds, positions, tgt = (t[:, off:off + tl] for t in (embeds, positions, tgt))
+        group = mesh.group("sp")
+    logits = llama.forward(params["llm"], cfg.llm, embeds, mask, positions,
+                           seq_group=group)["logits"]
+    lm = params["llm"]["lm_head"]
+    Bl, Tl, Vl = logits.shape
+    valid = tgt != IGNORE_INDEX
+    safe = torch.where(valid, tgt, torch.zeros_like(tgt))
+    nll = tp.token_nll(logits.reshape(-1, Vl), safe.reshape(-1), lm).reshape(Bl, Tl)
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    count = _sum_over(valid.sum().float(), mesh, sh.split)
+    loss = nll.sum() / torch.clamp(count, min=1) / sh.rep
+    with torch.no_grad():
+        preds = tp.greedy(logits.detach().reshape(-1, Vl), lm)[0].reshape(Bl, Tl)
+        metrics = _sharded_metrics(nll.detach(), valid, preds, tgt, codec, sh, with_per_example)
+    return loss, metrics
+
+
+def _sharded_metrics(nll, valid, preds, tgt, codec: ActionCodec, sh: _Shard,
+                     with_per_example: bool) -> Dict[str, Any]:
+    """The global batch's loss, action accuracy and L1 (and per row): each
+    row's sums SUM-reduced over sp, the rows' over the batch axes."""
+    mesh = sh.mesh
+    mask = tgt > codec.action_token_begin_idx
+    fill = torch.full_like(tgt, codec.vocab_size - 1)
+    l1 = (codec.decode(torch.where(mask, preds, fill)) - codec.decode(torch.where(mask, tgt, fill)))
+    l1 = torch.where(mask, l1.abs(), torch.zeros_like(l1))
+    rows = torch.stack([nll.sum(1), valid.sum(1).float(), mask.sum(1).float(),
+                        ((preds == tgt) & mask).sum(1).float(), l1.float().sum(1)], dim=1)
+    if sh.sp > 1:
+        D.all_reduce(rows, "sum", mesh.group("sp"))
+    batch_axes = [a for a in sh.split if a != "sp"]
+    tot = _sum_over(rows.sum(0), mesh, batch_axes)
+
+    def stats(t):
+        return {"loss": t[..., 0] / torch.clamp(t[..., 1], min=1),
+                "action_accuracy": t[..., 3] / torch.clamp(t[..., 2], min=1),
+                "l1_loss": t[..., 4] / torch.clamp(t[..., 2], min=1)}
+
+    metrics: Dict[str, Any] = stats(tot)
+    if with_per_example:
+        for a in reversed(batch_axes):   # the innermost axis first: rows in rank order
+            rows = D.all_gather(rows, 0, mesh.group(a))
+        metrics["per_example"] = stats(rows)
+    return metrics
+
+
+def _batch_axes(mesh, batch_specs) -> Tuple[Tuple[str, ...], int]:
+    """(the axes of size > 1 splitting the rows, the sp size splitting the
+    tokens) of a batch spec: `mesh.data_sharding`'s one spec for every leaf,
+    or `mesh.sequence_sharding`'s dict (read at ``input_ids``)."""
+    spec = batch_specs["input_ids"] if isinstance(batch_specs, dict) else batch_specs
+    spec = tuple(spec or ())
+    first = spec[0] if spec else None
+    names = (first,) if isinstance(first, str) else tuple(first or ())
+    rows = tuple(a for a in names if mesh.axis_size(a) > 1)
+    sp = mesh.axis_size("sp") if len(spec) > 1 and spec[1] == "sp" else 1
+    return rows, sp
+
+
+def _rank_rows(batch, mesh, rows: Tuple[str, ...], dev) -> Dict[str, torch.Tensor]:
+    """This rank's rows of every batch leaf on `dev` (the JAX package's
+    divisibility error)."""
+    n = math.prod(mesh.axis_size(a) for a in rows)
+    idx = 0
+    for a in rows:
+        idx = idx * mesh.axis_size(a) + mesh.coord(a)
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v, device=dev)
+        if v.shape[0] % n:
+            raise ValueError(f"the batch's sharding over {rows} implies that the global size of "
+                             f"its dimension 0 should be divisible by {n}, but it is equal to "
+                             f"{v.shape[0]}")
+        b = v.shape[0] // n
+        out[k] = v[idx * b:(idx + 1) * b]
+    return out
+
+
+def _live(spec, mesh) -> set:
+    return {a for a in (spec or ()) if a is not None and mesh.axis_size(a) > 1}
+
+
+def _zero2_dims(t: torch.Tensor, p_spec, o_spec, mesh):
+    """The dims where the moments' spec splits on fsdp and the parameters'
+    does not (zero2), right-aligned to t."""
+    if mesh.axis_size("fsdp") <= 1:
+        return []
+    ps, os_ = tp._rs(p_spec, t.dim()), tp._rs(o_spec, t.dim())
+    return [d for d in range(t.dim()) if os_[d] == "fsdp" and ps[d] != "fsdp"]
+
+
+def _to_update(t, p_spec, o_spec, mesh):
+    """A rank's parameter-layout tensor cut to the moments' layout."""
+    for d in _zero2_dims(t, p_spec, o_spec, mesh):
+        n = t.shape[d] // mesh.axis_size("fsdp")
+        t = t.narrow(d, mesh.coord("fsdp") * n, n)
+    return t
+
+
+def _from_update(t, p_spec, o_spec, mesh):
+    """A moments-layout tensor all-gathered back to the parameters' layout."""
+    for d in _zero2_dims(t, p_spec, o_spec, mesh):
+        t = D.all_gather(t, d, mesh.group("fsdp"), "all_gather_params")
+    return t
+
+
+def _pairs(tree, specs) -> list:
+    """(tensor, spec) over the tensor leaves of `tree` in order."""
+    out = []
+    tree_map(lambda t, s: out.append((t, s)), tree, specs)
+    return out
+
+
+def _reduce_grads(grads, p_specs, mesh, data_axes) -> Any:
+    """Each gradient SUM all-reduced (fp32) over the data axes that do not
+    split its leaf, leaves of one set of axes flattened into one buffer."""
+    pairs = _pairs(grads, p_specs)
+    groups: Dict[tuple, list] = {}
+    for i, (g, s) in enumerate(pairs):
+        groups.setdefault(tuple(a for a in data_axes if a not in _live(s, mesh)), []).append(i)
+    out = [g.float() for g, _ in pairs]
+    for axes, idx in groups.items():
+        if not axes:
+            continue
+        flat = torch.cat([out[i].reshape(-1) for i in idx])
+        for a in axes:
+            D.all_reduce(flat, "sum", mesh.group(a), "grad_all_reduce")
+        for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
+            out[i] = part.view_as(out[i])
+    it = iter(out)
+    return tree_map(lambda _: next(it), grads)
+
+
+def _global_norm(g_u, o_specs, mesh) -> torch.Tensor:
+    """sqrt of every leaf's squared norm summed over the shards it is split
+    into (fp32): leaves grouped by the axes that split them, each group's sum
+    SUM all-reduced over those axes."""
+    by_axes: Dict[tuple, list] = {}
+    for g, s in _pairs(g_u, o_specs):
+        by_axes.setdefault(tuple(sorted(_live(s, mesh))), []).append(torch.sum(g.float() * g.float()))
+    total = []
+    for axes, sq in by_axes.items():
+        t = torch.stack(sq).sum()
+        for a in axes:
+            D.all_reduce(t, "sum", mesh.group(a), "grad_norm_all_reduce")
+        total.append(t)
+    return torch.sqrt(torch.stack(total).sum())
+
+
+def _refuse(cfg: vlm.VLMConfig, mesh, grad_accum_steps: int) -> None:
+    what = None
+    if vlm.is_phi(cfg):
+        what = "a Phi trunk"
+    elif getattr(cfg.llm, "moe_experts", 0):
+        what = "a MoE trunk"
+    elif mesh.axis_size("ep") > 1:
+        what = f"an ep axis of {mesh.axis_size('ep')}"
+    elif "pp" in mesh.axis_names:
+        what = "a pp axis (parallel/pipeline.py)"
+    elif grad_accum_steps > 1:
+        what = f"grad_accum_steps={grad_accum_steps}"
+    if what:
+        raise NotImplementedError(f"make_sharded_train_step: {what} is not ported ({_ITEM})")
+
+
+def place_train_state(state: TrainState, mesh, strategy: str = "fsdp") -> TrainState:
+    """This rank's local train state: the parameters and the AdamW moments
+    placed by their specs (``parallel.sharding.shard_train_state``, zero2
+    included; ``place_params``), the step and the count as they are."""
+    specs = shard_train_state(state, mesh, strategy)
+    opt = state.opt_state
+    return TrainState(
+        step=state.step,
+        params=place_params(state.params, mesh, _spec=specs.params),
+        opt_state=OptState(opt.count, place_params(opt.mu, mesh, _path="mu", _spec=specs.opt_state.mu),
+                           place_params(opt.nu, mesh, _path="nu", _spec=specs.opt_state.nu)))
+
+
+def make_sharded_train_step(
+    cfg: vlm.VLMConfig,
+    optimizer: AdamW,
+    mesh,                          # parallel.mesh.Mesh over dp / fsdp / tp / sp
+    state_specs: TrainState,       # parallel.sharding.shard_train_state(state, mesh, strategy)
+    batch_specs: Any,              # parallel.mesh.data_sharding / sequence_sharding
+    codec: Optional[ActionCodec] = None,
+    trainable_mask: Optional[Any] = None,
+    loss_fn: Optional[Callable] = None,
+    grad_accum_steps: int = 1,
+) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, Any]]]:
+    """The (local state, whole batch) -> (local state, metrics) step of one
+    rank (the module docstring): the state is `place_train_state`'s, laid out
+    by `state_specs`; `loss_fn` as `make_train_step`'s, its frozen base (a
+    LoRA loss's) placed by the caller (``parallel.place_params``) with the
+    same strategy. The loss must go through `vla_loss_fn` (a wrapper of it,
+    as ``training.lora``'s loss is), the one loss that reads the mesh: a step
+    whose loss never reached it raises TypeError. The result equals the
+    one-process step's."""
+    _refuse(cfg, mesh, grad_accum_steps)
+    codec = codec or ActionCodec()
+    loss_fn = loss_fn or functools.partial(vla_loss_fn, codec=codec)
+    rows, sp = _batch_axes(mesh, batch_specs)
+    data_axes = tuple(a for a in mesh.axis_names if a != "tp" and mesh.axis_size(a) > 1)
+    split = rows + (("sp",) if sp > 1 else ())
+    sh = _Shard(mesh, split, sp, math.prod(mesh.axis_size(a) for a in data_axes if a not in split))
+    p_specs, o_specs = state_specs.params, state_specs.opt_state.mu
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        local = tp.local_tree(state.params)
+        dev = next(t for t in tree_leaves(local) if isinstance(t, torch.Tensor)).device
+        entered: list = []
+        token = _SHARD.set((sh, entered))
+        try:
+            (loss, metrics), grads = value_and_grad(
+                lambda p, *a: loss_fn(tp.with_locals(state.params, p), *a), local, cfg,
+                _rank_rows(batch, mesh, rows, dev))
+        finally:
+            _SHARD.reset(token)
+        if not entered:
+            # a loss that never reached vla_loss_fn ran as one process's mean over this rank's
+            # rows, and the SUM over the data axes below would scale it by their ranks
+            raise TypeError("make_sharded_train_step: loss_fn never called vla_loss_fn, the one "
+                            "loss that knows the mesh (the global valid count, the vocab-"
+                            "parallel log-softmax); wrap it, as training.lora's loss does")
+        grads = _reduce_grads(grads, p_specs, mesh, data_axes)
+        if trainable_mask is not None:
+            grads = tree_map(_apply_mask, grads, trainable_mask)
+        g_u = tree_map(lambda g, ps, os_: _to_update(g, ps, os_, mesh), grads, p_specs, o_specs)
+        p_u = tree_map(lambda p, ps, os_: _to_update(p, ps, os_, mesh), local, p_specs, o_specs)
+        norm = _global_norm(g_u, o_specs, mesh)
+        opt = state.opt_state
+        updates, new_opt = optimizer.update(
+            g_u, OptState(opt.count, tp.local_tree(opt.mu), tp.local_tree(opt.nu)), p_u, norm=norm)
+        if trainable_mask is not None:
+            updates = tree_map(_apply_mask, updates, trainable_mask)
+        new_p = tree_map(lambda p, ps, os_: _from_update(p, ps, os_, mesh),
+                         apply_updates(p_u, updates), p_specs, o_specs)
+        new_state = TrainState(
+            step=state.step + 1, params=tp.with_locals(state.params, new_p),
+            opt_state=OptState(new_opt.count, tp.with_locals(opt.mu, new_opt.mu),
+                               tp.with_locals(opt.nu, new_opt.nu)))
+        metrics = dict(metrics)
+        metrics["grad_norm"] = norm
         return new_state, metrics
 
     return step

@@ -1827,3 +1827,65 @@ def test_row_parallel_w8a8_launchers_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(12, 48, dtype=torch.int8, device=cuda)
     codes = torch.zeros(4, 48, dtype=torch.int8, device=cuda)
     assert gemm(codes.data_ptr(), q.data_ptr(), None, acc.data_ptr(), 4, 12, 48, st) != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_parallel_chain_at_a_local_k_off_4_on_two_threads(cuda, dtype, monkeypatch):
+    """The row-parallel w8a8 product at a local K of 538 (SigLIP fc2 at
+    tp = 8; here K = 1076 at tp = 2 on two threads whose all-reduces meet at
+    a barrier): the activation columns zero-padded to 540 before the two
+    pre-pass kernels, each of the four kernels launched once a rank, and
+    every rank's output bit-equal to `w8a8_matmul_plain` over the unpadded
+    weight."""
+    import threading
+
+    from openvla_probe_tpu_torch.parallel import distributed as tdist
+    from openvla_probe_tpu_torch.parallel import mesh as tmesh
+    from openvla_probe_tpu_torch.parallel import sharding as tsharding
+    from openvla_probe_tpu_torch.parallel import tensor_parallel as tp
+
+    barrier, posted = threading.Barrier(2, timeout=60), {}
+
+    def all_reduce(t, op, rank, tag="all_reduce"):
+        posted[(op, rank)] = t.clone()
+        barrier.wait()
+        red = torch.maximum(posted[(op, 0)], posted[(op, 1)]) if op == "max" else \
+            posted[(op, 0)] + posted[(op, 1)]
+        barrier.wait()
+        return t.copy_(red)
+
+    monkeypatch.setattr(tdist, "all_reduce", all_reduce)
+    monkeypatch.setattr(tp, "tp_coord", lambda w: (w["mesh"].coord("tp"), 2,
+                                                   w["mesh"].coord("tp")))
+    M, K, N = 333, 1076, 1152
+    x = _rand(11, (M, K), dtype, cuda) * 3
+    x[1] = 0
+    leaf = {k: v.cpu() for k, v in
+            tlin.quantize_weight(_rand(12, (N, K), torch.float32, cuda) * 0.02).items()}
+    want = tlin.w8a8_matmul_plain(x, {k: v.to(cuda) for k, v in leaf.items()})
+    placed = []
+    for r in range(2):
+        mesh = tmesh.Mesh({"tp": 2}, rank=r)
+        spec = tsharding.shard_params({"o_proj": leaf}, mesh, "tp", "llm/layers")["o_proj"]
+        p = tsharding.place_leaf("llm/layers/o_proj", leaf, spec, mesh)
+        p["local"] = {k: v.to(cuda) for k, v in p["local"].items()}
+        placed.append(p)
+    assert placed[0]["k_valid"] == 538 and tp.tp_role(placed[0]) == "row"
+    outs = [None, None]
+
+    def rank(r):
+        with torch.no_grad():
+            outs[r] = tp.matmul(x[:, 538 * r:538 * (r + 1)], placed[r], "w8a8")
+
+    _build.reset_launch_counts()
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    torch.cuda.synchronize()
+    for name in ("w8a8_row_absmax", "w8a8_quant_given", "w8a8_matmul_i32", "w8a8_epilogue"):
+        assert _build.KERNEL_LAUNCHES[name] == 2, name
+    for out in outs:
+        assert torch.equal(out, want)
